@@ -1,0 +1,323 @@
+"""``GPUExecutor``: dispatch an electron to a GPU worker and bring back its result.
+
+Counterpart of ``covalent_tpu_plugin/tpu.py``'s ``TPUExecutor`` in launch
+mode over the local transport: stage the pickled ``(fn, args, kwargs)`` and
+a task spec, upload them with this package's own ``harness.py``, launch the
+harness detached, poll until its result file appears (or its process dies),
+fetch and unpickle ``(result, exception)``, clean up on both sides, and
+re-raise a remote exception locally.
+
+The reference's resident agent, RPC mode, content-addressed cache, fleet,
+retries, observability and serving wait for later slices, as do the SSH
+transport and multi-process gangs.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import json
+import os
+import shlex
+import uuid
+from enum import Enum
+from pathlib import Path
+from typing import Any, Callable
+
+from . import harness as _harness_module
+from .executor_base import RemoteExecutor
+from .transport import LocalTransport, Transport, TransportError
+from .utils.log import app_log
+from .utils.serialize import dump_task, load_result
+
+
+class TaskStatus(str, Enum):
+    """Remote task state from one combined status round-trip."""
+
+    READY = "READY"          # result file exists
+    RUNNING = "RUNNING"      # process alive, no result yet
+    STARTING = "STARTING"    # no result, no pid file yet (launch window)
+    DEAD = "DEAD"            # process gone and no result -> failure
+    TIMEOUT = "TIMEOUT"      # task_timeout expired while RUNNING
+
+
+class StagedTask:
+    """Paths produced by staging one task (reference: ``ssh.py:173-179``)."""
+
+    def __init__(self, operation_id: str, cache_dir: Path, remote_cache: str):
+        self.operation_id = operation_id
+        self.function_file = str(cache_dir / f"function_{operation_id}.pkl")
+        self.spec_file = str(cache_dir / f"spec_{operation_id}.json")
+        self.local_result_file = str(cache_dir / f"result_{operation_id}.pkl")
+        self.remote_function_file = f"{remote_cache}/function_{operation_id}.pkl"
+        self.remote_harness_file = f"{remote_cache}/harness_{operation_id}.py"
+        self.remote_spec_file = f"{remote_cache}/spec_{operation_id}.json"
+        self.remote_result_file = f"{remote_cache}/result_{operation_id}.pkl"
+        self.remote_log_file = f"{remote_cache}/log_{operation_id}.txt"
+        self.remote_pid_file = f"{remote_cache}/pid_{operation_id}"
+
+    def uploads(self) -> list[tuple[str, str]]:
+        return [
+            (self.function_file, self.remote_function_file),
+            (_harness_module.__file__, self.remote_harness_file),
+            (self.spec_file, self.remote_spec_file),
+        ]
+
+    def local_files(self) -> list[str]:
+        return [self.function_file, self.spec_file, self.local_result_file]
+
+    def remote_files(self) -> list[str]:
+        return [remote for _, remote in self.uploads()] + [
+            self.remote_result_file, self.remote_log_file, self.remote_pid_file,
+        ]
+
+
+class GPUExecutor(RemoteExecutor):
+    """Executor plugin: ``@ct.electron(executor=GPUExecutor(...))``.
+
+    ``task_env`` travels in the task spec and is applied in the worker before
+    the electron runs (``CUDA_VISIBLE_DEVICES`` pins the card there);
+    ``profile_dir`` traces the electron with ``torch.profiler`` into
+    ``{profile_dir}/{operation_id}/trace.json`` on the worker.
+    """
+
+    SHORT_NAME = "gpu"
+
+    #: How long a task may stay STARTING (no result, no pid file) before it
+    #: is declared DEAD.
+    STARTING_GRACE_S = 30.0
+
+    def __init__(
+        self,
+        transport: str = "local",
+        cache_dir: str = os.path.join("~", ".cache", "covalent-gpu"),
+        remote_cache: str = ".cache/covalent-gpu",
+        remote_workdir: str = "covalent_gpu_workdir",
+        create_unique_workdir: bool = False,
+        python_path: str = "python3",
+        poll_freq: float = 0.5,
+        task_timeout: float = 0.0,
+        task_env: dict[str, str] | None = None,
+        do_cleanup: bool = True,
+        profile_dir: str = "",
+    ) -> None:
+        if transport != "local":
+            raise NotImplementedError(
+                f"transport={transport!r} is not ported yet: the SSH transport "
+                "comes with slice 5 (the rest of the executor)"
+            )
+        super().__init__(poll_freq=poll_freq, remote_cache=remote_cache)
+        self.cache_dir = str(Path(cache_dir).expanduser().resolve())
+        self.remote_workdir = remote_workdir
+        self.create_unique_workdir = create_unique_workdir
+        self.python_path = python_path
+        self.task_timeout = float(task_timeout)
+        self.task_env = dict(task_env or {})
+        self.do_cleanup = do_cleanup
+        self.profile_dir = profile_dir
+        self._pids: dict[str, int] = {}
+
+    # ------------------------------------------------------------------ #
+    # Stage / upload / submit                                             #
+    # ------------------------------------------------------------------ #
+
+    async def _validate_credentials(self) -> bool:
+        return True  # the local transport needs none
+
+    def _write_function_files(
+        self, operation_id: str, fn: Callable, args: tuple, kwargs: dict,
+        workdir: str,
+    ) -> StagedTask:
+        """Stage the function pickle and the task spec locally
+        (reference: ``ssh.py:126-179``)."""
+        Path(self.cache_dir).mkdir(parents=True, exist_ok=True)
+        staged = StagedTask(operation_id, Path(self.cache_dir), self.remote_cache)
+        dump_task(fn, args, kwargs, staged.function_file)
+        spec: dict[str, Any] = {
+            "operation_id": operation_id,
+            "function_file": staged.remote_function_file,
+            "result_file": staged.remote_result_file,
+            "workdir": workdir,
+            "pid_file": staged.remote_pid_file,
+        }
+        if self.task_env:
+            spec["env"] = self.task_env
+        if self.profile_dir:
+            spec["profile_dir"] = f"{self.profile_dir}/{operation_id}"
+        with open(staged.spec_file, "w") as f:
+            json.dump(spec, f)
+        return staged
+
+    async def _upload_task(self, conn: Transport, staged: StagedTask) -> None:
+        """Ship the staged files (reference: ``ssh.py:337-361``)."""
+        result = await conn.run(f"mkdir -p {shlex.quote(self.remote_cache)}")
+        if result.exit_status != 0:
+            raise TransportError(
+                f"cannot create {self.remote_cache}: {result.stderr.strip()}"
+            )
+        for local, remote in staged.uploads():
+            await conn.put(local, remote)
+
+    def _task_command(self, staged: StagedTask) -> str:
+        # `exec` makes the harness replace the wrapper shell, so the PID
+        # captured at launch is the python process itself.
+        return (
+            f"exec {self.python_path} {shlex.quote(staged.remote_harness_file)} "
+            f"{shlex.quote(staged.remote_spec_file)}"
+        )
+
+    async def submit_task(self, conn: Transport, staged: StagedTask) -> int:
+        """Launch the harness detached; return its PID."""
+        launch = (
+            f"nohup sh -c {shlex.quote(self._task_command(staged))} "
+            f"> {shlex.quote(staged.remote_log_file)} 2>&1 & echo $!"
+        )
+        result = await conn.run(launch)
+        if result.exit_status != 0:
+            raise TransportError(
+                f"submit failed on {conn.address}: {result.stderr.strip()}"
+            )
+        try:
+            return int(result.stdout.strip().splitlines()[-1])
+        except (ValueError, IndexError) as err:
+            raise TransportError(
+                f"submit on {conn.address} returned no PID: {result.stdout!r}"
+            ) from err
+
+    # ------------------------------------------------------------------ #
+    # Status / poll / fetch / cancel / cleanup                            #
+    # ------------------------------------------------------------------ #
+
+    async def get_status(self, conn: Transport, staged: StagedTask,
+                         pid: int | None) -> TaskStatus:
+        """Combined result-exists + process-alive probe, one round trip.
+
+        Zombie-aware: ``kill -0`` answers true for a zombie, and a
+        nohup-launched harness can stay one on hosts without a reaping
+        init, so the probe reads the process state first.
+        """
+        if pid is not None:
+            liveness = (
+                f"elif ps -o state= -p {pid} 2>/dev/null | grep -q Z; "
+                "then echo DEAD; "
+                f"elif kill -0 {pid} 2>/dev/null; then echo RUNNING; "
+            )
+        else:
+            quoted = shlex.quote(staged.remote_pid_file)
+            liveness = (
+                f"elif test -s {quoted}; then "
+                f"if kill -0 \"$(cat {quoted})\" 2>/dev/null; "
+                "then echo RUNNING; else echo DEAD; fi; "
+                "elif true; then echo STARTING; "
+            )
+        probe = (
+            f"if test -f {shlex.quote(staged.remote_result_file)}; then echo READY; "
+            + liveness + "else echo DEAD; fi"
+        )
+        result = await conn.run(probe)
+        lines = result.stdout.strip().splitlines()
+        try:
+            return TaskStatus(lines[-1] if lines else "")
+        except ValueError:
+            raise TransportError(
+                f"status probe on {conn.address} failed: {result.stderr.strip()!r}"
+            )
+
+    async def _poll_task(self, conn: Transport, staged: StagedTask,
+                         pid: int | None) -> TaskStatus:
+        """Adaptive wait for the result: the interval starts at 50 ms and
+        doubles up to ``poll_freq``; STARTING is tolerated for
+        ``STARTING_GRACE_S``; ``task_timeout`` (0 = none) ends in TIMEOUT."""
+        interval, waited, starting_for = 0.05, 0.0, 0.0
+        while True:
+            status = await self.get_status(conn, staged, pid)
+            if status not in (TaskStatus.RUNNING, TaskStatus.STARTING):
+                return status
+            if status is TaskStatus.STARTING:
+                if starting_for >= self.STARTING_GRACE_S:
+                    return TaskStatus.DEAD
+                starting_for += interval
+            if self.task_timeout and waited >= self.task_timeout:
+                return TaskStatus.TIMEOUT
+            await asyncio.sleep(interval)
+            waited += interval
+            interval = min(interval * 2, float(self.poll_freq))
+
+    async def query_result(self, conn: Transport, staged: StagedTask):
+        """Fetch and unpickle ``(result, exception)``
+        (reference: ``ssh.py:434-458``)."""
+        await conn.get(staged.remote_result_file, staged.local_result_file)
+        return load_result(staged.local_result_file)
+
+    async def _remote_log_tail(self, conn: Transport, staged: StagedTask) -> str:
+        result = await conn.run(f"tail -n 50 {shlex.quote(staged.remote_log_file)}")
+        return result.stdout.strip()
+
+    async def cancel(self, conn: Transport, staged: StagedTask) -> None:
+        """Kill the harness's process group (TERM)."""
+        pid = self._pids.get(staged.operation_id)
+        if pid is not None:
+            await conn.run(f"kill -TERM -- -{pid} 2>/dev/null; kill -TERM {pid} 2>/dev/null; true")
+
+    async def cleanup(self, conn: Transport, staged: StagedTask) -> None:
+        """Delete the operation's staged files locally and on the worker
+        (reference: ``ssh.py:284-315``)."""
+        for path in staged.local_files():
+            try:
+                os.remove(path)
+            except FileNotFoundError:
+                pass
+        result = await conn.remove(staged.remote_files())
+        if result.exit_status != 0:
+            app_log.warning("cleanup on %s: %s", conn.address, result.stderr.strip())
+
+    # ------------------------------------------------------------------ #
+    # Orchestration                                                       #
+    # ------------------------------------------------------------------ #
+
+    async def run(
+        self,
+        function: Callable,
+        args: list | tuple,
+        kwargs: dict,
+        task_metadata: dict,
+    ) -> Any:
+        """Full electron lifecycle (reference orchestrator: ``ssh.py:466-591``)."""
+        dispatch_id = task_metadata.get("dispatch_id", "dispatch")
+        node_id = task_metadata.get("node_id", 0)
+        operation_id = f"{dispatch_id}_{node_id}_{uuid.uuid4().hex[:8]}"
+        workdir = self.remote_workdir
+        if self.create_unique_workdir:
+            workdir = os.path.join(self.remote_workdir, dispatch_id, f"node_{node_id}")
+
+        await self._validate_credentials()
+        staged = await asyncio.to_thread(
+            self._write_function_files, operation_id, function,
+            tuple(args or ()), dict(kwargs or {}), workdir,
+        )
+        conn = LocalTransport()
+        try:
+            await self._upload_task(conn, staged)
+            pid = self._pids[operation_id] = await self.submit_task(conn, staged)
+            try:
+                status = await self._poll_task(conn, staged, pid)
+            except asyncio.CancelledError:
+                await self.cancel(conn, staged)
+                raise
+            if status is not TaskStatus.READY:
+                if status is TaskStatus.TIMEOUT:
+                    await self.cancel(conn, staged)
+                log_tail = await self._remote_log_tail(conn, staged)
+                raise RuntimeError(
+                    f"remote task {operation_id} failed on {conn.address} "
+                    f"({status.value}); log tail:\n{log_tail}"
+                )
+            result, exception = await self.query_result(conn, staged)
+        finally:
+            self._pids.pop(operation_id, None)
+            if self.do_cleanup:
+                await self.cleanup(conn, staged)
+            await conn.close()
+        if exception is not None:
+            # Re-raise the remote exception locally (ssh.py:581-583).
+            raise exception
+        return result

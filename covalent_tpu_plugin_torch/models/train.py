@@ -1,0 +1,171 @@
+"""Losses and the single-device train step; the LM training electron.
+
+Counterpart of ``covalent_tpu_plugin/models/train.py`` for one device: the
+step runs eagerly (PyTorch has no ``jit``), the optimizer is
+``torch.optim.AdamW(lr=3e-4, weight_decay=1e-4, eps=1e-8)``, which matches
+``optax.adamw(3e-4)``'s defaults.  Meshes and sharded state come with the
+scale-out slice.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Any, Callable
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..ops import _kernels
+from ..ops.xent import fused_cross_entropy
+from .data import synthetic_lm_batches
+from .transformer import TransformerLM, lm_125m_config, resolve_device
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean softmax cross-entropy in float32."""
+    losses = F.cross_entropy(
+        logits.float().reshape(-1, logits.shape[-1]), labels.reshape(-1).long(),
+        reduction="none",
+    ).reshape(labels.shape)
+    if mask is not None:
+        return (losses * mask).sum() / mask.sum().clamp_min(1)
+    return losses.mean()
+
+
+def _tokens(model: torch.nn.Module, batch: dict) -> torch.Tensor:
+    device = next(model.parameters()).device
+    return torch.as_tensor(np.asarray(batch["tokens"]), device=device).long()
+
+
+def lm_loss(model: torch.nn.Module, batch: dict, vocab_chunk: int | None = None):
+    """Next-token loss over a {"tokens": (B, S)} batch.
+
+    ``vocab_chunk`` switches to the fused vocab-chunked cross-entropy
+    (``ops/xent.py``): the model returns its final features and the loss
+    streams over lm_head chunks, so the (B, S, vocab) logits never exist.
+    """
+    tokens = _tokens(model, batch)
+    if vocab_chunk is None:
+        logits = model(tokens[:, :-1])
+        return cross_entropy_loss(logits, tokens[:, 1:])
+    feats = model(tokens[:, :-1], return_features=True)
+    kernel = model.lm_head.weight
+    if not kernel.is_floating_point():
+        raise ValueError(
+            "vocab_chunk needs a plain float lm_head kernel "
+            "(quantized/LoRA heads take the standard path)"
+        )
+    flat = feats.reshape(-1, feats.shape[-1])
+    labels = tokens[:, 1:].reshape(-1)
+    return fused_cross_entropy(flat, kernel.t(), labels, vocab_chunk)
+
+
+def make_train_step(
+    model: torch.nn.Module,
+    optimizer: torch.optim.Optimizer,
+    loss_fn: Callable[[torch.nn.Module, Any], torch.Tensor] = lm_loss,
+    accumulate_steps: int = 1,
+) -> Callable[[dict], dict]:
+    """Build ``step(batch) -> {"loss", "grad_norm", "step"}``.
+
+    ``accumulate_steps > 1`` enables gradient accumulation: every batch leaf
+    carries a leading microbatch axis of that length, the gradients of the
+    microbatches sum in the (f32) ``.grad`` buffers and are scaled by
+    ``1/accumulate_steps`` before one optimizer step, so activation memory
+    stays one microbatch.
+    """
+    params = [p for p in model.parameters() if p.requires_grad]
+    count = 0
+
+    def step(batch: dict) -> dict:
+        nonlocal count
+        optimizer.zero_grad(set_to_none=True)
+        if accumulate_steps == 1:
+            loss = loss_fn(model, batch)
+            loss.backward()
+            loss = loss.detach()
+        else:
+            lead = {len(leaf) for leaf in batch.values()}
+            if lead != {accumulate_steps}:
+                raise ValueError(
+                    f"accumulate_steps={accumulate_steps} but batch "
+                    f"leaves have leading axis {sorted(lead)}; every "
+                    "leaf needs a leading microbatch axis of that length"
+                )
+            loss = 0.0
+            for i in range(accumulate_steps):
+                micro = loss_fn(model, {key: leaf[i] for key, leaf in batch.items()})
+                micro.backward()
+                loss = loss + micro.detach()
+            scale = 1.0 / accumulate_steps
+            loss = loss * scale
+            for p in params:
+                p.grad.mul_(scale)
+        grad_norm = torch.nn.utils.get_total_norm([p.grad for p in params])
+        optimizer.step()
+        count += 1
+        return {"loss": loss, "grad_norm": grad_norm, "step": count}
+
+    return step
+
+
+def adamw(model: torch.nn.Module) -> torch.optim.AdamW:
+    """``optax.adamw(3e-4)`` with its defaults, as the reference trains."""
+    return torch.optim.AdamW(
+        model.parameters(), lr=3e-4, betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4
+    )
+
+
+def train_lm(
+    steps: int = 5,
+    batch_size: int = 8,
+    seq_len: int = 1024,
+    vocab_chunk: int | None = None,
+    seed: int = 0,
+    device=None,
+    **config_overrides,
+) -> dict:
+    """The slice's training electron: build the LM, take ``steps`` AdamW
+    steps on the synthetic stream, return what happened.
+
+    Defaults are the reference's ``lm_step`` bench arm: the 125M config at
+    batch 8, seq 1024 (the batches hold ``seq_len + 1`` tokens because the
+    loss shifts by one).  The weights come from a ``torch.Generator`` seeded
+    with ``seed``, the batches from ``synthetic_lm_batches(seed=seed)``.  The
+    launch counts of the CUDA kernels cover exactly these steps.
+    """
+    device = resolve_device(device)
+    config = lm_125m_config(**config_overrides)
+    generator = torch.Generator(device=device).manual_seed(seed)
+    model = TransformerLM(config, device=device, generator=generator)
+    step = make_train_step(
+        model, adamw(model),
+        loss_fn=lambda m, b: lm_loss(m, b, vocab_chunk=vocab_chunk),
+    )
+    batches = list(synthetic_lm_batches(
+        steps=steps, batch_size=batch_size, seq_len=seq_len + 1,
+        vocab_size=config.vocab_size, seed=seed,
+    ))
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    _kernels.reset_launch_counts()
+    losses, step_s = [], []
+    for batch in batches:
+        sync()
+        start = time.perf_counter()
+        metrics = step(batch)
+        losses.append(float(metrics["loss"]))  # waits for the step
+        sync()
+        step_s.append(time.perf_counter() - start)
+    return {
+        "losses": losses,
+        "step_s": step_s,
+        "tokens_per_step": batch_size * seq_len,
+        "launches": _kernels.launch_counts(),
+        "n_params": model.parameter_count(),
+        "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
+        "peak_mem_bytes": (
+            torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
+        ),
+    }

@@ -23,11 +23,17 @@ setup(
     version=read_version(),
     description="Covalent executor plugin dispatching electrons to Cloud TPU "
     "VMs and pod slices (JAX/XLA-native).",
-    packages=find_packages(include=["covalent_tpu_plugin", "covalent_tpu_plugin.*"]),
+    packages=find_packages(include=[
+        "covalent_tpu_plugin", "covalent_tpu_plugin.*",
+        "covalent_tpu_plugin_torch", "covalent_tpu_plugin_torch.*",
+    ]),
     package_data={
         # The resident worker agent ships as C++ SOURCE and is compiled on
         # each worker by the executor's preflight (content-hash cached).
         "covalent_tpu_plugin": ["native/agent.cc"],
+        # The PyTorch port's CUDA kernels ship as SOURCE too, compiled with
+        # nvcc at first use (ops/_kernels.py).
+        "covalent_tpu_plugin_torch": ["csrc/*.cu", "csrc/*.cuh"],
     },
     include_package_data=True,
     python_requires=">=3.11",  # tomllib is stdlib from 3.11
@@ -38,6 +44,7 @@ setup(
         "covalent": ["covalent>=0.202.0,<1"],
         "ssh": ["asyncssh>=2.10.1"],
         "jax": ["jax", "flax", "optax"],
+        "torch": ["torch"],
     },
     entry_points={
         "covalent.executor.executor_plugins": [

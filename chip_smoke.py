@@ -8,9 +8,11 @@ Phases, one JSON object per line on stdout, in this order:
 1. ``device``: the card, with its name and power limit as ``nvidia-smi`` gives them.
 2. ``build``: the CUDA kernels compiled from ``covalent_tpu_plugin_torch/csrc``.
 3. ``parity``: each kernel against its plain PyTorch version on the card, at the
-   training shape and at small GQA, window+sinks, explicit-position, f16 and f32
-   cases, each with the tolerance it was held to.
-4. ``timing``: at the training shape, each kernel's time beside its plain
+   training shape and at small GQA, window+sinks, explicit-position,
+   non-causal, ragged, head dim 128, bf16, f16 and f32 cases, each with the
+   tolerance it was held to.
+4. ``timing``: at the training shape, each kernel's device time (profiler;
+   warm, and with the L2 cache flushed before every call) beside its plain
    version's, one PyTorch library call's (a yardstick only; the port never
    calls it) and the least time the card could take (``bound_ms``).
 5. ``model_check``: a small LM on the card, flash kernels against the dense
@@ -21,9 +23,11 @@ Phases, one JSON object per line on stdout, in this order:
    with the fused vocab-chunked loss.  Losses must be finite and falling, and
    every kernel launched 12 times per step.
 7. ``profile``: one training step under ``torch.profiler``: device time by
-   kernel and the device's busy share.
+   kernel and the device's busy share; the step must run the tensor-core
+   forward and dQ kernels once per layer and no scalar forward or dQ kernel.
 8. ``kernels``: every kernel with its launches on the main path, error, times
-   and bound.
+   and bound, and the route (tensor-core or scalar kernel) each input type
+   and head dim takes.
 
 then the card's ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 Any failed phase ends the run with a non-zero exit and no last line.  Without
@@ -64,8 +68,9 @@ def nvidia_smi() -> str:
 
 
 def time_ms(fn, iters: int) -> float:
-    """Device time of one call of ``fn``, from CUDA events over ``iters`` calls
-    after one warm-up call."""
+    """Time of one call of ``fn`` from CUDA events around ``iters``
+    back-to-back calls after one warm-up call: device time plus whatever gap
+    the host's launch cost leaves between calls."""
     import torch
 
     fn()
@@ -77,6 +82,45 @@ def time_ms(fn, iters: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+#: Bytes written between cold calls: five times the H100's 50 MB L2.
+L2_FLUSH_BYTES = 256 << 20
+
+
+def device_events(prof) -> list:
+    """Device-side events (kernels, copies, memsets) of a profiler run,
+    without user annotations mirrored onto the device timeline."""
+    import torch
+
+    return [evt for evt in prof.events()
+            if evt.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(evt, "is_user_annotation", False)]
+
+
+def device_ms(fn, iters: int, match: str | None = None, cold: bool = False) -> float:
+    """Device time of one call of ``fn``: the summed duration of the device
+    events of ``iters`` calls under torch.profiler, over ``iters``.  Host
+    launch cost between calls is not counted.  ``match`` keeps only events
+    whose name contains it; ``cold`` writes 256 MB before every call so the
+    call finds the L2 cache cold (the write itself is not counted: give a
+    ``match`` that excludes it)."""
+    import torch
+
+    flush = torch.empty(L2_FLUSH_BYTES if cold else 0, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(iters):
+            if cold:
+                flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in device_events(prof) if match is None or match in e.name]
+    if not events:
+        raise AssertionError(f"the profiler recorded no device events matching {match!r}")
+    return sum(e.time_range.elapsed_us() for e in events) / iters / 1e3
 
 
 # --- parity: each kernel against its plain version --------------------------
@@ -103,6 +147,20 @@ PARITY_CASES = [
     dict(name="full_f32_d128", shape=(1, 4, 4, 256, 192, 128), dtype="float32", causal=False),
     dict(name="ragged_window_d16", shape=(1, 2, 2, 100, 100, 16), dtype="float32",
          causal=True, window=7),
+    # 16-bit inputs at head dim 128 (the tensor-core route's other width),
+    # non-causal with S_k != S_q and a half-empty last query block, explicit
+    # positions, and a ragged windowed sequence
+    dict(name="gqa_bf16_d128", shape=(2, 8, 2, 256, 256, 128), dtype="bfloat16", causal=True),
+    dict(name="full_bf16_ragged", shape=(1, 4, 4, 192, 100, 64), dtype="bfloat16",
+         causal=False),
+    dict(name="positions_f16_d128", shape=(1, 4, 4, 256, 192, 128), dtype="float16",
+         causal=True, positions=True),
+    dict(name="ragged_window_bf16_d128", shape=(1, 2, 2, 100, 100, 128), dtype="bfloat16",
+         causal=True, window=7),
+    # the two query halves of a block far apart: each 64-row warpgroup of
+    # the tensor-core kernels skips several tiles the other one needs
+    dict(name="split_positions_window", shape=(1, 2, 2, 128, 1100, 64), dtype="bfloat16",
+         causal=True, window=64, positions="split"),
 ]
 
 
@@ -118,7 +176,12 @@ def _case_inputs(case: dict, seed: int):
 
     q, k, v, dout = randn(b, h, sq, d), randn(b, hkv, sk, d), randn(b, hkv, sk, d), randn(b, h, sq, d)
     qpos = kpos = None
-    if case.get("positions"):
+    if case.get("positions") == "split":
+        # rows 0..63 at positions 0..63, the rest from 1000 on; keys 0..S_k-1
+        qpos = torch.arange(sq, device="cuda", dtype=torch.int32)
+        qpos[64:] += 1000 - 64
+        kpos = torch.arange(sk, device="cuda", dtype=torch.int32)
+    elif case.get("positions"):
         # a shuffled query order and every other key position: each query
         # sees key position 0, so no row is wholly masked
         qpos = torch.randperm(sq, generator=gen, device="cuda").to(torch.int32)
@@ -202,38 +265,48 @@ def timing_phase() -> dict:
 
     fwd_args = (q, k, v, qpos, kpos, *band)
     bwd_args = (q, k, v, dout, lse, delta, qpos, kpos, *band)
-    results = {}
-    # forward: S = QK^T and PV, 2 products of 2*d flops per visible pair;
-    # reads q, k, v; writes out and lse.
-    results["flash_fwd"] = dict(
-        kernel_ms=time_ms(lambda: _kernels.flash_fwd(*fwd_args), 20),
-        plain_ms=time_ms(lambda: attn.flash_fwd_plain(*fwd_args), 3),
-        flops=4 * d * pairs, bytes=size(q, k, v, out, lse),
-    )
-    # dk/dv: recomputed S, dP = dO V^T, dV += P^T dO, dK += dS^T Q: 4 products;
-    # reads q, k, v, dO, lse, delta; writes dk, dv.
-    results["flash_bwd_dkdv"] = dict(
-        kernel_ms=time_ms(lambda: _kernels.flash_bwd_dkdv(*bwd_args), 10),
-        plain_ms=time_ms(lambda: attn.flash_bwd_dkdv_plain(*bwd_args), 3),
-        flops=8 * d * pairs, bytes=size(q, k, v, dout, lse, delta, k, v),
-    )
-    # dq: recomputed S, dP, dQ += dS K: 3 products; writes dq (q's size).
-    results["flash_bwd_dq"] = dict(
-        kernel_ms=time_ms(lambda: _kernels.flash_bwd_dq(*bwd_args), 10),
-        plain_ms=time_ms(lambda: attn.flash_bwd_dq_plain(*bwd_args), 3),
-        flops=6 * d * pairs, bytes=size(q, k, v, dout, lse, delta, q),
-    )
-
-    # Library yardstick: PyTorch's fused attention, forward, and its backward
-    # asked for (dk, dv) or dq alone.  Timed here only; the port never calls it.
-    results["flash_fwd"]["library_ms"] = time_ms(
-        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True), 20)
     ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
     lib_out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
-    results["flash_bwd_dkdv"]["library_ms"] = time_ms(
-        lambda: torch.autograd.grad(lib_out, (kl, vl), dout, retain_graph=True), 10)
-    results["flash_bwd_dq"]["library_ms"] = time_ms(
-        lambda: torch.autograd.grad(lib_out, (ql,), dout, retain_graph=True), 10)
+    # name: (kernel call, plain version, library yardstick, flops, bytes).
+    # The library is PyTorch's fused attention: its forward, and its backward
+    # asked for (dk, dv) or dq alone; the fused backward computes dq, dk and
+    # dv whatever it is asked for, so both backward rows time a whole
+    # backward.  Timed here only; the port never calls it.
+    calls = {
+        # forward: S = QK^T and PV, 2 products of 2*d flops per visible pair;
+        # reads q, k, v; writes out and lse.
+        "flash_fwd": (
+            lambda: _kernels.flash_fwd(*fwd_args), lambda: attn.flash_fwd_plain(*fwd_args),
+            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
+            4 * d * pairs, size(q, k, v, out, lse)),
+        # dk/dv: recomputed S, dP = dO V^T, dV += P^T dO, dK += dS^T Q: 4
+        # products; reads q, k, v, dO, lse, delta; writes dk, dv.
+        "flash_bwd_dkdv": (
+            lambda: _kernels.flash_bwd_dkdv(*bwd_args),
+            lambda: attn.flash_bwd_dkdv_plain(*bwd_args),
+            lambda: torch.autograd.grad(lib_out, (kl, vl), dout, retain_graph=True),
+            8 * d * pairs, size(q, k, v, dout, lse, delta, k, v)),
+        # dq: recomputed S, dP, dQ += dS K: 3 products; writes dq (q's size).
+        "flash_bwd_dq": (
+            lambda: _kernels.flash_bwd_dq(*bwd_args), lambda: attn.flash_bwd_dq_plain(*bwd_args),
+            lambda: torch.autograd.grad(lib_out, (ql,), dout, retain_graph=True),
+            6 * d * pairs, size(q, k, v, dout, lse, delta, q)),
+    }
+    # kernel_ms and library_ms are device time (profiler), so the host's
+    # launch cost between calls, which is larger than the tensor-core
+    # kernels, is not counted; *_back_to_back_ms are CUDA events around
+    # back-to-back calls, host gaps included.
+    results = {}
+    for name, (kernel, plain, library, flops, nbytes) in calls.items():
+        results[name] = dict(
+            kernel_ms=device_ms(kernel, 20, match=name),
+            kernel_cold_ms=device_ms(kernel, 20, match=name, cold=True),
+            kernel_back_to_back_ms=time_ms(kernel, 20),
+            plain_ms=time_ms(plain, 3),
+            library_ms=device_ms(library, 20),
+            library_back_to_back_ms=time_ms(library, 20),
+            flops=flops, bytes=nbytes,
+        )
 
     for res in results.values():
         res["bound_ms"], res["bound_by"] = bound(res["flops"], res["bytes"], case["dtype"])
@@ -356,20 +429,25 @@ def profile_phase() -> dict:
         step(batch)
         torch.cuda.synchronize()
         wall = time.perf_counter() - wall
-    # Device-side events only (kernels, copies, memsets), summed by name:
-    # CPU-side operator rows carry their kernels' time too, and user
-    # annotations mirrored onto the device timeline span other kernels, so
-    # either would count time twice.
+    # Device-side events only, summed by name: CPU-side operator rows carry
+    # their kernels' time too, and user annotations mirrored onto the device
+    # timeline span other kernels, so either would count time twice.
     by_name: dict[str, tuple[float, int]] = {}
-    for evt in prof.events():
-        if (evt.device_type != torch.autograd.DeviceType.CUDA
-                or getattr(evt, "is_user_annotation", False)):
-            continue
+    for evt in device_events(prof):
         us, n = by_name.get(evt.name, (0.0, 0))
         by_name[evt.name] = (us + evt.time_range.elapsed_us(), n + 1)
     rows = sorted(((us, key, n) for key, (us, n) in by_name.items()), reverse=True)
     if not rows:
         raise AssertionError("the profiler recorded no device events")
+    # The bf16, head dim 64 step must run the tensor-core forward and dQ
+    # kernels once per layer, and no scalar forward or dQ kernel.
+    launched = {tag: sum(n for _, key, n in rows if tag in key) for tag in (
+        "flash_fwd_tc_kernel", "flash_bwd_dq_tc_kernel", "flash_fwd_kernel", "flash_bwd_dq_kernel")}
+    layers = lm_125m_config().n_layers
+    if (launched["flash_fwd_tc_kernel"] != layers or launched["flash_bwd_dq_tc_kernel"] != layers
+            or launched["flash_fwd_kernel"] or launched["flash_bwd_dq_kernel"]):
+        raise AssertionError(f"profiled step launched {launched}; expected {layers} of each "
+                             "tensor-core kernel and no scalar forward or dQ kernel")
     total_us = sum(r[0] for r in rows)
     kinds = {"flash_kernels": 0.0, "matmul": 0.0, "other": 0.0}
     for us, key, _ in rows:
@@ -384,6 +462,9 @@ def profile_phase() -> dict:
         "device_ms": total_us / 1e3,
         "device_busy_share": total_us / 1e3 / (wall * 1e3),
         "device_ms_by_kind": kinds,
+        "flash_launches_by_kernel": launched,
+        "flash_ms_by_kernel": {tag: sum(us for us, key, _ in rows if tag in key) / 1e3
+                               for tag in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv")},
         "top": [{"name": k[:80], "ms": us / 1e3, "calls": n} for us, k, n in rows[:12]],
     }
 
@@ -416,7 +497,7 @@ def main() -> int:
         emit({"phase": "parity", "case": case["name"], "shape": case["shape"],
               "dtype": case["dtype"], "causal": case["causal"],
               "window": case.get("window"), "sinks": case.get("sinks", 0),
-              "positions": bool(case.get("positions")), "errors": parity[case["name"]],
+              "positions": case.get("positions", False), "errors": parity[case["name"]],
               "tol_reason": TOL_REASON})
 
     timing = timing_phase()
@@ -461,7 +542,10 @@ def main() -> int:
             "replaces": kernel.replaces, "launches": launches[kernel.name],
             "max_abs_err": max(path_errs), "ms": res["kernel_ms"], "plain_ms": res["plain_ms"],
             "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
-            "library_ms": res["library_ms"],
+            "library_ms": res["library_ms"], "ms_cold_l2": res["kernel_cold_ms"],
+            # the kernel each (dtype/head dim) takes; the path is bfloat16/64
+            "routes": {f"{dt}/{d}": kernel.route(getattr(torch, dt), d)
+                       for dt in ("bfloat16", "float16", "float32") for d in _kernels.HEAD_DIMS},
         })
         if launches[kernel.name] < 1:
             raise AssertionError(f"{kernel.name} was not launched on the main path")

@@ -125,3 +125,6 @@ extern "C" int flash_bwd_dkdv(const void* q, const void* k, const void* v, const
                              (const float*)delta, (const int*)qpos, (const int*)kpos, dk, dv,
                              B, H, Hkv, Sq, Sk, scale, band, (cudaStream_t)stream);
 }
+
+// The route flash_bwd_dkdv takes: the scalar kernel for every input.
+extern "C" int flash_bwd_dkdv_route(int, int) { return flash::kScalar; }

@@ -1,8 +1,9 @@
 // Shared pieces of the three flash-attention kernels (flash_fwd.cu,
 // flash_bwd_dkdv.cu, flash_bwd_dq.cu): element conversion, the band mask and
-// the tile-skip test, and the row-team layout every kernel uses.
+// the tile-skip test, the route by (dtype, head dim), and the row-team
+// layout of the scalar kernels.
 //
-// Layout.  Each block owns ROWS rows of its fixed operand (query rows for the
+// Scalar layout.  Each block owns ROWS rows of its fixed operand (query rows for the
 // forward and dq sweeps, key rows for dk/dv).  A team of TEAM neighbouring
 // threads shares one row; lane `c` of the team holds the row's columns in
 // 4-wide chunks `(chunk * TEAM + c) * 4 .. +3`, so one team reads 64
@@ -20,6 +21,8 @@
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace flash {
 
@@ -190,8 +193,26 @@ inline cudaError_t launch(Kernel kernel, dim3 grid, size_t smem, cudaStream_t st
   return cudaGetLastError();
 }
 
-// Instantiates `fn<T, D>(args...)` for the head widths and types the kernels
-// take; anything else is cudaErrorInvalidValue.
+// The kernel the forward and dQ sweeps take for a (dtype, head dim).  16-bit
+// inputs at head dim 64 or 128 go to the tensor-core kernels (wgmma + TMA,
+// flash_tc.cuh).  f32 stays on the scalar kernels: the tensor cores would
+// compute it in TF32, which is not the reference's arithmetic.  16-bit head
+// dims 16, 32 and 256 stay on the scalar kernels too, for now.  The dK/dV
+// sweep takes the scalar kernel for every input.
+// Each library exports it as <entry point>_route, which ops/_kernels.py reads.
+enum Route { kScalar = 0, kTensorCore = 1 };
+
+constexpr Route route(int dtype, int head_dim) {
+  return (dtype == kF16 || dtype == kBF16) && (head_dim == 64 || head_dim == 128) ? kTensorCore
+                                                                                 : kScalar;
+}
+
+template <typename T> constexpr int dtype_code() {
+  return std::is_same<T, float>::value ? kF32 : std::is_same<T, __half>::value ? kF16 : kBF16;
+}
+
+// Instantiates `fn<T, D>(args...)` for the head widths and types the scalar
+// kernels take; anything else is cudaErrorInvalidValue.
 #define FLASH_DISPATCH(dtype, head_dim, fn, ...)                                  \
   [&]() -> cudaError_t {                                                          \
     switch (dtype) {                                                              \

@@ -27,13 +27,15 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-_HEADERS = ("flash_common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 )
 #: head widths the kernels are instantiated for (csrc/flash_common.cuh)
 HEAD_DIMS = (16, 32, 64, 128, 256)
+#: names of the kernels a C entry point's (dtype, head dim) switch picks
+#: between, by the value its ``<name>_route`` export returns
+ROUTES = ("scalar-fma", "wgmma+tma")
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -50,13 +52,21 @@ class Kernel:
         self._argtypes = argtypes
         self._fn = None
 
+    def _export(self, symbol: str, argtypes: list):
+        fn = getattr(ctypes.CDLL(str(build()[self.source])), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        return fn
+
+    def route(self, dtype: torch.dtype, head_dim: int) -> str:
+        """The kernel a launch with these inputs runs, as the C entry point's
+        switch picks it (csrc/flash_common.cuh: route).  Builds the kernels."""
+        code = self._export(f"{self.name}_route", [_I, _I])(_DTYPE_CODES[dtype], head_dim)
+        return ROUTES[code]
+
     def launch(self, *args) -> None:
         if self._fn is None:
-            lib = ctypes.CDLL(str(build()[self.source]))
-            fn = getattr(lib, self.name)
-            fn.argtypes = self._argtypes
-            fn.restype = ctypes.c_int
-            self._fn = fn
+            self._fn = self._export(self.name, self._argtypes)
         err = self._fn(*args)
         if err:
             raise RuntimeError(f"{self.name}: CUDA error {err} at launch")
@@ -94,10 +104,13 @@ def _nvcc() -> str:
 
 
 def sources_digest() -> str:
+    """Hash of every ``*.cu`` and ``*.cuh`` under ``csrc/`` and the flags:
+    the sources are read from the directory, so a new header is covered
+    without being listed anywhere."""
     sha = hashlib.sha256()
-    for name in sorted({k.source for k in KERNELS} | set(_HEADERS)):
-        sha.update(name.encode())
-        sha.update((CSRC / name).read_bytes())
+    for path in sorted(p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh")):
+        sha.update(path.name.encode())
+        sha.update(path.read_bytes())
     sha.update(" ".join(NVCC_FLAGS).encode())
     return sha.hexdigest()[:16]
 

@@ -1,16 +1,23 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
-Every test here needs an NVIDIA card (marker ``cuda``) and skips without
-one.  The file imports neither JAX nor the reference package, so on a
-machine with the card and without JAX it runs on its own:
+The tests marked ``cuda`` need an NVIDIA card and skip without one; the
+others check the build bookkeeping and run anywhere.  The file imports
+neither JAX nor the reference package, so on a machine with the card and
+without JAX it runs on its own:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
 
 The autograd path of ``flash_attention`` on CUDA tensors (the three kernels)
 is held against the same path on CPU tensors (their plain versions), in
 float32: atol 1e-5 on outputs, 1e-4 on gradients, which sum over up to 256
-positions in another order.
+positions in another order.  The 16-bit inputs that take the tensor-core
+forward and dQ kernels are held against the plain versions on the card at
+``chip_smoke.py``'s tolerance: one rounding of the input type times the
+largest plain value (at least 1), since both make the same casts but sum in
+another order and the kernel rounds P against a running max.
 """
+
+import shutil
 
 import numpy as np
 import pytest
@@ -83,3 +90,109 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
                            None, None, True, None, 0)
     with pytest.raises(ValueError, match="dtype"):
         _kernels.flash_fwd(q, q.half(), q, None, None, True, None, 0)
+
+
+#: 16-bit cases of the tensor-core route (bf16/f16, head dim 64 or 128).
+TC_CASES = {
+    "causal_mha_d64_bf16": dict(shape=(1, 4, 4, 256, 256, 64), dtype="bfloat16", causal=True),
+    "gqa_d128_f16": dict(shape=(1, 8, 2, 256, 256, 128), dtype="float16", causal=True),
+    "full_ragged_bf16": dict(shape=(2, 4, 4, 192, 100, 64), dtype="bfloat16", causal=False),
+    "window_sinks_bf16": dict(shape=(1, 4, 2, 512, 512, 64), dtype="bfloat16", causal=True,
+                              window=128, sinks=4),
+    "positions_d128_f16": dict(shape=(1, 4, 4, 256, 192, 128), dtype="float16", causal=True,
+                               positions=True),
+    "ragged_window_bf16": dict(shape=(1, 2, 2, 100, 100, 64), dtype="bfloat16", causal=True,
+                               window=7),
+}
+EPS = {torch.bfloat16: 2.0**-7, torch.float16: 2.0**-10}
+
+
+def _assert_close(got, want, eps):
+    tol = eps * max(want.float().abs().max().item(), 1.0)
+    err = (got.float() - want.float()).abs().max().item()
+    assert torch.isfinite(got.float()).all() and err <= tol, f"max abs error {err} > {tol}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(TC_CASES))
+def test_tensor_core_kernels_match_plain_on_the_card(card, name):
+    case = TC_CASES[name]
+    batch, heads, kv_heads, seq_q, seq_k, dim = case["shape"]
+    dtype = getattr(torch, case["dtype"])
+    rng = np.random.default_rng(7)
+    q, k, v, dout = (
+        torch.tensor(rng.standard_normal(shape, dtype=np.float32), device=card).to(dtype)
+        for shape in ((batch, heads, seq_q, dim), (batch, kv_heads, seq_k, dim),
+                      (batch, kv_heads, seq_k, dim), (batch, heads, seq_q, dim))
+    )
+    qpos = kpos = None
+    if case.get("positions"):
+        qpos = torch.tensor(rng.permutation(seq_q).astype(np.int32), device=card)
+        kpos = torch.tensor((2 * np.arange(seq_k)).astype(np.int32), device=card)
+    band = (case["causal"], case.get("window"), case.get("sinks", 0))
+    for kernel in (_kernels.FLASH_FWD, _kernels.FLASH_BWD_DQ):
+        assert kernel.route(dtype, dim) == "wgmma+tma"
+
+    _kernels.reset_launch_counts()
+    out, lse = _kernels.flash_fwd(q, k, v, qpos, kpos, *band)
+    out_p, lse_p = torch_attention.flash_fwd_plain(q, k, v, qpos, kpos, *band)
+    delta = (dout.float() * out.float()).sum(dim=-1)
+    dq = _kernels.flash_bwd_dq(q, k, v, dout, lse, delta, qpos, kpos, *band)
+    dq_p = torch_attention.flash_bwd_dq_plain(q, k, v, dout, lse, delta, qpos, kpos, *band)
+    torch.cuda.synchronize()
+    assert _kernels.launch_counts()["flash_fwd"] == 1
+    assert _kernels.launch_counts()["flash_bwd_dq"] == 1
+    _assert_close(out, out_p, EPS[dtype])
+    _assert_close(lse, lse_p, 32 * 2.0**-23)
+    _assert_close(dq, dq_p, EPS[dtype])
+
+
+@pytest.mark.cuda
+def test_routes_follow_dtype_and_head_dim(card):
+    """The compiled switch: 16-bit forward and dQ at head dim 64 or 128 take
+    the tensor cores; f32 (which they would compute in TF32), the other
+    widths and dK/dV stay on the scalar kernels."""
+    for kernel in (_kernels.FLASH_FWD, _kernels.FLASH_BWD_DQ):
+        for dtype in (torch.bfloat16, torch.float16):
+            for dim in _kernels.HEAD_DIMS:
+                want = "wgmma+tma" if dim in (64, 128) else "scalar-fma"
+                assert kernel.route(dtype, dim) == want
+        assert kernel.route(torch.float32, 64) == "scalar-fma"
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
+        assert _kernels.FLASH_BWD_DKDV.route(dtype, 64) == "scalar-fma"
+
+
+def test_sources_digest_covers_every_kernel_source(tmp_path, monkeypatch):
+    """An edit to any *.cu or *.cuh under csrc/, or a new one, changes the
+    digest that keys the built libraries, so a stale library is never
+    loaded after an edit."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_kernels.CSRC, csrc)
+    monkeypatch.setattr(_kernels, "CSRC", csrc)
+    sources = sorted(p for p in csrc.iterdir() if p.suffix in (".cu", ".cuh"))
+    assert {"flash_common.cuh", "flash_tc.cuh", "hopper.cuh"} <= {p.name for p in sources}
+    base = _kernels.sources_digest()
+    for path in sources:
+        text = path.read_bytes()
+        path.write_bytes(text + b"\n")
+        assert _kernels.sources_digest() != base, path.name
+        path.write_bytes(text)
+    assert _kernels.sources_digest() == base
+    (csrc / "added.cuh").write_text("#pragma once\n")
+    assert _kernels.sources_digest() != base
+
+
+def test_chip_smoke_parity_covers_the_tensor_core_route():
+    """chip_smoke.py holds the tensor-core kernels against their plain
+    versions at every (16-bit type, head dim) they take, non-causal too."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    sixteen_bit = [c for c in chip_smoke.PARITY_CASES if c["dtype"] in ("bfloat16", "float16")]
+    covered = {(c["dtype"], c["shape"][-1]) for c in sixteen_bit}
+    assert covered >= {(dt, d) for dt in ("bfloat16", "float16") for d in (64, 128)}
+    assert any(not c["causal"] for c in sixteen_bit)

@@ -11,10 +11,13 @@ Phases, one JSON object per line on stdout, in this order:
    training shape and at small GQA, window+sinks, explicit-position,
    non-causal, ragged, head dim 128, bf16, f16 and f32 cases, each with the
    tolerance it was held to.
-4. ``timing``: at the training shape, each kernel's device time (profiler;
-   warm, and with the L2 cache flushed before every call) beside its plain
-   version's, one PyTorch library call's (a yardstick only; the port never
-   calls it) and the least time the card could take (``bound_ms``).
+4. ``timing``: at the training shape, and again at head dim 128, each
+   kernel's device time (profiler; warm, and with the L2 cache flushed
+   before every call) beside its plain version's, one PyTorch library
+   call's (a yardstick only; the port never calls it) and the least time
+   the card could take (``bound_ms``); and the dQ plus dK/dV kernels
+   together (``backward_pair``) beside the library's backward for dq, dk
+   and dv.
 5. ``model_check``: a small LM on the card, flash kernels against the dense
    reference, logits and gradients.
 6. ``train``: the main path.  ``GPUExecutor(transport="local")`` dispatches the
@@ -23,8 +26,8 @@ Phases, one JSON object per line on stdout, in this order:
    with the fused vocab-chunked loss.  Losses must be finite and falling, and
    every kernel launched 12 times per step.
 7. ``profile``: one training step under ``torch.profiler``: device time by
-   kernel and the device's busy share; the step must run the tensor-core
-   forward and dQ kernels once per layer and no scalar forward or dQ kernel.
+   kernel and the device's busy share; the step must run each of the three
+   tensor-core kernels once per layer and no scalar kernel.
 8. ``kernels``: every kernel with its launches on the main path, error, times
    and bound, and the route (tensor-core or scalar kernel) each input type
    and head dim takes.
@@ -161,6 +164,13 @@ PARITY_CASES = [
     # the tensor-core kernels skips several tiles the other one needs
     dict(name="split_positions_window", shape=(1, 2, 2, 128, 1100, 64), dtype="bfloat16",
          causal=True, window=64, positions="split"),
+    # what only the dK/dV sweep walks: several query heads per kv head, and
+    # a ragged last query tile (S_q = 100) whose missing rows the slot's lse
+    # and delta must not let through, with S_k != S_q, at both widths
+    dict(name="gqa_ragged_q_bf16", shape=(2, 8, 2, 100, 256, 64), dtype="bfloat16",
+         causal=False),
+    dict(name="gqa_ragged_q_f16_d128", shape=(2, 8, 2, 100, 256, 128), dtype="float16",
+         causal=False),
 ]
 
 
@@ -248,14 +258,18 @@ def bound(flops: float, nbytes: float, dtype: str) -> tuple[float, str]:
     return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
 
 
-def timing_phase() -> dict:
+#: The path shape at head dim 128, the tensor-core route's other width.
+D128_CASE = dict(name="path_d128", shape=(8, 12, 12, 1024, 1024, 128), dtype="bfloat16",
+                 causal=True)
+
+
+def timing_phase(case: dict) -> dict:
     import torch
     import torch.nn.functional as F
 
     from covalent_tpu_plugin_torch.ops import _kernels
     from covalent_tpu_plugin_torch.ops import attention as attn
 
-    case = PARITY_CASES[0]
     q, k, v, dout, qpos, kpos, band = _case_inputs(case, seed=1)
     out, lse = _kernels.flash_fwd(q, k, v, qpos, kpos, *band)
     delta = (dout.float() * out.float()).sum(dim=-1)
@@ -310,6 +324,14 @@ def timing_phase() -> dict:
 
     for res in results.values():
         res["bound_ms"], res["bound_by"] = bound(res["flops"], res["bytes"], case["dtype"])
+    # The like-for-like backward: the two kernels that give dq, dk and dv,
+    # against the library's backward asked for all three.
+    results["backward_pair"] = dict(
+        backward_pair_ms=device_ms(lambda: (_kernels.flash_bwd_dkdv(*bwd_args),
+                                     _kernels.flash_bwd_dq(*bwd_args)), 20, match="flash_bwd_"),
+        library_ms=device_ms(
+            lambda: torch.autograd.grad(lib_out, (ql, kl, vl), dout, retain_graph=True), 20),
+    )
     return results
 
 
@@ -439,15 +461,17 @@ def profile_phase() -> dict:
     rows = sorted(((us, key, n) for key, (us, n) in by_name.items()), reverse=True)
     if not rows:
         raise AssertionError("the profiler recorded no device events")
-    # The bf16, head dim 64 step must run the tensor-core forward and dQ
-    # kernels once per layer, and no scalar forward or dQ kernel.
-    launched = {tag: sum(n for _, key, n in rows if tag in key) for tag in (
-        "flash_fwd_tc_kernel", "flash_bwd_dq_tc_kernel", "flash_fwd_kernel", "flash_bwd_dq_kernel")}
+    # The bf16, head dim 64 step must run each tensor-core kernel once per
+    # layer and no scalar kernel.  No tag is a substring of another kernel's
+    # name.
+    sweeps = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv")
+    launched = {tag: sum(n for _, key, n in rows if tag in key)
+                for sweep in sweeps for tag in (f"{sweep}_tc_kernel", f"{sweep}_kernel")}
     layers = lm_125m_config().n_layers
-    if (launched["flash_fwd_tc_kernel"] != layers or launched["flash_bwd_dq_tc_kernel"] != layers
-            or launched["flash_fwd_kernel"] or launched["flash_bwd_dq_kernel"]):
+    if any(launched[f"{sweep}_tc_kernel"] != layers or launched[f"{sweep}_kernel"]
+           for sweep in sweeps):
         raise AssertionError(f"profiled step launched {launched}; expected {layers} of each "
-                             "tensor-core kernel and no scalar forward or dQ kernel")
+                             "tensor-core kernel and no scalar kernel")
     total_us = sum(r[0] for r in rows)
     kinds = {"flash_kernels": 0.0, "matmul": 0.0, "other": 0.0}
     for us, key, _ in rows:
@@ -500,9 +524,11 @@ def main() -> int:
               "positions": case.get("positions", False), "errors": parity[case["name"]],
               "tol_reason": TOL_REASON})
 
-    timing = timing_phase()
+    timing = timing_phase(PARITY_CASES[0])
     emit({"phase": "timing", "shape": PATH_SHAPE, "dtype": "bfloat16", "card": smi,
           "kernels": timing})
+    emit({"phase": "timing", "shape": D128_CASE["shape"], "dtype": D128_CASE["dtype"],
+          "card": smi, "kernels": timing_phase(D128_CASE)})
 
     emit({"phase": "model_check", **model_check()})
 

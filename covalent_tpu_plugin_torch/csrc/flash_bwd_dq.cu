@@ -140,12 +140,15 @@ __global__ void __launch_bounds__(DqLayout<D>::THREADS, 1)
   blk.init(smem_raw, live);
 
   if (threadIdx.x >= L::CONSUMERS * WG_THREADS) {
-    tc_produce<L, BN>(blk, &k_map, &v_map, qpos, kpos, q0, Sq, Sk, kv_plane, band,
+    const Sweep sweep{qpos, q0, Sq, kpos, Sk, kv_plane, 1, /*fixed_are_queries=*/true};
+    NoSlotExtra no_extra;
+    tc_produce<L, BN>(blk, &k_map, &v_map, sweep, band,
                       [&](uint32_t bar) {
                         hopper::mbar_arrive_expect_tx(bar, 2 * live * L::WG_TILE);
                         tma_load_rows<L>(blk.base_s, &q_map, bar, q0, bh, live);
                         tma_load_rows<L>(blk.base_s + L::FIXED_TILE, &do_map, bar, q0, bh, live);
-                      });
+                      },
+                      no_extra);
     return;
   }
   if (threadIdx.x >= live * WG_THREADS) return;  // no row below S_q

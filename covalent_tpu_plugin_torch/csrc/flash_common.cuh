@@ -193,12 +193,11 @@ inline cudaError_t launch(Kernel kernel, dim3 grid, size_t smem, cudaStream_t st
   return cudaGetLastError();
 }
 
-// The kernel the forward and dQ sweeps take for a (dtype, head dim).  16-bit
+// The kernel each of the three sweeps takes for a (dtype, head dim).  16-bit
 // inputs at head dim 64 or 128 go to the tensor-core kernels (wgmma + TMA,
 // flash_tc.cuh).  f32 stays on the scalar kernels: the tensor cores would
 // compute it in TF32, which is not the reference's arithmetic.  16-bit head
-// dims 16, 32 and 256 stay on the scalar kernels too, for now.  The dK/dV
-// sweep takes the scalar kernel for every input.
+// dims 16, 32 and 256 stay on the scalar kernels too, for now.
 // Each library exports it as <entry point>_route, which ops/_kernels.py reads.
 enum Route { kScalar = 0, kTensorCore = 1 };
 

@@ -1,29 +1,34 @@
 // What the tensor-core flash kernels (the 16-bit, head dim 64 and 128 route
-// of flash_fwd.cu and flash_bwd_dq.cu) share: the block shape, the
-// shared-memory layout, the producer warp that feeds key/value tiles, and
-// the row helpers of the wgmma accumulator layout.
+// of flash_fwd.cu, flash_bwd_dq.cu and flash_bwd_dkdv.cu) share: the block
+// shape, the shared-memory layout, the producer warp that streams tiles of
+// the swept operand, and the row helpers of the wgmma accumulator layout.
 //
-// Block shape.  CONSUMERS warpgroups of 128 threads each own 64 query rows
-// (BM = 64 * CONSUMERS rows per block); one more warp is the producer.  The
-// producer loads the block's fixed operands (Q, and dO for the dQ sweep)
-// once, then walks the key tiles in order and, for every tile that some
-// consumer needs, waits for a free slot of the STAGES-deep ring, writes the
-// tile's description (its first key and, per consumer, whether it sees
-// none of the tile, some of it or all of it) and has TMA load its K and V
-// into the slot.  A slot whose first key is negative ends the sweep.
-// Consumers wait on the slot's "full" barrier, run their products, and
-// release it on its "empty" barrier (one arrival per consumer warp).  A
-// tile no consumer needs is never loaded; a tile only one consumer needs
-// goes through both, and the other takes it as kNone (P = 0, no softmax):
-// the loop that issues the products stays free of branches, which ptxas
-// would answer by serialising every wgmma.
+// Block shape.  CONSUMERS warpgroups of 128 threads each own 64 rows of the
+// block's fixed operand (BM = 64 * CONSUMERS rows per block): query rows for
+// the forward and dQ, key rows for dK/dV.  One more warp (alone, or in a
+// warpgroup of its own for dK/dV) is the producer.  It loads the block's
+// fixed operands (Q; Q and dO; K and V) once, then
+// walks the tiles of the swept rows (keys; keys; queries) in order, each
+// through one or more planes (the kv head's; the G query heads of the GQA
+// group), and, for every tile that some consumer needs, waits for a free
+// slot of the STAGES-deep ring, writes the tile's description (its first
+// row and, per consumer, whether it sees none of the tile, some of it or
+// all of it), stages whatever else the slot carries, and has TMA load the
+// tile's two operands (K and V, or Q and dO) into the slot.  A slot whose
+// first row is negative ends the sweep.  Consumers wait on the
+// slot's "full" barrier, run their products, and release it on its "empty"
+// barrier (one arrival per consumer warp).  A tile no consumer needs is
+// never loaded; a tile only one consumer needs goes through both, and the
+// other takes it as kNone (P = 0, no softmax): the loop that issues the
+// products stays free of branches, which ptxas would answer by serialising
+// every wgmma.
 //
 // Tile kinds come from the positions' min and max over the tile, as
 // _band_tile_needed decides in the reference: a tile outside the band is
 // kNone; a whole tile every pair of which is visible is an interior tile
 // and takes no mask (the reference's interior path); every other tile is
-// masked pair by pair, including key rows past S_k, which TMA fills with
-// zeros but the reference masks to -1e30.
+// masked pair by pair, including swept rows past their length, which TMA
+// fills with zeros but the reference masks.
 #pragma once
 
 #include <climits>
@@ -44,21 +49,28 @@ constexpr float kLn2 = 0.6931471805599453f;
 enum TileKind : int { kNone = 0, kMasked = 1, kInterior = 2 };
 
 struct TileMeta {
-  int k0;  // first key of the tile; < 0 ends the sweep
+  int t0;  // first swept row of the tile; < 0 ends the sweep
   int kind[MAX_CONSUMERS];
 };
 
 // Block shape and shared memory of one block: CONSUMERS warpgroups of 64
-// query rows each (BM rows) plus the producer warp; from a 1024-byte
-// aligned base, FIXED operand tiles of (BM, D) (Q; Q and dO), then STAGES
-// slots of a (BN, D) K tile and a (BN, D) V tile, then the barriers and the
-// slots' descriptions.  An operand of head dim 128 is stored as two
-// 64-column halves.
-template <int D, int BN, int STAGES, int FIXED, int NCONSUMERS> struct TcLayout {
+// fixed rows each (BM rows) plus the producer, a warp or a warpgroup (of
+// which one warp produces and the others lend their registers to the
+// consumers through setmaxnreg); from a 1024-byte
+// aligned base, FIXED operand tiles of (BM, D) (Q; Q and dO; K and V), then
+// STAGES slots of two (BN, D) tiles (K and V; Q and dO), then the barriers,
+// the slots' descriptions and SLOT_EXTRA more bytes per slot that the
+// producer's lanes write (dK/dV: the tile's lse and delta).  An operand of
+// head dim 128 is stored as two 64-column halves.
+template <int D, int BN, int STAGES, int FIXED, int NCONSUMERS, int SLOT_EXTRA = 0,
+          int PRODUCER_THREADS = 32>
+struct TcLayout {
   static_assert(NCONSUMERS <= MAX_CONSUMERS, "too many consumer warpgroups");
+  static_assert(PRODUCER_THREADS == 32 || PRODUCER_THREADS == WG_THREADS,
+                "a producer warp or warpgroup");
   static constexpr int CONSUMERS = NCONSUMERS;
   static constexpr int BM = 64 * CONSUMERS;
-  static constexpr int THREADS = WG_THREADS * CONSUMERS + 32;
+  static constexpr int THREADS = WG_THREADS * CONSUMERS + PRODUCER_THREADS;
   static constexpr int NSTAGES = STAGES;
   static constexpr int HALVES = D / 64;
   static constexpr int WG_TILE = HALVES * ROW_TILE_BYTES;  // one consumer's (64, D)
@@ -69,7 +81,9 @@ template <int D, int BN, int STAGES, int FIXED, int NCONSUMERS> struct TcLayout 
   static constexpr int STAGES_AT = FIXED * FIXED_TILE;
   static constexpr int BARS_AT = STAGES_AT + STAGES * STAGE;
   static constexpr int META_AT = BARS_AT + 8 * (1 + 2 * STAGES);
-  static constexpr int BYTES = META_AT + (int)sizeof(TileMeta) * STAGES + 1024;  // + alignment
+  static constexpr int EXTRA_AT = (META_AT + (int)sizeof(TileMeta) * STAGES + 15) & ~15;
+  static constexpr int EXTRA = SLOT_EXTRA;
+  static constexpr int BYTES = EXTRA_AT + STAGES * SLOT_EXTRA + 1024;  // + alignment
 };
 
 // Every pair of the position ranges is visible (the tile needs no mask).
@@ -133,6 +147,9 @@ template <typename L> struct TcBlock {
   __device__ __forceinline__ TileMeta* meta() const {
     return reinterpret_cast<TileMeta*>(base + L::META_AT);
   }
+  __device__ __forceinline__ float* extra(int s) const {
+    return reinterpret_cast<float*>(base + L::EXTRA_AT + s * L::EXTRA);
+  }
   __device__ __forceinline__ void init(uint8_t* raw, int live) {
     const uint32_t raw_s = hopper::smem_addr(raw);
     const uint32_t pad = ((raw_s + 1023u) & ~1023u) - raw_s;
@@ -150,85 +167,121 @@ template <typename L> struct TcBlock {
   }
 };
 
+// What the producer warp walks.  The block's fixed rows are [f0, f0 + BM)
+// of `S_fixed`, at positions `fixed_pos`; the swept rows, `S_swept` of them
+// at positions `swept_pos`, go in tiles of BN, and each tile through
+// `n_planes` planes of the swept operands' maps from `plane0`.  The fixed
+// rows are the queries of the band test (forward, dQ) or its keys (dK/dV).
+// A null position vector means 0..S-1.
+struct Sweep {
+  const int* fixed_pos;
+  int f0, S_fixed;
+  const int* swept_pos;
+  int S_swept;
+  int plane0, n_planes;
+  bool fixed_are_queries;
+};
+
+// Min and max of positions [r0, r0 + n) over the warp (r0 + n <= S).
+__device__ __forceinline__ void warp_range(const int* pos, int r0, int n, int lane, int& lo,
+                                           int& hi) {
+  if (!pos) {
+    lo = r0;
+    hi = r0 + n - 1;
+    return;
+  }
+  int a = INT_MAX, b = INT_MIN;
+  for (int j = lane; j < n; j += 32) {
+    a = min(a, pos[r0 + j]);
+    b = max(b, pos[r0 + j]);
+  }
+  lo = warp_min(a);
+  hi = warp_max(b);
+}
+
 // The producer warp.  `load_fixed(bar)` issues, from lane 0, the TMA loads
-// of the block's fixed operands on `bar` (and its expect_tx).
-template <typename L, int BN, typename LoadFixed>
-__device__ __forceinline__ void tc_produce(const TcBlock<L>& blk, const CUtensorMap* k_map,
-                                           const CUtensorMap* v_map, const int* qpos,
-                                           const int* kpos, int q0, int Sq, int Sk,
-                                           int kv_plane, const Band& band,
-                                           LoadFixed load_fixed) {
+// of the block's fixed operands on `bar` (and its expect_tx).  Every lane
+// calls `extra.fetch(t0, plane)` before it waits for a free slot, so the
+// reads overlap the wait, and `extra.store(s)` once slot s is free and
+// before it is marked full: together they write the slot's SLOT_EXTRA
+// bytes.
+template <typename L, int BN, typename LoadFixed, typename SlotExtra>
+__device__ __forceinline__ void tc_produce(const TcBlock<L>& blk, const CUtensorMap* a_map,
+                                           const CUtensorMap* b_map, const Sweep& sw,
+                                           const Band& band, LoadFixed load_fixed,
+                                           SlotExtra& extra) {
   constexpr int STAGES = L::NSTAGES;
   const int lane = threadIdx.x % 32;
-  int qlo[L::CONSUMERS], qhi[L::CONSUMERS];
+  int flo[L::CONSUMERS], fhi[L::CONSUMERS];
 #pragma unroll
   for (int c = 0; c < L::CONSUMERS; ++c) {
-    int lo = INT_MAX, hi = INT_MIN;
-    for (int r = lane; r < 64; r += 32) {
-      const int row = q0 + c * 64 + r;
-      if (row < Sq) {
-        const int p = position(qpos, row);
-        lo = min(lo, p);
-        hi = max(hi, p);
-      }
+    const int r0 = sw.f0 + c * 64;
+    flo[c] = fhi[c] = 0;
+    if (r0 < sw.S_fixed) {
+      warp_range(sw.fixed_pos, r0, min(64, sw.S_fixed - r0), lane, flo[c], fhi[c]);
     }
-    qlo[c] = warp_min(lo);
-    qhi[c] = warp_max(hi);
   }
   if (lane == 0) load_fixed(blk.fixed_bar());
 
   int it = 0;
-  for (int k0 = 0; k0 < Sk; k0 += BN) {
-    const int n_k = min(BN, Sk - k0);
-    int kmin = k0, kmax = k0 + n_k - 1;
-    if (kpos) {
-      int lo = INT_MAX, hi = INT_MIN;
-      for (int j = lane; j < n_k; j += 32) {
-        lo = min(lo, kpos[k0 + j]);
-        hi = max(hi, kpos[k0 + j]);
-      }
-      kmin = warp_min(lo);
-      kmax = warp_max(hi);
-    }
+  for (int t0 = 0; t0 < sw.S_swept; t0 += BN) {
+    const int n = min(BN, sw.S_swept - t0);
+    int tlo, thi;
+    warp_range(sw.swept_pos, t0, n, lane, tlo, thi);
     TileMeta meta;
-    meta.k0 = k0;
+    meta.t0 = t0;
     bool any = false;
 #pragma unroll
     for (int c = 0; c < L::CONSUMERS; ++c) {
       int kind = kNone;
-      if (q0 + c * 64 < Sq && tile_needed(band, qlo[c], qhi[c], kmin, kmax)) {
-        kind = n_k == BN && all_visible(band, qlo[c], qhi[c], kmin, kmax) ? kInterior : kMasked;
+      const bool fq = sw.fixed_are_queries;
+      const int qlo = fq ? flo[c] : tlo, qhi = fq ? fhi[c] : thi;
+      const int klo = fq ? tlo : flo[c], khi = fq ? thi : fhi[c];
+      if (sw.f0 + c * 64 < sw.S_fixed && tile_needed(band, qlo, qhi, klo, khi)) {
+        kind = n == BN && all_visible(band, qlo, qhi, klo, khi) ? kInterior : kMasked;
       }
       meta.kind[c] = kind;
       any = any || kind != kNone;
     }
     if (!any) continue;
-    const int s = it % STAGES;
-    hopper::mbar_wait(blk.empty(s), ((it / STAGES) & 1) ^ 1);
-    if (lane == 0) {
-      blk.meta()[s] = meta;
-      hopper::mbar_arrive_expect_tx(blk.full(s), L::STAGE);
-      const uint32_t k_dst = blk.stage(s), v_dst = k_dst + L::KV_TILE;
+    for (int p = 0; p < sw.n_planes; ++p) {
+      const int plane = sw.plane0 + p;
+      const int s = it % STAGES;
+      extra.fetch(t0, plane);
+      hopper::mbar_wait(blk.empty(s), ((it / STAGES) & 1) ^ 1);
+      extra.store(s);
+      __syncwarp();
+      if (lane == 0) {
+        blk.meta()[s] = meta;
+        hopper::mbar_arrive_expect_tx(blk.full(s), L::STAGE);
+        const uint32_t a_dst = blk.stage(s), b_dst = a_dst + L::KV_TILE;
 #pragma unroll
-      for (int h = 0; h < L::HALVES; ++h) {
-        hopper::tma_load_3d(k_dst + h * L::KV_HALF, k_map, blk.full(s), h * 64, k0, kv_plane);
-        hopper::tma_load_3d(v_dst + h * L::KV_HALF, v_map, blk.full(s), h * 64, k0, kv_plane);
+        for (int h = 0; h < L::HALVES; ++h) {
+          hopper::tma_load_3d(a_dst + h * L::KV_HALF, a_map, blk.full(s), h * 64, t0, plane);
+          hopper::tma_load_3d(b_dst + h * L::KV_HALF, b_map, blk.full(s), h * 64, t0, plane);
+        }
       }
+      __syncwarp();
+      ++it;
     }
-    __syncwarp();
-    ++it;
   }
   const int s = it % STAGES;
   hopper::mbar_wait(blk.empty(s), ((it / STAGES) & 1) ^ 1);
   if (lane == 0) {
-    blk.meta()[s].k0 = -1;
+    blk.meta()[s].t0 = -1;
     hopper::mbar_arrive(blk.full(s));
   }
 }
 
+// A slot that carries nothing besides its two tiles.
+struct NoSlotExtra {
+  __device__ __forceinline__ void fetch(int, int) {}
+  __device__ __forceinline__ void store(int) {}
+};
+
 // Consumers of the block that own at least one row below S.
-template <typename L> __device__ __forceinline__ int live_consumers(int q0, int S) {
-  return min(L::CONSUMERS, (S - q0 + 63) / 64);
+template <typename L> __device__ __forceinline__ int live_consumers(int f0, int S) {
+  return min(L::CONSUMERS, (S - f0 + 63) / 64);
 }
 
 // A consumer warpgroup's walk over the slots the producer fills.  next()
@@ -244,13 +297,13 @@ template <typename L> struct TcStream {
   int it = 0;
   __device__ __forceinline__ TcStream(const TcBlock<L>& b, int consumer, int lane_)
       : blk(b), c(consumer), lane(lane_) {}
-  __device__ __forceinline__ bool next(int& s, int& k0, int& kind) {
+  __device__ __forceinline__ bool next(int& s, int& t0, int& kind) {
     s = it % L::NSTAGES;
     hopper::mbar_wait(blk.full(s), (it / L::NSTAGES) & 1);
     ++it;
-    k0 = blk.meta()[s].k0;
+    t0 = blk.meta()[s].t0;
     kind = blk.meta()[s].kind[c];
-    return k0 >= 0;
+    return t0 >= 0;
   }
   __device__ __forceinline__ void release(int s) const {
     if (lane == 0) hopper::mbar_arrive(blk.empty(s));
@@ -301,17 +354,17 @@ __device__ __forceinline__ void pack_a(const float (&x)[N / 2], uint32_t (&a)[N 
   }
 }
 
-// Loads rows [q0, q0 + 64 * n) of a (planes, S, D) tensor into `dst` as n
+// Loads rows [r0, r0 + 64 * n) of a (planes, S, D) tensor into `dst` as n
 // (64, D) tiles of 64-column halves, one per live consumer (no box lies
 // wholly past S).  Lane 0 only.
 template <typename L>
 __device__ __forceinline__ void tma_load_rows(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                              int q0, int plane, int n) {
+                                              int r0, int plane, int n) {
   for (int c = 0; c < n; ++c) {
 #pragma unroll
     for (int h = 0; h < L::HALVES; ++h) {
       hopper::tma_load_3d(dst + c * L::WG_TILE + h * ROW_TILE_BYTES, map, bar, h * 64,
-                          q0 + c * 64, plane);
+                          r0 + c * 64, plane);
     }
   }
 }
@@ -320,34 +373,39 @@ __device__ __forceinline__ void tma_load_rows(uint32_t dst, const CUtensorMap* m
 struct TcRows {
   int c;      // consumer warpgroup
   int lane;
-  int a, b;   // global query rows of the thread: a and a + 8
+  int a, b;   // global fixed rows of the thread: a and a + 8
   int col;    // first of the thread's two columns in every 8-column chunk
-  __device__ __forceinline__ TcRows(int q0) {
+  __device__ __forceinline__ TcRows(int f0) {
     c = threadIdx.x / WG_THREADS;
     const int t = threadIdx.x % WG_THREADS;
     lane = t % 32;
-    a = q0 + c * 64 + (t / 32) * 16 + lane / 4;
+    a = f0 + c * 64 + (t / 32) * 16 + lane / 4;
     b = a + 8;
     col = 2 * (lane % 4);
   }
 };
 
 // The visibility of the thread's score-tile entries as a bit mask: bit
-// 4 i + e for entry 4 i + e of the accumulator (see hopper::Wgmma).
-template <int BN>
+// 4 i + e for entry 4 i + e of the accumulator (see hopper::Wgmma).  The
+// tile's columns are swept rows t0.. of S at positions `pos`; the thread's
+// rows are at positions p_a and p_b.  Rows are queries (S = Q K^T), or keys
+// when ROWS_ARE_KEYS (S^T = K Q^T).  Columns at or past S are not visible.
+template <int BN, bool ROWS_ARE_KEYS = false>
 __device__ __forceinline__ uint64_t tile_visibility(const TcRows& rows, const Band& band,
-                                                    const int* kpos, int k0, int Sk, int qp_a,
-                                                    int qp_b) {
+                                                    const int* pos, int t0, int S, int p_a,
+                                                    int p_b) {
   uint64_t bits = 0;
 #pragma unroll
   for (int i = 0; i < BN / 8; ++i) {
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
-      const int key = k0 + 8 * i + rows.col + e;
-      if (key < Sk) {
-        const int kp = position(kpos, key);
-        if (visible(band, qp_a, kp)) bits |= 1ull << (4 * i + e);
-        if (visible(band, qp_b, kp)) bits |= 1ull << (4 * i + 2 + e);
+      const int t = t0 + 8 * i + rows.col + e;
+      if (t < S) {
+        const int p = position(pos, t);
+        const bool va = ROWS_ARE_KEYS ? visible(band, p, p_a) : visible(band, p_a, p);
+        const bool vb = ROWS_ARE_KEYS ? visible(band, p, p_b) : visible(band, p_b, p);
+        if (va) bits |= 1ull << (4 * i + e);
+        if (vb) bits |= 1ull << (4 * i + 2 + e);
       }
     }
   }
@@ -375,7 +433,7 @@ __device__ __forceinline__ void store_rows(T* dst, const TcRows& rows, int S,
 }
 
 // Sets the dynamic shared-memory ceiling and launches one block of
-// L::THREADS per BM query rows, head and batch.
+// L::THREADS per BM fixed rows (of S) and plane (BH of them).
 template <typename L, typename Kernel, typename... Args>
 inline cudaError_t launch_tc(Kernel kernel, int BH, int Sq, cudaStream_t stream, Args... args) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

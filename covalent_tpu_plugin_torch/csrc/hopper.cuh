@@ -1,5 +1,5 @@
 // Hopper building blocks for the tensor-core flash kernels (flash_fwd.cu,
-// flash_bwd_dq.cu), as inline PTX for sm_90a:
+// flash_bwd_dq.cu, flash_bwd_dkdv.cu), as inline PTX for sm_90a:
 //
 // - mbarrier: init, arrive, arrive with an expected transaction byte count,
 //   and a parity wait;
@@ -8,6 +8,7 @@
 // - wgmma: the shared-memory matrix descriptor for 128-byte swizzled tiles,
 //   fence / commit / wait, and the m64nNk16 products with f32 accumulators
 //   (A and B from shared memory, or A from registers and B transposed);
+// - setmaxnreg: moving registers from a producer warpgroup to consumers;
 // - arithmetic: 2^x on the special-function unit, and packing two floats
 //   into one 16-bit A-operand register.
 //
@@ -145,6 +146,16 @@ template <int N> __device__ __forceinline__ void wgmma_wait() {
 template <int N> __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// Moves registers between warpgroups: a warpgroup lowers its ceiling to N
+// registers a thread (dec) and another raises its own to N (inc), waiting
+// until enough are free.  Every warp of the warpgroup executes it.
+template <int N> __device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N> __device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
 // --- arithmetic ----------------------------------------------------------------

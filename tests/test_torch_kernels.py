@@ -11,10 +11,10 @@ The autograd path of ``flash_attention`` on CUDA tensors (the three kernels)
 is held against the same path on CPU tensors (their plain versions), in
 float32: atol 1e-5 on outputs, 1e-4 on gradients, which sum over up to 256
 positions in another order.  The 16-bit inputs that take the tensor-core
-forward and dQ kernels are held against the plain versions on the card at
-``chip_smoke.py``'s tolerance: one rounding of the input type times the
-largest plain value (at least 1), since both make the same casts but sum in
-another order and the kernel rounds P against a running max.
+forward, dQ and dK/dV kernels are held against the plain versions on the
+card at ``chip_smoke.py``'s tolerance: one rounding of the input type times
+the largest plain value (at least 1), since both make the same casts but sum
+in another order and the forward rounds P against a running max.
 """
 
 import shutil
@@ -103,6 +103,9 @@ TC_CASES = {
                                positions=True),
     "ragged_window_bf16": dict(shape=(1, 2, 2, 100, 100, 64), dtype="bfloat16", causal=True,
                                window=7),
+    # several query heads per kv head and a ragged last query tile: what the
+    # dK/dV kernel sweeps over
+    "gqa_ragged_q_bf16": dict(shape=(2, 8, 2, 100, 256, 64), dtype="bfloat16", causal=False),
 }
 EPS = {torch.bfloat16: 2.0**-7, torch.float16: 2.0**-10}
 
@@ -130,36 +133,39 @@ def test_tensor_core_kernels_match_plain_on_the_card(card, name):
         qpos = torch.tensor(rng.permutation(seq_q).astype(np.int32), device=card)
         kpos = torch.tensor((2 * np.arange(seq_k)).astype(np.int32), device=card)
     band = (case["causal"], case.get("window"), case.get("sinks", 0))
-    for kernel in (_kernels.FLASH_FWD, _kernels.FLASH_BWD_DQ):
+    for kernel in _kernels.KERNELS:
         assert kernel.route(dtype, dim) == "wgmma+tma"
 
     _kernels.reset_launch_counts()
     out, lse = _kernels.flash_fwd(q, k, v, qpos, kpos, *band)
     out_p, lse_p = torch_attention.flash_fwd_plain(q, k, v, qpos, kpos, *band)
     delta = (dout.float() * out.float()).sum(dim=-1)
-    dq = _kernels.flash_bwd_dq(q, k, v, dout, lse, delta, qpos, kpos, *band)
-    dq_p = torch_attention.flash_bwd_dq_plain(q, k, v, dout, lse, delta, qpos, kpos, *band)
+    bwd_args = (q, k, v, dout, lse, delta, qpos, kpos, *band)
+    dq = _kernels.flash_bwd_dq(*bwd_args)
+    dq_p = torch_attention.flash_bwd_dq_plain(*bwd_args)
+    dk, dv = _kernels.flash_bwd_dkdv(*bwd_args)
+    dk_p, dv_p = torch_attention.flash_bwd_dkdv_plain(*bwd_args)
     torch.cuda.synchronize()
-    assert _kernels.launch_counts()["flash_fwd"] == 1
-    assert _kernels.launch_counts()["flash_bwd_dq"] == 1
+    assert _kernels.launch_counts() == {"flash_fwd": 1, "flash_bwd_dkdv": 1, "flash_bwd_dq": 1}
     _assert_close(out, out_p, EPS[dtype])
     _assert_close(lse, lse_p, 32 * 2.0**-23)
     _assert_close(dq, dq_p, EPS[dtype])
+    _assert_close(dk, dk_p, EPS[dtype])
+    _assert_close(dv, dv_p, EPS[dtype])
 
 
 @pytest.mark.cuda
 def test_routes_follow_dtype_and_head_dim(card):
-    """The compiled switch: 16-bit forward and dQ at head dim 64 or 128 take
-    the tensor cores; f32 (which they would compute in TF32), the other
-    widths and dK/dV stay on the scalar kernels."""
-    for kernel in (_kernels.FLASH_FWD, _kernels.FLASH_BWD_DQ):
+    """The compiled switch: each of the three sweeps takes the tensor cores
+    for 16-bit inputs at head dim 64 or 128; f32 (which they would compute
+    in TF32) and the other widths stay on the scalar kernels."""
+    for kernel in _kernels.KERNELS:
         for dtype in (torch.bfloat16, torch.float16):
             for dim in _kernels.HEAD_DIMS:
                 want = "wgmma+tma" if dim in (64, 128) else "scalar-fma"
                 assert kernel.route(dtype, dim) == want
-        assert kernel.route(torch.float32, 64) == "scalar-fma"
-    for dtype in (torch.bfloat16, torch.float16, torch.float32):
-        assert _kernels.FLASH_BWD_DKDV.route(dtype, 64) == "scalar-fma"
+        for dim in _kernels.HEAD_DIMS:
+            assert kernel.route(torch.float32, dim) == "scalar-fma"
 
 
 def test_sources_digest_covers_every_kernel_source(tmp_path, monkeypatch):
@@ -196,3 +202,23 @@ def test_chip_smoke_parity_covers_the_tensor_core_route():
     covered = {(c["dtype"], c["shape"][-1]) for c in sixteen_bit}
     assert covered >= {(dt, d) for dt in ("bfloat16", "float16") for d in (64, 128)}
     assert any(not c["causal"] for c in sixteen_bit)
+
+
+def test_chip_smoke_parity_covers_gqa_and_ragged_queries():
+    """chip_smoke.py holds the 16-bit kernels, dK/dV among them, against
+    their plain versions with several query heads per kv head and with a
+    query length that leaves the last 64-row tile ragged, at both widths of
+    the tensor-core route."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    sixteen_bit = [c for c in chip_smoke.PARITY_CASES if c["dtype"] in ("bfloat16", "float16")]
+    for dim in (64, 128):
+        at_dim = [c["shape"] for c in sixteen_bit if c["shape"][-1] == dim]
+        assert any(heads > kv_heads for _, heads, kv_heads, *_ in at_dim), dim
+        assert any(seq_q % 64 for _, _, _, seq_q, _, _ in at_dim), dim
+        assert any(h > hkv and sq % 64 and sq != sk for _, h, hkv, sq, sk, _ in at_dim), dim

@@ -28,9 +28,27 @@ Phases, one JSON object per line on stdout, in this order:
 7. ``profile``: one training step under ``torch.profiler``: device time by
    kernel and the device's busy share; the step must run each of the three
    tensor-core kernels once per layer and no scalar kernel.
-8. ``kernels``: every kernel with its launches on the main path, error, times
-   and bound, and the route (tensor-core or scalar kernel) each input type
-   and head dim takes.
+8. ``serve_check``: a small float32 LM on the card against the same model on
+   the CPU: KV-cache prefill and decode logits (plain, int8 KV, rolling with
+   sinks), and continuous-batching engine streams, token-equal wherever the
+   CPU's top-2 logit margin exceeds 1e-4.
+9. ``serve``: the serving path.  ``GPUExecutor(transport="local")`` dispatches
+   the serving electron (``models.serve.serve_lm``): the 125M LM with bf16
+   weights, ``generate`` at batch 8 (prompt 128, 128 new tokens) and 16
+   requests through the continuous-batching engine (8 slots, sync 32).
+   Every request must complete at its length, every logit be finite, the
+   engine's streams equal ``continuous_generate``'s, the int8 KV cache's
+   prefill logits keep cosine >= 0.999 to the float cache's, and no flash
+   kernel run (the decode attention is plain products); it prints the
+   agreement of engine rows with batch-1 ``generate`` rows.
+10. ``serve_profile``: one batch-8 decode step of the 125M LM under
+    ``torch.profiler``: device time by kind (the attention's products and
+    its other kernels apart, by the ``decode_attention`` ranges), the
+    device's busy share against the profiled and the unprofiled step, and
+    the f32 ``lm_head``'s weight cast and product alone.
+11. ``kernels``: every kernel with its launches on the main path, error, times
+    and bound, and the route (tensor-core or scalar kernel) each input type
+    and head dim takes.
 
 then the card's ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 Any failed phase ends the run with a non-zero exit and no last line.  Without
@@ -493,6 +511,200 @@ def profile_phase() -> dict:
     }
 
 
+# --- serving: KV-cache decoding, generate and the continuous-batching engine --
+
+#: The small LM of ``serve_check``: width and depth of the CPU parity tests.
+SERVE_TINY = dict(vocab_size=256, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2, d_ff=128,
+                  max_seq=64)
+#: f32 logits of the card against the CPU: the same products, summed in
+#: another order through two layers.
+SERVE_LOGIT_TOL = 1e-4
+SERVE_MARGIN = 1e-4
+
+
+def serve_check() -> dict:
+    import numpy as np
+    import torch
+
+    from covalent_tpu_plugin_torch.models import decode, serve
+    from covalent_tpu_plugin_torch.models.transformer import TransformerConfig, TransformerLM
+
+    def pair(**overrides):
+        cfg = TransformerConfig(**SERVE_TINY, **overrides, dtype=torch.float32,
+                                attention="reference")
+        cpu = TransformerLM(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+        with torch.no_grad():
+            cpu.lm_head.weight.mul_(10.0)  # spread the logits: clear greedy margins
+        gpu = TransformerLM(cfg, device="cuda")
+        gpu.load_state_dict(cpu.state_dict())
+        return cpu, gpu
+
+    rng = np.random.default_rng(9)
+    prompt = torch.tensor(rng.integers(0, 256, (4, 24)))
+    calls = [prompt[:, s:s + 8] for s in range(0, 24, 8)] + [
+        torch.tensor(rng.integers(0, 256, (4, 1))) for _ in range(4)]
+
+    def decode_calls(model):
+        cache = decode.init_cache(model, 4)
+        with torch.no_grad():
+            return [model(c.to(model.embedding.device), cache=cache).cpu() for c in calls]
+
+    logit_errs = {}
+    for name, overrides in (("plain", {}), ("int8_kv", dict(quantized_kv_cache=True)),
+                            ("rolling_sinks", dict(sliding_window=8, attention_sinks=2,
+                                                   rolling_cache=True))):
+        cpu, gpu = pair(**overrides)
+        err = max((a - b).abs().max().item()
+                  for a, b in zip(decode_calls(gpu), decode_calls(cpu)))
+        logit_errs[name] = err
+        if not err <= SERVE_LOGIT_TOL:
+            raise AssertionError(f"serve_check {name}: card logits off by {err}")
+
+    cpu, gpu = pair()
+    prompts = [rng.integers(0, 256, 3 + i % 6).astype(np.int32) for i in range(10)]
+    caps = [5 + 3 * (i % 4) for i in range(10)]
+    streams = []
+    for model in (cpu, gpu):
+        engine = serve.ContinuousEngine(model, max_batch=4, sync_steps=4, max_new_tokens=16)
+        queue, got = list(range(10)), {}
+        while queue or engine.busy:
+            while queue and engine.busy < engine.slots:
+                i = queue.pop(0)
+                engine.admit(str(i), prompts[i], {"max_new_tokens": caps[i]})
+            for event in engine.step():
+                got.setdefault(int(event["rid"]), []).extend(event["tokens"])
+        streams.append([got[i] for i in range(10)])
+    # compare up to each CPU stream's first near-tie
+    compared = equal = 0
+    for p, want, have in zip(prompts, *streams):
+        seq = torch.tensor(np.concatenate([p, want]))[None]
+        with torch.no_grad():
+            logits = cpu(seq)[0, p.size - 1:-1]
+        top2 = torch.topk(logits, 2).values
+        clear = (top2[:, 0] - top2[:, 1] > SERVE_MARGIN).tolist() + [False]
+        n = clear.index(False)
+        compared += n
+        equal += int(have[:n] == want[:n])
+        if have[:n] != want[:n]:
+            raise AssertionError(f"serve_check: card stream {have} != CPU stream {want}")
+    return {"logits_max_abs_err": logit_errs, "tol": SERVE_LOGIT_TOL,
+            "engine_streams_equal": equal, "engine_streams": len(prompts),
+            "tokens_compared": compared, "margin": SERVE_MARGIN}
+
+
+def serve_phase() -> dict:
+    from covalent_tpu_plugin_torch import GPUExecutor
+    from covalent_tpu_plugin_torch.models.serve import serve_lm
+
+    executor = GPUExecutor(
+        transport="local", cache_dir=str(WORK / "cache"), remote_cache=str(WORK / "remote"),
+        remote_workdir=str(WORK / "work"), python_path=sys.executable, poll_freq=0.5,
+        task_timeout=600, task_env={"PYTHONPATH": str(ROOT)},
+    )
+    wall = time.perf_counter()
+    out = asyncio.run(executor.run(serve_lm, [], {"seed": 0},
+                                   {"dispatch_id": "chip_smoke", "node_id": 2}))
+    out["electron_wall_s"] = time.perf_counter() - wall
+    serve = out["serve"]
+    problems = []
+    if not (serve["complete"] and out["decode"]["shape_ok"]):
+        problems.append("a request is incomplete or has the wrong length")
+    if not out["logits_finite"]:
+        problems.append("non-finite logits")
+    if not out["continuous_generate"]["streams_equal_engine"]:
+        problems.append("engine streams differ from continuous_generate's")
+    if not out["kv_int8_logit_cosine"] >= 0.999:
+        problems.append(f"int8 KV logit cosine {out['kv_int8_logit_cosine']} < 0.999")
+    if any(out["flash_launches"].values()):
+        problems.append(f"the decode path launched flash kernels: {out['flash_launches']}")
+    if problems:
+        raise AssertionError("serve: " + "; ".join(problems))
+    serve["streams"] = f"{len(serve['streams'])} streams, equal to continuous_generate's"
+    return out
+
+
+#: kernel-name fragments of cuBLAS/CUTLASS matrix products
+MATMUL_TAGS = ("gemm", "gemv", "xmma", "cutlass", "nvjet", "splitK")
+
+
+def serve_profile() -> dict:
+    """One batch-8 decode step of the 125M LM (bf16 weights, 8 live rows at
+    position 128) under torch.profiler, in this process."""
+    import numpy as np
+    import torch
+
+    from covalent_tpu_plugin_torch.models import decode, serve
+    from covalent_tpu_plugin_torch.models.transformer import TransformerLM, lm_125m_config
+
+    model = decode.inference_params(TransformerLM(
+        lm_125m_config(max_seq=512), device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(0)))
+    engine = serve.ContinuousEngine(model, max_batch=8, sync_steps=4, max_new_tokens=256)
+    rng = np.random.default_rng(1)
+    for i in range(8):
+        engine.admit(str(i), rng.integers(0, 32768, 128), {"max_new_tokens": 256})
+    step = lambda: serve._run_steps(model, engine._state, 1, 0.0, None, None, None)  # noqa: E731
+    with torch.no_grad():
+        engine.step()  # admission wave and 4 warm steps
+        torch.cuda.synchronize()
+        # the same step unprofiled: host clock around 16 steps and a sync
+        unprofiled = time.perf_counter()
+        for _ in range(16):
+            step()
+        torch.cuda.synchronize()
+        unprofiled = (time.perf_counter() - unprofiled) / 16
+        # the lm_head's bf16 weight goes back to f32 every step (the
+        # reference's f32 logits), then an f32 product
+        weight = model.lm_head.weight
+        feats = torch.randn(8, 1, weight.shape[1], device="cuda")
+        lm_head_cast_ms = device_ms(lambda: weight.to(torch.float32), 20)
+        w32 = weight.to(torch.float32)
+        lm_head_gemm_ms = device_ms(lambda: torch.nn.functional.linear(feats, w32), 20)
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            wall = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - wall
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    spans = [e.time_range for e in events if getattr(e, "is_user_annotation", False)
+             and e.name == "decode_attention"]
+    kernels = [e for e in events if not getattr(e, "is_user_annotation", False)]
+    if not kernels or len(spans) != model.config.n_layers:
+        raise AssertionError(f"serve_profile: {len(kernels)} device events and {len(spans)} "
+                             "decode_attention ranges on the device; expected one a layer")
+
+    def in_attention(evt) -> bool:
+        r = evt.time_range
+        return any(s.start <= r.start and r.end <= s.end for s in spans)
+
+    kinds = {"attention_products": 0.0, "attention_other": 0.0, "matmul": 0.0,
+             "elementwise_other": 0.0}
+    by_name: dict[str, list] = {}
+    for evt in kernels:
+        ms = evt.time_range.elapsed_us() / 1e3
+        gemm = any(tag in evt.name for tag in MATMUL_TAGS)
+        if in_attention(evt):
+            kinds["attention_products" if gemm else "attention_other"] += ms
+        else:
+            kinds["matmul" if gemm else "elementwise_other"] += ms
+        entry = by_name.setdefault(evt.name, [0.0, 0])
+        entry[0] += ms
+        entry[1] += 1
+    step_device_ms = sum(kinds.values())
+    engine.close()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    return {
+        "step_wall_ms": wall * 1e3, "unprofiled_step_wall_ms": unprofiled * 1e3,
+        "device_ms": step_device_ms,
+        "device_busy_share": step_device_ms / (wall * 1e3),
+        "device_busy_share_unprofiled": step_device_ms / (unprofiled * 1e3),
+        "lm_head_cast_ms": lm_head_cast_ms, "lm_head_gemm_ms": lm_head_gemm_ms,
+        "device_ms_by_kind": kinds, "kernel_launches": len(kernels),
+        "top": [{"name": n[:80], "ms": ms, "calls": c} for n, (ms, c) in top],
+    }
+
+
 def main() -> int:
     import torch
 
@@ -556,6 +768,17 @@ def main() -> int:
               "electron_wall_s": arm["wall_s"], "device": arm["device"], "card": smi})
 
     emit({"phase": "profile", "card": smi, **profile_phase()})
+
+    emit({"phase": "serve_check", **serve_check()})
+    # The serving path.  It runs no kernel of the port (its attention is
+    # plain products over the KV cache): the electron resets the launch
+    # counts in its own process and reports them, and they must stay 0.
+    _kernels.reset_launch_counts()
+    served = serve_phase()
+    if any(_kernels.launch_counts().values()):
+        raise AssertionError(f"serve: flash kernels launched {_kernels.launch_counts()}")
+    emit({"phase": "serve", "card": smi, **served})
+    emit({"phase": "serve_profile", "card": smi, **serve_profile()})
 
     kernels = []
     for kernel in _kernels.KERNELS:

@@ -8,7 +8,9 @@ stacked on a leading layer axis under ``layers`` (``scan_layers=True``) or
 unrolled as ``layer_{i}`` (``scan_layers=False``); both convert.
 
 The input is nested dicts of numpy arrays (``jax.tree.map(np.asarray, ...)``
-of unboxed params), so this module needs no JAX.
+of unboxed params), so this module needs no JAX.  Float32 leaves become
+``config.param_dtype`` (RMSNorm scales stay float32); bfloat16 leaves, as in
+the reference's ``inference_params`` tree, stay bfloat16, bit for bit.
 """
 
 from __future__ import annotations
@@ -65,12 +67,18 @@ def params_from_jax(params: dict, config: TransformerConfig) -> dict[str, torch.
     }
     for i, block in enumerate(blocks):
         state.update(_block(block, config, f"layers.{i}"))
-    return {
-        name: torch.from_numpy(np.array(value, order="C")).to(
-            torch.float32 if name.endswith(".scale") else config.param_dtype
-        )
-        for name, value in state.items()
-    }
+    return {name: _tensor(name, value, config) for name, value in state.items()}
+
+
+def _tensor(name: str, value, config: TransformerConfig) -> torch.Tensor:
+    array = np.array(value, order="C")
+    if array.dtype.name == "bfloat16":
+        # numpy knows bfloat16 only through JAX's ml_dtypes, and torch does
+        # not take it: reinterpret the 16 bits instead.
+        return torch.from_numpy(array.view(np.uint16).view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(array).to(
+        torch.float32 if name.endswith(".scale") else config.param_dtype
+    )
 
 
 def _leaves(tree):

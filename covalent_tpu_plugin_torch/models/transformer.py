@@ -1,12 +1,18 @@
 """Decoder-only transformer LM (BASELINE config 5: the 125M pretrain).
 
-Counterpart of ``covalent_tpu_plugin/models/transformer.py``, training path
-only: bfloat16 activations, float32 master weights, RMSNorm, half-split
-rotary embeddings, tanh-GELU MLP, and an lm_head in ``logits_dtype``.  Every
-numerical choice follows the reference (casts included), so weights
-converted with :func:`..models.convert.params_from_jax` give the same
-logits.  On CUDA tensors ``attention="auto"`` resolves to the hand-written
-flash kernels; elsewhere to the dense reference.
+Counterpart of ``covalent_tpu_plugin/models/transformer.py``: bfloat16
+activations, float32 master weights, RMSNorm, half-split rotary embeddings,
+tanh-GELU MLP, and an lm_head in ``logits_dtype``.  Every numerical choice
+follows the reference (casts included), so weights converted with
+:func:`..models.convert.params_from_jax` give the same logits.  On CUDA
+tensors ``attention="auto"`` resolves to the hand-written flash kernels;
+elsewhere to the dense reference.
+
+Incremental decoding passes an explicit KV cache, one :class:`LayerCache`
+per layer (``models/decode.py: init_cache``), to ``forward(tokens,
+cache=...)``, which updates it in place: the reference keeps the same state
+in flax's "cache" collection.  The cache has a cursor per row, so rows of
+one batch may sit at different positions (the serving engine's lanes).
 
 The reference's layer stacking (``scan_layers``) and logical sharding axes
 have no counterpart here: layers are an ``nn.ModuleList``, and the
@@ -22,16 +28,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.attention import flash_attention, mha_reference, on_cuda
+from ..ops.attention import NEG_INF, flash_attention, mha_reference, on_cuda
 
 #: Config knobs that later slices of the port bring, with the slice that
 #: does.  Setting one raises instead of being silently ignored.
+SLICE_3 = "slice 3 (quantization, LoRA, speculative and beam decoding)"
 _LATER_SLICES = {
-    "decode": "slice 2 (serving)",
-    "rolling_cache": "slice 2 (serving)",
-    "quantized_kv_cache": "slice 2 (serving)",
-    "quantized": "slice 3 (quantization, LoRA, speculative and beam decoding)",
-    "lora_rank": "slice 3 (quantization, LoRA, speculative and beam decoding)",
+    "quantized": SLICE_3,
+    "lora_rank": SLICE_3,
     "moe_experts": "slice 4 (scale-out)",
     "mesh": "slice 4 (scale-out)",
     "remat": "slice 5 (remat and the rest of the executor)",
@@ -61,10 +65,14 @@ class TransformerConfig:
     attention_sinks: int = 0
     #: rotary embedding wavelength base (theta).
     rope_base: float = 10000.0
-    # Knobs of later slices (see _LATER_SLICES); only the defaults run here.
+    #: incremental decoding only: ``forward`` then needs a ``cache``.
     decode: bool = False
+    #: circular KV cache of ``sliding_window + attention_sinks`` slots
+    #: (sink slots pinned) instead of ``max_seq``.
     rolling_cache: bool = False
+    #: int8 KV cache with one f32 scale per (row, slot, kv head).
     quantized_kv_cache: bool = False
+    # Knobs of later slices (see _LATER_SLICES); only the defaults run here.
     quantized: bool = False
     lora_rank: int = 0
     moe_experts: int = 0
@@ -120,20 +128,66 @@ def resolve_device(device=None) -> torch.device:
     return device
 
 
-def _rotary(x: torch.Tensor, base: float = 10000.0) -> torch.Tensor:
-    """Rotary position embedding over (B, S, H, D) with D even, half-split;
-    cos/sin are cast to the activation dtype before the multiply."""
-    _, seq_len, _, head_dim = x.shape
+def _rotary_tables(positions: torch.Tensor, head_dim: int, base: float, dtype):
+    """cos and sin, (B or 1, S, 1, D/2) in ``dtype``, for float positions of
+    shape (S,) or (B, S)."""
     half = head_dim // 2
     freqs = base ** (
-        -torch.arange(0, half, dtype=torch.float32, device=x.device) / half
+        -torch.arange(0, half, dtype=torch.float32, device=positions.device) / half
     )
-    positions = torch.arange(seq_len, dtype=torch.float32, device=x.device)
-    angles = positions[:, None] * freqs[None, :]
-    cos = torch.cos(angles)[None, :, None, :].to(x.dtype)
-    sin = torch.sin(angles)[None, :, None, :].to(x.dtype)
+    angles = positions.to(torch.float32)[..., None] * freqs
+    if angles.dim() == 2:
+        angles = angles[None]
+    return torch.cos(angles)[:, :, None, :].to(dtype), torch.sin(angles)[:, :, None, :].to(dtype)
+
+
+def _apply_rotary(x: torch.Tensor, cos, sin) -> torch.Tensor:
+    half = x.shape[-1] // 2
     x1, x2 = x[..., :half], x[..., half:]
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+
+
+def _rotary(x: torch.Tensor, base: float = 10000.0,
+            positions: torch.Tensor | None = None) -> torch.Tensor:
+    """Rotary position embedding over (B, S, H, D) with D even, half-split;
+    cos/sin are cast to the activation dtype before the multiply.
+
+    ``positions`` ((S,) or per row (B, S)) are the absolute positions of the
+    S tokens, 0..S-1 when omitted: the reference's ``offset + arange(S)``,
+    with a cursor per row instead of one offset.
+    """
+    if positions is None:
+        positions = torch.arange(x.shape[1], device=x.device)
+    return _apply_rotary(x, *_rotary_tables(positions, x.shape[-1], base, x.dtype))
+
+
+@dataclasses.dataclass
+class LayerCache:
+    """One layer's KV cache, updated in place by a decoding ``forward``.
+
+    ``k``/``v`` are (B, L, kv heads, D) in the activation dtype, or int8 with
+    f32 ``k_scale``/``v_scale`` of shape (B, L, kv heads, 1).  ``cursor``
+    (B,) is each row's next position.  ``slot_pos`` (B, L), rolling caches
+    only, is the absolute position each slot holds, -1 never written.
+    ``bound`` is a host-side upper bound of ``cursor``, so a write that would
+    run past the cache raises without reading the cursor from the device.
+    """
+
+    k: torch.Tensor
+    v: torch.Tensor
+    cursor: torch.Tensor
+    bound: int = 0
+    k_scale: torch.Tensor | None = None
+    v_scale: torch.Tensor | None = None
+    slot_pos: torch.Tensor | None = None
+
+
+def _quantize_kv(x: torch.Tensor):
+    """Symmetric int8 per (b, s, h): scale = max(amax over D, 1e-8) / 127,
+    rounded half to even and clipped to +-127, as the reference."""
+    x32 = x.float()
+    scale = x32.abs().amax(dim=-1, keepdim=True).clamp_min(1e-8) / 127.0
+    return torch.clamp(torch.round(x32 / scale), -127, 127).to(torch.int8), scale
 
 
 class Dense(nn.Module):
@@ -186,12 +240,14 @@ class Attention(nn.Module):
         # residual-output kernel: depth-scaled init (GPT-2 convention)
         self.out_proj = dense(cfg.n_heads * hd, d, 0.02 / (2 * cfg.n_layers) ** 0.5)
 
-    def forward(self, x):
+    def forward(self, x, cache: LayerCache | None = None):
         cfg = self.cfg
         batch, seq, _ = x.shape
         q = self.q_proj(x).view(batch, seq, cfg.n_heads, cfg.head_dim)
         k = self.k_proj(x).view(batch, seq, self.kv_heads, cfg.head_dim)
         v = self.v_proj(x).view(batch, seq, self.kv_heads, cfg.head_dim)
+        if cache is not None:
+            return self._decode_step(q, k, v, cache)
         q = _rotary(q, base=cfg.rope_base)
         k = _rotary(k, base=cfg.rope_base)
         # (B, S, H, D) -> (B, H, S, D) for the attention kernels
@@ -204,6 +260,108 @@ class Attention(nn.Module):
                      sinks=cfg.attention_sinks)
         out = out.transpose(1, 2).reshape(batch, seq, cfg.n_heads * cfg.head_dim)
         return self.out_proj(out)
+
+    def _decode_step(self, q, k, v, cache: LayerCache):
+        """Incremental attention against the layer's KV cache.
+
+        A multi-token call is a prefill: the slab's K/V land in the cache at
+        each row's cursor and the slab attends the cache with per-row causal
+        visibility by column position.  A one-token call is a decode step.
+        The attention is plain products over the cache, as in the reference
+        (``transformer.py:465-500``): decode has no flash kernel.  A write
+        past the end of a plain cache raises (the reference's
+        ``dynamic_update_slice`` would clamp it).
+        """
+        cfg = self.cfg
+        batch, slab = q.shape[:2]
+        rolling, sinks, window = cfg.rolling_cache, cfg.attention_sinks, cfg.sliding_window
+        cache_len = cache.k.shape[1]
+        if slab > cache_len:
+            raise ValueError(f"slab of {slab} tokens exceeds the cache length {cache_len}")
+        if cache.bound + slab > cache_len and (not rolling or slab > window):
+            # A plain cache would overflow; a rolling slab wider than the
+            # window that wraps would scatter two tokens into one slot (the
+            # order of duplicate indices in a scatter is undefined).
+            raise ValueError(
+                f"a slab of {slab} tokens at cursor up to {cache.bound} does not fit "
+                f"the {'rolling ' if rolling else ''}cache of {cache_len} slots"
+                + (f" (rolling slabs that wrap must be <= sliding_window {window})"
+                   if rolling else "")
+            )
+        quant = cache.k_scale is not None
+        q_pos = cache.cursor[:, None] + torch.arange(slab, device=q.device)  # (B, S)
+        cos, sin = _rotary_tables(q_pos, cfg.head_dim, cfg.rope_base, q.dtype)
+        q, k = _apply_rotary(q, cos, sin), _apply_rotary(k, cos, sin)
+        if quant:
+            (k_store, k_s), (v_store, v_s) = _quantize_kv(k), _quantize_kv(v)
+        else:
+            k_store, v_store = k.to(cfg.dtype), v.to(cfg.dtype)
+
+        # Rolling multi-token slabs attend the pre-write cache plus the slab
+        # itself: the write below may overwrite ring slots that earlier slab
+        # rows still need.  torch.cat copies, so this is the snapshot.
+        if rolling and slab > 1:
+            attend_k = torch.cat([cache.k, k_store], dim=1)
+            attend_v = torch.cat([cache.v, v_store], dim=1)
+            if quant:
+                attend_ks = torch.cat([cache.k_scale, k_s], dim=1)
+                attend_vs = torch.cat([cache.v_scale, v_s], dim=1)
+            col_pos = torch.cat([cache.slot_pos, q_pos], dim=1)
+        if rolling:
+            # slot = position while p < sinks (pinned), else sinks + (p - sinks) % W
+            idx = torch.where(q_pos < sinks, q_pos, sinks + (q_pos - sinks) % window)
+        else:
+            idx = q_pos
+        rows = torch.arange(batch, device=q.device)[:, None]
+        cache.k[rows, idx] = k_store
+        cache.v[rows, idx] = v_store
+        if quant:
+            cache.k_scale[rows, idx] = k_s
+            cache.v_scale[rows, idx] = v_s
+        if rolling:
+            cache.slot_pos[rows, idx] = q_pos
+        cache.cursor += slab
+        cache.bound += slab
+        if not (rolling and slab > 1):
+            attend_k, attend_v = cache.k, cache.v
+            if quant:
+                attend_ks, attend_vs = cache.k_scale, cache.v_scale
+            col_pos = cache.slot_pos if rolling else torch.arange(cache_len, device=q.device)[None]
+
+        with torch.profiler.record_function("decode_attention"):
+            group = cfg.n_heads // self.kv_heads
+            qg = q.reshape(batch, slab, self.kv_heads, group, cfg.head_dim)
+            # The reference multiplies the dtype operands with an f32 result
+            # (preferred_element_type).  Here both operands are upcast to f32
+            # before the product: exact for bf16 inputs, f32 accumulation.
+            scores = torch.einsum(
+                "bqhgd,bshd->bhgqs", qg.float(), attend_k.to(cfg.dtype).float()
+            ) * (cfg.head_dim ** -0.5)
+            if quant:
+                # the scale is constant over D: applied after the product
+                scores = scores * attend_ks[..., 0].transpose(1, 2)[:, :, None, None, :]
+            # a query sees a column iff it is written, causal-past and in the
+            # band; sink positions stay visible at any distance
+            sp, qp = col_pos[:, None, :], q_pos[:, :, None]
+            visible = (sp >= 0) & (sp <= qp)
+            if window is not None:
+                in_band = sp > qp - window
+                if sinks:
+                    in_band |= sp < sinks
+                visible &= in_band
+            scores = torch.where(visible[:, None, None], scores, NEG_INF)
+            probs = torch.softmax(scores, dim=-1)
+            if quant:
+                # the V scale folds into the probabilities (constant over D)
+                probs = probs * attend_vs[..., 0].transpose(1, 2)[:, :, None, None, :]
+            probs = probs.to(cfg.dtype)
+            # P is rounded to the activation dtype first, as the reference;
+            # the product again upcasts to f32
+            out = torch.einsum(
+                "bhgqs,bshd->bqhgd", probs.float(), attend_v.to(cfg.dtype).float()
+            )
+        out = out.reshape(batch, slab, cfg.n_heads * cfg.head_dim)
+        return self.out_proj(out.to(cfg.dtype))
 
 
 class MlpBlock(nn.Module):
@@ -227,8 +385,8 @@ class Block(nn.Module):
         self.ln_mlp = RMSNorm(cfg.d_model, cfg.dtype, device)
         self.mlp = MlpBlock(cfg, device, generator)
 
-    def forward(self, x):
-        x = x + self.attention(self.ln_attn(x))
+    def forward(self, x, cache: LayerCache | None = None):
+        x = x + self.attention(self.ln_attn(x), cache)
         return x + self.mlp(self.ln_mlp(x))
 
 
@@ -236,6 +394,8 @@ class TransformerLM(nn.Module):
     """Causal LM: tokens (B, S) -> logits (B, S, vocab).
 
     ``device`` defaults to the card; ``generator`` seeds the weight init.
+    ``forward(tokens, cache=...)`` decodes against a KV cache (one
+    :class:`LayerCache` per layer, from ``models.decode.init_cache``).
     """
 
     def __init__(self, config: TransformerConfig, device=None,
@@ -254,16 +414,23 @@ class TransformerLM(nn.Module):
         self.lm_head = Dense(cfg.d_model, cfg.vocab_size, cfg.logits_dtype,
                              cfg.param_dtype, 0.02, device, generator)
 
-    def forward(self, tokens: torch.Tensor, return_features: bool = False):
+    def forward(self, tokens: torch.Tensor, return_features: bool = False,
+                cache: list[LayerCache] | None = None):
         cfg = self.config
         if tokens.shape[-1] > cfg.max_seq:
             raise ValueError(
                 f"sequence length {tokens.shape[-1]} exceeds config.max_seq "
                 f"{cfg.max_seq}"
             )
+        if cache is None:
+            if cfg.decode:
+                raise ValueError("a decode=True model needs a cache (models.decode.init_cache)")
+            cache = [None] * len(self.layers)
+        elif len(cache) != len(self.layers):
+            raise ValueError(f"cache has {len(cache)} layers, the model {len(self.layers)}")
         x = F.embedding(tokens, self.embedding.to(cfg.dtype))
-        for layer in self.layers:
-            x = layer(x)
+        for layer, layer_cache in zip(self.layers, cache):
+            x = layer(x, layer_cache)
         x = self.ln_final(x)
         if return_features:
             # The fused-xent loss (ops/xent.py) consumes the final features

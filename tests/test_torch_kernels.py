@@ -67,16 +67,32 @@ def _run(device, case, seed=0):
     return [t.detach().cpu().numpy() for t in (out, q.grad, k.grad, v.grad)]
 
 
+def _mismatches(got, want, seed) -> list[str]:
+    """For each output off by more than its tolerance: its name, largest
+    error, that error's index and values, and the case's seed."""
+    failures = []
+    for name, a, b in zip(("out", "dq", "dk", "dv"), got, want):
+        atol = FWD_ATOL if name == "out" else GRAD_ATOL
+        err = np.abs(a.astype(np.float64) - b)
+        err[np.isnan(err)] = np.inf
+        if err.max() > atol:
+            at = np.unravel_index(int(np.argmax(err)), err.shape)
+            failures.append(f"{name}: max abs error {err.max()} > {atol} at {tuple(map(int, at))} "
+                            f"(card {a[at]}, plain {b[at]}; seed {seed})")
+    return failures
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_kernels_match_plain_on_the_card(card, name):
+    seed = 0
     _kernels.reset_launch_counts()
-    got = _run(card, CASES[name])
+    got = _run(card, CASES[name], seed)
     torch.cuda.synchronize()
     assert _kernels.launch_counts() == {"flash_fwd": 1, "flash_bwd_dkdv": 1, "flash_bwd_dq": 1}
-    want = _run("cpu", CASES[name])
-    for i, (a, b) in enumerate(zip(got, want)):
-        np.testing.assert_allclose(a, b, rtol=0, atol=FWD_ATOL if i == 0 else GRAD_ATOL)
+    want = _run("cpu", CASES[name], seed)
+    failures = _mismatches(got, want, seed)
+    assert not failures, f"{name}: " + "; ".join(failures)
 
 
 @pytest.mark.cuda
@@ -202,6 +218,20 @@ def test_chip_smoke_parity_covers_the_tensor_core_route():
     covered = {(c["dtype"], c["shape"][-1]) for c in sixteen_bit}
     assert covered >= {(dt, d) for dt in ("bfloat16", "float16") for d in (64, 128)}
     assert any(not c["causal"] for c in sixteen_bit)
+
+
+def test_mismatch_report_names_output_error_index_and_seed():
+    """What the card test prints when a kernel disagrees with its plain
+    version (checked here on made-up arrays)."""
+    want = [np.zeros((1, 2, 3, 4), np.float32) for _ in range(4)]
+    got = [w.copy() for w in want]
+    got[2][0, 1, 2, 3] = 0.5
+    got[3][0, 0, 0, 0] = np.nan
+    report = _mismatches(got, want, seed=7)
+    assert len(report) == 2
+    assert report[0].startswith("dk: max abs error 0.5 > 0.0001 at (0, 1, 2, 3)")
+    assert "seed 7" in report[0] and report[1].startswith("dv: max abs error inf")
+    assert _mismatches(want, want, seed=7) == []
 
 
 def test_chip_smoke_parity_covers_gqa_and_ragged_queries():

@@ -207,6 +207,11 @@ def test_default_device_is_the_card():
     ("remat", True, "slice 5"),
 ])
 def test_later_slice_knobs_raise(knob, value, slice_name):
+    """Knobs of later slices raise, naming their slice; the serving knobs of
+    slice 2 are ported now and construct."""
+    if slice_name == "slice 2":
+        assert getattr(torch_tf.TransformerConfig(**{knob: value}), knob) == value
+        return
     with pytest.raises(NotImplementedError, match=slice_name):
         torch_tf.TransformerConfig(**{knob: value})
 

@@ -46,7 +46,20 @@ Phases, one JSON object per line on stdout, in this order:
     its other kernels apart, by the ``decode_attention`` ranges), the
     device's busy share against the profiled and the unprofiled step, and
     the f32 ``lm_head``'s weight cast and product alone.
-11. ``kernels``: every kernel with its launches on the main path, error, times
+11. ``session``: the serving cell through the resident session.
+    ``serving.open_session`` on ``GPUExecutor(use_agent="pool")`` opens the
+    125M LM (bf16 weights built on the card in the pool server from seed 0;
+    the factory ships the config and the seed) and serves the ``serve``
+    phase's 16 requests through one handle: open seconds, payload bytes,
+    the first request's TTFT and latency (the worker cold), then on the
+    warm worker tokens/s, TTFT and completion p50/p95 on the dispatcher,
+    streams equal to the ``serve`` phase's with the top-2 margin of each
+    that differs, the worker's peak memory and its flash launches (0).
+    Then the same traffic
+    again with the pool server killed once every stream has its first
+    tokens: every stream must complete at its budget, its chunks contiguous
+    on each generation and its delivered tokens the exact splice of them.
+12. ``kernels``: every kernel with its launches on the main path, error, times
     and bound, and the route (tensor-core or scalar kernel) each input type
     and head dim takes.
 
@@ -619,8 +632,228 @@ def serve_phase() -> dict:
         problems.append(f"the decode path launched flash kernels: {out['flash_launches']}")
     if problems:
         raise AssertionError("serve: " + "; ".join(problems))
+    # kept for the session phase; the printed line says what was checked
+    out["_streams"] = serve["streams"]
     serve["streams"] = f"{len(serve['streams'])} streams, equal to continuous_generate's"
     return out
+
+
+# --- the resident serving session: open_session through the pool server ------
+
+#: The ``serve`` cell's traffic (``serve_lm``'s defaults): 16 requests of 128
+#: prompt tokens, budgets 128 (even index) and 32 (odd), 8 slots, sync 32.
+SESSION = dict(requests=16, prompt_len=128, long=128, short=32, slots=8, sync_steps=32,
+               decode_batch=8)
+
+
+def counting_factory(inner):
+    """Wrap an engine factory so that the engine's stats (and so every
+    ``serve.stats`` record) carry the worker's flash-kernel launch counts,
+    and ``first_wave``: the requests admitted at the first step after the
+    engine was idle, for the latest burst of traffic.  Defined here, it
+    ships by value; ``inner`` is the port's, pickled by reference."""
+
+    def factory():
+        from covalent_tpu_plugin_torch.ops import _kernels
+
+        engine = inner()
+        _kernels.reset_launch_counts()
+        step = engine.step
+        idle = [True]
+
+        def step_and_count():
+            if idle[0]:
+                engine.stats["first_wave"] = engine.busy
+            events = step()
+            idle[0] = engine.busy == 0
+            engine.stats.update({f"launches.{k}": n for k, n in _kernels.launch_counts().items()})
+            return events
+
+        engine.step = step_and_count
+        return engine
+
+    return factory
+
+
+def session_prompts(vocab: int) -> tuple[list, list]:
+    """The serve phase's prompts and budgets: ``serve_lm`` draws its decode
+    batch from the same generator first."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    rng.integers(0, vocab, (SESSION["decode_batch"], SESSION["prompt_len"]))
+    prompts = [rng.integers(0, vocab, SESSION["prompt_len"]).astype(np.int32)
+               for _ in range(SESSION["requests"])]
+    caps = [SESSION["long"] if i % 2 == 0 else SESSION["short"] for i in range(len(prompts))]
+    return prompts, caps
+
+
+async def _serve_session(executor, serve_streams: list, config, device: str) -> dict:
+    import numpy as np
+    import torch
+
+    from covalent_tpu_plugin_torch.models import decode, serve
+    from covalent_tpu_plugin_torch.models.transformer import TransformerLM
+    from covalent_tpu_plugin_torch.serving import open_session
+
+    prompts, caps = session_prompts(config.vocab_size)
+    factory = counting_factory(serve.lm_engine_factory(
+        config=config, seed=0, device=device, max_batch=SESSION["slots"],
+        sync_steps=SESSION["sync_steps"], max_new_tokens=SESSION["long"]))
+
+    wall = time.perf_counter()
+    handle = await open_session(executor, factory, stats_interval_s=1.0, open_timeout_s=300)
+    open_s = time.perf_counter() - wall
+
+    async def traffic():
+        start = time.perf_counter()
+        requests = await asyncio.gather(*(
+            handle.request(p, params={"max_new_tokens": c}) for p, c in zip(prompts, caps)))
+        return start, requests
+
+    # the first request after the open finds the worker cold (CUDA's lazy
+    # module loading, the GEMM libraries' set-up); serve_lm's serve arm runs
+    # after its decode arm has warmed the same process.  Its prompt shares
+    # no prefix with the timed run's, so the prefix tree stays cold for them.
+    warm_prompt = np.random.default_rng(1).integers(0, config.vocab_size, SESSION["prompt_len"])
+    warm = await handle.request(warm_prompt, params={"max_new_tokens": SESSION["short"]})
+    await warm.result(timeout=600)
+
+    # timed run: 16 requests at once through the one handle
+    start, requests = await traffic()
+    results = await asyncio.gather(*(r.result(timeout=600) for r in requests))
+    wall = time.perf_counter() - start
+    ttft = [r.ttft_s for r in requests]
+    latency = [r.latency_s for r in requests]
+    # the worker's first serve.stats after the last completion: its flash
+    # launches and peak memory cover the timed run
+    while handle.stats.get("served", 0) < len(prompts) + 1:
+        await asyncio.sleep(0.05)
+    timed_stats = dict(handle.stats)
+
+    # the reconnect check: the same traffic again; kill the pool server once
+    # every stream has its first tokens; record every token record by
+    # generation to check the splice
+    sup = handle.supervisor
+    wire: dict = {}
+    inner_sink = sup._sink
+
+    def recording_sink(sid_g, data):
+        if data.get("type") == "serve.token":
+            wire.setdefault((data["rid"], sid_g), []).append((data["idx"], list(data["tokens"])))
+        inner_sink(sid_g, data)
+
+    sup._sink = recording_sink
+    sup._client.watch_serve(sup._sid_g, recording_sink)
+    _, again = await traffic()
+    while not all(r.tokens or r.done for r in again):
+        await asyncio.sleep(0.01)
+    before_kill = {r.rid: len(r.tokens) for r in again}
+    killed_at = time.perf_counter()
+    executor._agents["localhost"]._process._proc.kill()
+    while not (handle.reconnects == 1 and handle.state == "open") and handle.state != "failed":
+        await asyncio.sleep(0.01)
+    reconnect_s = time.perf_counter() - killed_at
+    outcomes = await asyncio.gather(*(r.result(timeout=600) for r in again),
+                                    return_exceptions=True)
+    closed = await handle.close()
+    stats = dict(handle.stats)  # the new generation's last serve.stats, sent at its close
+
+    problems = []
+    if any(len(s) != c for s, c in zip(results, caps)):
+        problems.append("a stream of the timed run is incomplete")
+    if not all(0 <= t < config.vocab_size for s in results for t in s):
+        problems.append("a token outside the vocabulary")
+    for r, c, out in zip(again, caps, outcomes):
+        if isinstance(out, BaseException) or len(out) != c:
+            problems.append(f"{r.rid} did not complete across the reconnect: {out!r}"[:300])
+            continue
+        pieces = {}
+        for (rid, sid_g), records in wire.items():
+            if rid != r.rid:
+                continue
+            idx = 0
+            for got_idx, tokens in records:
+                if got_idx != idx:
+                    problems.append(f"{rid} on {sid_g}: chunk at idx {got_idx}, expected {idx}")
+                idx += len(tokens)
+            pieces[sid_g] = [t for _, tokens in records for t in tokens]
+        # exactly once: what the caller got is all the first generation sent
+        # before it died, then the replay's wire from there on
+        first, *rest = [pieces[g] for g in sorted(pieces)]
+        spliced = first + (rest[-1][len(first):] if rest else [])
+        if out != spliced:
+            problems.append(f"{r.rid}: delivered stream is not the splice of its generations")
+    if handle.reconnects != 1:
+        problems.append(f"{handle.reconnects} reconnects, expected 1")
+    launches = {run: {k: v for k, v in st.items() if k.startswith("launches.")}
+                for run, st in (("timed_run", timed_stats), ("after_reconnect", stats))}
+    if any(n for counts in launches.values() for n in counts.values()):
+        problems.append(f"the session launched flash kernels: {launches}")
+
+    # the streams against the in-process serve phase's engine rows, and
+    # finite logits of the same weights (built here as the worker builds them)
+    model = decode.inference_params(TransformerLM(
+        config, device=device, generator=torch.Generator(device=device).manual_seed(0)))
+    with torch.no_grad():
+        logits = model(torch.as_tensor(np.stack(prompts), dtype=torch.long, device=device))
+    if not bool(torch.isfinite(logits).all()):
+        problems.append("non-finite logits")
+    divergences = []
+    for i, (p, want, got) in enumerate(zip(prompts, serve_streams, results)):
+        if got != want:
+            j = next((k for k, (a, b) in enumerate(zip(got, want)) if a != b), len(got))
+            with torch.no_grad():
+                margin = serve._top2_margin(model, np.concatenate([p, np.asarray(want[:j])]))
+            divergences.append({"request": i, "step": j, "serve_top2_margin": margin})
+    if problems:
+        raise AssertionError("session: " + "; ".join(problems))
+    tokens = sum(caps)
+    return {
+        "open_s": open_s, "payload_bytes": handle.payload_bytes,
+        "first_request": {"ttft_s": warm.ttft_s, "latency_s": warm.latency_s,
+                          "tokens": len(warm.tokens)},
+        "requests": len(prompts), "caps": caps, "slots": handle.slots,
+        "sync_steps": SESSION["sync_steps"], "wall_s": wall, "tokens_per_s": tokens / wall,
+        "ttft_s": {"p50": statistics.median(ttft), "p95": float(np.percentile(ttft, 95))},
+        "ttft_sorted_s": sorted(ttft), "first_wave": timed_stats.get("first_wave"),
+        "completion_s": {"p50": statistics.median(latency),
+                         "p95": float(np.percentile(latency, 95))},
+        "streams_equal_serve_phase": len(prompts) - len(divergences),
+        "divergences": divergences,
+        "worker_peak_mem_bytes": (timed_stats.get("device_mem") or {}).get("peak_bytes_in_use"),
+        "flash_launches": launches,
+        "reconnect": {"seconds": reconnect_s, "reconnects": handle.reconnects,
+                      "tokens_before_kill": sum(before_kill.values()),
+                      "generations": handle.generation,
+                      "streams_equal_first_run": sum(o == s for o, s in zip(outcomes, results)),
+                      "served": closed.get("served")},
+    }
+
+
+def session_phase(serve_streams: list) -> dict:
+    """The ``serve`` cell through the resident session: ``open_session`` on
+    ``GPUExecutor(use_agent="pool")``, the 125M LM built on the card in the
+    pool server from seed 0, 16 requests through one handle, then the
+    reconnect check.  Fails on an incomplete stream, a gap, a duplicate,
+    non-finite logits or a flash launch; reports divergences from the serve
+    phase's streams with their margins."""
+    from covalent_tpu_plugin_torch import GPUExecutor
+    from covalent_tpu_plugin_torch.models.transformer import lm_125m_config
+
+    executor = GPUExecutor(
+        transport="local", cache_dir=str(WORK / "cache"), remote_cache=str(WORK / "remote"),
+        python_path=sys.executable, use_agent="pool", task_env={"PYTHONPATH": str(ROOT)},
+    )
+
+    async def run():
+        try:
+            return await _serve_session(executor, serve_streams, lm_125m_config(max_seq=512),
+                                        "cuda")
+        finally:
+            await executor.close()
+
+    return asyncio.run(run())
 
 
 #: kernel-name fragments of cuBLAS/CUTLASS matrix products
@@ -777,8 +1010,11 @@ def main() -> int:
     served = serve_phase()
     if any(_kernels.launch_counts().values()):
         raise AssertionError(f"serve: flash kernels launched {_kernels.launch_counts()}")
+    serve_streams = served.pop("_streams")
     emit({"phase": "serve", "card": smi, **served})
     emit({"phase": "serve_profile", "card": smi, **serve_profile()})
+    # The resident session: the serve cell's traffic through open_session.
+    emit({"phase": "session", "card": smi, **session_phase(serve_streams)})
 
     kernels = []
     for kernel in _kernels.KERNELS:

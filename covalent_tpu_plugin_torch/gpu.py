@@ -7,9 +7,15 @@ harness detached, poll until its result file appears (or its process dies),
 fetch and unpickle ``(result, exception)``, clean up on both sides, and
 re-raise a remote exception locally.
 
-The reference's resident agent, RPC mode, content-addressed cache, fleet,
-retries, observability and serving wait for later slices, as do the SSH
-transport and multi-process gangs.
+With ``use_agent="pool"`` the executor also keeps a resident pool server
+per worker (the port's ``harness.py --serve``, started lazily and proved by
+a ping before each use): the runtime that ``serving.open_session`` opens
+its sessions on.  Electrons still run detached in launch mode: the pool's
+``run`` verb and RPC mode come with slice 5.
+
+The native C++ agent comes with ROADMAP item 2c; the content-addressed
+cache, fleet, retries and observability, the SSH transport and
+multi-process gangs with later slices.
 """
 
 from __future__ import annotations
@@ -21,9 +27,10 @@ import shlex
 import uuid
 from enum import Enum
 from pathlib import Path
-from typing import Any, Callable
+from typing import Any, Callable, NamedTuple
 
 from . import harness as _harness_module
+from .agent import AgentClient, AgentError, start_pool_server
 from .executor_base import RemoteExecutor
 from .transport import LocalTransport, Transport, TransportError
 from .utils.log import app_log
@@ -71,6 +78,13 @@ class StagedTask:
         ]
 
 
+class GangLease(NamedTuple):
+    """The warmed channels of one lease: one per worker, with its address."""
+
+    conns: list[Transport]
+    addresses: list[str]
+
+
 class GPUExecutor(RemoteExecutor):
     """Executor plugin: ``@ct.electron(executor=GPUExecutor(...))``.
 
@@ -78,6 +92,9 @@ class GPUExecutor(RemoteExecutor):
     the electron runs (``CUDA_VISIBLE_DEVICES`` pins the card there);
     ``profile_dir`` traces the electron with ``torch.profiler`` into
     ``{profile_dir}/{operation_id}/trace.json`` on the worker.
+
+    ``use_agent="pool"`` enables the resident pool server (serving
+    sessions); ``task_env`` is in its environment from the start.
     """
 
     SHORT_NAME = "gpu"
@@ -85,6 +102,10 @@ class GPUExecutor(RemoteExecutor):
     #: How long a task may stay STARTING (no result, no pid file) before it
     #: is declared DEAD.
     STARTING_GRACE_S = 30.0
+
+    #: How long a cached pool server may take to answer the ping that
+    #: proves it before each use.
+    AGENT_PING_TIMEOUT_S = 15.0
 
     def __init__(
         self,
@@ -99,11 +120,17 @@ class GPUExecutor(RemoteExecutor):
         task_env: dict[str, str] | None = None,
         do_cleanup: bool = True,
         profile_dir: str = "",
+        use_agent: bool | str = False,
     ) -> None:
         if transport != "local":
             raise NotImplementedError(
                 f"transport={transport!r} is not ported yet: the SSH transport "
                 "comes with slice 5 (the rest of the executor)"
+            )
+        if use_agent not in (False, "pool"):
+            raise NotImplementedError(
+                f"use_agent={use_agent!r} is not ported yet: the native agent comes "
+                "with ROADMAP item 2c; use_agent='pool' is the resident runtime"
             )
         super().__init__(poll_freq=poll_freq, remote_cache=remote_cache)
         self.cache_dir = str(Path(cache_dir).expanduser().resolve())
@@ -114,7 +141,14 @@ class GPUExecutor(RemoteExecutor):
         self.task_env = dict(task_env or {})
         self.do_cleanup = do_cleanup
         self.profile_dir = profile_dir
+        self.use_agent = use_agent
         self._pids: dict[str, int] = {}
+        #: address -> the pooled channel and its resident pool server.
+        self._transports: dict[str, Transport] = {}
+        self._agents: dict[str, AgentClient] = {}
+        self._agent_locks: dict[str, asyncio.Lock] = {}
+        #: sid -> live serving-session supervisor (``serve_sessions``).
+        self._serve_handles: dict[str, Any] = {}
 
     # ------------------------------------------------------------------ #
     # Stage / upload / submit                                             #
@@ -269,6 +303,77 @@ class GPUExecutor(RemoteExecutor):
         result = await conn.remove(staged.remote_files())
         if result.exit_status != 0:
             app_log.warning("cleanup on %s: %s", conn.address, result.stderr.strip())
+
+    # ------------------------------------------------------------------ #
+    # Resident pool servers (reference: tpu.py lease_gang, _agent_for,   #
+    # _discard_workers, close)                                            #
+    # ------------------------------------------------------------------ #
+
+    def serve_sessions(self) -> dict[str, dict[str, Any]]:
+        """sid -> live serving-session view (state, slots, queue depth,
+        tokens/s)."""
+        return {sid: handle.status() for sid, handle in list(self._serve_handles.items())}
+
+    def _worker_addresses(self) -> list[str]:
+        return ["localhost"]  # the local transport's one worker
+
+    async def lease_gang(self, dialed: list[Transport] | None = None) -> GangLease:
+        """Connect to every worker and warm its pool server.
+
+        ``dialed`` receives the channels as soon as they exist, before the
+        warm-up can fail, so a caller that discards a failed attempt's
+        channels holds them either way.
+        """
+        addresses = self._worker_addresses()
+        conns = [self._transports.setdefault(a, LocalTransport()) for a in addresses]
+        if dialed is not None:
+            dialed.extend(conns)
+        await asyncio.gather(*(self._agent_for(c) for c in conns))
+        return GangLease(conns, addresses)
+
+    async def _agent_for(self, conn: Transport) -> AgentClient | None:
+        """A live pool server for this worker (None with ``use_agent`` off).
+
+        A cached server is proved by a ping before it is handed out; one
+        that fails it is replaced.  One start at a time per worker.
+        """
+        if not self.use_agent:
+            return None
+        lock = self._agent_locks.setdefault(conn.address, asyncio.Lock())
+        async with lock:
+            client = self._agents.get(conn.address)
+            if client is not None:
+                if client.alive:
+                    try:
+                        await client.ping(self.AGENT_PING_TIMEOUT_S)
+                        return client
+                    except AgentError as err:
+                        app_log.warning("worker %s: cached pool server failed ping (%s); "
+                                        "restarting it", conn.address, err)
+                await client.close()
+                self._agents.pop(conn.address, None)
+            client = await start_pool_server(
+                conn, self.remote_cache, self.python_path, env=self.task_env
+            )
+            self._agents[conn.address] = client
+            return client
+
+    async def _discard_workers(self, conns: list[Transport] | None = None) -> None:
+        """Drop the pooled channels (``None``: all of them) and their pool
+        servers after a control-plane failure, so the next lease starts
+        fresh ones."""
+        for address, conn in list(self._transports.items()):
+            if conns is not None and not any(conn is c for c in conns):
+                continue
+            self._transports.pop(address, None)
+            client = self._agents.pop(address, None)
+            if client is not None:
+                await client.close()
+            await conn.close()
+
+    async def close(self) -> None:
+        """Shut every pool server down and release the channels."""
+        await self._discard_workers()
 
     # ------------------------------------------------------------------ #
     # Orchestration                                                       #

@@ -981,14 +981,62 @@ class ContinuousEngine:
                 )
 
 
-def lm_engine_factory(model: TransformerLM, **engine_kwargs) -> Callable[[], ContinuousEngine]:
+class _LMEngineFactory:
+    """See :func:`lm_engine_factory`.  Pickles as host data: the config and
+    either the weights as CPU tensors or only their seed."""
+
+    def __init__(self, model: TransformerLM | None, config, seed: int | None, device,
+                 engine_kwargs: dict) -> None:
+        self._model = model
+        self.config = model.config if model is not None else config
+        self.seed = seed
+        self.device = device
+        self.engine_kwargs = engine_kwargs
+        self.weights: dict[str, torch.Tensor] | None = None
+
+    def __getstate__(self) -> dict:
+        state = dict(self.__dict__, _model=None)
+        if self._model is not None:
+            state["weights"] = {name: t.detach().cpu()
+                                for name, t in self._model.state_dict().items()}
+        return state
+
+    def _build(self) -> TransformerLM:
+        device = resolve_device(self.device)
+        if self.weights is None:
+            generator = torch.Generator(device=device).manual_seed(self.seed)
+            return inference_params(TransformerLM(self.config, device=device,
+                                                  generator=generator))
+        model = TransformerLM(self.config, device=device)
+        # assign: the shipped tensors keep their dtype (bf16 inference weights)
+        model.load_state_dict({k: v.to(device) for k, v in self.weights.items()}, assign=True)
+        return model
+
+    def __call__(self) -> ContinuousEngine:
+        model = self._model if self._model is not None else self._build()
+        return ContinuousEngine(model, **self.engine_kwargs)
+
+
+def lm_engine_factory(model: TransformerLM | None = None, *, config=None, seed: int | None = None,
+                      device=None, **engine_kwargs) -> Callable[[], ContinuousEngine]:
     """A zero-argument serving-session factory for an LM: calling it builds
-    the :class:`ContinuousEngine` where the session lives."""
+    the :class:`ContinuousEngine` where the session lives.
 
-    def factory() -> ContinuousEngine:
-        return ContinuousEngine(model, **engine_kwargs)
-
-    return factory
+    Give the ``model``, or a ``config`` and the ``seed`` of its weights (the
+    bf16 inference weights ``serve_lm`` builds: the model initialised from a
+    generator seeded with ``seed`` on the device, then
+    :func:`~.decode.inference_params`).  Called in this process, a model's
+    factory serves that model as it is.  Cloudpickled for a resident worker
+    (``serving.open_session``), the factory carries host data only: the
+    config and the model's weights as CPU tensors, or just the seed, whose
+    payload is a few hundred bytes.  The worker then builds the model on
+    ``device``: the card unless ``device="cpu"``.  The class is pickled by
+    reference, so the worker must import this package (``task_env`` with
+    ``PYTHONPATH``).
+    """
+    if (model is None) == (config is None) or (config is not None and seed is None):
+        raise ValueError("lm_engine_factory needs a model, or a config and a seed")
+    return _LMEngineFactory(model, config, seed, device, engine_kwargs)
 
 
 # --- the serving electron ----------------------------------------------------

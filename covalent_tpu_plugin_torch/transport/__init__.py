@@ -1,5 +1,6 @@
-"""Control-plane transports of the PyTorch port (local only in this slice;
-SSH, pooling, chaos and the codec come with a later slice)."""
+"""Control-plane transports of the PyTorch port: the local transport and
+its persistent process channels (JSONL).  SSH, pooling, chaos, the codec
+and binary frames come with later slices."""
 
 from .base import CommandResult, Transport, TransportError
 from .local import LocalTransport

@@ -1,5 +1,6 @@
 """Transport interface (own copy of ``covalent_tpu_plugin/transport/base.py``,
-cut to what launch-mode dispatch uses).
+cut to what launch-mode dispatch and the
+resident pool server use).
 
 Distills the operations the reference performs over its connection object —
 ``conn.run(cmd)`` (``covalent_ssh_plugin/ssh.py:383``), upload
@@ -48,6 +49,14 @@ class Transport(ABC):
     @abstractmethod
     async def close(self) -> None:
         """Release the channel (idempotent)."""
+
+    async def start_process(self, command: str, describe: str = ""):
+        """Start a long-lived remote process with piped stdin/stdout.
+
+        Returns a :class:`~.process.TransportProcess`.  Optional: backends
+        that cannot hold a persistent channel raise.
+        """
+        raise TransportError(f"{type(self).__name__} does not support persistent processes")
 
     async def remove(self, paths: list[str]) -> CommandResult:
         """Best-effort delete of worker-side files (reference cleanup,

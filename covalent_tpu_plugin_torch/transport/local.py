@@ -42,6 +42,18 @@ class LocalTransport(Transport):
             stderr=stderr.decode(errors="replace"),
         )
 
+    async def start_process(self, command: str, describe: str = ""):
+        if self._closed:
+            raise TransportError("transport is closed")
+        from .process import start_local_process
+
+        # `exec` so the handle we keep (and can kill) IS the target process,
+        # not a lingering shell wrapper holding the pipes open.
+        return await start_local_process(
+            ["/bin/sh", "-c", f"exec {command}"],
+            describe or f"local:{command.split()[0]}",
+        )
+
     async def remove(self, paths: list[str]) -> CommandResult:
         """Direct unlink, no shell: mirrors ``rm -f`` (missing files are
         fine; other failures surface as a nonzero exit + stderr)."""

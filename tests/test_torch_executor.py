@@ -133,14 +133,15 @@ import covalent_tpu_plugin_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
-print(len(names), sorted(foreign() - before))
+print(len(names), sorted(foreign() - before), " ".join(names))
 """
-    # the serving modules of the port are among those walked
-    assert {"decode.py", "serve.py"} <= {p.name for p in (REPO / "covalent_tpu_plugin_torch" /
-                                                          "models").iterdir()}
     proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    count, added = proc.stdout.split(" ", 1)
-    assert int(count) >= 17
-    assert added.strip() == "[]"
+    count, added, walked = proc.stdout.strip().split(" ", 2)
+    # the serving modules and the resident session's are among those walked
+    assert {f"covalent_tpu_plugin_torch.{m}" for m in (
+        "models.decode", "models.serve", "agent", "cache", "resilience", "serving",
+        "serving.handle", "serving.supervisor", "transport.process")} <= set(walked.split())
+    assert int(count) >= 27
+    assert added == "[]"

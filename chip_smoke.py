@@ -59,7 +59,18 @@ Phases, one JSON object per line on stdout, in this order:
     again with the pool server killed once every stream has its first
     tokens: every stream must complete at its budget, its chunks contiguous
     on each generation and its delivered tokens the exact splice of them.
-12. ``kernels``: every kernel with its launches on the main path, error, times
+12. ``lattice``: the source paper's own workloads (BASELINE configs 2-4), each
+    electron a ``@ct.electron(executor="gpu")`` of a ``@ct.lattice`` of
+    ``covalent_tpu_plugin_torch.workflow``, dispatched with ``ct.dispatch_sync``:
+    config 2, the bf16 4096 x 4096 chain of 16 products rescaled by 1/4096
+    (TFLOP/s, MFU, ``check`` exactly 1.0); config 3, three fan-outs of 8
+    electrons (trivial, 0.3 s of sleep, one MNIST MLP Adam step on the card
+    each: 8 CUDA contexts at once), 3 trials each; config 4, the MNIST MLP and
+    CNN (``models.train.train_mnist``: 64 batches of 256, loss first and last,
+    steps/s); the dispatch overhead of a warm trivial electron over 5 probes
+    (``last_timings``), against BASELINE's budget of 2 s.  No flash kernel
+    runs.
+13. ``kernels``: every kernel with its launches on the main path, error, times
     and bound, and the route (tensor-core or scalar kernel) each input type
     and head dim takes.
 
@@ -72,6 +83,7 @@ from __future__ import annotations
 
 import asyncio
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -860,6 +872,186 @@ def session_phase(serve_streams: list) -> dict:
 MATMUL_TAGS = ("gemm", "gemv", "xmma", "cutlass", "nvjet", "splitK")
 
 
+# --- slice 1b: the source paper's workloads as lattices (BASELINE configs 2-4) -
+
+#: Config 2 (``bench.py:1134-1179``): n, products per chain, timed chains.
+MATMUL_N, MATMUL_CHAIN, MATMUL_REPS = 4096, 16, 50
+#: Config 3 (``bench.py:2413-2470``): electrons per fan-out, trials, busy seconds.
+FANOUT, FANOUT_TRIALS, BUSY_S = 8, 3, 0.3
+#: Config 4 (``bench.py:1181-1253``): timed epochs over the 64 batches.
+MNIST_EPOCHS = 20
+OVERHEAD_PROBES = 5
+#: BASELINE.json's north star: under 2 s of dispatch overhead per electron.
+OVERHEAD_BUDGET_S = 2.0
+
+
+def matmul_chain_electron(n: int, chain_len: int, reps: int) -> dict:
+    """BASELINE config 2: a chain of ``chain_len`` bf16 products of all-ones
+    n x n matrices, each rescaled by 1/n so the chain stays exactly 1; the
+    fetched corner doubles as the check."""
+    import time
+
+    import torch
+
+    # cuBLAS may otherwise sum split-K partials in bf16, where a partial sum
+    # of ones that is not a power of two rounds: the check would not be 1.
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    x = torch.ones(n, n, dtype=torch.bfloat16, device="cuda")
+    y = torch.ones_like(x)
+    inv_n = 1.0 / n
+
+    def chain():
+        acc = x
+        for _ in range(chain_len):
+            acc = (acc @ y) * inv_n
+        return acc
+
+    out = chain()  # warm: cuBLAS handles and heuristics
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(reps):
+        out = chain()
+    torch.cuda.synchronize()
+    seconds = (time.perf_counter() - start) / reps
+    return {"seconds": seconds, "check": out[0, 0].item(), "all_ones": bool(out.eq(1).all()),
+            "device": torch.cuda.get_device_name(0)}
+
+
+def trivial_electron(i: int) -> int:
+    return i * i
+
+
+def busy_electron(i: int, seconds: float) -> int:
+    """Work of a known length: the fan-out's wall shows its concurrency."""
+    import time
+
+    time.sleep(seconds)
+    return i
+
+
+def mnist_step_electron(i: int) -> float:
+    """One Adam step of the MNIST MLP on the card, from seed ``i``: its loss."""
+    import torch
+
+    from covalent_tpu_plugin_torch.models import (
+        MLP, adam, make_classifier_train_step, synthetic_mnist)
+
+    model = MLP(generator=torch.Generator("cuda").manual_seed(i))
+    step = make_classifier_train_step(model, adam(model))
+    return float(step(synthetic_mnist(256, seed=i))["loss"])
+
+
+def _dispatch(ct, flow, *args) -> tuple:
+    """One lattice through ``ct.dispatch_sync``: (result, wall seconds)."""
+    start = time.perf_counter()
+    result = ct.dispatch_sync(flow)(*args)
+    wall = time.perf_counter() - start
+    if result.status is not ct.Status.COMPLETED:
+        raise AssertionError(f"lattice {flow.__name__}: {result.status.value}: {result.error}")
+    return result.result, wall
+
+
+def _percentile(values: list, q: float) -> float:
+    ordered = sorted(values)
+    return ordered[min(len(ordered) - 1, round(q * (len(ordered) - 1)))]
+
+
+def lattice_phase() -> tuple[list[dict], dict]:
+    """BASELINE configs 2-4 as lattices on ``executor="gpu"``: one line each."""
+    import math
+
+    import covalent_tpu_plugin_torch.workflow as ct
+    from covalent_tpu_plugin_torch.models.train import train_mnist
+    from covalent_tpu_plugin_torch.utils.config import set_config
+
+    # What executor="gpu" builds: GPUExecutor from [executors.gpu] (the
+    # config file main() points at); the workers import the port from here.
+    work = WORK / "lattice"
+    for key, value in {"cache_dir": str(work / "cache"), "remote_cache": str(work / "remote"),
+                       "remote_workdir": str(work / "work"), "python_path": sys.executable,
+                       "task_env": {"PYTHONPATH": str(ROOT)}, "task_timeout": 600}.items():
+        set_config(f"executors.gpu.{key}", value)
+    lines = []
+
+    matmul = ct.electron(matmul_chain_electron, executor="gpu")
+    out, wall = _dispatch(ct, ct.lattice(lambda: matmul(MATMUL_N, MATMUL_CHAIN, MATMUL_REPS)))
+    if out["check"] != 1.0 or not out["all_ones"]:
+        raise AssertionError(f"config 2: check {out['check']}, all ones {out['all_ones']}")
+    tflops = 2 * MATMUL_N**3 * MATMUL_CHAIN / out["seconds"] / 1e12
+    lines.append({"config": 2, "n": MATMUL_N, "chain_len": MATMUL_CHAIN, "reps": MATMUL_REPS,
+                  "chain_s": out["seconds"], "tflops": tflops,
+                  "mfu": tflops * 1e12 / PEAK_FLOPS["bfloat16"], "check": out["check"],
+                  "electron_wall_s": wall, "device": out["device"]})
+
+    # The dispatch overhead: one warm trivial electron, then the probes, on
+    # one GPUExecutor resolved from the alias (its last_timings).
+    executor = ct.resolve_executor("gpu")
+    probe = ct.electron(trivial_electron, executor=executor)
+    probe_flow = ct.lattice(lambda i: probe(i))
+    _dispatch(ct, probe_flow, 0)
+    overheads, wall_overheads, walls, breakdown = [], [], [], {}
+    for i in range(OVERHEAD_PROBES):
+        out, wall = _dispatch(ct, probe_flow, i)
+        if out != i * i:
+            raise AssertionError(f"overhead probe {i}: {out}")
+        breakdown = dict(executor.last_timings)
+        overheads.append(breakdown["overhead"])
+        wall_overheads.append(breakdown["wall_overhead"])
+        walls.append(wall)
+    overhead = {"dispatch_overhead_s": statistics.median(overheads),
+                "per_probe": overheads, "wall_overhead_p50_s": _percentile(wall_overheads, 0.5),
+                "wall_overhead_p95_s": _percentile(wall_overheads, 0.95),
+                "electron_wall_s": statistics.median(walls), "breakdown": breakdown,
+                "budget_s": OVERHEAD_BUDGET_S,
+                "within_budget": _percentile(wall_overheads, 0.95) <= OVERHEAD_BUDGET_S}
+
+    # Config 3: three fan-outs of 8 independent electrons, 3 trials each,
+    # against 8 times one electron of the same kind.
+    kinds = {"trivial": (trivial_electron, (), lambda i, v: v == i * i),
+             "busy": (busy_electron, (BUSY_S,), lambda i, v: v == i),
+             "mnist_step": (mnist_step_electron, (), lambda i, v: math.isfinite(v) and v > 0)}
+    for kind, (fn, extra, ok) in kinds.items():
+        electron = ct.electron(fn, executor="gpu")
+        single = ct.lattice(lambda: electron(0, *extra))
+        fan = ct.lattice(lambda n: [electron(i, *extra) for i in range(n)])
+        _, single_wall = _dispatch(ct, single)
+        walls, values = [], []
+        for _ in range(FANOUT_TRIALS):
+            values, wall = _dispatch(ct, fan, FANOUT)
+            if len(values) != FANOUT or not all(ok(i, v) for i, v in enumerate(values)):
+                raise AssertionError(f"config 3 {kind}: {values}")
+            walls.append(wall)
+        fanout_wall = statistics.median(walls)
+        lines.append({"config": 3, "kind": kind, "electrons": FANOUT, "completed": len(values),
+                      "trial_walls_s": walls, "fanout8_wall_s": fanout_wall,
+                      "fanout8_per_electron_s": fanout_wall / FANOUT,
+                      "single_wall_s": single_wall,
+                      "speedup_vs_serial": FANOUT * single_wall / fanout_wall,
+                      **({"losses": values} if kind == "mnist_step" else {})})
+
+    # Config 4: the MNIST arms on the executor whose last_timings we read.
+    trainer = ct.electron(train_mnist, executor=executor)
+    arms = []
+    for model in ("mlp", "cnn"):
+        out, wall = _dispatch(ct, ct.lattice(lambda m: trainer(m, epochs=MNIST_EPOCHS)), model)
+        losses = [out["loss_first"], out["loss_last"], out["loss_final_epoch"]]
+        if not all(math.isfinite(x) for x in losses) or not out["loss_last"] < out["loss_first"]:
+            raise AssertionError(f"config 4 {model}: losses {losses}")
+        arms.append(out)
+        lines.append({"config": 4, "model": model, "batch_size": out["batch_size"],
+                      "n_batches": out["n_batches"], "epochs": out["epochs"],
+                      "steps_per_s": out["steps_per_s"], "loss_first": out["loss_first"],
+                      "loss_last": out["loss_last"], "loss_final_epoch": out["loss_final_epoch"],
+                      "n_params": out["n_params"], "peak_mem_bytes": out["peak_mem_bytes"],
+                      "electron_wall_s": wall,
+                      "dispatch_overhead_s": executor.last_timings["overhead"],
+                      "wall_overhead_s": executor.last_timings["wall_overhead"],
+                      "execute_s": executor.last_timings["execute"], "device": out["device"]})
+    lines.append({"overhead": overhead})
+    worker_launches = {name: sum(arm["launches"][name] for arm in arms) for name in arms[0]["launches"]}
+    return lines, worker_launches
+
+
 def serve_profile() -> dict:
     """One batch-8 decode step of the 125M LM (bf16 weights, 8 live rows at
     position 128) under torch.profiler, in this process."""
@@ -946,6 +1138,8 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # the config file executor="gpu" reads (lattice phase), inside the checkout
+    os.environ["COVALENT_TPU_CONFIG"] = str(WORK / "config.toml")
     sys.path.insert(0, str(ROOT))
     from covalent_tpu_plugin_torch.ops import _kernels
 
@@ -1015,6 +1209,19 @@ def main() -> int:
     emit({"phase": "serve_profile", "card": smi, **serve_profile()})
     # The resident session: the serve cell's traffic through open_session.
     emit({"phase": "session", "card": smi, **session_phase(serve_streams)})
+
+    # BASELINE configs 2-4 as lattices: no flash kernel, here or in the
+    # MNIST workers (which report their counts).
+    _kernels.reset_launch_counts()
+    start = time.perf_counter()
+    lattice_lines, worker_launches = lattice_phase()
+    lattice_s = time.perf_counter() - start
+    flash = {name: n + worker_launches[name] for name, n in _kernels.launch_counts().items()}
+    if any(flash.values()):
+        raise AssertionError(f"lattice: flash kernels launched {flash}")
+    for line in lattice_lines:
+        emit({"phase": "lattice", "card": smi, **line})
+    emit({"phase": "lattice", "card": smi, "seconds": lattice_s, "flash_launches": flash})
 
     kernels = []
     for kernel in _kernels.KERNELS:

@@ -7,6 +7,14 @@ harness detached, poll until its result file appears (or its process dies),
 fetch and unpickle ``(result, exception)``, clean up on both sides, and
 re-raise a remote exception locally.
 
+Each ``run`` is one root span (``executor.task``) with a child per stage:
+``stage``, ``upload``, ``submit``, ``poll``, ``fetch`` and ``cleanup``, plus
+``execute``, the electron's own runtime as the harness measured it.
+``last_timings`` then holds each stage's seconds, ``total``, ``overhead``
+(the stages but ``execute``) and ``wall_overhead`` (``total`` minus
+``execute``), the reference's dispatch-overhead accounting
+(``tpu.py:4211-4243``).
+
 With ``use_agent="pool"`` the executor also keeps a resident pool server
 per worker (the port's ``harness.py --serve``, started lazily and proved by
 a ping before each use): the runtime that ``serving.open_session`` opens
@@ -14,7 +22,7 @@ its sessions on.  Electrons still run detached in launch mode: the pool's
 ``run`` verb and RPC mode come with slice 5.
 
 The native C++ agent comes with ROADMAP item 2c; the content-addressed
-cache, fleet, retries and observability, the SSH transport and
+cache, fleet, retries, the ops endpoint, the SSH transport and
 multi-process gangs with later slices.
 """
 
@@ -32,9 +40,54 @@ from typing import Any, Callable, NamedTuple
 from . import harness as _harness_module
 from .agent import AgentClient, AgentError, start_pool_server
 from .executor_base import RemoteExecutor
+from .obs import events as obs_events
+from .obs.metrics import REGISTRY
+from .obs.trace import Span, record_span
 from .transport import LocalTransport, Transport, TransportError
+from .utils.config import get_config, update_config
 from .utils.log import app_log
 from .utils.serialize import dump_task, load_result
+
+# Plugin identity: the hook Covalent's loader keys on (pattern: ssh.py:34).
+EXECUTOR_PLUGIN_NAME = "GPUExecutor"
+
+# Defaults merged into the config under [executors.gpu]
+# (pattern: _EXECUTOR_PLUGIN_DEFAULTS, ssh.py:39-50).
+_EXECUTOR_PLUGIN_DEFAULTS = {
+    "transport": "local",
+    "cache_dir": os.path.join("~", ".cache", "covalent-gpu"),
+    "remote_cache": ".cache/covalent-gpu",
+    "remote_workdir": "covalent_gpu_workdir",
+    "create_unique_workdir": False,
+    "python_path": "python3",
+    "poll_freq": 0.5,
+    "task_timeout": 0.0,
+    "task_env": {},
+    "do_cleanup": True,
+    "profile_dir": "",
+    "use_agent": False,
+}
+
+_TASKS_TOTAL = REGISTRY.counter(
+    "covalent_tpu_tasks_total",
+    "Electron outcomes by terminal state",
+    ("outcome",),
+)
+_ACTIVE_ELECTRONS = REGISTRY.gauge(
+    "covalent_tpu_active_electrons",
+    "Electrons currently inside GPUExecutor.run()",
+)
+_OVERHEAD_HIST = REGISTRY.histogram(
+    "covalent_tpu_dispatch_overhead_seconds",
+    "Per-electron dispatch overhead (lifecycle stages minus execute)",
+)
+_WALL_OVERHEAD_HIST = REGISTRY.histogram(
+    "covalent_tpu_wall_overhead_seconds",
+    "Per-electron wall-clock dispatch overhead (elapsed minus execute)",
+)
+
+#: Stages that are the electron's own work, not dispatch overhead.
+_NOT_OVERHEAD = ("execute", "profile")
 
 
 class TaskStatus(str, Enum):
@@ -95,6 +148,10 @@ class GPUExecutor(RemoteExecutor):
 
     ``use_agent="pool"`` enables the resident pool server (serving
     sessions); ``task_env`` is in its environment from the start.
+
+    An argument left at None takes ``get_config("executors.gpu.<key>")``,
+    else the default in ``_EXECUTOR_PLUGIN_DEFAULTS``: that is how
+    ``executor="gpu"`` builds one.
     """
 
     SHORT_NAME = "gpu"
@@ -109,19 +166,26 @@ class GPUExecutor(RemoteExecutor):
 
     def __init__(
         self,
-        transport: str = "local",
-        cache_dir: str = os.path.join("~", ".cache", "covalent-gpu"),
-        remote_cache: str = ".cache/covalent-gpu",
-        remote_workdir: str = "covalent_gpu_workdir",
-        create_unique_workdir: bool = False,
-        python_path: str = "python3",
-        poll_freq: float = 0.5,
-        task_timeout: float = 0.0,
+        transport: str | None = None,
+        cache_dir: str | None = None,
+        remote_cache: str | None = None,
+        remote_workdir: str | None = None,
+        create_unique_workdir: bool | None = None,
+        python_path: str | None = None,
+        poll_freq: float | None = None,
+        task_timeout: float | None = None,
         task_env: dict[str, str] | None = None,
-        do_cleanup: bool = True,
-        profile_dir: str = "",
-        use_agent: bool | str = False,
+        do_cleanup: bool | None = None,
+        profile_dir: str | None = None,
+        use_agent: bool | str | None = None,
     ) -> None:
+        def resolve(value, key):
+            if value is not None:
+                return value
+            return get_config(f"executors.gpu.{key}", _EXECUTOR_PLUGIN_DEFAULTS[key])
+
+        transport = resolve(transport, "transport")
+        use_agent = resolve(use_agent, "use_agent")
         if transport != "local":
             raise NotImplementedError(
                 f"transport={transport!r} is not ported yet: the SSH transport "
@@ -132,17 +196,24 @@ class GPUExecutor(RemoteExecutor):
                 f"use_agent={use_agent!r} is not ported yet: the native agent comes "
                 "with ROADMAP item 2c; use_agent='pool' is the resident runtime"
             )
-        super().__init__(poll_freq=poll_freq, remote_cache=remote_cache)
-        self.cache_dir = str(Path(cache_dir).expanduser().resolve())
-        self.remote_workdir = remote_workdir
-        self.create_unique_workdir = create_unique_workdir
-        self.python_path = python_path
-        self.task_timeout = float(task_timeout)
-        self.task_env = dict(task_env or {})
-        self.do_cleanup = do_cleanup
-        self.profile_dir = profile_dir
+        super().__init__(poll_freq=resolve(poll_freq, "poll_freq"),
+                         remote_cache=resolve(remote_cache, "remote_cache"))
+        self.cache_dir = str(Path(resolve(cache_dir, "cache_dir")).expanduser().resolve())
+        self.remote_workdir = resolve(remote_workdir, "remote_workdir")
+        self.create_unique_workdir = bool(resolve(create_unique_workdir, "create_unique_workdir"))
+        self.python_path = resolve(python_path, "python_path")
+        self.task_timeout = float(resolve(task_timeout, "task_timeout"))
+        self.task_env = dict(resolve(task_env, "task_env") or {})
+        self.do_cleanup = bool(resolve(do_cleanup, "do_cleanup"))
+        self.profile_dir = resolve(profile_dir, "profile_dir")
         self.use_agent = use_agent
+        #: the stage timings of the last ``run`` (module docstring).
+        self.last_timings: dict[str, float] = {}
+        #: operation ids inside ``run``, and the PIDs of their running harnesses.
+        self._active_ops: set[str] = set()
         self._pids: dict[str, int] = {}
+        #: operation ids a caller cancelled: their runs end in CancelledError.
+        self._cancelled_ops: set[str] = set()
         #: address -> the pooled channel and its resident pool server.
         self._transports: dict[str, Transport] = {}
         self._agents: dict[str, AgentClient] = {}
@@ -159,7 +230,7 @@ class GPUExecutor(RemoteExecutor):
 
     def _write_function_files(
         self, operation_id: str, fn: Callable, args: tuple, kwargs: dict,
-        workdir: str,
+        workdir: str, pip_deps=(),
     ) -> StagedTask:
         """Stage the function pickle and the task spec locally
         (reference: ``ssh.py:126-179``)."""
@@ -177,6 +248,9 @@ class GPUExecutor(RemoteExecutor):
             spec["env"] = self.task_env
         if self.profile_dir:
             spec["profile_dir"] = f"{self.profile_dir}/{operation_id}"
+        if pip_deps:
+            # installed by the harness before it unpickles the function
+            spec["pip_deps"] = list(pip_deps)
         with open(staged.spec_file, "w") as f:
             json.dump(spec, f)
         return staged
@@ -227,12 +301,17 @@ class GPUExecutor(RemoteExecutor):
 
         Zombie-aware: ``kill -0`` answers true for a zombie, and a
         nohup-launched harness can stay one on hosts without a reaping
-        init, so the probe reads the process state first.
+        init, so the probe reads the process state first.  A process found
+        gone is checked for its result once more: it may have written it and
+        exited between the first check and the liveness test, and once it is
+        gone the second check cannot miss it.
         """
+        result_file = shlex.quote(staged.remote_result_file)
+        gone = f"if test -f {result_file}; then echo READY; else echo DEAD; fi"
         if pid is not None:
             liveness = (
                 f"elif ps -o state= -p {pid} 2>/dev/null | grep -q Z; "
-                "then echo DEAD; "
+                f"then {gone}; "
                 f"elif kill -0 {pid} 2>/dev/null; then echo RUNNING; "
             )
         else:
@@ -240,12 +319,12 @@ class GPUExecutor(RemoteExecutor):
             liveness = (
                 f"elif test -s {quoted}; then "
                 f"if kill -0 \"$(cat {quoted})\" 2>/dev/null; "
-                "then echo RUNNING; else echo DEAD; fi; "
+                f"then echo RUNNING; else {gone}; fi; "
                 "elif true; then echo STARTING; "
             )
         probe = (
-            f"if test -f {shlex.quote(staged.remote_result_file)}; then echo READY; "
-            + liveness + "else echo DEAD; fi"
+            f"if test -f {result_file}; then echo READY; "
+            + liveness + f"else {gone}; fi"
         )
         result = await conn.run(probe)
         lines = result.stdout.strip().splitlines()
@@ -277,7 +356,7 @@ class GPUExecutor(RemoteExecutor):
             interval = min(interval * 2, float(self.poll_freq))
 
     async def query_result(self, conn: Transport, staged: StagedTask):
-        """Fetch and unpickle ``(result, exception)``
+        """Fetch and unpickle ``(result, exception, times)``
         (reference: ``ssh.py:434-458``)."""
         await conn.get(staged.remote_result_file, staged.local_result_file)
         return load_result(staged.local_result_file)
@@ -286,11 +365,44 @@ class GPUExecutor(RemoteExecutor):
         result = await conn.run(f"tail -n 50 {shlex.quote(staged.remote_log_file)}")
         return result.stdout.strip()
 
-    async def cancel(self, conn: Transport, staged: StagedTask) -> None:
-        """Kill the harness's process group (TERM)."""
+    @staticmethod
+    async def _kill_group(conn: Transport, pid: int) -> None:
+        """TERM the harness's process group (it is a session leader), so the
+        electron's own subprocesses die too.  ``-s TERM -- -pid``: dash's
+        kill builtin rejects ``-TERM -- -pid``."""
+        await conn.run(f"kill -s TERM -- -{pid} 2>/dev/null || kill -s TERM {pid} 2>/dev/null; true")
+
+    async def _kill(self, conn: Transport, staged: StagedTask) -> None:
+        """``run``'s own teardown of its harness (timeout, cancellation)."""
         pid = self._pids.get(staged.operation_id)
         if pid is not None:
-            await conn.run(f"kill -TERM -- -{pid} 2>/dev/null; kill -TERM {pid} 2>/dev/null; true")
+            await self._kill_group(conn, pid)
+
+    async def cancel(self, operation_id: str | None = None, mark: bool = True) -> None:
+        """Kill the harness of every run whose operation id is
+        ``operation_id`` or starts with ``f"{operation_id}_"`` (every run
+        when None); the reference's signature (``tpu.py:3046``).
+
+        The workflow runner cancels a node as ``f"{dispatch_id}_{node_id}"``,
+        which prefixes that node's uuid-suffixed operation ids.  ``mark``
+        records the cancel first, so the killed run ends in
+        ``asyncio.CancelledError`` and not in a task failure, and a run that
+        has not launched its harness yet stops before it does.
+        """
+        targets = [op for op in self._active_ops
+                   if operation_id is None or op == operation_id
+                   or op.startswith(f"{operation_id}_")]
+        if mark:
+            self._cancelled_ops.update(targets)
+        pids = [self._pids[op] for op in targets if op in self._pids]
+        if not pids:
+            return
+        conn = LocalTransport()
+        try:
+            for pid in pids:
+                await self._kill_group(conn, pid)
+        finally:
+            await conn.close()
 
     async def cleanup(self, conn: Transport, staged: StagedTask) -> None:
         """Delete the operation's staged files locally and on the worker
@@ -386,7 +498,8 @@ class GPUExecutor(RemoteExecutor):
         kwargs: dict,
         task_metadata: dict,
     ) -> Any:
-        """Full electron lifecycle (reference orchestrator: ``ssh.py:466-591``)."""
+        """Full electron lifecycle (reference orchestrator: ``ssh.py:466-591``),
+        one span per stage (module docstring)."""
         dispatch_id = task_metadata.get("dispatch_id", "dispatch")
         node_id = task_metadata.get("node_id", 0)
         operation_id = f"{dispatch_id}_{node_id}_{uuid.uuid4().hex[:8]}"
@@ -394,35 +507,108 @@ class GPUExecutor(RemoteExecutor):
         if self.create_unique_workdir:
             workdir = os.path.join(self.remote_workdir, dispatch_id, f"node_{node_id}")
 
-        await self._validate_credentials()
-        staged = await asyncio.to_thread(
-            self._write_function_files, operation_id, function,
-            tuple(args or ()), dict(kwargs or {}), workdir,
-        )
+        root = Span("executor.task", {"operation_id": operation_id,
+                                      "dispatch_id": dispatch_id, "node_id": node_id})
+        root.__enter__()
+        self._active_ops.add(operation_id)
+        _ACTIVE_ELECTRONS.inc()
+        obs_events.emit("task.state", operation_id=operation_id, state="starting",
+                        trace_id=root.trace_id)
+        outcome = "failed"
+        try:
+            await self._validate_credentials()
+            with Span("executor.stage"):
+                staged = await asyncio.to_thread(
+                    self._write_function_files, operation_id, function,
+                    tuple(args or ()), dict(kwargs or {}), workdir,
+                    task_metadata.get("pip_deps", ()),
+                )
+            result, exception = await self._run_staged(root, staged)
+            if exception is not None:
+                # Re-raise the remote exception locally (ssh.py:581-583).
+                outcome = "remote_exception"
+                raise exception
+            outcome = "completed"
+            return result
+        except asyncio.CancelledError:
+            outcome = "cancelled"
+            raise
+        finally:
+            self._active_ops.discard(operation_id)
+            self._cancelled_ops.discard(operation_id)
+            self._epilogue(root, outcome, operation_id)
+
+    async def _run_staged(self, root: Span, staged: StagedTask):
+        """Upload, launch, wait for, fetch and clean up one staged task:
+        ``(result, exception)``."""
+        operation_id = staged.operation_id
         conn = LocalTransport()
         try:
-            await self._upload_task(conn, staged)
-            pid = self._pids[operation_id] = await self.submit_task(conn, staged)
+            with Span("executor.upload"):
+                await self._upload_task(conn, staged)
+            if operation_id in self._cancelled_ops:
+                raise asyncio.CancelledError(f"task {operation_id} cancelled")
+            with Span("executor.submit"):
+                pid = self._pids[operation_id] = await self.submit_task(conn, staged)
             try:
-                status = await self._poll_task(conn, staged, pid)
+                with Span("executor.poll"):
+                    status = await self._poll_task(conn, staged, pid)
             except asyncio.CancelledError:
-                await self.cancel(conn, staged)
+                await self._kill(conn, staged)
                 raise
             if status is not TaskStatus.READY:
+                if operation_id in self._cancelled_ops:
+                    raise asyncio.CancelledError(f"task {operation_id} cancelled")
                 if status is TaskStatus.TIMEOUT:
-                    await self.cancel(conn, staged)
+                    await self._kill(conn, staged)
                 log_tail = await self._remote_log_tail(conn, staged)
                 raise RuntimeError(
                     f"remote task {operation_id} failed on {conn.address} "
                     f"({status.value}); log tail:\n{log_tail}"
                 )
-            result, exception = await self.query_result(conn, staged)
+            with Span("executor.fetch"):
+                result, exception, times = await self.query_result(conn, staged)
+            if times:
+                # The electron's own runtime, as the harness measured it.  The
+                # poll span waited for it too: what the poll adds beyond it
+                # (the worker's start, its imports, the result write and the
+                # poll interval) stays the poll stage's.
+                execute = max(0.0, times["end"] - times["start"])
+                record_span("executor.execute", trace_id=root.trace_id,
+                            parent_id=root.span_id, start_ts=times["start"],
+                            duration_s=execute)
+                stages = root.stage_durations
+                stages["execute"] = execute
+                stages["poll"] = max(0.0, stages.get("poll", 0.0) - execute)
+            return result, exception
         finally:
             self._pids.pop(operation_id, None)
             if self.do_cleanup:
-                await self.cleanup(conn, staged)
+                with Span("executor.cleanup"):
+                    await self.cleanup(conn, staged)
             await conn.close()
-        if exception is not None:
-            # Re-raise the remote exception locally (ssh.py:581-583).
-            raise exception
-        return result
+
+    def _epilogue(self, root: Span, outcome: str, operation_id: str) -> None:
+        """Terminal accounting on every exit path (``tpu.py:4211-4243``)."""
+        root.set_attribute("outcome", outcome)
+        if outcome != "completed":
+            root.record_error(outcome)
+        root.end()
+        overhead = root.overhead(exclude=_NOT_OVERHEAD)
+        wall_overhead = max(0.0, root.total() - sum(
+            root.stage_durations.get(stage, 0.0) for stage in _NOT_OVERHEAD))
+        self.last_timings = root.summary()
+        self.last_timings["overhead"] = overhead
+        self.last_timings["wall_overhead"] = wall_overhead
+        _ACTIVE_ELECTRONS.dec()
+        _TASKS_TOTAL.labels(outcome=outcome).inc()
+        _OVERHEAD_HIST.observe(overhead)
+        _WALL_OVERHEAD_HIST.observe(wall_overhead)
+        obs_events.emit(
+            "task.state", operation_id=operation_id, state=outcome,
+            trace_id=root.trace_id, overhead_s=round(overhead, 6),
+            total_s=round(root.total(), 6),
+        )
+
+
+update_config(_EXECUTOR_PLUGIN_DEFAULTS, section="executors.gpu")

@@ -5,13 +5,15 @@ Counterpart of ``covalent_tpu_plugin/harness.py``.  The executor ships this
 one file to the worker (it imports nothing of the package).
 
 * **Launch mode** (``harness.py <spec>``), run detached: it applies the
-  task's environment, unpickles ``(fn, args, kwargs)``, runs the electron,
-  moves tensors in the result to host memory, and writes ``(result,
-  exception)`` back as a pickle, which the dispatcher fetches.  Optionally
-  it traces the electron with ``torch.profiler``.  The spec keys of later
-  slices (the distributed bootstrap, heartbeats, the checkpointer, pip
-  dependencies, resume) are refused: the electron does not run, and the
-  error comes back as its exception.
+  task's environment, installs its pip dependencies, unpickles ``(fn, args,
+  kwargs)``, runs the electron, moves tensors in the result to host memory,
+  and writes ``(result, exception, times)`` back as a pickle, which the
+  dispatcher fetches; ``times`` holds the electron's own ``start`` and
+  ``end`` (unix seconds), which the dispatcher's ``execute`` stage reads.
+  Optionally it traces the electron with ``torch.profiler``.  The spec keys
+  of later slices (the distributed bootstrap, heartbeats, the checkpointer,
+  resume) are refused: the electron does not run, and the error comes back
+  as its exception.
 * **Resident mode** (``harness.py --serve``): the pool server.  It speaks a
   JSON-lines protocol on stdin/stdout and hosts resident serving sessions
   in its own process (see :func:`serve`).
@@ -28,8 +30,31 @@ import time
 #: spec keys this harness understands
 _SPEC_KEYS = {
     "operation_id", "function_file", "result_file", "workdir", "pid_file",
-    "env", "profile_dir",
+    "env", "profile_dir", "pip_deps",
 }
+
+
+def install_pip_deps(pip_deps: list) -> None:
+    """Install an electron's pip dependencies; raise RuntimeError on failure.
+
+    Shared by this worker harness and the in-process ``LocalExecutor``
+    (reference ``ct.DepsPip``, ``svm_workflow.py:6,19``).  The command can be
+    replaced through ``COVALENT_TPU_PIP_CMD`` (tests stub pip with it).
+    """
+    import shlex
+    import subprocess
+
+    pip_cmd = shlex.split(
+        os.environ.get("COVALENT_TPU_PIP_CMD", "")
+    ) or [sys.executable, "-m", "pip", "install"]
+    proc = subprocess.run(
+        pip_cmd + list(pip_deps), capture_output=True, text=True
+    )
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"pip dependency install failed "
+            f"({' '.join(pip_deps)}): {proc.stderr.strip()}"
+        )
 
 
 def _fallback_result(result_file: str, error: BaseException) -> None:
@@ -128,6 +153,10 @@ def run_task(spec: dict) -> int:
 
     try:
         _apply_spec_env(spec)
+        # Before the function pickle is loaded: unpickling may import the
+        # dependency (reference ct.DepsPip, svm_workflow.py:6,19).
+        if spec.get("pip_deps"):
+            install_pip_deps(spec["pip_deps"])
         import cloudpickle as pickle
     except (ImportError, RuntimeError) as setup_error:
         _fallback_result(result_file, setup_error)
@@ -142,6 +171,7 @@ def run_task(spec: dict) -> int:
     workdir = spec.get("workdir")
     current_dir = os.getcwd()
     result, exception = None, None
+    started = time.time()
     try:
         if workdir:
             os.makedirs(workdir, exist_ok=True)
@@ -150,13 +180,14 @@ def run_task(spec: dict) -> int:
     except Exception as task_error:  # noqa: BLE001 - transported to dispatcher
         exception = task_error
     finally:
+        ended = time.time()
         os.chdir(current_dir)
         if profiler is not None:
             _stop_profiler(profiler, profile_dir)
 
     tmp = result_file + ".tmp"
     with open(tmp, "wb") as f:
-        pickle.dump((result, exception), f)
+        pickle.dump((result, exception, {"start": started, "end": ended}), f)
     os.replace(tmp, result_file)
     return 0
 

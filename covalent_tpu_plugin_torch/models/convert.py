@@ -1,6 +1,12 @@
-"""Weights of the reference LM, as a state dict of the port's LM.
+"""Weights of the reference's models, as state dicts of the port's.
 
-The reference keeps flax ``DenseGeneral`` kernels: ``(in, heads, dim)`` for
+The MNIST models (``mlp_params_from_jax``, ``cnn_params_from_jax``): Flax
+``Dense`` kernels are ``(in, out)`` with a bias, ``nn.Linear`` holds
+``(out, in)``; Flax ``Conv`` kernels are HWIO, ``nn.Conv2d`` holds OIHW.  The
+port's CNN flattens channels-last, as the reference does, so its first dense
+kernel is a plain transpose too.
+
+The LM (``params_from_jax``): the reference keeps flax ``DenseGeneral`` kernels: ``(in, heads, dim)`` for
 the q/k/v projections, ``(heads, dim, out)`` for ``out_proj`` and
 ``(in, out)`` for the MLP and the lm_head, none with a bias.  The port's
 dense layers hold PyTorch's ``(out, in)``.  Block parameters come either
@@ -93,3 +99,38 @@ def _index(tree, i: int):
     if isinstance(tree, dict):
         return {key: _index(value, i) for key, value in tree.items()}
     return np.asarray(tree)[i]
+
+
+def _linear(layer: dict, prefix: str) -> dict[str, torch.Tensor]:
+    return {f"{prefix}.weight": _f32(np.asarray(layer["kernel"]).T),
+            f"{prefix}.bias": _f32(layer["bias"])}
+
+
+def _f32(value) -> torch.Tensor:
+    return torch.from_numpy(np.array(value, dtype=np.float32, order="C"))
+
+
+def mlp_params_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """State dict for :class:`..models.mlp.MLP` from the reference MLP's
+    params (``Dense_0`` .. ``Dense_n``, the last one the logits)."""
+    names = sorted((k for k in params if k.startswith("Dense_")), key=lambda k: int(k[6:]))
+    if len(names) != len(params) or not names:
+        raise ValueError(f"expected only Dense_i layers, got {sorted(params)}")
+    state = {}
+    for i, name in enumerate(names[:-1]):
+        state.update(_linear(params[name], f"hidden.{i}"))
+    state.update(_linear(params[names[-1]], "head"))
+    return state
+
+
+def cnn_params_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """State dict for :class:`..models.mlp.MnistCNN` from the reference
+    CNN's params (``Conv_0``, ``Conv_1``, ``Dense_0``, ``Dense_1``)."""
+    state = {}
+    for i in range(2):
+        conv = params[f"Conv_{i}"]
+        state[f"conv{i + 1}.weight"] = _f32(np.transpose(np.asarray(conv["kernel"]), (3, 2, 0, 1)))
+        state[f"conv{i + 1}.bias"] = _f32(conv["bias"])
+    state.update(_linear(params["Dense_0"], "fc"))
+    state.update(_linear(params["Dense_1"], "head"))
+    return state

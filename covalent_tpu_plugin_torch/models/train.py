@@ -1,14 +1,16 @@
-"""Losses and the single-device train step; the LM training electron.
+"""Losses and the single-device train step; the LM and MNIST training electrons.
 
 Counterpart of ``covalent_tpu_plugin/models/train.py`` for one device: the
-step runs eagerly (PyTorch has no ``jit``), the optimizer is
+step runs eagerly (PyTorch has no ``jit``).  The LM's optimizer is
 ``torch.optim.AdamW(lr=3e-4, weight_decay=1e-4, eps=1e-8)``, which matches
-``optax.adamw(3e-4)``'s defaults.  Meshes and sharded state come with the
+``optax.adamw(3e-4)``'s defaults; the classifier's is ``torch.optim.Adam``
+at ``optax.adam(1e-3)``'s.  Meshes and sharded state come with the
 scale-out slice.
 """
 
 from __future__ import annotations
 
+import statistics
 import time
 from typing import Any, Callable
 
@@ -19,12 +21,16 @@ import torch.nn.functional as F
 from ..ops import _kernels
 from ..ops.xent import fused_cross_entropy
 from .data import synthetic_lm_batches
+from .mlp import MLP, MnistCNN, synthetic_mnist
 from .transformer import TransformerLM, lm_125m_config, resolve_device
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
                        mask: torch.Tensor | None = None) -> torch.Tensor:
-    """Mean softmax cross-entropy in float32."""
+    """Mean softmax cross-entropy in float32 over integer labels."""
+    if labels.is_floating_point() or labels.dtype == torch.bool:
+        # optax's integer-label cross-entropy refuses these as well
+        raise TypeError(f"labels must be integers, got {labels.dtype}")
     losses = F.cross_entropy(
         logits.float().reshape(-1, logits.shape[-1]), labels.reshape(-1).long(),
         reduction="none",
@@ -34,9 +40,24 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
     return losses.mean()
 
 
-def _tokens(model: torch.nn.Module, batch: dict) -> torch.Tensor:
+def _on_model(model: torch.nn.Module, value) -> torch.Tensor:
+    """``value`` (a tensor, or any array numpy reads) on the model's device."""
     device = next(model.parameters()).device
-    return torch.as_tensor(np.asarray(batch["tokens"]), device=device).long()
+    if isinstance(value, torch.Tensor):
+        return value.to(device)
+    return torch.as_tensor(np.asarray(value), device=device)
+
+
+def _tokens(model: torch.nn.Module, batch: dict) -> torch.Tensor:
+    return _on_model(model, batch["tokens"]).long()
+
+
+def classifier_loss(model: torch.nn.Module, batch: dict) -> torch.Tensor:
+    """Integer-label softmax cross-entropy of ``model(batch["image"])``, mean
+    over the batch: ``optax.softmax_cross_entropy_with_integer_labels(
+    logits.astype(f32), labels).mean()``, as the reference's."""
+    logits = model(_on_model(model, batch["image"]))
+    return cross_entropy_loss(logits, _on_model(model, batch["label"]))
 
 
 def lm_loss(model: torch.nn.Module, batch: dict, vocab_chunk: int | None = None):
@@ -111,6 +132,20 @@ def make_train_step(
     return step
 
 
+def make_classifier_train_step(model: torch.nn.Module,
+                               optimizer: torch.optim.Optimizer) -> Callable[[dict], dict]:
+    """``step({"image", "label"}) -> {"loss", "grad_norm", "step"}``."""
+    return make_train_step(model, optimizer, loss_fn=classifier_loss)
+
+
+def adam(model: torch.nn.Module) -> torch.optim.Adam:
+    """``optax.adam(1e-3)``: eps 1e-8 outside the square root, no eps_root,
+    bias correction; the fused implementation, chosen explicitly."""
+    return torch.optim.Adam(
+        model.parameters(), lr=1e-3, betas=(0.9, 0.999), eps=1e-8, fused=True
+    )
+
+
 def adamw(model: torch.nn.Module) -> torch.optim.AdamW:
     """``optax.adamw(3e-4)`` with its defaults, as the reference trains."""
     return torch.optim.AdamW(
@@ -164,6 +199,67 @@ def train_lm(
         "tokens_per_step": batch_size * seq_len,
         "launches": _kernels.launch_counts(),
         "n_params": model.parameter_count(),
+        "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
+        "peak_mem_bytes": (
+            torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
+        ),
+    }
+
+
+def train_mnist(
+    model: str = "mlp",
+    batch_size: int = 256,
+    n_batches: int = 64,
+    epochs: int = 3,
+    seed: int = 0,
+    device=None,
+) -> dict:
+    """The MNIST electron: the reference's ``mnist`` bench arm
+    (``bench.py:1181-1253``), with the CNN beside the MLP.
+
+    One pass over ``n_batches`` distinct batches of
+    ``synthetic_mnist(batch_size, seed=i)`` from fresh weights (the loss
+    curve), then ``epochs`` timed passes over the same batches.  Adam 1e-3;
+    the weights come from a ``torch.Generator`` seeded with ``seed``.
+    """
+    device = resolve_device(device)
+    builders = {"mlp": MLP, "cnn": MnistCNN}
+    if model not in builders:
+        raise ValueError(f"model must be one of {sorted(builders)}, got {model!r}")
+    generator = torch.Generator(device=device).manual_seed(seed)
+    net = builders[model](device=device, generator=generator)
+    stream = [synthetic_mnist(batch_size, seed=i) for i in range(n_batches)]
+    images = torch.as_tensor(np.stack([b["image"] for b in stream]), device=device)
+    labels = torch.as_tensor(np.stack([b["label"] for b in stream]), device=device)
+    step = make_classifier_train_step(net, adam(net))
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    _kernels.reset_launch_counts()
+
+    def epoch() -> torch.Tensor:
+        return torch.stack([
+            step({"image": images[i], "label": labels[i]})["loss"] for i in range(n_batches)
+        ])
+
+    curve = epoch().tolist()  # fresh weights; waits for the pass
+    sync()
+    start = time.perf_counter()
+    for _ in range(epochs):
+        last = epoch()
+    final = float(last[-1])  # waits for the last step
+    sync()
+    elapsed = time.perf_counter() - start
+    return {
+        "model": model,
+        "batch_size": batch_size,
+        "n_batches": n_batches,
+        "epochs": epochs,
+        "losses": curve,
+        "loss_first": statistics.fmean(curve[:4]),
+        "loss_last": statistics.fmean(curve[-4:]),
+        "loss_final_epoch": final,
+        "steps_per_s": epochs * n_batches / elapsed,
+        "launches": _kernels.launch_counts(),
+        "n_params": sum(p.numel() for p in net.parameters()),
         "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
         "peak_mem_bytes": (
             torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None

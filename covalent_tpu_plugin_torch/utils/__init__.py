@@ -1,4 +1,5 @@
-"""Utilities of the PyTorch port: logging and task serialization."""
+"""Utilities of the PyTorch port: logging, task serialization and config
+(``utils.config``)."""
 
 from .log import app_log
 from .serialize import dump_task, load_result

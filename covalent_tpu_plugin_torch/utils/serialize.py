@@ -3,7 +3,8 @@
 The wire protocol matches the reference: the dispatcher cloudpickles the
 ``(fn, args, kwargs)`` triple into a function file
 (``covalent_ssh_plugin/ssh.py:147-150``) and the remote harness writes a
-``(result, exception)`` pickle back (``covalent_ssh_plugin/exec.py:45-46``).
+``(result, exception)`` pickle back (``covalent_ssh_plugin/exec.py:45-46``),
+here with a third item, the electron's own start and end times.
 Own copy of ``covalent_tpu_plugin/utils/serialize.py``.  The harness moves
 result tensors to host memory before pickling (``harness._to_host``), since a
 CUDA tensor is only meaningful on the machine that holds the card.
@@ -26,7 +27,11 @@ def dump_task(
         cloudpickle.dump((fn, args, kwargs), f)
 
 
-def load_result(path: str | Path) -> tuple[Any, BaseException | None]:
-    """Unpickle a fetched result file (reference: ssh.py:455-458)."""
+def load_result(path: str | Path) -> tuple[Any, BaseException | None, dict | None]:
+    """Unpickle a fetched result file (reference: ssh.py:455-458) into
+    ``(result, exception, times)``.  ``times`` (the electron's ``start`` and
+    ``end``) is None when the electron never ran: the harness's setup
+    failures write ``(None, error)``."""
     with open(path, "rb") as f:
-        return pickle.load(f)
+        result, exception, *times = pickle.load(f)
+    return result, exception, (times[0] if times else None)

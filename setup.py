@@ -49,6 +49,7 @@ setup(
     entry_points={
         "covalent.executor.executor_plugins": [
             "tpu = covalent_tpu_plugin.tpu",
+            "gpu = covalent_tpu_plugin_torch.gpu",
         ],
     },
     classifiers=[

@@ -7,27 +7,35 @@ channel: a background reader files pushed events by id, so any number of
 callers await their own answers, and a serving session's side-band records
 go to the sink it registered (:meth:`AgentClient.watch_serve`).
 
+The verbs: ``run`` (a launch-mode spec forked from the server's zygote)
+with ``wait_exit``, ``kill``, ``watch``/``unwatch`` and ``task_inventory``;
+RPC execute-by-digest (``register_fn``, ``invoke``, ``wait_result``); the
+serving session's ``serve_*``.
+
 The channel speaks JSON lines.  The reference's native C++ agent, binary
-frames and the recovery verbs (epoch fence, adopt, inventories, resume)
-come with ROADMAP item 2c; the ``run``/RPC verbs with slice 5.
+frames (and with them invoke micro-batching) and the recovery verbs (epoch
+fence, adopt, serving inventories, resume) come with ROADMAP item 2c.
 """
 
 from __future__ import annotations
 
 import asyncio
+import base64
 import json
 import shlex
 from typing import Any
 
+from .resilience import tag_fault
 from .transport.base import Transport, TransportError
 from .utils.log import app_log
 
 #: Remote filename of the staged harness the pool server runs.
 HARNESS_BASENAME = "covalent_gpu_harness.py"
 
-#: Modules the pool server imports once, before any session opens: its cold
-#: start (the torch import) is paid at start-up, inside the open's budget.
-POOL_PRELOAD = "cloudpickle,torch"
+#: Modules the pool server and its zygote import once, at start-up: the cold
+#: start is paid there, not by each electron or session.  ``torch._dynamo``
+#: is what a torch optimizer imports at its first construction.
+POOL_PRELOAD = "cloudpickle,torch,torch._dynamo,covalent_tpu_plugin_torch"
 
 
 class AgentError(TransportError):
@@ -42,10 +50,8 @@ def _refusal(address: str, what: str, event: dict) -> AgentError:
         f"agent@{address}: {what} failed ({event.get('code')}): {event.get('message')}"
     )
     if event.get("permanent"):
-        failure.fault_label = str(  # type: ignore[attr-defined]
-            event.get("label") or f"serve_{event.get('code') or 'error'}"
-        )
-        failure.fault_transient = False  # type: ignore[attr-defined]
+        tag_fault(failure, str(event.get("label") or f"serve_{event.get('code') or 'error'}"),
+                  transient=False)
     return failure
 
 
@@ -55,14 +61,17 @@ async def start_pool_server(
     python_path: str,
     env: dict[str, str] | None = None,
     timeout: float = 90.0,
+    preload: str = POOL_PRELOAD,
 ) -> "AgentClient":
     """Start ``harness.py --serve`` on a worker and prove it with a ping.
 
     ``env`` goes into the server's environment before the interpreter
     starts (the executor's ``task_env``: ``CUDA_VISIBLE_DEVICES`` cannot
     change once CUDA is up, and ``PYTHONPATH`` then reaches imports too).
-    The timeout covers the cold start (``POOL_PRELOAD``).  The server's
-    stderr goes to ``{remote_cache}/pool_server.log``.
+    ``preload`` becomes ``COVALENT_TPU_POOL_PRELOAD``: the modules the
+    server and its zygote import at start-up.  The timeout covers that
+    cold start.  The server's stderr (and the zygote's) goes to
+    ``{remote_cache}/pool_server.log``.
     """
     from . import harness as harness_module
 
@@ -74,7 +83,7 @@ async def start_pool_server(
         raise AgentError(f"cannot stage pool server on {conn.address}: {err}") from err
     assignments = " ".join(
         shlex.quote(f"{k}={v}")
-        for k, v in {**(env or {}), "COVALENT_TPU_POOL_PRELOAD": POOL_PRELOAD}.items()
+        for k, v in {**(env or {}), "COVALENT_TPU_POOL_PRELOAD": preload}.items()
     )
     command = (
         f"env {assignments} {python_path} {shlex.quote(remote_harness)} --serve "
@@ -105,6 +114,23 @@ class AgentClient:
         #: id -> highest worker-record ``seq`` seen; a record at or below
         #: it is a duplicate and is dropped.
         self._telemetry_seq: dict[str, int] = {}
+        #: per task / invocation: pid from ``started``, (code, signal) from
+        #: ``exit``, the ``result`` event, and an ``error`` event's message
+        #: and code.  Dropped by the waiter that consumes them, or
+        #: :meth:`forget`.
+        self._started: dict[str, int] = {}
+        self._exits: dict[str, tuple[int, int]] = {}
+        self._results: dict[str, dict] = {}
+        self._errors: dict[str, str] = {}
+        self._error_codes: dict[str, str] = {}
+        #: function digests the runtime acknowledged, and refusals by digest
+        self._registered: set[str] = set()
+        self._register_errors: dict[str, tuple[str, str]] = {}
+        self._task_inventory: dict | None = None
+        #: ``callback(task_id, record)`` for side-band records of ids with
+        #: no serving sink (an RPC invocation's worker records, a watched
+        #: file's lines)
+        self.on_telemetry = None
         #: serving sessions: sid -> pushed serve_opened / serve_error /
         #: serve_closed event, and sid -> the sink of its side-band records.
         self._serve_opened: dict[str, dict] = {}
@@ -149,7 +175,23 @@ class AgentClient:
                     if kind == "telemetry":
                         self._handle_telemetry(task_id, event.get("data"))
                         continue  # side-band: no waiter to notify
-                    if kind == "serve_opened":
+                    if kind == "started":
+                        self._started[task_id] = int(event["pid"])
+                    elif kind == "exit":
+                        self._exits[task_id] = (int(event.get("code", -1)),
+                                                int(event.get("signal", 0)))
+                    elif kind == "result":
+                        self._results[task_id] = event
+                    elif kind == "registered":
+                        self._registered.add(str(event.get("digest") or ""))
+                    elif kind == "register_error":
+                        self._register_errors[str(event.get("digest") or "")] = (
+                            str(event.get("code") or "error"),
+                            str(event.get("message") or "?"),
+                        )
+                    elif kind == "task_inventory":
+                        self._task_inventory = event
+                    elif kind == "serve_opened":
                         self._serve_opened[task_id] = event
                     elif kind == "serve_error":
                         self._serve_errors[task_id] = event
@@ -158,6 +200,12 @@ class AgentClient:
                     elif kind == "pong":
                         self._pongs += 1
                     elif kind == "error":
+                        # An error with an id answers that task's run,
+                        # invoke, kill or watch; an id-less one is logged only.
+                        if task_id:
+                            self._errors[task_id] = str(event.get("message", "?"))
+                            if event.get("code"):
+                                self._error_codes[task_id] = str(event["code"])
                         app_log.warning("agent@%s error: %s", self.address,
                                         event.get("message"))
                     self._cond.notify_all()
@@ -177,7 +225,7 @@ class AgentClient:
             if seq <= self._telemetry_seq.get(task_id, 0):
                 return
             self._telemetry_seq[task_id] = seq
-        sink = self._serve_sinks.get(task_id)
+        sink = self._serve_sinks.get(task_id) or self.on_telemetry
         if sink is None:
             return
         try:
@@ -217,6 +265,193 @@ class AgentClient:
         before = self._pongs
         await self._send({"cmd": "ping"})
         await self._wait(lambda c: c._pongs > before, timeout)
+
+    def _pop_rejection(self, task_id: str, what: str) -> AgentError | None:
+        """A stored ``error`` event for ``task_id`` as an exception (or None).
+
+        A rejection means the task never started, so running it another
+        way is safe (``rejected``).  ``cuda_initialized`` (the zygote found
+        CUDA initialised in itself) is tagged PERMANENT: it is a fault of
+        the pool, and another road would hide it.
+        """
+        if task_id not in self._errors:
+            return None
+        message = self._errors.pop(task_id)
+        code = self._error_codes.pop(task_id, "")
+        rejection = AgentError(f"agent@{self.address} rejected {what} {task_id}: {message}")
+        rejection.rejected = True  # type: ignore[attr-defined]
+        if code == "cuda_initialized":
+            tag_fault(rejection, "zygote_cuda", transient=False)
+        return rejection
+
+    # -- the run verb ---------------------------------------------------------
+
+    async def run_task(self, task_id: str, spec: str, log: str = "",
+                       timeout: float = 30.0) -> int:
+        """Run a staged launch-mode spec as a fork of the server's zygote;
+        returns the child's pid from the ``started`` event.
+
+        The task's files (spec, log, pid, result) are those a launch-mode
+        harness uses, so the pid and result-file probes still work if the
+        channel dies.  A raised :class:`AgentError` carries
+        ``maybe_started``: whether the command left for the worker without
+        a rejection, so the task may be running there and must not be
+        launched again.
+        """
+        command: dict = {"cmd": "run", "id": task_id, "spec": spec}
+        if log:
+            command["log"] = log
+        sent = False
+        try:
+            await self._send(command)
+            sent = True
+
+            def ready(c: "AgentClient"):
+                rejection = c._pop_rejection(task_id, "run")
+                if rejection is not None:
+                    raise rejection
+                return c._started.get(task_id)
+
+            pid = await self._wait(ready, timeout)
+            self._started.pop(task_id, None)
+            return pid
+        except AgentError as err:
+            err.maybe_started = sent and not getattr(  # type: ignore[attr-defined]
+                err, "rejected", False)
+            raise
+
+    async def wait_exit(self, task_id: str, timeout: float | None = None) -> tuple[int, int]:
+        """Block until the pushed ``exit`` event: ``(exit_code, signal)``."""
+        event = await self._wait(lambda c: c._exits.get(task_id), timeout)
+        self._exits.pop(task_id, None)
+        return event
+
+    async def kill(self, task_id: str, sig: int = 15) -> None:
+        """Signal a running task's process group (fire-and-forget)."""
+        await self._send({"cmd": "kill", "id": task_id, "sig": sig})
+
+    async def watch(self, task_id: str, path: str) -> None:
+        """Tail a task's worker-local JSONL file from offset 0: each line
+        arrives as a side-band record for :attr:`on_telemetry`."""
+        await self._send({"cmd": "watch", "id": task_id, "path": path})
+
+    async def unwatch(self, task_id: str) -> None:
+        await self._send({"cmd": "unwatch", "id": task_id})
+
+    async def task_inventory(self, timeout: float = 30.0) -> dict:
+        """The forked tasks still running on the worker (``tasks``: id, pid)."""
+        self._task_inventory = None
+        await self._send({"cmd": "task_inventory"})
+        inventory = await self._wait(lambda c: c._task_inventory, timeout)
+        self._task_inventory = None
+        return inventory
+
+    def forget(self, task_id: str) -> None:
+        """Drop whatever this channel retained for a finished or abandoned
+        task: an exit nobody waited for, an unclaimed result, a stored
+        rejection, the side-band seq mark.  The executor calls it on every
+        exit path of an electron."""
+        self._started.pop(task_id, None)
+        self._exits.pop(task_id, None)
+        self._errors.pop(task_id, None)
+        self._error_codes.pop(task_id, None)
+        self._results.pop(task_id, None)
+        if task_id not in self._serve_sinks:
+            # a live session's seq mark is its token dedup: keep it
+            self._telemetry_seq.pop(task_id, None)
+
+    # -- RPC execute-by-digest --------------------------------------------
+
+    @property
+    def registered_digests(self) -> frozenset:
+        """Function digests this channel's resident runtime holds."""
+        return frozenset(self._registered)
+
+    async def register_fn(self, digest: str, path: str, timeout: float = 60.0) -> None:
+        """Register a CAS-staged cloudpickled function by its digest.
+
+        The runtime verifies ``path``'s sha256 against ``digest`` before
+        unpickling and keeps the function for invoke-by-digest.  A digest
+        this channel already registered is a no-op.  A digest mismatch (a
+        torn or stale artifact) raises :class:`AgentError` tagged PERMANENT
+        (``rpc_digest_mismatch``): sending the same bytes again cannot help.
+        """
+        if digest in self._registered:
+            return
+        await self._send({"cmd": "register_fn", "digest": digest, "path": path})
+
+        def settled(c: "AgentClient"):
+            if digest in c._register_errors:
+                code, message = c._register_errors.pop(digest)
+                failure = AgentError(
+                    f"agent@{c.address}: register {digest[:12]} failed ({code}): {message}")
+                if code == "digest_mismatch":
+                    tag_fault(failure, "rpc_digest_mismatch", transient=False)
+                raise failure
+            return digest in c._registered
+
+        await self._wait(settled, timeout)
+
+    async def invoke(
+        self,
+        task_id: str,
+        digest: str,
+        spec: dict | None = None,
+        args_b64: str | None = None,
+        args_bytes: bytes | None = None,
+        args_path: str = "",
+        args_digest: str = "",
+        path: str = "",
+        result_path: str = "",
+        result_max_inline: int | None = None,
+        timeout: float = 30.0,
+    ) -> int:
+        """Invoke a registered function by digest; returns the worker's pid
+        from the ``started`` acknowledgement.
+
+        The args travel inline, base64 in the JSON line (``args_b64``, or
+        ``args_bytes`` encoded here), or by CAS path and digest when
+        oversized.  ``path`` (the function's CAS artifact) lets a restarted
+        runtime heal a lost registration.  Given ``result_path`` and
+        ``result_max_inline``, a result pickle over the threshold is staged
+        to that remote path instead of inlined.  The result arrives
+        separately (:meth:`wait_result`).
+        """
+        command: dict = {"cmd": "invoke", "id": task_id, "digest": digest}
+        if path:
+            command["path"] = path
+        if spec:
+            command["spec"] = dict(spec)
+        if args_b64 is None and args_bytes is not None:
+            args_b64 = base64.b64encode(args_bytes).decode("ascii")
+        if args_b64 is not None:
+            command["args"] = args_b64
+        elif args_path:
+            command["args_path"] = args_path
+            if args_digest:
+                command["args_digest"] = args_digest
+        if result_path and result_max_inline is not None:
+            command["result_path"] = result_path
+            command["result_max_inline"] = int(result_max_inline)
+        await self._send(command)
+
+        def ready(c: "AgentClient"):
+            rejection = c._pop_rejection(task_id, "invoke")
+            if rejection is not None:
+                raise rejection
+            return c._started.get(task_id)
+
+        pid = await self._wait(ready, timeout)
+        self._started.pop(task_id, None)
+        return pid
+
+    async def wait_result(self, task_id: str, timeout: float | None = None) -> dict:
+        """Block until the invocation's pushed ``result`` event."""
+        event = await self._wait(lambda c: c._results.get(task_id), timeout)
+        self._results.pop(task_id, None)
+        return event
+
+    # -- serving sessions -------------------------------------------------------
 
     async def serve_open(self, sid: str, digest: str, path: str,
                          options: dict | None = None, spec: dict | None = None,

@@ -1,48 +1,62 @@
 """``GPUExecutor``: dispatch an electron to a GPU worker and bring back its result.
 
-Counterpart of ``covalent_tpu_plugin/tpu.py``'s ``TPUExecutor`` in launch
-mode over the local transport: stage the pickled ``(fn, args, kwargs)`` and
-a task spec, upload them with this package's own ``harness.py``, launch the
-harness detached, poll until its result file appears (or its process dies),
-fetch and unpickle ``(result, exception)``, clean up on both sides, and
-re-raise a remote exception locally.
+Counterpart of ``covalent_tpu_plugin/tpu.py``'s ``TPUExecutor`` over the
+local transport.  Each electron takes one of two roads (``dispatch_mode``):
+
+* **launch**: stage the pickled ``(fn, args, kwargs)`` and a task spec,
+  upload them with this package's own ``harness.py``, start the harness,
+  wait for it to exit, fetch and unpickle ``(result, exception)``, clean up
+  on both sides, and re-raise a remote exception locally.  With the
+  resident runtime on (``use_agent``, the default) the harness runs as a
+  fork of the pool server's zygote (the pool's ``run`` verb), an
+  interpreter that has already imported ``torch`` and this package, and
+  its exit is pushed over the channel; without it, a fresh interpreter is
+  started detached with ``nohup`` and polled.
+* **rpc**: execute by digest inside the warm pool server itself.  The
+  function's cloudpickle is shipped once per connection into the worker's
+  content-addressed store and registered once per digest; each electron is
+  then one ``invoke`` with its args inline (or staged in the store when
+  larger than ``rpc_inline_args_max``) and one pushed ``result``.
 
 Each ``run`` is one root span (``executor.task``) with a child per stage:
-``stage``, ``upload``, ``submit``, ``poll``, ``fetch`` and ``cleanup``, plus
-``execute``, the electron's own runtime as the harness measured it.
+``stage``, ``upload``, ``connect`` (the pool server's start or its ping),
+``submit``, ``poll``, ``fetch`` and ``cleanup``, plus ``execute``, the
+electron's own runtime as the harness measured it, in either road.
 ``last_timings`` then holds each stage's seconds, ``total``, ``overhead``
 (the stages but ``execute``) and ``wall_overhead`` (``total`` minus
 ``execute``), the reference's dispatch-overhead accounting
 (``tpu.py:4211-4243``).
 
-With ``use_agent="pool"`` the executor also keeps a resident pool server
-per worker (the port's ``harness.py --serve``, started lazily and proved by
-a ping before each use): the runtime that ``serving.open_session`` opens
-its sessions on.  Electrons still run detached in launch mode: the pool's
-``run`` verb and RPC mode come with slice 5.
-
-The native C++ agent comes with ROADMAP item 2c; the content-addressed
-cache, fleet, retries, the ops endpoint, the SSH transport and
-multi-process gangs with later slices.
+The pool server is also the runtime ``serving.open_session`` opens its
+sessions on.  The native C++ agent comes with ROADMAP item 2c.6; the SSH
+transport, the result cache, fleet, task retries, the ops endpoint and
+multi-process gangs with slice 5b and slice 4.
 """
 
 from __future__ import annotations
 
 import asyncio
+import base64
+import hashlib
 import json
 import os
+import pickle
 import shlex
 import uuid
 from enum import Enum
 from pathlib import Path
 from typing import Any, Callable, NamedTuple
 
+import cloudpickle
+
 from . import harness as _harness_module
-from .agent import AgentClient, AgentError, start_pool_server
+from .agent import POOL_PRELOAD, AgentClient, AgentError, start_pool_server
+from .cache import CASIndex, FnRegistry, bytes_digest, cas_path
 from .executor_base import RemoteExecutor
 from .obs import events as obs_events
 from .obs.metrics import REGISTRY
 from .obs.trace import Span, record_span
+from .resilience import FaultClass, classify_error, tag_fault
 from .transport import LocalTransport, Transport, TransportError
 from .utils.config import get_config, update_config
 from .utils.log import app_log
@@ -65,7 +79,21 @@ _EXECUTOR_PLUGIN_DEFAULTS = {
     "task_env": {},
     "do_cleanup": True,
     "profile_dir": "",
-    "use_agent": False,
+    # The resident runtime (the reference's default, tpu.py:158): True or
+    # "auto" try the pool server and fall back to nohup + poll when it
+    # cannot start; "pool" pins it; False or "off" never start it.
+    "use_agent": True,
+    # "launch" runs every electron as a harness process (a zygote fork with
+    # the pool on); "auto" and "rpc" execute eligible electrons by digest
+    # inside the pool server (tpu.py:169).  COVALENT_TPU_DISPATCH_MODE
+    # overrides per process, electron metadata ("dispatch_mode") per electron.
+    "dispatch_mode": "launch",
+    # RPC args and results up to this many pickled bytes ride the channel;
+    # larger ones are staged by digest (tpu.py:173).
+    # COVALENT_TPU_RPC_INLINE_MAX overrides.
+    "rpc_inline_args_max": 64 * 1024,
+    # Modules the pool server and its zygote import at start-up.
+    "pool_preload": POOL_PRELOAD,
 }
 
 _TASKS_TOTAL = REGISTRY.counter(
@@ -88,6 +116,14 @@ _WALL_OVERHEAD_HIST = REGISTRY.histogram(
 
 #: Stages that are the electron's own work, not dispatch overhead.
 _NOT_OVERHEAD = ("execute", "profile")
+
+_DISPATCH_MODES = ("launch", "auto", "rpc")
+
+
+class _RpcUnavailable(Exception):
+    """Internal control flow: the worker has no live pool runtime to
+    execute by digest.  ``run`` takes the launch road for the same electron
+    and emits ``task.rpc_fallback``."""
 
 
 class TaskStatus(str, Enum):
@@ -142,12 +178,15 @@ class GPUExecutor(RemoteExecutor):
     """Executor plugin: ``@ct.electron(executor=GPUExecutor(...))``.
 
     ``task_env`` travels in the task spec and is applied in the worker before
-    the electron runs (``CUDA_VISIBLE_DEVICES`` pins the card there);
-    ``profile_dir`` traces the electron with ``torch.profiler`` into
+    the electron runs (``CUDA_VISIBLE_DEVICES`` pins the card there), and is
+    in the pool server's environment from its start; ``profile_dir`` traces
+    the electron with ``torch.profiler`` into
     ``{profile_dir}/{operation_id}/trace.json`` on the worker.
 
-    ``use_agent="pool"`` enables the resident pool server (serving
-    sessions); ``task_env`` is in its environment from the start.
+    ``use_agent`` (True, "auto", "pool", False or "off") and
+    ``dispatch_mode`` ("launch", "auto" or "rpc") choose the road (module
+    docstring); ``rpc_inline_args_max`` is the inline size limit of RPC args
+    and results, ``pool_preload`` the pool server's and zygote's preloads.
 
     An argument left at None takes ``get_config("executors.gpu.<key>")``,
     else the default in ``_EXECUTOR_PLUGIN_DEFAULTS``: that is how
@@ -164,6 +203,9 @@ class GPUExecutor(RemoteExecutor):
     #: proves it before each use.
     AGENT_PING_TIMEOUT_S = 15.0
 
+    #: How often a wait on a pushed result wakes to notice a cancel.
+    RPC_WAKE_S = 0.5
+
     def __init__(
         self,
         transport: str | None = None,
@@ -178,6 +220,9 @@ class GPUExecutor(RemoteExecutor):
         do_cleanup: bool | None = None,
         profile_dir: str | None = None,
         use_agent: bool | str | None = None,
+        dispatch_mode: str | None = None,
+        rpc_inline_args_max: int | None = None,
+        pool_preload: str | None = None,
     ) -> None:
         def resolve(value, key):
             if value is not None:
@@ -189,13 +234,32 @@ class GPUExecutor(RemoteExecutor):
         if transport != "local":
             raise NotImplementedError(
                 f"transport={transport!r} is not ported yet: the SSH transport "
-                "comes with slice 5 (the rest of the executor)"
+                "comes with slice 5b (the rest of the executor)"
             )
-        if use_agent not in (False, "pool"):
+        if use_agent == "native":
             raise NotImplementedError(
-                f"use_agent={use_agent!r} is not ported yet: the native agent comes "
-                "with ROADMAP item 2c; use_agent='pool' is the resident runtime"
+                "use_agent='native' is not ported yet: the native agent comes with "
+                "ROADMAP item 2c.6; True, 'auto' and 'pool' use the pool server"
             )
+        if use_agent not in (True, False, "auto", "pool", "off"):
+            raise ValueError(
+                f"use_agent must be True/False/'auto'/'pool'/'off', got {use_agent!r}"
+            )
+        env_mode = os.environ.get("COVALENT_TPU_DISPATCH_MODE")
+        if dispatch_mode is None and env_mode is not None:
+            dispatch_mode = env_mode.strip().lower() or None
+        dispatch_mode = str(resolve(dispatch_mode, "dispatch_mode")).lower()
+        if dispatch_mode not in _DISPATCH_MODES:
+            raise ValueError(
+                f'dispatch_mode must be "launch", "auto" or "rpc", got {dispatch_mode!r}'
+            )
+        env_inline = os.environ.get("COVALENT_TPU_RPC_INLINE_MAX")
+        if rpc_inline_args_max is None and env_inline is not None:
+            try:
+                rpc_inline_args_max = int(env_inline)
+            except ValueError:
+                app_log.warning("ignoring non-integer COVALENT_TPU_RPC_INLINE_MAX=%r",
+                                env_inline)
         super().__init__(poll_freq=resolve(poll_freq, "poll_freq"),
                          remote_cache=resolve(remote_cache, "remote_cache"))
         self.cache_dir = str(Path(resolve(cache_dir, "cache_dir")).expanduser().resolve())
@@ -206,20 +270,49 @@ class GPUExecutor(RemoteExecutor):
         self.task_env = dict(resolve(task_env, "task_env") or {})
         self.do_cleanup = bool(resolve(do_cleanup, "do_cleanup"))
         self.profile_dir = resolve(profile_dir, "profile_dir")
-        self.use_agent = use_agent
+        self.use_agent = False if use_agent == "off" else use_agent
+        self.dispatch_mode = dispatch_mode
+        self.rpc_inline_args_max = max(
+            0, int(resolve(rpc_inline_args_max, "rpc_inline_args_max")))
+        self.pool_preload = str(resolve(pool_preload, "pool_preload"))
+        #: the road the most recent electron took ("rpc" or "launch")
+        self.last_dispatch_mode = ""
         #: the stage timings of the last ``run`` (module docstring).
         self.last_timings: dict[str, float] = {}
         #: operation ids inside ``run``, and the PIDs of their running harnesses.
         self._active_ops: set[str] = set()
         self._pids: dict[str, int] = {}
+        #: operation id -> its road, and the pool client it ran through
+        self._op_modes: dict[str, str] = {}
+        self._op_agents: dict[str, AgentClient] = {}
         #: operation ids a caller cancelled: their runs end in CancelledError.
         self._cancelled_ops: set[str] = set()
-        #: address -> the pooled channel and its resident pool server.
+        #: address -> the pooled channel and its resident pool server (None:
+        #: the server could not start; the worker launches with nohup).
         self._transports: dict[str, Transport] = {}
-        self._agents: dict[str, AgentClient] = {}
+        self._agents: dict[str, AgentClient | None] = {}
         self._agent_locks: dict[str, asyncio.Lock] = {}
+        #: per-connection artifacts the worker holds, and functions its
+        #: resident runtime registered
+        self._cas = CASIndex()
+        self._fn_registry = FnRegistry()
         #: sid -> live serving-session supervisor (``serve_sessions``).
         self._serve_handles: dict[str, Any] = {}
+
+    # -- RPC registry views ------------------------------------------------
+
+    def holds_fn_digest(self, digest: str) -> bool:
+        """Whether any live connection's resident runtime registered this
+        function digest."""
+        return bool(digest) and self._fn_registry.holds(digest)
+
+    def rpc_digest_count(self) -> int:
+        """Distinct function digests registered across the connections."""
+        return len(self._fn_registry.digests())
+
+    def in_flight_modes(self) -> dict[str, str]:
+        """operation id -> dispatch road of every electron in flight."""
+        return dict(self._op_modes)
 
     # ------------------------------------------------------------------ #
     # Stage / upload / submit                                             #
@@ -418,7 +511,7 @@ class GPUExecutor(RemoteExecutor):
 
     # ------------------------------------------------------------------ #
     # Resident pool servers (reference: tpu.py lease_gang, _agent_for,   #
-    # _discard_workers, close)                                            #
+    # _submit_via_agent, _discard_workers, close)                         #
     # ------------------------------------------------------------------ #
 
     def serve_sessions(self) -> dict[str, dict[str, Any]]:
@@ -428,6 +521,10 @@ class GPUExecutor(RemoteExecutor):
 
     def _worker_addresses(self) -> list[str]:
         return ["localhost"]  # the local transport's one worker
+
+    @staticmethod
+    def _pool_key(address: str) -> str:
+        return f"local:{address}"
 
     async def lease_gang(self, dialed: list[Transport] | None = None) -> GangLease:
         """Connect to every worker and warm its pool server.
@@ -444,7 +541,9 @@ class GPUExecutor(RemoteExecutor):
         return GangLease(conns, addresses)
 
     async def _agent_for(self, conn: Transport) -> AgentClient | None:
-        """A live pool server for this worker (None with ``use_agent`` off).
+        """A live pool server for this worker, or None (``use_agent`` off,
+        or the server could not start: the worker is then remembered as
+        having none, and electrons launch with nohup + poll).
 
         A cached server is proved by a ping before it is handed out; one
         that fails it is replaced.  One start at a time per worker.
@@ -453,8 +552,10 @@ class GPUExecutor(RemoteExecutor):
             return None
         lock = self._agent_locks.setdefault(conn.address, asyncio.Lock())
         async with lock:
-            client = self._agents.get(conn.address)
-            if client is not None:
+            if conn.address in self._agents:
+                client = self._agents[conn.address]
+                if client is None:
+                    return None
                 if client.alive:
                     try:
                         await client.ping(self.AGENT_PING_TIMEOUT_S)
@@ -462,18 +563,30 @@ class GPUExecutor(RemoteExecutor):
                     except AgentError as err:
                         app_log.warning("worker %s: cached pool server failed ping (%s); "
                                         "restarting it", conn.address, err)
+                        obs_events.emit("agent.restarted", address=conn.address,
+                                        error=repr(err))
                 await client.close()
                 self._agents.pop(conn.address, None)
-            client = await start_pool_server(
-                conn, self.remote_cache, self.python_path, env=self.task_env
-            )
+            try:
+                client = await start_pool_server(
+                    conn, self.remote_cache, self.python_path, env=self.task_env,
+                    preload=self.pool_preload,
+                )
+            except (AgentError, TransportError) as err:
+                app_log.info("worker %s: no pool runtime (%s); using nohup + poll",
+                             conn.address, err)
+                obs_events.emit("agent.unavailable", address=conn.address, error=repr(err))
+                self._agents[conn.address] = None
+                return None
             self._agents[conn.address] = client
+            obs_events.emit("agent.started", address=conn.address)
             return client
 
     async def _discard_workers(self, conns: list[Transport] | None = None) -> None:
-        """Drop the pooled channels (``None``: all of them) and their pool
-        servers after a control-plane failure, so the next lease starts
-        fresh ones."""
+        """Drop the pooled channels (``None``: all of them), their pool
+        servers and what the executor knew of them (the artifacts the
+        worker holds, the functions its runtime registered) after a
+        control-plane failure, so the next lease starts fresh ones."""
         for address, conn in list(self._transports.items()):
             if conns is not None and not any(conn is c for c in conns):
                 continue
@@ -481,15 +594,115 @@ class GPUExecutor(RemoteExecutor):
             client = self._agents.pop(address, None)
             if client is not None:
                 await client.close()
+            self._cas.forget(self._pool_key(address))
+            self._fn_registry.forget(self._pool_key(address))
             await conn.close()
 
     async def close(self) -> None:
         """Shut every pool server down and release the channels."""
         await self._discard_workers()
 
+    async def _resident_client(self, dialed: list[Transport]) -> AgentClient | None:
+        """The worker's live pool server (None without one), inside the
+        ``connect`` stage: the server's start on first use, a ping after."""
+        with Span("executor.connect"):
+            lease = await self.lease_gang(dialed=dialed)
+        client = self._agents.get(lease.conns[0].address)
+        return client if client is not None and client.alive else None
+
+    async def _submit_via_agent(self, client: AgentClient, conn: Transport,
+                                staged: StagedTask) -> int:
+        """Start the staged harness as a fork of the pool's zygote; returns
+        its pid.  The task's files are those of a nohup launch, so every
+        probe (pid liveness, result file, kill by pid) still works if the
+        channel dies later."""
+        try:
+            return await client.run_task(staged.operation_id, spec=staged.remote_spec_file,
+                                         log=staged.remote_log_file)
+        except AgentError as err:
+            if not getattr(err, "maybe_started", False):
+                raise
+            # The run command reached the worker before the channel failed:
+            # the task may be alive there, and a second launch would run it
+            # twice.  Kill it by the pid file it writes first thing, over a
+            # short grace window, and fail this launch.
+            pid_file = shlex.quote(staged.remote_pid_file)
+            reap = (f"if [ -s {pid_file} ]; then kill -s TERM -- -$(cat {pid_file}) "
+                    f"2>/dev/null || kill -s TERM $(cat {pid_file}) 2>/dev/null; "
+                    "echo KILLED; fi")
+            for _ in range(4):
+                if "KILLED" in (await conn.run(reap)).stdout:
+                    break
+                await asyncio.sleep(0.5)
+            raise TransportError(
+                f"pool submit on {conn.address} failed after the run command was sent: {err}"
+            ) from err
+
+    async def _await_agent_exit(self, client: AgentClient, conn: Transport,
+                                staged: StagedTask, pid: int) -> TaskStatus:
+        """Wait for the pushed ``exit`` event instead of polling.
+
+        The exit resolves the task through the result file (the polling
+        road's READY); a task whose exit the server could not see (its
+        zygote died) or a channel that died meanwhile falls back to the
+        status probes, which the task's own files answer.
+        """
+        waiter = asyncio.ensure_future(client.wait_exit(staged.operation_id))
+        try:
+            done, _ = await asyncio.wait({waiter}, timeout=self.task_timeout or None)
+            if not done:
+                return TaskStatus.TIMEOUT
+            try:
+                waiter.result()
+            except AgentError as err:
+                app_log.info("task %s: pool channel died (%s); polling its files",
+                             staged.operation_id, err)
+                return await self._poll_task(conn, staged, pid)
+        finally:
+            waiter.cancel()
+            try:
+                await waiter
+            except (asyncio.CancelledError, AgentError):
+                pass
+        status = await self.get_status(conn, staged, pid)
+        if status in (TaskStatus.RUNNING, TaskStatus.STARTING):
+            return await self._poll_task(conn, staged, pid)
+        return status
+
     # ------------------------------------------------------------------ #
     # Orchestration                                                       #
     # ------------------------------------------------------------------ #
+
+    def _resolve_dispatch_mode(self, task_metadata: dict) -> str:
+        """An electron's mode: its metadata's ``dispatch_mode``, else the
+        executor's.  An invalid metadata value keeps the executor's mode,
+        with a warning."""
+        raw = task_metadata.get("dispatch_mode")
+        if raw is not None:
+            mode = str(raw).strip().lower()
+            if mode in _DISPATCH_MODES:
+                return mode
+            app_log.warning('ignoring invalid electron dispatch_mode %r (expected "launch", '
+                            '"auto" or "rpc"); using %r', raw, self.dispatch_mode)
+        return self.dispatch_mode
+
+    def _rpc_preselect(self, task_metadata: dict) -> bool:
+        """Whether an electron takes the RPC road, decided before it starts.
+
+        RPC runs the electron inside the shared resident process, so it is
+        kept to what that process can serve faithfully: an agent policy
+        that allows the pool runtime, no pip installs (they change the
+        process), and no ``profile_dir``.  The reference profiles an RPC
+        electron inside its runtime with ``profile_start``/``profile_stop``;
+        in the port those verbs come with ROADMAP item 2c.5, so a profiled
+        electron launches.  The worker's lack of a live runtime is found
+        later and falls back through :class:`_RpcUnavailable`.
+        """
+        if self._resolve_dispatch_mode(task_metadata) == "launch":
+            return False
+        if self.use_agent not in (True, "auto", "pool"):
+            return False
+        return not (task_metadata.get("pip_deps") or self.profile_dir)
 
     async def run(
         self,
@@ -517,13 +730,26 @@ class GPUExecutor(RemoteExecutor):
         outcome = "failed"
         try:
             await self._validate_credentials()
-            with Span("executor.stage"):
-                staged = await asyncio.to_thread(
-                    self._write_function_files, operation_id, function,
-                    tuple(args or ()), dict(kwargs or {}), workdir,
-                    task_metadata.get("pip_deps", ()),
-                )
-            result, exception = await self._run_staged(root, staged)
+            args, kwargs = tuple(args or ()), dict(kwargs or {})
+            ran = None
+            if self._rpc_preselect(task_metadata):
+                self.last_dispatch_mode = self._op_modes[operation_id] = "rpc"
+                try:
+                    ran = await self._run_rpc(root, operation_id, function, args, kwargs)
+                except _RpcUnavailable as unavailable:
+                    obs_events.emit("task.rpc_fallback", operation_id=operation_id,
+                                    reason=str(unavailable))
+                    app_log.info("task %s: RPC dispatch unavailable (%s); using the "
+                                 "launch road", operation_id, unavailable)
+            if ran is None:
+                self.last_dispatch_mode = self._op_modes[operation_id] = "launch"
+                with Span("executor.stage"):
+                    staged = await asyncio.to_thread(
+                        self._write_function_files, operation_id, function, args, kwargs,
+                        workdir, task_metadata.get("pip_deps", ()),
+                    )
+                ran = await self._run_staged(root, staged)
+            result, exception = ran
             if exception is not None:
                 # Re-raise the remote exception locally (ssh.py:581-583).
                 outcome = "remote_exception"
@@ -536,7 +762,27 @@ class GPUExecutor(RemoteExecutor):
         finally:
             self._active_ops.discard(operation_id)
             self._cancelled_ops.discard(operation_id)
+            self._op_modes.pop(operation_id, None)
+            client = self._op_agents.pop(operation_id, None)
+            if client is not None:
+                # whatever the channel kept for this task, on every exit path
+                client.forget(operation_id)
             self._epilogue(root, outcome, operation_id)
+
+    @staticmethod
+    def _record_execute(root: Span, times: dict | None) -> None:
+        """The electron's own runtime, as the harness measured it, becomes
+        the ``execute`` stage.  The poll span waited for it too: what the
+        poll adds beyond it (a worker's start and imports, the result's
+        write and the wait's wake-ups) stays the poll stage's."""
+        if not times:
+            return
+        execute = max(0.0, times["end"] - times["start"])
+        record_span("executor.execute", trace_id=root.trace_id, parent_id=root.span_id,
+                    start_ts=times["start"], duration_s=execute)
+        stages = root.stage_durations
+        stages["execute"] = execute
+        stages["poll"] = max(0.0, stages.get("poll", 0.0) - execute)
 
     async def _run_staged(self, root: Span, staged: StagedTask):
         """Upload, launch, wait for, fetch and clean up one staged task:
@@ -546,13 +792,33 @@ class GPUExecutor(RemoteExecutor):
         try:
             with Span("executor.upload"):
                 await self._upload_task(conn, staged)
+            client = await self._resident_client([]) if self.use_agent else None
             if operation_id in self._cancelled_ops:
                 raise asyncio.CancelledError(f"task {operation_id} cancelled")
             with Span("executor.submit"):
-                pid = self._pids[operation_id] = await self.submit_task(conn, staged)
+                pid = None
+                if client is not None:
+                    try:
+                        pid = await self._submit_via_agent(client, conn, staged)
+                        self._op_agents[operation_id] = client
+                    except AgentError as err:
+                        if classify_error(err)[0] is FaultClass.PERMANENT:
+                            raise
+                        # rejected before it started: launch it detached instead
+                        app_log.warning("task %s: pool run refused (%s); launching with "
+                                        "nohup", operation_id, err)
+                        obs_events.emit("task.agent_fallback", operation_id=operation_id,
+                                        reason=str(err))
+                        client = None
+                if pid is None:
+                    pid = await self.submit_task(conn, staged)
+                self._pids[operation_id] = pid
             try:
                 with Span("executor.poll"):
-                    status = await self._poll_task(conn, staged, pid)
+                    if client is not None:
+                        status = await self._await_agent_exit(client, conn, staged, pid)
+                    else:
+                        status = await self._poll_task(conn, staged, pid)
             except asyncio.CancelledError:
                 await self._kill(conn, staged)
                 raise
@@ -568,18 +834,7 @@ class GPUExecutor(RemoteExecutor):
                 )
             with Span("executor.fetch"):
                 result, exception, times = await self.query_result(conn, staged)
-            if times:
-                # The electron's own runtime, as the harness measured it.  The
-                # poll span waited for it too: what the poll adds beyond it
-                # (the worker's start, its imports, the result write and the
-                # poll interval) stays the poll stage's.
-                execute = max(0.0, times["end"] - times["start"])
-                record_span("executor.execute", trace_id=root.trace_id,
-                            parent_id=root.span_id, start_ts=times["start"],
-                            duration_s=execute)
-                stages = root.stage_durations
-                stages["execute"] = execute
-                stages["poll"] = max(0.0, stages.get("poll", 0.0) - execute)
+            self._record_execute(root, times)
             return result, exception
         finally:
             self._pids.pop(operation_id, None)
@@ -587,6 +842,193 @@ class GPUExecutor(RemoteExecutor):
                 with Span("executor.cleanup"):
                     await self.cleanup(conn, staged)
             await conn.close()
+
+    # ------------------------------------------------------------------ #
+    # RPC dispatch: execute by digest in the warm pool server             #
+    # (reference: tpu.py _run_attempt_rpc, 4785-5290)                     #
+    # ------------------------------------------------------------------ #
+
+    @staticmethod
+    def _write_payload_file(path: str, payload: bytes) -> None:
+        """Atomic write of a digest-named payload (immutable: skipped when
+        present; concurrent electrons share function payloads)."""
+        if os.path.exists(path):
+            return
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        tmp = f"{path}.tmp.{os.getpid()}.{os.urandom(4).hex()}"
+        with open(tmp, "wb") as f:
+            f.write(payload)
+        os.replace(tmp, path)
+
+    @staticmethod
+    def _decode_rpc_result(event: dict) -> tuple:
+        """``(result, exception, times)`` from an inline ``result`` event:
+        the layout launch mode fetches from the result file."""
+        result, exception, *times = pickle.loads(base64.b64decode(str(event.get("data") or "")))
+        return result, exception, (times[0] if times else None)
+
+    async def _fetch_staged_rpc_result(self, conn: Transport, event: dict,
+                                       operation_id: str) -> tuple:
+        """Fetch a result the worker staged instead of inlining (over
+        ``rpc_inline_args_max``), verify its digest, and remove both copies."""
+        remote = str(event["data_path"])
+        local = os.path.join(self.cache_dir, f"result_rpc_{os.urandom(8).hex()}.pkl")
+        try:
+            await conn.get(remote, local)
+            data = await asyncio.to_thread(Path(local).read_bytes)
+            expected = str(event.get("data_digest") or "")
+            if expected and hashlib.sha256(data).hexdigest() != expected:
+                raise RuntimeError(f"staged RPC result for {operation_id} does not match "
+                                   "its announced digest (torn artifact)")
+            obs_events.emit("task.rpc_result_staged", operation_id=operation_id,
+                            bytes=len(data))
+            result, exception, *times = await asyncio.to_thread(pickle.loads, data)
+            return result, exception, (times[0] if times else None)
+        finally:
+            try:
+                os.remove(local)
+            except OSError:
+                pass
+            try:
+                await conn.remove([remote])
+            except (OSError, TransportError):
+                pass
+
+    async def _await_rpc_result(self, client: AgentClient, operation_id: str) -> tuple:
+        """Wait for an invocation's pushed result: ``("result", event)``,
+        ``("timeout", None)`` once ``task_timeout`` is spent, or
+        ``("channel", AgentError)`` when the channel died (a dead resident
+        worker looks the same).  Wakes every ``RPC_WAKE_S`` to notice a
+        cancel."""
+        loop = asyncio.get_running_loop()
+        deadline = loop.time() + self.task_timeout if self.task_timeout else None
+        waiter = asyncio.ensure_future(client.wait_result(operation_id))
+        try:
+            while True:
+                wake = self.RPC_WAKE_S
+                if deadline is not None:
+                    remaining = deadline - loop.time()
+                    if remaining <= 0:
+                        return "timeout", None
+                    wake = min(wake, remaining)
+                done, _ = await asyncio.wait({waiter}, timeout=wake)
+                if done:
+                    try:
+                        return "result", waiter.result()
+                    except AgentError as err:
+                        return "channel", err
+                if operation_id in self._cancelled_ops:
+                    raise asyncio.CancelledError(f"task {operation_id} cancelled")
+        finally:
+            waiter.cancel()
+            try:
+                await waiter
+            except (asyncio.CancelledError, AgentError):
+                pass
+
+    async def _run_rpc(self, root: Span, operation_id: str, function: Callable,
+                       args: tuple, kwargs: dict):
+        """One electron by digest in the warm pool server: ``(result,
+        exception)``, under the launch road's stage spans.
+
+        Per electron (warm): one ``invoke`` line with the args inline and
+        one pushed ``result``.  Per connection: the function's CAS ship and
+        its ``register_fn``.  A dead resident worker or dropped channel
+        fails the electron as transient (``rpc_channel``); a digest
+        mismatch is permanent.  A timeout or cancel tears the resident
+        runtime down: an invocation inside a shared process cannot be
+        killed any other way.  No live runtime raises
+        :class:`_RpcUnavailable`.
+        """
+        conns: list[Transport] = []
+        local_args = None
+        try:
+            with Span("executor.stage"):
+                # The function and the args pickle apart: the function's
+                # digest is the registry key electrons share; args vary.
+                fn_payload, args_payload = await asyncio.to_thread(
+                    lambda: (cloudpickle.dumps(function), cloudpickle.dumps((args, kwargs))))
+                fn_digest, args_digest = bytes_digest(fn_payload), bytes_digest(args_payload)
+                inline = len(args_payload) <= self.rpc_inline_args_max
+                local_fn = os.path.join(self.cache_dir, f"fn_rpc_{fn_digest}.pkl")
+                await asyncio.to_thread(self._write_payload_file, local_fn, fn_payload)
+                if not inline:
+                    # private to this electron: its cleanup must not race
+                    # another's upload of the same args
+                    local_args = os.path.join(
+                        self.cache_dir, f"args_rpc_{args_digest}.{os.urandom(6).hex()}.pkl")
+                    await asyncio.to_thread(self._write_payload_file, local_args, args_payload)
+            client = await self._resident_client(conns)
+            if client is None:
+                raise _RpcUnavailable("no live pool runtime on "
+                                      f"{self._worker_addresses()[0]}")
+            conn, address = conns[0], self._worker_addresses()[0]
+            key = self._pool_key(address)
+            remote_fn = cas_path(self.remote_cache, fn_digest, ".pkl")
+            spec: dict[str, Any] = {"operation_id": operation_id}
+            if self.task_env:
+                spec["env"] = dict(self.task_env)
+            self._op_agents[operation_id] = client
+            invoke_kwargs: dict[str, Any] = {}
+            try:
+                with Span("executor.upload"):
+                    await self._cas.ensure_probed(key, conn, [(fn_digest, remote_fn)])
+                    await self._cas.ensure(key, conn, fn_digest, local_fn, remote_fn)
+                    await self._fn_registry.ensure(key, client, fn_digest, remote_fn)
+                    if inline:
+                        invoke_kwargs["args_bytes"] = args_payload
+                    else:
+                        remote_args = cas_path(self.remote_cache, args_digest, ".pkl")
+                        await self._cas.ensure(key, conn, args_digest, local_args, remote_args)
+                        invoke_kwargs.update(args_path=remote_args, args_digest=args_digest)
+                        obs_events.emit("task.rpc_args_staged", operation_id=operation_id,
+                                        bytes=len(args_payload))
+                if operation_id in self._cancelled_ops:
+                    raise asyncio.CancelledError(f"task {operation_id} cancelled")
+                with Span("executor.submit"):
+                    await client.invoke(
+                        operation_id, fn_digest, spec=spec, path=remote_fn,
+                        result_path=f"{self.remote_cache}/result_rpc_{os.urandom(8).hex()}.pkl",
+                        result_max_inline=self.rpc_inline_args_max, **invoke_kwargs,
+                    )
+            except AgentError as err:
+                if classify_error(err)[0] is FaultClass.PERMANENT:
+                    raise  # a torn payload: no road can make its bytes match
+                await self._discard_workers(conns)
+                raise tag_fault(err, "rpc_channel", transient=True)
+            with Span("executor.poll"):
+                verdict, payload = await self._await_rpc_result(client, operation_id)
+            if verdict != "result":
+                await self._discard_workers(conns)
+                if verdict == "timeout":
+                    raise RuntimeError(f"RPC task {operation_id} timed out after "
+                                       f"{self.task_timeout:.1f}s on {address}; resident "
+                                       "runtime torn down")
+                raise tag_fault(AgentError(f"resident worker died mid-invoke on {address}: "
+                                           f"{payload}"), "rpc_channel", transient=True)
+            with Span("executor.fetch"):
+                if payload.get("data_path"):
+                    result, exception, times = await self._fetch_staged_rpc_result(
+                        conn, payload, operation_id)
+                else:
+                    result, exception, times = await asyncio.to_thread(
+                        self._decode_rpc_result, payload)
+            self._record_execute(root, times)
+            return result, exception
+        except asyncio.CancelledError:
+            if conns:
+                # shielded: a second cancel must not leave the teardown half done
+                try:
+                    await asyncio.shield(self._discard_workers(conns))
+                except (Exception, asyncio.CancelledError):  # noqa: BLE001
+                    pass
+            raise
+        finally:
+            if local_args is not None:
+                try:
+                    os.remove(local_args)
+                except OSError:
+                    pass
 
     def _epilogue(self, root: Span, outcome: str, operation_id: str) -> None:
         """Terminal accounting on every exit path (``tpu.py:4211-4243``)."""

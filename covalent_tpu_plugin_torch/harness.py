@@ -1,5 +1,5 @@
-"""Worker-side bootstrap: ``python harness.py <task_spec.json>`` or
-``python harness.py --serve``.
+"""Worker-side bootstrap: ``python harness.py <task_spec.json>``,
+``python harness.py --serve`` or ``python harness.py --zygote``.
 
 Counterpart of ``covalent_tpu_plugin/harness.py``.  The executor ships this
 one file to the worker (it imports nothing of the package).
@@ -15,8 +15,12 @@ one file to the worker (it imports nothing of the package).
   resume) are refused: the electron does not run, and the error comes back
   as its exception.
 * **Resident mode** (``harness.py --serve``): the pool server.  It speaks a
-  JSON-lines protocol on stdin/stdout and hosts resident serving sessions
-  in its own process (see :func:`serve`).
+  JSON-lines protocol on stdin/stdout, hosts resident serving sessions and
+  RPC invocations in its own process, and runs launch-mode specs (``run``)
+  as forks of its zygote (see :func:`serve`).
+* **Zygote** (``harness.py --zygote``): the pool server's fork helper, a
+  single-threaded process that has imported the preloads but never
+  initialised CUDA (see :func:`zygote`).
 """
 
 from __future__ import annotations
@@ -198,6 +202,30 @@ def run_task(spec: dict) -> int:
 # One JSON object per line each way.  Commands on stdin:
 #
 #   {"cmd":"ping"}                                  -> {"event":"pong"}
+#   {"cmd":"run","id":task,"spec":path[,"log":path]} -> {"event":"started",
+#                                                       "id","pid"}, later
+#                                                      {"event":"exit","id",
+#                                                       "code","signal"}
+#   {"cmd":"kill","id":task[,"sig":15]}             -> {"event":"killed","id"}
+#   {"cmd":"watch","id":task,"path":jsonl}          -> {"event":"watching","id"},
+#                                                      then one telemetry event
+#                                                      per line of the file
+#   {"cmd":"unwatch","id":task}                     -> {"event":"unwatched","id"}
+#   {"cmd":"task_inventory"}                        -> {"event":"task_inventory",
+#                                                       "pid","tasks":[{id,pid}]}
+#   {"cmd":"register_fn","digest":sha256,"path":cas} -> {"event":"registered",
+#                                                       "digest"}
+#                                                    | {"event":"register_error",
+#                                                       "digest","code","message"}
+#   {"cmd":"invoke","id":op,"digest":sha256,"spec":{...},"args":b64
+#    | "args_path"+"args_digest"[,"path"][,"result_path","result_max_inline"]}
+#                                                   -> {"event":"started","id",
+#                                                       "pid","rpc":true},
+#                                                      telemetry, then
+#                                                      {"event":"result","id",
+#                                                       "ok","data":b64
+#                                                       | "data_path"+
+#                                                       "data_digest"+"bytes"}
 #   {"cmd":"serve_open","id":sid,"digest":sha256,"path":"<cas>/<sha256>.pkl",
 #    "options":{"queue_max","default_deadline_s","stats_interval_s"},
 #    "spec":{"operation_id","env"}}                 -> {"event":"serve_opened",
@@ -222,8 +250,13 @@ def run_task(spec: dict) -> int:
 # frames, so the channel stays on these lines.
 #
 # Verbs of later items are refused with an ``error`` event naming the item.
-# Sessions run in this process on their own threads; nothing here forks (a
-# process that has touched the card cannot hand CUDA to a forked child).
+#
+# Sessions and RPC invocations run in this process on their own threads,
+# and share its one CUDA context.  This process is never forked: once it
+# has touched the card (a session or an RPC electron initialises CUDA), a
+# forked child could not use CUDA.  ``run`` forks from the zygote instead,
+# a helper this server spawns once, which imports the same preloads and
+# never initialises CUDA.
 # ---------------------------------------------------------------------------
 
 #: Verbs of the reference's runtime that this one refuses, and what brings them.
@@ -237,14 +270,15 @@ _LATER_VERBS = {
     "adopt": "ROADMAP item 2c (recovery)",
     "profile_start": "ROADMAP item 2c (serving metrics and tracing)",
     "profile_stop": "ROADMAP item 2c (serving metrics and tracing)",
-    "run": "slice 5 (the pool's run verb, which must spawn, not fork)",
-    "kill": "slice 5 (the pool's run verb, which must spawn, not fork)",
-    "watch": "slice 5 (the pool's run verb, which must spawn, not fork)",
-    "unwatch": "slice 5 (the pool's run verb, which must spawn, not fork)",
-    "task_inventory": "slice 5 (the pool's run verb, which must spawn, not fork)",
-    "register_fn": "slice 5 (RPC dispatch)",
-    "invoke": "slice 5 (RPC dispatch)",
-    "multi_invoke": "slice 5 (RPC dispatch)",
+    # the reference's client sends it only in binary frames
+    "multi_invoke": "ROADMAP item 2c.1 (binary frames and invoke micro-batching)",
+}
+
+#: Command-line modes of the reference's harness that this one refuses.
+_LATER_MODES = {
+    "--rpc-child": "ROADMAP item 2c.6 (the native agent's one-shot RPC runner)",
+    "--serve-child": "ROADMAP item 2c.6 (the native agent's serving runner)",
+    "--attach": "ROADMAP item 2c.4 (recovery: orphan adoption)",
 }
 
 #: Per-process record sequence: the dispatcher drops a record whose seq is
@@ -711,64 +745,727 @@ def _serve_cancel(command: dict, sessions: dict) -> None:
         session.cancel_request(str(command.get("rid") or ""))
 
 
-def serve() -> int:
-    """The pool server's command loop (see the protocol above).
+# ---------------------------------------------------------------------------
+# RPC execute-by-digest (reference: harness.py:1283-1547).
+#
+# The dispatcher ships the cloudpickled function once per connection into
+# the CAS, registers it by digest, and then invokes it by digest with its
+# args inline on the channel (or staged in the CAS when oversized); the
+# result comes back on the channel (or staged by path when oversized).  No
+# process, pid file, poll or result file per electron.  Each invocation
+# runs on its own thread of this process: concurrent invocations share the
+# warm imports and the one CUDA context, and a crash that takes the process
+# down reaches the dispatcher as the channel's death.
+# ---------------------------------------------------------------------------
 
-    Protocol lines go to a copy of the original stdout; fd 1 is pointed at
-    stderr before any module is preloaded or user code runs.  Modules named
-    in ``COVALENT_TPU_POOL_PRELOAD`` (comma-separated, default
-    ``cloudpickle``) are imported once up front.  When stdin closes or
-    ``shutdown`` arrives the server exits, and its sessions with it: a
-    reconnecting dispatcher re-opens them on a fresh server.
+
+def _rpc_register(command: dict, registry: dict) -> None:
+    digest = command.get("digest")
+    path = command.get("path")
+    if not digest or not path:
+        _emit({"event": "error", "message": "register_fn requires digest and path"})
+        return
+    if digest in registry:  # idempotent: a re-register is a no-op ack
+        _emit({"event": "registered", "digest": digest})
+        return
+    code, loaded = _load_fn_payload(path, digest)
+    if code:
+        _emit({"event": "register_error", "digest": digest, "code": code,
+               "message": repr(loaded)})
+        return
+    registry[digest] = loaded
+    _emit({"event": "registered", "digest": digest})
+
+
+def _decode_rpc_args(command: dict) -> tuple:
+    """``(args, kwargs)`` of an invoke: inline base64, or a CAS path whose
+    bytes are digest-verified before they are unpickled (the guard the
+    function pickle gets)."""
+    import base64
+
+    import cloudpickle
+
+    b64 = command.get("args")
+    if b64 is not None:
+        data = base64.b64decode(b64)
+    else:
+        path = command.get("args_path")
+        if not path:
+            return (), {}
+        with open(path, "rb") as f:
+            data = f.read()
+        expected = command.get("args_digest")
+        if expected:
+            import hashlib
+
+            if hashlib.sha256(data).hexdigest() != expected:
+                raise RuntimeError(
+                    f"staged RPC args {path} do not match their content digest "
+                    "(torn or stale CAS artifact)"
+                )
+    args, kwargs = cloudpickle.loads(data)
+    return tuple(args), dict(kwargs)
+
+
+def _pickle_rpc_result(result, exception, times: dict) -> bytes:
+    """The ``(result, exception, times)`` pickle: the layout of the result
+    file launch mode writes."""
+    try:
+        import cloudpickle as pick
+    except ImportError:
+        import pickle as pick
+    try:
+        return pick.dumps((result, exception, times))
+    except BaseException as err:  # noqa: BLE001 - unpicklable user results
+        import pickle
+
+        return pickle.dumps(
+            (None, RuntimeError(f"RPC result not picklable: {err!r}"), times)
+        )
+
+
+def _emit_rpc_result(task_id: str, result, exception, times: dict, command: dict) -> None:
+    """Send one invocation's result, inline or staged by size.
+
+    A result pickle at or below ``result_max_inline`` rides the channel
+    base64-inline; a larger one is written (atomically) to the command's
+    ``result_path`` and announced by path and sha256, the size rule the
+    args follow on the way in.  No ``result_path`` keeps it inline; a
+    staging failure falls back to inline rather than lose the result.
     """
-    global _PROTO
-    _PROTO = os.fdopen(os.dup(1), "w", encoding="utf-8")
-    os.dup2(2, 1)
+    import base64
+
+    data = _pickle_rpc_result(result, exception, times)
+    result_path = command.get("result_path")
+    try:
+        max_inline = int(command.get("result_max_inline"))
+    except (TypeError, ValueError):
+        max_inline = -1
+    if result_path and 0 <= max_inline < len(data):
+        import hashlib
+
+        try:
+            tmp = f"{result_path}.tmp.{os.getpid()}"
+            with open(tmp, "wb") as f:
+                f.write(data)
+            os.replace(tmp, result_path)
+        except OSError:
+            pass  # the inline road below
+        else:
+            _emit({"event": "result", "id": task_id, "ok": exception is None,
+                   "data_path": result_path,
+                   "data_digest": hashlib.sha256(data).hexdigest(), "bytes": len(data)})
+            return
+    _emit({"event": "result", "id": task_id, "ok": exception is None,
+           "data": base64.b64encode(data).decode("ascii")})
+
+
+def _emit_rpc_event(spec: dict, task_id: str, type: str, **fields) -> None:
+    """One worker record, pushed over the channel with the ``rpc`` marker
+    (it lands in no file a launch-mode worker would write)."""
+    _emit({"event": "telemetry", "id": task_id,
+           "data": _build_worker_event(spec, type, rpc=True, **fields)})
+
+
+def _start_rpc_heartbeat(spec: dict, task_id: str):
+    """Heartbeats for one invocation over the channel every
+    ``spec["heartbeat_s"]`` seconds (none when unset); returns the event
+    that stops them."""
+    try:
+        interval = float(spec.get("heartbeat_s") or 0)
+    except (TypeError, ValueError):
+        interval = 0.0
+    if interval <= 0:
+        return None
+    stop = threading.Event()
+
+    def beat_loop() -> None:
+        hb_seq = 0
+        while True:
+            hb_seq += 1
+            _emit_rpc_event(spec, task_id, "worker.heartbeat", hb_seq=hb_seq,
+                            interval_s=interval, **_device_mem())
+            if stop.wait(interval):
+                return
+
+    threading.Thread(target=beat_loop, name="covalent-gpu-rpc-heartbeat", daemon=True).start()
+    return stop
+
+
+def _fresh_rng() -> None:
+    """Reseed the global random generators as a fresh interpreter seeds
+    them (from the system's entropy), so an earlier invocation's
+    ``torch.manual_seed`` does not carry over into the next.  Invocations
+    that run at the same time share the generators all the same."""
+    import random
+
+    random.seed()
+    numpy = sys.modules.get("numpy")
+    if numpy is not None:
+        numpy.random.seed()
+    torch = sys.modules.get("torch")
+    if torch is not None:
+        torch.seed()  # CPU now; the card's generators lazily, at CUDA's start
+
+
+def _run_rpc_task(command: dict, fn) -> None:
+    """Run one registered function in this process and send its result.
+
+    The launch-mode contract without the process: the task's env applied
+    (``task_env`` means the same in both modes), ``worker.task_started`` /
+    ``worker.task_finished`` records, user exceptions transported (never
+    raised), tensors moved to host memory before pickling, and ``times``
+    from this thread's own clock around the call.
+    """
+    task_id = command.get("id") or ""
+    spec = dict(command.get("spec") or {})
+    spec.setdefault("operation_id", task_id)
+    result, exception = None, None
+    args, kwargs = (), {}
+    try:
+        _apply_spec_env(spec)
+        args, kwargs = _decode_rpc_args(command)
+    except BaseException as err:  # noqa: BLE001 - a refused env or torn args fail the task
+        exception = err
+    _emit_rpc_event(spec, task_id, "worker.task_started", process_id=0)
+    heartbeat_stop = _start_rpc_heartbeat(spec, task_id)
+    started = time.time()
+    try:
+        if exception is None:
+            _fresh_rng()
+            try:
+                result = _to_host(fn(*args, **kwargs))
+            except Exception as task_error:  # noqa: BLE001 - transported
+                exception = task_error
+    finally:
+        ended = time.time()
+        if heartbeat_stop is not None:
+            heartbeat_stop.set()
+    _emit_rpc_result(task_id, result, exception, {"start": started, "end": ended}, command)
+    _emit_rpc_event(
+        spec, task_id, "worker.task_finished", process_id=0, ok=exception is None,
+        **({"error": repr(exception)} if exception is not None else {}),
+    )
+
+
+def _rpc_invoke(command: dict, registry: dict) -> None:
+    task_id = command.get("id")
+    digest = command.get("digest")
+    if not task_id or not digest:
+        _emit({"event": "error", "id": task_id or "",
+               "message": "invoke requires id and digest"})
+        return
+    fn = registry.get(digest)
+    if fn is None and command.get("path"):
+        # Self-heal a lost registration (the runtime restarted between the
+        # dispatcher's register and invoke): load from the CAS path,
+        # digest-verified.
+        code, loaded = _load_fn_payload(command["path"], digest)
+        if not code:
+            registry[digest] = fn = loaded
+    if fn is None:
+        _emit({"event": "error", "id": task_id, "code": "unregistered",
+               "message": f"no registered function for digest {digest[:12]}"})
+        return
+    _emit({"event": "started", "id": task_id, "pid": os.getpid(), "rpc": True})
+    threading.Thread(target=_run_rpc_task, args=(command, fn),
+                     name=f"covalent-gpu-rpc-{task_id}", daemon=True).start()
+
+
+# ---------------------------------------------------------------------------
+# The run verb: launch-mode specs forked from the zygote.
+#
+# The reference forks its pool server itself (harness.py:1183-1280); here
+# the server may hold a CUDA context, so the fork happens in the zygote,
+# which reports each child's pid and exit status back over its stdout:
+#
+#   server -> zygote  {"cmd":"fork","id":task,"spec":path,"log":path}
+#   zygote -> server  {"event":"ready","pid"}
+#                     {"event":"forked","id","pid"}
+#                     {"event":"fork_error","id","code","message"}
+#                     {"event":"exit","pid","code","signal"}
+# ---------------------------------------------------------------------------
+
+
+def _preload() -> None:
+    """Import the modules named in ``COVALENT_TPU_POOL_PRELOAD`` (comma-
+    separated, default ``cloudpickle``) once; a failure is logged and left
+    to the task that needs the module."""
     for mod in filter(None, os.environ.get("COVALENT_TPU_POOL_PRELOAD", "cloudpickle")
                       .split(",")):
         try:
             __import__(mod.strip())
-        except Exception as preload_error:  # noqa: BLE001 - sessions retry the import
+        except Exception as preload_error:  # noqa: BLE001 - tasks retry the import
             print(f"preload {mod} failed: {preload_error}", file=sys.stderr)
 
+
+class ZygoteCudaError(RuntimeError):
+    """The zygote found CUDA initialised in itself and refused to fork."""
+
+
+#: The zygote's own descriptors (its event channel, its SIGCHLD wake-up
+#: pipe), closed in each child.
+_ZYGOTE_FDS: list = []
+
+
+def _zygote_fork(command: dict, children: dict) -> int:
+    """Fork one task child, which runs ``command["spec"]``; returns its pid.
+
+    A child forked from a process in which CUDA is initialised cannot use
+    the card.  Nothing in the zygote initialises it, so finding it
+    initialised is a fault (a preload that touched the card at import): the
+    fork raises :class:`ZygoteCudaError` rather than hand the task a broken
+    device.
+    """
+    torch = sys.modules.get("torch")
+    if torch is not None and torch.cuda.is_initialized():
+        raise ZygoteCudaError(
+            "CUDA is initialised in the pool's zygote, so a forked task could not use "
+            "the card; refusing to fork (check COVALENT_TPU_POOL_PRELOAD: a preloaded "
+            "module must not touch the card at import)"
+        )
+    sys.stdout.flush()
+    sys.stderr.flush()
+    pid = os.fork()
+    if pid == 0:
+        _zygote_child(command)  # never returns
+    children[pid] = str(command.get("id") or "")
+    return pid
+
+
+def _zygote_child(command: dict) -> None:
+    """The forked task: its own session, stdin from /dev/null, stdout and
+    stderr to the task log, then the spec as launch mode runs it."""
+    rc = 1
+    try:
+        # The reference's child resets the server's locks, frame state,
+        # telemetry batcher, sessions and profiler here (harness.py:
+        # 1195-1225), which a thread of the server may hold at fork time.
+        # The zygote runs one thread and holds none of them: nothing to reset.
+        import signal
+
+        signal.set_wakeup_fd(-1)
+        signal.signal(signal.SIGCHLD, signal.SIG_DFL)
+        for fd in _ZYGOTE_FDS:
+            try:
+                os.close(fd)
+            except OSError:
+                pass
+        os.setsid()
+        log_fd = os.open(command.get("log") or os.devnull,
+                         os.O_WRONLY | os.O_CREAT | os.O_APPEND, 0o644)
+        devnull = os.open(os.devnull, os.O_RDONLY)
+        os.dup2(devnull, 0)
+        os.dup2(log_fd, 1)
+        os.dup2(log_fd, 2)
+        with open(command["spec"]) as f:
+            spec = json.load(f)
+        rc = run_task(spec)
+    except BaseException:  # noqa: BLE001 - the child must never return
+        import traceback
+
+        traceback.print_exc()
+    finally:
+        os._exit(rc)
+
+
+def _zygote_reap(children: dict) -> None:
+    """Report every child that exited as ``exit`` (pid, code, signal)."""
+    while True:
+        try:
+            pid, status = os.waitpid(-1, os.WNOHANG)
+        except ChildProcessError:
+            return
+        if pid <= 0:
+            return
+        if children.pop(pid, None) is None:
+            continue
+        code = os.waitstatus_to_exitcode(status)
+        _emit({"event": "exit", "pid": pid, "code": code if code >= 0 else -1,
+               "signal": -code if code < 0 else 0})
+
+
+def zygote() -> int:
+    """The fork helper's loop (``harness.py --zygote``).
+
+    It imports the preloads, then reads ``fork`` lines on stdin and forks
+    one child per line, answering on stdout with ``forked`` or
+    ``fork_error``, and with ``exit`` when it reaps a child.  It runs no
+    other code: one thread, no lock held, no CUDA context.  When stdin
+    closes (the server is gone) it exits once its children have.
+    """
+    global _PROTO
+    import selectors
+    import signal
+    import traceback
+
+    _PROTO = os.fdopen(os.dup(1), "w", encoding="utf-8")
+    os.dup2(2, 1)
+    _preload()
+    rpipe, wpipe = os.pipe()
+    os.set_blocking(rpipe, False)
+    os.set_blocking(wpipe, False)
+    _ZYGOTE_FDS[:] = [_PROTO.fileno(), rpipe, wpipe]
+    signal.set_wakeup_fd(wpipe)
+    signal.signal(signal.SIGCHLD, lambda *_: None)
+    sel = selectors.DefaultSelector()
+    sel.register(0, selectors.EVENT_READ, "commands")
+    sel.register(rpipe, selectors.EVENT_READ, "sigchld")
+    children: dict = {}
+    buffer = bytearray()
+    stdin_open = True
+    _emit({"event": "ready", "pid": os.getpid()})
+    while stdin_open or children:
+        for key, _ in sel.select():
+            if key.data == "sigchld":
+                try:
+                    while os.read(rpipe, 512):
+                        pass
+                except BlockingIOError:
+                    pass
+                continue
+            data = os.read(0, 65536)
+            if not data:
+                stdin_open = False
+                sel.unregister(0)
+                continue
+            buffer.extend(data)
+            for command in _extract_commands(buffer):
+                task_id = str(command.get("id") or "")
+                if command.get("cmd") != "fork" or not task_id or not command.get("spec"):
+                    _emit({"event": "fork_error", "id": task_id, "code": "bad_request",
+                           "message": "fork requires id and spec"})
+                    continue
+                try:
+                    pid = _zygote_fork(command, children)
+                except Exception as err:  # noqa: BLE001 - reported, and loud in the log
+                    traceback.print_exc()
+                    _emit({"event": "fork_error", "id": task_id,
+                           "code": "cuda_initialized" if isinstance(err, ZygoteCudaError)
+                           else "fork_failed", "message": repr(err)})
+                    continue
+                _emit({"event": "forked", "id": task_id, "pid": pid})
+        _zygote_reap(children)
+    return 0
+
+
+class _Zygote:
+    """The pool server's handle on its zygote: started at once, restarted
+    by the next ``run`` if it died."""
+
+    def __init__(self, harness_path: str, sel) -> None:
+        self._harness = harness_path
+        self._sel = sel
+        self._proc = None
+        self._buffer = bytearray()
+
+    def start(self) -> None:
+        import selectors
+        import subprocess
+
+        # stderr inherited: the server's log
+        self._proc = subprocess.Popen(
+            [sys.executable, self._harness, "--zygote"],
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+        )
+        self._buffer.clear()
+        self._sel.register(self._proc.stdout.fileno(), selectors.EVENT_READ, "zygote")
+
+    def send(self, command: dict) -> None:
+        line = (json.dumps(command) + "\n").encode()
+        for attempt in (0, 1):
+            if self._proc is None:
+                self.start()
+            try:
+                self._proc.stdin.write(line)
+                self._proc.stdin.flush()
+                return
+            except (BrokenPipeError, OSError):
+                if attempt:
+                    raise
+                self._drop()
+
+    def read(self) -> list | None:
+        """The zygote's complete event lines, or None once it is gone."""
+        data = os.read(self._proc.stdout.fileno(), 65536)
+        if not data:
+            self._drop()
+            return None
+        self._buffer.extend(data)
+        events = []
+        while b"\n" in self._buffer:
+            line, _, rest = bytes(self._buffer).partition(b"\n")
+            self._buffer[:] = rest
+            try:
+                event = json.loads(line)
+            except ValueError:
+                continue
+            if isinstance(event, dict):
+                events.append(event)
+        return events
+
+    def _drop(self) -> None:
+        proc, self._proc = self._proc, None
+        if proc is None:
+            return
+        try:
+            self._sel.unregister(proc.stdout.fileno())
+        except (KeyError, ValueError):
+            pass
+        for stream in (proc.stdin, proc.stdout):
+            try:
+                stream.close()
+            except OSError:
+                pass
+        try:
+            proc.wait(timeout=5.0)
+        except Exception:  # noqa: BLE001 - a zygote that will not die is left to init
+            pass
+
+    def close(self) -> None:
+        """Close the zygote's stdin: it exits once its children have."""
+        if self._proc is not None:
+            try:
+                self._proc.stdin.close()
+            except OSError:
+                pass
+
+
+def _spawn_task(command: dict, zygote: _Zygote) -> None:
+    """``run``: have the zygote fork a child for the spec; ``started``
+    follows when it reports the pid."""
+    task_id = command.get("id")
+    spec_path = command.get("spec")
+    if not task_id or not spec_path:
+        _emit({"event": "error", "id": task_id or "", "message": "run requires id and spec"})
+        return
+    try:
+        zygote.send({"cmd": "fork", "id": str(task_id), "spec": spec_path,
+                     "log": command.get("log") or ""})
+    except OSError as err:
+        _emit({"event": "error", "id": task_id, "code": "zygote_unavailable",
+               "message": f"the pool's zygote is unavailable: {err!r}"})
+
+
+def _task_exited(children: dict, watchers: dict, pid: int, code: int, signal: int,
+                 **extra) -> None:
+    task_id = children.pop(pid, None)
+    if task_id is None:
+        return
+    if task_id in watchers:
+        # Auto-unwatch on exit, after one last pump that flushes the
+        # file's tail: a long-lived server must not stat files of finished
+        # tasks forever.
+        _pump_watchers({task_id: watchers.pop(task_id)})
+    _emit({"event": "exit", "id": task_id, "code": code, "signal": signal, **extra})
+
+
+def _on_zygote_event(event: dict, children: dict, watchers: dict) -> None:
+    kind = event.get("event")
+    task_id = str(event.get("id") or "")
+    if kind == "forked":
+        pid = int(event["pid"])
+        children[pid] = task_id
+        _emit({"event": "started", "id": task_id, "pid": pid})
+    elif kind == "fork_error":
+        _emit({"event": "error", "id": task_id, "code": event.get("code") or "fork_failed",
+               "message": f"the pool's zygote could not fork: {event.get('message')}"})
+    elif kind == "exit":
+        _task_exited(children, watchers, int(event["pid"]), int(event.get("code", -1)),
+                     int(event.get("signal", 0)))
+
+
+def _kill_task(command: dict, children: dict) -> None:
+    target = command.get("id")
+    try:
+        sig = int(command.get("sig", 15))
+    except (TypeError, ValueError):
+        sig = 15
+    for pid, task_id in list(children.items()):
+        if task_id == target:
+            # Group AND direct pid: a kill racing the child's setsid()
+            # would otherwise miss it.
+            for kill in (os.killpg, os.kill):
+                try:
+                    kill(pid, sig)
+                except ProcessLookupError:
+                    pass
+            _emit({"event": "killed", "id": target})
+            return
+    _emit({"event": "error", "id": target or "", "message": "unknown task id"})
+
+
+def _task_inventory(children: dict) -> None:
+    # The reference adds its epoch fence's value; the fence comes with
+    # ROADMAP item 2c.4.
+    _emit({"event": "task_inventory", "pid": os.getpid(),
+           "tasks": [{"id": task_id, "pid": pid} for pid, task_id in children.items()]})
+
+
+#: Per-pump read ceiling: one large telemetry burst must not stall the
+#: command loop behind a single read.
+_WATCH_READ_LIMIT = 256 * 1024
+
+
+def _pump_watchers(watchers: dict) -> None:
+    """Forward the new complete JSON lines of every watched file.
+
+    Each watcher keeps a byte offset; a partial last line waits for the
+    next pump.  Lines that are not JSON objects are dropped (the side-band
+    carries structured records only), and a missing file means the task
+    has not written yet.
+    """
+    for task_id, w in list(watchers.items()):
+        try:
+            size = os.path.getsize(w["path"])
+        except OSError:
+            continue
+        if size < w["pos"]:
+            w["pos"], w["buf"] = 0, ""  # truncated or rotated: start over
+        if size == w["pos"]:
+            continue
+        try:
+            with open(w["path"], "r", encoding="utf-8", errors="replace") as f:
+                f.seek(w["pos"])
+                chunk = f.read(_WATCH_READ_LIMIT)
+                w["pos"] = f.tell()
+        except OSError:
+            continue
+        w["buf"] += chunk
+        while "\n" in w["buf"]:
+            line, w["buf"] = w["buf"].split("\n", 1)
+            line = line.strip()
+            if not line:
+                continue
+            try:
+                data = json.loads(line)
+            except ValueError:
+                continue
+            if isinstance(data, dict):
+                _emit({"event": "telemetry", "id": task_id, "data": data})
+
+
+def _watch(command: dict, watchers: dict) -> None:
+    task_id = command.get("id")
+    path = command.get("path")
+    if not task_id or not path:
+        _emit({"event": "error", "id": task_id or "", "message": "watch requires id and path"})
+        return
+    # Offset 0 on every (re-)watch: a reconnecting dispatcher gets the
+    # backlog.
+    watchers[task_id] = {"path": path, "pos": 0, "buf": ""}
+    _emit({"event": "watching", "id": task_id})
+
+
+def serve() -> int:
+    """The pool server's command loop (see the protocol above).
+
+    Protocol lines go to a copy of the original stdout; fd 1 is pointed at
+    stderr before any module is preloaded or user code runs.  The zygote
+    starts first, then this process imports ``COVALENT_TPU_POOL_PRELOAD``
+    (comma-separated, default ``cloudpickle``; the zygote imports the same),
+    so the two cold starts overlap.  When stdin closes or ``shutdown``
+    arrives the server exits, and its sessions and invocations with it (a
+    reconnecting dispatcher re-opens them on a fresh server); forked tasks
+    run on, and the zygote exits after them.
+    """
+    global _PROTO
+    import selectors
+
+    _PROTO = os.fdopen(os.dup(1), "w", encoding="utf-8")
+    os.dup2(2, 1)
+    sel = selectors.DefaultSelector()
+    sel.register(0, selectors.EVENT_READ, "stdin")
+    zygote_proc = _Zygote(os.path.abspath(__file__), sel)
+    zygote_proc.start()
+    _preload()
+
     sessions: dict = {}
+    #: pid -> task id of every forked task still running
+    children: dict = {}
+    #: task id -> {"path", "pos", "buf"}: telemetry files tailed (watch)
+    watchers: dict = {}
+    #: digest -> unpickled function (register_fn); dies with the process,
+    #: the lifetime the dispatcher's per-connection registry mirrors
+    registry: dict = {}
     buffer = bytearray()
     _emit({"event": "ready", "pid": os.getpid(), "mode": "pool"})
-    while True:
-        data = os.read(0, 65536)
-        if not data:
-            break  # channel dropped
-        buffer.extend(data)
-        for command in _extract_commands(buffer):
-            name = command.get("cmd")
-            if name == "ping":
-                _emit({"event": "pong"})
-            elif name == "frames":
-                _emit({"event": "frames", "version": 0})  # JSON lines only
-            elif name == "serve_open":
-                _serve_open(command, sessions)
-            elif name == "serve_request":
-                _serve_request(command, sessions)
-            elif name == "serve_cancel":
-                _serve_cancel(command, sessions)
-            elif name == "serve_close":
-                _serve_close(command, sessions)
-            elif name == "shutdown":
-                _emit({"event": "bye"})
-                return 0
-            elif name in _LATER_VERBS:
-                _emit({"event": "error", "id": str(command.get("id") or ""),
-                       "code": "not_ported",
-                       "message": f"{name} is not ported yet: it comes with "
-                                  f"{_LATER_VERBS[name]}"})
-            else:
-                _emit({"event": "error", "message": f"unknown cmd: {name}"})
-    return 0
+    try:
+        while True:
+            for key, _ in sel.select(timeout=0.25 if watchers else None):
+                if key.data == "zygote":
+                    events = zygote_proc.read()
+                    if events is None:
+                        # The zygote died: its children were re-parented and
+                        # their exits cannot be seen from here.  Each ends
+                        # with ``lost``; the dispatcher reads its status
+                        # from the task's own files.
+                        print("the pool's zygote exited; the next run starts another",
+                              file=sys.stderr)
+                        for pid in list(children):
+                            _task_exited(children, watchers, pid, -1, 0, lost=True)
+                        continue
+                    for event in events:
+                        _on_zygote_event(event, children, watchers)
+                    continue
+                data = os.read(0, 65536)
+                if not data:
+                    return 0  # channel dropped
+                buffer.extend(data)
+                for command in _extract_commands(buffer):
+                    name = command.get("cmd")
+                    if name == "ping":
+                        _emit({"event": "pong"})
+                    elif name == "frames":
+                        _emit({"event": "frames", "version": 0})  # JSON lines only
+                    elif name == "task_inventory":
+                        _task_inventory(children)
+                    elif name == "run":
+                        _spawn_task(command, zygote_proc)
+                    elif name == "register_fn":
+                        _rpc_register(command, registry)
+                    elif name == "invoke":
+                        _rpc_invoke(command, registry)
+                    elif name == "serve_open":
+                        _serve_open(command, sessions)
+                    elif name == "serve_request":
+                        _serve_request(command, sessions)
+                    elif name == "serve_cancel":
+                        _serve_cancel(command, sessions)
+                    elif name == "serve_close":
+                        _serve_close(command, sessions)
+                    elif name == "kill":
+                        _kill_task(command, children)
+                    elif name == "watch":
+                        _watch(command, watchers)
+                    elif name == "unwatch":
+                        task_id = command.get("id")
+                        watchers.pop(task_id, None)
+                        _emit({"event": "unwatched", "id": task_id or ""})
+                    elif name == "shutdown":
+                        _emit({"event": "bye"})
+                        return 0
+                    elif name in _LATER_VERBS:
+                        _emit({"event": "error", "id": str(command.get("id") or ""),
+                               "code": "not_ported",
+                               "message": f"{name} is not ported yet: it comes with "
+                                          f"{_LATER_VERBS[name]}"})
+                    else:
+                        _emit({"event": "error", "message": f"unknown cmd: {name}"})
+            _pump_watchers(watchers)
+    finally:
+        zygote_proc.close()
 
 
 def main(argv: list[str]) -> int:
     if len(argv) == 2 and argv[1] == "--serve":
         return serve()
+    if len(argv) == 2 and argv[1] == "--zygote":
+        return zygote()
+    if len(argv) >= 2 and argv[1] in _LATER_MODES:
+        print(f"harness.py {argv[1]} is not ported yet: it comes with "
+              f"{_LATER_MODES[argv[1]]}", file=sys.stderr)
+        return 2
     if len(argv) != 2:
         print("usage: harness.py <task_spec.json> | --serve", file=sys.stderr)
         return 2

@@ -172,6 +172,7 @@ def train_lm(
     launch counts of the CUDA kernels cover exactly these steps.
     """
     device = resolve_device(device)
+    _reset_peak_memory(device)
     config = lm_125m_config(**config_overrides)
     generator = torch.Generator(device=device).manual_seed(seed)
     model = TransformerLM(config, device=device, generator=generator)
@@ -184,7 +185,7 @@ def train_lm(
         vocab_size=config.vocab_size, seed=seed,
     ))
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
-    _kernels.reset_launch_counts()
+    launched = _kernels.launch_counts()
     losses, step_s = [], []
     for batch in batches:
         sync()
@@ -197,13 +198,29 @@ def train_lm(
         "losses": losses,
         "step_s": step_s,
         "tokens_per_step": batch_size * seq_len,
-        "launches": _kernels.launch_counts(),
+        "launches": _launches_since(launched),
         "n_params": model.parameter_count(),
         "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
         "peak_mem_bytes": (
             torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
         ),
     }
+
+
+def _reset_peak_memory(device: torch.device) -> None:
+    """Start the card's peak-memory counter at this electron: in a resident
+    worker (an RPC electron) the process-lifetime peak would carry earlier
+    electrons'.  Electrons that run at the same time in one process share
+    the counter."""
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+
+
+def _launches_since(before: dict) -> dict:
+    """The kernel launches of this process since ``before``: the
+    electron's own, unless another ran beside it in the same process (RPC
+    electrons at the same time share the counters)."""
+    return {name: n - before.get(name, 0) for name, n in _kernels.launch_counts().items()}
 
 
 def train_mnist(
@@ -223,6 +240,7 @@ def train_mnist(
     the weights come from a ``torch.Generator`` seeded with ``seed``.
     """
     device = resolve_device(device)
+    _reset_peak_memory(device)
     builders = {"mlp": MLP, "cnn": MnistCNN}
     if model not in builders:
         raise ValueError(f"model must be one of {sorted(builders)}, got {model!r}")
@@ -233,7 +251,7 @@ def train_mnist(
     labels = torch.as_tensor(np.stack([b["label"] for b in stream]), device=device)
     step = make_classifier_train_step(net, adam(net))
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
-    _kernels.reset_launch_counts()
+    launched = _kernels.launch_counts()
 
     def epoch() -> torch.Tensor:
         return torch.stack([
@@ -258,7 +276,7 @@ def train_mnist(
         "loss_last": statistics.fmean(curve[-4:]),
         "loss_final_epoch": final,
         "steps_per_s": epochs * n_batches / elapsed,
-        "launches": _kernels.launch_counts(),
+        "launches": _launches_since(launched),
         "n_params": sum(p.numel() for p in net.parameters()),
         "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
         "peak_mem_bytes": (

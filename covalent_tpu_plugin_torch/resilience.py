@@ -1,12 +1,19 @@
 """Fault classification and retry backoff (own copy of the part of
-``covalent_tpu_plugin/resilience.py`` the serving supervisor uses).
+``covalent_tpu_plugin/resilience.py`` the serving supervisor and RPC
+dispatch use).
 
 * :func:`classify_error` — transient (channel death, transport faults,
   connection errors) against permanent (anything tagged so, filesystem
   errors, anything unrecognized).
+* :func:`tag_fault` — an exception's own classification: a dead resident
+  worker or dropped channel under an RPC electron is transient
+  (``rpc_channel``); a digest mismatch at registration is permanent
+  (``rpc_digest_mismatch``).
 * :class:`RetryPolicy` — exponential backoff with full jitter.
 
-Circuit breakers, deadlines and the task-retry counters come with slice 5.
+Task retries, circuit breakers, deadlines and the retry counters
+come with slice 5b: until then an electron that meets a transient fault
+fails, with the classification on its error.
 """
 
 from __future__ import annotations
@@ -18,7 +25,7 @@ from enum import Enum
 
 from .transport.base import TransportError
 
-__all__ = ["FaultClass", "RetryPolicy", "classify_error"]
+__all__ = ["FaultClass", "RetryPolicy", "classify_error", "tag_fault"]
 
 
 class FaultClass(str, Enum):
@@ -52,6 +59,14 @@ def classify_error(error: BaseException) -> tuple[FaultClass, str]:
     if isinstance(error, (ConnectionError, TimeoutError, OSError)):
         return FaultClass.TRANSIENT, "connection"
     return FaultClass.PERMANENT, type(error).__name__
+
+
+def tag_fault(error: BaseException, label: str, transient: bool) -> BaseException:
+    """Give ``error`` its own classification (read first by
+    :func:`classify_error`) and return it."""
+    error.fault_label = label  # type: ignore[attr-defined]
+    error.fault_transient = transient  # type: ignore[attr-defined]
+    return error
 
 
 @dataclass

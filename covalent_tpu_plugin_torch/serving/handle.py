@@ -88,6 +88,11 @@ class ServeHandle:
         return self._sup.reconnects
 
     @property
+    def replay_mismatches(self) -> int:
+        """Replayed tokens that differed from those already delivered."""
+        return self._sup.replay_mismatches
+
+    @property
     def stats(self) -> dict[str, Any]:
         """The worker's latest ``serve.stats`` (the last one, after close)."""
         return self._sup.stats
@@ -144,7 +149,8 @@ async def open_session(target: Any, factory: Any, *, queue_max: int | None = Non
                        name: str = "") -> ServeHandle:
     """Open a resident serving session; returns the live handle.
 
-    ``target`` is a ``GPUExecutor`` with ``use_agent="pool"``.  ``factory``
+    ``target`` is a ``GPUExecutor`` whose resident runtime is on
+    (``use_agent`` True, ``"auto"`` or ``"pool"``).  ``factory``
     is a zero-argument callable returning the serving engine (see
     ``models.serve.lm_engine_factory``); it is cloudpickled, shipped by
     digest and called ONCE inside the resident worker, where the model is

@@ -20,7 +20,6 @@ from __future__ import annotations
 
 import asyncio
 import os
-import shlex
 import time
 import uuid
 from typing import Any, AsyncIterator
@@ -184,6 +183,9 @@ class SessionSupervisor:
         self.generation = 0
         self.served = 0
         self.reconnects = 0
+        #: replayed tokens below a stream's high-water mark that differ from
+        #: the ones already delivered (dropped by the splice all the same)
+        self.replay_mismatches = 0
         self.opened_at = 0.0
         self.stats: dict[str, Any] = {}
         self.address = ""
@@ -223,6 +225,7 @@ class SessionSupervisor:
             "state": self.state, "address": self.address, "slots": self.slots,
             "generation": self.generation, "served": self.served,
             "in_flight": self.in_flight, "reconnects": self.reconnects,
+            "replay_mismatches": self.replay_mismatches,
             "age_s": round(time.time() - self.opened_at, 3) if self.opened_at else 0,
         }
         for field in ("busy", "queued", "tokens_per_s", "tokens_total"):
@@ -238,23 +241,14 @@ class SessionSupervisor:
         self._digest = digest or bytes_digest(payload)
         self._local_payload = os.path.join(self.executor.cache_dir,
                                            f"serve_{self._digest}.pkl")
-        await asyncio.to_thread(self._write_payload, self._local_payload, payload)
+        await asyncio.to_thread(self.executor._write_payload_file, self._local_payload,
+                                payload)
         await self._open_generation()
         self.opened_at = time.time()
         self.executor._serve_handles[self.sid] = self
         self._supervisor = asyncio.ensure_future(self._supervise())
         self._ready.set()
         return self
-
-    @staticmethod
-    def _write_payload(path: str, payload: bytes) -> None:
-        if os.path.exists(path):
-            return
-        os.makedirs(os.path.dirname(path), exist_ok=True)
-        tmp = f"{path}.tmp.{os.getpid()}.{os.urandom(4).hex()}"
-        with open(tmp, "wb") as f:
-            f.write(payload)
-        os.replace(tmp, path)
 
     async def _open_generation(self) -> None:
         """Open one remote session generation on a freshly leased worker.
@@ -290,11 +284,12 @@ class SessionSupervisor:
         conn, address = lease.conns[0], lease.addresses[0]
         client = executor._agents.get(conn.address)
         if client is None or not client.alive:
-            raise AgentError(f"no resident pool server on {address} "
-                             "(serving needs use_agent='pool')")
+            raise AgentError(f"no resident pool server on {address} (serving needs "
+                             "the pool runtime: use_agent=True, 'auto' or use_agent='pool')")
+        key = executor._pool_key(address)
         remote = cas_path(executor.remote_cache, self._digest, ".pkl")
-        await conn.run(f"mkdir -p {shlex.quote(os.path.dirname(remote))}")
-        await conn.put(self._local_payload, remote)
+        await executor._cas.ensure_probed(key, conn, [(self._digest, remote)])
+        await executor._cas.ensure(key, conn, self._digest, self._local_payload, remote)
         sid_g = f"{self.sid}.g{self._gen_counter}"
         self._gen_counter += 1
         spec: dict[str, Any] = {"operation_id": sid_g}
@@ -379,6 +374,15 @@ class SessionSupervisor:
             return
         # Replay splice: a re-opened session re-streams from idx 0; what is
         # at or below the high-water mark is a duplicate and drops here.
+        # A replay decoded in another batch may flip a near-tie there: the
+        # caller keeps what it was given, and the flip is counted.
+        replayed = tokens[:have - idx]
+        differ = sum(a != b for a, b in zip(replayed, request.tokens[idx:have]))
+        if differ:
+            self.replay_mismatches += differ
+            app_log.warning("session %s: replay of %s differs from the delivered stream "
+                            "at %d of %d tokens below its high-water mark", self.sid, rid,
+                            differ, len(replayed))
         request._feed(tokens[have - idx:], bool(data.get("done")),
                       error=str(data.get("error") or ""))
         if request.done:

@@ -85,7 +85,7 @@ class _FleetNotPorted:
     def __init__(self) -> None:
         raise NotImplementedError(
             'executor="fleet" is not ported yet: the fleet scheduler comes with '
-            "slice 5 (the rest of the executor)"
+            "slice 5b (the rest of the executor)"
         )
 
 

@@ -346,7 +346,7 @@ def _dispatcher_loop() -> asyncio.AbstractEventLoop:
             if os.environ.get("COVALENT_TPU_OPS_PORT"):
                 app_log.warning(
                     "COVALENT_TPU_OPS_PORT is set, but this package has no ops "
-                    "endpoint yet: it comes with slice 5"
+                    "endpoint yet: it comes with slice 5b"
                 )
         return _LOOP
 

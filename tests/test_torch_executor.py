@@ -27,6 +27,8 @@ REPO = Path(__file__).resolve().parent.parent
 
 
 def _executor(tmp_path, **kwargs):
+    # launch mode through nohup + poll; the pool's tests opt in to it
+    kwargs.setdefault("use_agent", False)
     return GPUExecutor(
         transport="local",
         cache_dir=str(tmp_path / "cache"),
@@ -385,7 +387,7 @@ assert issubclass(GPUExecutor, FakeRemoteExecutor), GPUExecutor.__mro__
 assert store["executors.gpu.poll_freq"] == 0.5, store
 tmp = sys.argv[1]
 ex = GPUExecutor(cache_dir=f"{tmp}/cache", remote_cache=f"{tmp}/remote",
-                 python_path=sys.executable, poll_freq=0.1)
+                 python_path=sys.executable, poll_freq=0.1, use_agent=False)
 assert ex.template_init_ran
 assert ex.remote_workdir == tmp + "/from-covalent-config", ex.remote_workdir
 result = asyncio.run(ex.run(lambda a, b: a * b, [6, 7], {}, {"dispatch_id": "cov", "node_id": 0}))

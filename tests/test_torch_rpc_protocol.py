@@ -1,0 +1,254 @@
+"""The port's task and RPC verbs against the reference's, on one command script.
+
+``python covalent_tpu_plugin/harness.py --serve`` and the port's
+``python covalent_tpu_plugin_torch/harness.py --serve`` run as subprocesses
+(``tests/test_torch_session_protocol.py``'s runner) and are fed the same
+lines: ``register_fn`` (good, again, digest mismatch, missing artifact,
+no path), ``invoke`` (inline args, args staged by path, torn staged args,
+unregistered, self-healed from its path, raising, result staged by size,
+no id), ``run`` and its ``exit``, ``run`` without a spec, ``kill`` of a
+running and of an unknown task, ``watch``/``unwatch`` of a task file,
+``task_inventory``, and ``shutdown``.  Each step waits for its answer, so
+both runtimes see the same order.  They must answer with the same events:
+only pids, timestamps, seq values, the frames capability and the
+reference's epoch fence (ROADMAP item 2c.4) may differ, and a result's
+pickle is compared by its value (the port's also carries the electron's
+start and end times, as its launch-mode result file does).
+"""
+
+import base64
+import hashlib
+import json
+import pickle
+import subprocess
+import sys
+from pathlib import Path
+
+import cloudpickle
+import pytest
+
+from .test_torch_session_protocol import RUNTIMES, VOLATILE, Runtime, is_event
+
+#: the reference's epoch fence value in task_inventory (item 2c.4)
+RPC_VOLATILE = VOLATILE | {"epoch"}
+
+
+def _fn(kind):
+    """Closure-local functions: cloudpickle ships them by value."""
+    if kind == "square":
+        def fn(x):
+            return x * x
+    elif kind == "concat":
+        def fn(a, b="!"):
+            return f"{a}{b}"
+    elif kind == "boom":
+        def fn():
+            raise ValueError("rpc-protocol-boom")
+    elif kind == "big":
+        def fn(n):
+            return "y" * n
+    else:
+        def fn(seconds):
+            import time
+
+            time.sleep(seconds)
+            return seconds
+    return fn
+
+
+def _artifact(root: Path, fn) -> tuple[str, str]:
+    payload = cloudpickle.dumps(fn)
+    digest = hashlib.sha256(payload).hexdigest()
+    path = root / f"{digest}.pkl"
+    path.write_bytes(payload)
+    return digest, str(path)
+
+
+def _args(*args, **kwargs) -> str:
+    return base64.b64encode(cloudpickle.dumps((args, kwargs))).decode("ascii")
+
+
+def _spec(root: Path, name: str, fn, args) -> str:
+    fn_file = root / f"fn_{name}.pkl"
+    fn_file.write_bytes(cloudpickle.dumps((fn, tuple(args), {})))
+    spec = root / f"spec_{name}.json"
+    spec.write_text(json.dumps({"function_file": str(fn_file),
+                                "result_file": str(root / f"result_{name}.pkl")}))
+    return str(spec)
+
+
+def run_script(rt: Runtime, root: Path) -> None:
+    def step(command, predicate, count=1):
+        rt.send(command)
+        rt.wait(predicate, count)
+
+    def answered(kind, key, value):
+        return lambda e: e.get("event") == kind and e.get(key) == value
+
+    def result_of(op):
+        return answered("result", "id", op)
+
+    square, square_path = _artifact(root, _fn("square"))
+    concat, concat_path = _artifact(root, _fn("concat"))
+    boom, boom_path = _artifact(root, _fn("boom"))
+    big, big_path = _artifact(root, _fn("big"))
+    heal, heal_path = _artifact(root, _fn("sleep"))
+    args_file = root / "args.pkl"
+    args_file.write_bytes(cloudpickle.dumps(((7,), {"b": "?"})))
+    args_digest = hashlib.sha256(args_file.read_bytes()).hexdigest()
+
+    rt.wait(is_event("ready"))
+    step({"cmd": "register_fn", "digest": square, "path": square_path},
+         answered("registered", "digest", square))
+    step({"cmd": "register_fn", "digest": square, "path": square_path},     # idempotent
+         answered("registered", "digest", square), 2)
+    step({"cmd": "register_fn", "digest": "0" * 64, "path": square_path},   # mismatch
+         answered("register_error", "digest", "0" * 64))
+    step({"cmd": "register_fn", "digest": "1" * 64, "path": str(root / "gone.pkl")},
+         answered("register_error", "digest", "1" * 64))                    # missing
+    step({"cmd": "register_fn", "digest": square}, is_event("error"))       # no path
+    for digest, path in ((concat, concat_path), (boom, boom_path), (big, big_path)):
+        step({"cmd": "register_fn", "digest": digest, "path": path},
+             answered("registered", "digest", digest))
+
+    step({"cmd": "invoke", "id": "i1", "digest": square, "args": _args(6)}, result_of("i1"))
+    step({"cmd": "invoke", "id": "i2", "digest": concat, "args_path": str(args_file),
+          "args_digest": args_digest}, result_of("i2"))
+    step({"cmd": "invoke", "id": "i2b", "digest": concat, "args_path": str(args_file),
+          "args_digest": "2" * 64}, result_of("i2b"))                       # torn args
+    step({"cmd": "invoke", "id": "i3", "digest": "3" * 64, "args": _args(1)},
+         answered("error", "id", "i3"))                                     # unregistered
+    step({"cmd": "invoke", "id": "i4", "digest": heal, "path": heal_path,
+          "args": _args(0.01)}, result_of("i4"))                            # self-heal
+    step({"cmd": "invoke", "id": "i5", "digest": boom, "args": _args()}, result_of("i5"))
+    step({"cmd": "invoke", "id": "i6", "digest": big, "args": _args(5000),
+          "result_path": str(root / "staged_result.pkl"), "result_max_inline": 1024},
+         result_of("i6"))                                                   # staged result
+    step({"cmd": "invoke", "digest": square, "args": _args(1)}, is_event("error"), 3)
+
+    step({"cmd": "run", "id": "r1", "spec": _spec(root, "r1", _fn("square"), (5,)),
+          "log": str(root / "r1.log")}, answered("exit", "id", "r1"))
+    step({"cmd": "run", "id": "r0"}, answered("error", "id", "r0"))         # no spec
+    step({"cmd": "run", "id": "r2", "spec": _spec(root, "r2", _fn("sleep"), (30,))},
+         answered("started", "id", "r2"))
+    step({"cmd": "task_inventory"}, is_event("task_inventory"))
+    step({"cmd": "kill", "id": "r2"}, answered("exit", "id", "r2"))
+    step({"cmd": "kill", "id": "nobody"}, answered("error", "id", "nobody"))
+    step({"cmd": "task_inventory"}, is_event("task_inventory"), 2)
+
+    watched = root / "watched.jsonl"
+    watched.write_text("".join(json.dumps({"type": "progress", "step": i}) + "\n"
+                               for i in range(2)) + "not json\n")
+    step({"cmd": "watch", "id": "w1", "path": str(watched)},
+         lambda e: e.get("event") == "telemetry" and e.get("id") == "w1"
+         and e["data"].get("step") == 1)
+    step({"cmd": "unwatch", "id": "w1"}, answered("unwatched", "id", "w1"))
+    step({"cmd": "watch", "id": "w2"}, answered("error", "id", "w2"))      # no path
+    step({"cmd": "shutdown"}, is_event("bye"))
+
+
+def _value(data: bytes, root: Path):
+    """A result pickle's (value, exception type, message), the run's
+    directory in the message as ``<root>``."""
+    result, exception, *_times = pickle.loads(data)
+    message = str(exception).replace(str(root), "<root>") if exception else ""
+    return result, type(exception).__name__, message
+
+
+def normalized(events: list[dict], root: Path) -> tuple[list, dict]:
+    """(the non-telemetry events in order, id -> its records in order),
+    volatile fields removed, result pickles replaced by their values and
+    the run's directory by ``<root>``."""
+    def strip(d):
+        d = {k: v for k, v in d.items() if k not in RPC_VOLATILE}
+        return json.loads(json.dumps(d).replace(str(root), "<root>"))
+
+    top, streams = [], {}
+    for e in events:
+        if e.get("event") == "telemetry":
+            streams.setdefault(e["id"], []).append(strip(e["data"]))
+            continue
+        e = strip(e)
+        if e.get("event") == "result":
+            if "data" in e:
+                e["data"] = _value(base64.b64decode(e["data"]), root)
+            else:
+                data = Path(e["data_path"].replace("<root>", str(root))).read_bytes()
+                assert hashlib.sha256(data).hexdigest() == e.pop("data_digest")
+                assert len(data) == e.pop("bytes")
+                e["data_path"] = _value(data, root)
+        if e.get("event") == "task_inventory":
+            e["tasks"] = [t["id"] for t in e["tasks"]]
+        if e.get("event") == "register_error":
+            e["message"] = e["message"].split("(")[0]  # the repr's detail names the runtime
+        top.append(e)
+    return top, streams
+
+
+@pytest.fixture(scope="module")
+def both_runs(tmp_path_factory):
+    import threading
+
+    runs, errors = {}, {}
+
+    def drive(name):
+        root = tmp_path_factory.mktemp(f"rpc_{name}")
+        rt = Runtime(RUNTIMES[name], root)
+        try:
+            run_script(rt, root)
+        except BaseException as err:  # noqa: BLE001 - reported below
+            errors[name] = err
+        finally:
+            rt.close()
+        runs[name] = (rt.events, root)
+
+    threads = [threading.Thread(target=drive, args=(n,)) for n in RUNTIMES]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors
+    return runs
+
+
+def test_port_runtime_answers_the_rpc_script_like_the_reference(both_runs):
+    ref_top, ref_streams = normalized(*both_runs["reference"])
+    port_top, port_streams = normalized(*both_runs["port"])
+    assert port_top == ref_top
+    assert port_streams == ref_streams
+
+
+def test_the_rpc_script_covers_every_outcome(both_runs):
+    top, streams = normalized(*both_runs["port"])
+    by_id = {}
+    for e in top:
+        by_id.setdefault(e.get("id") or e.get("digest") or e["event"], []).append(e)
+    results = {e["id"]: e for e in top if e["event"] == "result"}
+    assert results["i1"]["data"] == (36, "NoneType", "")
+    assert results["i2"]["data"] == ("7?", "NoneType", "")
+    assert results["i2b"]["ok"] is False and "content digest" in results["i2b"]["data"][2]
+    assert results["i4"]["data"] == (0.01, "NoneType", "")
+    assert results["i5"]["data"] == (None, "ValueError", "rpc-protocol-boom")
+    assert results["i6"]["data_path"] == ("y" * 5000, "NoneType", "")
+    codes = [e["code"] for e in top if e["event"] == "register_error"]
+    assert codes == ["digest_mismatch", "missing"]
+    assert [e.get("code") for e in by_id["i3"]] == ["unregistered"]
+    exits = {e["id"]: (e["code"], e["signal"]) for e in top if e["event"] == "exit"}
+    assert exits == {"r1": (0, 0), "r2": (-1, 15)}
+    inventories = [e["tasks"] for e in top if e["event"] == "task_inventory"]
+    assert inventories == [["r2"], []]
+    assert [e["event"] for e in by_id["nobody"]] == ["error"]
+    assert [d["step"] for d in streams["w1"]] == [0, 1]
+    assert [d["type"] for d in streams["i1"]] == ["worker.task_started", "worker.task_finished"]
+    assert streams["i5"][-1]["ok"] is False
+    root = both_runs["port"][1]
+    assert pickle.loads((root / "result_r1.pkl").read_bytes())[:2] == (25, None)
+
+
+@pytest.mark.parametrize("mode,item", [("--rpc-child", "2c.6"), ("--serve-child", "2c.6"),
+                                       ("--attach", "2c.4")])
+def test_port_harness_refuses_modes_of_later_items(mode, item):
+    proc = subprocess.run([sys.executable, str(RUNTIMES["port"]), mode, "x"],
+                          capture_output=True, text=True, timeout=60)
+    assert proc.returncode == 2
+    assert "not ported yet" in proc.stderr and item in proc.stderr

@@ -359,6 +359,7 @@ def test_serve_lm_electron_through_the_executor(tmp_path, run_async):
         transport="local", cache_dir=str(tmp_path / "cache"),
         remote_cache=str(tmp_path / "remote"), remote_workdir=str(tmp_path / "work"),
         python_path=sys.executable, poll_freq=0.2, task_env={"PYTHONPATH": str(REPO)},
+        use_agent=False,
     )
     kwargs = dict(device="cpu", batch=2, prompt_len=6, new_tokens=8, requests=4,
                   short_tokens=3, max_batch=2, sync_steps=4, timed_calls=1,

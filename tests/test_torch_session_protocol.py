@@ -285,8 +285,7 @@ def test_frames_capability_is_the_only_banner_difference(both_runs):
 @pytest.mark.parametrize("verb,item", [
     ("serve_prefill", "2c"), ("serve_attach", "slice 3"), ("serve_detach", "slice 3"),
     ("serve_resume", "2c"), ("serve_inventory", "2c"), ("epoch", "2c"), ("adopt", "2c"),
-    ("profile_start", "2c"), ("profile_stop", "2c"), ("run", "slice 5"),
-    ("register_fn", "slice 5"), ("invoke", "slice 5"), ("multi_invoke", "slice 5"),
+    ("profile_start", "2c"), ("profile_stop", "2c"), ("multi_invoke", "2c.1"),
 ])
 def test_port_runtime_refuses_verbs_of_later_items(tmp_path, verb, item):
     rt = Runtime(RUNTIMES["port"], tmp_path)

@@ -47,6 +47,8 @@ def gpu_config(tmp_path, monkeypatch):
         "python_path": sys.executable,
         "poll_freq": 0.1,
         "task_env": {"PYTHONPATH": str(REPO)},
+        # launch mode through nohup + poll; the pool's tests opt in to it
+        "use_agent": False,
     }
     for key, value in settings.items():
         config_mod.set_config(f"executors.gpu.{key}", value)

@@ -29,10 +29,10 @@ Phases, one JSON object per line on stdout, in this order:
    training electron (``models.train.train_lm``): the 125M LM at full width,
    5 AdamW steps at batch 8, seq 1024, with the standard loss and with the
    fused vocab-chunked loss, each in a fresh interpreter (launch mode), then
-   the standard loss again by RPC inside a fresh pool server.  Losses must
-   be finite and falling, the RPC arm's within 1e-2 of the first arm's (the
-   line says whether the bits are equal), and every kernel launched 12
-   times per step in every arm.
+   the standard loss again by RPC inside a fresh pool server, whose channel
+   must run on binary frames.  Losses must be finite and falling, the RPC
+   arm's within 1e-2 of the first arm's (the line says whether the bits are
+   equal), and every kernel launched 12 times per step in every arm.
 8. ``profile``: one training step under ``torch.profiler``: device time by
    kernel and the device's busy share; the step must run each of the three
    tensor-core kernels once per layer and no scalar kernel.
@@ -68,7 +68,28 @@ Phases, one JSON object per line on stdout, in this order:
     tokens: every stream must complete at its budget, its chunks contiguous
     on each generation and its delivered tokens the exact splice of them;
     the replayed tokens that differ from the delivered ones are counted.
-13. ``lattice``: the source paper's own workloads (BASELINE configs 2-4), each
+    The channel must run on binary frames; the wire bytes per streamed
+    token are counted, then again for the same 16 requests on a session
+    whose executor keeps JSON lines (``agent_frames=False``), with the
+    streams equal between the two encodings.
+13. ``replicas``: the serve cell through ``serving.open_replica_set`` over
+    two pool ``GPUExecutor`` objects on the card (two resident workers, each
+    with its own 8-slot engine): the two pool servers' start at once, the
+    set's open, two warm-up requests, then the 16 requests at once:
+    tokens/s, TTFT and completion p50/p95, requests placed per replica,
+    each worker's peak memory and flash launches (0), streams equal to the
+    ``serve`` phase's with the top-2 margins of those that differ.  Then
+    the 16 again with one replica's pool server killed mid-stream and its
+    re-open refused (``retries=0``): every stream must complete on the
+    survivor (drain-on-death), and the re-routed requests and their
+    replayed tokens that differ are counted.
+14. ``disagg``: the same 16 requests through
+    ``serving.open_disaggregated_set`` on the same two executors, one
+    prefill and one decode replica (the killed worker's pool server starts
+    again first, alone): every request must take the KV road (16 transfers,
+    0 degrades) on frames; bytes per bundle, transfer seconds p50/p95,
+    TTFT, tokens/s, streams equal to the ``replicas`` phase's with margins.
+15. ``lattice``: the source paper's own workloads (BASELINE configs 2-4), each
     electron a ``@ct.electron`` of a ``@ct.lattice`` of
     ``covalent_tpu_plugin_torch.workflow``, dispatched with ``ct.dispatch_sync``,
     in three arms, each on its own ``GPUExecutor``: ``launch`` (a fresh
@@ -86,8 +107,10 @@ Phases, one JSON object per line on stdout, in this order:
     arms' values must equal the launch arm's.  Then, with the pool server
     holding a CUDA context from the RPC electrons, one CUDA electron
     through the pool's ``run`` verb (a zygote fork) on the same pool.  No
-    flash kernel runs.
-14. ``kernels``: every kernel with its launches on the main path, error, times
+    flash kernel runs.  Each warm arm's channel must run on frames; each
+    arm says how its invokes left (one to a frame, or several in a
+    ``multi_invoke`` frame).
+16. ``kernels``: every kernel with its launches on the main path, error, times
     and bound, and the route (tensor-core or scalar kernel) each input type
     and head dim takes.
 
@@ -522,6 +545,8 @@ def train_phase() -> list[dict]:
                 out["vocab_chunk"] = vocab_chunk
                 out["dispatch_mode"] = executor.last_dispatch_mode
                 out["timings"] = dict(executor.last_timings)
+                client = executor._agents.get("localhost")
+                out["frames_active"] = None if client is None else client.frames_active
                 arms.append(out)
         finally:
             await rpc.close()
@@ -530,6 +555,9 @@ def train_phase() -> list[dict]:
     arms = asyncio.run(run_arms())
     if [arm["dispatch_mode"] for arm in arms] != ["launch", "launch", "rpc"]:
         raise AssertionError(f"train: roads {[arm['dispatch_mode'] for arm in arms]}")
+    if arms[2]["frames_active"] is not True:
+        raise AssertionError(f"train: the RPC arm's channel is not on frames "
+                             f"({arms[2]['frames_active']})")
     return arms
 
 
@@ -798,18 +826,86 @@ def session_prompts(vocab: int) -> tuple[list, list]:
     return prompts, caps
 
 
-async def _serve_session(executor, serve_streams: list, config, device: str) -> dict:
+#: What the serving pools preload: no torch optimizer is built there, so
+#: ``torch._dynamo`` stays out of their start.
+SERVE_PRELOAD = "cloudpickle,torch,covalent_tpu_plugin_torch"
+
+
+def wire_bytes() -> dict:
+    """This process's agent-channel bytes so far, by direction and encoding."""
+    from covalent_tpu_plugin_torch.obs.metrics import AGENT_WIRE_BYTES_TOTAL
+
+    return {f"{labels['direction']}_{labels['encoding']}": child.value
+            for labels, child in AGENT_WIRE_BYTES_TOTAL._series()}
+
+
+def wire_delta(before: dict, tokens: int) -> dict:
+    """Bytes moved since ``before``, and per streamed token."""
+    after = wire_bytes()
+    delta = {k: after.get(k, 0.0) - before.get(k, 0.0) for k in set(after) | set(before)}
+    down = sum(v for k, v in delta.items() if k.startswith("down"))
+    up = sum(v for k, v in delta.items() if k.startswith("up"))
+    return {"bytes": delta, "down_bytes_per_token": down / tokens,
+            "up_bytes_per_token": up / tokens}
+
+
+def serve_factory(config, device: str):
+    """The serve cell's engine factory (8 slots, sync 32, bf16 weights from
+    seed 0 built where it runs), counting flash launches."""
+    from covalent_tpu_plugin_torch.models import serve
+
+    return counting_factory(serve.lm_engine_factory(
+        config=config, seed=0, device=device, max_batch=SESSION["slots"],
+        sync_steps=SESSION["sync_steps"], max_new_tokens=SESSION["long"]))
+
+
+_MARGIN_MODEL: dict = {}
+
+
+def divergences(config, device: str, prompts: list, want: list, got: list) -> list:
+    """Where each stream of ``got`` first differs from ``want``, with the
+    top-2 logit margin there of the serve cell's weights (built here, once,
+    as the workers build them)."""
     import numpy as np
     import torch
 
     from covalent_tpu_plugin_torch.models import decode, serve
     from covalent_tpu_plugin_torch.models.transformer import TransformerLM
+
+    if "model" not in _MARGIN_MODEL:
+        _MARGIN_MODEL["model"] = decode.inference_params(TransformerLM(
+            config, device=device, generator=torch.Generator(device=device).manual_seed(0)))
+    model = _MARGIN_MODEL["model"]
+    found = []
+    for i, (p, w, g) in enumerate(zip(prompts, want, got)):
+        if g != w:
+            j = next((k for k, (a, b) in enumerate(zip(g, w)) if a != b), len(g))
+            with torch.no_grad():
+                margin = serve._top2_margin(model, np.concatenate([p, np.asarray(w[:j])]))
+            found.append({"request": i, "step": j, "top2_margin": margin})
+    return found
+
+
+def _flash(stats: dict) -> dict:
+    return {k: v for k, v in stats.items() if k.startswith("launches.")}
+
+
+async def _settled_stats(sup, served: int) -> dict:
+    """A supervisor's first ``serve.stats`` after ``served`` completions."""
+    while sup.stats.get("served", 0) < served:
+        await asyncio.sleep(0.05)
+    return dict(sup.stats)
+
+
+async def _serve_session(executor, serve_streams: list, config, device: str,
+                         reconnect: bool = True) -> dict:
+    import numpy as np
+    import torch
+
     from covalent_tpu_plugin_torch.serving import open_session
 
     prompts, caps = session_prompts(config.vocab_size)
-    factory = counting_factory(serve.lm_engine_factory(
-        config=config, seed=0, device=device, max_batch=SESSION["slots"],
-        sync_steps=SESSION["sync_steps"], max_new_tokens=SESSION["long"]))
+    factory = serve_factory(config, device)
 
     wall = time.perf_counter()
     handle = await open_session(executor, factory, stats_interval_s=1.0, open_timeout_s=300)
@@ -830,27 +926,36 @@ async def _serve_session(executor, serve_streams: list, config, device: str) -> 
     await warm.result(timeout=600)
 
     # timed run: 16 requests at once through the one handle
+    before = wire_bytes()
     start, requests = await traffic()
     results = await asyncio.gather(*(r.result(timeout=600) for r in requests))
     wall = time.perf_counter() - start
+    wire = wire_delta(before, sum(caps))
+    frames_active = handle.supervisor._client.frames_active
     ttft = [r.ttft_s for r in requests]
     latency = [r.latency_s for r in requests]
     # the worker's first serve.stats after the last completion: its flash
     # launches and peak memory cover the timed run
-    while handle.stats.get("served", 0) < len(prompts) + 1:
-        await asyncio.sleep(0.05)
-    timed_stats = dict(handle.stats)
+    timed_stats = await _settled_stats(handle.supervisor, len(prompts) + 1)
+    if not reconnect:
+        await handle.close()
+        if any(len(s) != c for s, c in zip(results, caps)) or any(_flash(timed_stats).values()):
+            raise AssertionError(f"session on JSON lines: incomplete streams or flash "
+                                 f"launches {_flash(timed_stats)}")
+        return {"frames_active": frames_active, "wire": wire, "results": results,
+                "tokens_per_s": sum(caps) / wall, "open_s": open_s}
 
     # the reconnect check: the same traffic again; kill the pool server once
     # every stream has its first tokens; record every token record by
     # generation to check the splice
     sup = handle.supervisor
-    wire: dict = {}
+    records: dict = {}
     inner_sink = sup._sink
 
     def recording_sink(sid_g, data):
         if data.get("type") == "serve.token":
-            wire.setdefault((data["rid"], sid_g), []).append((data["idx"], list(data["tokens"])))
+            records.setdefault((data["rid"], sid_g), []).append(
+                (data["idx"], list(data["tokens"])))
         inner_sink(sid_g, data)
 
     sup._sink = recording_sink
@@ -879,15 +984,15 @@ async def _serve_session(executor, serve_streams: list, config, device: str) -> 
             problems.append(f"{r.rid} did not complete across the reconnect: {out!r}"[:300])
             continue
         pieces = {}
-        for (rid, sid_g), records in wire.items():
+        for (rid, sid_g), chunks in records.items():
             if rid != r.rid:
                 continue
             idx = 0
-            for got_idx, tokens in records:
+            for got_idx, tokens in chunks:
                 if got_idx != idx:
                     problems.append(f"{rid} on {sid_g}: chunk at idx {got_idx}, expected {idx}")
                 idx += len(tokens)
-            pieces[sid_g] = [t for _, tokens in records for t in tokens]
+            pieces[sid_g] = [t for _, tokens in chunks for t in tokens]
         # exactly once: what the caller got is all the first generation sent
         # before it died, then the replay's wire from there on
         first, *rest = [pieces[g] for g in sorted(pieces)]
@@ -906,23 +1011,17 @@ async def _serve_session(executor, serve_streams: list, config, device: str) -> 
 
     # the streams against the in-process serve phase's engine rows, and
     # finite logits of the same weights (built here as the worker builds them)
-    model = decode.inference_params(TransformerLM(
-        config, device=device, generator=torch.Generator(device=device).manual_seed(0)))
+    differ = divergences(config, device, prompts, serve_streams, results)
     with torch.no_grad():
-        logits = model(torch.as_tensor(np.stack(prompts), dtype=torch.long, device=device))
+        logits = _MARGIN_MODEL["model"](
+            torch.as_tensor(np.stack(prompts), dtype=torch.long, device=device))
     if not bool(torch.isfinite(logits).all()):
         problems.append("non-finite logits")
-    divergences = []
-    for i, (p, want, got) in enumerate(zip(prompts, serve_streams, results)):
-        if got != want:
-            j = next((k for k, (a, b) in enumerate(zip(got, want)) if a != b), len(got))
-            with torch.no_grad():
-                margin = serve._top2_margin(model, np.concatenate([p, np.asarray(want[:j])]))
-            divergences.append({"request": i, "step": j, "serve_top2_margin": margin})
     if problems:
         raise AssertionError("session: " + "; ".join(problems))
     tokens = sum(caps)
     return {
+        "frames_active": frames_active, "wire": wire, "results": results,
         "open_s": open_s, "payload_bytes": handle.payload_bytes,
         "first_request": {"ttft_s": warm.ttft_s, "latency_s": warm.latency_s,
                           "tokens": len(warm.tokens)},
@@ -932,8 +1031,8 @@ async def _serve_session(executor, serve_streams: list, config, device: str) -> 
         "ttft_sorted_s": sorted(ttft), "first_wave": timed_stats.get("first_wave"),
         "completion_s": {"p50": statistics.median(latency),
                          "p95": float(np.percentile(latency, 95))},
-        "streams_equal_serve_phase": len(prompts) - len(divergences),
-        "divergences": divergences,
+        "streams_equal_serve_phase": len(prompts) - len(differ),
+        "divergences": differ,
         "worker_peak_mem_bytes": (timed_stats.get("device_mem") or {}).get("peak_bytes_in_use"),
         "flash_launches": launches,
         "reconnect": {"seconds": reconnect_s, "reconnects": handle.reconnects,
@@ -949,23 +1048,273 @@ def session_phase(serve_streams: list) -> dict:
     """The ``serve`` cell through the resident session: ``open_session`` on
     ``GPUExecutor(use_agent="pool")``, the 125M LM built on the card in the
     pool server from seed 0, 16 requests through one handle, then the
-    reconnect check.  Fails on an incomplete stream, a gap, a duplicate,
-    non-finite logits or a flash launch; reports divergences from the serve
-    phase's streams with their margins."""
+    reconnect check; the channel runs on binary frames.  Then the same
+    requests on a session whose executor keeps JSON lines
+    (``agent_frames=False``): the wire bytes per streamed token of each
+    encoding, and the streams equal between the two.  Fails on an
+    incomplete stream, a gap, a duplicate, non-finite logits, a flash
+    launch or a channel on the wrong encoding; reports divergences from the
+    serve phase's streams with their margins."""
     from covalent_tpu_plugin_torch import GPUExecutor
     from covalent_tpu_plugin_torch.models.transformer import lm_125m_config
 
-    executor = GPUExecutor(
-        transport="local", cache_dir=str(WORK / "cache"), remote_cache=str(WORK / "remote"),
-        python_path=sys.executable, use_agent="pool", task_env={"PYTHONPATH": str(ROOT)},
-    )
+    common = dict(transport="local", cache_dir=str(WORK / "cache"), python_path=sys.executable,
+                  use_agent="pool", task_env={"PYTHONPATH": str(ROOT)})
+    config = lm_125m_config(max_seq=512)
 
     async def run():
+        executor = GPUExecutor(**common, remote_cache=str(WORK / "remote"))
         try:
-            return await _serve_session(executor, serve_streams, lm_125m_config(max_seq=512),
-                                        "cuda")
+            framed = await _serve_session(executor, serve_streams, config, "cuda")
         finally:
             await executor.close()
+        executor = GPUExecutor(**common, remote_cache=str(WORK / "remote_lines"),
+                               agent_frames=False, pool_preload=SERVE_PRELOAD)
+        try:
+            lines = await _serve_session(executor, serve_streams, config, "cuda",
+                                         reconnect=False)
+        finally:
+            await executor.close()
+        return framed, lines
+
+    framed, lines = asyncio.run(run())
+    if not framed["frames_active"] or lines["frames_active"]:
+        raise AssertionError(f"session: frames_active {framed['frames_active']} on the frames "
+                             f"arm, {lines['frames_active']} on the JSON-lines arm")
+    results = framed.pop("results")
+    framed["json_lines_arm"] = {
+        "frames_active": lines["frames_active"], "wire": lines["wire"],
+        "tokens_per_s": lines["tokens_per_s"], "open_s": lines["open_s"],
+        "streams_equal_frames_arm": sum(a == b for a, b in zip(lines["results"], results)),
+    }
+    framed["wire_bytes_per_token"] = {
+        "frames": framed["wire"]["down_bytes_per_token"],
+        "json_lines": lines["wire"]["down_bytes_per_token"]}
+    framed["_results"] = results
+    return framed
+
+
+# --- several resident workers on one card: a replica set, a disaggregated set --
+
+
+def _percentiles(values: list) -> dict:
+    import numpy as np
+
+    return {"p50": statistics.median(values), "p95": float(np.percentile(values, 95))}
+
+
+async def _timed_burst(front, prompts: list, caps: list) -> tuple:
+    """The serve cell's 16 requests at once through ``front``: (results,
+    wall seconds, TTFTs, completions)."""
+    start = time.perf_counter()
+    requests = await asyncio.gather(*(front.request(p, params={"max_new_tokens": c})
+                                      for p, c in zip(prompts, caps)))
+    results = await asyncio.gather(*(r.result(timeout=600) for r in requests))
+    wall = time.perf_counter() - start
+    return results, wall, [r.ttft_s for r in requests], [r.latency_s for r in requests]
+
+
+async def mid_stream(requests: list, caps: list, supervisors) -> object:
+    """The supervisor holding the first request seen with some, not all,
+    of its tokens."""
+    while True:
+        for r, c in zip(requests, caps):
+            if 0 < len(r.tokens) < c:
+                holder = next((sup for sup in supervisors if r.rid in sup._requests), None)
+                if holder is not None:
+                    return holder
+        await asyncio.sleep(0.01)
+
+
+async def _warm(front, config, n: int) -> None:
+    """``n`` requests at once, whose prompts share no prefix with the timed
+    ones: the first requests a cold worker serves pay its lazy set-up."""
+    import numpy as np
+
+    rng = np.random.default_rng(1)
+    warm = await asyncio.gather(*(
+        front.request(rng.integers(0, config.vocab_size, SESSION["prompt_len"]),
+                      params={"max_new_tokens": SESSION["short"]}) for _ in range(n)))
+    await asyncio.gather(*(r.result(timeout=600) for r in warm))
+
+
+def _refuse_reopen(supervisor) -> None:
+    """Every re-open of ``supervisor`` fails, as for a worker that is gone
+    for good: the replica dies past its retry budget."""
+    from covalent_tpu_plugin_torch.agent import AgentError
+
+    async def refuse():
+        raise AgentError("re-open refused: the worker is gone")
+
+    supervisor._open_generation = refuse
+    supervisor.retries = 0
+
+
+def _serve_executors(names: list) -> list:
+    from covalent_tpu_plugin_torch import GPUExecutor
+
+    return [GPUExecutor(transport="local", cache_dir=str(WORK / "cache"),
+                        remote_cache=str(WORK / f"remote_{name}"), python_path=sys.executable,
+                        use_agent="pool", pool_preload=SERVE_PRELOAD,
+                        task_env={"PYTHONPATH": str(ROOT)}) for name in names]
+
+
+async def _replicas(executors: list, config, serve_streams: list, device: str) -> dict:
+    import numpy as np
+
+    from covalent_tpu_plugin_torch.serving import open_replica_set
+
+    prompts, caps = session_prompts(config.vocab_size)
+    # the two pool servers start at once (each imports torch and the port)
+    start = time.perf_counter()
+    await asyncio.gather(*(ex.lease_gang() for ex in executors))
+    pools_s = time.perf_counter() - start
+    start = time.perf_counter()
+    rset = await open_replica_set(executors, serve_factory(config, device),
+                                  stats_interval_s=1.0, open_timeout_s=300)
+    open_s = time.perf_counter() - start
+    await _warm(rset, config, 2)
+    results, wall, ttft, latency = await _timed_burst(rset, prompts, caps)
+    placed = dict(rset.placed)
+    stats = {rid: await _settled_stats(sup, sup.served)
+             for rid, sup in rset.supervisors.items()}
+    frames = {rid: sup._client.frames_active for rid, sup in rset.supervisors.items()}
+
+    # drain-on-death: the second burst, killing the pool server of the
+    # first replica seen mid-stream, with no retry left and its re-open
+    # refused
+    requests = await asyncio.gather(*(rset.request(p, params={"max_new_tokens": c})
+                                      for p, c in zip(prompts, caps)))
+    victim = await mid_stream(requests, caps, rset.supervisors.values())
+    victim_id = victim.replica_of[1]
+    survivor_id = "r1" if victim_id == "r0" else "r0"
+    # what only the victim holds (not a hedge's other arm) is re-routed
+    on_victim = [r.rid for r in requests if set(r.arms) == {victim.sid}]
+    _refuse_reopen(victim)
+    victim._client._process._proc.kill()
+    again = await asyncio.gather(*(r.result(timeout=600) for r in requests),
+                                 return_exceptions=True)
+    status = rset.status()
+    await rset.close()
+
+    problems = []
+    if any(len(g) != c for g, c in zip(results, caps)):
+        problems.append("a stream of the timed burst is incomplete")
+    if set(placed) != {"r0", "r1"}:
+        problems.append(f"placements {placed}: a replica took nothing")
+    if not all(frames.values()):
+        problems.append(f"a replica's channel is not on frames: {frames}")
+    for r, c, out in zip(requests, caps, again):
+        if isinstance(out, BaseException) or len(out) != c:
+            problems.append(f"{r.rid} did not complete across the kill: {out!r}"[:300])
+    if victim.state != "failed" or status["state"] != "open":
+        problems.append(f"victim {victim.state}, set {status['state']}")
+    if status["rerouted"] != len(on_victim):
+        problems.append(f"{status['rerouted']} re-routed, {len(on_victim)} were on the victim")
+    launches = {rid: _flash(st) for rid, st in stats.items()}
+    if any(n for counts in launches.values() for n in counts.values()):
+        problems.append(f"a replica launched flash kernels: {launches}")
+    if problems:
+        raise AssertionError("replicas: " + "; ".join(problems))
+    differ = divergences(config, device, prompts, serve_streams, results)
+    return {
+        "replicas": 2, "slots_per_replica": SESSION["slots"], "pools_start_s": pools_s,
+        "open_s": open_s, "requests": len(prompts), "caps": caps,
+        "tokens_per_s": sum(caps) / wall, "wall_s": wall, "ttft_s": _percentiles(ttft),
+        "completion_s": _percentiles(latency), "placed": placed,
+        "router_decision_p50_ms": status["router_decision_p50_ms"],
+        "hedge": status["hedge"], "frames_active": frames,
+        "worker_peak_mem_bytes": {rid: (st.get("device_mem") or {}).get("peak_bytes_in_use")
+                                  for rid, st in stats.items()},
+        "flash_launches": launches,
+        "streams_equal_serve_phase": len(prompts) - len(differ), "divergences": differ,
+        "drain": {"on_victim": len(on_victim), "rerouted": status["rerouted"],
+                  "completed": sum(not isinstance(o, BaseException) for o in again),
+                  "replay_mismatches": status["replay_mismatches"],
+                  "streams_equal_timed_burst": sum(a == b for a, b in zip(again, results)),
+                  "victim": victim_id,
+                  "survivor_served": status["replicas"][survivor_id]["served"]},
+        "_results": results, "_victim": victim.executor,
+    }
+
+
+async def _disagg(executors: list, config, replica_streams: list, device: str) -> dict:
+    from covalent_tpu_plugin_torch.serving import open_disaggregated_set
+
+    prompts, caps = session_prompts(config.vocab_size)
+    # the first executor's pool server (the drain check's victim's) died:
+    # it starts again here, alone, and hosts the prefill replica
+    start = time.perf_counter()
+    await executors[0].lease_gang()
+    pool_alone_s = time.perf_counter() - start
+    start = time.perf_counter()
+    dset = await open_disaggregated_set(executors, serve_factory(config, device),
+                                        stats_interval_s=1.0, open_timeout_s=300)
+    open_s = time.perf_counter() - start
+    await _warm(dset, config, 1)
+    warm_transfers = dset.kv_transfers
+    results, wall, ttft, latency = await _timed_burst(dset, prompts, caps)
+    transfers = list(dset.kv_transfer_s)[warm_transfers:]
+    bundle_bytes = list(dset.kv_bundle_bytes)[warm_transfers:]
+    frames = {rid: sup._client.frames_active for rid, sup in dset.supervisors.items()}
+    await dset.close()
+    status = dset.status()  # the workers' last stats arrived with the close
+    decode = status["replicas"]["r1"]
+
+    problems = []
+    if status["roles"] != {"r0": "prefill", "r1": "decode"}:
+        problems.append(f"roles {status['roles']}")
+    if any(len(g) != c for g, c in zip(results, caps)):
+        problems.append("a stream is incomplete")
+    if len(transfers) != len(prompts) or status["requests_by_path"].get("fallback"):
+        problems.append(f"{len(transfers)} KV transfers, roads {status['requests_by_path']}")
+    if decode.get("kv_admits") != len(prompts) + 1 or decode.get("kv_fallbacks"):
+        problems.append(f"decode worker: {decode.get('kv_admits')} KV admissions, "
+                        f"{decode.get('kv_fallbacks')} fallbacks")
+    if not all(frames.values()):
+        problems.append(f"a channel is not on frames: {frames}")
+    if problems:
+        raise AssertionError("disagg: " + "; ".join(problems))
+    differ = divergences(config, device, prompts, replica_streams, results)
+    return {
+        "prefill_replicas": 1, "decode_replicas": 1,
+        "min_prompt_tokens": status["min_prompt_tokens"], "pool_start_alone_s": pool_alone_s,
+        "open_s": open_s, "requests": len(prompts), "kv_transfers": len(transfers),
+        "degrades": status["requests_by_path"].get("fallback", 0)
+        + (decode.get("kv_fallbacks") or 0),
+        "requests_by_path": status["requests_by_path"],
+        "bytes_per_bundle": {"min": min(bundle_bytes), "max": max(bundle_bytes)},
+        "transfer_s": _percentiles(transfers), "ttft_s": _percentiles(ttft),
+        "completion_s": _percentiles(latency), "tokens_per_s": sum(caps) / wall,
+        "wall_s": wall, "frames_active": frames,
+        "decode_worker": {k: decode.get(k) for k in ("kv_admits", "kv_fallbacks", "served")},
+        "streams_equal_replicas_phase": len(prompts) - len(differ), "divergences": differ,
+    }
+
+
+def replica_phases(serve_streams: list) -> tuple[dict, dict]:
+    """The serve cell through several resident workers on the card: a
+    2-replica set (then drain-on-death), and a disaggregated set of one
+    prefill and one decode replica, on two pool ``GPUExecutor``\\ s."""
+    from covalent_tpu_plugin_torch.models.transformer import lm_125m_config
+
+    config = lm_125m_config(max_seq=512)
+
+    async def run():
+        executors = _serve_executors(["replica_a", "replica_b"])
+        try:
+            start = time.perf_counter()
+            replicas = await _replicas(executors, config, serve_streams, "cuda")
+            replicas["seconds"] = time.perf_counter() - start
+            victim = replicas.pop("_victim")
+            start = time.perf_counter()
+            disagg = await _disagg([victim] + [ex for ex in executors if ex is not victim],
+                                   config, replicas.pop("_results"), "cuda")
+            disagg["seconds"] = time.perf_counter() - start
+        finally:
+            for ex in executors:
+                await ex.close()
+        return replicas, disagg
 
     return asyncio.run(run())
 
@@ -1108,6 +1457,23 @@ def _close(executor) -> None:
     asyncio.run_coroutine_threadsafe(executor.close(), runner._dispatcher_loop()).result(120)
 
 
+def _invoke_frames() -> dict:
+    """How this process's RPC invokes have left so far: one to a frame
+    (``invoke_frames``), several to a ``multi_invoke`` frame, or as JSON
+    lines."""
+    from covalent_tpu_plugin_torch.obs.metrics import (
+        AGENT_BATCHED_INVOKES_TOTAL,
+        AGENT_FRAMES_TOTAL,
+    )
+
+    counts = {f"{labels['verb']}_{labels['encoding']}": child.value
+              for labels, child in AGENT_FRAMES_TOTAL._series()}
+    return {"invoke_frames": counts.get("invoke_binary", 0.0),
+            "multi_invoke_frames": counts.get("multi_invoke_binary", 0.0),
+            "invokes_in_multi_invoke": AGENT_BATCHED_INVOKES_TOTAL.value,
+            "invoke_lines": counts.get("invoke_jsonl", 0.0)}
+
+
 def lattice_arm(arm: str, reference: dict | None) -> tuple[list[dict], dict, dict]:
     """BASELINE configs 2-4 as lattices on one GPUExecutor of the arm: its
     lines, the MNIST workers' flash launches, and the values a later arm
@@ -1130,6 +1496,7 @@ def lattice_arm(arm: str, reference: dict | None) -> tuple[list[dict], dict, dic
     obs_events.add_listener(listener)
     expected_mode = "rpc" if arm == "rpc" else "launch"
     lines, values = [], {}
+    wire_frames = _invoke_frames()
 
     def on_arm(fn, **kwargs):
         return ct.electron(fn, executor=executor, **kwargs)
@@ -1246,6 +1613,13 @@ def lattice_arm(arm: str, reference: dict | None) -> tuple[list[dict], dict, dic
                                            "forked_pid": forked["pid"], "loss": forked["loss"],
                                            "electron_wall_s": wall},
                           "dispatch_mode": executor.last_dispatch_mode})
+        client = executor._agents.get("localhost")
+        frames_active = None if client is None else client.frames_active
+        if arm != "launch" and not frames_active:
+            raise AssertionError(f"lattice {arm}: the pool's channel is not on frames")
+        after = _invoke_frames()
+        lines.append({"frames_active": frames_active,
+                      **{k: after[k] - wire_frames[k] for k in after}})
     finally:
         obs_events.remove_listener(listener)
         _close(executor)
@@ -1437,7 +1811,8 @@ def main() -> int:
               "launches": arm["launches"],
               "launches_per_step": {k: n / STEPS for k, n in arm["launches"].items()},
               "n_params": arm["n_params"], "peak_mem_bytes": arm["peak_mem_bytes"],
-              "electron_wall_s": arm["wall_s"], "device": arm["device"], "card": smi})
+              "electron_wall_s": arm["wall_s"], "frames_active": arm["frames_active"],
+              "device": arm["device"], "card": smi})
 
     emit({"phase": "profile", "card": smi, **profile_phase()})
 
@@ -1452,8 +1827,17 @@ def main() -> int:
     serve_streams = served.pop("_streams")
     emit({"phase": "serve", "card": smi, **served})
     emit({"phase": "serve_profile", "card": smi, **serve_profile()})
-    # The resident session: the serve cell's traffic through open_session.
-    emit({"phase": "session", "card": smi, **session_phase(serve_streams)})
+    # The resident session: the serve cell's traffic through open_session,
+    # on frames and on JSON lines.
+    start = time.perf_counter()
+    session = session_phase(serve_streams)
+    session.pop("_results")
+    emit({"phase": "session", "card": smi, "seconds": time.perf_counter() - start, **session})
+    # Several resident workers on the card: a replica set, then a
+    # disaggregated set, each with the serve cell's traffic.
+    replicas, disagg = replica_phases(serve_streams)
+    emit({"phase": "replicas", "card": smi, **replicas})
+    emit({"phase": "disagg", "card": smi, **disagg})
 
     # BASELINE configs 2-4 as lattices: no flash kernel, here or in the
     # MNIST workers (which report their counts).

@@ -10,11 +10,21 @@ go to the sink it registered (:meth:`AgentClient.watch_serve`).
 The verbs: ``run`` (a launch-mode spec forked from the server's zygote)
 with ``wait_exit``, ``kill``, ``watch``/``unwatch`` and ``task_inventory``;
 RPC execute-by-digest (``register_fn``, ``invoke``, ``wait_result``); the
-serving session's ``serve_*``.
+serving session's ``serve_*``, ``serve_prefill`` (the disaggregated set's
+prefill tier) included.
 
-The channel speaks JSON lines.  The reference's native C++ agent, binary
-frames (and with them invoke micro-batching) and the recovery verbs (epoch
-fence, adopt, serving inventories, resume) come with ROADMAP item 2c.
+The channel starts on JSON lines.  When the server's ready banner
+advertises frames, :meth:`AgentClient.negotiate_frames` switches it to
+binary frames (:mod:`.transport.frames`) unless ``frames_enabled=False``
+or ``COVALENT_TPU_AGENT_FRAMES=0``: RPC args and results, KV bundles and
+coalesced token batches then ride raw frame bodies, and invokes of one
+digest that queue in the same event-loop turn (or within
+``COVALENT_TPU_RPC_BATCH_WINDOW_MS``, up to ``COVALENT_TPU_RPC_BATCH_MAX``)
+leave as one ``multi_invoke`` frame.  The wire counters
+(``covalent_tpu_agent_frames_total``, ``covalent_tpu_agent_wire_bytes_total``)
+count both encodings.  The reference's native C++ agent (ROADMAP item
+2c.6) and the recovery verbs (epoch fence, adopt, serving inventories,
+resume: item 2c.4) are not ported yet.
 """
 
 from __future__ import annotations
@@ -22,10 +32,13 @@ from __future__ import annotations
 import asyncio
 import base64
 import json
+import os
 import shlex
 from typing import Any
 
+from .obs.metrics import AGENT_BATCHED_INVOKES_TOTAL, AGENT_FRAMES_TOTAL, AGENT_WIRE_BYTES_TOTAL
 from .resilience import tag_fault
+from .transport import frames
 from .transport.base import Transport, TransportError
 from .utils.log import app_log
 
@@ -36,6 +49,26 @@ HARNESS_BASENAME = "covalent_gpu_harness.py"
 #: start is paid there, not by each electron or session.  ``torch._dynamo``
 #: is what a torch optimizer imports at its first construction.
 POOL_PRELOAD = "cloudpickle,torch,torch._dynamo,covalent_tpu_plugin_torch"
+
+
+def frames_env_enabled() -> bool:
+    """Process-wide kill switch: ``COVALENT_TPU_AGENT_FRAMES=0`` keeps JSON lines."""
+    return os.environ.get("COVALENT_TPU_AGENT_FRAMES", "").strip().lower() not in (
+        "0", "off", "false", "no")
+
+
+def _env_float(name: str, default: float) -> float:
+    try:
+        return float(os.environ.get(name, "") or default)
+    except ValueError:
+        return default
+
+
+#: Invoke micro-batching: by default (window 0) only invokes queued in the
+#: same event-loop turn coalesce, so a lone invoke waits for nothing; a
+#: positive window trades a bounded wait for bigger batches.
+_BATCH_WINDOW_S = max(0.0, _env_float("COVALENT_TPU_RPC_BATCH_WINDOW_MS", 0.0) / 1000.0)
+_BATCH_MAX_OPS = max(1, int(_env_float("COVALENT_TPU_RPC_BATCH_MAX", 16)))
 
 
 class AgentError(TransportError):
@@ -62,8 +95,11 @@ async def start_pool_server(
     env: dict[str, str] | None = None,
     timeout: float = 90.0,
     preload: str = POOL_PRELOAD,
+    frames_enabled: bool | None = None,
 ) -> "AgentClient":
-    """Start ``harness.py --serve`` on a worker and prove it with a ping.
+    """Start ``harness.py --serve`` on a worker, prove it with a ping and
+    negotiate binary frames (``frames_enabled``: None reads
+    ``COVALENT_TPU_AGENT_FRAMES``).
 
     ``env`` goes into the server's environment before the interpreter
     starts (the executor's ``task_env``: ``CUDA_VISIBLE_DEVICES`` cannot
@@ -96,6 +132,7 @@ async def start_pool_server(
     client = AgentClient(process, conn.address)
     try:
         await client.ping(timeout)
+        await client.negotiate_frames(enabled=frames_enabled)
     except AgentError:
         await client.close()
         raise
@@ -137,6 +174,21 @@ class AgentClient:
         self._serve_errors: dict[str, dict] = {}
         self._serve_closed: dict[str, dict] = {}
         self._serve_sinks: dict[str, Any] = {}
+        #: "sid/rid" -> pushed ``serve_kv`` answer to a prefill (a KV bundle
+        #: or an error), bounded: a late answer nobody waits for is dropped
+        self._serve_kv: dict[str, dict] = {}
+        #: frames: the ready banner (the server's capabilities), the pushed
+        #: ``frames`` ack, and whether the channel runs on frames
+        self._banner: dict = {}
+        self._frames_ack: dict | None = None
+        self.frames_active = False
+        #: invoke micro-batching: digest -> [(command, args bytes)] queued
+        #: this window, flushed as one frame per digest
+        self._pending_invokes: dict[str, list] = {}
+        self._flush_scheduled = False
+        self._flush_now = False
+        #: live flusher tasks (the loop keeps only weak references)
+        self._flush_tasks: set = set()
         self._reader = asyncio.ensure_future(self._read_loop())
 
     @property
@@ -159,14 +211,61 @@ class AgentClient:
 
     # -- event plumbing ------------------------------------------------------
 
+    def _decode_message(self, message) -> dict | None:
+        """One message off :meth:`TransportProcess.read_event` as a protocol
+        dict, counted on the wire counters; None for stray output."""
+        if message[0] == "frame":
+            _kind, verb, flags, header, body = message
+            AGENT_FRAMES_TOTAL.labels(verb=frames.VERB_NAMES.get(verb, str(verb)),
+                                      encoding="binary").inc()
+            AGENT_WIRE_BYTES_TOTAL.labels(direction="down", encoding="binary").inc(
+                frames.HEADER_LEN + len(header) + len(body))
+            try:
+                return frames.decode_payload(flags, header, body)
+            except frames.FrameIntegrityError as err:
+                # The frame arrived whole, so this is torn content, not a
+                # dead channel: deliver it marked, so its waiter fails
+                # PERMANENT.  (A header that is not JSON raises FrameError
+                # and ends the reader: the stream cannot be trusted.)
+                try:
+                    event = json.loads(header.decode("utf-8"))
+                except ValueError:
+                    raise TransportError(
+                        f"agent@{self.address}: undecodable torn frame: {err}") from err
+                event.pop("_body", None)
+                event["torn"] = repr(err)
+                return event
+        line = message[1]
+        try:
+            event = json.loads(line)
+        except ValueError:
+            return None  # stray non-protocol output
+        AGENT_FRAMES_TOTAL.labels(
+            verb=str(event.get("event")) if isinstance(event, dict) else "?",
+            encoding="jsonl").inc()
+        AGENT_WIRE_BYTES_TOTAL.labels(direction="down", encoding="jsonl").inc(len(line) + 1)
+        return event
+
+    def _handle_batch(self, task_id: str, event: dict) -> None:
+        """A coalesced ``telemetry_batch``: each record takes the
+        per-record road (seq dedup, the session's sink, the splice)."""
+        if event.get("torn"):
+            app_log.warning("agent@%s: dropped torn telemetry batch for %s: %s",
+                            self.address, task_id, event["torn"])
+            return
+        records = event.get("records") or b"[]"
+        try:
+            parsed = json.loads(records.decode("utf-8")
+                                if isinstance(records, (bytes, bytearray)) else records)
+        except (ValueError, UnicodeDecodeError):
+            parsed = []
+        for record in parsed if isinstance(parsed, list) else []:
+            self._handle_telemetry(task_id, record)
+
     async def _read_loop(self) -> None:
         try:
             while True:
-                line = await self._process.read_line()
-                try:
-                    event = json.loads(line)
-                except ValueError:
-                    continue  # stray non-protocol output; ignore
+                event = self._decode_message(await self._process.read_event())
                 if not isinstance(event, dict):
                     continue
                 async with self._cond:
@@ -175,8 +274,23 @@ class AgentClient:
                     if kind == "telemetry":
                         self._handle_telemetry(task_id, event.get("data"))
                         continue  # side-band: no waiter to notify
+                    if kind == "telemetry_batch":
+                        self._handle_batch(task_id, event)
+                        continue
                     if kind == "started":
                         self._started[task_id] = int(event["pid"])
+                    elif kind == "multi_started":
+                        pid = int(event.get("pid") or 0)
+                        for tid in event.get("ids") or []:
+                            self._started[str(tid)] = pid
+                    elif kind == "ready":
+                        self._banner = event
+                    elif kind == "frames":
+                        self._frames_ack = event
+                    elif kind == "serve_kv":
+                        self._serve_kv[f"{task_id}/{event.get('rid') or ''}"] = event
+                        while len(self._serve_kv) > 256:
+                            self._serve_kv.pop(next(iter(self._serve_kv)))
                     elif kind == "exit":
                         self._exits[task_id] = (int(event.get("code", -1)),
                                                 int(event.get("signal", 0)))
@@ -254,10 +368,35 @@ class AgentClient:
     async def _send(self, command: dict) -> None:
         if self._dead is not None:
             raise AgentError(f"agent@{self.address} channel died: {self._dead}")
+        line = json.dumps(command)
+        AGENT_FRAMES_TOTAL.labels(verb=str(command.get("cmd", "?")), encoding="jsonl").inc()
+        AGENT_WIRE_BYTES_TOTAL.labels(direction="up", encoding="jsonl").inc(len(line) + 1)
         try:
-            await self._process.write_line(json.dumps(command))
+            await self._process.write_line(line)
         except TransportError as err:
             raise AgentError(f"agent@{self.address}: send failed: {err}") from err
+
+    async def _send_frame(self, verb: int, header: dict, body: bytes = b"") -> None:
+        """One binary frame down the channel (negotiated channels only)."""
+        if self._dead is not None:
+            raise AgentError(f"agent@{self.address} channel died: {self._dead}")
+        payload = frames.encode_frame(verb, header, body)
+        AGENT_FRAMES_TOTAL.labels(verb=frames.VERB_NAMES.get(verb, str(verb)),
+                                  encoding="binary").inc()
+        AGENT_WIRE_BYTES_TOTAL.labels(direction="up", encoding="binary").inc(len(payload))
+        try:
+            await self._process.write_bytes(payload)
+        except TransportError as err:
+            raise AgentError(f"agent@{self.address}: send failed: {err}") from err
+
+    async def _send_serve(self, command: dict, body: bytes | None = None) -> None:
+        """A serving command: a frame on a negotiated channel (with ``body``
+        under the field the header's ``_body`` names), a JSON line
+        otherwise."""
+        if self.frames_active:
+            await self._send_frame(frames.VERB_SERVE, command, body or b"")
+        else:
+            await self._send(command)
 
     # -- commands ------------------------------------------------------------
 
@@ -265,6 +404,26 @@ class AgentClient:
         before = self._pongs
         await self._send({"cmd": "ping"})
         await self._wait(lambda c: c._pongs > before, timeout)
+
+    async def negotiate_frames(self, timeout: float = 15.0, enabled: bool | None = None) -> bool:
+        """Switch the channel to binary frames when both ends can.
+
+        The server advertised ``frames`` in its ready banner (read before
+        the ping's answer, so this never races it) and answers the
+        ``frames`` command with an ack.  A silent banner, a ``version: 0``
+        refusal (the worker's kill switch) or ``enabled=False`` (this
+        side's) leave the channel on JSON lines, with byte-equal results.
+        Frame bodies go uncompressed: the reference asks for zlib bodies
+        only where its file-staging codec is pinned, which the port has not.
+        """
+        if enabled is None:
+            enabled = frames_env_enabled()
+        if not enabled or not self._banner.get("frames"):
+            return False
+        await self._send({"cmd": "frames", "version": frames.VERSION, "codec": ""})
+        ack = await self._wait(lambda c: c._frames_ack, timeout)
+        self.frames_active = int(ack.get("version") or 0) >= 1
+        return self.frames_active
 
     def _pop_rejection(self, task_id: str, what: str) -> AgentError | None:
         """A stored ``error`` event for ``task_id`` as an exception (or None).
@@ -282,6 +441,9 @@ class AgentClient:
         rejection.rejected = True  # type: ignore[attr-defined]
         if code == "cuda_initialized":
             tag_fault(rejection, "zygote_cuda", transient=False)
+        elif code == "bad_frame":
+            # torn content: the same bytes cannot be sent successfully again
+            tag_fault(rejection, "agent_bad_frame", transient=False)
         return rejection
 
     # -- the run verb ---------------------------------------------------------
@@ -409,31 +571,40 @@ class AgentClient:
         """Invoke a registered function by digest; returns the worker's pid
         from the ``started`` acknowledgement.
 
-        The args travel inline, base64 in the JSON line (``args_b64``, or
-        ``args_bytes`` encoded here), or by CAS path and digest when
-        oversized.  ``path`` (the function's CAS artifact) lets a restarted
-        runtime heal a lost registration.  Given ``result_path`` and
-        ``result_max_inline``, a result pickle over the threshold is staged
-        to that remote path instead of inlined.  The result arrives
-        separately (:meth:`wait_result`).
+        The args travel inline: raw bytes in a frame body on a negotiated
+        channel (``args_bytes``), base64 in the JSON line otherwise
+        (``args_b64``, or ``args_bytes`` encoded here); or by CAS path and
+        digest when oversized.  On a negotiated channel, inline invokes of
+        one digest queued in the same event-loop turn (or window) leave as
+        ONE ``multi_invoke`` frame, acked by one ``multi_started``; their
+        results still arrive one by one.  ``path`` (the function's CAS
+        artifact) lets a restarted runtime heal a lost registration.  Given
+        ``result_path`` and ``result_max_inline``, a result pickle over the
+        threshold is staged to that remote path instead of inlined.  The
+        result arrives separately (:meth:`wait_result`).
         """
         command: dict = {"cmd": "invoke", "id": task_id, "digest": digest}
         if path:
             command["path"] = path
         if spec:
             command["spec"] = dict(spec)
-        if args_b64 is None and args_bytes is not None:
-            args_b64 = base64.b64encode(args_bytes).decode("ascii")
-        if args_b64 is not None:
-            command["args"] = args_b64
-        elif args_path:
-            command["args_path"] = args_path
-            if args_digest:
-                command["args_digest"] = args_digest
+        framed = self.frames_active and args_bytes is not None and not args_path
+        if not framed:
+            if args_b64 is None and args_bytes is not None:
+                args_b64 = base64.b64encode(args_bytes).decode("ascii")
+            if args_b64 is not None:
+                command["args"] = args_b64
+            elif args_path:
+                command["args_path"] = args_path
+                if args_digest:
+                    command["args_digest"] = args_digest
         if result_path and result_max_inline is not None:
             command["result_path"] = result_path
             command["result_max_inline"] = int(result_max_inline)
-        await self._send(command)
+        if framed:
+            self._enqueue_invoke(digest, command, args_bytes or b"")
+        else:
+            await self._send(command)
 
         def ready(c: "AgentClient"):
             rejection = c._pop_rejection(task_id, "invoke")
@@ -444,6 +615,62 @@ class AgentClient:
         pid = await self._wait(ready, timeout)
         self._started.pop(task_id, None)
         return pid
+
+    # -- invoke micro-batching ---------------------------------------------
+
+    def _enqueue_invoke(self, digest: str, command: dict, body: bytes) -> None:
+        """Queue one framed invoke; the flusher coalesces per digest."""
+        self._pending_invokes.setdefault(digest, []).append((command, body))
+        total = sum(len(v) for v in self._pending_invokes.values())
+        if not self._flush_scheduled:
+            self._flush_scheduled = True
+            self._spawn_flush(immediate=False)
+        elif total >= _BATCH_MAX_OPS and not self._flush_now:
+            # a full batch leaves now, without waiting out the window
+            self._flush_now = True
+            self._spawn_flush(immediate=True)
+
+    def _spawn_flush(self, immediate: bool) -> None:
+        task = asyncio.ensure_future(self._flush_invokes(immediate))
+        self._flush_tasks.add(task)
+        task.add_done_callback(self._flush_tasks.discard)
+
+    async def _flush_invokes(self, immediate: bool = False) -> None:
+        """Send every queued invoke, one frame per digest.  A send failure
+        files a rejection for each op, so its waiter fails at once."""
+        if not immediate and _BATCH_WINDOW_S > 0:
+            await asyncio.sleep(_BATCH_WINDOW_S)
+        else:
+            await asyncio.sleep(0)
+        pending, self._pending_invokes = self._pending_invokes, {}
+        self._flush_scheduled = False
+        self._flush_now = False
+        for digest, entries in pending.items():
+            try:
+                await self._send_invoke_group(digest, entries)
+            except (AgentError, TransportError, ValueError) as err:
+                async with self._cond:
+                    for command, _body in entries:
+                        self._errors[str(command.get("id") or "")] = (
+                            f"batched invoke send failed: {err}")
+                    self._cond.notify_all()
+
+    async def _send_invoke_group(self, digest: str, entries: list) -> None:
+        if len(entries) == 1:
+            command, body = entries[0]
+            await self._send_frame(frames.VERB_INVOKE, {**command, "_body": "args_bytes"}, body)
+            return
+        ops, bodies, fn_path = [], [], ""
+        for command, body in entries:
+            fn_path = fn_path or str(command.get("path") or "")
+            ops.append({k: v for k, v in command.items() if k not in ("cmd", "digest", "path")})
+            bodies.append(body)
+        header: dict = {"cmd": "multi_invoke", "digest": digest, "ops": ops,
+                        "args_lens": [len(b) for b in bodies], "_body": "args_bytes"}
+        if fn_path:
+            header["path"] = fn_path
+        await self._send_frame(frames.VERB_MULTI_INVOKE, header, b"".join(bodies))
+        AGENT_BATCHED_INVOKES_TOTAL.inc(len(entries))
 
     async def wait_result(self, task_id: str, timeout: float | None = None) -> dict:
         """Block until the invocation's pushed ``result`` event."""
@@ -481,16 +708,65 @@ class AgentClient:
         return await self._wait(settled, timeout)
 
     async def serve_request(self, sid: str, rid: str, prompt, params: dict | None = None,
-                            deadline_s: float = 0.0) -> None:
+                            deadline_s: float = 0.0, kv_bytes: bytes | None = None,
+                            kv_digest: str = "", kv_path: str = "") -> None:
         """Submit one request to an open session (fire-and-stream): its
         ``serve.token`` records, or a ``serve.reject``, arrive at the
-        session's :meth:`watch_serve` sink."""
+        session's :meth:`watch_serve` sink.
+
+        A disaggregated request attaches its prefilled KV bundle:
+        ``kv_bytes`` rides a raw frame body on a negotiated channel (base64
+        in the line otherwise), ``kv_path`` names a CAS-staged copy.  Either
+        way the worker checks ``kv_digest`` before the engine unpickles
+        anything, and any mismatch degrades to a full prefill.
+        """
         command: dict = {"cmd": "serve_request", "id": sid, "rid": rid, "prompt": prompt}
         if params:
             command["params"] = dict(params)
         if deadline_s:
             command["deadline_s"] = float(deadline_s)
-        await self._send(command)
+        if kv_digest:
+            command["kv_digest"] = kv_digest
+        if kv_path:
+            command["kv_path"] = kv_path
+        inline_kv = kv_bytes is not None and not kv_path
+        if inline_kv and self.frames_active:
+            command["_body"] = "kv_bytes"
+        elif inline_kv:
+            command["kv"] = base64.b64encode(kv_bytes).decode("ascii")
+        await self._send_serve(command, kv_bytes if inline_kv else None)
+
+    async def serve_prefill(self, sid: str, rid: str, prompt, params: dict | None = None,
+                            timeout: float = 60.0) -> dict:
+        """Run a prefill-only pass on an open session; returns the
+        ``serve_kv`` event, the bundle under ``data_bytes`` and its sha256
+        (as the worker computed it) under ``digest``.
+
+        The bundle rides a raw frame body on a negotiated channel, base64
+        in a JSON line otherwise.  A refusal on the worker (unknown
+        session, a full queue, an engine without the surface) raises
+        :class:`AgentError`: the disaggregated set then degrades to a full
+        prefill on the decode replica.
+        """
+        command: dict = {"cmd": "serve_prefill", "id": sid, "rid": rid, "prompt": prompt}
+        if params:
+            command["params"] = dict(params)
+        await self._send_serve(command)
+        key = f"{sid}/{rid}"
+        event = await self._wait(lambda c: c._serve_kv.pop(key, None), timeout)
+        if event.get("code"):
+            raise AgentError(f"agent@{self.address}: serve_prefill {rid} failed "
+                             f"({event.get('code')}): {event.get('message')}")
+        if event.get("torn"):
+            raise AgentError(f"agent@{self.address}: serve_prefill {rid} returned a torn "
+                             f"bundle: {event['torn']}")
+        if "data_bytes" not in event and event.get("data"):
+            try:
+                event["data_bytes"] = base64.b64decode(event["data"])
+            except (TypeError, ValueError) as err:
+                raise AgentError(f"agent@{self.address}: serve_prefill {rid} returned an "
+                                 f"undecodable bundle: {err}") from err
+        return event
 
     async def serve_close(self, sid: str, timeout: float = 30.0) -> dict:
         """Close a session; returns the ``serve_closed`` event (``served``)

@@ -12,8 +12,10 @@ unpickled.
   once.
 * :class:`FnRegistry` — per-connection registered-function digests: one
   ``register_fn`` per digest and resident runtime.
+* :func:`prune_cas_dir` — the byte-budget LRU prune of one CAS directory,
+  which bounds the disaggregated set's local mirror of KV bundles.
 
-The result cache, pruning and ``harness_digest`` come with slice 5b.
+The result cache, the TTL prune and ``harness_digest`` come with slice 5b.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import os
 import shlex
 import uuid
 
+from .obs import events as obs_events
 from .obs.metrics import REGISTRY
 from .obs.trace import Span
 from .transport.base import Transport, TransportError
@@ -35,6 +38,8 @@ __all__ = [
     "bytes_digest",
     "cas_path",
     "file_digest",
+    "prune_cas_dir",
+    "CAS_EVICTIONS_TOTAL",
     "CAS_UPLOADS_TOTAL",
     "RPC_REGISTRATIONS_TOTAL",
 ]
@@ -56,6 +61,14 @@ RPC_REGISTRATIONS_TOTAL = REGISTRY.counter(
 )
 
 
+CAS_EVICTIONS_TOTAL = REGISTRY.counter(
+    "covalent_tpu_cas_evictions_total",
+    "CAS artifacts evicted by the byte-budget LRU prune "
+    "(site = the dispatcher's local mirror vs a worker's remote cache)",
+    ("site",),
+)
+
+
 def bytes_digest(data: bytes) -> str:
     return hashlib.sha256(data).hexdigest()
 
@@ -72,6 +85,47 @@ def file_digest(path: str) -> str:
 def cas_path(remote_cache: str, digest: str, suffix: str = "") -> str:
     """Digest-addressed remote path under ``{remote_cache}/cas/``."""
     return f"{remote_cache}/{CAS_DIR}/{digest}{suffix}"
+
+
+def prune_cas_dir(root: str, max_bytes: int) -> int:
+    """Byte-budget LRU prune of one CAS directory; returns the evictions.
+
+    KV bundles are orders of magnitude larger than function pickles and can
+    fill a disk quickly.  Oldest modification first until the directory
+    fits ``max_bytes``; 0 disables.  Best-effort: a file that vanishes mid
+    scan (a concurrent prune, a publish in flight) is skipped.
+    """
+    if max_bytes <= 0:
+        return 0
+    entries: list[tuple[float, int, str]] = []
+    try:
+        names = os.listdir(root)
+    except OSError:
+        return 0
+    for name in names:
+        path = os.path.join(root, name)
+        try:
+            stat = os.stat(path)
+        except OSError:
+            continue
+        if os.path.isfile(path):
+            entries.append((stat.st_mtime, stat.st_size, path))
+    entries.sort()
+    total = sum(size for _, size, _ in entries)
+    evicted = 0
+    for _, size, path in entries:
+        if total <= max_bytes:
+            break
+        try:
+            os.remove(path)
+        except OSError:
+            continue
+        total -= size
+        evicted += 1
+    if evicted:
+        CAS_EVICTIONS_TOTAL.labels(site="local").inc(evicted)
+        obs_events.emit("cas.bytes_pruned", root=root, evicted=evicted, budget=max_bytes)
+    return evicted
 
 
 class CASIndex:

@@ -27,8 +27,13 @@ electron's own runtime as the harness measured it, in either road.
 ``execute``), the reference's dispatch-overhead accounting
 (``tpu.py:4211-4243``).
 
-The pool server is also the runtime ``serving.open_session`` opens its
-sessions on.  The native C++ agent comes with ROADMAP item 2c.6; the SSH
+The pool server is also the runtime ``serving.open_session``,
+``open_replica_set`` and ``open_disaggregated_set`` open their sessions
+on.  Its channel negotiates binary frames at connect (``agent_frames``,
+default True; ``COVALENT_TPU_AGENT_FRAMES`` overrides): RPC args and
+results, KV bundles and streamed tokens then ride raw frame bodies, and a
+channel that stays on JSON lines gives byte-equal results.  The native
+C++ agent comes with ROADMAP item 2c.6; the SSH
 transport, the result cache, fleet, task retries, the ops endpoint and
 multi-process gangs with slice 5b and slice 4.
 """
@@ -58,6 +63,7 @@ from .obs.metrics import REGISTRY
 from .obs.trace import Span, record_span
 from .resilience import FaultClass, classify_error, tag_fault
 from .transport import LocalTransport, Transport, TransportError
+from .transport.frames import FrameIntegrityError
 from .utils.config import get_config, update_config
 from .utils.log import app_log
 from .utils.serialize import dump_task, load_result
@@ -94,6 +100,10 @@ _EXECUTOR_PLUGIN_DEFAULTS = {
     "rpc_inline_args_max": 64 * 1024,
     # Modules the pool server and its zygote import at start-up.
     "pool_preload": POOL_PRELOAD,
+    # Binary frames on the pool server's channel (tpu.py:197-204), negotiated
+    # at connect; COVALENT_TPU_AGENT_FRAMES overrides.  Either side
+    # declining keeps the channel on JSON lines, with byte-equal results.
+    "agent_frames": True,
 }
 
 _TASKS_TOTAL = REGISTRY.counter(
@@ -186,7 +196,8 @@ class GPUExecutor(RemoteExecutor):
     ``use_agent`` (True, "auto", "pool", False or "off") and
     ``dispatch_mode`` ("launch", "auto" or "rpc") choose the road (module
     docstring); ``rpc_inline_args_max`` is the inline size limit of RPC args
-    and results, ``pool_preload`` the pool server's and zygote's preloads.
+    and results, ``pool_preload`` the pool server's and zygote's preloads,
+    ``agent_frames`` whether its channel negotiates binary frames.
 
     An argument left at None takes ``get_config("executors.gpu.<key>")``,
     else the default in ``_EXECUTOR_PLUGIN_DEFAULTS``: that is how
@@ -223,6 +234,7 @@ class GPUExecutor(RemoteExecutor):
         dispatch_mode: str | None = None,
         rpc_inline_args_max: int | None = None,
         pool_preload: str | None = None,
+        agent_frames: bool | None = None,
     ) -> None:
         def resolve(value, key):
             if value is not None:
@@ -275,6 +287,13 @@ class GPUExecutor(RemoteExecutor):
         self.rpc_inline_args_max = max(
             0, int(resolve(rpc_inline_args_max, "rpc_inline_args_max")))
         self.pool_preload = str(resolve(pool_preload, "pool_preload"))
+        #: binary frames on the pool channel: argument >
+        #: COVALENT_TPU_AGENT_FRAMES > config.  Declining only stops this
+        #: side from negotiating; the server keeps advertising.
+        env_frames = os.environ.get("COVALENT_TPU_AGENT_FRAMES")
+        if agent_frames is None and env_frames is not None:
+            agent_frames = env_frames.strip().lower() not in ("0", "off", "false", "no")
+        self.agent_frames = bool(resolve(agent_frames, "agent_frames"))
         #: the road the most recent electron took ("rpc" or "launch")
         self.last_dispatch_mode = ""
         #: the stage timings of the last ``run`` (module docstring).
@@ -570,7 +589,7 @@ class GPUExecutor(RemoteExecutor):
             try:
                 client = await start_pool_server(
                     conn, self.remote_cache, self.python_path, env=self.task_env,
-                    preload=self.pool_preload,
+                    preload=self.pool_preload, frames_enabled=self.agent_frames,
                 )
             except (AgentError, TransportError) as err:
                 app_log.info("worker %s: no pool runtime (%s); using nohup + poll",
@@ -862,9 +881,16 @@ class GPUExecutor(RemoteExecutor):
 
     @staticmethod
     def _decode_rpc_result(event: dict) -> tuple:
-        """``(result, exception, times)`` from an inline ``result`` event:
-        the layout launch mode fetches from the result file."""
-        result, exception, *times = pickle.loads(base64.b64decode(str(event.get("data") or "")))
+        """``(result, exception, times)`` from an inline ``result`` event (a
+        frame body, or base64 in a JSON line): the layout launch mode
+        fetches from the result file."""
+        if event.get("torn"):
+            # PERMANENT: the same torn bytes cannot decode on a retry
+            raise FrameIntegrityError(f"RPC result frame arrived torn: {event['torn']}")
+        data = event.get("data_bytes")
+        if data is None:
+            data = base64.b64decode(str(event.get("data") or ""))
+        result, exception, *times = pickle.loads(data)
         return result, exception, (times[0] if times else None)
 
     async def _fetch_staged_rpc_result(self, conn: Transport, event: dict,

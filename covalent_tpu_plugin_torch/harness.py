@@ -15,9 +15,10 @@ one file to the worker (it imports nothing of the package).
   resume) are refused: the electron does not run, and the error comes back
   as its exception.
 * **Resident mode** (``harness.py --serve``): the pool server.  It speaks a
-  JSON-lines protocol on stdin/stdout, hosts resident serving sessions and
-  RPC invocations in its own process, and runs launch-mode specs (``run``)
-  as forks of its zygote (see :func:`serve`).
+  JSON-lines protocol on stdin/stdout, switching to interleaved binary
+  frames once the client negotiates them, hosts resident serving sessions
+  and RPC invocations in its own process, and runs launch-mode specs
+  (``run``) as forks of its zygote (see :func:`serve`).
 * **Zygote** (``harness.py --zygote``): the pool server's fork helper, a
   single-threaded process that has imported the preloads but never
   initialised CUDA (see :func:`zygote`).
@@ -27,9 +28,11 @@ from __future__ import annotations
 
 import json
 import os
+import struct
 import sys
 import threading
 import time
+import zlib
 
 #: spec keys this harness understands
 _SPEC_KEYS = {
@@ -232,22 +235,37 @@ def run_task(spec: dict) -> int:
 #                                                       "id","slots","pid"}
 #                                                    | {"event":"serve_error",...}
 #   {"cmd":"serve_request","id":sid,"rid":rid,"prompt":[...],"params":{...},
-#    "deadline_s":s}                                -> telemetry records below
+#    "deadline_s":s[,"kv_digest":sha256,"kv"|"kv_path"|"kv_bytes"]}
+#                                                   -> telemetry records below
+#   {"cmd":"serve_prefill","id":sid,"rid":rid,"prompt":[...],"params":{...}}
+#                                                   -> {"event":"serve_kv","id",
+#                                                       "rid","digest","bytes",
+#                                                       "data":b64 | frame body
+#                                                       "data_bytes"}
+#                                                    | {"event":"serve_kv",...,
+#                                                       "code","message"}
 #   {"cmd":"serve_cancel","id":sid,"rid":rid}        (no answer: the stream's
 #                                                     terminal record)
 #   {"cmd":"serve_close","id":sid}                  -> {"event":"serve_closed",
 #                                                       "id","served"} after the
 #                                                       drain
-#   {"cmd":"frames",...}                            -> {"event":"frames",
-#                                                       "version":0}
+#   {"cmd":"multi_invoke","digest","ops":[...],"args_lens":[...]} (a frame
+#    whose body is the ops' args pickles end to end)
+#                                                   -> {"event":"multi_started",
+#                                                       "ids","pid","rpc":true},
+#                                                      then each op as invoke
+#   {"cmd":"frames","version":1,"codec":""|"zlib"}  -> {"event":"frames",
+#                                                       "version":1,"codec"}
 #   {"cmd":"shutdown"}                              -> {"event":"bye"}
 #
 # A session streams {"event":"telemetry","id":sid,"data":record}, one line a
 # record; each record carries ts/pid/a per-process seq/type: ``serve.token``
 # (rid, cumulative ``idx`` of the chunk's first token, tokens, done[, error]),
-# ``serve.reject`` (rid, code, message) and ``serve.stats``.  The reference's
-# runtime also batches records into binary frames; this one advertises no
-# frames, so the channel stays on these lines.
+# ``serve.reject`` (rid, code, message) and ``serve.stats``.  The ready
+# banner advertises ``"frames": 1``; once the client answers ``frames``,
+# results, KV bundles and coalesced telemetry (``telemetry_batch``: a JSON
+# array of records as the body) ride binary frames (see the frame block
+# below), and the client may send any command as a frame.
 #
 # Verbs of later items are refused with an ``error`` event naming the item.
 #
@@ -261,17 +279,14 @@ def run_task(spec: dict) -> int:
 
 #: Verbs of the reference's runtime that this one refuses, and what brings them.
 _LATER_VERBS = {
-    "serve_prefill": "ROADMAP item 2c (the disaggregated set)",
-    "serve_attach": "slice 3 (LoRA) and ROADMAP item 2c",
-    "serve_detach": "slice 3 (LoRA) and ROADMAP item 2c",
-    "serve_resume": "ROADMAP item 2c (recovery)",
-    "serve_inventory": "ROADMAP item 2c (recovery)",
-    "epoch": "ROADMAP item 2c (recovery)",
-    "adopt": "ROADMAP item 2c (recovery)",
-    "profile_start": "ROADMAP item 2c (serving metrics and tracing)",
-    "profile_stop": "ROADMAP item 2c (serving metrics and tracing)",
-    # the reference's client sends it only in binary frames
-    "multi_invoke": "ROADMAP item 2c.1 (binary frames and invoke micro-batching)",
+    "serve_attach": "slice 3 (LoRA adapters)",
+    "serve_detach": "slice 3 (LoRA adapters)",
+    "serve_resume": "ROADMAP item 2c.4 (recovery)",
+    "serve_inventory": "ROADMAP item 2c.4 (recovery)",
+    "epoch": "ROADMAP item 2c.4 (recovery)",
+    "adopt": "ROADMAP item 2c.4 (recovery)",
+    "profile_start": "ROADMAP item 2c.5 (serving metrics and tracing)",
+    "profile_stop": "ROADMAP item 2c.5 (serving metrics and tracing)",
 }
 
 #: Command-line modes of the reference's harness that this one refuses.
@@ -304,45 +319,265 @@ def _build_worker_event(spec: dict, type: str, **fields) -> dict:
     return event
 
 
-#: The protocol channel: a file over a copy of the original stdout.
+#: The protocol channel: a binary file over a copy of the original stdout.
 #: :func:`serve` points fd 1 at stderr, so a ``print`` in a factory or a
-#: compiler's output cannot land inside a protocol line.
-_PROTO = sys.stdout
-#: Serializes protocol writes: the command loop and every session thread
-#: share the one channel.
+#: compiler's output cannot land inside a protocol line or frame.
+_PROTO = getattr(sys.stdout, "buffer", sys.stdout)
+#: Serializes protocol writes: the command loop, every session thread and
+#: every RPC thread share the one channel, and a JSON line and a frame must
+#: never interleave mid-message.
 _EMIT_LOCK = threading.Lock()
 
 
-def _emit(obj: dict) -> None:
+def _write_proto(*parts: bytes) -> None:
+    """Write one whole protocol message under the emit lock."""
     with _EMIT_LOCK:
         try:
-            _PROTO.write(json.dumps(obj) + "\n")
+            for part in parts:
+                _PROTO.write(part)
             _PROTO.flush()
         except (OSError, ValueError):
             pass  # dead channel: the sessions' threads must not die of it
 
 
-def _extract_commands(buffer: bytearray) -> list:
-    """Every complete JSON line in ``buffer`` (consumed in place; a partial
-    line stays buffered).  A line that is not a JSON object is answered
-    with an ``error`` event and skipped."""
-    commands: list = []
-    while True:
-        nl = buffer.find(b"\n")
-        if nl < 0:
-            return commands
-        line = bytes(buffer[:nl]).decode(errors="replace").strip()
+def _emit(obj: dict) -> None:
+    _write_proto((json.dumps(obj) + "\n").encode())
+
+
+# ---------------------------------------------------------------------------
+# Binary frames (negotiated; JSON lines stay the fallback).
+#
+# Mirror of ``transport/frames.py``, stdlib-only because this file runs
+# standalone on workers; ``tests/test_torch_frames.py`` keeps this copy,
+# the package's and the reference's byte-compatible:
+#
+#   magic(2)=C5 F7  version(1)  verb(1)  flags(1)  hlen(4 BE)  blen(4 BE)
+#   header: UTF-8 JSON object (the command/event, minus its bulky field)
+#   body:   raw bytes, re-attached under the field named by header["_body"]
+#
+# The server advertises ``"frames": 1`` in its ready banner; the client
+# answers ``{"cmd":"frames",...}`` and the ack flips this side's output to
+# frames where a body rides (results, KV bundles, telemetry batches).
+# ``COVALENT_TPU_AGENT_FRAMES=0`` in the worker's environment answers
+# ``version: 0`` and keeps the channel on JSON lines.
+# ---------------------------------------------------------------------------
+
+_FRAME_MAGIC = b"\xc5\xf7"
+_FRAME_VERSION = 1
+_FRAME_HEADER = struct.Struct(">2sBBBII")
+_FRAME_MAX_HEADER = 16 * 1024 * 1024
+_FRAME_MAX_BODY = 512 * 1024 * 1024
+_FRAME_MIN_COMPRESS = 512
+_FRAME_FLAG_ZLIB = 0x01
+
+_VERB_CMD = 0
+_VERB_INVOKE = 1
+_VERB_RESULT = 2
+_VERB_TELEMETRY = 3
+_VERB_MULTI_INVOKE = 4
+_VERB_SERVE = 5
+
+#: Outbound frame state, flipped by the negotiated ``frames`` command.
+_FRAMES = {"out": False, "codec": ""}
+
+
+def _frames_enabled() -> bool:
+    """Kill switch: ``COVALENT_TPU_AGENT_FRAMES=0``/``off`` keeps JSON lines."""
+    return os.environ.get("COVALENT_TPU_AGENT_FRAMES", "").strip().lower() not in (
+        "0", "off", "false", "no")
+
+
+def _emit_frame(verb: int, header: dict, body: bytes = b"") -> None:
+    """One binary frame on the protocol channel (whole, under the emit
+    lock).  The body is zlib-compressed when the negotiated codec allows
+    and the payload is big enough to win."""
+    flags = 0
+    if body and _FRAMES["codec"] == "zlib" and len(body) >= _FRAME_MIN_COMPRESS:
+        packed = zlib.compress(body, 6)
+        if len(packed) < len(body) * 0.9:
+            body, flags = packed, _FRAME_FLAG_ZLIB
+    head = json.dumps(header, separators=(",", ":")).encode()
+    fixed = _FRAME_HEADER.pack(_FRAME_MAGIC, _FRAME_VERSION, verb, flags, len(head), len(body))
+    _write_proto(fixed, head, body)
+
+
+def _handle_frames_cmd(command: dict) -> None:
+    """Negotiation: ack version 1 and the accepted body codec, and switch
+    this side's output to frames.  A disabled runtime answers ``version:
+    0``, so the client settles on JSON lines at once."""
+    if not _frames_enabled():
+        _emit({"event": "frames", "version": 0})
+        return
+    codec = "zlib" if str(command.get("codec") or "") == "zlib" else ""
+    _emit({"event": "frames", "version": _FRAME_VERSION, "codec": codec})
+    _FRAMES["out"] = True
+    _FRAMES["codec"] = codec
+
+
+def _frame_resync(buffer: bytearray) -> None:
+    """Drop garbage through the next newline (or all of it): after a bad
+    magic, version or length the position is untrusted, and the next
+    newline is the only honest resync point."""
+    nl = buffer.find(b"\n", 1)
+    if nl < 0:
+        buffer.clear()
+    else:
         del buffer[:nl + 1]
-        if not line:
-            continue
-        try:
-            command = json.loads(line)
-        except ValueError:
-            command = None
-        if isinstance(command, dict):
+
+
+def _extract_commands(buffer: bytearray) -> list:
+    """Every complete inbound message in ``buffer``, frames and JSON lines
+    (consumed in place; an incomplete frame or line stays buffered).
+
+    Malformed input is answered with an ``error`` event and skipped, never
+    allowed to hang the loop: a bad magic, version or length (``bad_frame``,
+    then a resync at the next newline), a frame header that is not a JSON
+    object (the frame is consumed whole, the stream stays in sync), a torn
+    compressed body (``bad_frame``, ``permanent``, to every op id it
+    carries), or a line that is not a JSON object.
+    """
+    commands: list = []
+    while buffer:
+        if buffer[0] == _FRAME_MAGIC[0]:
+            if len(buffer) < _FRAME_HEADER.size:
+                break  # header still in flight
+            magic, version, _verb, flags, hlen, blen = _FRAME_HEADER.unpack(
+                bytes(buffer[:_FRAME_HEADER.size]))
+            if magic != _FRAME_MAGIC or version != _FRAME_VERSION:
+                _emit({"event": "error", "code": "bad_frame",
+                       "message": f"bad frame magic/version ({magic!r} v{version})"})
+                _frame_resync(buffer)
+                continue
+            if hlen > _FRAME_MAX_HEADER or blen > _FRAME_MAX_BODY:
+                _emit({"event": "error", "code": "bad_frame",
+                       "message": f"oversized frame (header {hlen}B, body {blen}B)"})
+                _frame_resync(buffer)
+                continue
+            total = _FRAME_HEADER.size + hlen + blen
+            if len(buffer) < total:
+                break  # body still in flight
+            header = bytes(buffer[_FRAME_HEADER.size:_FRAME_HEADER.size + hlen])
+            body = bytes(buffer[_FRAME_HEADER.size + hlen:total])
+            del buffer[:total]
+            try:
+                command = json.loads(header.decode("utf-8"))
+                if not isinstance(command, dict):
+                    raise ValueError("frame header is not an object")
+            except (ValueError, UnicodeDecodeError) as err:
+                _emit({"event": "error", "code": "bad_frame",
+                       "message": f"frame header is not JSON: {err}"})
+                continue
+            if flags & _FRAME_FLAG_ZLIB:
+                try:
+                    body = zlib.decompress(body)
+                except zlib.error as err:
+                    ids = [str(command.get("id") or "")]
+                    if command.get("cmd") == "multi_invoke":
+                        # a batched frame's ids live in its ops: the refusal
+                        # must reach every waiting op
+                        ids = [str(op.get("id") or "") for op in (command.get("ops") or [])
+                               if isinstance(op, dict)] or ids
+                    for tid in ids:
+                        _emit({"event": "error", "id": tid, "code": "bad_frame",
+                               "permanent": True,
+                               "message": f"frame body failed decompression (torn payload): "
+                                          f"{err}"})
+                    continue
+            key = command.pop("_body", None)
+            if key:
+                command[str(key)] = body
             commands.append(command)
         else:
-            _emit({"event": "error", "message": "malformed command"})
+            nl = buffer.find(b"\n")
+            if nl < 0:
+                break  # line still in flight
+            line = bytes(buffer[:nl]).decode(errors="replace").strip()
+            del buffer[:nl + 1]
+            if not line:
+                continue
+            try:
+                command = json.loads(line)
+            except ValueError:
+                command = None
+            if isinstance(command, dict):
+                commands.append(command)
+            else:
+                _emit({"event": "error", "message": "malformed command"})
+    return commands
+
+
+class _TelemetryBatcher:
+    """Coalesces side-band records into ``telemetry_batch`` frames.
+
+    With frames on, the intermediate ``serve.token`` chunks of one engine
+    step buffer per id and ship as ONE frame whose body is the JSON array
+    of the records: the session loop flushes its id when the step's chunks
+    are out (:meth:`flush`), and a buffer of
+    ``COVALENT_TPU_SERVE_COALESCE_MAX`` records (default 32) goes at once.
+    Everything else (a stream's last chunk, rejects, stats, an RPC
+    invocation's records) flushes the buffers and itself at once, so per-id
+    order holds and a stream's end is never delayed.  Every record keeps
+    its own envelope (seq, cumulative ``idx``): the client's dedup and
+    exactly-once splice see the records they always did.  With frames off,
+    every record is its own JSON line, as before negotiation.
+
+    The reference flushes a buffer once it is ``COVALENT_TPU_SERVE_COALESCE_MS``
+    (2 ms) old, checked by the session loop between steps; a step of this
+    port's engine takes a whole sync chunk (about a second for the 125M LM
+    at 32 steps), so a chunk would wait for the next one.  Flushing at the
+    end of the step keeps the coalescing and drops the wait, and the
+    window.
+    """
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._pending: dict = {}  # id -> [records]
+        try:
+            self.max_records = max(1, int(os.environ.get("COVALENT_TPU_SERVE_COALESCE_MAX",
+                                                         "32")))
+        except ValueError:
+            self.max_records = 32
+
+    def emit(self, task_id: str, data: dict) -> None:
+        if not _FRAMES["out"]:
+            _emit({"event": "telemetry", "id": task_id, "data": data})
+            return
+        urgent = data.get("type") != "serve.token" or data.get("done")
+        with self._lock:
+            self._pending.setdefault(task_id, []).append(data)
+            full = len(self._pending[task_id]) >= self.max_records
+        if urgent or full:
+            self.flush()
+
+    def flush(self, task_id: str | None = None) -> None:
+        """Send the buffered records: every id's, or ``task_id``'s only.
+        Sent under the batcher's lock, so a second thread's flush cannot
+        overtake this one's records on the wire."""
+        with self._lock:
+            if task_id is None:
+                pending, self._pending = self._pending, {}
+            else:
+                records = self._pending.pop(task_id, None)
+                pending = {task_id: records} if records else {}
+            for tid, records in pending.items():
+                emit_telemetry_batch(tid, records)
+
+
+def emit_telemetry_batch(task_id: str, records: list) -> None:
+    """One coalesced telemetry frame (one JSON line per record with frames off)."""
+    if not _FRAMES["out"]:
+        for data in records:
+            _emit({"event": "telemetry", "id": task_id, "data": data})
+        return
+    try:
+        body = json.dumps(records, default=repr).encode()
+    except (TypeError, ValueError):
+        return
+    _emit_frame(_VERB_TELEMETRY, {"event": "telemetry_batch", "id": task_id,
+                                  "count": len(records), "_body": "records"}, body)
+
+
+_BATCHER = _TelemetryBatcher()
 
 
 def _load_fn_payload(path: str, digest: str):
@@ -417,6 +652,9 @@ class _ServeSession:
         self.digest = str(command.get("digest") or "")
         self.path = str(command.get("path") or "")
         self.queue: "queue_mod.Queue" = queue_mod.Queue()
+        #: serve_prefill commands awaiting the session thread (the
+        #: disaggregated set's prefill-only work: no decode lane taken)
+        self.prefill_queue: "queue_mod.Queue" = queue_mod.Queue()
         #: rid -> {"deadline": abs monotonic | None, "emitted": n, "t_admit"}
         self.running: dict = {}
         #: rids accepted into the queue and not yet admitted or refused.
@@ -430,6 +668,11 @@ class _ServeSession:
         self.slots = 1
         self.served = 0
         self.tokens_total = 0
+        #: KV admissions (a shipped bundle took a lane), full-prefill
+        #: fallbacks of KV-carrying requests, and prefill-only passes
+        self.kv_admits = 0
+        self.kv_fallbacks = 0
+        self.prefills = 0
         self._t_open = time.time()
         self._closed = threading.Event()
         self._engine = None
@@ -461,6 +704,26 @@ class _ServeSession:
         self.queued.add(rid)
         self.queue.put(command)
 
+    def submit_prefill(self, command: dict) -> None:
+        """Queue one prefill-only command (the disaggregated set's prefill
+        replica).  The bounded-admission verdict of :meth:`submit`; a
+        refusal answers with a ``serve_kv`` error, so the dispatcher
+        degrades to a full prefill at once instead of waiting out its
+        timeout."""
+        rid = str(command.get("rid") or "")
+        if not rid:
+            self._emit_kv("", code="bad_request", message="serve_prefill requires rid")
+            return
+        if self._closed.is_set():
+            self._emit_kv(rid, code="unknown_session", message="session closed")
+            return
+        if self.prefill_queue.qsize() >= self.queue_max:
+            self._emit_kv(rid, code="serve_admission_shed",
+                          message=f"prefill queue full ({self.queue_max})")
+            return
+        self.prefill_queue.put(dict(command))
+        self.queue.put(None)  # wake an idle loop now, not at its next tick
+
     def cancel_request(self, rid: str) -> None:
         """Ask the session thread to cancel one request, running or queued;
         its terminal ``serve.token`` record (``error="cancelled"``) comes
@@ -478,9 +741,91 @@ class _ServeSession:
     # -- emission ----------------------------------------------------------
 
     def _emit_serve(self, type: str, **fields) -> None:
-        """One session record over the telemetry side-band, one line each."""
-        _emit({"event": "telemetry", "id": self.sid,
-               "data": _build_worker_event(self.spec, type, rpc=True, **fields)})
+        """One session record over the telemetry side-band, through the
+        coalescer: intermediate token chunks batch into one frame per
+        window, everything else goes at once, in order."""
+        _BATCHER.emit(self.sid, _build_worker_event(self.spec, type, rpc=True, **fields))
+
+    def _emit_kv(self, rid: str, data: bytes | None = None, code: str = "",
+                 message: str = "") -> None:
+        """One ``serve_kv`` answer to a prefill command: the bundle rides a
+        raw frame body on a negotiated channel, base64 in the JSON line
+        otherwise, with its sha256; a failure sends ``code``/``message``."""
+        event = {"event": "serve_kv", "id": self.sid, "rid": rid}
+        if code:
+            event["code"] = code
+            event["message"] = message
+            _emit(event)
+            return
+        import hashlib
+
+        data = data or b""
+        event["digest"] = hashlib.sha256(data).hexdigest()
+        event["bytes"] = len(data)
+        if _FRAMES["out"]:
+            event["_body"] = "data_bytes"
+            _emit_frame(_VERB_SERVE, event, data)
+        else:
+            import base64
+
+            event["data"] = base64.b64encode(data).decode("ascii")
+            _emit(event)
+
+    def _pump_prefill(self) -> None:
+        """Run the queued prefill-only commands on the session thread (the
+        engine is single-threaded state) and send each KV bundle back."""
+        import queue as queue_mod
+
+        while True:
+            try:
+                command = self.prefill_queue.get_nowait()
+            except queue_mod.Empty:
+                return
+            rid = str(command.get("rid") or "")
+            prefill = getattr(self._engine, "prefill_only", None)
+            if prefill is None:
+                self._emit_kv(rid, code="unsupported",
+                              message="engine has no prefill_only surface")
+                continue
+            try:
+                data = prefill(command.get("prompt"), dict(command.get("params") or {}))
+                if not isinstance(data, (bytes, bytearray)):
+                    raise TypeError(f"prefill_only returned {type(data).__name__}, want bytes")
+            except BaseException as err:  # noqa: BLE001 - engine refusals
+                self._emit_kv(rid, code="prefill_failed", message=repr(err))
+                continue
+            self.prefills += 1
+            self._emit_kv(rid, bytes(data))
+
+    @staticmethod
+    def _resolve_kv(command: dict):
+        """``(bundle bytes, verified)`` of a request that carries a KV bundle:
+        a frame body (``kv_bytes``), base64 (``kv``) or a CAS path
+        (``kv_path``).  Its sha256 must match ``kv_digest`` before the
+        engine may unpickle it; any failure is ``(None, False)``, and the
+        request degrades to a full prefill."""
+        data = command.get("kv_bytes")
+        if data is None and command.get("kv"):
+            import base64
+
+            try:
+                data = base64.b64decode(command["kv"])
+            except (TypeError, ValueError):
+                return None, False
+        if data is None and command.get("kv_path"):
+            try:
+                with open(command["kv_path"], "rb") as f:
+                    data = f.read()
+            except OSError:
+                return None, False
+        if data is None:
+            return None, False
+        import hashlib
+
+        digest = str(command.get("kv_digest") or "")
+        if not digest or hashlib.sha256(data).hexdigest() != digest:
+            return None, False
+        return bytes(data), True
 
     def _emit_reject(self, rid: str, code: str, message: str) -> None:
         self._emit_serve("serve.reject", rid=rid, code=code, message=message)
@@ -507,6 +852,10 @@ class _ServeSession:
             tokens_per_s=round(self.tokens_total / age, 3),
             **_device_mem(),
         )
+        if self.kv_admits or self.kv_fallbacks:
+            fields.update(kv_admits=self.kv_admits, kv_fallbacks=self.kv_fallbacks)
+        if self.prefills:
+            fields["prefills"] = self.prefills
         self._emit_serve("serve.stats", **fields)
 
     # -- session thread ----------------------------------------------------
@@ -579,12 +928,32 @@ class _ServeSession:
                     rid, "deadline", f"request spent its {deadline_s:.1f}s deadline queued"
                 )
                 continue
-            try:
-                self._engine.admit(rid, command.get("prompt"),
-                                   dict(command.get("params") or {}))
-            except BaseException as err:  # noqa: BLE001 - rejections
-                self._emit_reject(rid, "engine_error", repr(err))
-                continue
+            params = dict(command.get("params") or {})
+            admitted = False
+            if (command.get("kv_bytes") is not None or command.get("kv")
+                    or command.get("kv_path")):
+                # The disaggregated road: the shipped bundle goes straight
+                # into a lane, digest-verified first.  Any failure (a torn
+                # transfer, a digest mismatch, a bundle of another engine
+                # shape) degrades to the full prefill below: the stream is
+                # the same either way.
+                kv_data, verified = self._resolve_kv(command)
+                admit_kv = getattr(self._engine, "admit_from_kv", None)
+                if verified and admit_kv is not None:
+                    try:
+                        admit_kv(rid, kv_data, params)
+                        admitted = True
+                        self.kv_admits += 1
+                    except BaseException:  # noqa: BLE001 - fall back
+                        admitted = False
+                if not admitted:
+                    self.kv_fallbacks += 1
+            if not admitted:
+                try:
+                    self._engine.admit(rid, command.get("prompt"), params)
+                except BaseException as err:  # noqa: BLE001 - rejections
+                    self._emit_reject(rid, "engine_error", repr(err))
+                    continue
             self.running[rid] = {
                 "deadline": command["_enqueued"] + deadline_s if deadline_s > 0 else None,
                 "emitted": 0,
@@ -649,6 +1018,8 @@ class _ServeSession:
             if done:
                 self.served += 1
                 self.running.pop(rid, None)
+        # the step's chunks leave together, now
+        _BATCHER.flush(self.sid)
         # A lane past its deadline is cancelled and closed with an error
         # marker, freeing the slot.
         now = time.monotonic()
@@ -663,6 +1034,7 @@ class _ServeSession:
         try:
             while not (self._closed.is_set() and not self.running and self.queue.empty()):
                 self._drain_cancels()
+                self._pump_prefill()
                 self._admit_waiting()
                 if self.running:
                     self._pump_engine()
@@ -689,6 +1061,9 @@ class _ServeSession:
                 except BaseException:  # noqa: BLE001 - teardown best-effort
                     pass
             self._emit_stats()
+            # the stats record flushed the buffered tokens ahead of it;
+            # serve_closed must not overtake a straggler batch either
+            _BATCHER.flush()
             _emit({"event": "serve_closed", "id": self.sid, "served": self.served})
 
 
@@ -726,6 +1101,17 @@ def _serve_request(command: dict, sessions: dict) -> None:
         )})
         return
     session.submit(command)
+
+
+def _serve_prefill(command: dict, sessions: dict) -> None:
+    sid = str(command.get("id") or "")
+    session = sessions.get(sid)
+    if session is None:
+        # a serve_kv error: the prefill waiter settles on serve_kv events only
+        _emit({"event": "serve_kv", "id": sid, "rid": str(command.get("rid") or ""),
+               "code": "unknown_session", "message": f"no open session {sid!r}"})
+        return
+    session.submit_prefill(command)
 
 
 def _serve_close(command: dict, sessions: dict) -> None:
@@ -778,15 +1164,18 @@ def _rpc_register(command: dict, registry: dict) -> None:
 
 
 def _decode_rpc_args(command: dict) -> tuple:
-    """``(args, kwargs)`` of an invoke: inline base64, or a CAS path whose
-    bytes are digest-verified before they are unpickled (the guard the
-    function pickle gets)."""
+    """``(args, kwargs)`` of an invoke: a frame body (``args_bytes``),
+    inline base64, or a CAS path whose bytes are digest-verified before
+    they are unpickled (the guard the function pickle gets)."""
     import base64
 
     import cloudpickle
 
+    raw = command.get("args_bytes")
     b64 = command.get("args")
-    if b64 is not None:
+    if raw is not None:
+        data = raw  # the frame delivered the pickle's exact bytes
+    elif b64 is not None:
         data = base64.b64decode(b64)
     else:
         path = command.get("args_path")
@@ -828,7 +1217,8 @@ def _emit_rpc_result(task_id: str, result, exception, times: dict, command: dict
     """Send one invocation's result, inline or staged by size.
 
     A result pickle at or below ``result_max_inline`` rides the channel
-    base64-inline; a larger one is written (atomically) to the command's
+    inline: a raw frame body on a negotiated channel, base64 in a JSON line
+    otherwise.  A larger one is written (atomically) to the command's
     ``result_path`` and announced by path and sha256, the size rule the
     args follow on the way in.  No ``result_path`` keeps it inline; a
     staging failure falls back to inline rather than lose the result.
@@ -856,6 +1246,10 @@ def _emit_rpc_result(task_id: str, result, exception, times: dict, command: dict
                    "data_path": result_path,
                    "data_digest": hashlib.sha256(data).hexdigest(), "bytes": len(data)})
             return
+    if _FRAMES["out"]:
+        _emit_frame(_VERB_RESULT, {"event": "result", "id": task_id, "ok": exception is None,
+                                   "_body": "data_bytes"}, data)
+        return
     _emit({"event": "result", "id": task_id, "ok": exception is None,
            "data": base64.b64encode(data).decode("ascii")})
 
@@ -863,8 +1257,7 @@ def _emit_rpc_result(task_id: str, result, exception, times: dict, command: dict
 def _emit_rpc_event(spec: dict, task_id: str, type: str, **fields) -> None:
     """One worker record, pushed over the channel with the ``rpc`` marker
     (it lands in no file a launch-mode worker would write)."""
-    _emit({"event": "telemetry", "id": task_id,
-           "data": _build_worker_event(spec, type, rpc=True, **fields)})
+    _BATCHER.emit(task_id, _build_worker_event(spec, type, rpc=True, **fields))
 
 
 def _start_rpc_heartbeat(spec: dict, task_id: str):
@@ -970,6 +1363,57 @@ def _rpc_invoke(command: dict, registry: dict) -> None:
     _emit({"event": "started", "id": task_id, "pid": os.getpid(), "rpc": True})
     threading.Thread(target=_run_rpc_task, args=(command, fn),
                      name=f"covalent-gpu-rpc-{task_id}", daemon=True).start()
+
+
+def _rpc_multi_invoke(command: dict, registry: dict) -> None:
+    """Batched invoke: N queued electrons of one digest in ONE frame.
+
+    The header carries each op's command (id, spec, result_path, ...) and
+    ``args_lens``; the body is the ops' args pickles end to end, split back
+    here by length.  One ``multi_started`` acks every op; each op then runs
+    as a lone ``invoke`` does, on its own thread with its own result.  A
+    body whose lengths do not add up is torn content (``permanent``):
+    sending the same bytes again cannot help.
+    """
+    digest = command.get("digest")
+    ops = [op for op in (command.get("ops") or []) if isinstance(op, dict)]
+    lens = command.get("args_lens") or []
+    body = command.get("args_bytes") or b""
+    ids = [str(op.get("id") or "") for op in ops]
+    if not digest or not ops or len(lens) != len(ops):
+        for tid in ids or [""]:
+            _emit({"event": "error", "id": tid, "code": "bad_request",
+                   "message": "multi_invoke requires digest, ops and args_lens"})
+        return
+    try:
+        lens = [int(n) for n in lens]
+        lens_ok = all(n >= 0 for n in lens) and sum(lens) == len(body)
+    except (TypeError, ValueError):
+        lens_ok = False
+    if not lens_ok:
+        for tid in ids:
+            _emit({"event": "error", "id": tid, "code": "bad_frame", "permanent": True,
+                   "message": "multi_invoke args_lens do not match the frame body "
+                              "(torn payload)"})
+        return
+    fn = registry.get(digest)
+    if fn is None and command.get("path"):
+        code, loaded = _load_fn_payload(command["path"], digest)
+        if not code:
+            registry[digest] = fn = loaded
+    if fn is None:
+        for tid in ids:
+            _emit({"event": "error", "id": tid, "code": "unregistered",
+                   "message": f"no registered function for digest {str(digest)[:12]}"})
+        return
+    _emit({"event": "multi_started", "ids": ids, "pid": os.getpid(), "rpc": True})
+    offset = 0
+    for op, n in zip(ops, lens):
+        op = dict(op)
+        op["args_bytes"] = body[offset:offset + n]
+        offset += n
+        threading.Thread(target=_run_rpc_task, args=(op, fn),
+                         name=f"covalent-gpu-rpc-{op.get('id')}", daemon=True).start()
 
 
 # ---------------------------------------------------------------------------
@@ -1099,7 +1543,7 @@ def zygote() -> int:
     import signal
     import traceback
 
-    _PROTO = os.fdopen(os.dup(1), "w", encoding="utf-8")
+    _PROTO = os.fdopen(os.dup(1), "wb")
     os.dup2(2, 1)
     _preload()
     rpipe, wpipe = os.pipe()
@@ -1372,7 +1816,7 @@ def serve() -> int:
     global _PROTO
     import selectors
 
-    _PROTO = os.fdopen(os.dup(1), "w", encoding="utf-8")
+    _PROTO = os.fdopen(os.dup(1), "wb")
     os.dup2(2, 1)
     sel = selectors.DefaultSelector()
     sel.register(0, selectors.EVENT_READ, "stdin")
@@ -1389,7 +1833,13 @@ def serve() -> int:
     #: the lifetime the dispatcher's per-connection registry mirrors
     registry: dict = {}
     buffer = bytearray()
-    _emit({"event": "ready", "pid": os.getpid(), "mode": "pool"})
+    banner: dict = {"event": "ready", "pid": os.getpid(), "mode": "pool"}
+    if _frames_enabled():
+        # the capability: the client answers with a frames command, or
+        # stays on JSON lines
+        banner["frames"] = _FRAME_VERSION
+        banner["codecs"] = ["zlib"]
+    _emit(banner)
     try:
         while True:
             for key, _ in sel.select(timeout=0.25 if watchers else None):
@@ -1417,7 +1867,7 @@ def serve() -> int:
                     if name == "ping":
                         _emit({"event": "pong"})
                     elif name == "frames":
-                        _emit({"event": "frames", "version": 0})  # JSON lines only
+                        _handle_frames_cmd(command)
                     elif name == "task_inventory":
                         _task_inventory(children)
                     elif name == "run":
@@ -1426,10 +1876,14 @@ def serve() -> int:
                         _rpc_register(command, registry)
                     elif name == "invoke":
                         _rpc_invoke(command, registry)
+                    elif name == "multi_invoke":
+                        _rpc_multi_invoke(command, registry)
                     elif name == "serve_open":
                         _serve_open(command, sessions)
                     elif name == "serve_request":
                         _serve_request(command, sessions)
+                    elif name == "serve_prefill":
+                        _serve_prefill(command, sessions)
                     elif name == "serve_cancel":
                         _serve_cancel(command, sessions)
                     elif name == "serve_close":

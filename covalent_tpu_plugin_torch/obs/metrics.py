@@ -22,6 +22,9 @@ import time
 from typing import Any, Iterable
 
 __all__ = [
+    "AGENT_BATCHED_INVOKES_TOTAL",
+    "AGENT_FRAMES_TOTAL",
+    "AGENT_WIRE_BYTES_TOTAL",
     "Counter",
     "Gauge",
     "Histogram",
@@ -487,3 +490,26 @@ class Registry:
 
 #: The process-wide default registry every instrumentation site records to.
 REGISTRY = Registry()
+
+# -- the agent channel's wire (binary frames against JSON lines) -------------
+
+#: Protocol messages on pool-server channels, by verb (a command's ``cmd``,
+#: an event's ``event``, or a frame's verb name) and encoding (``jsonl`` or
+#: ``binary``).
+AGENT_FRAMES_TOTAL = REGISTRY.counter(
+    "covalent_tpu_agent_frames_total",
+    "Protocol messages on agent channels by verb and encoding "
+    "(jsonl lines vs negotiated binary frames)",
+    ("verb", "encoding"),
+)
+#: Bytes on pool-server channels: ``up`` to the worker, ``down`` from it.
+AGENT_WIRE_BYTES_TOTAL = REGISTRY.counter(
+    "covalent_tpu_agent_wire_bytes_total",
+    "Bytes on agent channels by direction (up/down) and encoding",
+    ("direction", "encoding"),
+)
+#: Invokes that left inside a ``multi_invoke`` frame (invoke micro-batching).
+AGENT_BATCHED_INVOKES_TOTAL = REGISTRY.counter(
+    "covalent_tpu_agent_batched_invokes_total",
+    "RPC invokes sent inside multi_invoke frames",
+)

@@ -1,19 +1,30 @@
 """Resident serving: load the model once on a worker's card, then serve
 request-level streams over the held-open channel for the session's life.
 
-Own copy of the one-session part of ``covalent_tpu_plugin/serving``:
+Own copy of ``covalent_tpu_plugin/serving``:
 
 * :func:`open_session` — ship a model factory by digest, open ONE session on
   the executor's resident pool server, get a :class:`ServeHandle` back.
 * :class:`SessionSupervisor` — the supervised session behind it: reconnect
   after channel death, exactly-once ``idx``-spliced stream replay.
+* :func:`open_replica_set` — N sessions of one factory behind a
+  :class:`ReplicaRouter` (sticky, prefix affinity, least-loaded, in
+  per-tenant DRR order), with health, canaries, hedging, drain-on-death
+  and ``scale_to``.
+* :func:`open_disaggregated_set` — a replica set split into a prefill tier
+  and a decode tier, joined by content-addressed KV bundles that ride
+  binary frames.
 
-Replica sets, the disaggregated set, recovery, handoff and serving metrics
-come with ROADMAP item 2c.
+Recovery and handoff (ROADMAP item 2c.4), per-session serving metrics and
+profiling (2c.5), the native agent (2c.6) and fleet ``Pool`` targets
+(2c.7) are not ported yet.
 """
 
+from .disagg import DisaggregatedSet, open_disaggregated_set
 from .handle import ServeError, ServeHandle, ServeRequest, ServeRequestRejected, open_session
+from .replicas import ReplicaRouter, ReplicaSet, ReplicaView, open_replica_set
 from .supervisor import SessionSupervisor
 
-__all__ = ["ServeError", "ServeHandle", "ServeRequest", "ServeRequestRejected",
-           "SessionSupervisor", "open_session"]
+__all__ = ["DisaggregatedSet", "ReplicaRouter", "ReplicaSet", "ReplicaView", "ServeError",
+           "ServeHandle", "ServeRequest", "ServeRequestRejected", "SessionSupervisor",
+           "open_disaggregated_set", "open_replica_set", "open_session"]

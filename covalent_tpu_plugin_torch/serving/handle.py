@@ -10,10 +10,14 @@ back incrementally as ``serve.token`` records, so time to first token is
 one decode chunk, not the end of a batch.  Reconnect and exactly-once
 replay live in :class:`~.supervisor.SessionSupervisor`.
 
+Several sessions of one factory behind a router are a
+:class:`~.replicas.ReplicaSet` (``open_replica_set``); split into prefill
+and decode tiers, a :class:`~.disagg.DisaggregatedSet`.
+
 Refused until later items, with :class:`NotImplementedError`: a fleet
-``Pool`` as the target and ``handoff`` (ROADMAP item 2c),
-``attach_adapter``/``detach_adapter`` (slice 3's LoRA, then item 2c) and
-``capture_profile`` (item 2c).
+``Pool`` as the target (ROADMAP item 2c.7), ``handoff`` (item 2c.4),
+``attach_adapter``/``detach_adapter`` (slice 3's LoRA) and
+``capture_profile`` (item 2c.5).
 """
 
 from __future__ import annotations
@@ -30,7 +34,18 @@ from .supervisor import ServeError, ServeRequest, ServeRequestRejected, SessionS
 __all__ = ["ServeError", "ServeHandle", "ServeRequest", "ServeRequestRejected",
            "open_session"]
 
-ITEM_2C = "ROADMAP item 2c (replica sets, recovery, handoff, serving metrics and tracing)"
+POOL_TARGETS = "ROADMAP item 2c.7 (fleet Pool targets and pinning)"
+RECOVERY = "ROADMAP item 2c.4 (recovery and handoff)"
+PROFILING = "ROADMAP item 2c.5 (serving metrics and tracing)"
+ADAPTERS = "slice 3 (LoRA adapters)"
+
+
+def refuse_pool_target(target: Any) -> None:
+    """A fleet ``Pool`` (it carries ``.spec`` and ``.executor``) as a
+    serving target is not ported yet."""
+    if hasattr(target, "spec") and hasattr(target, "executor"):
+        raise NotImplementedError(
+            f"a fleet Pool as a serving target is not ported yet: it comes with {POOL_TARGETS}")
 
 
 class ServeHandle:
@@ -128,18 +143,17 @@ class ServeHandle:
     # -- refused until later items --------------------------------------------
 
     async def handoff(self, reason: str = "planned") -> bool:
-        raise NotImplementedError(f"handoff is not ported yet: it comes with {ITEM_2C}")
+        raise NotImplementedError(f"handoff is not ported yet: it comes with {RECOVERY}")
 
     async def attach_adapter(self, name: str, payload: Any = None, **_: Any) -> dict:
-        raise NotImplementedError(
-            "attach_adapter is not ported yet: it needs slice 3's LoRA, then " + ITEM_2C)
+        raise NotImplementedError(f"attach_adapter is not ported yet: it comes with {ADAPTERS}")
 
     async def detach_adapter(self, name: str, timeout_s: float = 30.0) -> dict:
-        raise NotImplementedError(
-            "detach_adapter is not ported yet: it needs slice 3's LoRA, then " + ITEM_2C)
+        raise NotImplementedError(f"detach_adapter is not ported yet: it comes with {ADAPTERS}")
 
     async def capture_profile(self, duration_s: float = 2.0) -> dict:
-        raise NotImplementedError(f"capture_profile is not ported yet: it comes with {ITEM_2C}")
+        raise NotImplementedError(
+            f"capture_profile is not ported yet: it comes with {PROFILING}")
 
 
 async def open_session(target: Any, factory: Any, *, queue_max: int | None = None,
@@ -157,9 +171,7 @@ async def open_session(target: Any, factory: Any, *, queue_max: int | None = Non
     built on the card.  Knob defaults come from ``COVALENT_TPU_SERVE_{
     QUEUE_MAX, DEADLINE_S, STATS_INTERVAL_S, OPEN_TIMEOUT_S, RETRIES}``.
     """
-    if hasattr(target, "spec") and hasattr(target, "executor"):
-        raise NotImplementedError(
-            f"a fleet Pool as the session target is not ported yet: it comes with {ITEM_2C}")
+    refuse_pool_target(target)
     handle = ServeHandle(
         target, factory, queue_max=queue_max, default_deadline_s=default_deadline_s,
         stats_interval_s=stats_interval_s, open_timeout_s=open_timeout_s, retries=retries,

@@ -1,19 +1,33 @@
 """One supervised serving session: open, stream, reconnect, replay.
 
-Own copy of ``covalent_tpu_plugin/serving/supervisor.py``'s one-session
-path.  A :class:`SessionSupervisor` owns ONE remote session at a time (a
+Own copy of ``covalent_tpu_plugin/serving/supervisor.py``.  A
+:class:`SessionSupervisor` owns ONE remote session at a time (a
 *generation*): it leases the executor's worker, ships the factory payload
 by digest, opens the session on the resident pool server, routes the
 side-band records of its streams, and, when the channel dies, re-opens the
 session on a fresh server and replays every in-flight request.  A replayed
 stream restarts at token 0 and is spliced on the request's own high-water
 mark (the cumulative ``idx`` of each chunk), so each caller sees every
-token exactly once.
+token exactly once.  The request carries the splice state, not the
+session, so any supervisor can take a request over mid-stream.
 
-Left out until ROADMAP item 2c, and not stubbed: the journal and recovery
-(``adopt``/``resume_stream``), the warm handoff and the preemption notice,
-hedging, health scores, serving metrics and tracing, replica-set hooks and
-fleet-pool pinning.
+It does not decide which requests it gets: a :class:`~.handle.ServeHandle`
+sends it all of its own, a :class:`~.replicas.ReplicaSet` routes among
+several.  For a set it keeps its identity (``sid``, ``replica_of``) across
+reconnects, fires ``on_change`` on every state change and completion and
+``on_failed`` when it dies past its retry budget (the set then takes its
+requests with :meth:`SessionSupervisor.detach_requests` and re-routes
+them), feeds the fleet's health monitor (TTFT, faults, successes, queue
+depth), answers a canary probe, lets a hedge put one request on two
+supervisors (the first to deliver wins, the other arm is abandoned), runs
+prefill-only passes (:meth:`SessionSupervisor.prefill_kv`), and sends a
+request's KV bundle as a frame body, or by CAS path on a channel without
+frames.
+
+Left out until later items, and not stubbed: the journal and recovery
+(``adopt``/``resume_stream``, ROADMAP item 2c.4), the warm handoff and the
+preemption notice (2c.4), per-session serving metrics and tracing (2c.5)
+and fleet-pool pinning (2c.7).
 """
 
 from __future__ import annotations
@@ -22,10 +36,11 @@ import asyncio
 import os
 import time
 import uuid
-from typing import Any, AsyncIterator
+from typing import Any, AsyncIterator, Callable
 
 from ..agent import AgentClient, AgentError
 from ..cache import bytes_digest, cas_path
+from ..fleet.health import HEALTH
 from ..resilience import FaultClass, RetryPolicy, classify_error
 from ..transport.base import TransportError
 from ..utils.log import app_log
@@ -87,16 +102,40 @@ class ServeRequest:
     """
 
     def __init__(self, rid: str, prompt: list[int], params: dict | None,
-                 deadline_s: float) -> None:
+                 deadline_s: float, tenant: str = "") -> None:
         self.rid = rid
         self.prompt = prompt
         self.params = dict(params or {})
         self.deadline_s = float(deadline_s)
+        self.tenant = tenant
+        #: the caller's multi-turn session key (set by a replica set); it
+        #: rides the request so a re-route keeps the pin
+        self.sticky = ""
+        #: (bundle bytes, sha256) attached by a disaggregated set: the
+        #: decode replica admits from it instead of prefilling, on a replay
+        #: or a re-route too
+        self.kv: tuple[bytes, str] | None = None
+        #: prefix-affinity key (digest of the prompt's reusable prefix)
+        self.prefix_key = ""
         self.tokens: list[int] = []
         self.error = ""
+        #: sid of the supervisor whose stream fed the first fresh tokens.
+        #: With a hedge, two supervisors hold this request: the first to
+        #: deliver wins, the other arm is abandoned; its chunks splice to
+        #: nothing, so the stream is the same either way.
+        self.served_by = ""
+        #: a hedge copy of this request was issued (at most one)
+        self.hedged = False
+        #: sid -> monotonic submit time of every supervisor holding it
+        self.arms: dict[str, float] = {}
         self.t_submit = time.monotonic()
         self.t_first: float | None = None
         self.t_done: float | None = None
+        #: the first submit to a supervisor (a replay keeps it)
+        self.t_dispatched: float | None = None
+        #: set when the first fresh tokens (or any terminal) land: the
+        #: hedge watcher's TTFT deadline races it
+        self.first_token = asyncio.Event()
         self._chunks: asyncio.Queue = asyncio.Queue()
         self._done: asyncio.Future = asyncio.get_running_loop().create_future()
         # Unawaited failures must not warn at GC: a caller may only ever
@@ -138,11 +177,13 @@ class ServeRequest:
                 self.t_first = time.monotonic()
             self.tokens.extend(tokens)
             self._chunks.put_nowait(list(tokens))
+            self.first_token.set()
         if done:
             self.t_done = time.monotonic()
             self.error = error
             self._chunks.put_nowait(None)
             self._done.set_result(list(self.tokens))
+            self.first_token.set()
 
     def _fail(self, err: BaseException) -> None:
         if self._done.done():
@@ -150,6 +191,7 @@ class ServeRequest:
         self.t_done = time.monotonic()
         self._chunks.put_nowait(err)
         self._done.set_exception(err)
+        self.first_token.set()
 
 
 class SessionSupervisor:
@@ -160,12 +202,23 @@ class SessionSupervisor:
     on the executor's event loop.  Knob defaults come from
     ``COVALENT_TPU_SERVE_{QUEUE_MAX, DEADLINE_S, STATS_INTERVAL_S,
     OPEN_TIMEOUT_S, RETRIES}``.
+
+    ``on_change(supervisor)`` fires on every state change and request
+    completion (a router's pump signal); ``on_failed(supervisor, error)``
+    fires when the session dies past its retry budget: a front that
+    returns True has taken the in-flight requests
+    (:meth:`detach_requests`) and re-routes them; otherwise they fail with
+    the cause.
     """
 
     def __init__(self, executor: Any, *, sid: str = "", queue_max: int | None = None,
                  default_deadline_s: float | None = None,
                  stats_interval_s: float | None = None,
-                 open_timeout_s: float | None = None, retries: int | None = None) -> None:
+                 open_timeout_s: float | None = None, retries: int | None = None,
+                 replica_of: tuple[str, str] | None = None,
+                 on_change: Callable[["SessionSupervisor"], None] | None = None,
+                 on_failed: Callable[["SessionSupervisor", BaseException], bool] | None = None
+                 ) -> None:
         def knob(value, name, default, cast=float):
             return cast(value if value is not None
                         else _env_number(f"COVALENT_TPU_SERVE_{name}", default, cast))
@@ -179,13 +232,19 @@ class SessionSupervisor:
         #: torch import), staging, and the factory's model build.
         self.open_timeout_s = knob(open_timeout_s, "OPEN_TIMEOUT_S", 120.0)
         self.retries = knob(retries, "RETRIES", 2, int)
+        #: (set name, replica id) when a replica set owns this session
+        self.replica_of = replica_of
+        self._on_change = on_change
+        self._on_failed = on_failed
         self.slots = 0
         self.generation = 0
         self.served = 0
         self.reconnects = 0
         #: replayed tokens below a stream's high-water mark that differ from
-        #: the ones already delivered (dropped by the splice all the same)
-        self.replay_mismatches = 0
+        #: the ones already delivered (dropped by the splice all the same),
+        #: by road: this session's own reconnect, a request re-routed here
+        #: from another replica, the losing arm of a hedge
+        self.replay_mismatches_by_road = {"reconnect": 0, "reroute": 0, "hedge": 0}
         self.opened_at = 0.0
         self.stats: dict[str, Any] = {}
         self.address = ""
@@ -219,6 +278,26 @@ class SessionSupervisor:
     def in_flight(self) -> int:
         return len(self._requests)
 
+    @property
+    def replay_mismatches(self) -> int:
+        """Replayed tokens that differed from those delivered, all roads."""
+        return sum(self.replay_mismatches_by_road.values())
+
+    @property
+    def routable(self) -> bool:
+        """Whether a router may send NEW requests here now."""
+        return self.state == "open"
+
+    @property
+    def alive(self) -> bool:
+        """Open or reconnecting: a sticky pin to this session still holds."""
+        return self.state in ("open", "reconnecting")
+
+    @property
+    def _health_group(self) -> str:
+        """Peer group of the differential health score: the replica set."""
+        return self.replica_of[0] if self.replica_of is not None else ""
+
     def status(self) -> dict[str, Any]:
         """This session's view for ``executor.serve_sessions()``."""
         view: dict[str, Any] = {
@@ -226,12 +305,24 @@ class SessionSupervisor:
             "generation": self.generation, "served": self.served,
             "in_flight": self.in_flight, "reconnects": self.reconnects,
             "replay_mismatches": self.replay_mismatches,
+            "replay_mismatches_by_road": dict(self.replay_mismatches_by_road),
             "age_s": round(time.time() - self.opened_at, 3) if self.opened_at else 0,
+            "health_score": HEALTH.score(self.sid), "health_state": HEALTH.state(self.sid),
         }
-        for field in ("busy", "queued", "tokens_per_s", "tokens_total"):
+        if self.replica_of is not None:
+            view["replica_set"], view["replica"] = self.replica_of
+        for field in ("busy", "queued", "tokens_per_s", "tokens_total", "kv_admits",
+                      "kv_fallbacks", "prefills"):
             if field in self.stats:
                 view[field] = self.stats[field]
         return view
+
+    def _changed(self) -> None:
+        if self._on_change is not None:
+            try:
+                self._on_change(self)
+            except Exception:  # noqa: BLE001 - a router's hook is never fatal
+                app_log.exception("serve on_change hook failed")
 
     # -- open -------------------------------------------------------------------
 
@@ -312,29 +403,100 @@ class SessionSupervisor:
 
     # -- requests ---------------------------------------------------------------
 
-    async def submit(self, request: ServeRequest) -> ServeRequest:
-        """Assign one request to this session and write its wire line
-        (waiting out a reconnect in progress first).  Tokens arrive on the
-        side-band; a failed write fails the request and raises."""
+    async def submit(self, request: ServeRequest, *, fail_on_error: bool = True,
+                     wait_ready: bool = True) -> ServeRequest:
+        """Assign one request to this session and write its wire message.
+
+        Fire-and-stream: tokens arrive on the side-band.  By default it
+        waits out a reconnect in progress; ``wait_ready=False`` refuses a
+        session that is not routable at once, so a router does not hold a
+        whole batch behind one replica's reconnect.  A failed write raises,
+        and fails the request unless ``fail_on_error=False`` (a router then
+        re-routes it).
+        """
         try:
-            await self._await_ready()
+            if wait_ready:
+                await self._await_ready()
+            elif not self.routable:
+                raise ServeError(f"session {self.sid} is not routable ({self.state})")
+            if request.t_dispatched is None:
+                request.t_dispatched = time.monotonic()
             self._requests[request.rid] = request
+            request.arms[self.sid] = time.monotonic()
             try:
                 await self._send_request(request)
             except BaseException:
                 self._requests.pop(request.rid, None)
+                request.arms.pop(self.sid, None)
                 raise
         except BaseException as err:
-            request._fail(err if isinstance(err, ServeError)
-                          else ServeError(f"request submit failed: {err!r}"))
+            if fail_on_error:
+                request._fail(err if isinstance(err, ServeError)
+                              else ServeError(f"request submit failed: {err!r}"))
             raise
         return request
 
+    def detach_requests(self) -> list[ServeRequest]:
+        """Hand every in-flight request back without failing or counting
+        it: the drain-on-death road.  A replica set re-routes them onto
+        survivors, and their own high-water marks keep the splice
+        exactly-once across the move."""
+        detached = list(self._requests.values())
+        self._requests.clear()
+        for request in detached:
+            request.arms.pop(self.sid, None)
+        return detached
+
     async def _send_request(self, request: ServeRequest) -> None:
         assert self._client is not None
+        kv_bytes: bytes | None = None
+        kv_digest = kv_path = ""
+        if request.kv is not None:
+            kv_bytes, kv_digest = request.kv
+            if not self._client.frames_active:
+                # Without frames the bundle would pay base64 on every send
+                # and replay: ship it once into the worker's CAS and name
+                # it by path.  A failed staging drops the KV: the worker's
+                # full prefill keeps the stream right.
+                try:
+                    kv_path = await self._stage_kv(kv_bytes, kv_digest)
+                    kv_bytes = None
+                except Exception as err:  # noqa: BLE001 - degrade
+                    app_log.debug("KV staging for %s failed (%s); degrading to a full "
+                                  "prefill", request.rid, err)
+                    kv_bytes, kv_digest = None, ""
         await self._client.serve_request(self._sid_g, request.rid, request.prompt,
                                          params=request.params,
-                                         deadline_s=request.deadline_s)
+                                         deadline_s=request.deadline_s, kv_bytes=kv_bytes,
+                                         kv_digest=kv_digest, kv_path=kv_path)
+
+    async def _stage_kv(self, data: bytes, digest: str) -> str:
+        """Ship one KV bundle into this session's worker CAS; returns its
+        remote path.  Content-addressed: an identical bundle (a repeated
+        prompt) is already there and costs nothing."""
+        executor = self.executor
+        local = os.path.join(executor.cache_dir, "cas", f"{digest}.kv")
+        if not os.path.exists(local):
+            os.makedirs(os.path.dirname(local), exist_ok=True)
+            await asyncio.to_thread(executor._write_payload_file, local, data)
+        key = executor._pool_key(self.address)
+        remote = cas_path(executor.remote_cache, digest, ".kv")
+        await executor._cas.ensure(key, self._conns[0], digest, local, remote)
+        return remote
+
+    async def prefill_kv(self, prompt, params: dict | None = None, rid: str = "",
+                         timeout_s: float = 60.0) -> dict:
+        """Run a prefill-only pass on this session's engine; returns the
+        ``serve_kv`` event (the bundle under ``data_bytes``, the worker's
+        sha256 of it under ``digest``).  The caller checks the digest of
+        the bytes it received and decides to degrade."""
+        await self._await_ready()
+        client = self._client
+        if client is None:
+            raise ServeError(f"session {self.sid} has no live runtime")
+        rid = rid or f"kv-{uuid.uuid4().hex[:8]}"
+        return await client.serve_prefill(self._sid_g, rid, [int(t) for t in prompt],
+                                          params=params, timeout=timeout_s)
 
     async def _await_ready(self) -> None:
         if self._closed:
@@ -357,6 +519,14 @@ class SessionSupervisor:
         elif kind == "serve.stats":
             self._on_stats(data)
 
+    def _replay_road(self, request: ServeRequest) -> str:
+        """Which road a replayed chunk came by: this session's reconnect, a
+        re-route from the replica that first fed the request, or the
+        losing arm of a hedge."""
+        if request.served_by in ("", self.sid):
+            return "reconnect"
+        return "hedge" if request.hedged else "reroute"
+
     def _on_token(self, data: dict) -> None:
         rid = str(data.get("rid") or "")
         request = self._requests.get(rid)
@@ -372,20 +542,51 @@ class SessionSupervisor:
             request._fail(ServeError(f"token stream gap for {rid}: chunk starts at {idx}, "
                                      f"have {have}"))
             return
-        # Replay splice: a re-opened session re-streams from idx 0; what is
-        # at or below the high-water mark is a duplicate and drops here.
-        # A replay decoded in another batch may flip a near-tie there: the
-        # caller keeps what it was given, and the flip is counted.
+        # Replay splice: a re-opened session (or another replica, or a
+        # hedge's second arm) streams from idx 0; what is at or below the
+        # high-water mark is a duplicate and drops here.  A replay decoded
+        # in another batch may flip a near-tie there: the caller keeps what
+        # it was given, and the flip is counted by road.
         replayed = tokens[:have - idx]
         differ = sum(a != b for a, b in zip(replayed, request.tokens[idx:have]))
         if differ:
-            self.replay_mismatches += differ
-            app_log.warning("session %s: replay of %s differs from the delivered stream "
-                            "at %d of %d tokens below its high-water mark", self.sid, rid,
-                            differ, len(replayed))
-        request._feed(tokens[have - idx:], bool(data.get("done")),
-                      error=str(data.get("error") or ""))
-        if request.done:
+            road = self._replay_road(request)
+            self.replay_mismatches_by_road[road] += differ
+            app_log.warning("session %s: %s replay of %s differs from the delivered stream "
+                            "at %d of %d tokens below its high-water mark", self.sid, road,
+                            rid, differ, len(replayed))
+        fresh = tokens[have - idx:]
+        first = request.t_first is None and bool(fresh)
+        if first and not request.served_by:
+            request.served_by = self.sid  # the hedge's winner, when there is one
+        done = bool(data.get("done"))
+        error = str(data.get("error") or "")
+        hedge_loser = bool(request.hedged and request.served_by
+                           and request.served_by != self.sid)
+        if hedge_loser and error:
+            # The losing arm's error (its cancel's ack, or its death) must
+            # not reach the shared request: the winner owns its terminal.
+            self.abandon(rid)
+            return
+        request._feed(fresh, done, error=error)
+        if first and request.ttft_s is not None:
+            # The straggler signal: TTFT against the sibling replicas.  A
+            # hedge's arm is measured from its own dispatch.
+            latency = request.ttft_s
+            sent = request.arms.get(self.sid)
+            if request.hedged and sent is not None and request.t_first is not None:
+                latency = max(0.0, request.t_first - sent)
+            HEALTH.record_latency(self.sid, latency, group=self._health_group)
+        if done:
+            if hedge_loser:
+                # finished before its cancel landed: the chunks spliced as
+                # duplicates, and the outcome is the winner's to count
+                self.abandon(rid)
+                return
+            if error and error != "deadline_exceeded":
+                HEALTH.record_fault(self.sid, label=error[:40], group=self._health_group)
+            elif not error:
+                HEALTH.record_success(self.sid, group=self._health_group)
             self._finish(rid)
 
     def _on_reject(self, data: dict) -> None:
@@ -396,6 +597,13 @@ class SessionSupervisor:
         code = str(data.get("code") or "rejected")
         if code == "unknown_session" and not self._ready.is_set():
             return  # raced a dying generation: the replay re-sends it
+        HEALTH.record_fault(self.sid, label=code, group=self._health_group)
+        if request.hedged and request.served_by != self.sid and (
+                request.served_by or request.arms.keys() - {self.sid}):
+            # One arm of a hedge refused (the copy shed under the load that
+            # triggered the hedge): the other arm still owns the request.
+            self.abandon(rid)
+            return
         self._finish(rid)
         request._fail(ServeRequestRejected(rid, code, str(data.get("message") or "")))
 
@@ -403,16 +611,24 @@ class SessionSupervisor:
         """The worker's latest ``serve.stats``: occupancy, totals, the
         engine's counters and the card's memory, without the envelope."""
         self.stats = {k: v for k, v in data.items() if k not in _ENVELOPE}
+        HEALTH.record_queue_depth(self.sid, float(self.stats.get("queued") or 0),
+                                  group=self._health_group)
 
     def _finish(self, rid: str) -> None:
-        if self._requests.pop(rid, None) is not None:
+        request = self._requests.pop(rid, None)
+        if request is not None:
+            request.arms.pop(self.sid, None)
             self.served += 1
+            self._changed()
 
     def abandon(self, rid: str) -> None:
-        """Drop one request without failing or counting it, and free its
-        worker lane with a fire-and-forget ``serve_cancel``."""
-        if self._requests.pop(rid, None) is None:
+        """Drop one request's assignment without failing or counting it,
+        and free its worker lane with a fire-and-forget ``serve_cancel``:
+        the caller gave it up, or it lives on under a hedge's winner."""
+        request = self._requests.pop(rid, None)
+        if request is None:
             return
+        request.arms.pop(self.sid, None)
         client, sid_g = self._client, self._sid_g
         if client is not None and client.alive and not self._closed:
             task = asyncio.ensure_future(client.serve_cancel(sid_g, rid))
@@ -421,6 +637,19 @@ class SessionSupervisor:
                 lambda t: (self._bg_tasks.discard(t),
                            None if t.cancelled() else t.exception())
             )
+        self._changed()
+
+    async def canary(self, timeout: float = 10.0) -> bool:
+        """The probe that readmits a quarantined replica: one ping round
+        trip, no model work, no lane taken."""
+        client = self._client
+        if client is None or not client.alive or self.state != "open":
+            return False
+        try:
+            await client.ping(timeout=timeout)
+            return True
+        except (AgentError, TransportError, asyncio.TimeoutError, OSError):
+            return False
 
     # -- supervision / reconnect --------------------------------------------
 
@@ -445,8 +674,10 @@ class SessionSupervisor:
                 return
 
     async def _reconnect(self, death: BaseException) -> bool:
-        """Tear down, re-lease, re-open, replay — or fail every stream."""
+        """Tear down, re-lease, re-open, replay — or hand the streams to
+        the front (``on_failed``), or fail every one."""
         self._ready.clear()
+        self._changed()
         if self._client is not None:
             self._client.unwatch_serve(self._sid_g)
         try:
@@ -454,7 +685,9 @@ class SessionSupervisor:
         except Exception:  # noqa: BLE001 - teardown is best-effort
             pass
         failure: BaseException = death
-        fault, _label = classify_error(death)
+        fault, label = classify_error(death)
+        HEALTH.record_fault(self.sid, label=label or fault.name.lower(),
+                            group=self._health_group)
         if fault is FaultClass.TRANSIENT:
             policy = RetryPolicy()
             for attempt in range(self.retries + 1):
@@ -477,15 +710,27 @@ class SessionSupervisor:
                                  len(self._requests))
                     await self._replay_in_flight()
                     self._ready.set()
+                    self._changed()
                     return True
-        # Permanent refusal or retry budget spent: every stream fails with
-        # the cause, and new requests are refused until the caller closes.
+        # Permanent refusal or retry budget spent: the front may take the
+        # in-flight requests (a replica set drains them onto survivors);
+        # otherwise every stream fails with the cause.  New requests are
+        # refused either way until the caller closes.
         self._failed = failure
-        for rid, request in list(self._requests.items()):
-            self._finish(rid)
-            request._fail(ServeError(
-                f"session {self.sid} died and could not be re-opened: {failure}"))
+        handled = False
+        if self._on_failed is not None:
+            try:
+                handled = bool(self._on_failed(self, failure))
+            except Exception:  # noqa: BLE001 - a router's hook is never fatal
+                app_log.exception("serve on_failed hook failed")
+        if not handled:
+            for rid, request in list(self._requests.items()):
+                self._finish(rid)
+                request._fail(ServeError(
+                    f"session {self.sid} died and could not be re-opened: {failure}"))
         self._ready.set()
+        HEALTH.drop(self.sid)
+        self._changed()
         return False
 
     async def _replay_in_flight(self) -> None:
@@ -521,4 +766,6 @@ class SessionSupervisor:
             self._finish(rid)
             request._fail(ServeError(f"session {self.sid} closed"))
         self.executor._serve_handles.pop(self.sid, None)
+        HEALTH.drop(self.sid)
+        self._changed()
         return closed_event

@@ -1,6 +1,6 @@
-"""Control-plane transports of the PyTorch port: the local transport and
-its persistent process channels (JSONL).  SSH, pooling, chaos, the codec
-and binary frames come with later slices."""
+"""Control-plane transports of the PyTorch port: the local transport, its
+persistent process channels and their binary frames (:mod:`.frames`).
+SSH, pooling, chaos and the file-staging codec come with later slices."""
 
 from .base import CommandResult, Transport, TransportError
 from .local import LocalTransport

@@ -53,8 +53,10 @@ class Transport(ABC):
     async def start_process(self, command: str, describe: str = ""):
         """Start a long-lived remote process with piped stdin/stdout.
 
-        Returns a :class:`~.process.TransportProcess`.  Optional: backends
-        that cannot hold a persistent channel raise.
+        Returns a :class:`~.process.TransportProcess`, which writes JSON
+        lines and binary frames (``write_line``/``write_bytes``) and reads
+        either (``read_event``).  Optional: backends that cannot hold a
+        persistent channel raise.
         """
         raise TransportError(f"{type(self).__name__} does not support persistent processes")
 

@@ -10,10 +10,17 @@ no id), ``run`` and its ``exit``, ``run`` without a spec, ``kill`` of a
 running and of an unknown task, ``watch``/``unwatch`` of a task file,
 ``task_inventory``, and ``shutdown``.  Each step waits for its answer, so
 both runtimes see the same order.  They must answer with the same events:
-only pids, timestamps, seq values, the frames capability and the
-reference's epoch fence (ROADMAP item 2c.4) may differ, and a result's
-pickle is compared by its value (the port's also carries the electron's
-start and end times, as its launch-mode result file does).
+only pids, timestamps, seq values and the reference's epoch fence (ROADMAP
+item 2c.4) may differ, and a result's pickle is compared by its value (the
+port's also carries the electron's start and end times, as its launch-mode
+result file does).
+
+The script runs on JSON lines and again on negotiated binary frames
+(``frames`` arm): there the args ride frame bodies, results come back as
+frames, the invocations' records in ``telemetry_batch`` frames, and three
+more steps send ``multi_invoke`` frames (three ops of one digest, a body
+whose lengths do not add up, an unregistered digest).  A run of results of
+ops that run at once is compared in the order of their ids.
 """
 
 import base64
@@ -64,8 +71,8 @@ def _artifact(root: Path, fn) -> tuple[str, str]:
     return digest, str(path)
 
 
-def _args(*args, **kwargs) -> str:
-    return base64.b64encode(cloudpickle.dumps((args, kwargs))).decode("ascii")
+def _args(*args, **kwargs) -> bytes:
+    return cloudpickle.dumps((args, kwargs))
 
 
 def _spec(root: Path, name: str, fn, args) -> str:
@@ -111,20 +118,20 @@ def run_script(rt: Runtime, root: Path) -> None:
         step({"cmd": "register_fn", "digest": digest, "path": path},
              answered("registered", "digest", digest))
 
-    step({"cmd": "invoke", "id": "i1", "digest": square, "args": _args(6)}, result_of("i1"))
+    step({"cmd": "invoke", "id": "i1", "digest": square, "args_bytes": _args(6)}, result_of("i1"))
     step({"cmd": "invoke", "id": "i2", "digest": concat, "args_path": str(args_file),
           "args_digest": args_digest}, result_of("i2"))
     step({"cmd": "invoke", "id": "i2b", "digest": concat, "args_path": str(args_file),
           "args_digest": "2" * 64}, result_of("i2b"))                       # torn args
-    step({"cmd": "invoke", "id": "i3", "digest": "3" * 64, "args": _args(1)},
+    step({"cmd": "invoke", "id": "i3", "digest": "3" * 64, "args_bytes": _args(1)},
          answered("error", "id", "i3"))                                     # unregistered
     step({"cmd": "invoke", "id": "i4", "digest": heal, "path": heal_path,
-          "args": _args(0.01)}, result_of("i4"))                            # self-heal
-    step({"cmd": "invoke", "id": "i5", "digest": boom, "args": _args()}, result_of("i5"))
-    step({"cmd": "invoke", "id": "i6", "digest": big, "args": _args(5000),
+          "args_bytes": _args(0.01)}, result_of("i4"))                            # self-heal
+    step({"cmd": "invoke", "id": "i5", "digest": boom, "args_bytes": _args()}, result_of("i5"))
+    step({"cmd": "invoke", "id": "i6", "digest": big, "args_bytes": _args(5000),
           "result_path": str(root / "staged_result.pkl"), "result_max_inline": 1024},
          result_of("i6"))                                                   # staged result
-    step({"cmd": "invoke", "digest": square, "args": _args(1)}, is_event("error"), 3)
+    step({"cmd": "invoke", "digest": square, "args_bytes": _args(1)}, is_event("error"), 3)
 
     step({"cmd": "run", "id": "r1", "spec": _spec(root, "r1", _fn("square"), (5,)),
           "log": str(root / "r1.log")}, answered("exit", "id", "r1"))
@@ -144,6 +151,20 @@ def run_script(rt: Runtime, root: Path) -> None:
          and e["data"].get("step") == 1)
     step({"cmd": "unwatch", "id": "w1"}, answered("unwatched", "id", "w1"))
     step({"cmd": "watch", "id": "w2"}, answered("error", "id", "w2"))      # no path
+    if rt.frames:
+        def ops_answered(kind, ids):
+            return lambda e: e.get("event") == kind and e.get("id") in ids
+
+        bodies = [_args(n) for n in (2, 3, 4)]
+        step({"cmd": "multi_invoke", "digest": square, "ops": [{"id": f"m{n}"} for n in (1, 2, 3)],
+              "args_lens": [len(b) for b in bodies], "args_bytes": b"".join(bodies)},
+             ops_answered("result", ("m1", "m2", "m3")), 3)
+        step({"cmd": "multi_invoke", "digest": square, "ops": [{"id": "t1"}, {"id": "t2"}],
+              "args_lens": [len(bodies[0]), 99], "args_bytes": bodies[0]},
+             ops_answered("error", ("t1", "t2")), 2)                       # torn body
+        step({"cmd": "multi_invoke", "digest": "4" * 64, "ops": [{"id": "u1"}, {"id": "u2"}],
+              "args_lens": [len(bodies[0])] * 2, "args_bytes": bodies[0] * 2},
+             ops_answered("error", ("u1", "u2")), 2)                       # unregistered
     step({"cmd": "shutdown"}, is_event("bye"))
 
 
@@ -168,9 +189,12 @@ def normalized(events: list[dict], root: Path) -> tuple[list, dict]:
         if e.get("event") == "telemetry":
             streams.setdefault(e["id"], []).append(strip(e["data"]))
             continue
-        e = strip(e)
+        data_bytes = e.get("data_bytes")
+        e = strip({k: v for k, v in e.items() if k != "data_bytes"})
         if e.get("event") == "result":
-            if "data" in e:
+            if data_bytes is not None:
+                e["data"] = _value(data_bytes, root)  # a result frame's body
+            elif "data" in e:
                 e["data"] = _value(base64.b64decode(e["data"]), root)
             else:
                 data = Path(e["data_path"].replace("<root>", str(root))).read_bytes()
@@ -181,26 +205,38 @@ def normalized(events: list[dict], root: Path) -> tuple[list, dict]:
             e["tasks"] = [t["id"] for t in e["tasks"]]
         if e.get("event") == "register_error":
             e["message"] = e["message"].split("(")[0]  # the repr's detail names the runtime
+        if e.get("event") == "result" and top and top[-1].get("event") == "result" \
+                and str(top[-1].get("id")) > str(e.get("id")):
+            # ops of one multi_invoke finish in any order: keep a run of
+            # results sorted by id
+            at = len(top)
+            while at and top[at - 1].get("event") == "result" \
+                    and str(top[at - 1].get("id")) > str(e.get("id")):
+                at -= 1
+            top.insert(at, e)
+            continue
         top.append(e)
     return top, streams
 
 
-@pytest.fixture(scope="module")
-def both_runs(tmp_path_factory):
+def run_both(tmp_path_factory, frames: bool) -> dict:
+    """The script on both runtimes at once; name -> (its Runtime, its root)."""
     import threading
 
     runs, errors = {}, {}
 
     def drive(name):
-        root = tmp_path_factory.mktemp(f"rpc_{name}")
-        rt = Runtime(RUNTIMES[name], root)
+        root = tmp_path_factory.mktemp(f"rpc_{name}{'_frames' if frames else ''}")
+        rt = None
         try:
+            rt = Runtime(RUNTIMES[name], root, frames=frames)
             run_script(rt, root)
         except BaseException as err:  # noqa: BLE001 - reported below
             errors[name] = err
         finally:
-            rt.close()
-        runs[name] = (rt.events, root)
+            if rt is not None:
+                rt.close()
+        runs[name] = (rt, root)
 
     threads = [threading.Thread(target=drive, args=(n,)) for n in RUNTIMES]
     for t in threads:
@@ -211,11 +247,52 @@ def both_runs(tmp_path_factory):
     return runs
 
 
+@pytest.fixture(scope="module")
+def both_runs(tmp_path_factory):
+    return {name: (rt.events, root)
+            for name, (rt, root) in run_both(tmp_path_factory, frames=False).items()}
+
+
+@pytest.fixture(scope="module")
+def framed_runs(tmp_path_factory):
+    return run_both(tmp_path_factory, frames=True)
+
+
 def test_port_runtime_answers_the_rpc_script_like_the_reference(both_runs):
     ref_top, ref_streams = normalized(*both_runs["reference"])
     port_top, port_streams = normalized(*both_runs["port"])
     assert port_top == ref_top
     assert port_streams == ref_streams
+
+
+def test_port_runtime_answers_the_rpc_script_like_the_reference_on_frames(framed_runs):
+    ref_top, ref_streams = normalized(framed_runs["reference"][0].events,
+                                      framed_runs["reference"][1])
+    port_top, port_streams = normalized(framed_runs["port"][0].events, framed_runs["port"][1])
+    assert port_top == ref_top
+    assert port_streams == ref_streams
+
+
+def test_the_frames_arm_batches_invokes_and_frames_results(framed_runs, both_runs):
+    """On frames: results come back as frames, the invocations' records in
+    ``telemetry_batch`` frames, one ``multi_started`` acks a batch of three
+    ops whose results are each op's own, a torn batch and an unregistered
+    one refuse every op; every value equals the JSON-lines arm's."""
+    rt, root = framed_runs["port"]
+    top, streams = normalized(rt.events, root)
+    assert "result" in rt.frame_kinds and rt.batches > 0
+    results = {e["id"]: e for e in top if e["event"] == "result"}
+    assert [results[f"m{n}"]["data"] for n in (1, 2, 3)] == [
+        (4, "NoneType", ""), (9, "NoneType", ""), (16, "NoneType", "")]
+    started = [e for e in top if e["event"] == "multi_started"]
+    assert [e["ids"] for e in started] == [["m1", "m2", "m3"]]
+    errors = {e["id"]: e for e in top if e["event"] == "error" and e.get("id")}
+    assert all(errors[t]["code"] == "bad_frame" and errors[t]["permanent"] for t in ("t1", "t2"))
+    assert all(errors[t]["code"] == "unregistered" for t in ("u1", "u2"))
+    line_top, line_streams = normalized(*both_runs["port"])
+    line_results = {e["id"]: e for e in line_top if e["event"] == "result"}
+    assert {k: results[k] for k in line_results} == line_results
+    assert {k: v for k, v in streams.items() if k in line_streams} == line_streams
 
 
 def test_the_rpc_script_covers_every_outcome(both_runs):

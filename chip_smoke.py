@@ -11,7 +11,8 @@ Phases, one JSON object per line on stdout, in this order:
    covalent_tpu_plugin_torch``, ``import torch._dynamo`` (a torch
    optimizer's first construction imports it), ``torch.cuda.init()`` and
    the first op (the context's creation); medians of 3.
-3. ``build``: the CUDA kernels compiled from ``covalent_tpu_plugin_torch/csrc``.
+3. ``build``: the CUDA kernels compiled from ``covalent_tpu_plugin_torch/csrc``
+   (the three flash kernels and the two batch-invariant serving kernels).
 4. ``parity``: each kernel against its plain PyTorch version on the card, at the
    training shape and at small GQA, window+sinks, explicit-position,
    non-causal, ragged, head dim 128, bf16, f16 and f32 cases, each with the
@@ -40,21 +41,37 @@ Phases, one JSON object per line on stdout, in this order:
    the CPU: KV-cache prefill and decode logits (plain, int8 KV, rolling with
    sinks), and continuous-batching engine streams, token-equal wherever the
    CPU's top-2 logit margin exceeds 1e-4.
-10. ``serve``: the serving path.  ``GPUExecutor(transport="local")`` dispatches
+10. ``batch_invariance``: the 125M LM (bf16 weights from seed 0), 8 prompts
+    of 128 tokens, the prefill and one decode step: each serving op alone
+    (every dense product, the f32 lm_head, the decode attention's two
+    products, the softmax, RMSNorm held in f32, rotary) on the inputs every
+    layer saw in the batch of 8, each row against that row computed alone,
+    and the first layer's input cut to 2-7 rows; then the model's logits of
+    row 5 against its prompt alone.  Once on the library route
+    (``F.linear``, ``einsum``, torch's RMSNorm: the diagnosis) and once on
+    the batch-invariant kernels (``csrc/bi_gemm.cu``, ``csrc/bi_rmsnorm.cu``:
+    the serving route), where every op must be bit-equal and every kernel
+    within its tolerance of its plain version.
+11. ``serving_kernels``: the batch-invariant kernels' device time at the
+    serve cell's shapes (M 1, 8 and 1024; the decode attention at 8 rows),
+    beside their plain versions, one PyTorch call (a yardstick only) and
+    the bound.
+12. ``serve``: the serving path.  ``GPUExecutor(transport="local")`` dispatches
     the serving electron (``models.serve.serve_lm``): the 125M LM with bf16
     weights, ``generate`` at batch 8 (prompt 128, 128 new tokens) and 16
     requests through the continuous-batching engine (8 slots, sync 32).
     Every request must complete at its length, every logit be finite, the
-    engine's streams equal ``continuous_generate``'s, the int8 KV cache's
-    prefill logits keep cosine >= 0.999 to the float cache's, and no flash
-    kernel run (the decode attention is plain products); it prints the
-    agreement of engine rows with batch-1 ``generate`` rows.
-11. ``serve_profile``: one batch-8 decode step of the 125M LM under
+    engine's streams equal ``continuous_generate``'s and, every one, batch-1
+    ``generate``'s rows, the int8 KV cache's prefill logits keep cosine >=
+    0.999 to the float cache's, no flash kernel run (the decode attention is
+    plain products) and both batch-invariant kernels run.
+13. ``serve_profile``: one batch-8 decode step of the 125M LM under
     ``torch.profiler``: device time by kind (the attention's products and
     its other kernels apart, by the ``decode_attention`` ranges), the
-    device's busy share against the profiled and the unprofiled step, and
-    the f32 ``lm_head``'s weight cast and product alone.
-12. ``session``: the serving cell through the resident session.
+    device's busy share against the profiled and the unprofiled step, the
+    batch-invariant kernels' launches in the step, and the f32
+    ``lm_head``'s weight cast and library product alone.
+14. ``session``: the serving cell through the resident session.
     ``serving.open_session`` on ``GPUExecutor(use_agent="pool")`` opens the
     125M LM (bf16 weights built on the card in the pool server from seed 0;
     the factory ships the config and the seed) and serves the ``serve``
@@ -66,13 +83,13 @@ Phases, one JSON object per line on stdout, in this order:
     Then the same traffic
     again with the pool server killed once every stream has its first
     tokens: every stream must complete at its budget, its chunks contiguous
-    on each generation and its delivered tokens the exact splice of them;
-    the replayed tokens that differ from the delivered ones are counted.
+    on each generation and its delivered tokens the exact splice of them,
+    and no replayed token may differ from the one delivered.
     The channel must run on binary frames; the wire bytes per streamed
     token are counted, then again for the same 16 requests on a session
     whose executor keeps JSON lines (``agent_frames=False``), with the
     streams equal between the two encodings.
-13. ``replicas``: the serve cell through ``serving.open_replica_set`` over
+15. ``replicas``: the serve cell through ``serving.open_replica_set`` over
     two pool ``GPUExecutor`` objects on the card (two resident workers, each
     with its own 8-slot engine): the two pool servers' start at once, the
     set's open, two warm-up requests, then the 16 requests at once:
@@ -81,15 +98,30 @@ Phases, one JSON object per line on stdout, in this order:
     ``serve`` phase's with the top-2 margins of those that differ.  Then
     the 16 again with one replica's pool server killed mid-stream and its
     re-open refused (``retries=0``): every stream must complete on the
-    survivor (drain-on-death), and the re-routed requests and their
-    replayed tokens that differ are counted.
-14. ``disagg``: the same 16 requests through
+    survivor (drain-on-death), the re-routed requests are counted, and no
+    replayed token may differ on any road (reconnect, reroute, hedge).
+16. ``disagg``: the same 16 requests through
     ``serving.open_disaggregated_set`` on the same two executors, one
     prefill and one decode replica (the killed worker's pool server starts
     again first, alone): every request must take the KV road (16 transfers,
     0 degrades) on frames; bytes per bundle, transfer seconds p50/p95,
     TTFT, tokens/s, streams equal to the ``replicas`` phase's with margins.
-15. ``lattice``: the source paper's own workloads (BASELINE configs 2-4), each
+17. ``recovery``: the serve cell through a dispatcher crash.  A journaling
+    ``GPUExecutor`` (``COVALENT_TPU_JOURNAL_DIR``; its pool server with an
+    orphan TTL) opens the session and sends the 16 requests; once a stream
+    is mid-way the executor is torn down cold (no close, pipes dropped).
+    A second executor on the same journal runs ``recover()``: it adopts the
+    orphaned pool server through ``pool_orphan.json`` and the ``--attach``
+    relay at the next epoch, re-binds the session and resumes every
+    journaled stream from its high-water mark.  Then, on the recovered
+    session, the 16 again with no move (the baseline), again with a planned
+    ``handoff()`` mid-stream, and again with SIGTERM sent to the pool server
+    mid-stream (its preemption notice starts a handoff).  Recover seconds,
+    streams adopted and resumed, tokens re-emitted, each move's seconds and
+    the completion it adds; every stream complete exactly once and equal to
+    the ``serve`` phase's, no replayed token different on the handoff and
+    preemption roads.
+18. ``lattice``: the source paper's own workloads (BASELINE configs 2-4), each
     electron a ``@ct.electron`` of a ``@ct.lattice`` of
     ``covalent_tpu_plugin_torch.workflow``, dispatched with ``ct.dispatch_sync``,
     in three arms, each on its own ``GPUExecutor``: ``launch`` (a fresh
@@ -110,9 +142,10 @@ Phases, one JSON object per line on stdout, in this order:
     flash kernel runs.  Each warm arm's channel must run on frames; each
     arm says how its invokes left (one to a frame, or several in a
     ``multi_invoke`` frame).
-16. ``kernels``: every kernel with its launches on the main path, error, times
-    and bound, and the route (tensor-core or scalar kernel) each input type
-    and head dim takes.
+19. ``kernels``: every kernel with its launches on its path (the flash
+    kernels: training; the batch-invariant ones: the ``serve`` phase),
+    error, times and bound, and the route (tensor-core or scalar kernel)
+    each input type and head dim of a flash kernel takes.
 
 then the card's ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 Any failed phase ends the run with a non-zero exit and no last line.  Without
@@ -124,6 +157,7 @@ from __future__ import annotations
 import asyncio
 import json
 import os
+import signal
 import statistics
 import subprocess
 import sys
@@ -743,6 +777,303 @@ def serve_check() -> dict:
             "tokens_compared": compared, "margin": SERVE_MARGIN}
 
 
+# --- batch invariance: a row's bits at batch 1 and as row 5 of a batch of 8 --
+
+#: The diagnosis's batch, the row the batch-1 prompt takes in it, prompt length.
+BI_BATCH, BI_ROW, BI_PROMPT = 8, 5, 128
+#: Tolerance of a batch-invariant kernel against its plain version at the
+#: serving shapes, relative to the largest plain value (at least 1): f32 sums
+#: of up to 3072 products in another order, then (bf16 outputs) one rounding
+#: that may land on the neighbouring bf16 value, 2^-7 of the value.
+BI_TOL = {"bfloat16": 2.0**-7, "float32": 1e-4}
+#: The dense products of a layer, by the name the diagnosis gives them.
+BI_DENSE = {"q_proj": ("attention", "q_proj"), "k_proj": ("attention", "k_proj"),
+            "v_proj": ("attention", "v_proj"), "out_proj": ("attention", "out_proj"),
+            "mlp_wi": ("mlp", "wi"), "mlp_wo": ("mlp", "wo")}
+
+
+def _set_route(model, on: bool) -> None:
+    for module in model.modules():
+        if hasattr(module, "batch_invariant"):
+            module.batch_invariant = on
+
+
+def _rows_check(fn, calls: list) -> dict:
+    """``fn`` on each captured batch input (one a layer), each row of its
+    output against ``fn`` on that row alone (batch 1): the headline is row
+    ``BI_ROW`` of the first call (None where it has fewer rows);
+    ``rows_differing`` counts every (call, row) pair whose bits differ,
+    with the largest difference over all."""
+    import torch
+
+    differing, largest, headline = 0, 0.0, None
+    for i, inputs in enumerate(calls):
+        whole = fn(*inputs)
+        for row in range(whole.shape[0]):
+            alone = fn(*(t[row:row + 1] for t in inputs))
+            same = bool(torch.equal(whole[row:row + 1], alone))
+            differing += not same
+            largest = max(largest, (whole[row:row + 1].float() - alone.float()).abs().max().item())
+            if i == 0 and row == BI_ROW:
+                headline = same
+    torch.cuda.synchronize()
+    return {"bit_equal": headline, "rows_differing": differing,
+            "rows": len(calls) * calls[0][0].shape[0], "max_abs_diff": largest}
+
+
+def _capture(model, tokens, cache) -> dict:
+    """The inputs every layer's ops (and the final norm and lm_head) see in
+    one ``model(tokens, cache=cache)`` call, taken with hooks and wrappers:
+    name -> one argument tuple per call."""
+    import torch
+
+    from covalent_tpu_plugin_torch.models import transformer
+    from covalent_tpu_plugin_torch.ops import batch_invariant as bi
+
+    seen: dict = {}
+
+    def hook(name):
+        def pre(_module, args):
+            seen.setdefault(name, []).append((args[0].detach().clone(),))
+        return pre
+
+    modules = {"lm_head_f32": model.lm_head}
+    for layer in model.layers:
+        for name, (block, attr) in BI_DENSE.items():
+            modules.setdefault(name, []).append(getattr(getattr(layer, block), attr))
+        modules.setdefault("rmsnorm", []).extend([layer.ln_attn, layer.ln_mlp])
+    hooks = [m.register_forward_pre_hook(hook(name))
+             for name, ms in modules.items() for m in (ms if isinstance(ms, list) else [ms])]
+    wrapped = {}
+
+    def record(owner, attr, name):
+        fn = getattr(owner, attr)
+        wrapped[(owner, attr)] = fn
+
+        def wrapper(*args):
+            seen.setdefault(name, []).append(tuple(a.detach().clone() for a in args))
+            return fn(*args)
+        setattr(owner, attr, wrapper)
+
+    for suffix in ("", "_plain"):
+        record(bi, "attention_scores" + suffix, "attention_scores")
+        record(bi, "attention_mix" + suffix, "attention_mix")
+    record(transformer, "_apply_rotary", "rotary")
+    try:
+        with torch.no_grad():
+            logits = model(tokens, cache=cache)
+    finally:
+        for h in hooks:
+            h.remove()
+        for (owner, attr), fn in wrapped.items():
+            setattr(owner, attr, fn)
+    return {"inputs": seen, "logits": logits, "modules": modules}
+
+
+def _max_err(got, want) -> dict:
+    """A kernel's output against its plain version's, and the tolerance:
+    one rounding of the output type (f32: 1e-4, sums in another order) times
+    the largest plain value, at least 1."""
+    scale = max(1.0, want.float().abs().max().item())
+    tol = BI_TOL[str(want.dtype).removeprefix("torch.")] * scale
+    err = (got.float() - want.float()).abs().max().item()
+    return {"max_abs_err": err, "tol": tol, "ok": err <= tol}
+
+
+def _op_checks(model, captured: dict, query_pos, plain: bool) -> tuple[dict, dict]:
+    """Each op alone on the captured batch inputs of every layer: each row
+    of the batch against the row computed alone.  ``plain``: the library
+    route.  RMSNorm is held in f32, before its cast, so a sum taken in
+    another order shows even where the bf16 rounding would hide it.  Also
+    each kernel against its plain version on the same inputs."""
+    import torch
+
+    from covalent_tpu_plugin_torch.models import transformer
+    from covalent_tpu_plugin_torch.ops import batch_invariant as bi
+
+    seen, modules = captured["inputs"], captured["modules"]
+    cfg = model.config
+    linear = bi.linear_plain if plain else bi.linear
+    out, errs = {}, {}
+    for name in list(BI_DENSE) + ["lm_head_f32"]:
+        mods = modules[name] if isinstance(modules[name], list) else [modules[name]]
+        pairs = list(zip(mods, seen[name]))
+        results = [_rows_check(lambda x, m=m: linear(x, m.weight, m.dtype), [args])
+                   for m, args in pairs]
+        # and the first layer's input cut to 2 .. 7 rows: the engine's
+        # admission waves take any number of prompts
+        first_m, (first_x,) = pairs[0]
+        results += [_rows_check(lambda x: linear(x, first_m.weight, first_m.dtype),
+                                [(first_x[:n],)]) for n in range(2, BI_BATCH)]
+        out[name] = {"bit_equal": results[0]["bit_equal"],
+                     "rows_differing": sum(r["rows_differing"] for r in results),
+                     "rows_differing_in_2_to_7_row_batches": sum(
+                         r["rows_differing"] for r in results[len(pairs):]),
+                     "rows": sum(r["rows"] for r in results),
+                     "max_abs_diff": max(r["max_abs_diff"] for r in results)}
+        m, (x,) = pairs[0]
+        errs[name] = _max_err(bi.linear(x, m.weight, m.dtype), bi.linear_plain(x, m.weight, m.dtype))
+    norm = bi.rms_norm_plain if plain else bi.rms_norm
+    norms = list(zip(modules["rmsnorm"], seen["rmsnorm"]))
+    results = [_rows_check(lambda x, m=m: norm(x, m.scale, torch.float32), [args])
+               for m, args in norms]
+    out["rmsnorm_f32"] = {"bit_equal": results[0]["bit_equal"],
+                          "rows_differing": sum(r["rows_differing"] for r in results),
+                          "rows": sum(r["rows"] for r in results),
+                          "max_abs_diff": max(r["max_abs_diff"] for r in results)}
+    m, (x,) = norms[0]
+    errs["rmsnorm"] = _max_err(bi.rms_norm(x, m.scale, cfg.dtype),
+                               bi.rms_norm_plain(x, m.scale, cfg.dtype))
+    out["rotary"] = _rows_check(transformer._apply_rotary, seen["rotary"])
+    scores_fn = bi.attention_scores_plain if plain else bi.attention_scores
+    mix_fn = bi.attention_mix_plain if plain else bi.attention_mix
+    out["attention_scores"] = _rows_check(scores_fn, seen["attention_scores"])
+    # the softmax's input as the layer makes it: scaled scores, causal mask
+    cols = torch.arange(seen["attention_scores"][0][1].shape[1], device=query_pos.device)
+    visible = cols[None, :] <= query_pos[:, None]  # (Q, S)
+    masked = [(torch.where(visible, bi.attention_scores_plain(q, k) * cfg.head_dim ** -0.5,
+                           -1e30),) for q, k in seen["attention_scores"]]
+    out["softmax"] = _rows_check(lambda s: torch.softmax(s, dim=-1), masked)
+    out["attention_mix"] = _rows_check(mix_fn, seen["attention_mix"])
+    q, k = seen["attention_scores"][0]
+    errs["attention_scores"] = _max_err(bi.attention_scores(q, k), bi.attention_scores_plain(q, k))
+    errs["attention_mix"] = _max_err(bi.attention_mix(*seen["attention_mix"][0]),
+                                     bi.attention_mix_plain(*seen["attention_mix"][0]))
+    return out, errs
+
+
+def batch_invariance_phase() -> dict:
+    """The serving ops' rows at batch 1 and at batch 8, on the library route
+    (``F.linear``, ``einsum``, torch's RMSNorm: the diagnosis) and on the
+    batch-invariant route (the repair).  The 125M LM with bf16 weights from
+    seed 0; 8 prompts of 128 tokens, the prefill and one decode step.  Each
+    op alone on the inputs every layer (the final norm, the lm_head) saw in
+    the batch-8 run, each row against that row alone; the headline is row 5
+    of layer 0.  Then the whole model's logits of row 5 against the prompt
+    run alone.  Fails unless the batch-invariant route is bit-equal
+    everywhere and every kernel within its tolerance of its plain version."""
+    import numpy as np
+    import torch
+
+    from covalent_tpu_plugin_torch.models import decode
+    from covalent_tpu_plugin_torch.models.transformer import TransformerLM, lm_125m_config
+
+    model = decode.inference_params(TransformerLM(
+        lm_125m_config(max_seq=512), device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(0)))
+    rng = np.random.default_rng(5)
+    prompts = torch.as_tensor(rng.integers(0, model.config.vocab_size, (BI_BATCH, BI_PROMPT)),
+                              dtype=torch.long, device="cuda")
+    positions = {"prefill": torch.arange(BI_PROMPT, device="cuda"),
+                 "decode": torch.tensor([BI_PROMPT], device="cuda")}
+    report: dict = {}
+    failures = []
+    for route in ("library", "batch_invariant"):
+        _set_route(model, route == "batch_invariant")
+        runs = {}
+        for rows in (prompts, prompts[BI_ROW:BI_ROW + 1]):
+            cache = decode.init_cache(model, rows.shape[0])
+            pre = _capture(model, rows, cache)
+            runs[rows.shape[0]] = (pre, _capture(model, pre["logits"][:, -1:].argmax(-1), cache))
+        per_stage = {}
+        for stage, i in (("prefill", 0), ("decode", 1)):
+            batch, alone = runs[BI_BATCH][i], runs[1][i]
+            ops, errs = _op_checks(model, batch, positions[stage], plain=route == "library")
+            whole = batch["logits"][BI_ROW:BI_ROW + 1]
+            ops["model_logits"] = {
+                "bit_equal": bool(torch.equal(whole, alone["logits"])),
+                "max_abs_diff": (whole.float() - alone["logits"].float()).abs().max().item()}
+            per_stage[stage] = ops
+            if route == "batch_invariant":
+                report.setdefault("kernel_vs_plain", {})[stage] = errs
+                failures += [f"{stage}.{op}: {r.get('rows_differing')} rows differ"
+                             for op, r in ops.items()
+                             if not r["bit_equal"] or r.get("rows_differing")]
+                failures += [f"{stage}.{op} off its plain version by {e['max_abs_err']}"
+                             for op, e in errs.items() if not e["ok"]]
+        report[route] = per_stage
+    _set_route(model, False)
+    report["varying_on_library_route"] = sorted(
+        f"{stage}.{op}" for stage, ops in report["library"].items()
+        for op, r in ops.items() if not r["bit_equal"] or r.get("rows_differing"))
+    if failures:
+        raise AssertionError(f"batch_invariance: {failures}; {json.dumps(report)[:3000]}")
+    return report
+
+
+#: Rows of the serving products: a batch-1 decode step, the 8-slot engine's
+#: step, and an admission wave of 8 prompts of 128 tokens.
+BI_ROWS = {"decode_m1": 1, "decode_m8": 8, "admission_m1024": 1024}
+
+
+def serving_kernels_timing() -> dict:
+    """Device time of the batch-invariant kernels at the serve cell's
+    shapes, beside their plain versions (which make the same casts), one
+    PyTorch call computing the same function (cuBLAS or torch's RMSNorm, a
+    yardstick only: the serving route never calls it) and the least time
+    the card could take.  ``bi_gemm`` at the MLP's first product and at the
+    f32 lm_head (bf16 weight widened in the kernel) for each row count, and
+    at the decode attention's two products (8 rows, 12 heads, 512 cache
+    positions); ``bi_rmsnorm`` at each row count."""
+    import torch
+    import torch.nn.functional as F
+
+    from covalent_tpu_plugin_torch.ops import batch_invariant as bi
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+
+    def randn(*shape, dtype=torch.bfloat16, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda") * scale).to(dtype)
+
+    size = lambda *ts: sum(t.numel() * t.element_size() for t in ts)  # noqa: E731
+    d, ff, vocab, heads, hd, cache = 768, 3072, 32768, 12, 64, 512
+    w_ff, w_head, scale = randn(ff, d, scale=0.02), randn(vocab, d, scale=0.02), randn(d)
+    w_head32 = w_head.float()
+    cases = {}
+    for tag, m in BI_ROWS.items():
+        x = randn(m, d)
+        x32 = x.float()
+        out_ff = torch.empty(m, ff, dtype=torch.bfloat16, device="cuda")
+        out_head = torch.empty(m, vocab, device="cuda")
+        cases[f"bi_gemm.mlp_wi.{tag}"] = (
+            lambda x=x: bi.linear(x, w_ff, torch.bfloat16),
+            lambda x=x: bi.linear_plain(x, w_ff, torch.bfloat16),
+            lambda x=x: F.linear(x, w_ff), 2 * m * ff * d, size(x, w_ff, out_ff), "bfloat16")
+        cases[f"bi_gemm.lm_head_f32.{tag}"] = (
+            lambda x=x32: bi.linear(x, w_head, torch.float32),
+            lambda x=x32: bi.linear_plain(x, w_head, torch.float32),
+            lambda x=x32: F.linear(x, w_head32), 2 * m * vocab * d,
+            size(x32, w_head, out_head), "float32")
+        cases[f"bi_rmsnorm.{tag}"] = (
+            lambda x=x: bi.rms_norm(x, scale, torch.bfloat16),
+            lambda x=x: bi.rms_norm_plain(x, scale, torch.bfloat16),
+            (lambda x=x: F.rms_norm(x, (d,), scale, 1e-6)) if hasattr(F, "rms_norm") else None,
+            4 * m * d, size(x, scale, x), "float32")
+    q, k, v = randn(8, 1, heads, 1, hd), randn(8, cache, heads, hd), randn(8, cache, heads, hd)
+    probs = torch.softmax(randn(8, heads, 1, 1, cache, dtype=torch.float32), -1).to(torch.bfloat16)
+    scores = torch.empty(8, heads, 1, 1, cache, device="cuda")
+    mixed = torch.empty(8, 1, heads, 1, hd, device="cuda")
+    q32, k32, v32, p32 = q.float(), k.float(), v.float(), probs.float()
+    cases["bi_gemm.attention_scores.decode_m8"] = (
+        lambda: bi.attention_scores(q, k), lambda: bi.attention_scores_plain(q, k),
+        lambda: torch.einsum("bqhgd,bshd->bhgqs", q32, k32), 2 * 8 * heads * cache * hd,
+        size(q, k, scores), "bfloat16")
+    cases["bi_gemm.attention_mix.decode_m8"] = (
+        lambda: bi.attention_mix(probs, v), lambda: bi.attention_mix_plain(probs, v),
+        lambda: torch.einsum("bhgqs,bshd->bqhgd", p32, v32), 2 * 8 * heads * cache * hd,
+        size(probs, v, mixed), "bfloat16")
+    results = {}
+    for name, (kernel, plain, library, flops, nbytes, peak) in cases.items():
+        bound_ms, bound_by = bound(flops, nbytes, peak)
+        results[name] = {
+            "ms": device_ms(kernel, 20, match=name.split(".")[0]),
+            "plain_ms": device_ms(plain, 20),
+            "library_ms": device_ms(library, 20) if library else None,
+            "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops, "bytes": nbytes,
+        }
+    return results
+
+
 def serve_phase() -> dict:
     from covalent_tpu_plugin_torch import GPUExecutor
     from covalent_tpu_plugin_torch.models.serve import serve_lm
@@ -768,6 +1099,12 @@ def serve_phase() -> dict:
         problems.append(f"int8 KV logit cosine {out['kv_int8_logit_cosine']} < 0.999")
     if any(out["flash_launches"].values()):
         problems.append(f"the decode path launched flash kernels: {out['flash_launches']}")
+    if not all(out["serving_launches"].values()):
+        problems.append(f"a batch-invariant kernel never launched: {out['serving_launches']}")
+    agreement = out["batch1_agreement"]
+    if agreement["equal"] != agreement["rows"]:
+        problems.append(f"{agreement['rows'] - agreement['equal']} engine rows differ from "
+                        f"batch-1 generate: {agreement['divergences']}")
     if problems:
         raise AssertionError("serve: " + "; ".join(problems))
     # kept for the session phase; the printed line says what was checked
@@ -870,11 +1207,12 @@ def divergences(config, device: str, prompts: list, want: list, got: list) -> li
     import torch
 
     from covalent_tpu_plugin_torch.models import decode, serve
-    from covalent_tpu_plugin_torch.models.transformer import TransformerLM
+    from covalent_tpu_plugin_torch.models.transformer import TransformerLM, use_batch_invariant
 
     if "model" not in _MARGIN_MODEL:
-        _MARGIN_MODEL["model"] = decode.inference_params(TransformerLM(
-            config, device=device, generator=torch.Generator(device=device).manual_seed(0)))
+        # the serving route, as the workers run it
+        _MARGIN_MODEL["model"] = use_batch_invariant(decode.inference_params(TransformerLM(
+            config, device=device, generator=torch.Generator(device=device).manual_seed(0))))
     model = _MARGIN_MODEL["model"]
     found = []
     for i, (p, w, g) in enumerate(zip(prompts, want, got)):
@@ -1001,9 +1339,11 @@ async def _serve_session(executor, serve_streams: list, config, device: str,
             problems.append(f"{r.rid}: delivered stream is not the splice of its generations")
     if handle.reconnects != 1:
         problems.append(f"{handle.reconnects} reconnects, expected 1")
-    # replayed tokens that differ below a stream's high-water mark (not a
-    # failure: the splice keeps what was delivered; ROADMAP Queue 3 item 2)
+    # replayed tokens that differ below a stream's high-water mark: with
+    # batch-invariant rows a replay decodes the same tokens
     replay_mismatches = handle.replay_mismatches
+    if replay_mismatches:
+        problems.append(f"{replay_mismatches} replayed tokens differ on the reconnect road")
     launches = {run: {k: v for k, v in st.items() if k.startswith("launches.")}
                 for run, st in (("timed_run", timed_stats), ("after_reconnect", stats))}
     if any(n for counts in launches.values() for n in counts.values()):
@@ -1211,6 +1551,8 @@ async def _replicas(executors: list, config, serve_streams: list, device: str) -
         problems.append(f"victim {victim.state}, set {status['state']}")
     if status["rerouted"] != len(on_victim):
         problems.append(f"{status['rerouted']} re-routed, {len(on_victim)} were on the victim")
+    if any(status["replay_mismatches"].values()):
+        problems.append(f"replayed tokens differ: {status['replay_mismatches']}")
     launches = {rid: _flash(st) for rid, st in stats.items()}
     if any(n for counts in launches.values() for n in counts.values()):
         problems.append(f"a replica launched flash kernels: {launches}")
@@ -1317,6 +1659,195 @@ def replica_phases(serve_streams: list) -> tuple[dict, dict]:
         return replicas, disagg
 
     return asyncio.run(run())
+
+
+# --- dispatcher crash recovery and warm handoff on the serve cell --------------
+
+#: The orphan grace the recovery phase's pool server gets, seconds.
+RECOVERY_TTL_S = 300
+
+
+def _crash_dispatcher(executor) -> None:
+    """Tear an executor down as SIGKILL of its process would: supervision
+    cancelled, each pool channel's pipes dropped cold, no close; the pool
+    server sees a bare stdin EOF and goes into orphan mode."""
+    for sup in list(executor._serve_handles.values()):
+        if sup._supervisor is not None:
+            sup._supervisor.cancel()
+    for client in list(executor._agents.values()):
+        client._process._writer.close()
+        client._reader.cancel()
+    executor._serve_handles.clear()
+    executor._agents.clear()
+    executor._transports.clear()
+
+
+async def _moved_burst(sup, prompts: list, caps: list, move, name: str) -> dict:
+    """The 16 requests through supervisor ``sup``; once a stream is mid-way,
+    ``move()`` (None: no move, the baseline), timed until the session runs
+    on its next generation.  Returns the streams, the wall, TTFT and
+    completion of each request, and the move's seconds."""
+    from covalent_tpu_plugin_torch.serving.supervisor import ServeRequest
+
+    requests = [ServeRequest(f"{name}-{i}", [int(t) for t in p], {"max_new_tokens": c}, 0.0)
+                for i, (p, c) in enumerate(zip(prompts, caps))]
+    start = time.perf_counter()
+    for r in requests:
+        await sup.submit(r)
+    move_s = None
+    if move is not None:
+        while not any(0 < len(r.tokens) < c for r, c in zip(requests, caps)):
+            await asyncio.sleep(0.01)
+        t0, handoffs = time.perf_counter(), sup.handoffs
+        moving = asyncio.ensure_future(move())
+        while sup.handoffs == handoffs and not moving.done():
+            await asyncio.sleep(0.005)
+        move_s = time.perf_counter() - t0
+        await moving  # the old generation's close, after the switch
+    results = await asyncio.gather(*(r.result(timeout=600) for r in requests))
+    return {"results": results, "wall_s": time.perf_counter() - start, "move_s": move_s,
+            "ttft_s": _percentiles([r.ttft_s for r in requests]),
+            "completion_s": _percentiles([r.latency_s for r in requests])}
+
+
+async def _recovery(serve_streams: list, config, device: str) -> dict:
+    import shutil
+
+    from covalent_tpu_plugin_torch import GPUExecutor
+    from covalent_tpu_plugin_torch.fleet import journal as journal_mod
+    from covalent_tpu_plugin_torch.serving import open_session
+
+    prompts, caps = session_prompts(config.vocab_size)
+    journal_dir = WORK / "journal"
+    remote = WORK / "remote_recovery"
+    for path in (journal_dir, remote):
+        shutil.rmtree(path, ignore_errors=True)
+    env = {"PYTHONPATH": str(ROOT), "COVALENT_TPU_ORPHAN_TTL_S": str(RECOVERY_TTL_S)}
+
+    def executor():
+        return GPUExecutor(transport="local", cache_dir=str(WORK / "cache"),
+                           remote_cache=str(remote), python_path=sys.executable,
+                           use_agent="pool", pool_preload=SERVE_PRELOAD, task_env=env)
+
+    # -- incarnation 1: a journaling dispatcher serves the burst, and dies
+    journal_mod.configure(str(journal_dir))
+    ex_a = executor()
+    start = time.perf_counter()
+    handle = await open_session(ex_a, serve_factory(config, device), stats_interval_s=1.0,
+                                open_timeout_s=300)
+    open_s = time.perf_counter() - start
+    await _warm(handle, config, 1)
+    first = [await handle.request(p, params={"max_new_tokens": c})
+             for p, c in zip(prompts, caps)]
+    index = {r.rid: i for i, r in enumerate(first)}
+    while not any(0 < len(r.tokens) < c for r, c in zip(first, caps)):
+        await asyncio.sleep(0.01)
+    sid = handle.sid
+    server_pid = ex_a._agents["localhost"]._banner["pid"]
+    crashed_at = time.perf_counter()
+    _crash_dispatcher(ex_a)
+    delivered = {r.rid: list(r.tokens) for r in first}
+    rendezvous = remote / "pool_orphan.json"
+    while not rendezvous.exists():
+        if time.perf_counter() - crashed_at > 60:
+            raise AssertionError("recovery: the pool server never orphaned")
+        await asyncio.sleep(0.01)
+
+    # -- incarnation 2: replay the journal, adopt the orphan, resume
+    journal_mod.reset()
+    journal = journal_mod.configure(str(journal_dir))
+    ex_b = executor()
+    try:
+        start = time.perf_counter()
+        report = await ex_b.recover(timeout_s=120)
+        recover_s = time.perf_counter() - start
+        banner = dict(ex_b._agents["localhost"]._banner)
+        resumed = {rid: await req.result(timeout=600)
+                   for (_, rid), req in report.requests.items()}
+        resumed_wall_s = time.perf_counter() - crashed_at
+        sup = report.supervisors[sid]
+        # then the same traffic with no move (the baseline), a planned
+        # handoff mid-stream, and SIGTERM to the pool server mid-stream
+        baseline = await _moved_burst(sup, prompts, caps, None, "base")
+        planned = await _moved_burst(sup, prompts, caps, sup.handoff, "handoff")
+
+        async def sigterm():
+            os.kill(server_pid, signal.SIGTERM)
+            while sup.handoffs < 2:
+                await asyncio.sleep(0.005)
+            while sup._in_handoff:
+                await asyncio.sleep(0.005)
+
+        preempt = await _moved_burst(sup, prompts, caps, sigterm, "preempt")
+        roads = dict(sup.replay_mismatches_by_road)
+        handoffs, generation, reconnects = sup.handoffs, sup.generation, sup.reconnects
+        await sup.close()
+    finally:
+        await ex_b.close()
+        journal_mod.reset()
+
+    problems = []
+    if banner.get("reattach") is not True or banner.get("pid") != server_pid:
+        problems.append(f"the new dispatcher did not adopt the orphan: banner {banner}")
+    if report["adopted_sessions"] != [sid] or report["orphaned_sessions"]:
+        problems.append(f"adopted {report['adopted_sessions']}, orphaned "
+                        f"{report['orphaned_sessions']}")
+    states = [e["state"] for e in report["resumed_streams"]]
+    crash_streams = [None] * len(prompts)
+    for entry in report["resumed_streams"]:
+        i = index[entry["rid"]]
+        whole = delivered[entry["rid"]][:entry["from"]] + resumed[entry["rid"]]
+        if entry["from"] != len(delivered[entry["rid"]]):
+            problems.append(f"{entry['rid']}: resumed from {entry['from']}, "
+                            f"{len(delivered[entry['rid']])} were delivered")
+        crash_streams[i] = whole
+    unjournaled = [r.rid for r in first if r.rid not in resumed and not r.done]
+    if unjournaled:
+        problems.append(f"in-flight streams not resumed: {unjournaled}")
+    for i, r in enumerate(first):
+        if crash_streams[i] is None and r.done:
+            crash_streams[i] = list(r.tokens)  # finished before the crash
+    bursts = {"crash": crash_streams, "baseline": baseline["results"],
+              "handoff": planned["results"], "preempt": preempt["results"]}
+    for name, streams in bursts.items():
+        differ = [i for i, (got, want) in enumerate(zip(streams, serve_streams)) if got != want]
+        if differ:
+            problems.append(f"{name}: streams {differ} differ from the serve phase's")
+    if handoffs != 2 or reconnects:
+        problems.append(f"{handoffs} handoffs and {reconnects} reconnects, expected 2 and 0")
+    if any(roads.values()):
+        problems.append(f"replayed tokens differ: {roads}")
+    if problems:
+        raise AssertionError("recovery: " + "; ".join(problems))
+    return {
+        "open_s": open_s, "journal_epoch": journal.epoch, "recover_s": recover_s,
+        "recovery_report_s": report["duration_s"],
+        "streams_adopted": len(report["resumed_streams"]),
+        "resume_states": {s: states.count(s) for s in sorted(set(states))},
+        "tokens_reemitted": sum(e["sent"] for e in report["resumed_streams"]),
+        "finished_before_crash": sum(r.done for r in first),
+        "crash_burst_completion_s": resumed_wall_s,
+        "baseline": {k: v for k, v in baseline.items() if k != "results"},
+        "handoff": {k: v for k, v in planned.items() if k != "results"},
+        "preempt": {k: v for k, v in preempt.items() if k != "results"},
+        "added_completion_p50_s": {
+            "handoff": planned["completion_s"]["p50"] - baseline["completion_s"]["p50"],
+            "preempt": preempt["completion_s"]["p50"] - baseline["completion_s"]["p50"]},
+        "handoffs": handoffs, "generations": generation, "reconnects": reconnects,
+        "replay_mismatches": roads,
+        "streams_equal_serve_phase": {name: len(prompts) for name in bursts},
+    }
+
+
+def recovery_phase(serve_streams: list) -> dict:
+    """The serve cell through a dispatcher crash and two moves (docstring,
+    phase 17)."""
+    from covalent_tpu_plugin_torch.models.transformer import lm_125m_config
+
+    start = time.perf_counter()
+    out = asyncio.run(_recovery(serve_streams, lm_125m_config(max_seq=512), "cuda"))
+    out["seconds"] = time.perf_counter() - start
+    return out
 
 
 #: kernel-name fragments of cuBLAS/CUTLASS matrix products
@@ -1672,6 +2203,7 @@ def serve_profile() -> dict:
 
     from covalent_tpu_plugin_torch.models import decode, serve
     from covalent_tpu_plugin_torch.models.transformer import TransformerLM, lm_125m_config
+    from covalent_tpu_plugin_torch.ops import _kernels
 
     model = decode.inference_params(TransformerLM(
         lm_125m_config(max_seq=512), device="cuda",
@@ -1698,11 +2230,13 @@ def serve_profile() -> dict:
         w32 = weight.to(torch.float32)
         lm_head_gemm_ms = device_ms(lambda: torch.nn.functional.linear(feats, w32), 20)
         acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        _kernels.reset_launch_counts()
         with torch.profiler.profile(activities=acts) as prof:
             wall = time.perf_counter()
             step()
             torch.cuda.synchronize()
             wall = time.perf_counter() - wall
+        serving_launches = _kernels.serving_launch_counts()
     events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     spans = [e.time_range for e in events if getattr(e, "is_user_annotation", False)
              and e.name == "decode_attention"]
@@ -1738,6 +2272,7 @@ def serve_profile() -> dict:
         "device_busy_share_unprofiled": step_device_ms / (unprofiled * 1e3),
         "lm_head_cast_ms": lm_head_cast_ms, "lm_head_gemm_ms": lm_head_gemm_ms,
         "device_ms_by_kind": kinds, "kernel_launches": len(kernels),
+        "serving_kernel_launches": serving_launches,
         "top": [{"name": n[:80], "ms": ms, "calls": c} for n, (ms, c) in top],
     }
 
@@ -1817,13 +2352,25 @@ def main() -> int:
     emit({"phase": "profile", "card": smi, **profile_phase()})
 
     emit({"phase": "serve_check", **serve_check()})
-    # The serving path.  It runs no kernel of the port (its attention is
-    # plain products over the KV cache): the electron resets the launch
-    # counts in its own process and reports them, and they must stay 0.
+    # The serving ops' rows at batch 1 and in a batch of 8, on the library
+    # route (the diagnosis) and on the batch-invariant kernels (the repair),
+    # then the kernels' times at the serve cell's shapes.
+    start = time.perf_counter()
+    invariance = batch_invariance_phase()
+    emit({"phase": "batch_invariance", "card": smi, "seconds": time.perf_counter() - start,
+          **invariance})
+    serving_timing = serving_kernels_timing()
+    emit({"phase": "serving_kernels", "card": smi, "shapes": serving_timing})
+    # The serving path.  Its attention over the KV cache runs no flash
+    # kernel, and every product and norm takes the batch-invariant kernels:
+    # the electron resets the launch counts in its own process and reports
+    # them; the flash counts must stay 0, the serving ones not.
     _kernels.reset_launch_counts()
     served = serve_phase()
     if any(_kernels.launch_counts().values()):
         raise AssertionError(f"serve: flash kernels launched {_kernels.launch_counts()}")
+    serving_launches = {name: n + served["serving_launches"][name]
+                        for name, n in _kernels.serving_launch_counts().items()}
     serve_streams = served.pop("_streams")
     emit({"phase": "serve", "card": smi, **served})
     emit({"phase": "serve_profile", "card": smi, **serve_profile()})
@@ -1838,6 +2385,9 @@ def main() -> int:
     replicas, disagg = replica_phases(serve_streams)
     emit({"phase": "replicas", "card": smi, **replicas})
     emit({"phase": "disagg", "card": smi, **disagg})
+    # A journaling dispatcher crashes mid-burst and a second one adopts its
+    # orphaned pool server; then a planned handoff and a SIGTERM notice.
+    emit({"phase": "recovery", "card": smi, **recovery_phase(serve_streams)})
 
     # BASELINE configs 2-4 as lattices: no flash kernel, here or in the
     # MNIST workers (which report their counts).
@@ -1870,6 +2420,27 @@ def main() -> int:
         })
         if launches[kernel.name] < 1:
             raise AssertionError(f"{kernel.name} was not launched on the main path")
+    # The serving kernels port no Pallas kernel: the main path is the serve
+    # phase; the row is the decode step's shape (8 rows), the f32 lm_head
+    # for bi_gemm, its largest product; "shapes" has every other.
+    errs = invariance["kernel_vs_plain"]
+    for kernel, key, ops in (
+            (_kernels.BI_GEMM, "bi_gemm.lm_head_f32.decode_m8",
+             list(BI_DENSE) + ["lm_head_f32", "attention_scores", "attention_mix"]),
+            (_kernels.BI_RMSNORM, "bi_rmsnorm.decode_m8", ["rmsnorm"])):
+        res = serving_timing[key]
+        kernels.append({
+            "name": kernel.name, "route": "cuda",
+            "source": f"covalent_tpu_plugin_torch/csrc/{kernel.source}",
+            "replaces": kernel.replaces, "launches": serving_launches[kernel.name],
+            "max_abs_err": max(errs[stage][op]["max_abs_err"] for stage in errs for op in ops),
+            "ms": res["ms"], "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
+            "bound_by": res["bound_by"], "library_ms": res["library_ms"], "shape": key,
+            "shapes": {k: v for k, v in serving_timing.items()
+                       if k.startswith(kernel.name + ".")},
+        })
+        if serving_launches[kernel.name] < 1:
+            raise AssertionError(f"{kernel.name} was not launched on the serving path")
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

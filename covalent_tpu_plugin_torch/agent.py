@@ -22,9 +22,17 @@ digest that queue in the same event-loop turn (or within
 ``COVALENT_TPU_RPC_BATCH_WINDOW_MS``, up to ``COVALENT_TPU_RPC_BATCH_MAX``)
 leave as one ``multi_invoke`` frame.  The wire counters
 (``covalent_tpu_agent_frames_total``, ``covalent_tpu_agent_wire_bytes_total``)
-count both encodings.  The reference's native C++ agent (ROADMAP item
-2c.6) and the recovery verbs (epoch fence, adopt, serving inventories,
-resume: item 2c.4) are not ported yet.
+count both encodings.
+
+Crash recovery: :meth:`AgentClient.declare_epoch` puts the dispatcher's
+journal epoch on the channel (the worker refuses mutating commands from a
+lower one), :meth:`AgentClient.serve_inventory` and
+:meth:`AgentClient.task_inventory` ask what survives on the worker, and
+:meth:`AgentClient.serve_resume` re-attaches a stream from a token offset.
+A pool server whose dispatcher died waits in orphan mode behind
+``pool_orphan.json`` (:func:`read_orphan_rendezvous`);
+:func:`attach_pool_server` adopts it through the ``--attach`` relay.  The
+reference's native C++ agent (ROADMAP item 2c.6) is not ported yet.
 """
 
 from __future__ import annotations
@@ -139,6 +147,81 @@ async def start_pool_server(
     return client
 
 
+def orphan_rendezvous_path(remote_cache: str) -> str:
+    """Where an orphaned pool server publishes its adoption coordinates."""
+    return f"{remote_cache}/pool_orphan.json"
+
+
+async def read_orphan_rendezvous(conn: Transport, remote_cache: str) -> dict | None:
+    """The worker's ``pool_orphan.json``, or None when no orphan waits."""
+    import tempfile
+
+    path = orphan_rendezvous_path(remote_cache)
+    with tempfile.TemporaryDirectory(prefix="covalent-orphan-") as tmp:
+        local = f"{tmp}/pool_orphan.json"
+        try:
+            await conn.get(path, local)
+            with open(local, "r", encoding="utf-8") as fh:
+                meta = json.load(fh)
+        except (TransportError, OSError, ValueError):
+            return None
+    if not isinstance(meta, dict) or not meta.get("sock"):
+        return None
+    return meta
+
+
+async def attach_pool_server(
+    conn: Transport,
+    remote_cache: str,
+    python_path: str,
+    sock_path: str,
+    epoch: int,
+    timeout: float = 30.0,
+    frames_enabled: bool | None = None,
+) -> "AgentClient":
+    """Adopt an orphaned pool server instead of starting a fresh one.
+
+    Spawns the ``--attach`` stdio relay through the transport (the road a
+    fresh pool server takes, so adoption works wherever a server can be
+    started), sends the epoch-fenced ``adopt`` line, and waits for the
+    orphan's re-attach ready banner.  The orphan refuses a stale epoch
+    with an error event, raised here as :class:`AgentError` so the caller
+    starts a fresh server instead.  The relay forks nothing and imports no
+    CUDA: it pumps bytes between its stdio and the orphan's socket.
+    """
+    remote_harness = f"{remote_cache}/{HARNESS_BASENAME}"
+    command = (
+        f"{python_path} {shlex.quote(remote_harness)} --attach {shlex.quote(sock_path)} "
+        f"2>> {shlex.quote(remote_cache + '/pool_server.log')}"
+    )
+    try:
+        process = await conn.start_process(command, describe=f"adopt@{conn.address}")
+    except TransportError as err:
+        raise AgentError(f"cannot start attach relay on {conn.address}: {err}") from err
+    client = AgentClient(process, conn.address)
+    try:
+        await client._send({"cmd": "adopt", "epoch": int(epoch)})
+
+        def adopted(c: "AgentClient"):
+            if c._banner.get("reattach"):
+                return c._banner
+            code = c._error_codes.get("")
+            if code in ("stale_epoch", "attach_failed"):
+                message = c._errors.pop("", code)
+                c._error_codes.pop("", None)
+                what = "adopt refused: " if code == "stale_epoch" else ""
+                raise AgentError(f"agent@{c.address}: {what}{message}")
+            return None
+
+        await client._wait(adopted, timeout)
+        await client.ping(timeout)
+        await client.negotiate_frames(enabled=frames_enabled)
+    except AgentError:
+        await client.close()
+        raise
+    return client
+
+
 class AgentClient:
     """One pool-server channel, demultiplexing pushed events."""
 
@@ -164,6 +247,11 @@ class AgentClient:
         self._registered: set[str] = set()
         self._register_errors: dict[str, tuple[str, str]] = {}
         self._task_inventory: dict | None = None
+        self._serve_inventory: dict | None = None
+        #: "sid/rid" -> pushed ``serve_resumed`` ack (recovery path), bounded
+        self._serve_resumed: dict[str, dict] = {}
+        #: the last ``epoch_ok`` ack of :meth:`declare_epoch`
+        self._epoch_ack: dict | None = None
         #: ``callback(task_id, record)`` for side-band records of ids with
         #: no serving sink (an RPC invocation's worker records, a watched
         #: file's lines)
@@ -305,6 +393,14 @@ class AgentClient:
                         )
                     elif kind == "task_inventory":
                         self._task_inventory = event
+                    elif kind == "serve_inventory":
+                        self._serve_inventory = event
+                    elif kind == "serve_resumed":
+                        self._serve_resumed[f"{task_id}/{event.get('rid') or ''}"] = event
+                        while len(self._serve_resumed) > 1024:
+                            self._serve_resumed.pop(next(iter(self._serve_resumed)))
+                    elif kind == "epoch_ok":
+                        self._epoch_ack = event
                     elif kind == "serve_opened":
                         self._serve_opened[task_id] = event
                     elif kind == "serve_error":
@@ -315,8 +411,11 @@ class AgentClient:
                         self._pongs += 1
                     elif kind == "error":
                         # An error with an id answers that task's run,
-                        # invoke, kill or watch; an id-less one is logged only.
-                        if task_id:
+                        # invoke, kill or watch; an id-less one is logged
+                        # only, but for the epoch fence's refusal and a
+                        # failed attach relay, which declare_epoch and
+                        # attach_pool_server wait on.
+                        if task_id or event.get("code") in ("stale_epoch", "attach_failed"):
                             self._errors[task_id] = str(event.get("message", "?"))
                             if event.get("code"):
                                 self._error_codes[task_id] = str(event["code"])
@@ -501,12 +600,59 @@ class AgentClient:
         await self._send({"cmd": "unwatch", "id": task_id})
 
     async def task_inventory(self, timeout: float = 30.0) -> dict:
-        """The forked tasks still running on the worker (``tasks``: id, pid)."""
+        """The forked tasks still running on the worker (``tasks``: id,
+        pid) and the worker's epoch fence (``epoch``)."""
         self._task_inventory = None
         await self._send({"cmd": "task_inventory"})
         inventory = await self._wait(lambda c: c._task_inventory, timeout)
         self._task_inventory = None
         return inventory
+
+    # -- crash recovery (epoch fence, inventories, stream resume) ---------
+
+    async def declare_epoch(self, epoch: int, timeout: float = 15.0) -> dict:
+        """Declare this dispatcher's journal epoch on the channel; returns
+        the ``epoch_ok`` ack.  The worker keeps the highest epoch it has
+        seen and refuses mutating commands from channels that declared a
+        lower one: raises :class:`AgentError` when this channel is the
+        stale one."""
+        self._epoch_ack = None
+        self._errors.pop("", None)
+        self._error_codes.pop("", None)
+        await self._send({"cmd": "epoch", "epoch": int(epoch)})
+
+        def settled(c: "AgentClient"):
+            if c._epoch_ack is not None:
+                return c._epoch_ack
+            if c._error_codes.get("") == "stale_epoch":
+                message = c._errors.pop("", "stale epoch")
+                c._error_codes.pop("", None)
+                raise AgentError(f"agent@{c.address}: {message}")
+            return None
+
+        return await self._wait(settled, timeout)
+
+    async def serve_inventory(self, timeout: float = 30.0) -> dict:
+        """The serving sessions that survive in the worker: the
+        ``serve_inventory`` event (per session its sid, factory digest,
+        slots, running rids with their emitted-token counts and the
+        finished ring), and the worker's epoch fence."""
+        self._serve_inventory = None
+        await self._send({"cmd": "serve_inventory"})
+        inventory = await self._wait(lambda c: c._serve_inventory, timeout)
+        self._serve_inventory = None
+        return inventory
+
+    async def serve_resume(self, sid: str, rid: str, start: int, timeout: float = 30.0) -> dict:
+        """Resume one stream from token ``start`` after re-adoption: the
+        worker re-emits its history from there on the side-band (under the
+        lock its live chunks take, so no gap can open) and answers
+        ``serve_resumed`` with what it knows of the rid: ``streaming``,
+        ``done``, ``pending``, ``unknown`` or (a stale channel) ``refused``."""
+        key = f"{sid}/{rid}"
+        self._serve_resumed.pop(key, None)
+        await self._send({"cmd": "serve_resume", "id": sid, "rid": rid, "from": int(start)})
+        return await self._wait(lambda c: c._serve_resumed.pop(key, None), timeout)
 
     def forget(self, task_id: str) -> None:
         """Drop whatever this channel retained for a finished or abandoned

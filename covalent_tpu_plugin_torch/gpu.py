@@ -32,7 +32,18 @@ The pool server is also the runtime ``serving.open_session``,
 on.  Its channel negotiates binary frames at connect (``agent_frames``,
 default True; ``COVALENT_TPU_AGENT_FRAMES`` overrides): RPC args and
 results, KV bundles and streamed tokens then ride raw frame bodies, and a
-channel that stays on JSON lines gives byte-equal results.  The native
+channel that stays on JSON lines gives byte-equal results.
+
+Crash recovery: with ``COVALENT_TPU_JOURNAL_DIR`` set, each electron's
+intent, placement and outcome go to the control-plane journal
+(``fleet/journal.py``), every pool channel is fenced with the journal's
+epoch, and a pool server that a dead dispatcher orphaned is adopted
+(``pool_orphan.json`` and the ``--attach`` relay) before a fresh one is
+started; :meth:`GPUExecutor.recover` then re-adopts its sessions and
+streams (``fleet/recovery.py``).  A journaled electron that was in flight
+is reported, not run again: the checkpoint-resume discovery of the
+reference (``_discover_resume``) comes with ``utils/checkpoint.py`` in
+slice 5b.  The native
 C++ agent comes with ROADMAP item 2c.6; the SSH
 transport, the result cache, fleet, task retries, the ops endpoint and
 multi-process gangs with slice 5b and slice 4.
@@ -47,6 +58,7 @@ import json
 import os
 import pickle
 import shlex
+import time
 import uuid
 from enum import Enum
 from pathlib import Path
@@ -55,9 +67,17 @@ from typing import Any, Callable, NamedTuple
 import cloudpickle
 
 from . import harness as _harness_module
-from .agent import POOL_PRELOAD, AgentClient, AgentError, start_pool_server
+from .agent import (
+    POOL_PRELOAD,
+    AgentClient,
+    AgentError,
+    attach_pool_server,
+    read_orphan_rendezvous,
+    start_pool_server,
+)
 from .cache import CASIndex, FnRegistry, bytes_digest, cas_path
 from .executor_base import RemoteExecutor
+from .fleet import journal as journal_mod
 from .obs import events as obs_events
 from .obs.metrics import REGISTRY
 from .obs.trace import Span, record_span
@@ -586,20 +606,88 @@ class GPUExecutor(RemoteExecutor):
                                         error=repr(err))
                 await client.close()
                 self._agents.pop(conn.address, None)
-            try:
-                client = await start_pool_server(
-                    conn, self.remote_cache, self.python_path, env=self.task_env,
-                    preload=self.pool_preload, frames_enabled=self.agent_frames,
-                )
-            except (AgentError, TransportError) as err:
-                app_log.info("worker %s: no pool runtime (%s); using nohup + poll",
-                             conn.address, err)
-                obs_events.emit("agent.unavailable", address=conn.address, error=repr(err))
-                self._agents[conn.address] = None
-                return None
+            client = await self._try_adopt_orphan(conn)
+            if client is None:
+                try:
+                    client = await start_pool_server(
+                        conn, self.remote_cache, self.python_path, env=self.task_env,
+                        preload=self.pool_preload, frames_enabled=self.agent_frames,
+                    )
+                except (AgentError, TransportError) as err:
+                    app_log.info("worker %s: no pool runtime (%s); using nohup + poll",
+                                 conn.address, err)
+                    obs_events.emit("agent.unavailable", address=conn.address,
+                                    error=repr(err))
+                    self._agents[conn.address] = None
+                    return None
             self._agents[conn.address] = client
+            await self._declare_epoch(client)
             obs_events.emit("agent.started", address=conn.address)
             return client
+
+    async def _declare_epoch(self, client: AgentClient) -> None:
+        """Fence this channel with the journal's dispatcher epoch (nothing
+        without a journal).  Best-effort: fencing is a recovery guarantee,
+        not a dispatch prerequisite."""
+        epoch = journal_mod.epoch()
+        if not epoch:
+            return
+        try:
+            await client.declare_epoch(epoch, timeout=10.0)
+        except (AgentError, TransportError, asyncio.TimeoutError) as err:
+            app_log.debug("epoch declaration on %s failed (%s); channel unfenced",
+                          client.address, err)
+
+    async def _try_adopt_orphan(self, conn: Transport) -> AgentClient | None:
+        """Re-attach a pool server a dead dispatcher orphaned, or None.
+
+        Only with a journal (a dispatcher without one has no epoch to
+        outrank the orphan's): reads ``pool_orphan.json`` from the remote
+        cache, starts the ``--attach`` relay onto its socket through the
+        transport, and adopts it at this incarnation's epoch.  Any failure
+        (no rendezvous, a stale socket, a refused epoch) falls through to a
+        fresh server, which is always correct.
+        """
+        journal = journal_mod.get_journal()
+        if journal is None:
+            return None
+        meta = await read_orphan_rendezvous(conn, self.remote_cache)
+        if not meta:
+            return None
+        if int(meta.get("epoch") or 0) >= journal.epoch:
+            app_log.warning("worker %s: orphan rendezvous carries epoch %s >= ours (%s); "
+                            "not adopting", conn.address, meta.get("epoch"), journal.epoch)
+            return None
+        try:
+            client = await attach_pool_server(
+                conn, self.remote_cache, self.python_path, str(meta.get("sock") or ""),
+                journal.epoch, frames_enabled=self.agent_frames,
+            )
+        except (AgentError, TransportError, asyncio.TimeoutError) as err:
+            app_log.info("worker %s: orphan adoption failed (%s); starting fresh",
+                         conn.address, err)
+            return None
+        app_log.info("worker %s: adopted the orphaned pool server pid=%s with %d surviving "
+                     "session(s)", conn.address, meta.get("pid"),
+                     len(client._banner.get("sessions") or ()))
+        obs_events.emit("agent.adopted", address=conn.address, pid=meta.get("pid"),
+                        epoch=journal.epoch)
+        return client
+
+    async def recover(self, timeout_s: float = 120.0) -> dict:
+        """Crash recovery: re-adopt what survived the previous dispatcher.
+
+        Replays the journal's picture of the dead dispatcher's world,
+        re-dials the worker (adopting its orphaned pool server and fencing
+        the channel with this incarnation's epoch on the way), and
+        re-attaches the surviving sessions and their in-flight streams.
+        Returns a ``recovered=False`` report, touching nothing, when
+        journaling is off or the journal held nothing.  See
+        :mod:`.fleet.recovery`.
+        """
+        from .fleet import recovery as recovery_mod
+
+        return await recovery_mod.recover(self, timeout_s=timeout_s)
 
     async def _discard_workers(self, conns: list[Transport] | None = None) -> None:
         """Drop the pooled channels (``None``: all of them), their pool
@@ -742,6 +830,10 @@ class GPUExecutor(RemoteExecutor):
         root = Span("executor.task", {"operation_id": operation_id,
                                       "dispatch_id": dispatch_id, "node_id": node_id})
         root.__enter__()
+        # Write-ahead intent: an electron in flight when the dispatcher dies
+        # shows in the successor's recovery report; the terminal clears it.
+        journal_mod.record("task", op=operation_id, dispatch_id=dispatch_id, node=node_id,
+                           t_dispatch=time.time())
         self._active_ops.add(operation_id)
         _ACTIVE_ELECTRONS.inc()
         obs_events.emit("task.state", operation_id=operation_id, state="starting",
@@ -753,6 +845,8 @@ class GPUExecutor(RemoteExecutor):
             ran = None
             if self._rpc_preselect(task_metadata):
                 self.last_dispatch_mode = self._op_modes[operation_id] = "rpc"
+                journal_mod.record("task", op=operation_id, operation_id=operation_id,
+                                   attempt=1, mode="rpc")
                 try:
                     ran = await self._run_rpc(root, operation_id, function, args, kwargs)
                 except _RpcUnavailable as unavailable:
@@ -762,6 +856,8 @@ class GPUExecutor(RemoteExecutor):
                                  "launch road", operation_id, unavailable)
             if ran is None:
                 self.last_dispatch_mode = self._op_modes[operation_id] = "launch"
+                journal_mod.record("task", op=operation_id, operation_id=operation_id,
+                                   attempt=1, mode="launch")
                 with Span("executor.stage"):
                     staged = await asyncio.to_thread(
                         self._write_function_files, operation_id, function, args, kwargs,
@@ -779,6 +875,9 @@ class GPUExecutor(RemoteExecutor):
             outcome = "cancelled"
             raise
         finally:
+            journal_mod.record("task_terminal", op=operation_id, outcome=(
+                "ok" if outcome == "completed" else
+                "cancelled" if outcome == "cancelled" else "error"), sync=True)
             self._active_ops.discard(operation_id)
             self._cancelled_ops.discard(operation_id)
             self._op_modes.pop(operation_id, None)

@@ -1,5 +1,6 @@
 """Worker-side bootstrap: ``python harness.py <task_spec.json>``,
-``python harness.py --serve`` or ``python harness.py --zygote``.
+``python harness.py --serve``, ``python harness.py --zygote`` or
+``python harness.py --attach <socket>``.
 
 Counterpart of ``covalent_tpu_plugin/harness.py``.  The executor ships this
 one file to the worker (it imports nothing of the package).
@@ -22,6 +23,10 @@ one file to the worker (it imports nothing of the package).
 * **Zygote** (``harness.py --zygote``): the pool server's fork helper, a
   single-threaded process that has imported the preloads but never
   initialised CUDA (see :func:`zygote`).
+* **Attach relay** (``harness.py --attach <socket>``): pumps its stdio to
+  and from an orphaned pool server's unix socket, so a successor
+  dispatcher adopts the orphan over the road it starts servers on (see
+  :func:`attach_relay`).
 """
 
 from __future__ import annotations
@@ -249,6 +254,18 @@ def run_task(spec: dict) -> int:
 #   {"cmd":"serve_close","id":sid}                  -> {"event":"serve_closed",
 #                                                       "id","served"} after the
 #                                                       drain
+#   {"cmd":"serve_resume","id":sid,"rid":rid,"from":n}
+#                                                   -> the history from n as one
+#                                                      serve.token record
+#                                                      (resumed: true), then
+#                                                      {"event":"serve_resumed",
+#                                                       "id","rid","state","from",
+#                                                       "sent"}
+#   {"cmd":"serve_inventory"}                       -> {"event":"serve_inventory",
+#                                                       "pid","epoch","sessions"}
+#   {"cmd":"epoch","epoch":n}                       -> {"event":"epoch_ok","epoch"}
+#                                                    | {"event":"error",
+#                                                       "code":"stale_epoch"}
 #   {"cmd":"multi_invoke","digest","ops":[...],"args_lens":[...]} (a frame
 #    whose body is the ops' args pickles end to end)
 #                                                   -> {"event":"multi_started",
@@ -269,6 +286,21 @@ def run_task(spec: dict) -> int:
 #
 # Verbs of later items are refused with an ``error`` event naming the item.
 #
+# Crash recovery.  A dispatcher that journals declares its epoch (``epoch``)
+# on every channel; the server keeps the highest it has seen and refuses
+# the mutating commands of a channel that declared a lower one
+# (``stale_epoch``).  Each session keeps every running stream's tokens, and
+# a ring of finished ones, so ``serve_resume`` can re-emit a stream from
+# the offset a restarted dispatcher holds.  When stdin closes and
+# ``COVALENT_TPU_ORPHAN_TTL_S`` > 0, a server with live sessions goes into
+# orphan mode: it writes its protocol to /dev/null, keeps decoding, and
+# waits on a unix socket named in ``pool_orphan.json`` beside this file for
+# one ``{"cmd":"adopt","epoch":n}`` at an epoch no lower than its own; the
+# socket then becomes its channel and a fresh banner (``reattach``) starts
+# the protocol over.  At the TTL it drains and exits.  SIGTERM with live
+# sessions is the preemption notice: ``serve.preempt`` on every session's
+# side-band, and the server keeps serving.
+#
 # Sessions and RPC invocations run in this process on their own threads,
 # and share its one CUDA context.  This process is never forked: once it
 # has touched the card (a session or an RPC electron initialises CUDA), a
@@ -281,10 +313,6 @@ def run_task(spec: dict) -> int:
 _LATER_VERBS = {
     "serve_attach": "slice 3 (LoRA adapters)",
     "serve_detach": "slice 3 (LoRA adapters)",
-    "serve_resume": "ROADMAP item 2c.4 (recovery)",
-    "serve_inventory": "ROADMAP item 2c.4 (recovery)",
-    "epoch": "ROADMAP item 2c.4 (recovery)",
-    "adopt": "ROADMAP item 2c.4 (recovery)",
     "profile_start": "ROADMAP item 2c.5 (serving metrics and tracing)",
     "profile_stop": "ROADMAP item 2c.5 (serving metrics and tracing)",
 }
@@ -293,7 +321,6 @@ _LATER_VERBS = {
 _LATER_MODES = {
     "--rpc-child": "ROADMAP item 2c.6 (the native agent's one-shot RPC runner)",
     "--serve-child": "ROADMAP item 2c.6 (the native agent's serving runner)",
-    "--attach": "ROADMAP item 2c.4 (recovery: orphan adoption)",
 }
 
 #: Per-process record sequence: the dispatcher drops a record whose seq is
@@ -659,6 +686,19 @@ class _ServeSession:
         self.running: dict = {}
         #: rids accepted into the queue and not yet admitted or refused.
         self.queued: set = set()
+        #: every rid ever accepted: a queued request ("pending") against
+        #: one this worker never saw ("unknown") when a stream resumes
+        self.submitted: set = set()
+        #: rid -> every token emitted so far, for running lanes: the
+        #: recovery path's ``serve_resume`` re-emits ``history[from:]``.
+        #: Extended together with each chunk's emission under
+        #: ``_history_lock``, so a resume and a live chunk never leave a gap.
+        self.history: dict = {}
+        #: rid -> {"tokens", "error"} of finished streams, bounded: a stream
+        #: that ended while no dispatcher listened resumes to its whole answer
+        self.finished: dict = {}
+        self.finished_max = 256
+        self._history_lock = threading.Lock()
         #: rids a ``serve_cancel`` asked to kill, drained on the session
         #: thread (running lane -> engine cancel + terminal record;
         #: queued -> skipped at admission).
@@ -702,6 +742,7 @@ class _ServeSession:
         command = dict(command)
         command["_enqueued"] = time.monotonic()
         self.queued.add(rid)
+        self.submitted.add(rid)
         self.queue.put(command)
 
     def submit_prefill(self, command: dict) -> None:
@@ -832,7 +873,60 @@ class _ServeSession:
 
     def _emit_terminal(self, rid: str, idx: int, error: str) -> None:
         """A stream's last record with no tokens: cancelled or out of time."""
-        self._emit_serve("serve.token", rid=rid, idx=idx, tokens=[], done=True, error=error)
+        with self._history_lock:
+            self._emit_serve("serve.token", rid=rid, idx=idx, tokens=[], done=True, error=error)
+            self._finish_history(rid, error)
+
+    def _finish_history(self, rid: str, error: str = "") -> None:
+        """Move one rid's history into the bounded finished ring (the
+        caller holds ``_history_lock``)."""
+        tokens = self.history.pop(rid, [])
+        self.finished[rid] = {"tokens": tokens, "error": error}
+        while len(self.finished) > self.finished_max:
+            self.finished.pop(next(iter(self.finished)))
+
+    def resume(self, rid: str, start: int) -> None:
+        """Re-emit one stream's tokens from ``start`` (the recovery path),
+        then ack with what this worker knows of it: ``streaming`` (a live
+        lane, its tokens re-emitted), ``done`` (the finished ring: the
+        tail and ``done`` re-emitted), ``pending`` (queued, nothing emitted
+        yet) or ``unknown`` (never seen: the dispatcher sends the request
+        again).  The re-emission and any live chunk take the history lock,
+        so the wire sees ``history[start:]`` at idx ``start`` and then
+        chunks that continue from its end; the dispatcher's splice drops
+        any overlap."""
+        start = max(0, int(start or 0))
+        with self._history_lock:
+            if rid in self.running:
+                tokens = list(self.history.get(rid, ())[start:])
+                self._emit_serve("serve.token", rid=rid, idx=start, tokens=tokens,
+                                 done=False, resumed=True)
+                state, sent = "streaming", len(tokens)
+            elif rid in self.finished:
+                entry = self.finished[rid]
+                tokens = list(entry["tokens"][start:])
+                extra = {"error": entry["error"]} if entry.get("error") else {}
+                self._emit_serve("serve.token", rid=rid, idx=start, tokens=tokens,
+                                 done=True, resumed=True, **extra)
+                state, sent = "done", len(tokens)
+            elif rid in self.submitted:
+                state, sent = "pending", 0
+            else:
+                state, sent = "unknown", 0
+        _BATCHER.flush(self.sid)
+        _emit({"event": "serve_resumed", "id": self.sid, "rid": rid,
+               "state": state, "from": start, "sent": sent})
+
+    def inventory(self) -> dict:
+        """This session's entry in the ``serve_inventory`` answer."""
+        with self._history_lock:
+            running = {rid: int(state.get("emitted") or 0)
+                       for rid, state in self.running.items()}
+            finished = {rid: {"tokens": len(entry["tokens"]), "error": entry.get("error") or ""}
+                        for rid, entry in self.finished.items()}
+        return {"sid": self.sid, "digest": self.digest, "slots": self.slots,
+                "served": self.served, "queued": self.queue.qsize(),
+                "running": running, "finished": finished}
 
     def _emit_stats(self) -> None:
         # The engine's own counters (a ContinuousEngine's prefix-tree hits,
@@ -971,8 +1065,11 @@ class _ServeSession:
     def _end_lane(self, rid: str, error: str) -> None:
         """Free a running lane early and close its stream with ``error``."""
         self._cancel_lane(rid)
-        state = self.running.pop(rid)
-        self._emit_terminal(rid, state["emitted"], error)
+        with self._history_lock:
+            state = self.running.pop(rid)
+            self._emit_serve("serve.token", rid=rid, idx=state["emitted"], tokens=[],
+                             done=True, error=error)
+            self._finish_history(rid, error)
         self.served += 1
 
     def _drain_cancels(self) -> None:
@@ -999,6 +1096,8 @@ class _ServeSession:
                 self._emit_reject(rid, "engine_error", repr(err))
                 self._cancel_lane(rid)
                 self.running.pop(rid, None)
+                with self._history_lock:
+                    self._finish_history(rid, "engine_error")
             return
         for event in events:
             rid = str(event.get("rid") or "")
@@ -1010,14 +1109,21 @@ class _ServeSession:
             extra = {k: v for k, v in event.items() if k not in ("rid", "tokens", "done")}
             if done:
                 extra.setdefault("gen_s", round(time.monotonic() - state["t_admit"], 6))
-            idx = state["emitted"]
-            state["emitted"] += len(tokens)
-            self.tokens_total += len(tokens)
-            self._emit_serve("serve.token", rid=rid, idx=idx, tokens=tokens, done=done,
-                             **extra)
-            if done:
-                self.served += 1
-                self.running.pop(rid, None)
+            # history and emission are one unit under the lock a resume
+            # takes: a resume's snapshot holds this chunk, or the chunk's
+            # idx lands at or past the resume's end
+            with self._history_lock:
+                idx = state["emitted"]
+                state["emitted"] += len(tokens)
+                self.tokens_total += len(tokens)
+                if tokens:
+                    self.history.setdefault(rid, []).extend(tokens)
+                self._emit_serve("serve.token", rid=rid, idx=idx, tokens=tokens, done=done,
+                                 **extra)
+                if done:
+                    self.served += 1
+                    self.running.pop(rid, None)
+                    self._finish_history(rid, str(extra.get("error") or ""))
         # the step's chunks leave together, now
         _BATCHER.flush(self.sid)
         # A lane past its deadline is cancelled and closed with an error
@@ -1065,6 +1171,73 @@ class _ServeSession:
             # serve_closed must not overtake a straggler batch either
             _BATCHER.flush()
             _emit({"event": "serve_closed", "id": self.sid, "served": self.served})
+
+
+# ---------------------------------------------------------------------------
+# The dispatcher epoch fence (split-brain guard; reference harness.py:1879-1960).
+# ---------------------------------------------------------------------------
+
+#: ``value`` is the highest epoch this worker has ever seen (an ``epoch``
+#: command, or the adopt handshake); ``channel`` the epoch the current
+#: channel declared.  A channel below the high-water mark belongs to a
+#: dispatcher that crashed and was succeeded: its mutating commands are
+#: refused with ``stale_epoch``.  Both start at 0, so a dispatcher that
+#: never declares an epoch (journaling off) is not fenced.
+_EPOCH = {"value": 0, "channel": 0}
+
+#: Commands that mutate worker state and are fenced.  Reads (ping, the
+#: inventories, watch) stay open to any dispatcher: a stale one can look,
+#: not touch.
+_FENCED_CMDS = frozenset((
+    "run", "register_fn", "invoke", "multi_invoke", "serve_open",
+    "serve_request", "serve_prefill", "serve_close", "serve_resume",
+    "serve_cancel", "serve_attach", "serve_detach", "kill",
+))
+
+
+def _epoch_ok() -> bool:
+    return _EPOCH["channel"] >= _EPOCH["value"]
+
+
+def _handle_epoch_cmd(command: dict) -> None:
+    try:
+        declared = int(command.get("epoch") or 0)
+    except (TypeError, ValueError):
+        declared = 0
+    _EPOCH["channel"] = declared
+    if declared >= _EPOCH["value"]:
+        _EPOCH["value"] = declared
+        _emit({"event": "epoch_ok", "epoch": declared})
+    else:
+        _emit({"event": "error", "id": "", "code": "stale_epoch",
+               "message": f"dispatcher epoch {declared} is stale "
+                          f"(worker has seen {_EPOCH['value']})"})
+
+
+def _refuse_stale(name: str, command: dict) -> None:
+    """Answer one fenced command of a stale dispatcher in the shape its
+    waiter settles on, so the stale dispatcher fails fast."""
+    message = (f"stale dispatcher epoch {_EPOCH['channel']} "
+               f"(worker fenced at {_EPOCH['value']})")
+    sid = str(command.get("id") or "")
+    if name == "serve_request":
+        _emit({"event": "telemetry", "id": sid, "data": _build_worker_event(
+            {}, "serve.reject", rpc=True, rid=str(command.get("rid") or ""),
+            code="stale_epoch", message=message)})
+    elif name == "serve_prefill":
+        _emit({"event": "serve_kv", "id": sid, "rid": str(command.get("rid") or ""),
+               "code": "stale_epoch", "message": message})
+    elif name in ("serve_open", "serve_close"):
+        _emit({"event": "serve_error", "id": sid, "code": "stale_epoch",
+               "message": message, "permanent": True})
+    elif name == "serve_resume":
+        _emit({"event": "serve_resumed", "id": sid, "rid": str(command.get("rid") or ""),
+               "state": "refused", "code": "stale_epoch"})
+    elif name in ("serve_attach", "serve_detach"):
+        _emit({"event": name + "ed", "id": sid, "adapter": str(command.get("adapter") or ""),
+               "code": "stale_epoch", "message": message, "permanent": True})
+    else:
+        _emit({"event": "error", "id": sid, "code": "stale_epoch", "message": message})
 
 
 def _serve_open(command: dict, sessions: dict) -> None:
@@ -1129,6 +1302,34 @@ def _serve_cancel(command: dict, sessions: dict) -> None:
     session = sessions.get(str(command.get("id") or ""))
     if session is not None:
         session.cancel_request(str(command.get("rid") or ""))
+
+
+def _serve_resume(command: dict, sessions: dict) -> None:
+    sid = str(command.get("id") or "")
+    rid = str(command.get("rid") or "")
+    session = sessions.get(sid)
+    if session is None:
+        _emit({"event": "serve_resumed", "id": sid, "rid": rid,
+               "state": "unknown", "from": 0, "sent": 0})
+        return
+    try:
+        start = int(command.get("from") or 0)
+    except (TypeError, ValueError):
+        start = 0
+    session.resume(rid, start)
+
+
+def _serve_inventory(sessions: dict) -> None:
+    entries = []
+    for session in list(sessions.values()):
+        if session._closed.is_set():
+            continue
+        try:
+            entries.append(session.inventory())
+        except Exception:  # noqa: BLE001 - one bad session must not hide the rest
+            pass
+    _emit({"event": "serve_inventory", "pid": os.getpid(), "epoch": _EPOCH["value"],
+           "sessions": entries})
 
 
 # ---------------------------------------------------------------------------
@@ -1334,11 +1535,15 @@ def _run_rpc_task(command: dict, fn) -> None:
         ended = time.time()
         if heartbeat_stop is not None:
             heartbeat_stop.set()
-    _emit_rpc_result(task_id, result, exception, {"start": started, "end": ended}, command)
+    # The finished record goes before the result: a client settles the
+    # invocation and forgets its id on the result, so a record after it
+    # would outlive the task in the client's books, or be lost to a
+    # shutdown that follows the result.
     _emit_rpc_event(
         spec, task_id, "worker.task_finished", process_id=0, ok=exception is None,
         **({"error": repr(exception)} if exception is not None else {}),
     )
+    _emit_rpc_result(task_id, result, exception, {"start": started, "end": ended}, command)
 
 
 def _rpc_invoke(command: dict, registry: dict) -> None:
@@ -1740,9 +1945,7 @@ def _kill_task(command: dict, children: dict) -> None:
 
 
 def _task_inventory(children: dict) -> None:
-    # The reference adds its epoch fence's value; the fence comes with
-    # ROADMAP item 2c.4.
-    _emit({"event": "task_inventory", "pid": os.getpid(),
+    _emit({"event": "task_inventory", "pid": os.getpid(), "epoch": _EPOCH["value"],
            "tasks": [{"id": task_id, "pid": pid} for pid, task_id in children.items()]})
 
 
@@ -1801,6 +2004,281 @@ def _watch(command: dict, watchers: dict) -> None:
     _emit({"event": "watching", "id": task_id})
 
 
+# ---------------------------------------------------------------------------
+# Orphan mode and re-adoption (reference harness.py:3056-3300).
+#
+# A pool server's only channel is the stdin/stdout pipe of the process the
+# dispatcher spawned: when the dispatcher dies, the channel dies, while the
+# resident sessions (weights on the card, running decodes) live on.  With
+# live sessions and ``COVALENT_TPU_ORPHAN_TTL_S`` > 0 the server goes into
+# orphan mode instead of exiting: its protocol output goes to /dev/null, a
+# unix socket beside this file waits for a successor, ``pool_orphan.json``
+# names it, and the sessions keep decoding (each stream's history grows)
+# until one ``adopt`` at an epoch no lower than the fence arrives (the
+# socket becomes the channel, a fresh banner starts the protocol over) or
+# the TTL expires (the sessions drain and the server exits).  Nothing here
+# forks: the process holds a CUDA context.
+# ---------------------------------------------------------------------------
+
+ORPHAN_RENDEZVOUS = "pool_orphan.json"
+
+
+def _orphan_dir() -> str:
+    return os.path.dirname(os.path.abspath(__file__))
+
+
+def _orphan_ttl_s() -> float:
+    try:
+        return float(os.environ.get("COVALENT_TPU_ORPHAN_TTL_S", "0") or 0)
+    except (TypeError, ValueError):
+        return 0.0
+
+
+def _set_proto(stream) -> None:
+    """Point the protocol channel at ``stream`` (under the emit lock, so
+    no message is cut in two) and close the old one."""
+    global _PROTO
+    with _EMIT_LOCK:
+        old, _PROTO = _PROTO, stream
+        try:
+            old.flush()
+        except (OSError, ValueError):
+            pass
+        try:
+            old.close()
+        except (OSError, ValueError):
+            pass
+
+
+def _enter_orphan_mode(sel, sessions: dict) -> dict | None:
+    """Switch a server whose channel died into the wait for adoption;
+    returns the orphan state, or None when orphan mode does not apply (no
+    live session, no TTL, or no socket)."""
+    import selectors
+    import socket
+
+    ttl = _orphan_ttl_s()
+    live = sorted(sid for sid, sess in sessions.items() if not sess._closed.is_set())
+    if ttl <= 0 or not live:
+        return None
+    base = _orphan_dir()
+    sock_path = os.path.join(base, f"pool_orphan.{os.getpid()}.sock")
+    try:
+        os.unlink(sock_path)
+    except OSError:
+        pass
+    try:
+        listener = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+        listener.bind(sock_path)
+        listener.listen(2)
+        listener.setblocking(False)
+    except OSError as err:
+        print(f"orphan socket failed: {err}", file=sys.stderr)
+        return None
+    meta = {"pid": os.getpid(), "sock": sock_path, "epoch": _EPOCH["value"],
+            "sessions": live, "ttl_s": ttl, "t_orphaned": time.time()}
+    rendezvous = os.path.join(base, ORPHAN_RENDEZVOUS)
+    tmp = f"{rendezvous}.tmp.{os.getpid()}"
+    try:
+        with open(tmp, "w", encoding="utf-8") as fh:
+            json.dump(meta, fh)
+            fh.flush()
+            os.fsync(fh.fileno())
+        os.replace(tmp, rendezvous)
+    except OSError as err:
+        print(f"orphan rendezvous failed: {err}", file=sys.stderr)
+        listener.close()
+        return None
+    # The dead pipe goes quiet: every emitter (session threads included)
+    # keeps running, its writes land in /dev/null.
+    _set_proto(open(os.devnull, "wb"))
+    _BATCHER.flush()
+    sel.register(listener, selectors.EVENT_READ, "orphan")
+    print(f"orphaned: {len(live)} session(s) wait {ttl:g} s for adoption on {sock_path}",
+          file=sys.stderr)
+    return {"listener": listener, "sock_path": sock_path, "rendezvous": rendezvous,
+            "deadline": time.monotonic() + ttl}
+
+
+def _orphan_cleanup(sel, orphan: dict) -> None:
+    try:
+        sel.unregister(orphan["listener"])
+    except (KeyError, ValueError):
+        pass
+    try:
+        orphan["listener"].close()
+    except OSError:
+        pass
+    for path in (orphan["sock_path"], orphan["rendezvous"]):
+        try:
+            os.unlink(path)
+        except OSError:
+            pass
+
+
+def _orphan_try_adopt(sel, orphan: dict, sessions: dict) -> bool:
+    """Take one adoption attempt; True when the socket became the channel
+    (the caller starts the protocol over), False to keep waiting."""
+    try:
+        conn, _ = orphan["listener"].accept()
+    except OSError:
+        return False
+    try:
+        conn.setblocking(True)
+        conn.settimeout(10.0)
+        data = b""
+        while not data.endswith(b"\n") and len(data) < 65536:
+            chunk = conn.recv(4096)
+            if not chunk:
+                break
+            data += chunk
+        try:
+            adopt = json.loads(data.decode("utf-8", "replace"))
+        except ValueError:
+            adopt = {}
+        if not isinstance(adopt, dict):
+            adopt = {}
+        try:
+            epoch = int(adopt.get("epoch") or 0)
+        except (TypeError, ValueError):
+            epoch = 0
+        if adopt.get("cmd") != "adopt" or epoch < _EPOCH["value"]:
+            # The fence: a stale dispatcher (or garbage) does not get the
+            # sessions; it is answered, and the wait goes on.
+            try:
+                conn.sendall((json.dumps({
+                    "event": "error", "code": "stale_epoch",
+                    "message": f"adopt epoch {epoch} < fence {_EPOCH['value']}",
+                }) + "\n").encode())
+            except OSError:
+                pass
+            conn.close()
+            return False
+        _EPOCH["value"] = epoch
+        _EPOCH["channel"] = epoch
+        conn.settimeout(None)
+        fd = conn.fileno()
+        os.dup2(fd, 0)
+        _set_proto(os.fdopen(os.dup(fd), "wb"))
+        # the adopted channel starts on JSON lines; the successor
+        # negotiates frames off the fresh banner as any client does
+        _FRAMES["out"] = False
+        _FRAMES["codec"] = ""
+        conn.close()  # fds 0 and the protocol stream hold the socket now
+    except OSError:
+        try:
+            conn.close()
+        except OSError:
+            pass
+        return False
+    _orphan_cleanup(sel, orphan)
+    banner = {"event": "ready", "pid": os.getpid(), "mode": "pool", "reattach": True,
+              "epoch": epoch,
+              "sessions": sorted(sid for sid, sess in sessions.items()
+                                 if not sess._closed.is_set())}
+    if _frames_enabled():
+        banner["frames"] = _FRAME_VERSION
+        banner["codecs"] = ["zlib"]
+    _emit(banner)
+    print(f"adopted at epoch {epoch}", file=sys.stderr)
+    return True
+
+
+def attach_relay(sock_path: str) -> int:
+    """``harness.py --attach <sock>``: bridge stdio onto an orphan's socket.
+
+    A successor dispatcher cannot dial a unix socket on a remote worker,
+    but it can start processes there, so adoption rides the road a fresh
+    pool server takes: the transport starts this relay, which pumps its
+    stdin to the socket and the socket to its stdout.  The adopt line, the
+    fence and the banner all pass through verbatim."""
+    import select as select_mod
+    import socket
+
+    try:
+        sock = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+        sock.connect(sock_path)
+    except OSError as err:
+        sys.stdout.write(json.dumps({"event": "error", "code": "attach_failed",
+                                     "message": f"connect {sock_path}: {err}"}) + "\n")
+        sys.stdout.flush()
+        return 3
+    sock.setblocking(True)
+    sfd = sock.fileno()
+
+    def write_all(fd: int, data: bytes) -> bool:
+        while data:
+            try:
+                n = os.write(fd, data)
+            except OSError:
+                return False
+            data = data[n:]
+        return True
+
+    try:
+        while True:
+            ready, _, _ = select_mod.select([0, sfd], [], [])
+            if 0 in ready:
+                data = os.read(0, 65536)
+                if not data:
+                    break  # the dispatcher hung up: the orphan waits again
+                try:
+                    sock.sendall(data)
+                except OSError:
+                    break
+            if sfd in ready:
+                data = sock.recv(65536)
+                if not data:
+                    break  # the server closed (refused, or exited)
+                if not write_all(1, data):
+                    break
+    finally:
+        try:
+            sock.close()
+        except OSError:
+            pass
+    return 0
+
+
+def _announce_preemption(sessions: dict, reason: str = "sigterm") -> None:
+    """Emit ``serve.preempt`` on every live session's side-band."""
+    for session in list(sessions.values()):
+        try:
+            session._emit_serve("serve.preempt", reason=reason)
+        except Exception:  # noqa: BLE001 - the notice is best-effort
+            pass
+    try:
+        _BATCHER.flush()
+    except Exception:  # noqa: BLE001
+        pass
+
+
+def _install_serve_preempt_notice(sessions: dict) -> None:
+    """SIGTERM on a server with live sessions is the spot preemption
+    notice: announce ``serve.preempt`` on every session and keep serving.
+    The dispatcher's supervisor hands the sessions off to a fresh server
+    inside the grace window; the preempter's hard kill (or the channel's
+    death) ends this process, not the notice.  With no session, SIGTERM
+    ends the process as before."""
+    import signal
+
+    def on_term(signum, frame):
+        if not any(not sess._closed.is_set() for sess in sessions.values()):
+            signal.signal(signal.SIGTERM, signal.SIG_DFL)
+            os.kill(os.getpid(), signal.SIGTERM)
+            return
+        # Never write the channel from the handler: it runs on the main
+        # thread, which may hold the emit lock at delivery.  A helper
+        # thread takes the lock as any emitter does.
+        threading.Thread(target=_announce_preemption, args=(sessions,),
+                         name="covalent-gpu-preempt-notice", daemon=True).start()
+
+    try:
+        signal.signal(signal.SIGTERM, on_term)
+    except (ValueError, OSError):  # pragma: no cover - not the main thread
+        pass
+
+
 def serve() -> int:
     """The pool server's command loop (see the protocol above).
 
@@ -1811,7 +2289,10 @@ def serve() -> int:
     so the two cold starts overlap.  When stdin closes or ``shutdown``
     arrives the server exits, and its sessions and invocations with it (a
     reconnecting dispatcher re-opens them on a fresh server); forked tasks
-    run on, and the zygote exits after them.
+    run on, and the zygote exits after them.  With live sessions and
+    ``COVALENT_TPU_ORPHAN_TTL_S`` > 0 a closed stdin means orphan mode
+    instead (see above); SIGTERM with live sessions is the preemption
+    notice.
     """
     global _PROTO
     import selectors
@@ -1825,6 +2306,9 @@ def serve() -> int:
     _preload()
 
     sessions: dict = {}
+    _install_serve_preempt_notice(sessions)
+    #: the orphan state while the TTL runs, None otherwise
+    orphan: dict | None = None
     #: pid -> task id of every forked task still running
     children: dict = {}
     #: task id -> {"path", "pos", "buf"}: telemetry files tailed (watch)
@@ -1842,7 +2326,8 @@ def serve() -> int:
     _emit(banner)
     try:
         while True:
-            for key, _ in sel.select(timeout=0.25 if watchers else None):
+            tick = 0.25 if (watchers or orphan is not None) else None
+            for key, _ in sel.select(timeout=tick):
                 if key.data == "zygote":
                     events = zygote_proc.read()
                     if events is None:
@@ -1858,9 +2343,21 @@ def serve() -> int:
                     for event in events:
                         _on_zygote_event(event, children, watchers)
                     continue
+                if key.data == "orphan":
+                    if orphan is not None and _orphan_try_adopt(sel, orphan, sessions):
+                        # the socket is the channel now: the protocol starts
+                        # over on it (stale inbound bytes dropped)
+                        orphan = None
+                        buffer.clear()
+                        sel.register(0, selectors.EVENT_READ, "stdin")
+                    continue
                 data = os.read(0, 65536)
                 if not data:
-                    return 0  # channel dropped
+                    sel.unregister(0)
+                    orphan = _enter_orphan_mode(sel, sessions)
+                    if orphan is None:
+                        return 0  # channel dropped
+                    continue
                 buffer.extend(data)
                 for command in _extract_commands(buffer):
                     name = command.get("cmd")
@@ -1868,8 +2365,16 @@ def serve() -> int:
                         _emit({"event": "pong"})
                     elif name == "frames":
                         _handle_frames_cmd(command)
+                    elif name == "epoch":
+                        _handle_epoch_cmd(command)
+                    elif name == "serve_inventory":
+                        _serve_inventory(sessions)
                     elif name == "task_inventory":
                         _task_inventory(children)
+                    elif name in _FENCED_CMDS and not _epoch_ok():
+                        _refuse_stale(name, command)
+                    elif name == "serve_resume":
+                        _serve_resume(command, sessions)
                     elif name == "run":
                         _spawn_task(command, zygote_proc)
                     elif name == "register_fn":
@@ -1906,6 +2411,14 @@ def serve() -> int:
                                           f"{_LATER_VERBS[name]}"})
                     else:
                         _emit({"event": "error", "message": f"unknown cmd: {name}"})
+            if orphan is not None and time.monotonic() >= orphan["deadline"]:
+                # the TTL is spent with no successor: drain and exit rather
+                # than hold the model's memory on the card for ever
+                _orphan_cleanup(sel, orphan)
+                print("orphan TTL spent: draining and exiting", file=sys.stderr)
+                for session in list(sessions.values()):
+                    session.close()
+                return 0
             _pump_watchers(watchers)
     finally:
         zygote_proc.close()
@@ -1916,12 +2429,15 @@ def main(argv: list[str]) -> int:
         return serve()
     if len(argv) == 2 and argv[1] == "--zygote":
         return zygote()
+    if len(argv) >= 3 and argv[1] == "--attach":
+        return attach_relay(argv[2])
     if len(argv) >= 2 and argv[1] in _LATER_MODES:
         print(f"harness.py {argv[1]} is not ported yet: it comes with "
               f"{_LATER_MODES[argv[1]]}", file=sys.stderr)
         return 2
     if len(argv) != 2:
-        print("usage: harness.py <task_spec.json> | --serve", file=sys.stderr)
+        print("usage: harness.py <task_spec.json> | --serve | --attach <socket>",
+              file=sys.stderr)
         return 2
     # Become a session/process-group leader: a kill of `-- -pid` then reaches
     # the electron's own subprocesses too.

@@ -25,7 +25,13 @@ from .train import (
     train_lm,
     train_mnist,
 )
-from .transformer import LayerCache, TransformerConfig, TransformerLM, lm_125m_config
+from .transformer import (
+    LayerCache,
+    TransformerConfig,
+    TransformerLM,
+    lm_125m_config,
+    use_batch_invariant,
+)
 
 __all__ = [
     "MLP",
@@ -58,4 +64,5 @@ __all__ = [
     "synthetic_mnist",
     "train_lm",
     "train_mnist",
+    "use_batch_invariant",
 ]

@@ -6,6 +6,8 @@ into each layer's cache, then each decode step appends one token at the
 cache cursor and attends the cached prefix.  The reference runs the loop as
 one compiled ``lax.while_loop``; here it is an eager Python loop over the
 same steps, with the same early exit once every row has emitted EOS.
+``generate`` turns the model's batch-invariant route on
+(``transformer.use_batch_invariant``), as every serving entry point does.
 
 Sampling draws from an explicit ``torch.Generator``; the reference's
 ``jax.random`` streams cannot be reproduced, so the two agree on greedy
@@ -19,7 +21,7 @@ import numpy as np
 import torch
 
 from ..ops.attention import NEG_INF
-from .transformer import LayerCache, TransformerLM
+from .transformer import LayerCache, TransformerLM, use_batch_invariant
 
 
 def init_cache(model: TransformerLM, batch_size: int) -> list[LayerCache]:
@@ -155,6 +157,7 @@ def generate(
     """
     config = model.config
     device = model.embedding.device
+    use_batch_invariant(model)
     if not isinstance(prompt, torch.Tensor):
         prompt = torch.as_tensor(np.asarray(prompt))
     prompt = prompt.to(device=device, dtype=torch.long)

@@ -59,6 +59,7 @@ from .transformer import (
     TransformerLM,
     lm_125m_config,
     resolve_device,
+    use_batch_invariant,
 )
 
 #: Version of this package's KV bundle (``prefill_only``'s output).  The
@@ -314,6 +315,7 @@ def continuous_generate(
     """
     config = model.config
     _require_plain_cache(config, "continuous_generate")
+    use_batch_invariant(model)
     caps = None
     if isinstance(max_new_tokens, (float, np.floating)):
         max_new_tokens = int(max_new_tokens)
@@ -553,6 +555,7 @@ class ContinuousEngine:
     ) -> None:
         config = model.config
         _require_plain_cache(config, "ContinuousEngine")
+        use_batch_invariant(model)
         if draft_model is not None:
             raise NotImplementedError(
                 f"draft_model (speculative decoding) is not ported yet: it comes with {SLICE_3}"
@@ -1110,8 +1113,9 @@ def serve_lm(
       engine row against batch-1 ``generate``, and the prefill logits of an
       int8 KV cache against the float cache.
 
-    Runs on the card unless ``device="cpu"``.  The flash kernels' launch
-    counts cover the whole electron (the decode path runs none of them).
+    Runs on the card unless ``device="cpu"``.  The launch counts cover the
+    whole electron: the flash kernels' (the decode path runs none of them)
+    and the batch-invariant kernels' (every serving product and norm).
     """
     device = resolve_device(device)
     cuda = device.type == "cuda"
@@ -1216,6 +1220,7 @@ def serve_lm(
         "kv_int8_logit_cosine": cosine,
         "logits_finite": finite,
         "flash_launches": _kernels.launch_counts(),
+        "serving_launches": _kernels.serving_launch_counts(),
         "peak_mem_bytes": torch.cuda.max_memory_allocated(device) if cuda else None,
         "n_params": model.parameter_count(),
         "device": torch.cuda.get_device_name(device) if cuda else "cpu",

@@ -8,6 +8,12 @@ follows the reference (casts included), so weights converted with
 tensors ``attention="auto"`` resolves to the hand-written flash kernels;
 elsewhere to the dense reference.
 
+The serving entry points call :func:`use_batch_invariant`, which routes
+the dense products, the decode attention's two products and RMSNorm
+through the batch-invariant kernels of :mod:`..ops.batch_invariant` (a row
+computes the same bits whatever shares its batch, the reference engine's
+contract).  Training keeps the library products.
+
 Incremental decoding passes an explicit KV cache, one :class:`LayerCache`
 per layer (``models/decode.py: init_cache``), to ``forward(tokens,
 cache=...)``, which updates it in place: the reference keeps the same state
@@ -28,6 +34,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import batch_invariant as bi
 from ..ops.attention import NEG_INF, flash_attention, mha_reference, on_cuda
 
 #: Config knobs that later slices of the port bring, with the slice that
@@ -118,6 +125,16 @@ def lm_125m_config(**overrides) -> TransformerConfig:
     return TransformerConfig(**overrides)
 
 
+def use_batch_invariant(model: "TransformerLM") -> "TransformerLM":
+    """Route ``model``'s dense products, decode-attention products and
+    RMSNorms through the batch-invariant kernels (plain versions on the
+    CPU): the serving entry points' route.  Returns ``model``."""
+    for module in model.modules():
+        if isinstance(module, (Dense, RMSNorm, Attention)):
+            module.batch_invariant = True
+    return model
+
+
 def resolve_device(device=None) -> torch.device:
     """The card unless the caller names another device; never a silent CPU."""
     device = torch.device("cuda" if device is None else device)
@@ -194,6 +211,8 @@ class Dense(nn.Module):
     """Bias-free dense layer with the reference's dtype rule: inputs and the
     (param_dtype) weight are both cast to ``dtype`` before the product."""
 
+    batch_invariant = False
+
     def __init__(self, in_features: int, out_features: int, dtype, param_dtype,
                  std: float, device, generator):
         super().__init__()
@@ -204,11 +223,14 @@ class Dense(nn.Module):
         nn.init.normal_(self.weight, 0.0, std, generator=generator)
 
     def forward(self, x):
-        return F.linear(x.to(self.dtype), self.weight.to(self.dtype))
+        linear = bi.linear if self.batch_invariant else bi.linear_plain
+        return linear(x, self.weight, self.dtype)
 
 
 class RMSNorm(nn.Module):
     """RMSNorm in f32 (eps 1e-6, f32 scale), cast back to ``dtype``."""
+
+    batch_invariant = False
 
     def __init__(self, dim: int, dtype, device):
         super().__init__()
@@ -216,12 +238,13 @@ class RMSNorm(nn.Module):
         self.scale = nn.Parameter(torch.ones(dim, dtype=torch.float32, device=device))
 
     def forward(self, x):
-        x32 = x.float()
-        norm = x32 * torch.rsqrt((x32 * x32).mean(dim=-1, keepdim=True) + 1e-6)
-        return (norm * self.scale).to(self.dtype)
+        norm = bi.rms_norm if self.batch_invariant else bi.rms_norm_plain
+        return norm(x, self.scale, self.dtype)
 
 
 class Attention(nn.Module):
+    batch_invariant = False
+
     def __init__(self, cfg: TransformerConfig, device, generator):
         super().__init__()
         self.cfg = cfg
@@ -334,9 +357,11 @@ class Attention(nn.Module):
             # The reference multiplies the dtype operands with an f32 result
             # (preferred_element_type).  Here both operands are upcast to f32
             # before the product: exact for bf16 inputs, f32 accumulation.
-            scores = torch.einsum(
-                "bqhgd,bshd->bhgqs", qg.float(), attend_k.to(cfg.dtype).float()
-            ) * (cfg.head_dim ** -0.5)
+            scores_fn, mix_fn = (
+                (bi.attention_scores, bi.attention_mix) if self.batch_invariant
+                else (bi.attention_scores_plain, bi.attention_mix_plain)
+            )
+            scores = scores_fn(qg, attend_k.to(cfg.dtype)) * (cfg.head_dim ** -0.5)
             if quant:
                 # the scale is constant over D: applied after the product
                 scores = scores * attend_ks[..., 0].transpose(1, 2)[:, :, None, None, :]
@@ -357,9 +382,7 @@ class Attention(nn.Module):
             probs = probs.to(cfg.dtype)
             # P is rounded to the activation dtype first, as the reference;
             # the product again upcasts to f32
-            out = torch.einsum(
-                "bhgqs,bshd->bqhgd", probs.float(), attend_v.to(cfg.dtype).float()
-            )
+            out = mix_fn(probs, attend_v.to(cfg.dtype))
         out = out.reshape(batch, slab, cfg.n_heads * cfg.head_dim)
         return self.out_proj(out.to(cfg.dtype))
 

@@ -10,7 +10,10 @@ The wrappers take CUDA tensors only: they check device, type, shape and
 contiguity, allocate the outputs with ``torch.empty``, launch on the current
 stream without synchronising, raise if the launch reported a CUDA error, and
 count the launch.  The plain PyTorch versions of the same functions live in
-:mod:`.attention`, which picks between the two by the tensors' device.
+:mod:`.attention` (the flash sweeps, which port the reference's Pallas
+kernels) and :mod:`.batch_invariant` (the serving products and RMSNorm,
+which port no Pallas kernel), each picking between the two by the tensors'
+device.
 """
 
 from __future__ import annotations
@@ -41,8 +44,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
 class Kernel:
-    """One CUDA kernel: its source, its C entry point, the TPU kernel it
-    replaces (``file:line`` of the Pallas kernel body) and its launch count."""
+    """One CUDA kernel: its source, its C entry point, what it replaces
+    (``file:line`` of the Pallas kernel body, or of the reference op XLA
+    computes where there is no Pallas kernel) and its launch count."""
 
     def __init__(self, name: str, source: str, argtypes: list, replaces: str):
         self.name = name
@@ -88,7 +92,22 @@ FLASH_BWD_DQ = Kernel(
     [_P] * 9 + [_I] * 7 + [_F] + [_I] * 3 + [_P],
     "covalent_tpu_plugin/ops/attention.py:694",
 )
+#: The ports of the reference's three Pallas kernels (the training path).
 KERNELS = (FLASH_FWD, FLASH_BWD_DKDV, FLASH_BWD_DQ)
+
+_I64 = ctypes.c_int64
+_I64P = ctypes.POINTER(ctypes.c_int64)
+BI_GEMM = Kernel(
+    "bi_gemm", "bi_gemm.cu", [_P] * 3 + [_I] * 3 + [_I64P, _I64P, _P],
+    "covalent_tpu_plugin/models/transformer.py:467 (no Pallas kernel: XLA's dense "
+    "and decode-attention products)",
+)
+BI_RMSNORM = Kernel(
+    "bi_rmsnorm", "bi_rmsnorm.cu", [_P] * 3 + [_I] * 3 + [_I64, _I64, _F, _P],
+    "covalent_tpu_plugin/models/transformer.py:183 (no Pallas kernel: XLA's RMSNorm)",
+)
+#: The serving paths' batch-invariant kernels (ops/batch_invariant.py).
+SERVING_KERNELS = (BI_GEMM, BI_RMSNORM)
 
 _build_lock = threading.Lock()
 
@@ -125,7 +144,8 @@ def build() -> dict[str, Path]:
     """
     with _build_lock:
         out = BUILD_ROOT / sources_digest()
-        libs = {k.source: out / f"lib{Path(k.source).stem}.so" for k in KERNELS}
+        libs = {k.source: out / f"lib{Path(k.source).stem}.so"
+                for k in KERNELS + SERVING_KERNELS}
         missing = {src: lib for src, lib in libs.items() if not lib.exists()}
         if not missing:
             return libs
@@ -151,12 +171,18 @@ def build() -> dict[str, Path]:
 
 
 def reset_launch_counts() -> None:
-    for kernel in KERNELS:
+    for kernel in KERNELS + SERVING_KERNELS:
         kernel.launches = 0
 
 
 def launch_counts() -> dict[str, int]:
+    """Launches of the flash kernels (the training path's)."""
     return {kernel.name: kernel.launches for kernel in KERNELS}
+
+
+def serving_launch_counts() -> dict[str, int]:
+    """Launches of the serving paths' batch-invariant kernels."""
+    return {kernel.name: kernel.launches for kernel in SERVING_KERNELS}
 
 
 def _check(tensors: dict, dtype: torch.dtype, device: torch.device) -> None:
@@ -271,3 +297,73 @@ def flash_bwd_dq(q, k, v, dout, lse, delta, qpos, kpos, causal: bool,
         *_band(causal, window, sinks), torch.cuda.current_stream(q.device).cuda_stream,
     )
     return dq
+
+
+#: input and output types of the batch-invariant kernels (csrc/bi_*.cu)
+_BI_DTYPES = {torch.float32: 0, torch.bfloat16: 2}
+
+
+def _bi_check(tensors: dict) -> None:
+    for name, t in tensors.items():
+        if t.device.type != "cuda":
+            raise ValueError(f"the CUDA kernels take CUDA tensors, got {name} on {t.device}")
+        if t.dtype not in _BI_DTYPES:
+            raise ValueError(f"{name} has dtype {t.dtype}; the batch-invariant kernels take "
+                             "float32 and bfloat16")
+
+
+def _batch5(t: torch.Tensor) -> torch.Tensor:
+    """``t`` (up to 3 leading batch dims, then 2) as a 5-dim view."""
+    if not 2 <= t.dim() <= 5:
+        raise ValueError(f"expected 2 to 5 dims, got shape {tuple(t.shape)}")
+    return t[(None,) * (5 - t.dim())]
+
+
+def bi_gemm(a: torch.Tensor, w: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """``out[..., m, n] = sum_k a[..., m, k] * w[..., n, k]`` with f32
+    accumulation in a fixed order (csrc/bi_gemm.cu), written into ``out``
+    through its strides.  Up to three leading batch dims; ``a`` and ``w``
+    broadcast over them (stride 0).  Any strides, f32 or bf16 each."""
+    _bi_check({"a": a, "w": w, "out": out})
+    a5, w5, c5 = _batch5(a), _batch5(w), _batch5(out)
+    batch = tuple(c5.shape[:3])
+    a5 = a5.expand(*batch, *a5.shape[3:])
+    w5 = w5.expand(*batch, *w5.shape[3:])
+    m, k = a5.shape[3:]
+    n = w5.shape[3]
+    if w5.shape[4] != k or tuple(c5.shape[3:]) != (m, n):
+        raise ValueError(f"bi_gemm: a {tuple(a.shape)}, w {tuple(w.shape)} and out "
+                         f"{tuple(out.shape)} do not make out = a . w^T")
+    if min(m, n, k) < 1:
+        raise ValueError("bi_gemm: empty product")
+    sizes = (ctypes.c_int64 * 6)(*batch, m, n, k)
+    strides = (ctypes.c_int64 * 15)(*a5.stride(), *w5.stride(), *c5.stride())
+    BI_GEMM.launch(
+        _ptr(a), _ptr(w), _ptr(out), _BI_DTYPES[a.dtype], _BI_DTYPES[w.dtype],
+        _BI_DTYPES[out.dtype], sizes, strides,
+        torch.cuda.current_stream(a.device).cuda_stream,
+    )
+    return out
+
+
+def bi_rmsnorm(x: torch.Tensor, scale: torch.Tensor, out_dtype: torch.dtype,
+               eps: float) -> torch.Tensor:
+    """RMSNorm of each row of ``x`` (contiguous, rows along the last dim)
+    in f32 with one block a row (csrc/bi_rmsnorm.cu), times ``scale``, in
+    ``out_dtype``."""
+    _bi_check({"x": x, "scale": scale})
+    if out_dtype not in _BI_DTYPES:
+        raise ValueError(f"unsupported output dtype {out_dtype}")
+    cols = x.shape[-1]
+    if not x.is_contiguous() or not scale.is_contiguous() or scale.shape != (cols,):
+        raise ValueError(f"bi_rmsnorm: x {tuple(x.shape)} and scale {tuple(scale.shape)} "
+                         "must be contiguous, scale one value a column")
+    if x.numel() == 0:
+        raise ValueError("bi_rmsnorm: empty input")
+    y = torch.empty(x.shape, dtype=out_dtype, device=x.device)
+    BI_RMSNORM.launch(
+        _ptr(x), _ptr(scale), _ptr(y), _BI_DTYPES[x.dtype], _BI_DTYPES[scale.dtype],
+        _BI_DTYPES[out_dtype], x.numel() // cols, cols, eps,
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    return y

@@ -6,7 +6,10 @@ Own copy of ``covalent_tpu_plugin/serving``:
 * :func:`open_session` — ship a model factory by digest, open ONE session on
   the executor's resident pool server, get a :class:`ServeHandle` back.
 * :class:`SessionSupervisor` — the supervised session behind it: reconnect
-  after channel death, exactly-once ``idx``-spliced stream replay.
+  after channel death, exactly-once ``idx``-spliced stream replay, the warm
+  handoff (planned, or on the worker's SIGTERM preemption notice), and the
+  journal records from which ``fleet.recovery.recover`` re-adopts a
+  session that outlived its dispatcher (``adopt``/``resume_stream``).
 * :func:`open_replica_set` — N sessions of one factory behind a
   :class:`ReplicaRouter` (sticky, prefix affinity, least-loaded, in
   per-tenant DRR order), with health, canaries, hedging, drain-on-death
@@ -15,9 +18,9 @@ Own copy of ``covalent_tpu_plugin/serving``:
   and a decode tier, joined by content-addressed KV bundles that ride
   binary frames.
 
-Recovery and handoff (ROADMAP item 2c.4), per-session serving metrics and
-profiling (2c.5), the native agent (2c.6) and fleet ``Pool`` targets
-(2c.7) are not ported yet.
+Per-session serving metrics and profiling (ROADMAP item 2c.5), the native
+agent (2c.6), fleet ``Pool`` targets (2c.7) and LoRA adapters (slice 3)
+are not ported yet.
 """
 
 from .disagg import DisaggregatedSet, open_disaggregated_set

@@ -8,14 +8,15 @@ by digest, and opened on the executor's resident pool server
 ``serve_request`` line on the held-open channel, and the response streams
 back incrementally as ``serve.token`` records, so time to first token is
 one decode chunk, not the end of a batch.  Reconnect and exactly-once
-replay live in :class:`~.supervisor.SessionSupervisor`.
+replay, the warm handoff (:meth:`ServeHandle.handoff`) and the journal
+records crash recovery reads live in :class:`~.supervisor.SessionSupervisor`.
 
 Several sessions of one factory behind a router are a
 :class:`~.replicas.ReplicaSet` (``open_replica_set``); split into prefill
 and decode tiers, a :class:`~.disagg.DisaggregatedSet`.
 
 Refused until later items, with :class:`NotImplementedError`: a fleet
-``Pool`` as the target (ROADMAP item 2c.7), ``handoff`` (item 2c.4),
+``Pool`` as the target (ROADMAP item 2c.7),
 ``attach_adapter``/``detach_adapter`` (slice 3's LoRA) and
 ``capture_profile`` (item 2c.5).
 """
@@ -35,7 +36,6 @@ __all__ = ["ServeError", "ServeHandle", "ServeRequest", "ServeRequestRejected",
            "open_session"]
 
 POOL_TARGETS = "ROADMAP item 2c.7 (fleet Pool targets and pinning)"
-RECOVERY = "ROADMAP item 2c.4 (recovery and handoff)"
 PROFILING = "ROADMAP item 2c.5 (serving metrics and tracing)"
 ADAPTERS = "slice 3 (LoRA adapters)"
 
@@ -103,6 +103,16 @@ class ServeHandle:
         return self._sup.reconnects
 
     @property
+    def handoffs(self) -> int:
+        return self._sup.handoffs
+
+    async def handoff(self, reason: str = "planned") -> bool:
+        """Warm drain-and-reopen onto a fresh generation (planned churn):
+        the replacement opens before the old one is retired, and every
+        in-flight stream is spliced exactly once across the move."""
+        return await self._sup.handoff(reason=reason)
+
+    @property
     def replay_mismatches(self) -> int:
         """Replayed tokens that differed from those already delivered."""
         return self._sup.replay_mismatches
@@ -141,9 +151,6 @@ class ServeHandle:
         return await self._sup.close(timeout)
 
     # -- refused until later items --------------------------------------------
-
-    async def handoff(self, reason: str = "planned") -> bool:
-        raise NotImplementedError(f"handoff is not ported yet: it comes with {RECOVERY}")
 
     async def attach_adapter(self, name: str, payload: Any = None, **_: Any) -> dict:
         raise NotImplementedError(f"attach_adapter is not ported yet: it comes with {ADAPTERS}")

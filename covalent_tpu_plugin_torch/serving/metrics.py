@@ -1,6 +1,6 @@
-"""Serving metrics of the replica sets and the disaggregated set.
+"""Serving metrics of the replica sets, the disaggregated set and handoffs.
 
-Own copy of the replica-set, router, hedging and KV-transfer families of
+Own copy of the replica-set, router, hedging, KV-transfer and handoff families of
 ``covalent_tpu_plugin/serving/metrics.py`` (same names, labels and
 buckets), so one dashboard reads either package.  Label cardinality is
 low: every ``outcome``/``state``/``path`` label is a closed set.  The
@@ -86,5 +86,16 @@ SERVE_DISAGG_REQUESTS_TOTAL = REGISTRY.counter(
 SERVE_HEDGES_TOTAL = REGISTRY.counter(
     "covalent_tpu_serve_hedges_total",
     "Tail-latency hedge decisions by outcome",
+    ("outcome",),
+)
+
+# -- warm handoff --------------------------------------------------------------
+# ``outcome``: ok (the session runs on the replacement generation), failed
+# (the replacement did not open; the reconnect road still guards the old
+# one).
+
+SERVE_HANDOFFS_TOTAL = REGISTRY.counter(
+    "covalent_tpu_serve_handoffs_total",
+    "Warm session handoffs (replacement opened BEFORE the old gang died)",
     ("outcome",),
 )

@@ -35,9 +35,10 @@ failure semantics, only placement:
 
 Targets are ``GPUExecutor``\\ s; a fleet ``Pool`` target is refused
 (ROADMAP item 2c.7), and so are ``attach_adapter``/``detach_adapter``
-(slice 3), though the router keeps its adapter-site bookkeeping.  The
-journal records of the reference come with item 2c.4, its tracing spans
-with item 2c.5.
+(slice 3), though the router keeps its adapter-site bookkeeping.  With
+journaling on, the set records its target size (``replica_set``) and each
+member's entry and exit (``replica``) beside its supervisors' session and
+stream records; its tracing spans come with ROADMAP item 2c.5.
 """
 
 from __future__ import annotations
@@ -52,6 +53,7 @@ from typing import Any, Callable
 import cloudpickle
 
 from ..cache import bytes_digest
+from ..fleet import journal as journal_mod
 from ..fleet.health import DEGRADED, HEALTH, PROBING, QUARANTINED
 from ..fleet.queue import DEFAULT_TENANT, FairWorkQueue, QueueFullError, WorkItem
 from ..obs import events as obs_events
@@ -72,7 +74,7 @@ __all__ = ["ReplicaView", "ReplicaRouter", "ReplicaSet", "open_replica_set"]
 _REPLICA_STATES = ("open", "reconnecting", "failed", "closed")
 
 #: Roads a replayed token can come by (``SessionSupervisor._replay_road``).
-_REPLAY_ROADS = ("reconnect", "reroute", "hedge")
+_REPLAY_ROADS = ("reconnect", "reroute", "hedge", "handoff", "preempt")
 
 
 class ReplicaView:
@@ -631,6 +633,7 @@ class ReplicaSet:
         else:
             self.router.set_queue_max(self._router_queue_max)
         self._publish_replica_states()
+        journal_mod.record("replica_set", name=self.name, replicas=self.replicas_wanted)
         obs_events.emit("serve.replica_set_opened", set=self.name,
                         replicas=len(self._replicas), wanted=self.replicas_wanted)
         return self
@@ -662,6 +665,7 @@ class ReplicaSet:
             self._replicas.pop(replica_id, None)
             self._placements.pop(replica_id, None)
             raise
+        journal_mod.record("replica", set=self.name, sid=supervisor.sid, replica=index)
         self._publish_replica_states()
         return supervisor
 
@@ -938,7 +942,9 @@ class ReplicaSet:
         if replicas < 0:
             raise ValueError(f"replicas must be >= 0, got {replicas}")
         async with self._scale_lock:
-            return await self._scale_locked(replicas)
+            count = await self._scale_locked(replicas)
+        journal_mod.record("replica_set", name=self.name, replicas=self.replicas_wanted)
+        return count
 
     async def _scale_locked(self, replicas: int) -> int:
         live = {rid: sup for rid, sup in self._replicas.items() if sup.alive}
@@ -1004,6 +1010,7 @@ class ReplicaSet:
         if supervisor is None:
             return
         self.router.forget_replica(replica_id)
+        journal_mod.record("replica", set=self.name, sid=supervisor.sid, state="closed")
         try:
             await supervisor.close()
         except Exception as err:  # noqa: BLE001 - teardown is best-effort

@@ -24,10 +24,21 @@ prefill-only passes (:meth:`SessionSupervisor.prefill_kv`), and sends a
 request's KV bundle as a frame body, or by CAS path on a channel without
 frames.
 
-Left out until later items, and not stubbed: the journal and recovery
-(``adopt``/``resume_stream``, ROADMAP item 2c.4), the warm handoff and the
-preemption notice (2c.4), per-session serving metrics and tracing (2c.5)
-and fleet-pool pinning (2c.7).
+Crash recovery and warm handoff: with journaling on
+(``COVALENT_TPU_JOURNAL_DIR``) it journals its remote binding
+(``session``), each stream's intent (``stream``), token high-water mark
+(``stream_hwm``) and end (``stream_done``), and its close
+(``session_closed``), so a successor dispatcher re-binds a surviving
+session (:meth:`SessionSupervisor.adopt`) and re-attaches its streams from
+their marks (:meth:`SessionSupervisor.resume_stream`).
+:meth:`SessionSupervisor.handoff` opens a replacement generation while the
+old one still serves, then replays every in-flight request onto it; a
+``serve.preempt`` record from the worker (its SIGTERM notice) starts one
+(``COVALENT_TPU_SERVE_HANDOFF=0`` leaves it to the reconnect road).
+
+Left out until later items, and not stubbed: the journal records of
+adapters (slice 3), per-session serving metrics and tracing (ROADMAP item
+2c.5) and fleet-pool pinning (2c.7).
 """
 
 from __future__ import annotations
@@ -40,10 +51,12 @@ from typing import Any, AsyncIterator, Callable
 
 from ..agent import AgentClient, AgentError
 from ..cache import bytes_digest, cas_path
+from ..fleet import journal as journal_mod
 from ..fleet.health import HEALTH
 from ..resilience import FaultClass, RetryPolicy, classify_error
 from ..transport.base import TransportError
 from ..utils.log import app_log
+from .metrics import SERVE_HANDOFFS_TOTAL
 
 __all__ = ["ServeError", "ServeRequest", "ServeRequestRejected", "SessionSupervisor"]
 
@@ -118,6 +131,14 @@ class ServeRequest:
         #: prefix-affinity key (digest of the prompt's reusable prefix)
         self.prefix_key = ""
         self.tokens: list[int] = []
+        #: the stream offset this request resumed from (crash recovery):
+        #: tokens ``[0, resumed_from)`` went to the caller through a dead
+        #: dispatcher and are not collected here, so a splice compares a
+        #: chunk's ``idx`` with ``resumed_from + len(tokens)``
+        self.resumed_from = 0
+        #: tokens the worker re-emitted from its history at the resume
+        #: (what it decoded while no dispatcher listened)
+        self.resumed_sent = 0
         self.error = ""
         #: sid of the supervisor whose stream fed the first fresh tokens.
         #: With a hedge, two supervisors hold this request: the first to
@@ -240,11 +261,24 @@ class SessionSupervisor:
         self.generation = 0
         self.served = 0
         self.reconnects = 0
+        #: warm handoffs completed (a replacement opened before the old
+        #: generation died)
+        self.handoffs = 0
         #: replayed tokens below a stream's high-water mark that differ from
         #: the ones already delivered (dropped by the splice all the same),
         #: by road: this session's own reconnect, a request re-routed here
-        #: from another replica, the losing arm of a hedge
-        self.replay_mismatches_by_road = {"reconnect": 0, "reroute": 0, "hedge": 0}
+        #: from another replica, the losing arm of a hedge, a planned
+        #: handoff, a handoff on a preemption notice
+        self.replay_mismatches_by_road = {"reconnect": 0, "reroute": 0, "hedge": 0,
+                                          "handoff": 0, "preempt": 0}
+        #: the road this generation's replays came by: what opened it
+        self._move_road = "reconnect"
+        self._in_handoff = False
+        self._handoff_task: asyncio.Task | None = None
+        #: a worker's preemption notice starts a warm handoff unless
+        #: COVALENT_TPU_SERVE_HANDOFF=0
+        self._auto_handoff = os.environ.get("COVALENT_TPU_SERVE_HANDOFF", "1").strip().lower() \
+            not in ("0", "off", "false", "no")
         self.opened_at = 0.0
         self.stats: dict[str, Any] = {}
         self.address = ""
@@ -304,6 +338,7 @@ class SessionSupervisor:
             "state": self.state, "address": self.address, "slots": self.slots,
             "generation": self.generation, "served": self.served,
             "in_flight": self.in_flight, "reconnects": self.reconnects,
+            "handoffs": self.handoffs,
             "replay_mismatches": self.replay_mismatches,
             "replay_mismatches_by_road": dict(self.replay_mismatches_by_road),
             "age_s": round(time.time() - self.opened_at, 3) if self.opened_at else 0,
@@ -341,14 +376,95 @@ class SessionSupervisor:
         self._ready.set()
         return self
 
+    async def adopt(self, *, client: AgentClient, conns: list, address: str, sid_g: str,
+                    slots: int = 1, digest: str = "", payload_path: str = ""
+                    ) -> "SessionSupervisor":
+        """Bind to a remote session that survived its dispatcher, instead of
+        opening one: the recovery road.  The worker held the session in
+        orphan mode and a successor dispatcher adopted its channel; no
+        lease, no staging, no ``serve_open``, and supervision (reconnect,
+        replay, stats, close) takes over from here.  Journaled in-flight
+        streams come back one by one through :meth:`resume_stream`."""
+        self._digest = digest
+        self._local_payload = payload_path
+        self._client = client
+        self._conns = list(conns)
+        self._sid_g = sid_g
+        self.address = address
+        self.slots = int(slots or 1)
+        self.generation = 1
+        # later generations count on after the adopted one: "serve-x.g2"
+        # goes on at g3, never back onto a live sid
+        tail = sid_g.rsplit(".g", 1)
+        try:
+            self._gen_counter = int(tail[1]) + 1 if len(tail) == 2 else 1
+        except ValueError:
+            self._gen_counter = 1
+        client.watch_serve(sid_g, self._sink)
+        self.opened_at = time.time()
+        self.executor._serve_handles[self.sid] = self
+        self._journal_binding()
+        # a re-adopted session starts from a neutral health score: the
+        # journal keeps no scores, and a recovered fleet must not inherit
+        # its predecessor's quarantines
+        HEALTH.neutral(self.sid, group=self._health_group)
+        self._supervisor = asyncio.ensure_future(self._supervise())
+        self._ready.set()
+        return self
+
+    async def resume_stream(self, request: ServeRequest) -> str:
+        """Re-attach one journaled in-flight stream to this session.
+
+        ``request.resumed_from`` holds the journaled high-water mark; the
+        worker re-emits the stream's history from there (the splice of
+        :meth:`_on_token` drops any overlap) and live chunks follow.
+        Returns the worker's answer: ``streaming``, ``done``, ``pending``,
+        ``unknown`` (the worker never saw it: it is sent again from the
+        journaled prompt, from token 0) or ``refused`` (this dispatcher
+        was fenced as stale: the request fails)."""
+        if self._client is None:
+            raise ServeError(f"session {self.sid} has no live runtime")
+        # registered before the wire write: re-emitted history races the ack
+        self._requests[request.rid] = request
+        request.arms[self.sid] = time.monotonic()
+        if request.t_dispatched is None:
+            request.t_dispatched = time.monotonic()
+        try:
+            ack = await self._client.serve_resume(self._sid_g, request.rid,
+                                                  request.resumed_from)
+        except BaseException:
+            self._requests.pop(request.rid, None)
+            request.arms.pop(self.sid, None)
+            raise
+        state = str(ack.get("state") or "")
+        request.resumed_sent = int(ack.get("sent") or 0)
+        if state == "refused":
+            self._finish(request.rid, "error")
+            request._fail(ServeError(f"resume of {request.rid} refused: the worker fenced "
+                                     "this dispatcher as stale"))
+        elif state == "unknown":
+            # the dead dispatcher journaled the intent but not the wire
+            # write: a fresh stream
+            request.resumed_from = 0
+            await self._send_request(request)
+        return state
+
     async def _open_generation(self) -> None:
-        """Open one remote session generation on a freshly leased worker.
-        A failure discards whatever channels the attempt dialed, so a retry
-        starts a fresh pool server instead of reusing the broken one."""
+        """Open one remote session generation on a freshly leased worker
+        and bind to it."""
+        self._adopt(await self._dial_generation())
+
+    async def _dial_generation(self) -> dict:
+        """Lease, stage and open one generation WITHOUT touching the
+        current binding; returns it for :meth:`_adopt`.  The split is what
+        makes a warm handoff: the old generation streams on while the
+        replacement opens.  A failure discards whatever channels the
+        attempt dialed, so a retry starts a fresh pool server instead of
+        reusing the broken one."""
         dialed: list = []
         try:
-            binding = await asyncio.wait_for(self._dial_generation(dialed),
-                                             self.open_timeout_s)
+            return await asyncio.wait_for(self._dial_generation_on(dialed),
+                                          self.open_timeout_s)
         except BaseException as err:
             if dialed:
                 try:
@@ -359,14 +475,28 @@ class SessionSupervisor:
                 raise AgentError(f"session {self.sid}: open did not finish within "
                                  f"{self.open_timeout_s}s") from err
             raise
+
+    def _adopt(self, binding: dict) -> None:
         self._client = binding["client"]
         self._conns = binding["conns"]
         self._sid_g = binding["sid_g"]
         self.address = binding["address"]
         self.slots = binding["slots"]
         self.generation += 1
+        self._journal_binding()
 
-    async def _dial_generation(self, dialed: list) -> dict:
+    def _journal_binding(self) -> None:
+        """Journal this session's remote binding: what a successor
+        dispatcher needs to find the session again, or re-open it."""
+        journal_mod.record(
+            "session", sid=self.sid, sid_g=self._sid_g, address=self.address,
+            digest=self._digest, payload=self._local_payload, slots=self.slots,
+            queue_max=self.queue_max, default_deadline_s=self.default_deadline_s,
+            stats_interval_s=self.stats_interval_s,
+            replica_of=list(self.replica_of) if self.replica_of else None, sync=True,
+        )
+
+    async def _dial_generation_on(self, dialed: list) -> dict:
         executor = self.executor
         lease = await executor.lease_gang(dialed=dialed)
         if len(lease.conns) != 1:
@@ -423,6 +553,13 @@ class SessionSupervisor:
                 request.t_dispatched = time.monotonic()
             self._requests[request.rid] = request
             request.arms[self.sid] = time.monotonic()
+            # write-ahead: the intent is durable before the wire write, so a
+            # dispatcher that dies between the two replays the request
+            journal_mod.record(
+                "stream", sid=self.sid, rid=request.rid, prompt=list(request.prompt),
+                params=request.params, deadline_s=request.deadline_s,
+                tenant=request.tenant, resumed_from=request.resumed_from,
+            )
             try:
                 await self._send_request(request)
             except BaseException:
@@ -518,13 +655,33 @@ class SessionSupervisor:
             self._on_reject(data)
         elif kind == "serve.stats":
             self._on_stats(data)
+        elif kind == "serve.preempt":
+            self._on_preempt(data)
+
+    def _on_preempt(self, data: dict) -> None:
+        """The worker announced a preemption notice (its SIGTERM): start a
+        warm handoff now, inside the old worker's grace window."""
+        app_log.info("session %s: preemption notice from %s (%s)", self.sid, self.address,
+                     data.get("reason") or "")
+        if not self._auto_handoff or self._closed or self._in_handoff:
+            return
+
+        async def run() -> None:
+            try:
+                await self.handoff(reason="preempt_notice")
+            except Exception:  # noqa: BLE001 - the reconnect road still guards
+                app_log.exception("preemption-notice handoff of %s failed", self.sid)
+
+        # held, so the task is not collected mid-await
+        self._handoff_task = asyncio.ensure_future(run())
+        self._handoff_task.add_done_callback(lambda _t: setattr(self, "_handoff_task", None))
 
     def _replay_road(self, request: ServeRequest) -> str:
         """Which road a replayed chunk came by: this session's reconnect, a
         re-route from the replica that first fed the request, or the
         losing arm of a hedge."""
         if request.served_by in ("", self.sid):
-            return "reconnect"
+            return self._move_road
         return "hedge" if request.hedged else "reroute"
 
     def _on_token(self, data: dict) -> None:
@@ -534,11 +691,12 @@ class SessionSupervisor:
             return
         idx = int(data.get("idx") or 0)
         tokens = list(data.get("tokens") or ())
-        have = len(request.tokens)
+        base = request.resumed_from
+        have = base + len(request.tokens)
         if idx > have:
             # A chunk went missing: exactly-once is broken for this stream;
             # fail it loudly rather than splice around a hole.
-            self._finish(rid)
+            self._finish(rid, "error")
             request._fail(ServeError(f"token stream gap for {rid}: chunk starts at {idx}, "
                                      f"have {have}"))
             return
@@ -548,7 +706,9 @@ class SessionSupervisor:
         # in another batch may flip a near-tie there: the caller keeps what
         # it was given, and the flip is counted by road.
         replayed = tokens[:have - idx]
-        differ = sum(a != b for a, b in zip(replayed, request.tokens[idx:have]))
+        # only what this dispatcher delivered (from ``base`` on) is compared
+        lo = max(idx, base)
+        differ = sum(a != b for a, b in zip(replayed[lo - idx:], request.tokens[lo - base:]))
         if differ:
             road = self._replay_road(request)
             self.replay_mismatches_by_road[road] += differ
@@ -569,6 +729,11 @@ class SessionSupervisor:
             self.abandon(rid)
             return
         request._feed(fresh, done, error=error)
+        if fresh:
+            # the stream's durable high-water mark: a successor dispatcher
+            # resumes it from here, exactly once
+            journal_mod.record("stream_hwm", sid=self.sid, rid=rid,
+                               hwm=request.resumed_from + len(request.tokens))
         if first and request.ttft_s is not None:
             # The straggler signal: TTFT against the sibling replicas.  A
             # hedge's arm is measured from its own dispatch.
@@ -587,7 +752,8 @@ class SessionSupervisor:
                 HEALTH.record_fault(self.sid, label=error[:40], group=self._health_group)
             elif not error:
                 HEALTH.record_success(self.sid, group=self._health_group)
-            self._finish(rid)
+            self._finish(rid, "ok" if not error else (
+                "deadline" if error == "deadline_exceeded" else "error"))
 
     def _on_reject(self, data: dict) -> None:
         rid = str(data.get("rid") or "")
@@ -604,7 +770,7 @@ class SessionSupervisor:
             # triggered the hedge): the other arm still owns the request.
             self.abandon(rid)
             return
-        self._finish(rid)
+        self._finish(rid, "rejected")
         request._fail(ServeRequestRejected(rid, code, str(data.get("message") or "")))
 
     def _on_stats(self, data: dict) -> None:
@@ -614,11 +780,12 @@ class SessionSupervisor:
         HEALTH.record_queue_depth(self.sid, float(self.stats.get("queued") or 0),
                                   group=self._health_group)
 
-    def _finish(self, rid: str) -> None:
+    def _finish(self, rid: str, outcome: str) -> None:
         request = self._requests.pop(rid, None)
         if request is not None:
             request.arms.pop(self.sid, None)
             self.served += 1
+            journal_mod.record("stream_done", sid=self.sid, rid=rid, outcome=outcome, sync=True)
             self._changed()
 
     def abandon(self, rid: str) -> None:
@@ -629,6 +796,8 @@ class SessionSupervisor:
         if request is None:
             return
         request.arms.pop(self.sid, None)
+        # a successor dispatcher must not resume the dead arm
+        journal_mod.record("stream_done", sid=self.sid, rid=rid, outcome="hedge_abandoned")
         client, sid_g = self._client, self._sid_g
         if client is not None and client.alive and not self._closed:
             task = asyncio.ensure_future(client.serve_cancel(sid_g, rid))
@@ -651,6 +820,76 @@ class SessionSupervisor:
         except (AgentError, TransportError, asyncio.TimeoutError, OSError):
             return False
 
+    # -- warm handoff ---------------------------------------------------------
+
+    async def handoff(self, reason: str = "planned") -> bool:
+        """Drain-and-reopen: move this session to a fresh generation with
+        no token lost or repeated.
+
+        The replacement is leased, staged and opened while the old
+        generation still serves; then every in-flight request is sent again
+        on it, and its streams, which restart at token 0, are spliced on
+        each request's high-water mark.  The old generation's copies of the
+        requests are cancelled and it is closed, best-effort (it is about to
+        die anyway); the reference lets its close drain them.  Returns True when
+        the session runs on the new generation; False when no handoff was
+        possible (closed, failed, already moving, or the replacement did
+        not open: the reconnect road still guards the old generation).
+        ``reason`` ``"preempt_notice"`` counts the replays' mismatches
+        under the ``preempt`` road, any other under ``handoff``.
+        """
+        if self._closed or self._failed is not None or self._in_handoff \
+                or not self._ready.is_set():
+            return False
+        self._in_handoff = True
+        try:
+            old_client, old_sid = self._client, self._sid_g
+            old_conns = list(self._conns)
+            try:
+                binding = await self._dial_generation()
+            except asyncio.CancelledError:
+                raise
+            except BaseException as err:  # noqa: BLE001 - degrade, not fail
+                SERVE_HANDOFFS_TOTAL.labels(outcome="failed").inc()
+                app_log.warning("warm handoff of %s failed (%s); the reconnect road "
+                                "recovers when the old worker dies", self.sid, err)
+                return False
+            # stop the old generation's feed before the replay, so the
+            # splice sees one stream at a time
+            self._adopt(binding)
+            self._move_road = "preempt" if reason == "preempt_notice" else "handoff"
+            if old_client is not None:
+                old_client.unwatch_serve(old_sid)
+            await self._replay_in_flight()
+            self.handoffs += 1
+            SERVE_HANDOFFS_TOTAL.labels(outcome="ok").inc()
+            app_log.info("session %s handed off (%s) to generation %d; replayed %d requests",
+                         self.sid, reason, self.generation, len(self._requests))
+            if old_client is not None and old_client.alive:
+                try:
+                    # the old generation's streams are duplicates now: cancel
+                    # them, or its close drains every one of them (beside
+                    # the replays, on the same worker when the replacement
+                    # landed there)
+                    for rid in list(self._requests):
+                        await old_client.serve_cancel(old_sid, rid)
+                    await old_client.serve_close(old_sid, timeout=5.0)
+                except (AgentError, TransportError, asyncio.TimeoutError) as err:
+                    app_log.debug("post-handoff close of %s failed: %s", old_sid, err)
+            # the old channels leave the pool unless the replacement landed
+            # on the very same ones
+            shared = {id(c) for c in self._conns}
+            leftovers = [c for c in old_conns if id(c) not in shared]
+            if leftovers:
+                try:
+                    await self.executor._discard_workers(leftovers)
+                except Exception:  # noqa: BLE001 - teardown is best-effort
+                    pass
+            self._changed()
+            return True
+        finally:
+            self._in_handoff = False
+
     # -- supervision / reconnect --------------------------------------------
 
     async def _supervise(self) -> None:
@@ -669,6 +908,15 @@ class SessionSupervisor:
                 death = AgentError("agent channel closed")
             if self._closed:
                 return
+            if self._client is not client:
+                continue  # a handoff moved the session: the retired channel died
+            if self._in_handoff:
+                # the old worker died mid-handoff: the handoff's replay owns
+                # the streams; then watch the new channel
+                while self._in_handoff and not self._closed:
+                    await asyncio.sleep(0.05)
+                if self._client is not client:
+                    continue
             app_log.info("serving session %s lost its channel: %r", self.sid, death)
             if not await self._reconnect(death):
                 return
@@ -705,6 +953,7 @@ class SessionSupervisor:
                         await asyncio.sleep(policy.delay(attempt))
                 else:
                     self.reconnects += 1
+                    self._move_road = "reconnect"
                     app_log.info("serving session %s re-opened on generation %d; "
                                  "replaying %d requests", self.sid, self.generation,
                                  len(self._requests))
@@ -725,7 +974,7 @@ class SessionSupervisor:
                 app_log.exception("serve on_failed hook failed")
         if not handled:
             for rid, request in list(self._requests.items()):
-                self._finish(rid)
+                self._finish(rid, "error")
                 request._fail(ServeError(
                     f"session {self.sid} died and could not be re-opened: {failure}"))
         self._ready.set()
@@ -740,7 +989,7 @@ class SessionSupervisor:
             try:
                 await self._send_request(request)
             except BaseException as err:  # noqa: BLE001 - fail just this one
-                self._finish(request.rid)
+                self._finish(request.rid, "error")
                 request._fail(ServeError(f"replay of {request.rid} failed: {err!r}"))
 
     # -- close --------------------------------------------------------------
@@ -763,9 +1012,10 @@ class SessionSupervisor:
                 app_log.debug("serve_close %s failed: %s", sid_g, err)
             client.unwatch_serve(sid_g)
         for rid, request in list(self._requests.items()):
-            self._finish(rid)
+            self._finish(rid, "error")
             request._fail(ServeError(f"session {self.sid} closed"))
         self.executor._serve_handles.pop(self.sid, None)
+        journal_mod.record("session_closed", sid=self.sid, sync=True)
         HEALTH.drop(self.sid)
         self._changed()
         return closed_event

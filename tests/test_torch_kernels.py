@@ -252,3 +252,133 @@ def test_chip_smoke_parity_covers_gqa_and_ragged_queries():
         assert any(heads > kv_heads for _, heads, kv_heads, *_ in at_dim), dim
         assert any(seq_q % 64 for _, _, _, seq_q, _, _ in at_dim), dim
         assert any(h > hkv and sq % 64 and sq != sk for _, h, hkv, sq, sk, _ in at_dim), dim
+
+
+# --- the serving paths' batch-invariant kernels (csrc/bi_gemm.cu, bi_rmsnorm.cu)
+
+#: bi kernels against their plain versions: f32 sums in another order, then
+#: (bf16 outputs) one rounding that may land on the neighbouring value, at
+#: most one bf16 ulp of outputs below 2 in magnitude.
+BI_TOL = {torch.bfloat16: 2.0**-6, torch.float32: 1e-4}
+
+
+def _bi_inputs(card, seed=0):
+    from covalent_tpu_plugin_torch.ops import batch_invariant as bi
+
+    rng = np.random.default_rng(seed)
+
+    def t(*shape, dtype=torch.bfloat16, scale=1.0):
+        return torch.tensor(rng.standard_normal(shape, dtype=np.float32) * scale,
+                            device=card).to(dtype)
+
+    # name: (kernel route, plain version, batch-major inputs)
+    return {
+        "linear_bf16": (lambda x, w=t(96, 80, scale=0.1): bi.linear(x, w, torch.bfloat16),
+                        None, (t(13, 80),)),
+        "linear_f32_bf16_weight": (
+            lambda x, w=t(160, 80, scale=0.1): bi.linear(x, w, torch.float32),
+            None, (t(13, 80, dtype=torch.float32),)),
+        "attention_scores_gqa": (bi.attention_scores, bi.attention_scores_plain,
+                                 (t(13, 3, 2, 2, 64), t(13, 40, 2, 64))),
+        "attention_mix_gqa": (bi.attention_mix, bi.attention_mix_plain,
+                              (torch.softmax(t(13, 2, 2, 3, 40, dtype=torch.float32), -1)
+                               .to(torch.bfloat16), t(13, 40, 2, 64))),
+        "rmsnorm": (lambda x, s=t(80): bi.rms_norm(x, s, torch.bfloat16), None,
+                    (t(13, 4, 80, scale=3.0),)),
+    }
+
+
+@pytest.mark.cuda
+def test_batch_invariant_kernels_match_plain_on_the_card(card):
+    """Each batch-invariant kernel against its plain version (the same
+    casts), on bf16 and f32 inputs, GQA attention products included."""
+    from covalent_tpu_plugin_torch.ops import batch_invariant as bi
+
+    rng = np.random.default_rng(3)
+    x = torch.tensor(rng.standard_normal((13, 80), dtype=np.float32), device=card)
+    for m in (1, 8, 13):
+        for dtype, wdtype in ((torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16),
+                              (torch.float32, torch.float32)):
+            w = torch.tensor(rng.standard_normal((160, 80), dtype=np.float32) * 0.1,
+                             device=card).to(wdtype)
+            got = bi.linear(x[:m], w, dtype)
+            want = bi.linear_plain(x[:m], w, dtype)
+            assert got.dtype == want.dtype == dtype
+            assert (got.float() - want.float()).abs().max().item() <= BI_TOL[dtype]
+    for name, (kernel, plain, inputs) in _bi_inputs(card).items():
+        if plain is None:
+            continue
+        got, want = kernel(*inputs), plain(*inputs)
+        assert got.shape == want.shape and got.dtype == want.dtype, name
+        assert (got - want).abs().max().item() <= BI_TOL[torch.float32], name
+    scale = torch.tensor(rng.standard_normal(80, dtype=np.float32), device=card)
+    for xdtype in (torch.bfloat16, torch.float32):
+        xs = (x * 3).to(xdtype)
+        for out in (torch.bfloat16, torch.float32):
+            got = bi.rms_norm(xs, scale.to(xdtype), out)
+            want = bi.rms_norm_plain(xs, scale.to(xdtype), out)
+            assert (got.float() - want.float()).abs().max().item() <= 4 * BI_TOL[out]
+
+
+@pytest.mark.cuda
+def test_batch_invariant_rows_bit_equal_under_batch_and_permutation(card):
+    """A row's output is the same bits alone (M = 1), in a batch of 8, in a
+    batch of 13 and in a permuted batch: the serving contract."""
+    for name, (kernel, _plain, inputs) in _bi_inputs(card, seed=1).items():
+        whole = kernel(*inputs)
+        perm = torch.as_tensor(np.random.default_rng(2).permutation(13), device=card)
+        permuted = kernel(*(t[perm] for t in inputs))
+        first8 = kernel(*(t[:8] for t in inputs))
+        for row in range(13):
+            alone = kernel(*(t[row:row + 1] for t in inputs))
+            assert torch.equal(whole[row:row + 1], alone), (name, row)
+            if row < 8:
+                assert torch.equal(first8[row:row + 1], alone), (name, row)
+        assert torch.equal(permuted, whole[perm]), name
+
+
+@pytest.mark.cuda
+def test_serving_path_launches_the_batch_invariant_kernels(card):
+    """``generate`` turns the route on: a small bf16 LM's decode on the card
+    launches both kernels, and its rows are bit-equal to batch 1."""
+    from covalent_tpu_plugin_torch.models import decode
+    from covalent_tpu_plugin_torch.models.transformer import TransformerConfig, TransformerLM
+
+    cfg = TransformerConfig(vocab_size=256, d_model=64, n_layers=2, n_heads=4, d_ff=128,
+                            max_seq=64)
+    model = decode.inference_params(TransformerLM(
+        cfg, device=card, generator=torch.Generator(device=card).manual_seed(0)))
+    prompts = np.random.default_rng(4).integers(0, 256, (8, 12))
+    _kernels.reset_launch_counts()
+    batch = decode.generate(model, prompts, 10)
+    counts = _kernels.serving_launch_counts()
+    assert counts["bi_gemm"] > 0 and counts["bi_rmsnorm"] > 0, counts
+    assert _kernels.launch_counts() == {"flash_fwd": 0, "flash_bwd_dkdv": 0, "flash_bwd_dq": 0}
+    for row in range(8):
+        assert torch.equal(batch[row:row + 1], decode.generate(model, prompts[row:row + 1], 10))
+
+
+def test_batch_invariant_ops_take_plain_versions_on_cpu():
+    """CPU tensors take the plain versions and launch nothing; the kernel
+    wrappers refuse CPU tensors."""
+    from covalent_tpu_plugin_torch.ops import batch_invariant as bi
+
+    rng = np.random.default_rng(0)
+    x = torch.tensor(rng.standard_normal((3, 5, 16), dtype=np.float32))
+    w = torch.tensor(rng.standard_normal((8, 16), dtype=np.float32)).to(torch.bfloat16)
+    _kernels.reset_launch_counts()
+    assert torch.equal(bi.linear(x, w, torch.float32), bi.linear_plain(x, w, torch.float32))
+    scale = torch.ones(16)
+    assert torch.equal(bi.rms_norm(x, scale, torch.bfloat16),
+                       bi.rms_norm_plain(x, scale, torch.bfloat16))
+    q, k = torch.zeros(2, 1, 2, 1, 16), torch.ones(2, 7, 2, 16)
+    assert torch.equal(bi.attention_scores(q, k), bi.attention_scores_plain(q, k))
+    p = torch.full((2, 2, 1, 1, 7), 1 / 7)
+    assert torch.equal(bi.attention_mix(p, k), bi.attention_mix_plain(p, k))
+    assert _kernels.serving_launch_counts() == {"bi_gemm": 0, "bi_rmsnorm": 0}
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        _kernels.bi_gemm(x[0], w, torch.empty(5, 8))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        _kernels.bi_rmsnorm(x, scale, torch.float32, 1e-6)
+    with pytest.raises(ValueError, match="run on cuda or cpu"):
+        bi.linear(torch.zeros(1, 2, device="meta"), w, torch.float32)

@@ -196,13 +196,15 @@ def test_replica_set_streams_equal_the_reference_across_kills(tmp_path, run_asyn
     assert out["reconnect"] == want
     status = out["reconnect_status"]
     assert status["reconnects"] == 1 and status["rerouted"] == 0
-    assert status["replay_mismatches"] == {"reconnect": 0, "reroute": 0, "hedge": 0}
+    assert status["replay_mismatches"] == {"reconnect": 0, "reroute": 0, "hedge": 0, "handoff": 0,
+                                           "preempt": 0}
     assert out["drain"] == want
     status = out["drain_status"]
     assert out["victim_state"] == "failed" and status["state"] == "open"
     assert status["rerouted"] == out["drained"] > 0
     assert status["replicas"][out["survivor"]]["served"] >= out["drained"]
-    assert status["replay_mismatches"] == {"reconnect": 0, "reroute": 0, "hedge": 0}
+    assert status["replay_mismatches"] == {"reconnect": 0, "reroute": 0, "hedge": 0, "handoff": 0,
+                                           "preempt": 0}
 
 
 def test_disaggregated_set_streams_equal_on_the_kv_road_and_every_degrade(
@@ -356,8 +358,8 @@ def test_replayed_tokens_that_differ_are_counted_by_road(run_async):
     # the caller keeps what was delivered first: 7 stays, 9 and 10 are new
     assert rerouted == [5, 6, 7, 9, 10] and hedged == [3, 4, 2, 6]
     assert winner == "set:r1"
-    assert by_a == {"reconnect": 1, "reroute": 0, "hedge": 1}
-    assert by_b == {"reconnect": 0, "reroute": 2, "hedge": 0}
+    assert by_a == {"reconnect": 1, "reroute": 0, "hedge": 1, "handoff": 0, "preempt": 0}
+    assert by_b == {"reconnect": 0, "reroute": 2, "hedge": 0, "handoff": 0, "preempt": 0}
     assert (a_left, b_left) == (0, 0)
 
 
@@ -464,7 +466,8 @@ def test_a_slow_replica_s_request_is_hedged_and_the_fast_arm_wins(tmp_path, run_
     assert (status["hedge"]["issued"], status["hedge"]["wins"]) == (1, 1)
     assert set(placed.values()) == {status["name"] + ":r0"}  # both served by the fast one
     assert status["replicas"]["r1"]["in_flight"] == 0
-    assert status["replay_mismatches"] == {"reconnect": 0, "reroute": 0, "hedge": 0}
+    assert status["replay_mismatches"] == {"reconnect": 0, "reroute": 0, "hedge": 0, "handoff": 0,
+                                           "preempt": 0}
 
 
 def test_scale_to_grows_shrinks_and_rewarms_from_zero(tmp_path, run_async):

@@ -518,7 +518,12 @@ def test_agent_client_state_dropped_on_every_exit_path(tmp_path, run_async):
             with pytest.raises(ValueError):
                 await ex.run(boom, [], {}, meta("ex"))
             task = asyncio.ensure_future(ex.run(sleeper, [], {}, meta("cancel")))
-            await until(lambda: ex._op_agents)
+            # mid-flight means running on the worker: an op in _op_agents may
+            # still be uploading, so the cancel would land before the invoke
+            # is on the wire; the invocation's first side-band record
+            # (worker.task_started) is the proof
+            await until(lambda: any(op in agent._telemetry_seq
+                                    for op, agent in ex._op_agents.items()))
             client = ex._agents["localhost"]
             await ex.cancel("cancel_0")
             with pytest.raises(asyncio.CancelledError):

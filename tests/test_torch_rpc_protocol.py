@@ -10,8 +10,7 @@ no id), ``run`` and its ``exit``, ``run`` without a spec, ``kill`` of a
 running and of an unknown task, ``watch``/``unwatch`` of a task file,
 ``task_inventory``, and ``shutdown``.  Each step waits for its answer, so
 both runtimes see the same order.  They must answer with the same events:
-only pids, timestamps, seq values and the reference's epoch fence (ROADMAP
-item 2c.4) may differ, and a result's pickle is compared by its value (the
+only pids, timestamps and seq values may differ, and a result's pickle is compared by its value (the
 port's also carries the electron's start and end times, as its launch-mode
 result file does).
 
@@ -29,15 +28,14 @@ import json
 import pickle
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import cloudpickle
 import pytest
 
-from .test_torch_session_protocol import RUNTIMES, VOLATILE, Runtime, is_event
+from .test_torch_session_protocol import RUNTIMES, VOLATILE, WAIT_S, Runtime, is_event
 
-#: the reference's epoch fence value in task_inventory (item 2c.4)
-RPC_VOLATILE = VOLATILE | {"epoch"}
 
 
 def _fn(kind):
@@ -54,6 +52,13 @@ def _fn(kind):
     elif kind == "big":
         def fn(n):
             return "y" * n
+    elif kind == "marked_sleep":
+        def fn(seconds, marker):
+            import time
+
+            open(marker, "w").close()  # the electron runs: a kill now ends it
+            time.sleep(seconds)
+            return seconds
     else:
         def fn(seconds):
             import time
@@ -136,9 +141,18 @@ def run_script(rt: Runtime, root: Path) -> None:
     step({"cmd": "run", "id": "r1", "spec": _spec(root, "r1", _fn("square"), (5,)),
           "log": str(root / "r1.log")}, answered("exit", "id", "r1"))
     step({"cmd": "run", "id": "r0"}, answered("error", "id", "r0"))         # no spec
-    step({"cmd": "run", "id": "r2", "spec": _spec(root, "r2", _fn("sleep"), (30,))},
+    running = root / f"r2_running_{rt.proc.pid}"
+    step({"cmd": "run", "id": "r2", "spec": _spec(root, "r2", _fn("marked_sleep"),
+                                                 (30, str(running)))},
          answered("started", "id", "r2"))
     step({"cmd": "task_inventory"}, is_event("task_inventory"))
+    # ``started`` comes at the fork: a kill before the child reaches the
+    # electron races its start-up; the marker the electron writes first
+    # is the proof that it runs
+    deadline = time.monotonic() + WAIT_S
+    while not running.exists():
+        assert time.monotonic() < deadline, "r2 never started its electron"
+        time.sleep(0.01)
     step({"cmd": "kill", "id": "r2"}, answered("exit", "id", "r2"))
     step({"cmd": "kill", "id": "nobody"}, answered("error", "id", "nobody"))
     step({"cmd": "task_inventory"}, is_event("task_inventory"), 2)
@@ -181,7 +195,7 @@ def normalized(events: list[dict], root: Path) -> tuple[list, dict]:
     volatile fields removed, result pickles replaced by their values and
     the run's directory by ``<root>``."""
     def strip(d):
-        d = {k: v for k, v in d.items() if k not in RPC_VOLATILE}
+        d = {k: v for k, v in d.items() if k not in VOLATILE}
         return json.loads(json.dumps(d).replace(str(root), "<root>"))
 
     top, streams = [], {}
@@ -322,8 +336,7 @@ def test_the_rpc_script_covers_every_outcome(both_runs):
     assert pickle.loads((root / "result_r1.pkl").read_bytes())[:2] == (25, None)
 
 
-@pytest.mark.parametrize("mode,item", [("--rpc-child", "2c.6"), ("--serve-child", "2c.6"),
-                                       ("--attach", "2c.4")])
+@pytest.mark.parametrize("mode,item", [("--rpc-child", "2c.6"), ("--serve-child", "2c.6")])
 def test_port_harness_refuses_modes_of_later_items(mode, item):
     proc = subprocess.run([sys.executable, str(RUNTIMES["port"]), mode, "x"],
                           capture_output=True, text=True, timeout=60)

@@ -454,7 +454,6 @@ def test_executor_refuses_the_native_agent(use_agent):
 
 
 @pytest.mark.parametrize("method,args,item", [
-    ("handoff", (), "item 2c"),
     ("attach_adapter", ("t",), "slice 3"),
     ("detach_adapter", ("t",), "slice 3"),
     ("capture_profile", (), "item 2c"),

@@ -403,8 +403,7 @@ def test_frames_capability_is_the_only_banner_difference(both_runs):
 
 @pytest.mark.parametrize("verb,item", [
     ("serve_attach", "slice 3"), ("serve_detach", "slice 3"),
-    ("serve_resume", "2c.4"), ("serve_inventory", "2c.4"), ("epoch", "2c.4"),
-    ("adopt", "2c.4"), ("profile_start", "2c.5"), ("profile_stop", "2c.5"),
+    ("profile_start", "2c.5"), ("profile_stop", "2c.5"),
 ])
 def test_port_runtime_refuses_verbs_of_later_items(tmp_path, verb, item):
     rt = Runtime(RUNTIMES["port"], tmp_path)

@@ -12,7 +12,7 @@ Phases, one JSON object per line on stdout, in this order:
    optimizer's first construction imports it), ``torch.cuda.init()`` and
    the first op (the context's creation); medians of 3.
 3. ``build``: the CUDA kernels compiled from ``covalent_tpu_plugin_torch/csrc``
-   (the three flash kernels and the two batch-invariant serving kernels).
+   (the three flash kernels and the four batch-invariant serving kernels).
 4. ``parity``: each kernel against its plain PyTorch version on the card, at the
    training shape and at small GQA, window+sinks, explicit-position,
    non-causal, ragged, head dim 128, bf16, f16 and f32 cases, each with the
@@ -49,13 +49,16 @@ Phases, one JSON object per line on stdout, in this order:
     and the first layer's input cut to 2-7 rows; then the model's logits of
     row 5 against its prompt alone.  Once on the library route
     (``F.linear``, ``einsum``, torch's RMSNorm: the diagnosis) and once on
-    the batch-invariant kernels (``csrc/bi_gemm.cu``, ``csrc/bi_rmsnorm.cu``:
-    the serving route), where every op must be bit-equal and every kernel
-    within its tolerance of its plain version.
-11. ``serving_kernels``: the batch-invariant kernels' device time at the
-    serve cell's shapes (M 1, 8 and 1024; the decode attention at 8 rows),
-    beside their plain versions, one PyTorch call (a yardstick only) and
-    the bound.
+    the batch-invariant kernels (``csrc/bi_gemm_tc.cu``,
+    ``csrc/bi_gemm_mix.cu``, ``csrc/bi_rmsnorm.cu``: the serving route),
+    where every op must be bit-equal and every kernel within its tolerance
+    of its plain version.
+11. ``serving_kernels``: every product kind the serving model runs (q/k/v/o,
+    the MLP's wi and wo, the lm_head on bf16 features, the decode
+    attention's scores and mix), the f32-operand route and the norm, at M
+    1, 8, 128 and 1024: device time beside the plain version, one PyTorch
+    call (a yardstick only; the lm_head has two, bf16 and f32), the bound,
+    the error against the plain version and the route and tiles taken.
 12. ``serve``: the serving path.  ``GPUExecutor(transport="local")`` dispatches
     the serving electron (``models.serve.serve_lm``): the 125M LM with bf16
     weights, ``generate`` at batch 8 (prompt 128, 128 new tokens) and 16
@@ -64,12 +67,14 @@ Phases, one JSON object per line on stdout, in this order:
     engine's streams equal ``continuous_generate``'s and, every one, batch-1
     ``generate``'s rows, the int8 KV cache's prefill logits keep cosine >=
     0.999 to the float cache's, no flash kernel run (the decode attention is
-    plain products) and both batch-invariant kernels run.
+    plain products), the tensor-core products, the mix and the norm run,
+    and the f32 CUDA-core product never.
 13. ``serve_profile``: one batch-8 decode step of the 125M LM under
     ``torch.profiler``: device time by kind (the attention's products and
     its other kernels apart, by the ``decode_attention`` ranges), the
     device's busy share against the profiled and the unprofiled step, the
-    batch-invariant kernels' launches in the step, and the f32
+    batch-invariant kernels' launches and device time in the step by kernel
+    (the f32 CUDA-core product must launch none), and the f32
     ``lm_head``'s weight cast and library product alone.
 14. ``session``: the serving cell through the resident session.
     ``serving.open_session`` on ``GPUExecutor(use_agent="pool")`` opens the
@@ -143,7 +148,9 @@ Phases, one JSON object per line on stdout, in this order:
     arm says how its invokes left (one to a frame, or several in a
     ``multi_invoke`` frame).
 19. ``kernels``: every kernel with its launches on its path (the flash
-    kernels: training; the batch-invariant ones: the ``serve`` phase),
+    kernels: training; the batch-invariant ones: the ``serve`` phase, and
+    the f32 CUDA-core product ``serve_check``'s f32 LM, with its 0 launches
+    on the ``serve`` phase beside),
     error, times and bound, and the route (tensor-core or scalar kernel)
     each input type and head dim of a flash kernel takes.
 
@@ -1002,22 +1009,96 @@ def batch_invariance_phase() -> dict:
 
 
 #: Rows of the serving products: a batch-1 decode step, the 8-slot engine's
-#: step, and an admission wave of 8 prompts of 128 tokens.
-BI_ROWS = {"decode_m1": 1, "decode_m8": 8, "admission_m1024": 1024}
+#: step, one 128-token prefill (the disaggregated set's prefill tier) and an
+#: admission wave of 8 prompts of 128 tokens.  The decode attention's
+#: (rows, queries) at each: its rows are batch rows, its M the queries.
+BI_ROWS = {"m1": 1, "m8": 8, "m128": 128, "m1024": 1024}
+BI_ATTENTION = {"m1": (1, 1), "m8": (8, 1), "m128": (1, 128), "m1024": (8, 128)}
+
+
+def device_ms_labelled(fns: dict, iters: int) -> dict:
+    """Device time of one call of each of ``fns`` (label -> (fn, match)),
+    all in one profiler window: each label's ``iters`` calls run inside a
+    ``record_function`` range that ends with a synchronize, and the device
+    events that start inside it are that label's (those whose name holds
+    ``match``, every one where it is None).  One window instead of one a
+    label: the profiler's own start-up is paid once.  Labels the window
+    recorded no device time for are profiled again, up to three windows in
+    all (as ``device_ms``); one still without it fails."""
+    import torch
+
+    for fn, _ in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    times, todo = {}, dict(fns)
+    for _ in range(3):
+        with torch.profiler.profile(activities=acts) as prof:
+            for label, (fn, _) in todo.items():
+                with torch.profiler.record_function(label):
+                    for _ in range(iters):
+                        fn()
+                    torch.cuda.synchronize()
+        # a label's range on the device timeline where the tracer mirrored
+        # it, else its range on the host (which ends after the synchronize)
+        ranges = {}
+        for on_device in (False, True):
+            ranges.update({e.name: e.time_range for e in prof.events() if e.name in todo and
+                           (e.device_type == torch.autograd.DeviceType.CUDA) == on_device})
+        totals = dict.fromkeys(todo, 0.0)
+        for evt in device_events(prof):
+            start = evt.time_range.start
+            for label, r in ranges.items():
+                match = todo[label][1]
+                if r.start <= start <= r.end and (match is None or match in evt.name):
+                    totals[label] += evt.time_range.elapsed_us()
+        times.update({label: us / iters / 1e3 for label, us in totals.items() if us > 0.0})
+        todo = {label: fn for label, fn in todo.items() if label not in times}
+        if not todo:
+            return times
+    raise AssertionError(f"the profiler recorded no device time for {sorted(todo)} "
+                         "in three windows")
+
+
+def cuda_core_product(a, w, out):
+    """``bi_gemm``'s CUDA-core kernel (csrc/bi_gemm.cu) on these operands
+    as they are, bf16 included: the kernel every serving product took
+    before the tensor-core routes, timed beside them as their earlier
+    time.  Not a route of the port for bf16 pairs."""
+    import ctypes
+
+    import torch
+
+    from covalent_tpu_plugin_torch.ops import _kernels
+
+    sizes, a_strides, w_strides, c_strides = _kernels._bi_operands(a, w, out)
+    codes = _kernels._BI_DTYPES
+    _kernels.BI_GEMM.launch(
+        _kernels._ptr(a), _kernels._ptr(w), _kernels._ptr(out), codes[a.dtype],
+        codes[w.dtype], codes[out.dtype], (ctypes.c_int64 * 6)(*sizes),
+        (ctypes.c_int64 * 15)(*a_strides, *w_strides, *c_strides),
+        torch.cuda.current_stream(a.device).cuda_stream)
+    return out
 
 
 def serving_kernels_timing() -> dict:
-    """Device time of the batch-invariant kernels at the serve cell's
-    shapes, beside their plain versions (which make the same casts), one
-    PyTorch call computing the same function (cuBLAS or torch's RMSNorm, a
-    yardstick only: the serving route never calls it) and the least time
-    the card could take.  ``bi_gemm`` at the MLP's first product and at the
-    f32 lm_head (bf16 weight widened in the kernel) for each row count, and
-    at the decode attention's two products (8 rows, 12 heads, 512 cache
-    positions); ``bi_rmsnorm`` at each row count."""
+    """Device time of every product kind the serving model runs, and of the
+    norm, at M 1, 8, 128 and 1024, beside the plain version (the same
+    casts), one PyTorch call computing the same function (cuBLAS or torch's
+    RMSNorm, a yardstick only: the serving route never calls it) and the
+    least time the card could take.  ``bi_gemm_tc``: q/k/v/o, the MLP's wi
+    and wo, the lm_head on the bf16 features the model feeds it (f32
+    logits; yardsticks ``F.linear`` in bf16, which rounds the logits to
+    bf16, and in f32, which computes the f32 logits from f32 operands) and
+    the decode attention's scores; ``bi_gemm_mix``: its mix; ``bi_gemm``:
+    the f32-operand route, at the lm_head with f32 features (no serving
+    model takes it).  Each row also has the route's error against its plain
+    version and the tiles it took; each tensor-core row the CUDA-core
+    kernel's time on the same operands (``earlier_ms``) and its error."""
     import torch
     import torch.nn.functional as F
 
+    from covalent_tpu_plugin_torch.ops import _kernels
     from covalent_tpu_plugin_torch.ops import batch_invariant as bi
 
     gen = torch.Generator(device="cuda").manual_seed(11)
@@ -1027,51 +1108,105 @@ def serving_kernels_timing() -> dict:
 
     size = lambda *ts: sum(t.numel() * t.element_size() for t in ts)  # noqa: E731
     d, ff, vocab, heads, hd, cache = 768, 3072, 32768, 12, 64, 512
-    w_ff, w_head, scale = randn(ff, d, scale=0.02), randn(vocab, d, scale=0.02), randn(d)
+    weights = {"qkvo": randn(d, d, scale=0.02), "mlp_wi": randn(ff, d, scale=0.02),
+               "mlp_wo": randn(d, ff, scale=0.02)}
+    w_head, scale = randn(vocab, d, scale=0.02), randn(d)
     w_head32 = w_head.float()
+    # name: (kernel route, plain version, library yardsticks, flops, bytes,
+    # peak type, the product's operands for its plan)
     cases = {}
     for tag, m in BI_ROWS.items():
-        x = randn(m, d)
+        x, x_ff = randn(m, d), randn(m, ff, scale=0.25)
         x32 = x.float()
-        out_ff = torch.empty(m, ff, dtype=torch.bfloat16, device="cuda")
-        out_head = torch.empty(m, vocab, device="cuda")
-        cases[f"bi_gemm.mlp_wi.{tag}"] = (
-            lambda x=x: bi.linear(x, w_ff, torch.bfloat16),
-            lambda x=x: bi.linear_plain(x, w_ff, torch.bfloat16),
-            lambda x=x: F.linear(x, w_ff), 2 * m * ff * d, size(x, w_ff, out_ff), "bfloat16")
-        cases[f"bi_gemm.lm_head_f32.{tag}"] = (
+        for name, w in weights.items():
+            xin = x_ff if name == "mlp_wo" else x
+            out = torch.empty(m, w.shape[0], dtype=torch.bfloat16, device="cuda")
+            cases[f"bi_gemm_tc.{name}.{tag}"] = (
+                lambda x=xin, w=w: bi.linear(x, w, torch.bfloat16),
+                lambda x=xin, w=w: bi.linear_plain(x, w, torch.bfloat16),
+                {"library": lambda x=xin, w=w: F.linear(x, w)},
+                2 * m * w.shape[0] * w.shape[1], size(xin, w, out), "bfloat16", (xin, w, out))
+        logits = torch.empty(m, vocab, device="cuda")
+        cases[f"bi_gemm_tc.lm_head.{tag}"] = (
+            lambda x=x: bi.linear(x, w_head, torch.float32),
+            lambda x=x: bi.linear_plain(x, w_head, torch.float32),
+            {"library": lambda x=x: F.linear(x, w_head),
+             "library_f32": lambda x=x32: F.linear(x, w_head32)},
+            2 * m * vocab * d, size(x, w_head, logits), "bfloat16", (x, w_head, logits))
+        cases[f"bi_gemm.lm_head_f32_features.{tag}"] = (
             lambda x=x32: bi.linear(x, w_head, torch.float32),
             lambda x=x32: bi.linear_plain(x, w_head, torch.float32),
-            lambda x=x32: F.linear(x, w_head32), 2 * m * vocab * d,
-            size(x32, w_head, out_head), "float32")
+            {"library": lambda x=x32: F.linear(x, w_head32)},
+            2 * m * vocab * d, size(x32, w_head, logits), "float32", (x32, w_head, logits))
         cases[f"bi_rmsnorm.{tag}"] = (
             lambda x=x: bi.rms_norm(x, scale, torch.bfloat16),
             lambda x=x: bi.rms_norm_plain(x, scale, torch.bfloat16),
-            (lambda x=x: F.rms_norm(x, (d,), scale, 1e-6)) if hasattr(F, "rms_norm") else None,
-            4 * m * d, size(x, scale, x), "float32")
-    q, k, v = randn(8, 1, heads, 1, hd), randn(8, cache, heads, hd), randn(8, cache, heads, hd)
-    probs = torch.softmax(randn(8, heads, 1, 1, cache, dtype=torch.float32), -1).to(torch.bfloat16)
-    scores = torch.empty(8, heads, 1, 1, cache, device="cuda")
-    mixed = torch.empty(8, 1, heads, 1, hd, device="cuda")
-    q32, k32, v32, p32 = q.float(), k.float(), v.float(), probs.float()
-    cases["bi_gemm.attention_scores.decode_m8"] = (
-        lambda: bi.attention_scores(q, k), lambda: bi.attention_scores_plain(q, k),
-        lambda: torch.einsum("bqhgd,bshd->bhgqs", q32, k32), 2 * 8 * heads * cache * hd,
-        size(q, k, scores), "bfloat16")
-    cases["bi_gemm.attention_mix.decode_m8"] = (
-        lambda: bi.attention_mix(probs, v), lambda: bi.attention_mix_plain(probs, v),
-        lambda: torch.einsum("bhgqs,bshd->bqhgd", p32, v32), 2 * 8 * heads * cache * hd,
-        size(probs, v, mixed), "bfloat16")
+            {"library": lambda x=x: F.rms_norm(x, (d,), scale, 1e-6)}
+            if hasattr(F, "rms_norm") else {},
+            4 * m * d, size(x, scale, x), "float32", None)
+        b, nq = BI_ATTENTION[tag]
+        q, k, v = randn(b, nq, heads, 1, hd), randn(b, cache, heads, hd), randn(b, cache, heads, hd)
+        probs = torch.softmax(randn(b, heads, 1, nq, cache, dtype=torch.float32) * 4,
+                              -1).to(torch.bfloat16)
+        scores = torch.empty(b, heads, 1, nq, cache, device="cuda")
+        mixed = torch.empty(b, nq, heads, 1, hd, device="cuda")
+        q32, k32, v32, p32 = q.float(), k.float(), v.float(), probs.float()
+        keys = k.permute(0, 2, 1, 3)[:, :, None].expand(b, heads, 1, cache, hd)
+        values = v.permute(0, 2, 3, 1)[:, :, None].expand(b, heads, 1, hd, cache)
+        cases[f"bi_gemm_tc.attention_scores.{tag}"] = (
+            lambda q=q, k=k: bi.attention_scores(q, k),
+            lambda q=q, k=k: bi.attention_scores_plain(q, k),
+            {"library": lambda q=q32, k=k32: torch.einsum("bqhgd,bshd->bhgqs", q, k)},
+            2 * b * nq * heads * cache * hd, size(q, k, scores), "bfloat16",
+            (q.permute(0, 2, 3, 1, 4), keys, scores))
+        cases[f"bi_gemm_mix.attention_mix.{tag}"] = (
+            lambda p=probs, v=v: bi.attention_mix(p, v),
+            lambda p=probs, v=v: bi.attention_mix_plain(p, v),
+            {"library": lambda p=p32, v=v32: torch.einsum("bhgqs,bshd->bqhgd", p, v)},
+            2 * b * nq * heads * cache * hd, size(probs, v, mixed), "bfloat16",
+            (probs, values, mixed.permute(0, 2, 3, 1, 4)))
+    fns = {}
+    for name, (kernel, plain, libraries, *_rest) in cases.items():
+        fns[f"{name}:kernel"] = (kernel, name.split(".")[0])
+        fns[f"{name}:plain"] = (plain, None)
+        for lib, fn in libraries.items():
+            fns[f"{name}:{lib}"] = (fn, None)
+        if name.startswith(("bi_gemm_tc.", "bi_gemm_mix.")):
+            fns[f"{name}:earlier"] = (lambda ops=_rest[-1]: cuda_core_product(*ops),
+                                      "bi_gemm_kernel")
+    times = device_ms_labelled(fns, 20)
     results = {}
-    for name, (kernel, plain, library, flops, nbytes, peak) in cases.items():
+    for name, (kernel, plain, libraries, flops, nbytes, peak, operands) in cases.items():
         bound_ms, bound_by = bound(flops, nbytes, peak)
-        results[name] = {
-            "ms": device_ms(kernel, 20, match=name.split(".")[0]),
-            "plain_ms": device_ms(plain, 20),
-            "library_ms": device_ms(library, 20) if library else None,
-            "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops, "bytes": nbytes,
-        }
+        row = {"ms": times[f"{name}:kernel"], "plain_ms": times[f"{name}:plain"],
+               "library_ms": times.get(f"{name}:library"),
+               "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops, "bytes": nbytes,
+               **_max_err(kernel(), plain())}
+        if "library_f32" in libraries:
+            row["library_f32_ms"] = times[f"{name}:library_f32"]
+            row["library_note"] = ("library: F.linear in bf16 (bf16 logits); library_f32: "
+                                   "F.linear of f32 features and weight (f32 logits)")
+        if operands is not None:
+            plan = _kernels.bi_gemm_plan(*operands)
+            row.update(route=plan.route, tiles=plan.tiles)
+        if f"{name}:earlier" in times:
+            a, w, out = operands
+            want = torch.einsum("...mk,...nk->...mn", a.float(), w.float()).to(out.dtype)
+            row.update(earlier_ms=times[f"{name}:earlier"], earlier_max_abs_err=_max_err(
+                cuda_core_product(a, w, out), want)["max_abs_err"])
+        results[name] = row
+    failures = [f"{name}: off its plain version by {r['max_abs_err']} (tol {r['tol']})"
+                for name, r in results.items() if not r["ok"]]
+    wrong_route = [name for name, r in results.items() if "route" in r and
+                   _kernels.BI_GEMM_ROUTES[r["route"]].name != name.split(".")[0]]
+    if failures or wrong_route:
+        raise AssertionError(f"serving_kernels: {failures}; rows on another route: {wrong_route}")
     return results
+
+
+#: The batch-invariant kernels the bf16 serving path runs: the tensor-core
+#: products, the mix and the norm; the f32 CUDA-core product never.
+SERVING_ROUTES_ON_PATH = ("bi_gemm_tc", "bi_gemm_mix", "bi_rmsnorm")
 
 
 def serve_phase() -> dict:
@@ -1099,8 +1234,10 @@ def serve_phase() -> dict:
         problems.append(f"int8 KV logit cosine {out['kv_int8_logit_cosine']} < 0.999")
     if any(out["flash_launches"].values()):
         problems.append(f"the decode path launched flash kernels: {out['flash_launches']}")
-    if not all(out["serving_launches"].values()):
-        problems.append(f"a batch-invariant kernel never launched: {out['serving_launches']}")
+    launches = out["serving_launches"]
+    if not all(launches[name] for name in SERVING_ROUTES_ON_PATH) or launches["bi_gemm"]:
+        problems.append(f"the bf16 serving path must launch {SERVING_ROUTES_ON_PATH} and not "
+                        f"the f32 CUDA-core product: {launches}")
     agreement = out["batch1_agreement"]
     if agreement["equal"] != agreement["rows"]:
         problems.append(f"{agreement['rows'] - agreement['equal']} engine rows differ from "
@@ -2195,9 +2332,50 @@ def lattice_phase() -> tuple[list[dict], dict]:
     return lines, launches
 
 
+#: The batch-invariant kernels by the names of their device functions: the
+#: tensor-core tiles (skinny, wide), the mix, the f32 CUDA-core product, the norm.
+SERVING_KERNEL_TAGS = {"bi_gemm_tc": "bi_gemm_tc_", "bi_gemm_mix": "bi_gemm_mix_kernel",
+                       "bi_gemm": "bi_gemm_kernel", "bi_rmsnorm": "bi_rmsnorm_kernel"}
+
+
+def wrapper_host_us(model, calls: int = 200) -> dict:
+    """Host time of one call of the serving wrappers on CUDA tensors at the
+    decode step's shapes (8 rows), and of ``F.linear`` beside them: the
+    host clock around ``calls`` back-to-back calls, before the synchronize
+    (each call's kernel is far shorter, so the launch queue never fills)."""
+    import torch
+    import torch.nn.functional as F
+
+    from covalent_tpu_plugin_torch.ops import batch_invariant as bi
+
+    wi, head = model.layers[0].mlp.wi, model.lm_head
+    x = torch.randn(8, 1, wi.weight.shape[1], device="cuda").to(torch.bfloat16)
+    q = torch.randn(8, 1, 12, 1, 64, device="cuda").to(torch.bfloat16)
+    cache = torch.randn(8, 512, 12, 64, device="cuda").to(torch.bfloat16)
+    probs = torch.softmax(torch.randn(8, 12, 1, 1, 512, device="cuda"), -1).to(torch.bfloat16)
+    fns = {"bi_linear_mlp_wi": lambda: bi.linear(x, wi.weight, wi.dtype),
+           "bi_linear_lm_head": lambda: bi.linear(x, head.weight, head.dtype),
+           "bi_attention_scores": lambda: bi.attention_scores(q, cache),
+           "bi_attention_mix": lambda: bi.attention_mix(probs, cache),
+           "bi_rms_norm": lambda: bi.rms_norm(x, x[0, 0], torch.bfloat16),
+           "F_linear_mlp_wi": lambda: F.linear(x, wi.weight)}
+    out = {}
+    for name, fn in fns.items():
+        fn()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        out[name] = (time.perf_counter() - start) / calls * 1e6
+        torch.cuda.synchronize()
+    return out
+
+
 def serve_profile() -> dict:
     """One batch-8 decode step of the 125M LM (bf16 weights, 8 live rows at
-    position 128) under torch.profiler, in this process."""
+    position 128) under torch.profiler, in this process: device time by
+    kind and by batch-invariant kernel, and the kernels' launches in the
+    step (the f32 CUDA-core product must launch none)."""
     import numpy as np
     import torch
 
@@ -2237,6 +2415,7 @@ def serve_profile() -> dict:
             torch.cuda.synchronize()
             wall = time.perf_counter() - wall
         serving_launches = _kernels.serving_launch_counts()
+        host_us = wrapper_host_us(model)
     events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     spans = [e.time_range for e in events if getattr(e, "is_user_annotation", False)
              and e.name == "decode_attention"]
@@ -2251,9 +2430,13 @@ def serve_profile() -> dict:
 
     kinds = {"attention_products": 0.0, "attention_other": 0.0, "matmul": 0.0,
              "elementwise_other": 0.0}
+    by_route = dict.fromkeys(SERVING_KERNEL_TAGS, 0.0)
     by_name: dict[str, list] = {}
     for evt in kernels:
         ms = evt.time_range.elapsed_us() / 1e3
+        for route, tag in SERVING_KERNEL_TAGS.items():
+            if tag in evt.name:
+                by_route[route] += ms
         gemm = any(tag in evt.name for tag in MATMUL_TAGS)
         if in_attention(evt):
             kinds["attention_products" if gemm else "attention_other"] += ms
@@ -2264,6 +2447,8 @@ def serve_profile() -> dict:
         entry[1] += 1
     step_device_ms = sum(kinds.values())
     engine.close()
+    if serving_launches["bi_gemm"] or not all(serving_launches[k] for k in SERVING_ROUTES_ON_PATH):
+        raise AssertionError(f"serve_profile: the decode step's launches {serving_launches}")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     return {
         "step_wall_ms": wall * 1e3, "unprofiled_step_wall_ms": unprofiled * 1e3,
@@ -2271,8 +2456,10 @@ def serve_profile() -> dict:
         "device_busy_share": step_device_ms / (wall * 1e3),
         "device_busy_share_unprofiled": step_device_ms / (unprofiled * 1e3),
         "lm_head_cast_ms": lm_head_cast_ms, "lm_head_gemm_ms": lm_head_gemm_ms,
-        "device_ms_by_kind": kinds, "kernel_launches": len(kernels),
-        "serving_kernel_launches": serving_launches,
+        "device_ms_by_kind": kinds, "device_ms_by_serving_kernel": by_route,
+        "device_ms_other_kernels": step_device_ms - sum(by_route.values()),
+        "kernel_launches": len(kernels), "serving_kernel_launches": serving_launches,
+        "host_us_per_call": host_us,
         "top": [{"name": n[:80], "ms": ms, "calls": c} for n, (ms, c) in top],
     }
 
@@ -2351,7 +2538,11 @@ def main() -> int:
 
     emit({"phase": "profile", "card": smi, **profile_phase()})
 
+    # The small f32 LM of serve_check runs its serving products on the f32
+    # CUDA-core route: that route's path.
+    _kernels.reset_launch_counts()
     emit({"phase": "serve_check", **serve_check()})
+    f32_path_launches = _kernels.serving_launch_counts()
     # The serving ops' rows at batch 1 and in a batch of 8, on the library
     # route (the diagnosis) and on the batch-invariant kernels (the repair),
     # then the kernels' times at the serve cell's shapes.
@@ -2421,26 +2612,42 @@ def main() -> int:
         if launches[kernel.name] < 1:
             raise AssertionError(f"{kernel.name} was not launched on the main path")
     # The serving kernels port no Pallas kernel: the main path is the serve
-    # phase; the row is the decode step's shape (8 rows), the f32 lm_head
-    # for bi_gemm, its largest product; "shapes" has every other.
+    # phase, where the bf16 LM runs the tensor-core products, the mix and
+    # the norm; the f32 CUDA-core product's path is serve_check's f32 LM
+    # (0 launches on the serve phase's).  Each row is the decode step's
+    # shape (8 rows), the lm_head for the products; "shapes" has every other.
     errs = invariance["kernel_vs_plain"]
-    for kernel, key, ops in (
-            (_kernels.BI_GEMM, "bi_gemm.lm_head_f32.decode_m8",
-             list(BI_DENSE) + ["lm_head_f32", "attention_scores", "attention_mix"]),
-            (_kernels.BI_RMSNORM, "bi_rmsnorm.decode_m8", ["rmsnorm"])):
+    tc_ops = list(BI_DENSE) + ["lm_head_f32", "attention_scores"]
+    for kernel, key, err in (
+            (_kernels.BI_GEMM_TC, "bi_gemm_tc.lm_head.m8",
+             max(errs[stage][op]["max_abs_err"] for stage in errs for op in tc_ops)),
+            (_kernels.BI_GEMM_MIX, "bi_gemm_mix.attention_mix.m8",
+             max(errs[stage]["attention_mix"]["max_abs_err"] for stage in errs)),
+            (_kernels.BI_GEMM, "bi_gemm.lm_head_f32_features.m8",
+             max(r["max_abs_err"] for k, r in serving_timing.items()
+                 if k.startswith("bi_gemm.lm_head_f32_features."))),
+            (_kernels.BI_RMSNORM, "bi_rmsnorm.m8",
+             max(errs[stage]["rmsnorm"]["max_abs_err"] for stage in errs))):
         res = serving_timing[key]
+        on_serve = kernel.name in SERVING_ROUTES_ON_PATH
+        launches = serving_launches[kernel.name] if on_serve else f32_path_launches[kernel.name]
         kernels.append({
             "name": kernel.name, "route": "cuda",
             "source": f"covalent_tpu_plugin_torch/csrc/{kernel.source}",
-            "replaces": kernel.replaces, "launches": serving_launches[kernel.name],
-            "max_abs_err": max(errs[stage][op]["max_abs_err"] for stage in errs for op in ops),
-            "ms": res["ms"], "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
-            "bound_by": res["bound_by"], "library_ms": res["library_ms"], "shape": key,
+            "replaces": kernel.replaces, "launches": launches,
+            "path": "serve" if on_serve else "serve_check (f32 LM)",
+            "serve_launches": serving_launches[kernel.name],
+            "max_abs_err": err, "ms": res["ms"], "plain_ms": res["plain_ms"],
+            "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
+            "library_ms": res["library_ms"], "shape": key,
             "shapes": {k: v for k, v in serving_timing.items()
                        if k.startswith(kernel.name + ".")},
         })
-        if serving_launches[kernel.name] < 1:
-            raise AssertionError(f"{kernel.name} was not launched on the serving path")
+        if launches < 1:
+            raise AssertionError(f"{kernel.name} was not launched on its path")
+    if serving_launches["bi_gemm"]:
+        raise AssertionError(f"the bf16 serve path launched the f32 CUDA-core product "
+                             f"{serving_launches['bi_gemm']} times")
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

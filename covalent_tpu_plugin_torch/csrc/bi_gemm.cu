@@ -1,12 +1,14 @@
-// Batch-invariant matrix product for the serving paths.
+// Batch-invariant matrix product for the serving paths, on the CUDA cores:
+// the route of every pair with an f32 operand (bf16 pairs take the tensor
+// cores, bi_gemm_tc.cu and bi_gemm_mix.cu; ops/_kernels.py: plan_bi_gemm).
 //
 //   C[z, m, n] = sum_k A[z, m, k] * W[z, n, k]      (f32 accumulation)
 //
 // with z a batch index of up to three levels (z1, z2, z3) and every operand
-// addressed through element strides, so one kernel serves the dense layers
-// (Z = 1, W the [N, K] weight), the f32 lm_head, and the decode attention's
-// two products over the KV cache (scores = q . k over the head dim, batch
-// (b, kv head, group); out = P . v over the cache, v read transposed).
+// addressed through element strides: the dense layers (Z = 1, W the [N, K]
+// weight), the lm_head, and the decode attention's two products over the
+// KV cache (scores = q . k over the head dim, batch (b, kv head, group);
+// out = P . v over the cache, v read transposed) of an f32 model.
 //
 // No Pallas kernel of the reference computes this: the JAX package leaves
 // these products to XLA.  What the kernel is for is the serving contract of
@@ -24,8 +26,7 @@
 // the weight, the admission prefill (M = prompts x bucket) by operations.
 // The design is CUDA cores only (A and W are widened to f32 in shared
 // memory, products exact for bf16 inputs), 64 x 64 output tiles, 256
-// threads of 4 x 4 outputs, a 16-deep k tile; tensor cores and a skinny-M
-// tile are tuning for later.
+// threads of 4 x 4 outputs, a 16-deep k tile.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

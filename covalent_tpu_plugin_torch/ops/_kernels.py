@@ -19,6 +19,8 @@ device.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import hashlib
 import os
 import shutil
@@ -97,17 +99,35 @@ KERNELS = (FLASH_FWD, FLASH_BWD_DKDV, FLASH_BWD_DQ)
 
 _I64 = ctypes.c_int64
 _I64P = ctypes.POINTER(ctypes.c_int64)
+#: The batch-invariant product's three routes (``plan_bi_gemm`` picks the
+#: cores by the operands' types, a tensor-core kernel by W's layout): a pair
+#: with an f32 operand on the CUDA cores ...
 BI_GEMM = Kernel(
     "bi_gemm", "bi_gemm.cu", [_P] * 3 + [_I] * 3 + [_I64P, _I64P, _P],
     "covalent_tpu_plugin/models/transformer.py:467 (no Pallas kernel: XLA's dense "
-    "and decode-attention products)",
+    "and decode-attention products; f32 operands)",
+)
+#: ... bf16 operands, W k-contiguous, on the tensor cores (the
+#: dense products, the lm_head, the decode attention's scores) ...
+BI_GEMM_TC = Kernel(
+    "bi_gemm_tc", "bi_gemm_tc.cu", [_P] * 3 + [_I] + [_I64P, _I64P] + [_I] * 4 + [_P],
+    "covalent_tpu_plugin/models/transformer.py:467 (no Pallas kernel: XLA's dense "
+    "products, the lm_head and the decode attention's scores)",
+)
+#: ... and the decode attention's mix, its cache operand read transposed.
+BI_GEMM_MIX = Kernel(
+    "bi_gemm_mix", "bi_gemm_mix.cu", [_P] * 3 + [_I] + [_I64P, _I64P] + [_I] * 3 + [_P],
+    "covalent_tpu_plugin/models/transformer.py:496 (no Pallas kernel: XLA's "
+    "decode-attention mix)",
 )
 BI_RMSNORM = Kernel(
     "bi_rmsnorm", "bi_rmsnorm.cu", [_P] * 3 + [_I] * 3 + [_I64, _I64, _F, _P],
     "covalent_tpu_plugin/models/transformer.py:183 (no Pallas kernel: XLA's RMSNorm)",
 )
 #: The serving paths' batch-invariant kernels (ops/batch_invariant.py).
-SERVING_KERNELS = (BI_GEMM, BI_RMSNORM)
+SERVING_KERNELS = (BI_GEMM, BI_GEMM_TC, BI_GEMM_MIX, BI_RMSNORM)
+#: ``plan_bi_gemm``'s route -> the kernel that takes it.
+BI_GEMM_ROUTES = {"fma": BI_GEMM, "tc": BI_GEMM_TC, "mix": BI_GEMM_MIX}
 
 _build_lock = threading.Lock()
 
@@ -181,7 +201,10 @@ def launch_counts() -> dict[str, int]:
 
 
 def serving_launch_counts() -> dict[str, int]:
-    """Launches of the serving paths' batch-invariant kernels."""
+    """Launches of the serving paths' batch-invariant kernels, one key per
+    route of the product (``bi_gemm``: f32 operands on the CUDA cores,
+    ``bi_gemm_tc``, ``bi_gemm_mix``: bf16 on the tensor cores) and the
+    norm's."""
     return {kernel.name: kernel.launches for kernel in SERVING_KERNELS}
 
 
@@ -312,37 +335,194 @@ def _bi_check(tensors: dict) -> None:
                              "float32 and bfloat16")
 
 
-def _batch5(t: torch.Tensor) -> torch.Tensor:
-    """``t`` (up to 3 leading batch dims, then 2) as a 5-dim view."""
+def _batch5(t: torch.Tensor) -> tuple[tuple, tuple]:
+    """Shape and strides of ``t`` (up to 3 leading batch dims, then 2) as
+    five dims, without making a view (a view costs the host more than the
+    planner and the launch together)."""
     if not 2 <= t.dim() <= 5:
         raise ValueError(f"expected 2 to 5 dims, got shape {tuple(t.shape)}")
-    return t[(None,) * (5 - t.dim())]
+    pad = 5 - t.dim()
+    return (1,) * pad + tuple(t.shape), (0,) * pad + t.stride()
 
 
-def bi_gemm(a: torch.Tensor, w: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
-    """``out[..., m, n] = sum_k a[..., m, k] * w[..., n, k]`` with f32
-    accumulation in a fixed order (csrc/bi_gemm.cu), written into ``out``
-    through its strides.  Up to three leading batch dims; ``a`` and ``w``
-    broadcast over them (stride 0).  Any strides, f32 or bf16 each."""
-    _bi_check({"a": a, "w": w, "out": out})
-    a5, w5, c5 = _batch5(a), _batch5(w), _batch5(out)
-    batch = tuple(c5.shape[:3])
-    a5 = a5.expand(*batch, *a5.shape[3:])
-    w5 = w5.expand(*batch, *w5.shape[3:])
-    m, k = a5.shape[3:]
-    n = w5.shape[3]
-    if w5.shape[4] != k or tuple(c5.shape[3:]) != (m, n):
+#: The segment of the tensor-core routes' order of summation
+#: (csrc/bi_mma.cuh: one chain of mma steps from zeros, then added to the
+#: total); the kernels check that the plan carries it.
+BI_SEG_K = 256
+#: The wide tiles (64 x 128) are taken above 16 rows where there are at
+#: least this many of them: fewer leave most of the card's 132 SMs idle
+#: while each block walks the whole of K, and the skinny tiles, which split
+#: K across warps, finish first (H100: M 128 at 768 x 768 and 3072 -> 768).
+WIDE_MIN_TILES = 48
+
+
+@dataclasses.dataclass(frozen=True)
+class GemmPlan:
+    """How :func:`bi_gemm` takes one product.
+
+    ``route`` follows from the dtypes alone: bf16 x bf16 on the tensor
+    cores (``tc``, or ``mix`` where W is read transposed; both sum in
+    csrc/bi_mma.cuh's order), anything else on the CUDA cores (``fma``).
+    ``seg_k`` and ``segments`` follow from K.  ``tiles`` and the launch
+    shape (``nt`` column tiles and ``rs`` segments a round for the skinny
+    tiles, ``nt`` slices for the mix) may follow M, N and the batch: they
+    change which thread computes a value, never how.
+    """
+
+    route: str  # "tc", "mix" or "fma"
+    seg_k: int
+    segments: int
+    tiles: str  # "skinny", "wide", "mix" or "fma"
+    nt: int = 0
+    rs: int = 0
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _runs_aligned(strides: tuple, run_dim: int) -> bool:
+    """The dim ``run_dim`` is contiguous and every other dim moves by whole
+    16-byte runs of bf16.  The strides alone decide, whatever the sizes, so
+    a slice of one row and of eight rows of the same tensor are laid out
+    alike."""
+    return strides[run_dim] == 1 and all(
+        stride % 8 == 0 for i, stride in enumerate(strides) if i != run_dim)
+
+
+@functools.lru_cache(maxsize=4096)
+def _tensor_core_layout(n: int, k: int, a_strides: tuple, w_strides: tuple) -> tuple:
+    """``(copy_a, copy_w, transposed)`` for bf16 operands with these
+    five-dim strides: the tensor-core kernels read A and W in 16-byte runs
+    along k (``tc``), or W in runs along n (``mix``, the cache's v read
+    transposed), so an operand whose runs are off them, or K off a multiple
+    of 8, is copied onto them first (W into the k-contiguous layout)."""
+    if k % 8:
+        return True, True, False
+    copy_a = not _runs_aligned(a_strides, 4)
+    if w_strides[4] != 1 and n % 8 == 0 and _runs_aligned(w_strides, 3):
+        return copy_a, False, True
+    return copy_a, not _runs_aligned(w_strides, 4), False
+
+
+def _onto_runs(t: torch.Tensor, k: int) -> torch.Tensor:
+    """``t`` copied into a fresh contiguous tensor (16-byte aligned), its
+    last dim padded with zeros to ``k``: the zero products the kernels'
+    last k group adds anyway, so the sums are the same bits."""
+    out = (torch.zeros if k != t.shape[-1] else torch.empty)(
+        (*t.shape[:-1], k), dtype=t.dtype, device=t.device)
+    out[..., :t.shape[-1]].copy_(t)
+    return out
+
+
+@functools.lru_cache(maxsize=4096)
+def plan_bi_gemm(a_dtype: torch.dtype, w_dtype: torch.dtype, sizes: tuple,
+                 transposed: bool = False) -> GemmPlan:
+    """The route and tiles of ``C[z, m, n] = sum_k A[z, m, k] W[z, n, k]``.
+
+    ``sizes`` is (z1, z2, z3, M, N, K) of operands laid out as the route
+    reads them (:func:`bi_gemm` copies them there first); ``transposed``
+    says W is n-contiguous.  bf16 A and W take the tensor cores: ``tc``,
+    or ``mix`` where W is transposed; any other pair takes the f32
+    CUDA-core kernel.  M picks tiles, never the route.
+    """
+    z1, z2, z3, m, n, k = sizes
+    if not a_dtype == w_dtype == torch.bfloat16:
+        return GemmPlan("fma", seg_k=k, segments=1, tiles="fma")
+    segments = _cdiv(k, BI_SEG_K)
+    if transposed:
+        slices = min(4, _cdiv(n, 16))
+        return GemmPlan("mix", BI_SEG_K, segments, "mix", nt=slices,
+                        rs=min(segments, 8 // slices))
+    if m > 16 and _cdiv(m, 64) * _cdiv(n, 128) * z1 * z2 * z3 >= WIDE_MIN_TILES:
+        return GemmPlan("tc", BI_SEG_K, segments, "wide")
+    nt = max(1, 8 // segments)
+    return GemmPlan("tc", BI_SEG_K, segments, "skinny", nt=nt, rs=min(segments, 16 // nt))
+
+
+def _bi_operands(a: torch.Tensor, w: torch.Tensor, out: torch.Tensor):
+    """The sizes (z1, z2, z3, M, N, K) and the five-dim strides of ``a``,
+    ``w`` and ``out``; ``a`` and ``w`` broadcast over the output's batch
+    dims (stride 0)."""
+    (a_shape, a_strides), (w_shape, w_strides), (c_shape, c_strides) = (
+        _batch5(a), _batch5(w), _batch5(out))
+    batch = c_shape[:3]
+
+    def broadcast(shape, strides, name):
+        for i in range(3):
+            if shape[i] != batch[i] and shape[i] != 1:
+                raise ValueError(f"bi_gemm: {name} {tuple(shape)} does not broadcast to the "
+                                 f"batch {batch}")
+        return tuple(st if shape[i] == batch[i] else 0 for i, st in enumerate(strides[:3])) \
+            + strides[3:]
+
+    a_strides = broadcast(a_shape, a_strides, "a")
+    w_strides = broadcast(w_shape, w_strides, "w")
+    m, k = a_shape[3:]
+    n = w_shape[3]
+    if w_shape[4] != k or c_shape[3:] != (m, n):
         raise ValueError(f"bi_gemm: a {tuple(a.shape)}, w {tuple(w.shape)} and out "
                          f"{tuple(out.shape)} do not make out = a . w^T")
     if min(m, n, k) < 1:
         raise ValueError("bi_gemm: empty product")
-    sizes = (ctypes.c_int64 * 6)(*batch, m, n, k)
-    strides = (ctypes.c_int64 * 15)(*a5.stride(), *w5.stride(), *c5.stride())
-    BI_GEMM.launch(
-        _ptr(a), _ptr(w), _ptr(out), _BI_DTYPES[a.dtype], _BI_DTYPES[w.dtype],
-        _BI_DTYPES[out.dtype], sizes, strides,
-        torch.cuda.current_stream(a.device).cuda_stream,
-    )
+    return (*batch, m, n, k), a_strides, w_strides, c_strides
+
+
+def _bi_prepare(a: torch.Tensor, w: torch.Tensor, out: torch.Tensor):
+    """``a`` and ``w`` laid out as their route's kernel reads them, the
+    sizes and strides of the three, and the plan.  bf16 operands off the
+    tensor cores' 16-byte runs (a row stride or a base pointer off them, K
+    off a multiple of 8) are copied onto them, whatever M: the copy moves
+    the values, the route and its order of summation stay those of the
+    dtypes."""
+    sizes, a_strides, w_strides, c_strides = _bi_operands(a, w, out)
+    transposed = False
+    if a.dtype == w.dtype == torch.bfloat16:
+        copy_a, copy_w, transposed = _tensor_core_layout(
+            sizes[4], sizes[5], a_strides, w_strides)
+        copy_a = copy_a or a.data_ptr() % 16 != 0
+        if not transposed:
+            copy_w = copy_w or w.data_ptr() % 16 != 0
+        elif w.data_ptr() % 16 != 0:
+            copy_w, transposed = True, False
+        if copy_a or copy_w:
+            k8 = _cdiv(sizes[5], 8) * 8
+            a = _onto_runs(a, k8) if copy_a else a
+            w = _onto_runs(w, k8) if copy_w else w
+            sizes, a_strides, w_strides, c_strides = _bi_operands(a, w, out)
+    plan = plan_bi_gemm(a.dtype, w.dtype, sizes, transposed)
+    return a, w, sizes, a_strides + w_strides + c_strides, plan
+
+
+def bi_gemm_plan(a: torch.Tensor, w: torch.Tensor, out: torch.Tensor) -> GemmPlan:
+    """The plan :func:`bi_gemm` takes for these tensors (on any device)."""
+    return _bi_prepare(a, w, out)[-1]
+
+
+_TILE_CODES = {"skinny": 0, "wide": 1}
+
+
+def bi_gemm(a: torch.Tensor, w: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """``out[..., m, n] = sum_k a[..., m, k] * w[..., n, k]`` with f32
+    accumulation in an order fixed by the dtypes and K (``plan_bi_gemm``;
+    csrc/bi_mma.cuh, csrc/bi_gemm.cu), written into ``out`` through its
+    strides.  Up to three leading batch dims; ``a`` and ``w`` broadcast
+    over them (stride 0).  f32 or bf16 each."""
+    _bi_check({"a": a, "w": w, "out": out})
+    a, w, sizes, strides, plan = _bi_prepare(a, w, out)
+    shape = (ctypes.c_int64 * 6)(*sizes)
+    strides = (ctypes.c_int64 * 15)(*strides)
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    ptrs = (_ptr(a), _ptr(w), _ptr(out))
+    if plan.route == "tc":
+        BI_GEMM_TC.launch(*ptrs, _BI_DTYPES[out.dtype], shape, strides,
+                          _TILE_CODES[plan.tiles], plan.nt, plan.rs, plan.seg_k, stream)
+    elif plan.route == "mix":
+        BI_GEMM_MIX.launch(*ptrs, _BI_DTYPES[out.dtype], shape, strides, plan.nt, plan.rs,
+                           plan.seg_k, stream)
+    else:
+        BI_GEMM.launch(*ptrs, _BI_DTYPES[a.dtype], _BI_DTYPES[w.dtype], _BI_DTYPES[out.dtype],
+                       shape, strides, stream)
     return out
 
 

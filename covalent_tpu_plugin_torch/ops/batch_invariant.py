@@ -12,11 +12,16 @@ algorithm, tiling and split-K by the problem's shape, and a library
 reduction sizes its blocks by the number of rows, so on the card a row's
 sums are taken in an order that depends on what shares its batch.  The
 functions here take CUDA tensors to hand-written kernels whose order of
-summation is fixed per output element (``csrc/bi_gemm.cu``,
-``csrc/bi_rmsnorm.cu``): the batch-invariant matmul and RMSNorm of Thinking
-Machines' "Defeating Nondeterminism in LLM Inference" (2025).  CPU tensors
-take the ``*_plain`` versions beside them, which make the same casts; the
-model uses the plain versions outright where the route is off (training).
+summation is fixed per output element by the dtypes and K, never by the
+number of rows: the batch-invariant matmul and RMSNorm of
+Thinking Machines' "Defeating Nondeterminism in LLM Inference" (2025).  The
+product has three routes (``_kernels.plan_bi_gemm``): bf16 operands on the
+tensor cores (``csrc/bi_gemm_tc.cu``; the decode attention's mix, its cache
+operand read transposed, in ``csrc/bi_gemm_mix.cu``), a pair with an f32
+operand on the CUDA cores (``csrc/bi_gemm.cu``); the norm is ``csrc/bi_rmsnorm.cu``.  CPU
+tensors take the ``*_plain`` versions beside them, which make the same
+casts; the model uses the plain versions outright where the route is off
+(training).
 
 :func:`..models.transformer.use_batch_invariant` turns the route on; the
 serving entry points (``generate``, ``continuous_generate``,
@@ -51,12 +56,15 @@ def linear(x: torch.Tensor, weight: torch.Tensor, dtype: torch.dtype) -> torch.T
     """:func:`linear_plain` on the batch-invariant GEMM for CUDA tensors."""
     if not _route(x):
         return linear_plain(x, weight, dtype)
-    x = x.to(dtype)
-    # A bf16 weight under an f32 product widens inside the kernel, exactly
-    # as ``weight.to(float32)`` would, without the f32 copy; any other
-    # weight is cast as the plain version casts it.
+    # A bf16 weight under an f32 product goes to the kernel as it is, and so
+    # do bf16 features beside it (the lm_head's, out of the final norm):
+    # widening bf16 to f32 is exact, so the kernel computes the plain
+    # version's function, its f32 sums taken on the tensor cores.  Any other
+    # operand is cast as the plain version casts it.
     if not (weight.dtype == torch.bfloat16 and dtype == torch.float32):
         weight = weight.to(dtype)
+    if not (x.dtype == weight.dtype == torch.bfloat16):
+        x = x.to(dtype)
     rows = x.reshape(-1, x.shape[-1])
     out = torch.empty(*x.shape[:-1], weight.shape[0], dtype=dtype, device=x.device)
     _kernels.bi_gemm(rows, weight, out.view(-1, weight.shape[0]))

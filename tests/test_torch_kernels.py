@@ -254,7 +254,7 @@ def test_chip_smoke_parity_covers_gqa_and_ragged_queries():
         assert any(h > hkv and sq % 64 and sq != sk for _, h, hkv, sq, sk, _ in at_dim), dim
 
 
-# --- the serving paths' batch-invariant kernels (csrc/bi_gemm.cu, bi_rmsnorm.cu)
+# --- the serving paths' batch-invariant kernels (csrc/bi_gemm*.cu, bi_rmsnorm.cu)
 
 #: bi kernels against their plain versions: f32 sums in another order, then
 #: (bf16 outputs) one rounding that may land on the neighbouring value, at
@@ -337,10 +337,145 @@ def test_batch_invariant_rows_bit_equal_under_batch_and_permutation(card):
         assert torch.equal(permuted, whole[perm]), name
 
 
+#: The 125M LM's products: (N, K, output type) of q/k/v/o, the MLP's two and
+#: the lm_head (bf16 features, f32 logits).
+BI_WIDTHS = {"qkvo": (768, 768, torch.bfloat16), "mlp_wi": (3072, 768, torch.bfloat16),
+             "mlp_wo": (768, 3072, torch.bfloat16), "lm_head": (32768, 768, torch.float32)}
+#: Row counts crossing every boundary of the tensor-core route's tiles: the
+#: skinny tiles' 8 and 16 rows, the wide tiles' 64 and 128, an admission wave.
+BI_ROW_SWEEP = (1, 7, 8, 15, 16, 17, 63, 64, 65, 128, 1024)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(BI_WIDTHS))
+def test_batch_invariant_rows_bit_equal_across_tiles_at_125m_widths(card, name):
+    """Every row count of the sweep: each row of the batch equals the same
+    row in the 1024-row batch (the wide tiles) and alone (M = 1, the skinny
+    tiles), bit for bit, also in a permuted batch; the product is the
+    tensor-core route's, within ``BI_TOL`` of its plain version."""
+    from covalent_tpu_plugin_torch.ops import batch_invariant as bi
+
+    n, k, out = BI_WIDTHS[name]
+    rng = np.random.default_rng(7)
+    # features of 0.25 and weights of 0.02 keep every output below 2, where
+    # BI_TOL's one bf16 rounding holds
+    x = torch.tensor(rng.standard_normal((1024, k), dtype=np.float32) * 0.25, device=card)
+    x = x.to(torch.bfloat16)
+    w = torch.tensor(rng.standard_normal((n, k), dtype=np.float32) * 0.02, device=card)
+    w = w.to(torch.bfloat16)
+    assert _kernels.bi_gemm_plan(x, w, torch.empty(1024, n, dtype=out, device=card)).route == "tc"
+    _kernels.reset_launch_counts()
+    whole = bi.linear(x, w, out)
+    assert _kernels.serving_launch_counts()["bi_gemm_tc"] == 1
+    want = bi.linear_plain(x, w, out)
+    assert whole.dtype == out
+    assert (whole.float() - want.float()).abs().max().item() <= BI_TOL[out], name
+    for m in BI_ROW_SWEEP:
+        rows = bi.linear(x[:m], w, out)
+        assert torch.equal(rows, whole[:m]), (name, m)
+        perm = torch.as_tensor(np.random.default_rng(m).permutation(m), device=card)
+        assert torch.equal(bi.linear(x[:m][perm], w, out), whole[:m][perm]), (name, m)
+    for row in range(1024):
+        assert torch.equal(bi.linear(x[row:row + 1], w, out), whole[row:row + 1]), (name, row)
+    assert _kernels.serving_launch_counts()["bi_gemm"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("queries", [1, 128])
+def test_batch_invariant_attention_products_over_a_512_cache(card, queries):
+    """The decode attention's scores (tensor-core route, the keys read in
+    place) and mix (the mix route, the values read transposed) at 8 rows x
+    12 heads over 512 cache positions: within ``BI_TOL`` of their plain
+    versions, each batch row equal to that row alone and in a permuted
+    batch, and each query equal to that query alone."""
+    from covalent_tpu_plugin_torch.ops import batch_invariant as bi
+
+    rng = np.random.default_rng(11 + queries)
+
+    def t(*shape):
+        return torch.tensor(rng.standard_normal(shape, dtype=np.float32),
+                            device=card).to(torch.bfloat16)
+
+    q, cache_k, cache_v = t(8, queries, 12, 1, 64), t(8, 512, 12, 64), t(8, 512, 12, 64)
+    probs = torch.softmax(t(8, 12, 1, queries, 512).float() * 4, -1).to(torch.bfloat16)
+    scores_out = torch.empty(8, 12, 1, queries, 512, device=card)
+    keys = cache_k.permute(0, 2, 1, 3)[:, :, None].expand(8, 12, 1, 512, 64)
+    values = cache_v.permute(0, 2, 3, 1)[:, :, None].expand(8, 12, 1, 64, 512)
+    assert _kernels.bi_gemm_plan(q.permute(0, 2, 3, 1, 4), keys, scores_out).route == "tc"
+    mix_out = torch.empty(8, queries, 12, 1, 64, device=card).permute(0, 2, 3, 1, 4)
+    assert _kernels.bi_gemm_plan(probs, values, mix_out).route == "mix"
+    _kernels.reset_launch_counts()
+    # name: kernel route, plain version, operands, the query dim of the
+    # first operand and of the output
+    products = {
+        "scores": (bi.attention_scores, bi.attention_scores_plain, (q, cache_k), 1, 3),
+        "mix": (bi.attention_mix, bi.attention_mix_plain, (probs, cache_v), 3, 1),
+    }
+    for name, (kernel, plain, (lhs, cache), lhs_dim, out_dim) in products.items():
+        whole = kernel(lhs, cache)
+        assert (whole - plain(lhs, cache)).abs().max().item() <= BI_TOL[torch.float32], name
+        perm = torch.as_tensor(np.random.default_rng(5).permutation(8), device=card)
+        assert torch.equal(kernel(lhs[perm], cache[perm]), whole[perm]), name
+        for b in range(8):
+            assert torch.equal(kernel(lhs[b:b + 1], cache[b:b + 1]), whole[b:b + 1]), (name, b)
+        for i in sorted({0, queries // 2, queries - 1}):
+            alone = kernel(lhs.narrow(lhs_dim, i, 1).contiguous(), cache)
+            assert torch.equal(alone, whole.narrow(out_dim, i, 1)), (name, i)
+    counts = _kernels.serving_launch_counts()
+    assert counts["bi_gemm_tc"] > 0 and counts["bi_gemm_mix"] > 0 and counts["bi_gemm"] == 0
+
+
+@pytest.mark.cuda
+def test_tensor_core_route_bits_follow_the_values_not_their_layout(card):
+    """bf16 operands take the tensor cores whatever their layout: A off the
+    16-byte runs (rows 776 apart, a base 2 bytes off) and K = 764 (padded
+    with zeros) are copied onto them, and the mix kernel's transposed read
+    sums as the tc kernel's read of a k-contiguous copy.  At M 1, 8 and 128
+    each is bit-equal to the aligned product; the CUDA-core kernel never
+    runs."""
+    rng = np.random.default_rng(13)
+
+    def t(*shape, scale=1.0):
+        return torch.tensor(rng.standard_normal(shape, dtype=np.float32) * scale,
+                            device=card).to(torch.bfloat16)
+
+    def product(a, w, dtype=torch.bfloat16):
+        out = torch.empty(*a.shape[:-1], w.shape[-2], dtype=dtype, device=card)
+        return _kernels.bi_gemm(a, w, out)
+
+    x, w = t(128, 768, scale=0.25), t(3072, 768, scale=0.02)
+    wide = torch.zeros(128, 776, dtype=torch.bfloat16, device=card)
+    wide[:, :768] = x
+    shifted = torch.zeros(128 * 768 + 8, dtype=torch.bfloat16, device=card)[1:1 + 128 * 768]
+    shifted = shifted.view(128, 768)
+    shifted.copy_(x)
+    x764, w764 = x.clone(), w.clone()
+    x764[:, 764:] = 0
+    w764[:, 764:] = 0
+    probs = torch.softmax(t(96, 128, 512).float() * 4, -1).to(torch.bfloat16)
+    values = t(96, 512, 64).transpose(1, 2)  # (Z, N = 64, K = 512), n contiguous
+    mix_out = torch.empty(96, 128, 64, device=card)
+    assert _kernels.bi_gemm_plan(probs, values, mix_out).route == "mix"
+    assert _kernels.bi_gemm_plan(wide[:8, :768], w, torch.empty(8, 3072, device=card)).route \
+        == "tc"
+    _kernels.reset_launch_counts()
+    whole, padded = product(x, w), product(x764, w764)
+    for m in (1, 8, 128):
+        assert torch.equal(product(wide[:m, :768], w), whole[:m]), m
+        assert torch.equal(product(shifted[:m], w), whole[:m]), m
+        assert torch.equal(product(x[:m, :764], w[:, :764]), padded[:m]), m
+        p = probs[:, :m].contiguous()
+        assert torch.equal(product(p, values, torch.float32),
+                           product(p, values.contiguous(), torch.float32)), m
+    counts = _kernels.serving_launch_counts()
+    assert counts["bi_gemm_tc"] > 0 and counts["bi_gemm_mix"] > 0 and counts["bi_gemm"] == 0
+
+
 @pytest.mark.cuda
 def test_serving_path_launches_the_batch_invariant_kernels(card):
     """``generate`` turns the route on: a small bf16 LM's decode on the card
-    launches both kernels, and its rows are bit-equal to batch 1."""
+    launches the tensor-core products, the mix and the norm (and never the
+    f32 CUDA-core product), and its rows are bit-equal to batch 1."""
     from covalent_tpu_plugin_torch.models import decode
     from covalent_tpu_plugin_torch.models.transformer import TransformerConfig, TransformerLM
 
@@ -352,7 +487,8 @@ def test_serving_path_launches_the_batch_invariant_kernels(card):
     _kernels.reset_launch_counts()
     batch = decode.generate(model, prompts, 10)
     counts = _kernels.serving_launch_counts()
-    assert counts["bi_gemm"] > 0 and counts["bi_rmsnorm"] > 0, counts
+    assert counts["bi_gemm_tc"] > 0 and counts["bi_gemm_mix"] > 0, counts
+    assert counts["bi_rmsnorm"] > 0 and counts["bi_gemm"] == 0, counts
     assert _kernels.launch_counts() == {"flash_fwd": 0, "flash_bwd_dkdv": 0, "flash_bwd_dq": 0}
     for row in range(8):
         assert torch.equal(batch[row:row + 1], decode.generate(model, prompts[row:row + 1], 10))
@@ -375,7 +511,8 @@ def test_batch_invariant_ops_take_plain_versions_on_cpu():
     assert torch.equal(bi.attention_scores(q, k), bi.attention_scores_plain(q, k))
     p = torch.full((2, 2, 1, 1, 7), 1 / 7)
     assert torch.equal(bi.attention_mix(p, k), bi.attention_mix_plain(p, k))
-    assert _kernels.serving_launch_counts() == {"bi_gemm": 0, "bi_rmsnorm": 0}
+    assert _kernels.serving_launch_counts() == {"bi_gemm": 0, "bi_gemm_tc": 0, "bi_gemm_mix": 0,
+                                                "bi_rmsnorm": 0}
     with pytest.raises(ValueError, match="CUDA tensors"):
         _kernels.bi_gemm(x[0], w, torch.empty(5, 8))
     with pytest.raises(ValueError, match="CUDA tensors"):

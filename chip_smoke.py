@@ -44,21 +44,25 @@ Phases, one JSON object per line on stdout, in this order:
 10. ``batch_invariance``: the 125M LM (bf16 weights from seed 0), 8 prompts
     of 128 tokens, the prefill and one decode step: each serving op alone
     (every dense product, the f32 lm_head, the decode attention's two
-    products, the softmax, RMSNorm held in f32, rotary) on the inputs every
-    layer saw in the batch of 8, each row against that row computed alone,
-    and the first layer's input cut to 2-7 rows; then the model's logits of
-    row 5 against its prompt alone.  Once on the library route
+    products, the softmax, rotary, and all 25 norms held in f32: layer 0's
+    alone, the other 24 with the residual add before them, their sum too)
+    on the inputs every layer saw in the batch of 8, each row against that
+    row computed alone, and the first layer's input cut to 2-7 rows; then
+    the model's logits of row 5 against its prompt alone.  Once on the library route
     (``F.linear``, ``einsum``, torch's RMSNorm: the diagnosis) and once on
     the batch-invariant kernels (``csrc/bi_gemm_tc.cu``,
     ``csrc/bi_gemm_mix.cu``, ``csrc/bi_rmsnorm.cu``: the serving route),
     where every op must be bit-equal and every kernel within its tolerance
-    of its plain version.
+    of its plain version, every fused sum equal to torch's add and every
+    fused norm to the norm alone on that sum.
 11. ``serving_kernels``: every product kind the serving model runs (q/k/v/o,
     the MLP's wi and wo, the lm_head on bf16 features, the decode
-    attention's scores and mix), the f32-operand route and the norm, at M
-    1, 8, 128 and 1024: device time beside the plain version, one PyTorch
-    call (a yardstick only; the lm_head has two, bf16 and f32), the bound,
-    the error against the plain version and the route and tiles taken.
+    attention's scores and mix), the f32-operand route and the norm, alone
+    and with the residual add, at M 1, 8, 128 and 1024: device time beside
+    the plain version, one PyTorch call (a yardstick only; the lm_head has
+    two, bf16 and f32; the fused norm's is ``x + delta`` then
+    ``F.rms_norm``), the bound, the error against the plain version and the
+    route and tiles taken.
 12. ``serve``: the serving path.  ``GPUExecutor(transport="local")`` dispatches
     the serving electron (``models.serve.serve_lm``): the 125M LM with bf16
     weights, ``generate`` at batch 8 (prompt 128, 128 new tokens) and 16
@@ -74,8 +78,10 @@ Phases, one JSON object per line on stdout, in this order:
     its other kernels apart, by the ``decode_attention`` ranges), the
     device's busy share against the profiled and the unprofiled step, the
     batch-invariant kernels' launches and device time in the step by kernel
-    (the f32 CUDA-core product must launch none), and the f32
-    ``lm_head``'s weight cast and library product alone.
+    (the f32 CUDA-core product must launch none; the norm once alone and
+    once a layer for each residual add), the step's launches, the serving
+    wrappers' host cost, and the f32 ``lm_head``'s weight cast and library
+    product alone.
 14. ``session``: the serving cell through the resident session.
     ``serving.open_session`` on ``GPUExecutor(use_agent="pool")`` opens the
     125M LM (bf16 weights built on the card in the pool server from seed 0;
@@ -848,23 +854,36 @@ def _capture(model, tokens, cache) -> dict:
     for layer in model.layers:
         for name, (block, attr) in BI_DENSE.items():
             modules.setdefault(name, []).append(getattr(getattr(layer, block), attr))
-        modules.setdefault("rmsnorm", []).extend([layer.ln_attn, layer.ln_mlp])
     hooks = [m.register_forward_pre_hook(hook(name))
              for name, ms in modules.items() for m in (ms if isinstance(ms, list) else [ms])]
     wrapped = {}
+    depth = [0]
 
     def record(owner, attr, name):
+        """Record the calls of ``owner.attr`` the model makes; not those one
+        recorded function makes of another (the plain fused norm's norm)."""
         fn = getattr(owner, attr)
         wrapped[(owner, attr)] = fn
 
         def wrapper(*args):
-            seen.setdefault(name, []).append(tuple(a.detach().clone() for a in args))
-            return fn(*args)
+            if not depth[0]:
+                seen.setdefault(name, []).append(tuple(
+                    a.detach().clone() if isinstance(a, torch.Tensor) else a for a in args))
+            depth[0] += 1
+            try:
+                return fn(*args)
+            finally:
+                depth[0] -= 1
         setattr(owner, attr, wrapper)
 
     for suffix in ("", "_plain"):
         record(bi, "attention_scores" + suffix, "attention_scores")
         record(bi, "attention_mix" + suffix, "attention_mix")
+        # the 25 norms of the 125M LM's step: layer 0's ln_attn alone, each
+        # residual add with the norm after it (ln_mlp, the next ln_attn,
+        # ln_final)
+        record(bi, "rms_norm" + suffix, "rmsnorm")
+        record(bi, "add_rms_norm" + suffix, "add_rmsnorm")
     record(transformer, "_apply_rotary", "rotary")
     try:
         with torch.no_grad():
@@ -887,12 +906,27 @@ def _max_err(got, want) -> dict:
     return {"max_abs_err": err, "tol": tol, "ok": err <= tol}
 
 
+def _rows_summary(results: list, calls: int) -> dict:
+    """``_rows_check`` results of every captured call, then (past
+    ``calls``) of the first call's input cut to 2-7 rows."""
+    return {"bit_equal": results[0]["bit_equal"],
+            "rows_differing": sum(r["rows_differing"] for r in results),
+            "rows_differing_in_2_to_7_row_batches": sum(
+                r["rows_differing"] for r in results[calls:]),
+            "rows": sum(r["rows"] for r in results),
+            "max_abs_diff": max(r["max_abs_diff"] for r in results)}
+
+
 def _op_checks(model, captured: dict, query_pos, plain: bool) -> tuple[dict, dict]:
     """Each op alone on the captured batch inputs of every layer: each row
-    of the batch against the row computed alone.  ``plain``: the library
-    route.  RMSNorm is held in f32, before its cast, so a sum taken in
-    another order shows even where the bf16 rounding would hide it.  Also
-    each kernel against its plain version on the same inputs."""
+    of the batch against the row computed alone, and the first layer's
+    input cut to 2-7 rows (the engine's admission waves take any number of
+    prompts).  ``plain``: the library route.  RMSNorm is held in f32, before
+    its cast, so a sum taken in another order shows even where the bf16
+    rounding would hide it; the fused norm's sum ``s`` too.  Also each
+    kernel against its plain version on the same inputs, and on the
+    batch-invariant route every fused norm's ``s`` against torch's add and
+    its ``y`` against the norm alone on ``s``, bit for bit."""
     import torch
 
     from covalent_tpu_plugin_torch.models import transformer
@@ -907,30 +941,45 @@ def _op_checks(model, captured: dict, query_pos, plain: bool) -> tuple[dict, dic
         pairs = list(zip(mods, seen[name]))
         results = [_rows_check(lambda x, m=m: linear(x, m.weight, m.dtype), [args])
                    for m, args in pairs]
-        # and the first layer's input cut to 2 .. 7 rows: the engine's
-        # admission waves take any number of prompts
         first_m, (first_x,) = pairs[0]
         results += [_rows_check(lambda x: linear(x, first_m.weight, first_m.dtype),
                                 [(first_x[:n],)]) for n in range(2, BI_BATCH)]
-        out[name] = {"bit_equal": results[0]["bit_equal"],
-                     "rows_differing": sum(r["rows_differing"] for r in results),
-                     "rows_differing_in_2_to_7_row_batches": sum(
-                         r["rows_differing"] for r in results[len(pairs):]),
-                     "rows": sum(r["rows"] for r in results),
-                     "max_abs_diff": max(r["max_abs_diff"] for r in results)}
+        out[name] = _rows_summary(results, len(pairs))
         m, (x,) = pairs[0]
         errs[name] = _max_err(bi.linear(x, m.weight, m.dtype), bi.linear_plain(x, m.weight, m.dtype))
     norm = bi.rms_norm_plain if plain else bi.rms_norm
-    norms = list(zip(modules["rmsnorm"], seen["rmsnorm"]))
-    results = [_rows_check(lambda x, m=m: norm(x, m.scale, torch.float32), [args])
-               for m, args in norms]
-    out["rmsnorm_f32"] = {"bit_equal": results[0]["bit_equal"],
-                          "rows_differing": sum(r["rows_differing"] for r in results),
-                          "rows": sum(r["rows"] for r in results),
-                          "max_abs_diff": max(r["max_abs_diff"] for r in results)}
-    m, (x,) = norms[0]
-    errs["rmsnorm"] = _max_err(bi.rms_norm(x, m.scale, cfg.dtype),
-                               bi.rms_norm_plain(x, m.scale, cfg.dtype))
+    add_norm = bi.add_rms_norm_plain if plain else bi.add_rms_norm
+    alone, fused = seen["rmsnorm"], seen["add_rmsnorm"]
+    if (len(alone), len(fused)) != (1, 2 * cfg.n_layers):
+        raise AssertionError(f"batch_invariance: {len(alone)} norms alone and {len(fused)} "
+                             f"fused in a step, expected 1 and {2 * cfg.n_layers}")
+    results = [_rows_check(lambda x, sc=sc: norm(x, sc, torch.float32), [(x,)])
+               for x, sc, _ in alone]
+    x0, sc0, dt0 = alone[0]
+    results += [_rows_check(lambda x: norm(x, sc0, torch.float32), [(x0[:n],)])
+                for n in range(2, BI_BATCH)]
+    out["rmsnorm_f32"] = _rows_summary(results, len(alone))
+    errs["rmsnorm"] = _max_err(bi.rms_norm(x0, sc0, dt0), bi.rms_norm_plain(x0, sc0, dt0))
+    for part, i in (("add_rmsnorm_sum", 0), ("add_rmsnorm_f32", 1)):
+        results = [_rows_check(lambda x, d, sc=sc: add_norm(x, d, sc, torch.float32)[i],
+                               [(x, d)]) for x, d, sc, _ in fused]
+        x0, d0, sc0, dt0 = fused[0]
+        results += [_rows_check(lambda x, d: add_norm(x, d, sc0, torch.float32)[i],
+                                [(x0[:n], d0[:n])]) for n in range(2, BI_BATCH)]
+        out[part] = _rows_summary(results, len(fused))
+    errs["add_rmsnorm"] = max(
+        (_max_err(bi.add_rms_norm(x, d, sc, dt)[1], bi.add_rms_norm_plain(x, d, sc, dt)[1])
+         for x, d, sc, dt in fused), key=lambda e: e["max_abs_err"] - e["tol"])
+    if not plain:
+        sums = norms_of_s = 0
+        for x, d, sc, dt in fused:
+            s, y = bi.add_rms_norm(x, d, sc, dt)
+            sums += torch.equal(s, x + d)
+            norms_of_s += torch.equal(y, bi.rms_norm(s, sc, dt))
+        out["add_rmsnorm_s_is_torch_add"] = {"bit_equal": sums == len(fused),
+                                             "calls_equal": sums, "calls": len(fused)}
+        out["add_rmsnorm_y_is_norm_of_s"] = {"bit_equal": norms_of_s == len(fused),
+                                             "calls_equal": norms_of_s, "calls": len(fused)}
     out["rotary"] = _rows_check(transformer._apply_rotary, seen["rotary"])
     scores_fn = bi.attention_scores_plain if plain else bi.attention_scores
     mix_fn = bi.attention_mix_plain if plain else bi.attention_mix
@@ -1116,7 +1165,7 @@ def serving_kernels_timing() -> dict:
     # peak type, the product's operands for its plan)
     cases = {}
     for tag, m in BI_ROWS.items():
-        x, x_ff = randn(m, d), randn(m, ff, scale=0.25)
+        x, x_ff, dx = randn(m, d), randn(m, ff, scale=0.25), randn(m, d, scale=0.5)
         x32 = x.float()
         for name, w in weights.items():
             xin = x_ff if name == "mlp_wo" else x
@@ -1141,9 +1190,14 @@ def serving_kernels_timing() -> dict:
         cases[f"bi_rmsnorm.{tag}"] = (
             lambda x=x: bi.rms_norm(x, scale, torch.bfloat16),
             lambda x=x: bi.rms_norm_plain(x, scale, torch.bfloat16),
-            {"library": lambda x=x: F.rms_norm(x, (d,), scale, 1e-6)}
-            if hasattr(F, "rms_norm") else {},
+            {"library": lambda x=x: F.rms_norm(x, (d,), scale, 1e-6)},
             4 * m * d, size(x, scale, x), "float32", None)
+        # the residual add and the norm after it: x and delta in, s and y out
+        cases[f"bi_rmsnorm.add.{tag}"] = (
+            lambda x=x, dx=dx: bi.add_rms_norm(x, dx, scale, torch.bfloat16),
+            lambda x=x, dx=dx: bi.add_rms_norm_plain(x, dx, scale, torch.bfloat16),
+            {"library": lambda x=x, dx=dx: F.rms_norm(x + dx, (d,), scale, 1e-6)},
+            5 * m * d, size(x, dx, scale, x, x), "float32", None)
         b, nq = BI_ATTENTION[tag]
         q, k, v = randn(b, nq, heads, 1, hd), randn(b, cache, heads, hd), randn(b, cache, heads, hd)
         probs = torch.softmax(randn(b, heads, 1, nq, cache, dtype=torch.float32) * 4,
@@ -1180,8 +1234,12 @@ def serving_kernels_timing() -> dict:
         bound_ms, bound_by = bound(flops, nbytes, peak)
         row = {"ms": times[f"{name}:kernel"], "plain_ms": times[f"{name}:plain"],
                "library_ms": times.get(f"{name}:library"),
-               "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops, "bytes": nbytes,
-               **_max_err(kernel(), plain())}
+               "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops, "bytes": nbytes}
+        got, want = kernel(), plain()
+        if isinstance(got, tuple):  # the fused norm: (s, y)
+            row["s_bit_equal_plain"] = torch.equal(got[0], want[0])
+            got, want = got[1], want[1]
+        row.update(_max_err(got, want))
         if "library_f32" in libraries:
             row["library_f32_ms"] = times[f"{name}:library_f32"]
             row["library_note"] = ("library: F.linear in bf16 (bf16 logits); library_f32: "
@@ -1197,6 +1255,8 @@ def serving_kernels_timing() -> dict:
         results[name] = row
     failures = [f"{name}: off its plain version by {r['max_abs_err']} (tol {r['tol']})"
                 for name, r in results.items() if not r["ok"]]
+    failures += [f"{name}: s differs from torch's add" for name, r in results.items()
+                 if r.get("s_bit_equal_plain") is False]
     wrong_route = [name for name, r in results.items() if "route" in r and
                    _kernels.BI_GEMM_ROUTES[r["route"]].name != name.split(".")[0]]
     if failures or wrong_route:
@@ -2335,7 +2395,9 @@ def lattice_phase() -> tuple[list[dict], dict]:
 #: The batch-invariant kernels by the names of their device functions: the
 #: tensor-core tiles (skinny, wide), the mix, the f32 CUDA-core product, the norm.
 SERVING_KERNEL_TAGS = {"bi_gemm_tc": "bi_gemm_tc_", "bi_gemm_mix": "bi_gemm_mix_kernel",
-                       "bi_gemm": "bi_gemm_kernel", "bi_rmsnorm": "bi_rmsnorm_kernel"}
+                       "bi_gemm": "bi_gemm_kernel", "bi_rmsnorm": "bi_rmsnorm_"}
+#: The norm's two device functions: alone, and with the residual add.
+NORM_KERNEL_TAGS = {"alone": "bi_rmsnorm_kernel", "fused": "bi_rmsnorm_add_kernel"}
 
 
 def wrapper_host_us(model, calls: int = 200) -> dict:
@@ -2358,6 +2420,8 @@ def wrapper_host_us(model, calls: int = 200) -> dict:
            "bi_attention_scores": lambda: bi.attention_scores(q, cache),
            "bi_attention_mix": lambda: bi.attention_mix(probs, cache),
            "bi_rms_norm": lambda: bi.rms_norm(x, x[0, 0], torch.bfloat16),
+           "bi_add_rms_norm": lambda: bi.add_rms_norm(x, x, x[0, 0], torch.bfloat16),
+           "torch_add": lambda: x + x,
            "F_linear_mlp_wi": lambda: F.linear(x, wi.weight)}
     out = {}
     for name, fn in fns.items():
@@ -2375,7 +2439,8 @@ def serve_profile() -> dict:
     """One batch-8 decode step of the 125M LM (bf16 weights, 8 live rows at
     position 128) under torch.profiler, in this process: device time by
     kind and by batch-invariant kernel, and the kernels' launches in the
-    step (the f32 CUDA-core product must launch none)."""
+    step (the f32 CUDA-core product must launch none; the norm once alone
+    and twice a layer with the residual add before it)."""
     import numpy as np
     import torch
 
@@ -2449,6 +2514,14 @@ def serve_profile() -> dict:
     engine.close()
     if serving_launches["bi_gemm"] or not all(serving_launches[k] for k in SERVING_ROUTES_ON_PATH):
         raise AssertionError(f"serve_profile: the decode step's launches {serving_launches}")
+    # every residual add rides the norm after it: one norm alone (layer 0's
+    # ln_attn), the other 2 n_layers fused
+    norm_launches = {form: sum(tag in evt.name for evt in kernels)
+                     for form, tag in NORM_KERNEL_TAGS.items()}
+    want = {"alone": 1, "fused": 2 * model.config.n_layers}
+    if norm_launches != want or serving_launches["bi_rmsnorm"] != sum(want.values()):
+        raise AssertionError(f"serve_profile: the step's norms {norm_launches} "
+                             f"({serving_launches['bi_rmsnorm']} counted), expected {want}")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     return {
         "step_wall_ms": wall * 1e3, "unprofiled_step_wall_ms": unprofiled * 1e3,
@@ -2459,6 +2532,7 @@ def serve_profile() -> dict:
         "device_ms_by_kind": kinds, "device_ms_by_serving_kernel": by_route,
         "device_ms_other_kernels": step_device_ms - sum(by_route.values()),
         "kernel_launches": len(kernels), "serving_kernel_launches": serving_launches,
+        "rmsnorm_launches": norm_launches,
         "host_us_per_call": host_us,
         "top": [{"name": n[:80], "ms": ms, "calls": c} for n, (ms, c) in top],
     }
@@ -2615,7 +2689,8 @@ def main() -> int:
     # phase, where the bf16 LM runs the tensor-core products, the mix and
     # the norm; the f32 CUDA-core product's path is serve_check's f32 LM
     # (0 launches on the serve phase's).  Each row is the decode step's
-    # shape (8 rows), the lm_head for the products; "shapes" has every other.
+    # shape (8 rows), the lm_head for the products and the fused add and
+    # norm (24 of a step's 25) for the norm; "shapes" has every other.
     errs = invariance["kernel_vs_plain"]
     tc_ops = list(BI_DENSE) + ["lm_head_f32", "attention_scores"]
     for kernel, key, err in (
@@ -2626,8 +2701,9 @@ def main() -> int:
             (_kernels.BI_GEMM, "bi_gemm.lm_head_f32_features.m8",
              max(r["max_abs_err"] for k, r in serving_timing.items()
                  if k.startswith("bi_gemm.lm_head_f32_features."))),
-            (_kernels.BI_RMSNORM, "bi_rmsnorm.m8",
-             max(errs[stage]["rmsnorm"]["max_abs_err"] for stage in errs))):
+            (_kernels.BI_RMSNORM, "bi_rmsnorm.add.m8",
+             max(errs[stage][op]["max_abs_err"] for stage in errs
+                 for op in ("rmsnorm", "add_rmsnorm")))):
         res = serving_timing[key]
         on_serve = kernel.name in SERVING_ROUTES_ON_PATH
         launches = serving_launches[kernel.name] if on_serve else f32_path_launches[kernel.name]

@@ -12,7 +12,10 @@ The serving entry points call :func:`use_batch_invariant`, which routes
 the dense products, the decode attention's two products and RMSNorm
 through the batch-invariant kernels of :mod:`..ops.batch_invariant` (a row
 computes the same bits whatever shares its batch, the reference engine's
-contract).  Training keeps the library products.
+contract).  Training keeps the library products.  Each residual add goes
+with the norm after it (:meth:`RMSNorm.add_norm`), which the route takes in
+one launch; the plain route runs the add and the norm apart, the
+reference's ops in its order.
 
 Incremental decoding passes an explicit KV cache, one :class:`LayerCache`
 per layer (``models/decode.py: init_cache``), to ``forward(tokens,
@@ -241,6 +244,12 @@ class RMSNorm(nn.Module):
         norm = bi.rms_norm if self.batch_invariant else bi.rms_norm_plain
         return norm(x, self.scale, self.dtype)
 
+    def add_norm(self, x, delta):
+        """The residual add before this norm and the norm of its sum: ``(x +
+        delta, norm(x + delta))``, one kernel on the batch-invariant route."""
+        add_norm = bi.add_rms_norm if self.batch_invariant else bi.add_rms_norm_plain
+        return add_norm(x, delta, self.scale, self.dtype)
+
 
 class Attention(nn.Module):
     batch_invariant = False
@@ -408,9 +417,13 @@ class Block(nn.Module):
         self.ln_mlp = RMSNorm(cfg.d_model, cfg.dtype, device)
         self.mlp = MlpBlock(cfg, device, generator)
 
-    def forward(self, x, cache: LayerCache | None = None):
-        x = x + self.attention(self.ln_attn(x), cache)
-        return x + self.mlp(self.ln_mlp(x))
+    def forward(self, x, h, after: RMSNorm, cache: LayerCache | None = None):
+        """The layer on the residual stream ``x`` and its norm ``h =
+        ln_attn(x)``: the new stream and ``after``'s norm of it (the next
+        layer's ``ln_attn``, or ``ln_final``).  Each residual add goes with
+        the norm that follows it (:meth:`RMSNorm.add_norm`)."""
+        x, h = self.ln_mlp.add_norm(x, self.attention(h, cache))
+        return after.add_norm(x, self.mlp(h))
 
 
 class TransformerLM(nn.Module):
@@ -452,14 +465,16 @@ class TransformerLM(nn.Module):
         elif len(cache) != len(self.layers):
             raise ValueError(f"cache has {len(cache)} layers, the model {len(self.layers)}")
         x = F.embedding(tokens, self.embedding.to(cfg.dtype))
-        for layer, layer_cache in zip(self.layers, cache):
-            x = layer(x, layer_cache)
-        x = self.ln_final(x)
+        # Only the first norm has no residual add before it.
+        norms = [layer.ln_attn for layer in self.layers] + [self.ln_final]
+        h = norms[0](x)
+        for layer, after, layer_cache in zip(self.layers, norms[1:], cache):
+            x, h = layer(x, h, after, layer_cache)
         if return_features:
             # The fused-xent loss (ops/xent.py) consumes the final features
             # and the lm_head weight directly, so the logits never exist.
-            return x
-        return self.lm_head(x)
+            return h
+        return self.lm_head(h)
 
     def parameter_count(self) -> int:
         return sum(p.numel() for p in self.parameters())

@@ -120,9 +120,12 @@ BI_GEMM_MIX = Kernel(
     "covalent_tpu_plugin/models/transformer.py:496 (no Pallas kernel: XLA's "
     "decode-attention mix)",
 )
+#: The norm, alone or with the residual add before it (one entry point, one
+#: count).
 BI_RMSNORM = Kernel(
-    "bi_rmsnorm", "bi_rmsnorm.cu", [_P] * 3 + [_I] * 3 + [_I64, _I64, _F, _P],
-    "covalent_tpu_plugin/models/transformer.py:183 (no Pallas kernel: XLA's RMSNorm)",
+    "bi_rmsnorm", "bi_rmsnorm.cu", [_P] * 5 + [_I] * 3 + [_I64, _I64, _F, _P],
+    "covalent_tpu_plugin/models/transformer.py:183 and :542-549 (no Pallas kernel: XLA's "
+    "RMSNorm and the residual add before it)",
 )
 #: The serving paths' batch-invariant kernels (ops/batch_invariant.py).
 SERVING_KERNELS = (BI_GEMM, BI_GEMM_TC, BI_GEMM_MIX, BI_RMSNORM)
@@ -526,24 +529,44 @@ def bi_gemm(a: torch.Tensor, w: torch.Tensor, out: torch.Tensor) -> torch.Tensor
     return out
 
 
-def bi_rmsnorm(x: torch.Tensor, scale: torch.Tensor, out_dtype: torch.dtype,
-               eps: float) -> torch.Tensor:
-    """RMSNorm of each row of ``x`` (contiguous, rows along the last dim)
-    in f32 with one block a row (csrc/bi_rmsnorm.cu), times ``scale``, in
-    ``out_dtype``."""
-    _bi_check({"x": x, "scale": scale})
+def _norm(x: torch.Tensor, delta: torch.Tensor | None, scale: torch.Tensor,
+          out_dtype: torch.dtype, eps: float):
+    """Launch csrc/bi_rmsnorm.cu on contiguous rows of ``x`` (and ``delta``
+    of x's shape and type): ``(s, y)``, ``s`` None without ``delta``."""
+    tensors = {n: t for n, t in (("x", x), ("delta", delta), ("scale", scale)) if t is not None}
+    _bi_check(tensors)
     if out_dtype not in _BI_DTYPES:
         raise ValueError(f"unsupported output dtype {out_dtype}")
     cols = x.shape[-1]
-    if not x.is_contiguous() or not scale.is_contiguous() or scale.shape != (cols,):
+    if not all(t.is_contiguous() for t in tensors.values()) or scale.shape != (cols,):
         raise ValueError(f"bi_rmsnorm: x {tuple(x.shape)} and scale {tuple(scale.shape)} "
                          "must be contiguous, scale one value a column")
+    if delta is not None and (delta.shape != x.shape or delta.dtype != x.dtype):
+        raise ValueError(f"bi_rmsnorm: delta {tuple(delta.shape)} {delta.dtype} must match x "
+                         f"{tuple(x.shape)} {x.dtype}")
     if x.numel() == 0:
         raise ValueError("bi_rmsnorm: empty input")
+    s = None if delta is None else torch.empty_like(x)
     y = torch.empty(x.shape, dtype=out_dtype, device=x.device)
     BI_RMSNORM.launch(
-        _ptr(x), _ptr(scale), _ptr(y), _BI_DTYPES[x.dtype], _BI_DTYPES[scale.dtype],
-        _BI_DTYPES[out_dtype], x.numel() // cols, cols, eps,
+        _ptr(x), _ptr(delta), _ptr(scale), _ptr(s), _ptr(y), _BI_DTYPES[x.dtype],
+        _BI_DTYPES[scale.dtype], _BI_DTYPES[out_dtype], x.numel() // cols, cols, eps,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
-    return y
+    return s, y
+
+
+def bi_rmsnorm(x: torch.Tensor, scale: torch.Tensor, out_dtype: torch.dtype,
+               eps: float) -> torch.Tensor:
+    """RMSNorm of each row of ``x`` (contiguous, rows along the last dim)
+    in f32 with one warp a row, in an order fixed by the width
+    (csrc/bi_rmsnorm.cu), times ``scale``, in ``out_dtype``."""
+    return _norm(x, None, scale, out_dtype, eps)[1]
+
+
+def bi_add_rmsnorm(x: torch.Tensor, delta: torch.Tensor, scale: torch.Tensor,
+                   out_dtype: torch.dtype, eps: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """The residual add and the norm after it in one launch: ``s = x +
+    delta`` in x's type (torch's add, bit for bit) and :func:`bi_rmsnorm`
+    of ``s``, which is the same bits as the norm alone on ``s``."""
+    return _norm(x, delta, scale, out_dtype, eps)

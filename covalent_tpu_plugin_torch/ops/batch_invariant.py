@@ -18,7 +18,8 @@ Thinking Machines' "Defeating Nondeterminism in LLM Inference" (2025).  The
 product has three routes (``_kernels.plan_bi_gemm``): bf16 operands on the
 tensor cores (``csrc/bi_gemm_tc.cu``; the decode attention's mix, its cache
 operand read transposed, in ``csrc/bi_gemm_mix.cu``), a pair with an f32
-operand on the CUDA cores (``csrc/bi_gemm.cu``); the norm is ``csrc/bi_rmsnorm.cu``.  CPU
+operand on the CUDA cores (``csrc/bi_gemm.cu``); the norm, alone or with the
+residual add before it, is ``csrc/bi_rmsnorm.cu``.  CPU
 tensors take the ``*_plain`` versions beside them, which make the same
 casts; the model uses the plain versions outright where the route is off
 (training).
@@ -118,7 +119,26 @@ def rms_norm_plain(x: torch.Tensor, scale: torch.Tensor, dtype: torch.dtype,
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, dtype: torch.dtype,
              eps: float = 1e-6) -> torch.Tensor:
-    """:func:`rms_norm_plain` on the one-block-a-row kernel for CUDA tensors."""
+    """:func:`rms_norm_plain` on the one-warp-a-row kernel for CUDA tensors."""
     if not _route(x):
         return rms_norm_plain(x, scale, dtype, eps)
     return _kernels.bi_rmsnorm(x.contiguous(), scale.contiguous(), dtype, eps)
+
+
+def add_rms_norm_plain(x: torch.Tensor, delta: torch.Tensor, scale: torch.Tensor,
+                       dtype: torch.dtype, eps: float = 1e-6):
+    """The residual add ``s = x + delta`` and :func:`rms_norm_plain` of
+    ``s``: ``(s, y)``, the reference layer's two ops."""
+    s = x + delta
+    return s, rms_norm_plain(s, scale, dtype, eps)
+
+
+def add_rms_norm(x: torch.Tensor, delta: torch.Tensor, scale: torch.Tensor,
+                 dtype: torch.dtype, eps: float = 1e-6):
+    """:func:`add_rms_norm_plain` in one launch of the norm's kernel for
+    CUDA tensors: ``s`` bit-equal to torch's add, ``y`` to :func:`rms_norm`
+    of ``s``."""
+    if not _route(x):
+        return add_rms_norm_plain(x, delta, scale, dtype, eps)
+    return _kernels.bi_add_rmsnorm(x.contiguous(), delta.contiguous(), scale.contiguous(),
+                                   dtype, eps)

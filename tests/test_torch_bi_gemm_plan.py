@@ -143,9 +143,9 @@ def test_skinny_tiles_fit_the_kernel_and_cover_every_segment():
 @pytest.fixture()
 def recorder(monkeypatch):
     """CPU tensors sent down the kernel route, ``bi_gemm`` replaced by a
-    recorder that computes the plain product (and ``bi_rmsnorm`` by the
-    plain norm): what each wrapper hands the kernel, and the plan the
-    kernel would take."""
+    recorder that computes the plain product (and ``bi_rmsnorm`` and
+    ``bi_add_rmsnorm`` by the plain norms): what each wrapper hands the
+    kernel, and the plan the kernel would take."""
     calls = []
 
     def fake_bi_gemm(a, w, out):
@@ -158,6 +158,8 @@ def recorder(monkeypatch):
     monkeypatch.setattr(bi._kernels, "bi_gemm", fake_bi_gemm)
     monkeypatch.setattr(bi._kernels, "bi_rmsnorm", lambda x, scale, dtype, eps:
                         bi.rms_norm_plain(x, scale, dtype, eps))
+    monkeypatch.setattr(bi._kernels, "bi_add_rmsnorm", lambda x, delta, scale, dtype, eps:
+                        bi.add_rms_norm_plain(x, delta, scale, dtype, eps))
     return calls
 
 

@@ -494,6 +494,104 @@ def test_serving_path_launches_the_batch_invariant_kernels(card):
         assert torch.equal(batch[row:row + 1], decode.generate(model, prompts[row:row + 1], 10))
 
 
+#: Widths of the norm's card tests: a multiple of 8 below one warp's 32 runs
+#: (80), one off a multiple of 8 (100), the 125M LM's (768), and two past the
+#: runs a lane keeps in registers (3072, 4096).
+NORM_WIDTHS = (80, 100, 768, 3072, 4096)
+
+
+def _norm_inputs(card, rows: int, width: int, dtype, seed: int):
+    """``x``, ``delta`` (rows, width) and ``scale`` (width,) in ``dtype``."""
+    rng = np.random.default_rng(seed)
+
+    def t(*shape, scale=1.0, shift=0.0):
+        return torch.tensor(rng.standard_normal(shape, dtype=np.float32) * scale + shift,
+                            device=card).to(dtype)
+
+    return t(rows, width, scale=3.0), t(rows, width), t(width, scale=0.5, shift=1.0)
+
+
+def _norm_tol(want: torch.Tensor) -> float:
+    """One rounding of the output type (f32: sums in another order) times
+    the largest plain value, at least 1: ``chip_smoke.py``'s measure."""
+    return BI_TOL[want.dtype] * max(1.0, want.float().abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", NORM_WIDTHS)
+def test_rmsnorm_kernels_match_plain_and_the_add_is_torchs(card, width):
+    """The norm alone and the fused add and norm, bf16 and f32, against
+    their plain versions; the fused ``s`` is torch's ``x + delta`` and the
+    fused ``y`` the norm alone on ``s``, bit for bit; one launch each."""
+    from covalent_tpu_plugin_torch.ops import batch_invariant as bi
+
+    for dtype in (torch.bfloat16, torch.float32):
+        x, delta, scale = _norm_inputs(card, 37, width, dtype, seed=width)
+        for out in (dtype, torch.float32):
+            _kernels.reset_launch_counts()
+            y = bi.rms_norm(x, scale, out)
+            s, y_fused = bi.add_rms_norm(x, delta, scale, out)
+            assert _kernels.serving_launch_counts()["bi_rmsnorm"] == 2
+            want = bi.rms_norm_plain(x, scale, out)
+            want_s, want_fused = bi.add_rms_norm_plain(x, delta, scale, out)
+            assert y.dtype == y_fused.dtype == out and s.dtype == dtype
+            assert (y.float() - want.float()).abs().max().item() <= _norm_tol(want)
+            assert (y_fused.float() - want_fused.float()).abs().max().item() <= \
+                _norm_tol(want_fused)
+            assert torch.equal(s, x + delta) and torch.equal(s, want_s), (dtype, out)
+            assert torch.equal(y_fused, bi.rms_norm(s, scale, out)), (dtype, out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_rmsnorm_rows_bit_equal_at_every_row_count(card, dtype):
+    """Both forms at M 1, 2-7, 8, 128 and 1024 rows and each row alone give
+    the bits of the same rows in the 1024-row batch, at the 125M LM's width,
+    off a multiple of 8 and past the registers."""
+    from covalent_tpu_plugin_torch.ops import batch_invariant as bi
+
+    for width in (768, 100, 4096):
+        x, delta, scale = _norm_inputs(card, 1024, width, dtype, seed=7)
+        whole = bi.rms_norm(x, scale, dtype)
+        whole_s, whole_y = bi.add_rms_norm(x, delta, scale, dtype)
+        for m in (1, 2, 3, 4, 5, 6, 7, 8, 128, 1024):
+            assert torch.equal(bi.rms_norm(x[:m], scale, dtype), whole[:m]), (width, m)
+            s, y = bi.add_rms_norm(x[:m], delta[:m], scale, dtype)
+            assert torch.equal(s, whole_s[:m]) and torch.equal(y, whole_y[:m]), (width, m)
+        rows = range(1024) if width == 768 else range(0, 1024, 97)
+        for row in rows:
+            one = slice(row, row + 1)
+            assert torch.equal(bi.rms_norm(x[one], scale, dtype), whole[one]), (width, row)
+            s, y = bi.add_rms_norm(x[one], delta[one], scale, dtype)
+            assert torch.equal(s, whole_s[one]) and torch.equal(y, whole_y[one]), (width, row)
+
+
+@pytest.mark.cuda
+def test_rmsnorm_misaligned_view_gives_the_aligned_bits(card):
+    """Rows read one element at a time (a base pointer off 16 bytes) sum in
+    the order of the 16-byte loads: a misaligned view of x, delta and scale
+    gives the bits of an aligned copy, in both forms."""
+    from covalent_tpu_plugin_torch.ops import batch_invariant as bi
+
+    def shifted(t):
+        buf = torch.zeros(t.numel() + 8, dtype=t.dtype, device=card)
+        view = buf[1:1 + t.numel()].view(t.shape)
+        view.copy_(t)
+        assert view.is_contiguous() and view.data_ptr() % 16 != 0
+        return view
+
+    for dtype in (torch.bfloat16, torch.float32):
+        for width in (80, 768):
+            x, delta, scale = _norm_inputs(card, 9, width, dtype, seed=width + 1)
+            want = bi.rms_norm(x, scale, dtype)
+            want_s, want_y = bi.add_rms_norm(x, delta, scale, dtype)
+            sx, sd, ss = shifted(x), shifted(delta), shifted(scale)
+            assert torch.equal(bi.rms_norm(sx, scale, dtype), want), (dtype, width)
+            assert torch.equal(bi.rms_norm(x, ss, dtype), want), (dtype, width)
+            s, y = bi.add_rms_norm(sx, sd, scale, dtype)
+            assert torch.equal(s, want_s) and torch.equal(y, want_y), (dtype, width)
+
+
 def test_batch_invariant_ops_take_plain_versions_on_cpu():
     """CPU tensors take the plain versions and launch nothing; the kernel
     wrappers refuse CPU tensors."""

@@ -153,8 +153,28 @@ Phases, one JSON object per line on stdout, in this order:
     flash kernel runs.  Each warm arm's channel must run on frames; each
     arm says how its invokes left (one to a frame, or several in a
     ``multi_invoke`` frame).
-19. ``kernels``: every kernel with its launches on its path (the flash
-    kernels: training; the batch-invariant ones: the ``serve`` phase, and
+19. ``gang``: BASELINE configs 5 and 4 as two-process gang electrons on
+    the one card (slice 4).  First the collective probe
+    (``parallel.probe``): every collective the parallel layer issues, on
+    tensors on the card, two ranks over gloo (NCCL refuses two ranks on one
+    device), each ok or its error.  Then the flash kernels against their
+    plain versions at each rank's shape: (4, 12, 1024, 64) under FSDP (the
+    batch cut), (8, 6, 1024, 64) under tensor parallelism (the heads cut).
+    Then three electrons through ``GPUExecutor(workers=["w0", "w1"])``:
+    ``lm_fsdp2`` (the 125M LM at full width, ``MeshPlan(fsdp=2)``, global
+    batch 8, seq 1024, 5 steps, standard loss), ``lm_tensor2`` (the same,
+    ``MeshPlan(tensor=2)``) and ``cnn_data2`` (the MNIST CNN,
+    ``MeshPlan(data=2)``, ``train_mnist``'s 64 batches of 256, one timed
+    epoch).  Per electron: the mesh, backend and each rank's device, the
+    losses and their largest gap to the ``train`` phase's standard arm
+    (same seed and global batch; bound 1e-2), each rank's steady step,
+    tokens/s, peak memory, flash launches (12 a step on every rank) and the
+    query shapes its kernels took, the electron's wall and the rendezvous.
+    The two ranks share one card, so the times measure the gang's
+    overhead, not scaling.
+20. ``kernels``: every kernel with its launches on its path (the flash
+    kernels: training, with the gang's launches beside as
+    ``gang_launches``; the batch-invariant ones: the ``serve`` phase, and
     the f32 CUDA-core product ``serve_check``'s f32 LM, with its 0 launches
     on the ``serve`` phase beside),
     error, times and bound, and the route (tensor-core or scalar kernel)
@@ -2392,6 +2412,136 @@ def lattice_phase() -> tuple[list[dict], dict]:
     return lines, launches
 
 
+#: The gang phase's electrons: (function, mesh plan, arguments).
+GANG_STEPS = 5
+GANG_ARMS = {
+    "lm_fsdp2": ("lm", dict(fsdp=2)),
+    "lm_tensor2": ("lm", dict(tensor=2)),
+    "cnn_data2": ("cnn", dict(data=2)),
+}
+#: Each rank's flash shape: (batch, heads, kv heads, seq q, seq k, head dim).
+GANG_SHAPES = {"lm_fsdp2": (4, 12, 12, 1024, 1024, 64), "lm_tensor2": (8, 6, 6, 1024, 1024, 64)}
+GANG_NOTE = ("the two ranks share one card: these times measure the gang's overhead "
+             "(gloo through host memory, two processes on one device), not scaling")
+
+
+def gang_phase(train_losses: list) -> tuple[list[dict], dict]:
+    """BASELINE configs 5 and 4 as two-process gangs on the card: the
+    collective probe, parity at each rank's shape, then three gang
+    electrons.  Returns the phase's lines and the gang's flash launches."""
+    import math
+
+    from covalent_tpu_plugin_torch import GPUExecutor
+    from covalent_tpu_plugin_torch.models.train import train_lm, train_mnist
+    from covalent_tpu_plugin_torch.parallel import MeshPlan
+    from covalent_tpu_plugin_torch.parallel.probe import probe_collectives
+
+    lines = []
+    probe = probe_collectives(world=2, device="cuda", backend="gloo", timeout_s=240)
+    missing = sorted(name for name, entry in probe["collectives"].items() if not entry["ok"])
+    lines.append({"probe": probe, "missing": missing,
+                  "roads": {"ring_permute": "all_to_all_single with uneven splits "
+                                            "(gloo has no send/recv on tensors on the card)",
+                            "full_tensor": "not used on the card (its functional all-gather "
+                                           "kills the rank on gloo); the gang reduces norms "
+                                           "and losses with all_reduce"}})
+    needed = ("all_reduce", "all_reduce_avg", "all_reduce_max", "all_gather_into_tensor",
+              "reduce_scatter_tensor", "all_to_all_single", "device_mesh", "fsdp2_step")
+    if any(not probe["collectives"][name]["ok"] for name in needed):
+        raise AssertionError(f"gang: gloo lacks a collective the gang needs on the card: "
+                             f"{ {n: probe['collectives'][n] for n in needed} }")
+    parity = {}
+    for i, (arm, shape) in enumerate(GANG_SHAPES.items()):
+        parity[arm] = parity_case(dict(name=arm, shape=shape, dtype="bfloat16", causal=True),
+                                  seed=300 + i)
+    lines.append({"parity": {arm: {"shape": GANG_SHAPES[arm], "errors": errs}
+                             for arm, errs in parity.items()}, "tol_reason": TOL_REASON})
+
+    work = WORK / "gang"
+    executor = GPUExecutor(
+        transport="local", cache_dir=str(work / "cache"), remote_cache=str(work / "remote"),
+        remote_workdir=str(work / "work"), python_path=sys.executable, poll_freq=0.5,
+        task_timeout=600, workers=["w0", "w1"], coordinator_port=0,
+        task_env={"PYTHONPATH": str(ROOT)})
+    launches: dict = {}
+
+    async def run_arms():
+        outs = {}
+        try:
+            for node, (arm, (kind, plan)) in enumerate(GANG_ARMS.items()):
+                if kind == "lm":
+                    fn, kwargs = train_lm, dict(steps=GANG_STEPS, batch_size=BATCH,
+                                                seq_len=SEQ, seed=0)
+                else:
+                    fn, kwargs = train_mnist, dict(model="cnn", batch_size=256,
+                                                   n_batches=64, epochs=1, seed=0)
+                wall = time.perf_counter()
+                out = await executor.run(fn, [], dict(kwargs, mesh_plan=MeshPlan(**plan)),
+                                         {"dispatch_id": "chip_smoke_gang", "node_id": node})
+                out["wall_s"] = time.perf_counter() - wall
+                out["timings"] = dict(executor.last_timings)
+                out["dispatch_mode"] = executor.last_dispatch_mode
+                outs[arm] = out
+        finally:
+            await executor.close()
+        return outs
+
+    outs = asyncio.run(run_arms())
+    for arm, out in outs.items():
+        kind, plan = GANG_ARMS[arm]
+        if out["world_size"] != 2 or len(out["ranks"]) != 2:
+            raise AssertionError(f"gang {arm}: world {out['world_size']}, ranks {out['ranks']}")
+        if any(not str(r["device"]).startswith("NVIDIA") for r in out["ranks"]):
+            raise AssertionError(f"gang {arm}: a rank ran off the card: {out['ranks']}")
+        line = {"arm": arm, "mesh": out["mesh"], "backend": out["backend"],
+                "dispatch_mode": out["dispatch_mode"],
+                "devices": [r["device"] for r in out["ranks"]],
+                "electron_wall_s": out["wall_s"], "rendezvous_s": out["timings"].get("rendezvous"),
+                "timings": out["timings"], "note": GANG_NOTE,
+                "peak_mem_bytes": [r["peak_mem_bytes"] for r in out["ranks"]]}
+        if kind == "lm":
+            losses = out["losses"]
+            if len(losses) != GANG_STEPS or not all(math.isfinite(x) for x in losses):
+                raise AssertionError(f"gang {arm}: losses {losses}")
+            gap = max(abs(a - b) for a, b in zip(losses, train_losses))
+            if gap > TRAIN_LOSS_TOL:
+                raise AssertionError(f"gang {arm}: losses {losses} are {gap} from the train "
+                                     f"phase's {train_losses}")
+            want_shape = "x".join(map(str, (GANG_SHAPES[arm][0], GANG_SHAPES[arm][1],
+                                             GANG_SHAPES[arm][3], GANG_SHAPES[arm][5])))
+            for r in out["ranks"]:
+                for name, n in r["launches"].items():
+                    if n != 12 * GANG_STEPS:
+                        raise AssertionError(f"gang {arm}: rank {r['rank']} launched {name} "
+                                             f"{n} times, expected {12 * GANG_STEPS}")
+                    if r["launch_shapes"][name] != {f"{want_shape} bfloat16": n}:
+                        raise AssertionError(f"gang {arm}: rank {r['rank']} {name} took "
+                                             f"{r['launch_shapes'][name]}")
+                    launches[name] = launches.get(name, 0) + n
+            steady = [statistics.median(r["step_s"][1:]) for r in out["ranks"]]
+            line.update({
+                "losses": losses, "train_losses": train_losses,
+                "max_loss_gap_train": gap, "loss_tol": TRAIN_LOSS_TOL,
+                "step_s": [r["step_s"] for r in out["ranks"]],
+                "steady_step_ms": [t * 1e3 for t in steady],
+                "tokens_per_s": out["tokens_per_step"] / max(steady),
+                "flash_launches": [r["launches"] for r in out["ranks"]],
+                "flash_shapes": [r["launch_shapes"] for r in out["ranks"]],
+            })
+        else:
+            if not out["loss_last"] < out["loss_first"]:
+                raise AssertionError(f"gang {arm}: loss {out['loss_first']} -> "
+                                     f"{out['loss_last']} did not fall")
+            if any(n for r in out["ranks"] for n in r["launches"].values()):
+                raise AssertionError(f"gang {arm}: the CNN launched a flash kernel")
+            line.update({"loss_first": out["loss_first"], "loss_last": out["loss_last"],
+                         "losses": out["losses"], "steps_per_s": out["steps_per_s"],
+                         "batch_size": out["batch_size"], "n_batches": out["n_batches"],
+                         "epochs": out["epochs"]})
+        lines.append(line)
+    return lines, launches
+
+
 #: The batch-invariant kernels by the names of their device functions: the
 #: tensor-core tiles (skinny, wide), the mix, the f32 CUDA-core product, the norm.
 SERVING_KERNEL_TAGS = {"bi_gemm_tc": "bi_gemm_tc_", "bi_gemm_mix": "bi_gemm_mix_kernel",
@@ -2667,6 +2817,16 @@ def main() -> int:
         emit({"phase": "lattice", "card": smi, **line})
     emit({"phase": "lattice", "card": smi, "seconds": lattice_s, "flash_launches": flash})
 
+    # BASELINE configs 5 and 4 as two-process gangs on the card: every rank
+    # reports its own launches; the phase fails if a rank of an LM arm ran a
+    # flash kernel a number of times other than 12 a step.
+    start = time.perf_counter()
+    gang_lines, gang_launches = gang_phase(arms[0]["losses"])
+    for line in gang_lines:
+        emit({"phase": "gang", "card": smi, **line})
+    emit({"phase": "gang", "card": smi, "seconds": time.perf_counter() - start,
+          "flash_launches": gang_launches})
+
     kernels = []
     for kernel in _kernels.KERNELS:
         res = timing[kernel.name]
@@ -2676,6 +2836,7 @@ def main() -> int:
             "name": kernel.name, "route": "cuda",
             "source": f"covalent_tpu_plugin_torch/csrc/{kernel.source}",
             "replaces": kernel.replaces, "launches": launches[kernel.name],
+            "gang_launches": gang_launches.get(kernel.name, 0),
             "max_abs_err": max(path_errs), "ms": res["kernel_ms"], "plain_ms": res["plain_ms"],
             "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
             "library_ms": res["library_ms"], "ms_cold_l2": res["kernel_cold_ms"],
@@ -2685,6 +2846,8 @@ def main() -> int:
         })
         if launches[kernel.name] < 1:
             raise AssertionError(f"{kernel.name} was not launched on the main path")
+        if gang_launches.get(kernel.name, 0) < 1:
+            raise AssertionError(f"{kernel.name} was not launched on the gang's path")
     # The serving kernels port no Pallas kernel: the main path is the serve
     # phase, where the bf16 LM runs the tensor-core products, the mix and
     # the norm; the f32 CUDA-core product's path is serve_check's f32 LM

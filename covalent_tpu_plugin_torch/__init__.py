@@ -10,7 +10,9 @@ built with ``nvcc`` at first use, never at import), and the serving path
 continuous-batching engine and the ``serve_lm`` electron), the resident
 serving session (``serving.open_session``), the MNIST workloads
 (``models.mlp``, ``models.train.train_mnist``) and the workflow layer
-(``workflow``: ``@electron(executor="gpu")``, ``@lattice``, ``dispatch``).
+(``workflow``: ``@electron(executor="gpu")``, ``@lattice``, ``dispatch``),
+and scale-out (``parallel``: meshes, FSDP2 and tensor parallelism over a
+``torch.distributed`` gang that ``GPUExecutor(workers=[...])`` launches).
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 Nothing here imports JAX or the reference package.

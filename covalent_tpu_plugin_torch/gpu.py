@@ -34,6 +34,19 @@ default True; ``COVALENT_TPU_AGENT_FRAMES`` overrides): RPC args and
 results, KV bundles and streamed tokens then ride raw frame bodies, and a
 channel that stays on JSON lines gives byte-equal results.
 
+Gangs: ``workers=["w0", "w1", ...]`` runs each electron as that many
+processes, one a worker, joined by a ``torch.distributed`` process group
+(the harness's ``distributed`` bootstrap).  Under the local transport the
+workers are processes on this machine, their names bookkeeping labels, and
+they rendezvous on ``127.0.0.1:{coordinator_port}`` (``coordinator_port=0``
+picks a free port per electron).  One spec is staged per process, each
+with its ``distributed`` block; all of them start (pool forks or nohup
+launches), and the watcher waits on process 0's result while it watches
+every process: one that dies first (a failed pip install, a torn file, a
+crash before the rendezvous) fails the task at once with its index and
+worker blamed, and the others are killed.  A gang always takes the launch
+road.
+
 Crash recovery: with ``COVALENT_TPU_JOURNAL_DIR`` set, each electron's
 intent, placement and outcome go to the control-plane journal
 (``fleet/journal.py``), every pool channel is fenced with the journal's
@@ -45,8 +58,8 @@ is reported, not run again: the checkpoint-resume discovery of the
 reference (``_discover_resume``) comes with ``utils/checkpoint.py`` in
 slice 5b.  The native
 C++ agent comes with ROADMAP item 2c.6; the SSH
-transport, the result cache, fleet, task retries, the ops endpoint and
-multi-process gangs with slice 5b and slice 4.
+transport, the result cache, fleet, task retries and the ops endpoint
+with slice 5b; gangs over several hosts need it too.
 """
 
 from __future__ import annotations
@@ -58,6 +71,7 @@ import json
 import os
 import pickle
 import shlex
+import socket
 import time
 import uuid
 from enum import Enum
@@ -124,6 +138,13 @@ _EXECUTOR_PLUGIN_DEFAULTS = {
     # at connect; COVALENT_TPU_AGENT_FRAMES overrides.  Either side
     # declining keeps the channel on JSON lines, with byte-equal results.
     "agent_frames": True,
+    # Gang workers (tpu.py:123): one process each, joined by a process
+    # group; [] runs one process.  Local-transport workers are processes on
+    # this machine named by these labels.
+    "workers": [],
+    # The gang's rendezvous port on the coordinator (tpu.py:155); 0 picks
+    # a free one per electron (local transport).
+    "coordinator_port": 8476,
 }
 
 _TASKS_TOTAL = REGISTRY.counter(
@@ -167,10 +188,17 @@ class TaskStatus(str, Enum):
 
 
 class StagedTask:
-    """Paths produced by staging one task (reference: ``ssh.py:173-179``)."""
+    """Paths produced by staging one task (reference: ``ssh.py:173-179``).
 
-    def __init__(self, operation_id: str, cache_dir: Path, remote_cache: str):
+    A gang of ``processes`` > 1 has a spec, a log and a pid file per
+    process (``..._{i}``) and the done markers of processes 1.. beside the
+    one result file (:meth:`rank`); a single process keeps the plain names.
+    """
+
+    def __init__(self, operation_id: str, cache_dir: Path, remote_cache: str,
+                 processes: int = 1):
         self.operation_id = operation_id
+        self.processes = processes
         self.function_file = str(cache_dir / f"function_{operation_id}.pkl")
         self.spec_file = str(cache_dir / f"spec_{operation_id}.json")
         self.local_result_file = str(cache_dir / f"result_{operation_id}.pkl")
@@ -181,20 +209,38 @@ class StagedTask:
         self.remote_log_file = f"{remote_cache}/log_{operation_id}.txt"
         self.remote_pid_file = f"{remote_cache}/pid_{operation_id}"
 
+    def rank(self, i: int) -> dict[str, str]:
+        """Process ``i``'s files: ``spec`` (local), ``remote_spec``, ``log``,
+        ``pid`` and ``done`` (what the watcher waits on: the result file for
+        process 0, ``{result}.done.{i}`` for the others)."""
+        if self.processes == 1:
+            return {"spec": self.spec_file, "remote_spec": self.remote_spec_file,
+                    "log": self.remote_log_file, "pid": self.remote_pid_file,
+                    "done": self.remote_result_file}
+        return {
+            "spec": self.spec_file.replace(".json", f"_{i}.json"),
+            "remote_spec": self.remote_spec_file.replace(".json", f"_{i}.json"),
+            "log": self.remote_log_file.replace(".txt", f"_{i}.txt"),
+            "pid": f"{self.remote_pid_file}.{i}",
+            "done": self.remote_result_file if i == 0 else f"{self.remote_result_file}.done.{i}",
+        }
+
     def uploads(self) -> list[tuple[str, str]]:
         return [
             (self.function_file, self.remote_function_file),
             (_harness_module.__file__, self.remote_harness_file),
-            (self.spec_file, self.remote_spec_file),
-        ]
+        ] + [(self.rank(i)["spec"], self.rank(i)["remote_spec"])
+             for i in range(self.processes)]
 
     def local_files(self) -> list[str]:
-        return [self.function_file, self.spec_file, self.local_result_file]
+        return [self.function_file, self.local_result_file] + [
+            self.rank(i)["spec"] for i in range(self.processes)]
 
     def remote_files(self) -> list[str]:
-        return [remote for _, remote in self.uploads()] + [
-            self.remote_result_file, self.remote_log_file, self.remote_pid_file,
-        ]
+        ranks = [self.rank(i) for i in range(self.processes)]
+        return [remote for _, remote in self.uploads()] + [self.remote_result_file] + [
+            f for r in ranks for f in (r["log"], r["pid"], r["done"])
+            if f != self.remote_result_file]
 
 
 class GangLease(NamedTuple):
@@ -255,6 +301,8 @@ class GPUExecutor(RemoteExecutor):
         rpc_inline_args_max: int | None = None,
         pool_preload: str | None = None,
         agent_frames: bool | None = None,
+        workers: list[str] | None = None,
+        coordinator_port: int | None = None,
     ) -> None:
         def resolve(value, key):
             if value is not None:
@@ -314,13 +362,17 @@ class GPUExecutor(RemoteExecutor):
         if agent_frames is None and env_frames is not None:
             agent_frames = env_frames.strip().lower() not in ("0", "off", "false", "no")
         self.agent_frames = bool(resolve(agent_frames, "agent_frames"))
+        #: gang workers (module docstring); [] runs one process
+        self.workers = [str(w) for w in (resolve(workers, "workers") or [])]
+        self.coordinator_port = int(resolve(coordinator_port, "coordinator_port"))
         #: the road the most recent electron took ("rpc" or "launch")
         self.last_dispatch_mode = ""
         #: the stage timings of the last ``run`` (module docstring).
         self.last_timings: dict[str, float] = {}
-        #: operation ids inside ``run``, and the PIDs of their running harnesses.
+        #: operation ids inside ``run``, and the PIDs of their running harnesses
+        #: (process 0's, and every process's of a gang).
         self._active_ops: set[str] = set()
-        self._pids: dict[str, int] = {}
+        self._pids: dict[str, list] = {}
         #: operation id -> its road, and the pool client it ran through
         self._op_modes: dict[str, str] = {}
         self._op_agents: dict[str, AgentClient] = {}
@@ -360,31 +412,58 @@ class GPUExecutor(RemoteExecutor):
     async def _validate_credentials(self) -> bool:
         return True  # the local transport needs none
 
+    def _num_processes(self) -> int:
+        return max(1, len(self.workers))
+
+    def _coordinator_address(self) -> str:
+        """Local-transport workers are processes on this machine; their
+        labels are bookkeeping names, not hosts (tpu.py:1064-1068)."""
+        port = self.coordinator_port
+        if port == 0:
+            with socket.socket() as sock:
+                sock.bind(("127.0.0.1", 0))
+                port = sock.getsockname()[1]
+        return f"127.0.0.1:{port}"
+
     def _write_function_files(
         self, operation_id: str, fn: Callable, args: tuple, kwargs: dict,
         workdir: str, pip_deps=(),
     ) -> StagedTask:
-        """Stage the function pickle and the task spec locally
-        (reference: ``ssh.py:126-179``)."""
+        """Stage the function pickle and one task spec per process locally
+        (reference: ``ssh.py:126-179``, ``tpu.py:1494-1566``)."""
+        from .parallel.distributed import coordinator_spec
+
         Path(self.cache_dir).mkdir(parents=True, exist_ok=True)
-        staged = StagedTask(operation_id, Path(self.cache_dir), self.remote_cache)
+        processes = self._num_processes()
+        staged = StagedTask(operation_id, Path(self.cache_dir), self.remote_cache, processes)
         dump_task(fn, args, kwargs, staged.function_file)
-        spec: dict[str, Any] = {
-            "operation_id": operation_id,
-            "function_file": staged.remote_function_file,
-            "result_file": staged.remote_result_file,
-            "workdir": workdir,
-            "pid_file": staged.remote_pid_file,
-        }
-        if self.task_env:
-            spec["env"] = self.task_env
-        if self.profile_dir:
-            spec["profile_dir"] = f"{self.profile_dir}/{operation_id}"
-        if pip_deps:
-            # installed by the harness before it unpickles the function
-            spec["pip_deps"] = list(pip_deps)
-        with open(staged.spec_file, "w") as f:
-            json.dump(spec, f)
+        with open(staged.function_file, "rb") as f:
+            function_digest = bytes_digest(f.read())
+        blocks = (coordinator_spec(coordinator_address=self._coordinator_address(),
+                                   num_processes=processes) if processes > 1 else None)
+        for i in range(processes):
+            files = staged.rank(i)
+            spec: dict[str, Any] = {
+                "operation_id": operation_id,
+                "function_file": staged.remote_function_file,
+                # checked by the harness before it unpickles (and before a
+                # gang's rendezvous): a torn file fails loud, with its blame
+                "function_digest": function_digest,
+                "result_file": staged.remote_result_file,
+                "workdir": workdir,
+                "pid_file": files["pid"],
+            }
+            if self.task_env:
+                spec["env"] = self.task_env
+            if self.profile_dir:
+                spec["profile_dir"] = f"{self.profile_dir}/{operation_id}"
+            if pip_deps:
+                # installed by the harness before it unpickles the function
+                spec["pip_deps"] = list(pip_deps)
+            if blocks is not None:
+                spec["distributed"] = blocks[i]
+            with open(files["spec"], "w") as f:
+                json.dump(spec, f)
         return staged
 
     async def _upload_task(self, conn: Transport, staged: StagedTask) -> None:
@@ -397,19 +476,19 @@ class GPUExecutor(RemoteExecutor):
         for local, remote in staged.uploads():
             await conn.put(local, remote)
 
-    def _task_command(self, staged: StagedTask) -> str:
+    def _task_command(self, staged: StagedTask, process: int = 0) -> str:
         # `exec` makes the harness replace the wrapper shell, so the PID
         # captured at launch is the python process itself.
         return (
             f"exec {self.python_path} {shlex.quote(staged.remote_harness_file)} "
-            f"{shlex.quote(staged.remote_spec_file)}"
+            f"{shlex.quote(staged.rank(process)['remote_spec'])}"
         )
 
-    async def submit_task(self, conn: Transport, staged: StagedTask) -> int:
-        """Launch the harness detached; return its PID."""
+    async def submit_task(self, conn: Transport, staged: StagedTask, process: int = 0) -> int:
+        """Launch one process's harness detached; return its PID."""
         launch = (
-            f"nohup sh -c {shlex.quote(self._task_command(staged))} "
-            f"> {shlex.quote(staged.remote_log_file)} 2>&1 & echo $!"
+            f"nohup sh -c {shlex.quote(self._task_command(staged, process))} "
+            f"> {shlex.quote(staged.rank(process)['log'])} 2>&1 & echo $!"
         )
         result = await conn.run(launch)
         if result.exit_status != 0:
@@ -428,7 +507,7 @@ class GPUExecutor(RemoteExecutor):
     # ------------------------------------------------------------------ #
 
     async def get_status(self, conn: Transport, staged: StagedTask,
-                         pid: int | None) -> TaskStatus:
+                         pid: int | None, process: int = 0) -> TaskStatus:
         """Combined result-exists + process-alive probe, one round trip.
 
         Zombie-aware: ``kill -0`` answers true for a zombie, and a
@@ -438,8 +517,12 @@ class GPUExecutor(RemoteExecutor):
         exited between the first check and the liveness test, and once it is
         gone the second check cannot miss it.
         """
-        result_file = shlex.quote(staged.remote_result_file)
-        gone = f"if test -f {result_file}; then echo READY; else echo DEAD; fi"
+        files = staged.rank(process)
+        result_file = shlex.quote(files["done"])
+        # a marker of process 1.. that records the electron's error is a death
+        found = (f"if grep -qs '^error' {result_file}; then echo DEAD; else echo READY; fi"
+                 if process else "echo READY")
+        gone = f"if test -f {result_file}; then {found}; else echo DEAD; fi"
         if pid is not None:
             liveness = (
                 f"elif ps -o state= -p {pid} 2>/dev/null | grep -q Z; "
@@ -447,7 +530,7 @@ class GPUExecutor(RemoteExecutor):
                 f"elif kill -0 {pid} 2>/dev/null; then echo RUNNING; "
             )
         else:
-            quoted = shlex.quote(staged.remote_pid_file)
+            quoted = shlex.quote(files["pid"])
             liveness = (
                 f"elif test -s {quoted}; then "
                 f"if kill -0 \"$(cat {quoted})\" 2>/dev/null; "
@@ -455,7 +538,7 @@ class GPUExecutor(RemoteExecutor):
                 "elif true; then echo STARTING; "
             )
         probe = (
-            f"if test -f {result_file}; then echo READY; "
+            f"if test -f {result_file}; then {found}; "
             + liveness + f"else {gone}; fi"
         )
         result = await conn.run(probe)
@@ -467,22 +550,54 @@ class GPUExecutor(RemoteExecutor):
                 f"status probe on {conn.address} failed: {result.stderr.strip()!r}"
             )
 
+    #: How long a gang's processes 1.. may take to leave once process 0 wrote
+    #: the result (they leave the process group and write their markers).
+    GANG_EXIT_GRACE_S = 60.0
+
     async def _poll_task(self, conn: Transport, staged: StagedTask,
-                         pid: int | None) -> TaskStatus:
-        """Adaptive wait for the result: the interval starts at 50 ms and
-        doubles up to ``poll_freq``; STARTING is tolerated for
-        ``STARTING_GRACE_S``; ``task_timeout`` (0 = none) ends in TIMEOUT."""
-        interval, waited, starting_for = 0.05, 0.0, 0.0
+                         pids: list[int | None]) -> tuple[TaskStatus, int]:
+        """Wait for every process of the task: ``(status, index to blame)``
+        (the reference's ``_poll_all``, ``tpu.py:2894-2905``).
+
+        The interval starts at 50 ms and doubles up to ``poll_freq``;
+        STARTING is tolerated for ``STARTING_GRACE_S``; ``task_timeout``
+        (0 = none) ends in TIMEOUT.  A process 1.. found DEAD (it exited
+        before its done marker, as a failed pip install does before the
+        rendezvous, or its marker records the electron's error) fails the
+        task at once, all or nothing, instead of leaving process 0 in a
+        collective until its timeout.  Once process 0 is READY the others
+        get ``GANG_EXIT_GRACE_S`` to leave, so the cleanup does not race a
+        late marker; what is left after it is killed.
+        """
+        interval, waited, starting_for, ready_for = 0.05, 0.0, 0.0, 0.0
         while True:
-            status = await self.get_status(conn, staged, pid)
-            if status not in (TaskStatus.RUNNING, TaskStatus.STARTING):
-                return status
-            if status is TaskStatus.STARTING:
-                if starting_for >= self.STARTING_GRACE_S:
-                    return TaskStatus.DEAD
-                starting_for += interval
-            if self.task_timeout and waited >= self.task_timeout:
-                return TaskStatus.TIMEOUT
+            statuses = await asyncio.gather(*(
+                self.get_status(conn, staged, pid, i) for i, pid in enumerate(pids)))
+            for i, status in enumerate(statuses[1:], start=1):
+                if status is TaskStatus.DEAD:
+                    return TaskStatus.DEAD, i
+            live = [i for i, st in enumerate(statuses)
+                    if st in (TaskStatus.RUNNING, TaskStatus.STARTING)]
+            if 0 not in live and (statuses[0] is not TaskStatus.READY or not live):
+                return statuses[0], 0
+            if 0 not in live:
+                if ready_for >= self.GANG_EXIT_GRACE_S:
+                    app_log.warning("task %s: gang processes %s still running %.0f s after "
+                                    "process 0 finished; killing them", staged.operation_id,
+                                    live, self.GANG_EXIT_GRACE_S)
+                    await self._kill(conn, staged)
+                    return TaskStatus.READY, 0
+                if not ready_for:
+                    interval = 0.05  # the others leave right after process 0
+                ready_for += interval
+            else:
+                starting = [i for i in live if statuses[i] is TaskStatus.STARTING]
+                if starting:
+                    if starting_for >= self.STARTING_GRACE_S:
+                        return TaskStatus.DEAD, starting[0]
+                    starting_for += interval
+                if self.task_timeout and waited >= self.task_timeout:
+                    return TaskStatus.TIMEOUT, 0
             await asyncio.sleep(interval)
             waited += interval
             interval = min(interval * 2, float(self.poll_freq))
@@ -493,8 +608,9 @@ class GPUExecutor(RemoteExecutor):
         await conn.get(staged.remote_result_file, staged.local_result_file)
         return load_result(staged.local_result_file)
 
-    async def _remote_log_tail(self, conn: Transport, staged: StagedTask) -> str:
-        result = await conn.run(f"tail -n 50 {shlex.quote(staged.remote_log_file)}")
+    async def _remote_log_tail(self, conn: Transport, staged: StagedTask,
+                               process: int = 0) -> str:
+        result = await conn.run(f"tail -n 50 {shlex.quote(staged.rank(process)['log'])}")
         return result.stdout.strip()
 
     @staticmethod
@@ -505,10 +621,11 @@ class GPUExecutor(RemoteExecutor):
         await conn.run(f"kill -s TERM -- -{pid} 2>/dev/null || kill -s TERM {pid} 2>/dev/null; true")
 
     async def _kill(self, conn: Transport, staged: StagedTask) -> None:
-        """``run``'s own teardown of its harness (timeout, cancellation)."""
-        pid = self._pids.get(staged.operation_id)
-        if pid is not None:
-            await self._kill_group(conn, pid)
+        """``run``'s own teardown of its harnesses (timeout, cancellation,
+        a gang whose process failed)."""
+        for pid in self._pids.get(staged.operation_id, ()):
+            if pid is not None:
+                await self._kill_group(conn, pid)
 
     async def cancel(self, operation_id: str | None = None, mark: bool = True) -> None:
         """Kill the harness of every run whose operation id is
@@ -526,7 +643,8 @@ class GPUExecutor(RemoteExecutor):
                    or op.startswith(f"{operation_id}_")]
         if mark:
             self._cancelled_ops.update(targets)
-        pids = [self._pids[op] for op in targets if op in self._pids]
+        pids = [pid for op in targets for pid in self._pids.get(op, ())
+                if pid is not None]
         if not pids:
             return
         conn = LocalTransport()
@@ -717,15 +835,21 @@ class GPUExecutor(RemoteExecutor):
         client = self._agents.get(lease.conns[0].address)
         return client if client is not None and client.alive else None
 
+    @staticmethod
+    def _task_id(staged: StagedTask, process: int) -> str:
+        """The pool's id of one process of the task (process 0: the operation id)."""
+        return staged.operation_id if process == 0 else f"{staged.operation_id}.{process}"
+
     async def _submit_via_agent(self, client: AgentClient, conn: Transport,
-                                staged: StagedTask) -> int:
-        """Start the staged harness as a fork of the pool's zygote; returns
-        its pid.  The task's files are those of a nohup launch, so every
-        probe (pid liveness, result file, kill by pid) still works if the
-        channel dies later."""
+                                staged: StagedTask, process: int = 0) -> int:
+        """Start one process's staged harness as a fork of the pool's zygote;
+        returns its pid.  The task's files are those of a nohup launch, so
+        every probe (pid liveness, result file, kill by pid) still works if
+        the channel dies later."""
+        files = staged.rank(process)
         try:
-            return await client.run_task(staged.operation_id, spec=staged.remote_spec_file,
-                                         log=staged.remote_log_file)
+            return await client.run_task(self._task_id(staged, process),
+                                         spec=files["remote_spec"], log=files["log"])
         except AgentError as err:
             if not getattr(err, "maybe_started", False):
                 raise
@@ -733,7 +857,7 @@ class GPUExecutor(RemoteExecutor):
             # the task may be alive there, and a second launch would run it
             # twice.  Kill it by the pid file it writes first thing, over a
             # short grace window, and fail this launch.
-            pid_file = shlex.quote(staged.remote_pid_file)
+            pid_file = shlex.quote(files["pid"])
             reap = (f"if [ -s {pid_file} ]; then kill -s TERM -- -$(cat {pid_file}) "
                     f"2>/dev/null || kill -s TERM $(cat {pid_file}) 2>/dev/null; "
                     "echo KILLED; fi")
@@ -764,7 +888,7 @@ class GPUExecutor(RemoteExecutor):
             except AgentError as err:
                 app_log.info("task %s: pool channel died (%s); polling its files",
                              staged.operation_id, err)
-                return await self._poll_task(conn, staged, pid)
+                return (await self._poll_task(conn, staged, [pid]))[0]
         finally:
             waiter.cancel()
             try:
@@ -773,7 +897,7 @@ class GPUExecutor(RemoteExecutor):
                 pass
         status = await self.get_status(conn, staged, pid)
         if status in (TaskStatus.RUNNING, TaskStatus.STARTING):
-            return await self._poll_task(conn, staged, pid)
+            return (await self._poll_task(conn, staged, [pid]))[0]
         return status
 
     # ------------------------------------------------------------------ #
@@ -807,6 +931,8 @@ class GPUExecutor(RemoteExecutor):
         """
         if self._resolve_dispatch_mode(task_metadata) == "launch":
             return False
+        if self._num_processes() > 1:
+            return False  # a gang's bootstrap is the launch harness's
         if self.use_agent not in (True, "auto", "pool"):
             return False
         return not (task_metadata.get("pip_deps") or self.profile_dir)
@@ -903,10 +1029,11 @@ class GPUExecutor(RemoteExecutor):
         stages["poll"] = max(0.0, stages.get("poll", 0.0) - execute)
 
     async def _run_staged(self, root: Span, staged: StagedTask):
-        """Upload, launch, wait for, fetch and clean up one staged task:
-        ``(result, exception)``."""
+        """Upload, launch, wait for, fetch and clean up one staged task (every
+        process of a gang): ``(result, exception)``."""
         operation_id = staged.operation_id
         conn = LocalTransport()
+        client = None
         try:
             with Span("executor.upload"):
                 await self._upload_task(conn, staged)
@@ -914,48 +1041,64 @@ class GPUExecutor(RemoteExecutor):
             if operation_id in self._cancelled_ops:
                 raise asyncio.CancelledError(f"task {operation_id} cancelled")
             with Span("executor.submit"):
-                pid = None
-                if client is not None:
-                    try:
-                        pid = await self._submit_via_agent(client, conn, staged)
-                        self._op_agents[operation_id] = client
-                    except AgentError as err:
-                        if classify_error(err)[0] is FaultClass.PERMANENT:
-                            raise
-                        # rejected before it started: launch it detached instead
-                        app_log.warning("task %s: pool run refused (%s); launching with "
-                                        "nohup", operation_id, err)
-                        obs_events.emit("task.agent_fallback", operation_id=operation_id,
-                                        reason=str(err))
-                        client = None
-                if pid is None:
-                    pid = await self.submit_task(conn, staged)
-                self._pids[operation_id] = pid
+                pids: list = []
+                self._pids[operation_id] = pids
+                for process in range(staged.processes):
+                    pid = None
+                    if client is not None:
+                        try:
+                            pid = await self._submit_via_agent(client, conn, staged, process)
+                            self._op_agents[operation_id] = client
+                        except AgentError as err:
+                            if classify_error(err)[0] is FaultClass.PERMANENT:
+                                raise
+                            # rejected before it started: launch it detached instead
+                            app_log.warning("task %s: pool run refused (%s); launching with "
+                                            "nohup", operation_id, err)
+                            obs_events.emit("task.agent_fallback", operation_id=operation_id,
+                                            reason=str(err))
+                            client = None
+                    if pid is None:
+                        pid = await self.submit_task(conn, staged, process)
+                    pids.append(pid)
             try:
                 with Span("executor.poll"):
-                    if client is not None:
-                        status = await self._await_agent_exit(client, conn, staged, pid)
+                    if client is not None and staged.processes == 1:
+                        status, blamed = await self._await_agent_exit(
+                            client, conn, staged, pids[0]), 0
                     else:
-                        status = await self._poll_task(conn, staged, pid)
+                        status, blamed = await self._poll_task(conn, staged, pids)
             except asyncio.CancelledError:
                 await self._kill(conn, staged)
                 raise
             if status is not TaskStatus.READY:
                 if operation_id in self._cancelled_ops:
                     raise asyncio.CancelledError(f"task {operation_id} cancelled")
-                if status is TaskStatus.TIMEOUT:
+                if status is TaskStatus.TIMEOUT or staged.processes > 1:
+                    # a gang's other processes may wait in the rendezvous
                     await self._kill(conn, staged)
-                log_tail = await self._remote_log_tail(conn, staged)
+                log_tail = await self._remote_log_tail(conn, staged, blamed)
+                who = (f" process {blamed} (worker {self.workers[blamed]!r})"
+                       if staged.processes > 1 else "")
                 raise RuntimeError(
-                    f"remote task {operation_id} failed on {conn.address} "
+                    f"remote task {operation_id} failed on {conn.address}{who} "
                     f"({status.value}); log tail:\n{log_tail}"
                 )
             with Span("executor.fetch"):
                 result, exception, times = await self.query_result(conn, staged)
             self._record_execute(root, times)
+            if times and "rendezvous" in times:
+                # the gang's process group opening: dispatch overhead the
+                # poll span waited through, reported as its own stage
+                stages = root.stage_durations
+                stages["rendezvous"] = times["rendezvous"]
+                stages["poll"] = max(0.0, stages.get("poll", 0.0) - times["rendezvous"])
             return result, exception
         finally:
             self._pids.pop(operation_id, None)
+            if client is not None:
+                for process in range(1, staged.processes):
+                    client.forget(self._task_id(staged, process))
             if self.do_cleanup:
                 with Span("executor.cleanup"):
                     await self.cleanup(conn, staged)

@@ -11,10 +11,17 @@ one file to the worker (it imports nothing of the package).
   and writes ``(result, exception, times)`` back as a pickle, which the
   dispatcher fetches; ``times`` holds the electron's own ``start`` and
   ``end`` (unix seconds), which the dispatcher's ``execute`` stage reads.
-  Optionally it traces the electron with ``torch.profiler``.  The spec keys
-  of later slices (the distributed bootstrap, heartbeats, the checkpointer,
-  resume) are refused: the electron does not run, and the error comes back
-  as its exception.
+  Optionally it traces the electron with ``torch.profiler``.  A gang
+  electron's spec carries a ``distributed`` block (coordinator address,
+  process count, this process's id): after the pip install and the
+  function file's digest check it joins the gang's
+  ``torch.distributed`` process group, runs the electron, and leaves the
+  group; process 0 writes the result, the others a ``.done.<id>`` marker
+  (``error`` and the exception, with the traceback in the log, where the
+  electron raised there).
+  The spec keys of later slices (heartbeats, the checkpointer, resume) are
+  refused: the electron does not run, and the error comes back as its
+  exception.
 * **Resident mode** (``harness.py --serve``): the pool server.  It speaks a
   JSON-lines protocol on stdin/stdout, switching to interleaved binary
   frames once the client negotiates them, hosts resident serving sessions
@@ -41,9 +48,13 @@ import zlib
 
 #: spec keys this harness understands
 _SPEC_KEYS = {
-    "operation_id", "function_file", "result_file", "workdir", "pid_file",
-    "env", "profile_dir", "pip_deps",
+    "operation_id", "function_file", "function_digest", "result_file", "workdir",
+    "pid_file", "env", "profile_dir", "pip_deps", "distributed",
 }
+
+#: Seconds the gang's process group waits on a collective (the rendezvous
+#: included) before it fails.
+DIST_TIMEOUT_S = 1800.0
 
 
 def install_pip_deps(pip_deps: list) -> None:
@@ -143,8 +154,66 @@ def _stop_profiler(profiler, profile_dir: str) -> None:
     profiler.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
 
 
+def _rank_env(distributed: dict) -> None:
+    """``torch.distributed``'s own variables for a gang process (``RANK``,
+    ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``), set
+    before anything of the electron runs, its pip install included."""
+    host, _, port = str(distributed["coordinator_address"]).rpartition(":")
+    os.environ.update({
+        "RANK": str(int(distributed["process_id"])),
+        "WORLD_SIZE": str(int(distributed["num_processes"])),
+        "LOCAL_RANK": str(int(distributed["process_id"])),
+        "MASTER_ADDR": host,
+        "MASTER_PORT": port,
+    })
+
+
+def _join_gang(distributed: dict) -> str:
+    """Open the gang's process group; returns its backend.
+
+    NCCL when this host has a card for every process, else gloo: gloo on
+    CPU tensors, and on cards shared by several processes (NCCL refuses two
+    ranks on one device; ``parallel/probe.py`` lists what gloo carries on
+    tensors on the card).  With cards, process ``i`` takes card ``i % count``.
+    """
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    world = int(distributed["num_processes"])
+    rank = int(distributed["process_id"])
+    backend = "gloo"
+    if torch.cuda.is_available():
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+        if torch.cuda.device_count() >= world:
+            backend = "nccl"
+    dist.init_process_group(
+        backend, init_method=f"tcp://{distributed['coordinator_address']}",
+        world_size=world, rank=rank, timeout=timedelta(seconds=DIST_TIMEOUT_S),
+    )
+    return backend
+
+
+def _digest_ok(path: str, expected: str) -> bool:
+    import hashlib
+
+    sha = hashlib.sha256()
+    with open(path, "rb") as f:
+        for chunk in iter(lambda: f.read(1 << 20), b""):
+            sha.update(chunk)
+    return sha.hexdigest() == expected
+
+
 def run_task(spec: dict) -> int:
-    """Execute one staged task described by ``spec``.  Returns the exit code."""
+    """Execute one staged task described by ``spec``.  Returns the exit code.
+
+    A gang process (``distributed`` in the spec) fails before the
+    rendezvous on anything that can fail alone (its pip install, a torn
+    function file): it exits 1, and the dispatcher, which watches every
+    process, fails the task and blames it instead of leaving process 0 in
+    the rendezvous.  Only process 0 writes a result file.
+    """
     result_file = spec["result_file"]
 
     pid_file = spec.get("pid_file")
@@ -163,16 +232,43 @@ def run_task(spec: dict) -> int:
         ))
         return 1
 
+    distributed = spec.get("distributed")
+    process_id = int(distributed["process_id"]) if distributed else 0
+
+    def fail(error: BaseException) -> int:
+        if process_id == 0:
+            _fallback_result(result_file, error)
+        else:
+            print(f"process {process_id}: {error!r}", file=sys.stderr)
+        return 1
+
     try:
         _apply_spec_env(spec)
+        if distributed:
+            _rank_env(distributed)
         # Before the function pickle is loaded: unpickling may import the
         # dependency (reference ct.DepsPip, svm_workflow.py:6,19).
         if spec.get("pip_deps"):
             install_pip_deps(spec["pip_deps"])
         import cloudpickle as pickle
     except (ImportError, RuntimeError) as setup_error:
-        _fallback_result(result_file, setup_error)
-        return 1
+        return fail(setup_error)
+
+    digest = spec.get("function_digest")
+    if digest and not _digest_ok(spec["function_file"], digest):
+        return fail(RuntimeError(
+            f"staged function {spec['function_file']} does not match its content "
+            "digest (torn or stale artifact)"))
+
+    times: dict = {}
+    if distributed:
+        joined = time.time()
+        try:
+            times["backend"] = _join_gang(distributed)
+        except Exception as join_error:  # noqa: BLE001 - transported to dispatcher
+            return fail(RuntimeError(f"process {process_id} could not join the gang: "
+                                     f"{join_error!r}"))
+        times["rendezvous"] = time.time() - joined
 
     with open(spec["function_file"], "rb") as f:
         fn, args, kwargs = pickle.load(f)
@@ -184,6 +280,7 @@ def run_task(spec: dict) -> int:
     current_dir = os.getcwd()
     result, exception = None, None
     started = time.time()
+    marker = f"{result_file}.done.{process_id}"
     try:
         if workdir:
             os.makedirs(workdir, exist_ok=True)
@@ -191,17 +288,42 @@ def run_task(spec: dict) -> int:
         result = _to_host(fn(*args, **kwargs))
     except Exception as task_error:  # noqa: BLE001 - transported to dispatcher
         exception = task_error
+        if process_id:
+            # Into the log and the marker before the process group closes:
+            # process 0 may fail on the closed group, and the dispatcher
+            # must find this process's error first and blame it.
+            import traceback
+
+            traceback.print_exc()
+            _write_marker(marker, f"error {task_error!r}\n")
     finally:
         ended = time.time()
         os.chdir(current_dir)
         if profiler is not None:
             _stop_profiler(profiler, profile_dir)
+        if distributed:
+            import torch.distributed as dist
 
-    tmp = result_file + ".tmp"
-    with open(tmp, "wb") as f:
-        pickle.dump((result, exception, {"start": started, "end": ended}), f)
-    os.replace(tmp, result_file)
+            if dist.is_initialized():
+                dist.destroy_process_group()
+
+    if process_id == 0:
+        tmp = result_file + ".tmp"
+        with open(tmp, "wb") as f:
+            pickle.dump((result, exception, {"start": started, "end": ended, **times}), f)
+        os.replace(tmp, result_file)
+    elif exception is None:
+        # the others' marker: the dispatcher's watcher reads it as "done"
+        _write_marker(marker, "done\n")
     return 0
+
+
+def _write_marker(path: str, text: str) -> None:
+    """A gang process's done marker, written whole (the watcher reads its
+    first word: ``done``, or ``error`` and the electron's exception)."""
+    with open(f"{path}.tmp", "w") as f:
+        f.write(text)
+    os.replace(f"{path}.tmp", path)
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,8 @@
 """Models of the PyTorch port: the MNIST MLP and CNN, the transformer LM,
-their training paths and the LM's serving path (KV-cache decoding,
-``generate``, continuous batching)."""
+their training paths (one process, or one rank of a sharded gang) and the
+LM's serving path (KV-cache decoding, ``generate``, continuous batching)."""
 
-from .convert import cnn_params_from_jax, mlp_params_from_jax, params_from_jax
+from .convert import cnn_params_from_jax, mlp_params_from_jax, params_from_jax, place_on_mesh
 from .data import synthetic_lm_batch, synthetic_lm_batches
 from .decode import generate, inference_params, init_cache
 from .mlp import MLP, MnistCNN, synthetic_mnist
@@ -21,6 +21,7 @@ from .train import (
     cross_entropy_loss,
     lm_loss,
     make_classifier_train_step,
+    make_sharded_train_state,
     make_train_step,
     train_lm,
     train_mnist,
@@ -54,9 +55,11 @@ __all__ = [
     "lm_engine_factory",
     "lm_loss",
     "make_classifier_train_step",
+    "make_sharded_train_state",
     "make_train_step",
     "mlp_params_from_jax",
     "params_from_jax",
+    "place_on_mesh",
     "serve_lm",
     "step_accounting",
     "synthetic_lm_batch",

@@ -13,6 +13,10 @@ dense layers hold PyTorch's ``(out, in)``.  Block parameters come either
 stacked on a leading layer axis under ``layers`` (``scan_layers=True``) or
 unrolled as ``layer_{i}`` (``scan_layers=False``); both convert.
 
+A gang starts from the same weights: :func:`place_on_mesh` copies the full
+converted tensors into a model already sharded over a mesh (each rank keeps
+its shard, ``distribute_tensor`` with the parameter's own placements).
+
 The input is nested dicts of numpy arrays (``jax.tree.map(np.asarray, ...)``
 of unboxed params), so this module needs no JAX.  Float32 leaves become
 ``config.param_dtype`` (RMSNorm scales stay float32); bfloat16 leaves, as in
@@ -134,3 +138,31 @@ def cnn_params_from_jax(params: dict) -> dict[str, torch.Tensor]:
     state.update(_linear(params["Dense_0"], "fc"))
     state.update(_linear(params["Dense_1"], "head"))
     return state
+
+
+def place_on_mesh(model: torch.nn.Module, state: dict[str, torch.Tensor]) -> torch.nn.Module:
+    """Load a full state dict (``params_from_jax``'s, say) into ``model``
+    after it was sharded (``parallel.sharding.apply_rules``, or a config with
+    ``mesh`` set): every DTensor parameter takes its shard of the full
+    tensor, by ``distribute_tensor`` on the parameter's mesh and placements;
+    a plain one takes the whole.  Every rank calls it with the same
+    ``state``.  Returns ``model``."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    params = dict(model.named_parameters())
+    if set(params) != set(state):
+        raise ValueError(f"state dict keys differ from the model's: missing "
+                         f"{sorted(set(params) - set(state))}, unexpected "
+                         f"{sorted(set(state) - set(params))}")
+    with torch.no_grad():
+        for name, param in params.items():
+            full = state[name]
+            if tuple(full.shape) != tuple(param.shape):
+                raise ValueError(f"{name}: shape {tuple(full.shape)} != {tuple(param.shape)}")
+            if isinstance(param, DTensor):
+                local = param.to_local()
+                full = full.to(device=local.device, dtype=param.dtype)
+                param.copy_(distribute_tensor(full, param.device_mesh, param.placements))
+            else:
+                param.copy_(full)
+    return model

@@ -1,11 +1,17 @@
 """Losses and the single-device train step; the LM and MNIST training electrons.
 
-Counterpart of ``covalent_tpu_plugin/models/train.py`` for one device: the
-step runs eagerly (PyTorch has no ``jit``).  The LM's optimizer is
+Counterpart of ``covalent_tpu_plugin/models/train.py``: the step runs
+eagerly (PyTorch has no ``jit``).  The LM's optimizer is
 ``torch.optim.AdamW(lr=3e-4, weight_decay=1e-4, eps=1e-8)``, which matches
 ``optax.adamw(3e-4)``'s defaults; the classifier's is ``torch.optim.Adam``
-at ``optax.adam(1e-3)``'s.  Meshes and sharded state come with the
-scale-out slice.
+at ``optax.adam(1e-3)``'s.
+
+Sharded training (``make_sharded_train_state``, ``make_train_step(...,
+mesh=...)``): every rank of a gang (one process a device) builds the same
+weights, shards them over the mesh (``parallel.sharding.apply_rules``) and
+takes each step on its rows of the global batch.  The step's ``loss`` is the
+global mean and its ``grad_norm`` the norm of the whole gradient, as the
+reference's jitted step reports them.
 """
 
 from __future__ import annotations
@@ -19,7 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops import _kernels
-from ..ops.xent import fused_cross_entropy
+from ..ops.xent import fused_cross_entropy, refuse_sharded_vocab, vocab_parallel_cross_entropy
 from .data import synthetic_lm_batches
 from .mlp import MLP, MnistCNN, synthetic_mnist
 from .transformer import TransformerLM, lm_125m_config, resolve_device
@@ -68,9 +74,14 @@ def lm_loss(model: torch.nn.Module, batch: dict, vocab_chunk: int | None = None)
     streams over lm_head chunks, so the (B, S, vocab) logits never exist.
     """
     tokens = _tokens(model, batch)
+    tp = getattr(model, "tp", None)
     if vocab_chunk is None:
         logits = model(tokens[:, :-1])
+        if tp is not None:
+            return vocab_parallel_cross_entropy(logits, tokens[:, 1:], tp, model.vocab_block())
         return cross_entropy_loss(logits, tokens[:, 1:])
+    if tp is not None:
+        refuse_sharded_vocab()
     feats = model(tokens[:, :-1], return_features=True)
     kernel = model.lm_head.weight
     if not kernel.is_floating_point():
@@ -88,6 +99,7 @@ def make_train_step(
     optimizer: torch.optim.Optimizer,
     loss_fn: Callable[[torch.nn.Module, Any], torch.Tensor] = lm_loss,
     accumulate_steps: int = 1,
+    mesh=None,
 ) -> Callable[[dict], dict]:
     """Build ``step(batch) -> {"loss", "grad_norm", "step"}``.
 
@@ -96,12 +108,24 @@ def make_train_step(
     microbatches sum in the (f32) ``.grad`` buffers and are scaled by
     ``1/accumulate_steps`` before one optimizer step, so activation memory
     stays one microbatch.
+
+    With ``mesh`` (a model sharded over it, :func:`make_sharded_train_state`)
+    ``batch`` is the global batch: each rank takes its rows
+    (``parallel.sharding.shard_batch``), the gradients are averaged over the
+    batch axes (by FSDP2, or over ``data`` for plain replicas), ``loss`` is
+    averaged over them too and ``grad_norm`` covers every shard.
     """
+    from ..parallel import sharding
+
     params = [p for p in model.parameters() if p.requires_grad]
     count = 0
+    if accumulate_steps > 1 and mesh is not None:
+        raise NotImplementedError("gradient accumulation on a mesh comes with slice 4, part 2")
 
     def step(batch: dict) -> dict:
         nonlocal count
+        if mesh is not None:
+            batch = sharding.shard_batch(batch, mesh)
         optimizer.zero_grad(set_to_none=True)
         if accumulate_steps == 1:
             loss = loss_fn(model, batch)
@@ -124,7 +148,12 @@ def make_train_step(
             loss = loss * scale
             for p in params:
                 p.grad.mul_(scale)
-        grad_norm = torch.nn.utils.get_total_norm([p.grad for p in params])
+        if mesh is None:
+            grad_norm = torch.nn.utils.get_total_norm([p.grad for p in params])
+        else:
+            sharding.average_gradients(model, mesh)
+            grad_norm = sharding.global_norm([p.grad for p in params], mesh)
+            loss = sharding.batch_mean(loss, mesh)
         optimizer.step()
         count += 1
         return {"loss": loss, "grad_norm": grad_norm, "step": count}
@@ -132,10 +161,29 @@ def make_train_step(
     return step
 
 
-def make_classifier_train_step(model: torch.nn.Module,
-                               optimizer: torch.optim.Optimizer) -> Callable[[dict], dict]:
-    """``step({"image", "label"}) -> {"loss", "grad_norm", "step"}``."""
-    return make_train_step(model, optimizer, loss_fn=classifier_loss)
+def make_classifier_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
+                               mesh=None) -> Callable[[dict], dict]:
+    """``step({"image", "label"}) -> {"loss", "grad_norm", "step"}``;
+    data-parallel over ``mesh`` when given (the reference's
+    ``make_classifier_train_step(mesh, ...)``)."""
+    return make_train_step(model, optimizer, loss_fn=classifier_loss, mesh=mesh)
+
+
+def make_sharded_train_state(model: torch.nn.Module,
+                             optimizer: Callable[[torch.nn.Module], torch.optim.Optimizer],
+                             mesh, rules=None) -> tuple:
+    """Shard ``model`` over ``mesh`` per the logical rules, then build its
+    optimizer on the shards: ``(model, optimizer, shardings)``, where
+    ``shardings`` maps each parameter to the mesh axes of its dimensions
+    (``parallel.sharding.param_shardings``).  ``optimizer`` is a factory
+    such as :func:`adamw`.  Every rank calls it on identical weights."""
+    from ..parallel import sharding
+
+    rules = sharding.DEFAULT_RULES if rules is None else rules
+    shardings = sharding.param_shardings(model, mesh, rules)
+    if getattr(model, "mesh", None) is None:
+        sharding.apply_rules(model, mesh, rules)
+    return model, optimizer(model), shardings
 
 
 def adam(model: torch.nn.Module) -> torch.optim.Adam:
@@ -160,6 +208,7 @@ def train_lm(
     vocab_chunk: int | None = None,
     seed: int = 0,
     device=None,
+    mesh_plan=None,
     **config_overrides,
 ) -> dict:
     """The slice's training electron: build the LM, take ``steps`` AdamW
@@ -170,15 +219,27 @@ def train_lm(
     loss shifts by one).  The weights come from a ``torch.Generator`` seeded
     with ``seed``, the batches from ``synthetic_lm_batches(seed=seed)``.  The
     launch counts of the CUDA kernels cover exactly these steps.
+
+    ``mesh_plan`` (a ``parallel.MeshPlan``) trains as one rank of a gang: the
+    process group is open (a gang electron's harness opens it), every rank
+    builds the same weights, shards them over the plan's mesh and steps on
+    its rows of the same global batches.  ``losses`` are then the global
+    means, and ``ranks`` holds each rank's launches, the query shapes its
+    flash kernels took, its peak memory and step times (:func:`gang_report`).
     """
     device = resolve_device(device)
     _reset_peak_memory(device)
     config = lm_125m_config(**config_overrides)
     generator = torch.Generator(device=device).manual_seed(seed)
     model = TransformerLM(config, device=device, generator=generator)
+    mesh = None if mesh_plan is None else gang_mesh(mesh_plan, device)
+    if mesh is None:
+        optimizer = adamw(model)
+    else:
+        model, optimizer, _ = make_sharded_train_state(model, adamw, mesh)
     step = make_train_step(
-        model, adamw(model),
-        loss_fn=lambda m, b: lm_loss(m, b, vocab_chunk=vocab_chunk),
+        model, optimizer,
+        loss_fn=lambda m, b: lm_loss(m, b, vocab_chunk=vocab_chunk), mesh=mesh,
     )
     batches = list(synthetic_lm_batches(
         steps=steps, batch_size=batch_size, seq_len=seq_len + 1,
@@ -186,6 +247,7 @@ def train_lm(
     ))
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
     launched = _kernels.launch_counts()
+    shapes = _kernels.launch_shapes()
     losses, step_s = [], []
     for batch in batches:
         sync()
@@ -194,17 +256,62 @@ def train_lm(
         losses.append(float(metrics["loss"]))  # waits for the step
         sync()
         step_s.append(time.perf_counter() - start)
-    return {
+    result = {
         "losses": losses,
         "step_s": step_s,
         "tokens_per_step": batch_size * seq_len,
         "launches": _launches_since(launched),
+        "launch_shapes": _shapes_since(shapes),
         "n_params": model.parameter_count(),
         "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
         "peak_mem_bytes": (
             torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
         ),
     }
+    return result if mesh is None else gang_report(result, mesh)
+
+
+def gang_mesh(mesh_plan, device: torch.device):
+    """The plan's mesh over the open process group, on ``device``'s type; the
+    group must hold exactly the plan's ranks."""
+    import torch.distributed as dist
+
+    from ..parallel.mesh import make_mesh
+
+    if not dist.is_initialized():
+        raise RuntimeError(
+            "mesh_plan needs the gang's process group: run the electron with "
+            "GPUExecutor(workers=[...]), whose harness opens it")
+    if dist.get_world_size() != mesh_plan.total():
+        raise ValueError(f"mesh plan {mesh_plan.sizes} needs {mesh_plan.total()} processes, "
+                         f"the gang has {dist.get_world_size()}")
+    return make_mesh(mesh_plan, device_type=device.type)
+
+
+def gang_report(result: dict, mesh) -> dict:
+    """``result`` (this rank's) with the gang's view: the mesh, the backend,
+    the world size and ``ranks``, each rank's device, launches, launch
+    shapes, peak memory and step times, in rank order."""
+    import torch.distributed as dist
+
+    from ..parallel.mesh import mesh_plan
+
+    mine = {key: result.get(key) for key in (
+        "device", "launches", "launch_shapes", "peak_mem_bytes", "step_s", "steps_per_s")}
+    mine["rank"] = dist.get_rank()
+    ranks: list = [None] * dist.get_world_size()
+    dist.all_gather_object(ranks, mine)
+    return {**result, "mesh": mesh_plan(mesh).sizes, "backend": dist.get_backend(),
+            "world_size": dist.get_world_size(), "ranks": ranks}
+
+
+def _shapes_since(before: dict) -> dict:
+    """The flash launches by query shape since ``before``."""
+    now = _kernels.launch_shapes()
+    return {name: {shape: n - before.get(name, {}).get(shape, 0)
+                   for shape, n in shapes.items()
+                   if n - before.get(name, {}).get(shape, 0)}
+            for name, shapes in now.items()}
 
 
 def _reset_peak_memory(device: torch.device) -> None:
@@ -230,6 +337,7 @@ def train_mnist(
     epochs: int = 3,
     seed: int = 0,
     device=None,
+    mesh_plan=None,
 ) -> dict:
     """The MNIST electron: the reference's ``mnist`` bench arm
     (``bench.py:1181-1253``), with the CNN beside the MLP.
@@ -238,6 +346,11 @@ def train_mnist(
     ``synthetic_mnist(batch_size, seed=i)`` from fresh weights (the loss
     curve), then ``epochs`` timed passes over the same batches.  Adam 1e-3;
     the weights come from a ``torch.Generator`` seeded with ``seed``.
+
+    ``mesh_plan`` (``MeshPlan(data=N)``, BASELINE config 4's data-parallel
+    CNN) trains as one rank of a gang, as :func:`train_lm` does: each step
+    takes this rank's rows of the global batch of ``batch_size``, the
+    gradients are averaged over ``data`` and the losses are global means.
     """
     device = resolve_device(device)
     _reset_peak_memory(device)
@@ -249,7 +362,12 @@ def train_mnist(
     stream = [synthetic_mnist(batch_size, seed=i) for i in range(n_batches)]
     images = torch.as_tensor(np.stack([b["image"] for b in stream]), device=device)
     labels = torch.as_tensor(np.stack([b["label"] for b in stream]), device=device)
-    step = make_classifier_train_step(net, adam(net))
+    mesh = None if mesh_plan is None else gang_mesh(mesh_plan, device)
+    if mesh is not None:
+        net, optimizer, _ = make_sharded_train_state(net, adam, mesh)
+    else:
+        optimizer = adam(net)
+    step = make_classifier_train_step(net, optimizer, mesh=mesh)
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
     launched = _kernels.launch_counts()
 
@@ -266,7 +384,7 @@ def train_mnist(
     final = float(last[-1])  # waits for the last step
     sync()
     elapsed = time.perf_counter() - start
-    return {
+    result = {
         "model": model,
         "batch_size": batch_size,
         "n_batches": n_batches,
@@ -283,3 +401,4 @@ def train_mnist(
             torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
         ),
     }
+    return result if mesh is None else gang_report(result, mesh)

@@ -23,9 +23,16 @@ cache=...)``, which updates it in place: the reference keeps the same state
 in flax's "cache" collection.  The cache has a cursor per row, so rows of
 one batch may sit at different positions (the serving engine's lanes).
 
-The reference's layer stacking (``scan_layers``) and logical sharding axes
-have no counterpart here: layers are an ``nn.ModuleList``, and the
-converter reads either stacked or unrolled reference parameters.
+Scale-out: :meth:`TransformerLM.param_logical_axes` names each parameter's
+logical axes as the reference's ``nn.with_partitioning`` does, and
+``parallel.sharding.apply_rules`` (or a config whose ``mesh`` is set) shards
+the model over a device mesh: FSDP2 over ``fsdp``, and over ``tensor`` the
+attention heads, the MLP hidden width and the vocabulary (Megatron's column
+and row parallelism, :meth:`tensor_parallel`).  Each layer then computes on
+its local shards as plain tensors: the flash kernels take ``(B, H / tensor,
+S, D)``.  The reference's layer stacking (``scan_layers``) has no
+counterpart: layers are an ``nn.ModuleList``, and the converter reads either
+stacked or unrolled reference parameters.
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ from torch import nn
 
 from ..ops import batch_invariant as bi
 from ..ops.attention import NEG_INF, flash_attention, mha_reference, on_cuda
+from ..parallel.sharding import _local
 
 #: Config knobs that later slices of the port bring, with the slice that
 #: does.  Setting one raises instead of being silently ignored.
@@ -46,8 +54,7 @@ SLICE_3 = "slice 3 (quantization, LoRA, speculative and beam decoding)"
 _LATER_SLICES = {
     "quantized": SLICE_3,
     "lora_rank": SLICE_3,
-    "moe_experts": "slice 4 (scale-out)",
-    "mesh": "slice 4 (scale-out)",
+    "moe_experts": "slice 4 (scale-out), part 2",
     "remat": "slice 5 (remat and the rest of the executor)",
 }
 
@@ -86,8 +93,10 @@ class TransformerConfig:
     quantized: bool = False
     lora_rank: int = 0
     moe_experts: int = 0
-    mesh: Any = None
     remat: bool = False
+    #: a ``parallel.mesh`` DeviceMesh: the model shards itself over it
+    #: (``parallel.sharding.apply_rules``) once built.
+    mesh: Any = None
 
     def __post_init__(self):
         if self.sliding_window is not None and self.sliding_window < 1:
@@ -215,6 +224,10 @@ class Dense(nn.Module):
     (param_dtype) weight are both cast to ``dtype`` before the product."""
 
     batch_invariant = False
+    #: under tensor parallelism, a weight replicated over ``tensor`` of which
+    #: this rank uses some rows: ``(TensorParallel, rows)`` (a GQA model's
+    #: k/v projections).  Its gradient is summed over the group.
+    shared_rows = None
 
     def __init__(self, in_features: int, out_features: int, dtype, param_dtype,
                  std: float, device, generator):
@@ -227,7 +240,11 @@ class Dense(nn.Module):
 
     def forward(self, x):
         linear = bi.linear if self.batch_invariant else bi.linear_plain
-        return linear(x, self.weight, self.dtype)
+        weight = _local(self.weight)
+        if self.shared_rows is not None:
+            tp, rows = self.shared_rows
+            weight = tp.enter(weight)[rows]
+        return linear(x, weight, self.dtype)
 
 
 class RMSNorm(nn.Module):
@@ -242,17 +259,19 @@ class RMSNorm(nn.Module):
 
     def forward(self, x):
         norm = bi.rms_norm if self.batch_invariant else bi.rms_norm_plain
-        return norm(x, self.scale, self.dtype)
+        return norm(x, _local(self.scale), self.dtype)
 
     def add_norm(self, x, delta):
         """The residual add before this norm and the norm of its sum: ``(x +
         delta, norm(x + delta))``, one kernel on the batch-invariant route."""
         add_norm = bi.add_rms_norm if self.batch_invariant else bi.add_rms_norm_plain
-        return add_norm(x, delta, self.scale, self.dtype)
+        return add_norm(x, delta, _local(self.scale), self.dtype)
 
 
 class Attention(nn.Module):
     batch_invariant = False
+    #: the ``parallel.sharding.TensorParallel`` handle under tensor parallelism
+    tp = None
 
     def __init__(self, cfg: TransformerConfig, device, generator):
         super().__init__()
@@ -272,12 +291,38 @@ class Attention(nn.Module):
         # residual-output kernel: depth-scaled init (GPT-2 convention)
         self.out_proj = dense(cfg.n_heads * hd, d, 0.02 / (2 * cfg.n_layers) ** 0.5)
 
+    def tensor_parallel(self, tp) -> None:
+        """Heads over ``tensor``: q/k/v column-parallel (this rank's block of
+        query heads), ``out_proj`` row-parallel.  A GQA model's k/v
+        projections stay whole on every rank (the rules' ``kv_heads``); each
+        rank takes the rows of the kv heads its query heads read."""
+        cfg = self.cfg
+        group = cfg.n_heads // self.kv_heads
+        local = cfg.n_heads // tp.size
+        if cfg.n_heads % tp.size or (local % group and group % local):
+            raise ValueError(
+                f"{cfg.n_heads} query heads in groups of {group} do not split over "
+                f"tensor={tp.size}"
+            )
+        self.tp = tp
+        if self.kv_heads != cfg.n_heads:
+            first = tp.rank * local // group
+            count = max(1, local // group)
+            rows = slice(first * cfg.head_dim, (first + count) * cfg.head_dim)
+            self.k_proj.shared_rows = self.v_proj.shared_rows = (tp, rows)
+
     def forward(self, x, cache: LayerCache | None = None):
         cfg = self.cfg
         batch, seq, _ = x.shape
-        q = self.q_proj(x).view(batch, seq, cfg.n_heads, cfg.head_dim)
-        k = self.k_proj(x).view(batch, seq, self.kv_heads, cfg.head_dim)
-        v = self.v_proj(x).view(batch, seq, self.kv_heads, cfg.head_dim)
+        if self.tp is not None:
+            if cache is not None:
+                raise NotImplementedError(
+                    "decoding a tensor-parallel model comes with slice 4, part 2")
+            x = self.tp.enter(x)
+        # -1: this rank's heads under tensor parallelism, else all of them
+        q = self.q_proj(x).view(batch, seq, -1, cfg.head_dim)
+        k = self.k_proj(x).view(batch, seq, -1, cfg.head_dim)
+        v = self.v_proj(x).view(batch, seq, -1, cfg.head_dim)
         if cache is not None:
             return self._decode_step(q, k, v, cache)
         q = _rotary(q, base=cfg.rope_base)
@@ -290,8 +335,8 @@ class Attention(nn.Module):
         attend = flash_attention if impl == "flash" else mha_reference
         out = attend(qh, kh, vh, causal=True, window=cfg.sliding_window,
                      sinks=cfg.attention_sinks)
-        out = out.transpose(1, 2).reshape(batch, seq, cfg.n_heads * cfg.head_dim)
-        return self.out_proj(out)
+        out = self.out_proj(out.transpose(1, 2).reshape(batch, seq, -1))
+        return out if self.tp is None else self.tp.leave(out)
 
     def _decode_step(self, q, k, v, cache: LayerCache):
         """Incremental attention against the layer's KV cache.
@@ -397,6 +442,9 @@ class Attention(nn.Module):
 
 
 class MlpBlock(nn.Module):
+    #: the ``parallel.sharding.TensorParallel`` handle under tensor parallelism
+    tp = None
+
     def __init__(self, cfg: TransformerConfig, device, generator):
         super().__init__()
         self.wi = Dense(cfg.d_model, cfg.d_ff, cfg.dtype, cfg.param_dtype, 0.02,
@@ -404,9 +452,16 @@ class MlpBlock(nn.Module):
         self.wo = Dense(cfg.d_ff, cfg.d_model, cfg.dtype, cfg.param_dtype,
                         0.02 / (2 * cfg.n_layers) ** 0.5, device, generator)
 
+    def tensor_parallel(self, tp) -> None:
+        """The hidden width over ``tensor``: ``wi`` column-, ``wo`` row-parallel."""
+        self.tp = tp
+
     def forward(self, x):
+        if self.tp is not None:
+            x = self.tp.enter(x)
         # flax nn.gelu is the tanh approximation
-        return self.wo(F.gelu(self.wi(x), approximate="tanh"))
+        out = self.wo(F.gelu(self.wi(x), approximate="tanh"))
+        return out if self.tp is None else self.tp.leave(out)
 
 
 class Block(nn.Module):
@@ -432,7 +487,12 @@ class TransformerLM(nn.Module):
     ``device`` defaults to the card; ``generator`` seeds the weight init.
     ``forward(tokens, cache=...)`` decodes against a KV cache (one
     :class:`LayerCache` per layer, from ``models.decode.init_cache``).
+    Under tensor parallelism ``forward`` returns this rank's block of the
+    vocabulary's logits (:meth:`vocab_block`).
     """
+
+    #: the ``parallel.sharding.TensorParallel`` handle under tensor parallelism
+    tp = None
 
     def __init__(self, config: TransformerConfig, device=None,
                  generator: torch.Generator | None = None):
@@ -449,6 +509,59 @@ class TransformerLM(nn.Module):
         self.ln_final = RMSNorm(cfg.d_model, cfg.dtype, device)
         self.lm_head = Dense(cfg.d_model, cfg.vocab_size, cfg.logits_dtype,
                              cfg.param_dtype, 0.02, device, generator)
+        if cfg.mesh is not None:
+            from ..parallel.sharding import apply_rules
+
+            apply_rules(self, cfg.mesh)
+
+    def param_logical_axes(self) -> dict[str, tuple]:
+        """Each parameter's logical axes, in the port's ``(out, in)`` layout:
+        the reference's ``nn.with_partitioning`` names.  A GQA model's k/v
+        projections take ``kv_heads`` (replicated), a plain one's ``heads``."""
+        kv = "heads" if self.config.n_kv_heads in (None, self.config.n_heads) else "kv_heads"
+        per_layer = {
+            "ln_attn.scale": ("embed",), "ln_mlp.scale": ("embed",),
+            "attention.q_proj.weight": ("heads", "embed"),
+            "attention.k_proj.weight": (kv, "embed"),
+            "attention.v_proj.weight": (kv, "embed"),
+            "attention.out_proj.weight": ("embed", "heads"),
+            "mlp.wi.weight": ("mlp", "embed"), "mlp.wo.weight": ("embed", "mlp"),
+        }
+        axes = {"embedding": ("vocab", "embed"), "ln_final.scale": ("embed",),
+                "lm_head.weight": ("vocab", "embed")}
+        for i in range(len(self.layers)):
+            axes.update({f"layers.{i}.{name}": a for name, a in per_layer.items()})
+        return axes
+
+    def fsdp_units(self) -> list[nn.Module]:
+        """The modules FSDP2 gathers one at a time: each layer's attention and
+        MLP.  The norms stay with the root (a layer's forward also runs the
+        next layer's first norm)."""
+        return [m for layer in self.layers for m in (layer.attention, layer.mlp)]
+
+    def tensor_parallel(self, tp) -> None:
+        """The vocabulary over ``tensor``: the embedding looks up this rank's
+        rows (tokens outside them read 0) and sums over the group; the
+        lm_head is column-parallel."""
+        tp.block(self.config.vocab_size)  # refuses a vocabulary that does not split
+        self.tp = tp
+
+    def vocab_block(self) -> slice:
+        """The block of the vocabulary this rank's logits hold."""
+        if self.tp is None:
+            return slice(0, self.config.vocab_size)
+        return self.tp.block(self.config.vocab_size)
+
+    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        table = _local(self.embedding).to(self.config.dtype)
+        if self.tp is None:
+            return F.embedding(tokens, table)
+        block = self.vocab_block()
+        idx = tokens - block.start
+        inside = (idx >= 0) & (idx < block.stop - block.start)
+        rows = F.embedding(torch.where(inside, idx, 0), table)
+        # one rank holds each token's row, the others add zeros: exact
+        return self.tp.leave(rows * inside[..., None].to(rows.dtype))
 
     def forward(self, tokens: torch.Tensor, return_features: bool = False,
                 cache: list[LayerCache] | None = None):
@@ -464,7 +577,7 @@ class TransformerLM(nn.Module):
             cache = [None] * len(self.layers)
         elif len(cache) != len(self.layers):
             raise ValueError(f"cache has {len(cache)} layers, the model {len(self.layers)}")
-        x = F.embedding(tokens, self.embedding.to(cfg.dtype))
+        x = self._embed(tokens)
         # Only the first norm has no residual add before it.
         norms = [layer.ln_attn for layer in self.layers] + [self.ln_final]
         h = norms[0](x)
@@ -474,7 +587,7 @@ class TransformerLM(nn.Module):
             # The fused-xent loss (ops/xent.py) consumes the final features
             # and the lm_head weight directly, so the logits never exist.
             return h
-        return self.lm_head(h)
+        return self.lm_head(h if self.tp is None else self.tp.enter(h))
 
     def parameter_count(self) -> int:
         return sum(p.numel() for p in self.parameters())

@@ -55,6 +55,8 @@ class Kernel:
         self.source = source
         self.replaces = replaces
         self.launches = 0
+        #: "BxHxSxD dtype" of the query each launch took -> launches (flash kernels)
+        self.shapes: dict[str, int] = {}
         self._argtypes = argtypes
         self._fn = None
 
@@ -69,6 +71,11 @@ class Kernel:
         switch picks it (csrc/flash_common.cuh: route).  Builds the kernels."""
         code = self._export(f"{self.name}_route", [_I, _I])(_DTYPE_CODES[dtype], head_dim)
         return ROUTES[code]
+
+    def note_shape(self, q: torch.Tensor) -> None:
+        """Count a launch's query shape (called beside a launch)."""
+        key = "x".join(map(str, q.shape)) + " " + str(q.dtype).removeprefix("torch.")
+        self.shapes[key] = self.shapes.get(key, 0) + 1
 
     def launch(self, *args) -> None:
         if self._fn is None:
@@ -196,11 +203,17 @@ def build() -> dict[str, Path]:
 def reset_launch_counts() -> None:
     for kernel in KERNELS + SERVING_KERNELS:
         kernel.launches = 0
+        kernel.shapes = {}
 
 
 def launch_counts() -> dict[str, int]:
     """Launches of the flash kernels (the training path's)."""
     return {kernel.name: kernel.launches for kernel in KERNELS}
+
+
+def launch_shapes() -> dict[str, dict[str, int]]:
+    """The flash kernels' launches by query shape and type ("BxHxSxD dtype")."""
+    return {kernel.name: dict(kernel.shapes) for kernel in KERNELS}
 
 
 def serving_launch_counts() -> dict[str, int]:
@@ -283,6 +296,7 @@ def flash_fwd(q, k, v, qpos, kpos, causal: bool, window: int | None, sinks: int)
         _DTYPE_CODES[q.dtype], b, h, hkv, sq, sk, d, d**-0.5,
         *_band(causal, window, sinks), torch.cuda.current_stream(q.device).cuda_stream,
     )
+    FLASH_FWD.note_shape(q)
     return out, lse
 
 
@@ -303,6 +317,7 @@ def flash_bwd_dkdv(q, k, v, dout, lse, delta, qpos, kpos, causal: bool,
         _DTYPE_CODES[q.dtype], b, h, hkv, sq, sk, d, d**-0.5,
         *_band(causal, window, sinks), torch.cuda.current_stream(q.device).cuda_stream,
     )
+    FLASH_BWD_DKDV.note_shape(q)
     return dk, dv
 
 
@@ -322,6 +337,7 @@ def flash_bwd_dq(q, k, v, dout, lse, delta, qpos, kpos, causal: bool,
         _DTYPE_CODES[q.dtype], b, h, hkv, sq, sk, d, d**-0.5,
         *_band(causal, window, sinks), torch.cuda.current_stream(q.device).cuda_stream,
     )
+    FLASH_BWD_DQ.note_shape(q)
     return dq
 
 

@@ -10,11 +10,16 @@ live memory is O(T·chunk + T·d) instead of O(T·V).
 
 Plain PyTorch around ``torch.matmul``: the reference computes it outside any
 Pallas kernel, so there is no kernel here to port.
+
+Under tensor parallelism the logits are sharded over the vocabulary, and the
+standard loss runs on the shards (:func:`vocab_parallel_cross_entropy`); the
+fused loss is refused there (:func:`refuse_sharded_vocab`).
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 
 def _chunks(vocab: int, chunk: int) -> int:
@@ -85,3 +90,39 @@ def fused_cross_entropy(x, w, labels, chunk: int = 8192):
     in f32, as the reference computes them.
     """
     return _FusedCrossEntropy.apply(x, w, labels, chunk)
+
+
+def refuse_sharded_vocab() -> None:
+    """The fused loss over a vocabulary sharded over ``tensor`` would carry
+    each rank's online log-sum-exp across the group: not ported yet."""
+    raise NotImplementedError(
+        "vocab_chunk (the fused loss) with tensor parallelism comes with slice 4, "
+        "part 2; the standard loss runs on vocab-sharded logits"
+    )
+
+
+def vocab_parallel_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, tp,
+                                 block: slice) -> torch.Tensor:
+    """Mean cross-entropy of logits sharded over the vocabulary.
+
+    ``logits``: (..., V / tensor), this rank's ``block`` of the vocabulary;
+    ``labels``: (...) global token ids; ``tp``: the
+    ``parallel.sharding.TensorParallel`` handle.  In float32, as
+    ``optax.softmax_cross_entropy_with_integer_labels``: the group's max (a
+    constant, no gradient), the sum of ``exp`` and the label's logit summed
+    over the group.  Every rank returns the same loss; each rank's backward
+    gives the gradient of that loss with respect to its own shard.
+    """
+    width = block.stop - block.start
+    logits = logits.float().reshape(-1, width)
+    labels = labels.reshape(-1).long()
+    with torch.no_grad():
+        top = logits.amax(dim=-1)
+        dist.all_reduce(top, op=dist.ReduceOp.MAX, group=tp.group)
+    shifted = logits - top[:, None]
+    total = tp.leave(torch.exp(shifted).sum(dim=-1))
+    idx = labels - block.start
+    inside = (idx >= 0) & (idx < width)
+    picked = shifted.gather(1, idx.clamp(0, width - 1)[:, None])[:, 0]
+    picked = tp.leave(torch.where(inside, picked, torch.zeros_like(picked)))
+    return (torch.log(total) - picked).mean()

@@ -139,6 +139,9 @@ class ServeRequest:
         #: tokens the worker re-emitted from its history at the resume
         #: (what it decoded while no dispatcher listened)
         self.resumed_sent = 0
+        #: a resume is in flight and its replay (the ``resumed`` chunk) has
+        #: not arrived: live chunks past the high-water mark overtook it
+        self.awaiting_replay = False
         self.error = ""
         #: sid of the supervisor whose stream fed the first fresh tokens.
         #: With a hedge, two supervisors hold this request: the first to
@@ -417,7 +420,10 @@ class SessionSupervisor:
 
         ``request.resumed_from`` holds the journaled high-water mark; the
         worker re-emits the stream's history from there (the splice of
-        :meth:`_on_token` drops any overlap) and live chunks follow.
+        :meth:`_on_token` drops any overlap) and live chunks follow.  The
+        adopted session decodes on meanwhile, so live chunks past the mark
+        can arrive before the replay; they are dropped until it arrives,
+        since it re-emits them.
         Returns the worker's answer: ``streaming``, ``done``, ``pending``,
         ``unknown`` (the worker never saw it: it is sent again from the
         journaled prompt, from token 0) or ``refused`` (this dispatcher
@@ -426,6 +432,7 @@ class SessionSupervisor:
             raise ServeError(f"session {self.sid} has no live runtime")
         # registered before the wire write: re-emitted history races the ack
         self._requests[request.rid] = request
+        request.awaiting_replay = True
         request.arms[self.sid] = time.monotonic()
         if request.t_dispatched is None:
             request.t_dispatched = time.monotonic()
@@ -435,9 +442,12 @@ class SessionSupervisor:
         except BaseException:
             self._requests.pop(request.rid, None)
             request.arms.pop(self.sid, None)
+            request.awaiting_replay = False
             raise
         state = str(ack.get("state") or "")
         request.resumed_sent = int(ack.get("sent") or 0)
+        if state not in ("streaming", "done"):
+            request.awaiting_replay = False  # no replay comes
         if state == "refused":
             self._finish(request.rid, "error")
             request._fail(ServeError(f"resume of {request.rid} refused: the worker fenced "
@@ -693,6 +703,10 @@ class SessionSupervisor:
         tokens = list(data.get("tokens") or ())
         base = request.resumed_from
         have = base + len(request.tokens)
+        if data.get("resumed"):
+            request.awaiting_replay = False
+        elif request.awaiting_replay and idx > have:
+            return  # a live chunk ahead of the resume's replay, which re-emits it
         if idx > have:
             # A chunk went missing: exactly-once is broken for this stream;
             # fail it loudly rather than splice around a hole.

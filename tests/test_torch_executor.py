@@ -93,12 +93,13 @@ def test_executor_refuses_transports_of_later_slices():
 
 def test_harness_refuses_spec_keys_of_later_slices(tmp_path):
     result = tmp_path / "result.pkl"
+    # the distributed bootstrap is ported (slice 4); the checkpointer is slice 5b's
     spec = {"result_file": str(result), "function_file": "unused",
-            "distributed": {"num_processes": 2}}
+            "checkpoint": {"interval_s": 1.0}}
     assert harness.run_task(spec) == 1
     value, error = pickle.loads(result.read_bytes())
     assert value is None and isinstance(error, NotImplementedError)
-    assert "distributed" in str(error)
+    assert "checkpoint" in str(error)
 
 
 def test_harness_moves_result_tensors_to_host():
@@ -152,8 +153,10 @@ print(len(names), sorted(foreign() - before), " ".join(names))
         "serving.handle", "serving.supervisor", "transport.process",
         "models.mlp", "obs", "obs.events", "obs.metrics", "obs.trace", "utils.config",
         "workflow", "workflow.dag", "workflow.deps", "workflow.executors",
-        "workflow.runner")} <= set(walked.split())
-    assert int(count) >= 38
+        "workflow.runner", "parallel", "parallel.mesh", "parallel.sharding",
+        "parallel.distributed", "parallel.collectives", "parallel.launch",
+        "parallel.probe")} <= set(walked.split())
+    assert int(count) >= 45
     assert added == "[]"
 
 

@@ -122,6 +122,12 @@ TC_CASES = {
     # several query heads per kv head and a ragged last query tile: what the
     # dK/dV kernel sweeps over
     "gqa_ragged_q_bf16": dict(shape=(2, 8, 2, 100, 256, 64), dtype="bfloat16", causal=False),
+    # each rank's shape in the two-process gang of the 125M LM: the batch
+    # cut under MeshPlan(fsdp=2), the heads under MeshPlan(tensor=2)
+    "gang_fsdp2_rank_bf16": dict(shape=(4, 12, 12, 1024, 1024, 64), dtype="bfloat16",
+                                 causal=True),
+    "gang_tensor2_rank_bf16": dict(shape=(8, 6, 6, 1024, 1024, 64), dtype="bfloat16",
+                                   causal=True),
 }
 EPS = {torch.bfloat16: 2.0**-7, torch.float16: 2.0**-10}
 
@@ -617,3 +623,27 @@ def test_batch_invariant_ops_take_plain_versions_on_cpu():
         _kernels.bi_rmsnorm(x, scale, torch.float32, 1e-6)
     with pytest.raises(ValueError, match="run on cuda or cpu"):
         bi.linear(torch.zeros(1, 2, device="meta"), w, torch.float32)
+
+
+#: what the gang needs of gloo on tensors on the card (FSDP2, the
+#: tensor-parallel regions, the loss and norm reductions, ring_permute)
+GANG_COLLECTIVES = ("all_reduce", "all_reduce_avg", "all_reduce_max", "all_gather_into_tensor",
+                    "reduce_scatter_tensor", "all_to_all_single", "ring_permute",
+                    "device_mesh", "fsdp2_step")
+
+
+@pytest.mark.cuda
+def test_gloo_carries_the_gangs_collectives_on_one_card(card):
+    """Two ranks on one card over gloo (NCCL refuses two ranks on one
+    device): every collective the gang's path issues checks out; the probe
+    reports the others (point-to-point, the functional all-gather) with
+    their errors."""
+    from covalent_tpu_plugin_torch.parallel.probe import probe_collectives
+
+    probe = probe_collectives(world=2, device="cuda", backend="gloo", timeout_s=300)
+    assert probe["backend"] == "gloo" and probe["world"] == 2
+    failed = {n: probe["collectives"][n] for n in GANG_COLLECTIVES
+              if not probe["collectives"][n]["ok"]}
+    assert not failed, failed
+    for name, entry in probe["collectives"].items():
+        assert entry["ok"] or entry.get("error"), name

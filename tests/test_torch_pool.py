@@ -418,7 +418,7 @@ def test_task_survives_its_zygote(tmp_path, run_async):
             await ex.run(_square_plus, [1], {}, METADATA)  # the zygote is up
             task = asyncio.ensure_future(ex.run(slow, [5], {}, {"dispatch_id": "z", "node_id": 0}))
             await until(lambda: ex._pids)
-            task_pid = next(iter(ex._pids.values()))
+            (task_pid,) = next(iter(ex._pids.values()))
             zygote_pid = int(os.popen(f"ps -o ppid= -p {task_pid}").read().strip())
             os.kill(zygote_pid, signal.SIGKILL)
             result = await asyncio.wait_for(task, WAIT_S)

@@ -12,6 +12,7 @@ values may differ).  The stub engines are the reference tests' own,
 pickled by value; the port's server preloads only ``cloudpickle``.
 """
 
+import asyncio
 import hashlib
 import json
 import os
@@ -22,6 +23,7 @@ import subprocess
 import sys
 import threading
 import time
+import types
 
 import cloudpickle
 
@@ -285,14 +287,7 @@ def test_attach_relay_adopts_the_orphan_over_stdio(tmp_path):
         relay.stdin.write(json.dumps({"cmd": "serve_resume", "id": sid, "rid": "r-a",
                                       "from": hwm}).encode() + b"\n")
         relay.stdin.flush()
-        tokens, done = [], False
-        while not done:
-            event = json.loads(relay.stdout.readline())
-            data = event.get("data") or {}
-            if data.get("type") == "serve.token" and data.get("rid") == "r-a":
-                assert data["idx"] <= hwm + len(tokens)
-                tokens.extend(data["tokens"][hwm + len(tokens) - data["idx"]:])
-                done = bool(data.get("done"))
+        tokens, _ = _resumed_stream(relay.stdout, "r-a", hwm)
         assert list(range(1, hwm + 1)) + tokens == list(range(1, 31))
         relay.stdin.close()
         relay.wait(timeout=15)
@@ -306,6 +301,125 @@ def test_attach_relay_adopts_the_orphan_over_stdio(tmp_path):
         assert json.loads(dead.stdout)["code"] == "attach_failed"
     finally:
         worker.close()
+
+
+def _resumed_stream(stdout, rid, hwm):
+    """The tokens after ``hwm`` of a stream resumed over an adopted channel,
+    read as ``SessionSupervisor.resume_stream`` and its splice read them:
+    every token once, in idx order.
+
+    The adopted session keeps decoding, so live chunks of the stream can
+    reach the new channel before the server takes ``serve_resume`` (the
+    reference's server interleaves the same way: adoption puts the session
+    back on the channel at once, the resume comes later).  Such a chunk
+    starts past the high-water mark; the supervisor drops it until the
+    replay (``resumed``: the history from ``hwm``, under the history lock)
+    arrives and re-emits it (``test_supervisor_drops_live_chunks_until_the_
+    replay``).  From the replay on, each chunk continues where the last one
+    ended."""
+    tokens, done, replayed, early = [], False, False, 0
+    while not done:
+        event = json.loads(stdout.readline())
+        data = event.get("data") or {}
+        if data.get("type") != "serve.token" or data.get("rid") != rid:
+            continue
+        have = hwm + len(tokens)
+        if data.get("resumed"):
+            assert data["idx"] == hwm
+            replayed = True
+        elif not replayed and data["idx"] > have:
+            early += 1
+            continue
+        assert data["idx"] <= have
+        tokens.extend(data["tokens"][have - data["idx"]:])
+        done = bool(data.get("done"))
+    return tokens, early
+
+
+def test_resume_after_live_chunks_on_the_adopted_channel(tmp_path):
+    """Force the interleaving: the adopted channel carries live chunks of
+    the stream before the resume is sent.  The replay covers them, and
+    every token still arrives exactly once and in order."""
+    worker = PortWorker(tmp_path, env={"COVALENT_TPU_ORPHAN_TTL_S": "60"})
+    try:
+        sid = _open_session(worker, "s-live", step_delay=0.05, default_cap=200)
+        worker.send(cmd="serve_request", id=sid, rid="r-l", prompt=[0])
+        worker.wait_for(_token("r-l"))
+        hwm = len(worker.tokens("r-l"))
+        worker.crash_dispatcher()
+        meta = _wait_rendezvous(worker)
+        relay = subprocess.Popen([sys.executable, str(worker.harness), "--attach",
+                                  meta["sock"]], stdin=subprocess.PIPE,
+                                 stdout=subprocess.PIPE, stderr=subprocess.DEVNULL)
+        relay.stdin.write(b'{"cmd": "adopt", "epoch": 1}\n')
+        relay.stdin.flush()
+        assert json.loads(relay.stdout.readline())["reattach"] is True
+        live = 0
+        while live < 3:  # several live steps before the resume
+            data = json.loads(relay.stdout.readline()).get("data") or {}
+            if data.get("type") == "serve.token" and data.get("rid") == "r-l":
+                assert data["idx"] > hwm and not data.get("resumed")
+                live += 1
+        relay.stdin.write(json.dumps({"cmd": "serve_resume", "id": sid, "rid": "r-l",
+                                      "from": hwm}).encode() + b"\n")
+        relay.stdin.flush()
+        tokens, _ = _resumed_stream(relay.stdout, "r-l", hwm)
+        assert list(range(1, hwm + 1)) + tokens == list(range(1, 201))
+        relay.stdin.close()
+        relay.wait(timeout=15)
+    finally:
+        worker.close()
+
+
+class _AdoptedClient:
+    """An adopted channel whose worker emits live chunks of the stream
+    before it takes ``serve_resume``, then the replay, then the ack."""
+
+    def __init__(self, before_replay):
+        self.before_replay = before_replay
+        self.sink = None
+
+    def watch_serve(self, sid_g, sink):
+        self.sink = lambda data: sink(sid_g, data)
+
+    async def wait_dead(self):
+        await asyncio.Event().wait()
+
+    async def serve_resume(self, sid_g, rid, start):
+        for chunk in self.before_replay:
+            self.sink(chunk)
+        history = list(range(start + 1, 9))
+        self.sink({"type": "serve.token", "rid": rid, "idx": start, "tokens": history,
+                   "done": False, "resumed": True})
+        self.sink({"type": "serve.token", "rid": rid, "idx": 8, "tokens": [9, 10],
+                   "done": True})
+        return {"state": "streaming", "sent": len(history)}
+
+
+def test_supervisor_drops_live_chunks_until_the_replay(run_async):
+    """Through ``SessionSupervisor.resume_stream`` itself: live chunks past
+    the high-water mark (2) arrive before the replay, which re-emits them;
+    the stream is every token once, in order, and not a gap."""
+    from covalent_tpu_plugin_torch.serving.supervisor import ServeRequest, SessionSupervisor
+
+    async def flow():
+        client = _AdoptedClient([
+            {"type": "serve.token", "rid": "r-x", "idx": 6, "tokens": [7], "done": False},
+            {"type": "serve.token", "rid": "r-x", "idx": 7, "tokens": [8], "done": False}])
+        executor = types.SimpleNamespace(_serve_handles={})
+        sup = SessionSupervisor(executor, sid="serve-x")
+        await sup.adopt(client=client, conns=[], address="localhost", sid_g="serve-x.g1")
+        try:
+            request = ServeRequest("r-x", [0], None, 0.0)
+            request.resumed_from = 2
+            assert await sup.resume_stream(request) == "streaming"
+            return await request.result(timeout=5), request.awaiting_replay
+        finally:
+            sup._supervisor.cancel()
+
+    tokens, awaiting = run_async(flow())
+    assert list(range(1, 3)) + tokens == list(range(1, 11))
+    assert awaiting is False
 
 
 def test_orphan_ttl_expiry_drains_and_exits(tmp_path):

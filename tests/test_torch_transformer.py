@@ -201,7 +201,6 @@ def test_default_device_is_the_card():
     ("quantized", True, "slice 3"),
     ("lora_rank", 4, "slice 3"),
     ("moe_experts", 4, "slice 4"),
-    ("mesh", object(), "slice 4"),
     ("attention", "ring", "slice 4"),
     ("attention", "ulysses", "slice 4"),
     ("remat", True, "slice 5"),

@@ -172,15 +172,38 @@ Phases, one JSON object per line on stdout, in this order:
     query shapes its kernels took, the electron's wall and the rendezvous.
     The two ranks share one card, so the times measure the gang's
     overhead, not scaling.
-20. ``kernels``: every kernel with its launches on its path (the flash
+20. ``ssh``: the paper's road over a real, encrypted SSH channel on
+    loopback.  A minissh server (``transport/minissh.py``, in its own
+    interpreter) on ``127.0.0.1:0`` with an ed25519 host key and one
+    authorized client key, both generated under ``build/chip_smoke/ssh``;
+    every executor pins that host key (``transport="minissh"``,
+    ``strict_host_keys=True``).  Only the server's environment carries a
+    marker, and every electron returns it.  Arms: BASELINE config 1 (a
+    lattice of one electron returning ``socket.gethostname()``, which
+    must be the dispatcher's) on the launch road (``use_agent=False``):
+    the electron's wall, ``last_timings``, overhead against 2 s, the key
+    exchange and authentication (the ``pool.connect`` span), the
+    pre-flight, the wire bytes by codec, then 5 warm electrons; the warm
+    pool over SSH: its start, 5 warm electrons on each of the ``pool_run``
+    and ``rpc`` roads beside the ``lattice`` phase's local values, then
+    the ``train`` cell's electron by RPC (losses within 1e-2 of the
+    ``train`` phase's standard arm, 12 launches a step of each flash
+    kernel); a gang whose two workers are two SSH addresses of the one
+    server (``lm_fsdp2`` as in the ``gang`` phase, its rendezvous on worker
+    0's host).  Any missing marker, ``task.dispatch_failed`` or electron on
+    another road fails the run.  Without an SSH backend on the machine
+    the phase prints one line naming what is missing and runs no arm.
+21. ``kernels``: every kernel with its launches on its path (the flash
     kernels: training, with the gang's launches beside as
-    ``gang_launches``; the batch-invariant ones: the ``serve`` phase, and
+    ``gang_launches`` and the ``ssh`` phase's as ``ssh_launches``; the
+    batch-invariant ones: the ``serve`` phase, and
     the f32 CUDA-core product ``serve_check``'s f32 LM, with its 0 launches
     on the ``serve`` phase beside),
     error, times and bound, and the route (tensor-core or scalar kernel)
     each input type and head dim of a flash kernel takes.
 
 then the card's ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
+Every phase line carries ``elapsed_s``, the seconds since the script started.
 Any failed phase ends the run with a non-zero exit and no last line.  Without
 a card (``torch.cuda.is_available()`` false) it exits non-zero at once.
 """
@@ -199,6 +222,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 WORK = ROOT / "build" / "chip_smoke"
+_START = time.perf_counter()
 
 #: H100 SXM data-sheet peaks (dense): tensor-core rate by input type, and HBM3.
 PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}
@@ -212,6 +236,8 @@ TRAIN_LOSS_TOL = 1e-2
 
 
 def emit(obj: dict) -> None:
+    if "phase" in obj:  # when each phase line left, from the script's start
+        obj = {**obj, "elapsed_s": time.perf_counter() - _START}
     print(json.dumps(obj), flush=True)
 
 
@@ -2542,6 +2568,346 @@ def gang_phase(train_losses: list) -> tuple[list[dict], dict]:
     return lines, launches
 
 
+#: The ssh phase: the marker only the SSH server's environment carries, the
+#: login it authorizes, the warm probes per road and the LM arms' steps.
+SSH_MARKER = "COVALENT_SSH_SMOKE_MARKER"
+SSH_USER = "smoke"
+SSH_PROBES = 5
+SSH_STEPS = 5
+#: The server, in an interpreter of its own (never the dispatcher's event
+#: loop, which a synchronous wait would starve): the port's minissh on
+#: 127.0.0.1, an ed25519 host key, one authorized client key; it prints its
+#: port and serves until its stdin closes.
+SSH_SERVER = r"""
+import asyncio, os, sys
+sys.path.insert(0, sys.argv[2])
+from cryptography.hazmat.primitives import serialization
+from covalent_tpu_plugin_torch.transport import minissh
+root, user = sys.argv[1], sys.argv[3]
+host = serialization.load_ssh_private_key(open(root + "/host_ed25519", "rb").read(), None)
+client = serialization.load_ssh_public_key(open(root + "/id_ed25519.pub", "rb").read())
+async def main():
+    server = await minissh.serve("127.0.0.1", 0, host_key=host,
+                                 authorized_keys={user: [client]})
+    print(server.port, flush=True)
+    await asyncio.get_running_loop().run_in_executor(None, sys.stdin.read)
+    server.close()
+    await server.wait_closed()
+asyncio.run(main())
+sys.stdout.flush()
+os._exit(0)  # the finished commands' pipes are not collected after the loop closed
+"""
+
+
+def ssh_where_electron() -> dict:
+    """BASELINE config 1's electron: the worker's host name, with the
+    marker of the server it ran under and its pid."""
+    import os
+    import socket
+
+    return {"host": socket.gethostname(), "marker": os.environ.get(SSH_MARKER),
+            "pid": os.getpid()}
+
+
+def ssh_train_electron(kwargs: dict) -> dict:
+    """``train_lm`` with the marker of the server the electron ran under."""
+    import os
+
+    from covalent_tpu_plugin_torch.models.train import train_lm
+
+    out = train_lm(**kwargs)
+    out["marker"] = os.environ.get(SSH_MARKER)
+    return out
+
+
+class SSHServer:
+    """The minissh server of the ssh phase, in a child interpreter, with
+    its keys generated into ``root``."""
+
+    def __init__(self, root: Path) -> None:
+        from cryptography.hazmat.primitives import serialization
+        from cryptography.hazmat.primitives.asymmetric import ed25519
+
+        root.mkdir(parents=True, exist_ok=True)
+        self.marker = f"ssh-smoke-{os.urandom(6).hex()}"
+        private = (serialization.Encoding.PEM, serialization.PrivateFormat.OpenSSH,
+                   serialization.NoEncryption())
+        public = (serialization.Encoding.OpenSSH, serialization.PublicFormat.OpenSSH)
+        host, client = ed25519.Ed25519PrivateKey.generate(), ed25519.Ed25519PrivateKey.generate()
+        (root / "host_ed25519").write_bytes(host.private_bytes(*private))
+        (root / "host_ed25519.pub").write_bytes(host.public_key().public_bytes(*public))
+        (root / "id_ed25519").write_bytes(client.private_bytes(*private))
+        (root / "id_ed25519.pub").write_bytes(client.public_key().public_bytes(*public))
+        os.chmod(root / "id_ed25519", 0o600)
+        self.key_file, self.host_pub = str(root / "id_ed25519"), str(root / "host_ed25519.pub")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", SSH_SERVER, str(root), str(ROOT), SSH_USER],
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True, cwd=str(root),
+            env={**os.environ, SSH_MARKER: self.marker})
+        line = self.proc.stdout.readline().strip()
+        if not line.isdigit():
+            self.close()
+            raise AssertionError(f"ssh: the minissh server did not start ({line!r})")
+        self.port = int(line)
+
+    def address(self, host: str = "127.0.0.1") -> str:
+        return f"{SSH_USER}@{host}:{self.port}"
+
+    def close(self) -> None:
+        try:
+            self.proc.stdin.close()
+            self.proc.wait(30)
+        except (OSError, subprocess.TimeoutExpired):
+            self.proc.kill()
+            self.proc.wait()
+
+
+def _ssh_stack() -> dict:
+    """What this machine offers for SSH: the Python packages and binaries."""
+    import importlib.util
+    import shutil
+
+    return {"python": {m: importlib.util.find_spec(m) is not None
+                       for m in ("cryptography", "zstandard", "asyncssh")},
+            "binaries": {b: shutil.which(b) for b in ("ssh", "sshd", "scp", "ssh-keygen")}}
+
+
+def _wire_totals() -> dict:
+    from covalent_tpu_plugin_torch.transport.codec import WIRE_BYTES_TOTAL
+
+    return {f"{labels['direction']}.{labels['codec']}": child.value
+            for labels, child in WIRE_BYTES_TOTAL._series()}
+
+
+def _wire_delta(before: dict) -> dict:
+    after = _wire_totals()
+    return {k: v - before.get(k, 0.0) for k, v in after.items() if v - before.get(k, 0.0)}
+
+
+def _overheads(timings: list) -> dict:
+    overheads = [t["overhead"] for t in timings]
+    walls = [t["wall_overhead"] for t in timings]
+    return {"overhead_p50_s": _percentile(overheads, 0.5),
+            "overhead_p95_s": _percentile(overheads, 0.95),
+            "wall_overhead_p50_s": _percentile(walls, 0.5),
+            "wall_overhead_p95_s": _percentile(walls, 0.95), "per_probe": overheads,
+            "budget_s": OVERHEAD_BUDGET_S,
+            "within_budget": _percentile(walls, 0.95) <= OVERHEAD_BUDGET_S}
+
+
+def ssh_phase(train_losses: list, local_overheads: dict) -> tuple[list[dict], dict]:
+    """The paper's road over a real SSH channel (BASELINE config 1, the warm
+    pool, the 125M LM's electron by RPC, a two-worker FSDP gang whose
+    workers are two SSH addresses), every executor on the minissh backend
+    with the server's host key pinned.  Returns the phase's lines and the
+    flash launches of its LM arms."""
+    import math
+    import socket
+
+    import covalent_tpu_plugin_torch.workflow as ct
+    from covalent_tpu_plugin_torch import GPUExecutor
+    from covalent_tpu_plugin_torch.obs import events as obs_events
+    from covalent_tpu_plugin_torch.parallel import MeshPlan
+
+    stack = _ssh_stack()
+    if not stack["python"]["cryptography"]:
+        missing = "the `cryptography` package (minissh)"
+        if not (stack["binaries"]["sshd"] and stack["binaries"]["ssh-keygen"]):
+            missing += ", and sshd/ssh-keygen (openssh)"
+        return [{"skipped": f"no SSH backend on this machine: missing {missing}",
+                 "stack": stack}], {}
+
+    work = WORK / "ssh"
+    server = SSHServer(work / "keys")
+    seen: list = []
+    obs_events.add_listener(seen.append)
+    lines: list = [{"stack": stack, "backend": "minissh", "server_port": server.port,
+                    "strict_host_keys": True}]
+    launches: dict = {}
+
+    def executor(name: str, **kwargs) -> "GPUExecutor":
+        return GPUExecutor(
+            transport="minissh", hostname=server.address(), ssh_key_file=server.key_file,
+            known_host_key_file=server.host_pub, strict_host_keys=True,
+            cache_dir=str(work / name / "cache"), remote_cache=str(work / name / "remote"),
+            remote_workdir=str(work / name / "work"), python_path=sys.executable,
+            task_env={"PYTHONPATH": str(ROOT)}, task_timeout=600, poll_freq=0.5,
+            max_connection_attempts=3, retry_wait_time=1.0, **kwargs)
+
+    def check(arm: str, out: dict, ex, mode: str) -> None:
+        if out.get("marker") != server.marker:
+            raise AssertionError(f"ssh {arm}: the electron did not run under the SSH server "
+                                 f"(marker {out.get('marker')!r})")
+        if ex.last_dispatch_mode != mode:
+            raise AssertionError(f"ssh {arm}: an electron took {ex.last_dispatch_mode!r}, "
+                                 f"not {mode!r}")
+        bad = [e for e in seen if e["type"] in ("task.dispatch_failed",) + WRONG_ROAD_EVENTS]
+        if bad:
+            raise AssertionError(f"ssh {arm}: {[e['type'] for e in bad]}: {bad[0]}")
+
+    def handshakes() -> list:
+        return [e["duration_s"] for e in seen
+                if e["type"] == "span" and e.get("name") == "pool.connect"]
+
+    def lm_check(arm: str, losses: list, per_rank: list, shape: str | None) -> float:
+        if len(losses) != SSH_STEPS or not all(math.isfinite(x) for x in losses) \
+                or not losses[-1] < losses[0]:
+            raise AssertionError(f"ssh {arm}: losses {losses}")
+        gap = max(abs(a - b) for a, b in zip(losses, train_losses))
+        if gap > TRAIN_LOSS_TOL:
+            raise AssertionError(f"ssh {arm}: losses {losses} are {gap} from the train "
+                                 f"phase's {train_losses}")
+        for rank in per_rank:
+            for name, n in rank["launches"].items():
+                if n != 12 * SSH_STEPS:
+                    raise AssertionError(f"ssh {arm}: {name} launched {n} times, "
+                                         f"expected {12 * SSH_STEPS}")
+                if shape and rank["launch_shapes"][name] != {f"{shape} bfloat16": n}:
+                    raise AssertionError(f"ssh {arm}: {name} took {rank['launch_shapes'][name]}")
+                launches[name] = launches.get(name, 0) + n
+        return gap
+
+    try:
+        # 1. BASELINE config 1 on the reference's own road: staged files, a
+        # nohup launch, status probes, the fetch, the cleanup.
+        config1 = executor("config1", use_agent=False)
+        where = ct.electron(ssh_where_electron, executor=config1)
+        flow = ct.lattice(lambda: where())
+        wire = _wire_totals()
+        try:
+            out, wall = _dispatch(ct, flow)
+            check("config1", out, config1, "launch")
+            if out["host"] != socket.gethostname():
+                raise AssertionError(f"ssh config1: host {out['host']!r} is not the "
+                                     f"dispatcher's {socket.gethostname()!r}")
+            first = dict(config1.last_timings)
+            first_wire = _wire_delta(wire)
+            warm, walls = [], []
+            for _ in range(SSH_PROBES):
+                again, w = _dispatch(ct, flow)
+                check("config1", again, config1, "launch")
+                warm.append(dict(config1.last_timings))
+                walls.append(w)
+            key = config1._pool_key(server.address())
+            codec = config1._codec_for(key, config1._transports[key])
+            advertised = config1._wire_codecs.get(key)
+        finally:
+            _close(config1)
+        lines.append({
+            "arm": "config1", "dispatch_mode": "launch", "host": out["host"],
+            "marker_ok": True, "electron_wall_s": wall, "timings": first,
+            "overhead_s": first["overhead"], "wall_overhead_s": first["wall_overhead"],
+            "budget_s": OVERHEAD_BUDGET_S,
+            "within_budget": first["wall_overhead"] <= OVERHEAD_BUDGET_S,
+            "handshake_s": handshakes(), "preflight_s": first.get("preflight"),
+            "wire_bytes_first": first_wire, "codec": codec.name if codec else "raw",
+            "advertised_codecs": advertised, "local_lattice": local_overheads.get("launch"),
+            "warm": {**_overheads(warm), "electron_wall_p50_s": _percentile(walls, 0.5),
+                     "breakdown": warm[-1]}})
+
+        # 2. The warm pool over SSH: its start, five warm electrons on each
+        # road, then the train cell's electron by RPC.
+        pool = executor("pool", use_agent="pool")
+        seen.clear()
+        wire = _wire_totals()
+
+        async def pool_arms():
+            try:
+                first = await pool.run(ssh_where_electron, [], {},
+                                       {"dispatch_id": "ssh", "node_id": 0})
+                check("pool_first", first, pool, "launch")
+                start = dict(pool.last_timings)
+                roads = {}
+                for road, mode in (("pool_run", "launch"), ("rpc", "rpc")):
+                    timings = []
+                    for i in range(SSH_PROBES):
+                        got = await pool.run(ssh_where_electron, [], {}, {
+                            "dispatch_id": "ssh", "node_id": 1 + i, "dispatch_mode": mode})
+                        check(road, got, pool, mode)
+                        timings.append(dict(pool.last_timings))
+                    roads[road] = {**_overheads(timings), "breakdown": timings[-1],
+                                   "local_lattice": local_overheads.get(road)}
+                (client,) = [c for c in pool._agents.values() if c is not None]
+                frames = client.frames_active
+                wall = time.perf_counter()
+                trained = await pool.run(
+                    ssh_train_electron,
+                    [dict(steps=SSH_STEPS, batch_size=BATCH, seq_len=SEQ, seed=0)], {},
+                    {"dispatch_id": "ssh", "node_id": 9, "dispatch_mode": "rpc"})
+                trained["wall_s"] = time.perf_counter() - wall
+                trained["timings"] = dict(pool.last_timings)
+                check("train_rpc", trained, pool, "rpc")
+                return first, start, roads, frames, trained
+            finally:
+                await pool.close()
+
+        first, start, roads, frames, trained = asyncio.run(pool_arms())
+        if frames is not True:
+            raise AssertionError(f"ssh pool: the channel is not on frames ({frames})")
+        gap = lm_check("train_rpc", trained["losses"], [trained], None)
+        steady = statistics.median(trained["step_s"][1:])
+        lines.append({"arm": "pool", "pool_start_s": start.get("connect"),
+                      "first_breakdown": start, "frames_active": frames,
+                      "handshake_s": handshakes(), "roads": roads,
+                      "wire_bytes": _wire_delta(wire)})
+        lines.append({"arm": "train_rpc", "dispatch_mode": "rpc", "marker_ok": True,
+                      "losses": trained["losses"], "train_losses": train_losses,
+                      "losses_bit_equal_train": trained["losses"] == train_losses,
+                      "max_loss_gap_train": gap, "loss_tol": TRAIN_LOSS_TOL,
+                      "step_s": trained["step_s"], "steady_step_ms": steady * 1e3,
+                      "tokens_per_s": trained["tokens_per_step"] / steady,
+                      "launches": trained["launches"],
+                      "launches_per_step": {k: n / SSH_STEPS
+                                            for k, n in trained["launches"].items()},
+                      "peak_mem_bytes": trained["peak_mem_bytes"], "device": trained["device"],
+                      "electron_wall_s": trained["wall_s"], "timings": trained["timings"]})
+
+        # 3. A two-worker FSDP gang whose workers are two addresses of the one
+        # server; the rendezvous goes to worker 0's host.
+        workers = [server.address("127.0.0.1"), server.address("localhost")]
+        gang = executor("gang", workers=workers, coordinator_port=0)
+        seen.clear()
+
+        async def gang_arm():
+            try:
+                wall = time.perf_counter()
+                out = await gang.run(
+                    ssh_train_electron,
+                    [dict(steps=SSH_STEPS, batch_size=BATCH, seq_len=SEQ, seed=0,
+                          mesh_plan=MeshPlan(fsdp=2))], {},
+                    {"dispatch_id": "ssh_gang", "node_id": 0})
+                out["wall_s"] = time.perf_counter() - wall
+                out["timings"] = dict(gang.last_timings)
+                out["channels"] = sorted(gang._transports)
+                return out
+            finally:
+                await gang.close()
+
+        out = asyncio.run(gang_arm())
+        check("gang", out, gang, "launch")
+        if out["world_size"] != 2 or len(out["channels"]) != 2:
+            raise AssertionError(f"ssh gang: world {out['world_size']}, channels "
+                                 f"{out['channels']}")
+        shape = "x".join(map(str, (BATCH // 2, PATH_SHAPE[1], SEQ, PATH_SHAPE[5])))
+        gap = lm_check("gang", out["losses"], out["ranks"], shape)
+        steady = [statistics.median(r["step_s"][1:]) for r in out["ranks"]]
+        lines.append({"arm": "gang_fsdp2", "workers": workers, "channels": out["channels"],
+                      "mesh": out["mesh"], "backend": out["backend"],
+                      "devices": [r["device"] for r in out["ranks"]], "marker_ok": True,
+                      "losses": out["losses"], "max_loss_gap_train": gap,
+                      "loss_tol": TRAIN_LOSS_TOL, "steady_step_ms": [t * 1e3 for t in steady],
+                      "tokens_per_s": out["tokens_per_step"] / max(steady),
+                      "flash_launches": [r["launches"] for r in out["ranks"]],
+                      "flash_shapes": [r["launch_shapes"] for r in out["ranks"]],
+                      "rendezvous_s": out["timings"].get("rendezvous"),
+                      "electron_wall_s": out["wall_s"], "timings": out["timings"],
+                      "note": GANG_NOTE})
+    finally:
+        obs_events.remove_listener(seen.append)
+        server.close()
+    return lines, launches
+
+
 #: The batch-invariant kernels by the names of their device functions: the
 #: tensor-core tiles (skinny, wide), the mix, the f32 CUDA-core product, the norm.
 SERVING_KERNEL_TAGS = {"bi_gemm_tc": "bi_gemm_tc_", "bi_gemm_mix": "bi_gemm_mix_kernel",
@@ -2827,6 +3193,23 @@ def main() -> int:
     emit({"phase": "gang", "card": smi, "seconds": time.perf_counter() - start,
           "flash_launches": gang_launches})
 
+    # The paper's road over a real SSH channel on loopback: config 1, the
+    # warm pool, the LM by RPC and the FSDP gang over two SSH addresses.
+    local_overheads = {line["arm"]: {k: line["overhead"][k] for k in (
+        "dispatch_overhead_s", "wall_overhead_p50_s", "wall_overhead_p95_s")}
+        for line in lattice_lines if "overhead" in line}
+    _kernels.reset_launch_counts()
+    start = time.perf_counter()
+    ssh_lines, ssh_launches = ssh_phase(arms[0]["losses"], local_overheads)
+    # the electrons ran in the workers, which report their counts; ours
+    # (0 after the reset unless the dispatcher launched one) are added
+    ssh_launches = {name: n + ssh_launches.get(name, 0)
+                    for name, n in _kernels.launch_counts().items()}
+    for line in ssh_lines:
+        emit({"phase": "ssh", "card": smi, **line})
+    emit({"phase": "ssh", "card": smi, "seconds": time.perf_counter() - start,
+          "flash_launches": ssh_launches})
+
     kernels = []
     for kernel in _kernels.KERNELS:
         res = timing[kernel.name]
@@ -2837,6 +3220,7 @@ def main() -> int:
             "source": f"covalent_tpu_plugin_torch/csrc/{kernel.source}",
             "replaces": kernel.replaces, "launches": launches[kernel.name],
             "gang_launches": gang_launches.get(kernel.name, 0),
+            "ssh_launches": ssh_launches.get(kernel.name, 0),
             "max_abs_err": max(path_errs), "ms": res["kernel_ms"], "plain_ms": res["plain_ms"],
             "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
             "library_ms": res["library_ms"], "ms_cold_l2": res["kernel_cold_ms"],
@@ -2848,6 +3232,8 @@ def main() -> int:
             raise AssertionError(f"{kernel.name} was not launched on the main path")
         if gang_launches.get(kernel.name, 0) < 1:
             raise AssertionError(f"{kernel.name} was not launched on the gang's path")
+        if ssh_launches.get(kernel.name, 0) < 1 and "skipped" not in ssh_lines[0]:
+            raise AssertionError(f"{kernel.name} was not launched on the ssh phase's path")
     # The serving kernels port no Pallas kernel: the main path is the serve
     # phase, where the bf16 LM runs the tensor-core products, the mix and
     # the norm; the f32 CUDA-core product's path is serve_check's f32 LM

@@ -1,8 +1,10 @@
 """Client of the resident pool server (own copy of the pool-client part of
 ``covalent_tpu_plugin/agent.py``).
 
-:func:`start_pool_server` stages this package's ``harness.py`` on a worker
-and starts it as ``harness.py --serve``; :class:`AgentClient` holds the
+:func:`start_pool_server` starts this package's ``harness.py`` on a worker
+as ``harness.py --serve`` (the executor stages it in the worker's CAS by
+its digest, once per connection, over any transport: a local subprocess
+or an SSH exec channel); :class:`AgentClient` holds the
 channel: a background reader files pushed events by id, so any number of
 callers await their own answers, and a serving session's side-band records
 go to the sink it registered (:meth:`AgentClient.watch_serve`).
@@ -104,10 +106,17 @@ async def start_pool_server(
     timeout: float = 90.0,
     preload: str = POOL_PRELOAD,
     frames_enabled: bool | None = None,
+    harness_path: str | None = None,
+    conda_env: str = "",
 ) -> "AgentClient":
     """Start ``harness.py --serve`` on a worker, prove it with a ping and
     negotiate binary frames (``frames_enabled``: None reads
     ``COVALENT_TPU_AGENT_FRAMES``).
+
+    ``harness_path`` is the harness already staged on the worker (the
+    executor's CAS copy); None puts a fresh copy at
+    ``{remote_cache}/covalent_gpu_harness.py``.  ``conda_env`` activates
+    that environment first (ssh.py:379-380).
 
     ``env`` goes into the server's environment before the interpreter
     starts (the executor's ``task_env``: ``CUDA_VISIBLE_DEVICES`` cannot
@@ -119,20 +128,21 @@ async def start_pool_server(
     """
     from . import harness as harness_module
 
-    remote_harness = f"{remote_cache}/{HARNESS_BASENAME}"
-    try:
-        await conn.run(f"mkdir -p {shlex.quote(remote_cache)}")
-        await conn.put(harness_module.__file__, remote_harness)
-    except TransportError as err:
-        raise AgentError(f"cannot stage pool server on {conn.address}: {err}") from err
+    remote_harness = harness_path
+    if remote_harness is None:
+        remote_harness = f"{remote_cache}/{HARNESS_BASENAME}"
+        try:
+            await conn.run(f"mkdir -p {shlex.quote(remote_cache)}")
+            await conn.put(harness_module.__file__, remote_harness)
+        except (TransportError, OSError) as err:
+            raise AgentError(f"cannot stage pool server on {conn.address}: {err}") from err
     assignments = " ".join(
         shlex.quote(f"{k}={v}")
         for k, v in {**(env or {}), "COVALENT_TPU_POOL_PRELOAD": preload}.items()
     )
-    command = (
+    command = _in_conda(
         f"env {assignments} {python_path} {shlex.quote(remote_harness)} --serve "
-        f"2>> {shlex.quote(remote_cache + '/pool_server.log')}"
-    )
+        f"2>> {shlex.quote(remote_cache + '/pool_server.log')}", conda_env)
     try:
         process = await conn.start_process(command, describe=f"pool@{conn.address}")
     except TransportError as err:
@@ -145,6 +155,15 @@ async def start_pool_server(
         await client.close()
         raise
     return client
+
+
+def _in_conda(command: str, conda_env: str) -> str:
+    """``command`` run inside a conda environment when one is named (the
+    reference's wrapping, ssh.py:379-380)."""
+    if not conda_env:
+        return command
+    return (f'eval "$(conda shell.bash hook)" && conda activate '
+            f"{shlex.quote(conda_env)} && {command}")
 
 
 def orphan_rendezvous_path(remote_cache: str) -> str:
@@ -178,6 +197,8 @@ async def attach_pool_server(
     epoch: int,
     timeout: float = 30.0,
     frames_enabled: bool | None = None,
+    harness_path: str | None = None,
+    conda_env: str = "",
 ) -> "AgentClient":
     """Adopt an orphaned pool server instead of starting a fresh one.
 
@@ -189,11 +210,10 @@ async def attach_pool_server(
     starts a fresh server instead.  The relay forks nothing and imports no
     CUDA: it pumps bytes between its stdio and the orphan's socket.
     """
-    remote_harness = f"{remote_cache}/{HARNESS_BASENAME}"
-    command = (
+    remote_harness = harness_path or f"{remote_cache}/{HARNESS_BASENAME}"
+    command = _in_conda(
         f"{python_path} {shlex.quote(remote_harness)} --attach {shlex.quote(sock_path)} "
-        f"2>> {shlex.quote(remote_cache + '/pool_server.log')}"
-    )
+        f"2>> {shlex.quote(remote_cache + '/pool_server.log')}", conda_env)
     try:
         process = await conn.start_process(command, describe=f"adopt@{conn.address}")
     except TransportError as err:

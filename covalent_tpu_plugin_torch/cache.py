@@ -1,21 +1,27 @@
 """Content addressing of staged artifacts (own copy of the part of
-``covalent_tpu_plugin/cache.py`` the serving session and RPC dispatch use).
+``covalent_tpu_plugin/cache.py`` that staging, the serving session and RPC
+dispatch use).
 
-A serving session's factory payload, an RPC electron's function pickle and
-its oversized args are staged under their sha256 in the worker's
-``{remote_cache}/cas/`` and verified by digest there before they are
-unpickled.
+The harness, a serving session's factory payload and an RPC electron's
+function pickle and oversized args are staged under their sha256 in the
+worker's ``{remote_cache}/cas/`` and verified by digest there before they
+are used.  A launched electron's function pickle and specs ride the same
+bundle under the operation's own names (``op_files``) and leave with it.
 
+* :func:`harness_digest` — the harness's digest, so it ships once per
+  connection under that name (the pool server runs the same file).
 * :class:`CASIndex` — per-connection "already present" digest sets, seeded
   by one existence probe per connection and maintained locally, with
   single-flight puts: a fan-out of electrons sharing one function ships it
-  once.
+  once.  Uploads ride the connection's codec (:mod:`.transport.codec`),
+  and two or more missing artifacts travel as one bundle
+  (:meth:`CASIndex.ensure_bundle`: one put, one unpack exec).
 * :class:`FnRegistry` — per-connection registered-function digests: one
   ``register_fn`` per digest and resident runtime.
 * :func:`prune_cas_dir` — the byte-budget LRU prune of one CAS directory,
   which bounds the disaggregated set's local mirror of KV bundles.
 
-The result cache, the TTL prune and ``harness_digest`` come with slice 5b.
+The result cache and the TTL prune are not ported yet (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -23,12 +29,13 @@ from __future__ import annotations
 import asyncio
 import hashlib
 import os
-import shlex
 import uuid
+from functools import lru_cache
 
 from .obs import events as obs_events
 from .obs.metrics import REGISTRY
 from .obs.trace import Span
+from .transport import codec as codec_mod
 from .transport.base import Transport, TransportError
 
 __all__ = [
@@ -38,10 +45,12 @@ __all__ = [
     "bytes_digest",
     "cas_path",
     "file_digest",
+    "harness_digest",
     "prune_cas_dir",
     "CAS_EVICTIONS_TOTAL",
     "CAS_UPLOADS_TOTAL",
     "RPC_REGISTRATIONS_TOTAL",
+    "STAGING_OPS_TOTAL",
 ]
 
 #: Directory of digest-named artifacts under a remote cache.
@@ -59,7 +68,12 @@ RPC_REGISTRATIONS_TOTAL = REGISTRY.counter(
     "runtime already holds the digest; miss = function registered)",
     ("result",),
 )
-
+STAGING_OPS_TOTAL = REGISTRY.counter(
+    "covalent_tpu_staging_ops_total",
+    "Control-plane round trips spent shipping staged artifacts, by path "
+    "(per_file = put+publish per artifact, bundled = one tar per worker)",
+    ("mode",),
+)
 
 CAS_EVICTIONS_TOTAL = REGISTRY.counter(
     "covalent_tpu_cas_evictions_total",
@@ -80,6 +94,15 @@ def file_digest(path: str) -> str:
         for chunk in iter(lambda: f.read(1 << 20), b""):
             h.update(chunk)
     return h.hexdigest()
+
+
+@lru_cache(maxsize=1)
+def harness_digest() -> str:
+    """Digest of this package's ``harness.py``, once per process: the file
+    is copied to workers verbatim, so its digest names it in the CAS."""
+    from . import harness as harness_module
+
+    return file_digest(harness_module.__file__)
 
 
 def cas_path(remote_cache: str, digest: str, suffix: str = "") -> str:
@@ -147,8 +170,9 @@ class CASIndex:
     async def ensure_probed(
         self, key: str, conn: Transport, entries: list[tuple[str, str]]
     ) -> None:
-        """Seed ``key``'s present set with ONE existence probe (which also
-        creates the CAS directory).
+        """Seed ``key``'s present set with ONE batched existence probe
+        (``conn.exists_batch``; the executor's pre-flight made the CAS
+        directory).
 
         ``entries`` is ``[(digest, remote_path), ...]`` for the artifacts
         about to upload.  Runs at most once per key: later electrons trust
@@ -163,15 +187,8 @@ class CASIndex:
             if key in self._probed:
                 return
             present = self._present.setdefault(key, set())
-            cas_dirs = sorted({os.path.dirname(path) for _, path in entries})
-            probe = " ".join(
-                [f"mkdir -p {' '.join(shlex.quote(d) for d in cas_dirs)};"]
-                + [f"if test -e {shlex.quote(path)}; then echo 1; else echo 0; fi;"
-                   for _, path in entries]
-            )
             try:
-                result = await conn.run(probe)
-                flags = [line == "1" for line in result.stdout.split()]
+                flags = await conn.exists_batch([path for _, path in entries])
             except (TransportError, OSError):
                 flags = []
             for (digest, _), held in zip(entries, flags):
@@ -179,15 +196,18 @@ class CASIndex:
                     present.add(digest)
             self._probed.add(key)
 
-    async def ensure(
-        self, key: str, conn: Transport, digest: str, local_path: str, remote_path: str
-    ) -> None:
+    async def ensure(self, key: str, conn: Transport, digest: str, local_path: str,
+                     remote_path: str, *, codec: "codec_mod.Codec | None" = None,
+                     python_path: str = "python3") -> None:
         """Upload ``local_path`` unless ``key`` already holds ``digest``.
 
         Single-flight per (key, digest): concurrent electrons sharing one
         payload trigger exactly one put; the rest await it and count as
-        hits.  The put is published atomically (temporary name, then a
-        rename): another dispatcher's probe never sees half an artifact.
+        hits.  The publish is atomic (:func:`~.transport.codec.put_file`:
+        a temporary name, then a rename or the remote decompress-and-check
+        exec), so another dispatcher's probe never sees half an artifact;
+        with a ``codec`` the payload ships compressed and the worker checks
+        the digest of the decompressed bytes.
         """
         while True:
             present = self._present.setdefault(key, set())
@@ -202,20 +222,79 @@ class CASIndex:
         self._inflight[(key, digest)] = future
         try:
             with Span("executor.cas_put", {"key": key, "digest": digest[:12]}):
-                tmp = f"{remote_path}.tmp.{uuid.uuid4().hex[:12]}"
-                await conn.run(f"mkdir -p {shlex.quote(os.path.dirname(remote_path))}")
-                await conn.put(local_path, tmp)
-                moved = await conn.run(f"mv -f {shlex.quote(tmp)} {shlex.quote(remote_path)}")
-                if moved.exit_status != 0:
-                    raise TransportError(
-                        f"cannot publish {remote_path}: {moved.stderr.strip()}"
-                    )
+                stats = await codec_mod.put_file(conn, local_path, remote_path, codec=codec,
+                                                 python_path=python_path, digest=digest)
+            STAGING_OPS_TOTAL.labels(mode="per_file").inc(stats["ops"])
             present.add(digest)
             CAS_UPLOADS_TOTAL.labels(result="miss").inc()
         finally:
             self._inflight.pop((key, digest), None)
             if not future.done():
                 future.set_result(None)
+
+    async def ensure_bundle(self, key: str, conn: Transport,
+                            artifacts: "list[tuple[str, str, str]]", *,
+                            op_files: "list[tuple[str, str, str]]" = (),
+                            codec: "codec_mod.Codec | None" = None,
+                            python_path: str = "python3") -> None:
+        """Ship every missing artifact of ``[(local, remote, digest)]`` in
+        ONE bundle (one put and one unpack exec) instead of a pair each.
+
+        Artifacts the worker holds, or that a concurrent electron is
+        uploading, count as hits as in :meth:`ensure`.  ``op_files`` are
+        files named for one operation, not for their digest (a launched
+        electron's function pickle and spec): they ride the same bundle
+        every time and never enter the present set.  With at most one file
+        to ship the per-file road is taken (a bundle of one saves no round
+        trip).  The missing digests sit in the single-flight map while the
+        bundle travels, so a concurrent electron sharing one waits for it.
+        """
+        while True:
+            pending = [self._inflight[(key, digest)] for _, _, digest in artifacts
+                       if (key, digest) in self._inflight]
+            if not pending:
+                break
+            await asyncio.gather(*pending)
+        present = self._present.setdefault(key, set())
+        missing: list[tuple[str, str, str]] = []
+        seen: set[str] = set()
+        for local, remote, digest in artifacts:
+            if digest in present:
+                CAS_UPLOADS_TOTAL.labels(result="hit").inc()
+            elif digest not in seen:  # identical payloads bundle once
+                seen.add(digest)
+                missing.append((local, remote, digest))
+        op_files = list(op_files)
+        if len(missing) + len(op_files) <= 1:
+            for local, remote, digest in missing:
+                await self.ensure(key, conn, digest, local, remote, codec=codec,
+                                  python_path=python_path)
+            for local, remote, digest in op_files:
+                stats = await codec_mod.put_file(conn, local, remote, codec=codec,
+                                                 python_path=python_path, digest=digest)
+                STAGING_OPS_TOTAL.labels(mode="per_file").inc(stats["ops"])
+            return
+        loop = asyncio.get_running_loop()
+        futures = {digest: loop.create_future() for _, _, digest in missing}
+        for digest, future in futures.items():
+            self._inflight[(key, digest)] = future
+        try:
+            members = missing + op_files
+            bundle_path = f"{os.path.dirname(members[0][1])}/bundle-{uuid.uuid4().hex[:12]}.tar"
+            with Span("executor.cas_bundle", {"key": key, "members": len(members)}):
+                stats = await conn.put_bundle(members, bundle_path, python_path=python_path,
+                                              codec=codec)
+            STAGING_OPS_TOTAL.labels(mode="bundled").inc(stats["ops"])
+            for _, _, digest in missing:
+                present.add(digest)
+                CAS_UPLOADS_TOTAL.labels(result="miss").inc()
+            obs_events.emit("cas.bundle", key=key, members=len(members),
+                            wire_bytes=stats["wire_bytes"], codec=stats["codec"])
+        finally:
+            for _, _, digest in missing:
+                self._inflight.pop((key, digest), None)
+                if not futures[digest].done():
+                    futures[digest].set_result(None)
 
     def forget(self, key: str) -> None:
         """Evict one connection's knowledge (channel discarded: the worker

@@ -1,7 +1,24 @@
 """``GPUExecutor``: dispatch an electron to a GPU worker and bring back its result.
 
-Counterpart of ``covalent_tpu_plugin/tpu.py``'s ``TPUExecutor`` over the
-local transport.  Each electron takes one of two roads (``dispatch_mode``):
+Counterpart of ``covalent_tpu_plugin/tpu.py``'s ``TPUExecutor``.  The
+control plane (``transport``) is ``"local"`` (subprocesses on this
+machine, the default), ``"ssh"`` (the ``auto`` backend ladder: asyncssh,
+then the OpenSSH binaries, then the pure-Python minissh stack) or
+``"minissh"`` (that stack pinned).  An SSH worker is ``hostname``
+(``user@host:port``) or each entry of ``workers``; channels are pooled per
+``{transport}:{address}`` behind a circuit breaker per address, and each
+pooled channel runs one batched pre-flight (cache and CAS ``mkdir``, the
+conda check, the codec probe, the ``python3`` check) before its first
+electron.  Staged files travel through the worker's content-addressed
+store (:mod:`.cache`): the harness ships once per connection under its
+digest, and what an electron stages (its function pickle and task specs)
+travels as one bundle, compressed with the negotiated codec when that pays
+(``compress``, ``bundle``).  A worker that cannot be reached, a launch that
+fails or a harness that dies emits ``task.dispatch_failed`` and raises,
+unless ``run_local_on_dispatch_fail`` runs the electron on the dispatcher
+instead (off by default).
+
+Each electron takes one of two roads (``dispatch_mode``):
 
 * **launch**: stage the pickled ``(fn, args, kwargs)`` and a task spec,
   upload them with this package's own ``harness.py``, start the harness,
@@ -19,8 +36,9 @@ local transport.  Each electron takes one of two roads (``dispatch_mode``):
   larger than ``rpc_inline_args_max``) and one pushed ``result``.
 
 Each ``run`` is one root span (``executor.task``) with a child per stage:
-``stage``, ``upload``, ``connect`` (the pool server's start or its ping),
-``submit``, ``poll``, ``fetch`` and ``cleanup``, plus ``execute``, the
+``stage``, ``connect`` (the dial, then the pool server's start or its
+ping), ``preflight``, ``upload``, ``submit``, ``poll``, ``fetch`` and
+``cleanup``, plus ``execute``, the
 electron's own runtime as the harness measured it, in either road.
 ``last_timings`` then holds each stage's seconds, ``total``, ``overhead``
 (the stages but ``execute``) and ``wall_overhead`` (``total`` minus
@@ -39,7 +57,10 @@ processes, one a worker, joined by a ``torch.distributed`` process group
 (the harness's ``distributed`` bootstrap).  Under the local transport the
 workers are processes on this machine, their names bookkeeping labels, and
 they rendezvous on ``127.0.0.1:{coordinator_port}`` (``coordinator_port=0``
-picks a free port per electron).  One spec is staged per process, each
+picks a free port per electron).  Under SSH each worker is an address, one
+process each, and the rendezvous goes to worker 0's host (``user@`` and
+``:port`` stripped; ``coordinator_port=0`` picks a free port here, so only
+when worker 0 is this machine).  One spec is staged per process, each
 with its ``distributed`` block; all of them start (pool forks or nohup
 launches), and the watcher waits on process 0's result while it watches
 every process: one that dies first (a failed pip install, a torn file, a
@@ -56,10 +77,9 @@ started; :meth:`GPUExecutor.recover` then re-adopts its sessions and
 streams (``fleet/recovery.py``).  A journaled electron that was in flight
 is reported, not run again: the checkpoint-resume discovery of the
 reference (``_discover_resume``) comes with ``utils/checkpoint.py`` in
-slice 5b.  The native
-C++ agent comes with ROADMAP item 2c.6; the SSH
-transport, the result cache, fleet, task retries and the ops endpoint
-with slice 5b; gangs over several hosts need it too.
+slice 5b.  The native C++ agent comes with ROADMAP item 2c.6; the result
+cache, fleet, task retries, chaos plans and the ops endpoint with ROADMAP
+Queue 1 item 6 (slice 5b, the rest of the executor).
 """
 
 from __future__ import annotations
@@ -85,18 +105,27 @@ from .agent import (
     POOL_PRELOAD,
     AgentClient,
     AgentError,
+    _in_conda,
     attach_pool_server,
     read_orphan_rendezvous,
     start_pool_server,
 )
-from .cache import CASIndex, FnRegistry, bytes_digest, cas_path
+from .cache import CASIndex, FnRegistry, bytes_digest, cas_path, harness_digest
 from .executor_base import RemoteExecutor
 from .fleet import journal as journal_mod
 from .obs import events as obs_events
 from .obs.metrics import REGISTRY
 from .obs.trace import Span, record_span
-from .resilience import FaultClass, classify_error, tag_fault
-from .transport import LocalTransport, Transport, TransportError
+from .resilience import CircuitBreakerRegistry, FaultClass, classify_error, tag_fault
+from .transport import (
+    LocalTransport,
+    SSHTransport,
+    Transport,
+    TransportError,
+    TransportPool,
+    connect_with_retries,
+)
+from .transport import codec as codec_mod
 from .transport.frames import FrameIntegrityError
 from .utils.config import get_config, update_config
 from .utils.log import app_log
@@ -108,7 +137,34 @@ EXECUTOR_PLUGIN_NAME = "GPUExecutor"
 # Defaults merged into the config under [executors.gpu]
 # (pattern: _EXECUTOR_PLUGIN_DEFAULTS, ssh.py:39-50).
 _EXECUTOR_PLUGIN_DEFAULTS = {
+    # "local" runs workers on this machine; "ssh" picks an SSH backend
+    # (asyncssh > OpenSSH binaries > minissh); "minissh" pins the
+    # pure-Python stack.  The reference defaults to "ssh"; the port keeps
+    # "local", since its callers and the "gpu" alias build executors with
+    # no host.
     "transport": "local",
+    # The SSH worker: "host", "user@host" or "user@host:port" (ssh.py:77);
+    # `workers` overrides it with one address per process.
+    "hostname": "",
+    "username": "",
+    "ssh_key_file": os.path.join("~", ".ssh", "id_rsa"),
+    # minissh's host-key pin: the server's public key file (asyncssh and
+    # OpenSSH pin through ~/.ssh/known_hosts).
+    "known_host_key_file": "",
+    "strict_host_keys": True,
+    "conda_env": "",
+    "max_connection_attempts": 5,
+    "retry_wait_time": 5.0,
+    # Run an electron on the dispatcher when its dispatch fails
+    # (ssh.py:181-208); off, so a failure is never hidden.
+    "run_local_on_dispatch_fail": False,
+    # Wire codec for staged files: "auto" negotiates zstd > zlib > raw at
+    # pre-flight, "off" ships raw, "zlib"/"zstd" pin one (and compress
+    # fetched results too).
+    "compress": "auto",
+    # Missing staged artifacts of one electron travel as one tar: one put
+    # and one unpack exec instead of a pair each.
+    "bundle": True,
     "cache_dir": os.path.join("~", ".cache", "covalent-gpu"),
     "remote_cache": ".cache/covalent-gpu",
     "remote_workdir": "covalent_gpu_workdir",
@@ -140,10 +196,10 @@ _EXECUTOR_PLUGIN_DEFAULTS = {
     "agent_frames": True,
     # Gang workers (tpu.py:123): one process each, joined by a process
     # group; [] runs one process.  Local-transport workers are processes on
-    # this machine named by these labels.
+    # this machine named by these labels; SSH workers are addresses.
     "workers": [],
     # The gang's rendezvous port on the coordinator (tpu.py:155); 0 picks
-    # a free one per electron (local transport).
+    # a free one on this machine per electron.
     "coordinator_port": 8476,
 }
 
@@ -171,6 +227,30 @@ _NOT_OVERHEAD = ("execute", "profile")
 _DISPATCH_MODES = ("launch", "auto", "rpc")
 
 
+class _DispatchFailed(Exception):
+    """Internal control flow: the electron could not be dispatched (no
+    worker reached, a launch refused, a harness that died).  ``run`` hands
+    it to :meth:`GPUExecutor._on_dispatch_fail`."""
+
+    def __init__(self, message: str, log_tail: str = "") -> None:
+        super().__init__(message)
+        self.log_tail = log_tail
+
+
+_TRANSPORTS = ("local", "ssh", "minissh")
+_COMPRESS = ("auto", "off", "zlib", "zstd")
+_LOOPBACK = ("127.0.0.1", "localhost", "::1")
+
+
+def _split_host_port(hostport: str) -> tuple[str, int | None]:
+    """Split a ``host[:port]`` worker address (tpu.py:330).  Only a single
+    all-digit suffix counts as a port: IPv6 literals pass through whole."""
+    host, sep, port = hostport.rpartition(":")
+    if sep and port.isdigit() and ":" not in host:
+        return host, int(port)
+    return hostport, None
+
+
 class _RpcUnavailable(Exception):
     """Internal control flow: the worker has no live pool runtime to
     execute by digest.  ``run`` takes the launch road for the same electron
@@ -190,9 +270,13 @@ class TaskStatus(str, Enum):
 class StagedTask:
     """Paths produced by staging one task (reference: ``ssh.py:173-179``).
 
-    A gang of ``processes`` > 1 has a spec, a log and a pid file per
-    process (``..._{i}``) and the done markers of processes 1.. beside the
-    one result file (:meth:`rank`); a single process keeps the plain names.
+    The harness is content-addressed (``{remote_cache}/cas/{digest}.py``):
+    it ships once per connection and stays.  Everything else is the
+    operation's own and is cleaned up after it: the function pickle, the
+    specs, the result, the logs and the pid files.  A gang of
+    ``processes`` > 1 has a spec, a log and a pid file per process
+    (``..._{i}``) and the done markers of processes 1.. beside the one
+    result file (:meth:`rank`); a single process keeps the plain names.
     """
 
     def __init__(self, operation_id: str, cache_dir: Path, remote_cache: str,
@@ -203,11 +287,16 @@ class StagedTask:
         self.spec_file = str(cache_dir / f"spec_{operation_id}.json")
         self.local_result_file = str(cache_dir / f"result_{operation_id}.pkl")
         self.remote_function_file = f"{remote_cache}/function_{operation_id}.pkl"
-        self.remote_harness_file = f"{remote_cache}/harness_{operation_id}.py"
+        self.harness_digest = harness_digest()
+        self.remote_harness_file = cas_path(remote_cache, self.harness_digest, ".py")
         self.remote_spec_file = f"{remote_cache}/spec_{operation_id}.json"
         self.remote_result_file = f"{remote_cache}/result_{operation_id}.pkl"
         self.remote_log_file = f"{remote_cache}/log_{operation_id}.txt"
         self.remote_pid_file = f"{remote_cache}/pid_{operation_id}"
+        #: sha256 of the function pickle and of each process's spec, set by
+        #: staging: the bundle's unpack checks each member against its own
+        self.function_digest = ""
+        self.spec_digests: list[str] = [""] * processes
 
     def rank(self, i: int) -> dict[str, str]:
         """Process ``i``'s files: ``spec`` (local), ``remote_spec``, ``log``,
@@ -225,22 +314,28 @@ class StagedTask:
             "done": self.remote_result_file if i == 0 else f"{self.remote_result_file}.done.{i}",
         }
 
-    def uploads(self) -> list[tuple[str, str]]:
-        return [
-            (self.function_file, self.remote_function_file),
-            (_harness_module.__file__, self.remote_harness_file),
-        ] + [(self.rank(i)["spec"], self.rank(i)["remote_spec"])
-             for i in range(self.processes)]
+    def harness_artifact(self) -> tuple[str, str, str]:
+        """``(local, remote, digest)`` of the harness, a CAS artifact."""
+        return _harness_module.__file__, self.remote_harness_file, self.harness_digest
+
+    def artifacts(self, i: int) -> list[tuple[str, str, str]]:
+        """``(local, remote, digest)`` of the files process ``i``'s worker
+        gets that are the operation's own: the function pickle and its spec."""
+        files = self.rank(i)
+        return [(self.function_file, self.remote_function_file, self.function_digest),
+                (files["spec"], files["remote_spec"], self.spec_digests[i])]
 
     def local_files(self) -> list[str]:
         return [self.function_file, self.local_result_file] + [
             self.rank(i)["spec"] for i in range(self.processes)]
 
-    def remote_files(self) -> list[str]:
-        ranks = [self.rank(i) for i in range(self.processes)]
-        return [remote for _, remote in self.uploads()] + [self.remote_result_file] + [
-            f for r in ranks for f in (r["log"], r["pid"], r["done"])
-            if f != self.remote_result_file]
+    def remote_files(self, i: int | None = None) -> list[str]:
+        """The operation's files on process ``i``'s worker (on every
+        process's when None); the CAS harness is not among them."""
+        files = [self.remote_function_file, self.remote_result_file]
+        for r in (self.rank(p) for p in (range(self.processes) if i is None else (i,))):
+            files += [r["remote_spec"], r["log"], r["pid"], r["done"]]
+        return list(dict.fromkeys(files))
 
 
 class GangLease(NamedTuple):
@@ -264,6 +359,15 @@ class GPUExecutor(RemoteExecutor):
     docstring); ``rpc_inline_args_max`` is the inline size limit of RPC args
     and results, ``pool_preload`` the pool server's and zygote's preloads,
     ``agent_frames`` whether its channel negotiates binary frames.
+
+    ``transport`` ("local", "ssh" or "minissh") with ``hostname`` or
+    ``workers``, ``username``, ``ssh_key_file``, ``known_host_key_file``
+    (minissh's host-key pin), ``strict_host_keys``, ``conda_env``,
+    ``max_connection_attempts`` and ``retry_wait_time`` (the dial's retry
+    envelope), ``compress`` and ``bundle`` (the staging wire) and
+    ``run_local_on_dispatch_fail`` are the SSH settings of the reference
+    (``tpu.py:119-150``).  ``chaos`` plans are refused: ``transport/chaos.py``
+    is ROADMAP Queue 1 item 6.
 
     An argument left at None takes ``get_config("executors.gpu.<key>")``,
     else the default in ``_EXECUTOR_PLUGIN_DEFAULTS``: that is how
@@ -303,6 +407,18 @@ class GPUExecutor(RemoteExecutor):
         agent_frames: bool | None = None,
         workers: list[str] | None = None,
         coordinator_port: int | None = None,
+        hostname: str | None = None,
+        username: str | None = None,
+        ssh_key_file: str | None = None,
+        known_host_key_file: str | None = None,
+        strict_host_keys: bool | None = None,
+        conda_env: str | None = None,
+        max_connection_attempts: int | None = None,
+        retry_wait_time: float | None = None,
+        run_local_on_dispatch_fail: bool | None = None,
+        compress: str | None = None,
+        bundle: bool | None = None,
+        chaos: Any = None,
     ) -> None:
         def resolve(value, key):
             if value is not None:
@@ -311,11 +427,20 @@ class GPUExecutor(RemoteExecutor):
 
         transport = resolve(transport, "transport")
         use_agent = resolve(use_agent, "use_agent")
-        if transport != "local":
+        if transport not in _TRANSPORTS:
+            raise ValueError(f'transport must be "local", "ssh" or "minissh", got {transport!r}')
+        if chaos is not None:
             raise NotImplementedError(
-                f"transport={transport!r} is not ported yet: the SSH transport "
-                "comes with slice 5b (the rest of the executor)"
+                "chaos plans are not ported yet: transport/chaos.py comes with ROADMAP "
+                "Queue 1 item 6 (slice 5b, the rest of the executor)"
             )
+        compress = str(resolve(compress, "compress")).lower()
+        if compress in ("0", "false", "no", "none", "raw"):
+            compress = "off"
+        elif compress in ("1", "true", "yes", "on"):
+            compress = "auto"
+        if compress not in _COMPRESS:
+            raise ValueError(f'compress must be "auto"/"off"/"zlib"/"zstd", got {compress!r}')
         if use_agent == "native":
             raise NotImplementedError(
                 "use_agent='native' is not ported yet: the native agent comes with "
@@ -365,22 +490,46 @@ class GPUExecutor(RemoteExecutor):
         #: gang workers (module docstring); [] runs one process
         self.workers = [str(w) for w in (resolve(workers, "workers") or [])]
         self.coordinator_port = int(resolve(coordinator_port, "coordinator_port"))
+        #: the control plane (module docstring) and its SSH settings
+        self.transport_kind = transport
+        self.hostname = str(resolve(hostname, "hostname") or "")
+        self.username = str(resolve(username, "username") or "")
+        self.ssh_key_file = str(Path(resolve(ssh_key_file, "ssh_key_file")).expanduser().resolve())
+        self.known_host_key_file = str(resolve(known_host_key_file, "known_host_key_file") or "")
+        self.strict_host_keys = bool(resolve(strict_host_keys, "strict_host_keys"))
+        self.conda_env = str(resolve(conda_env, "conda_env") or "")
+        self.max_connection_attempts = int(resolve(max_connection_attempts,
+                                                   "max_connection_attempts"))
+        self.retry_wait_time = float(resolve(retry_wait_time, "retry_wait_time"))
+        self.run_local_on_dispatch_fail = bool(
+            resolve(run_local_on_dispatch_fail, "run_local_on_dispatch_fail"))
+        self.compress = compress
+        self.bundle = bool(resolve(bundle, "bundle"))
         #: the road the most recent electron took ("rpc" or "launch")
         self.last_dispatch_mode = ""
         #: the stage timings of the last ``run`` (module docstring).
         self.last_timings: dict[str, float] = {}
-        #: operation ids inside ``run``, and the PIDs of their running harnesses
-        #: (process 0's, and every process's of a gang).
+        #: operation ids inside ``run``, the PIDs of their running harnesses
+        #: (process 0's, and every process's of a gang) and the channel each
+        #: process runs behind.
         self._active_ops: set[str] = set()
         self._pids: dict[str, list] = {}
+        self._op_conns: dict[str, list[Transport]] = {}
         #: operation id -> its road, and the pool client it ran through
         self._op_modes: dict[str, str] = {}
         self._op_agents: dict[str, AgentClient] = {}
         #: operation ids a caller cancelled: their runs end in CancelledError.
         self._cancelled_ops: set[str] = set()
-        #: address -> the pooled channel and its resident pool server (None:
-        #: the server could not start; the worker launches with nohup).
-        self._transports: dict[str, Transport] = {}
+        #: pooled channels (pool key -> transport) behind a breaker per
+        #: address; pool keys that passed pre-flight, and the codec names
+        #: each worker advertised there
+        self._pool = TransportPool()
+        self._transports: dict[str, Transport] = self._pool._transports
+        self._breakers = CircuitBreakerRegistry()
+        self._preflighted: set[str] = set()
+        self._wire_codecs: dict[str, list[str]] = {}
+        #: channel address -> its resident pool server (None: the server
+        #: could not start; the worker launches with nohup).
         self._agents: dict[str, AgentClient | None] = {}
         self._agent_locks: dict[str, asyncio.Lock] = {}
         #: per-connection artifacts the worker holds, and functions its
@@ -410,20 +559,144 @@ class GPUExecutor(RemoteExecutor):
     # ------------------------------------------------------------------ #
 
     async def _validate_credentials(self) -> bool:
-        return True  # the local transport needs none
+        """Reference: ``_validate_credentials`` (ssh.py:317-335)."""
+        if self.transport_kind == "local":
+            return True
+        if not Path(self.ssh_key_file).is_file():
+            raise RuntimeError(f"no SSH key file found at {self.ssh_key_file}; set "
+                               "`ssh_key_file` or [executors.gpu].ssh_key_file")
+        return True
 
     def _num_processes(self) -> int:
         return max(1, len(self.workers))
 
+    def _worker_addresses(self) -> list[str]:
+        """Every worker's control-plane address (tpu.py:1003-1028): the
+        ``workers`` list, else ``hostname``, else (local transport only)
+        this machine."""
+        if self.workers:
+            if len(set(self.workers)) != len(self.workers):
+                # pids and pool keys are keyed by address: duplicates would alias
+                raise ValueError(f"duplicate worker addresses: {self.workers}")
+            return list(self.workers)
+        if self.hostname:
+            return [self.hostname]
+        if self.transport_kind == "local":
+            return ["localhost"]
+        raise ValueError("GPUExecutor needs `hostname` or `workers` (or transport='local')")
+
     def _coordinator_address(self) -> str:
-        """Local-transport workers are processes on this machine; their
-        labels are bookkeeping names, not hosts (tpu.py:1064-1068)."""
+        """The gang's rendezvous (tpu.py:1065-1082).  Local-transport
+        workers are processes on this machine, their labels bookkeeping
+        names; an SSH gang meets on worker 0's host, ``user@`` and the SSH
+        ``:port`` stripped (the process group dials its own port)."""
+        host = "127.0.0.1"
+        if self.transport_kind != "local":
+            host, _ = _split_host_port(self._worker_addresses()[0].split("@", 1)[-1])
         port = self.coordinator_port
         if port == 0:
+            if host not in _LOOPBACK:
+                raise ValueError(f"coordinator_port=0 picks a free port on this machine, but "
+                                 f"worker 0 ({host}) is another host; set coordinator_port")
             with socket.socket() as sock:
                 sock.bind(("127.0.0.1", 0))
                 port = sock.getsockname()[1]
-        return f"127.0.0.1:{port}"
+        return f"{host}:{port}"
+
+    def _make_transport(self, address: str) -> Transport:
+        """A fresh, unopened channel to one worker (tpu.py:1096-1109)."""
+        if self.transport_kind == "local":
+            return LocalTransport()
+        username = address.split("@", 1)[0] if "@" in address else self.username
+        host, port = _split_host_port(address.split("@", 1)[-1])
+        return SSHTransport(
+            hostname=host, username=username, ssh_key_file=self.ssh_key_file,
+            port=port or 22, strict_host_keys=self.strict_host_keys,
+            backend="minissh" if self.transport_kind == "minissh" else "auto",
+            known_host_key=self.known_host_key_file or None,
+        )
+
+    def _pool_key(self, address: str) -> str:
+        return f"{self.transport_kind}:{address}"
+
+    async def _client_connect(self, address: str) -> Transport:
+        """Open (or reuse) the channel to one worker (reference:
+        ``_client_connect``, ssh.py:210-282): pooled, with the dial's retry
+        envelope, behind the address's breaker, so a quarantined host fails
+        fast instead of paying the envelope on every electron."""
+
+        async def factory() -> Transport:
+            return await connect_with_retries(
+                self._make_transport(address), max_attempts=self.max_connection_attempts,
+                retry_wait_time=self.retry_wait_time)
+
+        return await self._pool.acquire(self._pool_key(address), factory,
+                                        gate=self._breakers.get(address))
+
+    async def _connect_all(self) -> list[Transport]:
+        """Channels to every worker, dialed together, all or nothing."""
+        addresses = self._worker_addresses()
+        results = await asyncio.gather(*(self._client_connect(a) for a in addresses),
+                                       return_exceptions=True)
+        errors = [r for r in results if isinstance(r, BaseException)]
+        if errors:
+            raise TransportError(f"failed to connect to {len(errors)}/{len(addresses)} "
+                                 f"workers: {errors[0]}") from errors[0]
+        return list(results)  # type: ignore[arg-type]
+
+    def _preflight_command(self) -> str:
+        """One compound pre-flight (tpu.py:1652-1693): the reference's three
+        round trips (conda check, python3 check, cache mkdir; ssh.py:508-532)
+        and the codec probe in one exec.  ``-E -S`` keeps site hooks out of
+        the version check."""
+        cas_dir = shlex.quote(cas_path(self.remote_cache, "").rstrip("/"))
+        checks = [f"mkdir -p {shlex.quote(self.remote_cache)} {cas_dir}"]
+        if self.conda_env:
+            checks.append(f'eval "$(conda shell.bash hook)" && conda activate '
+                          f"{shlex.quote(self.conda_env)}")
+        probe = codec_mod.probe_clause(self.python_path, self.compress)
+        if probe:
+            checks.append(probe)
+        checks.append(f"{self.python_path} -E -S -c 'import sys; print(sys.version_info[0])'")
+        return " && ".join(checks)
+
+    async def _preflight(self, conn: Transport, key: str) -> None:
+        """The environment checks, once per pooled connection (the reference
+        runs them on every electron).  A host that fails them counts against
+        its breaker as a refused dial does."""
+        if key in self._preflighted:
+            return
+        breaker = self._breakers.get(key.split(":", 1)[1])
+        try:
+            result = await conn.run(self._preflight_command())
+            if result.exit_status != 0:
+                raise TransportError(f"pre-flight failed on {conn.address}: "
+                                     f"{result.stderr.strip()}")
+            lines = result.stdout.strip().splitlines()
+            if not lines or lines[-1] != "3":
+                raise TransportError(f"{self.python_path} on {conn.address} is not python3 "
+                                     f"(reported major version {result.stdout.strip()!r})")
+        except (TransportError, OSError):
+            breaker.record_failure()
+            raise
+        breaker.record_success()
+        self._wire_codecs[key] = codec_mod.parse_probe(result.stdout)
+        self._preflighted.add(key)
+
+    def _codec_for(self, key: str, conn: Transport) -> "codec_mod.Codec | None":
+        """The connection's wire codec (None: raw), tpu.py:1695-1718.  A
+        zero-wire transport ships raw; a pinned codec the worker did not
+        advertise degrades to raw with a warning."""
+        if self.compress == "off" or getattr(conn, "zero_wire", False):
+            return None
+        remote = self._wire_codecs.get(key, ())
+        if self.compress in ("zlib", "zstd"):
+            if self.compress in remote and self.compress in codec_mod.available_codecs():
+                return codec_mod.get_codec(self.compress)
+            app_log.warning("compress=%r pinned but %s did not negotiate it; shipping raw",
+                            self.compress, conn.address)
+            return None
+        return codec_mod.pick_codec(remote)
 
     def _write_function_files(
         self, operation_id: str, fn: Callable, args: tuple, kwargs: dict,
@@ -438,7 +711,7 @@ class GPUExecutor(RemoteExecutor):
         staged = StagedTask(operation_id, Path(self.cache_dir), self.remote_cache, processes)
         dump_task(fn, args, kwargs, staged.function_file)
         with open(staged.function_file, "rb") as f:
-            function_digest = bytes_digest(f.read())
+            function_digest = staged.function_digest = bytes_digest(f.read())
         blocks = (coordinator_spec(coordinator_address=self._coordinator_address(),
                                    num_processes=processes) if processes > 1 else None)
         for i in range(processes):
@@ -462,27 +735,44 @@ class GPUExecutor(RemoteExecutor):
                 spec["pip_deps"] = list(pip_deps)
             if blocks is not None:
                 spec["distributed"] = blocks[i]
-            with open(files["spec"], "w") as f:
-                json.dump(spec, f)
+            encoded = json.dumps(spec).encode()
+            with open(files["spec"], "wb") as f:
+                f.write(encoded)
+            staged.spec_digests[i] = bytes_digest(encoded)
         return staged
 
-    async def _upload_task(self, conn: Transport, staged: StagedTask) -> None:
-        """Ship the staged files (reference: ``ssh.py:337-361``)."""
-        result = await conn.run(f"mkdir -p {shlex.quote(self.remote_cache)}")
-        if result.exit_status != 0:
-            raise TransportError(
-                f"cannot create {self.remote_cache}: {result.stderr.strip()}"
-            )
-        for local, remote in staged.uploads():
-            await conn.put(local, remote)
+    async def _upload_task(self, conn: Transport, staged: StagedTask, process: int,
+                           key: str) -> None:
+        """Ship process ``process``'s files to its worker (reference:
+        ``ssh.py:337-361``, ``tpu.py:1802-1850``).
+
+        The harness goes through the CAS: skipped when the worker holds its
+        digest (one probe per connection).  The operation's own files (the
+        function pickle and this process's spec) ship every time.  With
+        ``bundle`` whatever ships goes as one tar (one put, one unpack
+        exec, each member checked against its digest); either road
+        compresses with the connection's codec when that pays.
+        """
+        harness_local, harness_remote, digest = staged.harness_artifact()
+        await self._cas.ensure_probed(key, conn, [(digest, harness_remote)])
+        codec = self._codec_for(key, conn)
+        if self.bundle:
+            await self._cas.ensure_bundle(key, conn, [staged.harness_artifact()],
+                                          op_files=staged.artifacts(process), codec=codec,
+                                          python_path=self.python_path)
+            return
+        await self._cas.ensure(key, conn, digest, harness_local, harness_remote, codec=codec,
+                               python_path=self.python_path)
+        for local, remote, file_digest in staged.artifacts(process):
+            await codec_mod.put_file(conn, local, remote, codec=codec,
+                                     python_path=self.python_path, digest=file_digest)
 
     def _task_command(self, staged: StagedTask, process: int = 0) -> str:
         # `exec` makes the harness replace the wrapper shell, so the PID
-        # captured at launch is the python process itself.
-        return (
+        # captured at launch is the python process itself, conda or not.
+        return _in_conda(
             f"exec {self.python_path} {shlex.quote(staged.remote_harness_file)} "
-            f"{shlex.quote(staged.rank(process)['remote_spec'])}"
-        )
+            f"{shlex.quote(staged.rank(process)['remote_spec'])}", self.conda_env)
 
     async def submit_task(self, conn: Transport, staged: StagedTask, process: int = 0) -> int:
         """Launch one process's harness detached; return its PID."""
@@ -554,7 +844,7 @@ class GPUExecutor(RemoteExecutor):
     #: the result (they leave the process group and write their markers).
     GANG_EXIT_GRACE_S = 60.0
 
-    async def _poll_task(self, conn: Transport, staged: StagedTask,
+    async def _poll_task(self, conns: list[Transport], staged: StagedTask,
                          pids: list[int | None]) -> tuple[TaskStatus, int]:
         """Wait for every process of the task: ``(status, index to blame)``
         (the reference's ``_poll_all``, ``tpu.py:2894-2905``).
@@ -567,12 +857,13 @@ class GPUExecutor(RemoteExecutor):
         task at once, all or nothing, instead of leaving process 0 in a
         collective until its timeout.  Once process 0 is READY the others
         get ``GANG_EXIT_GRACE_S`` to leave, so the cleanup does not race a
-        late marker; what is left after it is killed.
+        late marker; what is left after it is killed.  ``conns[i]`` is the
+        channel process ``i`` runs behind.
         """
         interval, waited, starting_for, ready_for = 0.05, 0.0, 0.0, 0.0
         while True:
             statuses = await asyncio.gather(*(
-                self.get_status(conn, staged, pid, i) for i, pid in enumerate(pids)))
+                self.get_status(conns[i], staged, pid, i) for i, pid in enumerate(pids)))
             for i, status in enumerate(statuses[1:], start=1):
                 if status is TaskStatus.DEAD:
                     return TaskStatus.DEAD, i
@@ -585,7 +876,7 @@ class GPUExecutor(RemoteExecutor):
                     app_log.warning("task %s: gang processes %s still running %.0f s after "
                                     "process 0 finished; killing them", staged.operation_id,
                                     live, self.GANG_EXIT_GRACE_S)
-                    await self._kill(conn, staged)
+                    await self._kill(conns, staged)
                     return TaskStatus.READY, 0
                 if not ready_for:
                     interval = 0.05  # the others leave right after process 0
@@ -602,10 +893,15 @@ class GPUExecutor(RemoteExecutor):
             waited += interval
             interval = min(interval * 2, float(self.poll_freq))
 
-    async def query_result(self, conn: Transport, staged: StagedTask):
-        """Fetch and unpickle ``(result, exception, times)``
-        (reference: ``ssh.py:434-458``)."""
-        await conn.get(staged.remote_result_file, staged.local_result_file)
+    async def query_result(self, conn: Transport, staged: StagedTask, key: str | None = None):
+        """Fetch and unpickle ``(result, exception, times)`` (reference:
+        ``ssh.py:434-458``).  Under a pinned codec (``compress="zlib"`` or
+        ``"zstd"``) the result rides the wire compressed, at the cost of one
+        pack exec (tpu.py:2976-2995); ``auto`` never pays that."""
+        codec = (self._codec_for(key, conn)
+                 if key is not None and self.compress in ("zlib", "zstd") else None)
+        await codec_mod.get_file(conn, staged.remote_result_file, staged.local_result_file,
+                                 codec=codec, python_path=self.python_path)
         return load_result(staged.local_result_file)
 
     async def _remote_log_tail(self, conn: Transport, staged: StagedTask,
@@ -620,10 +916,10 @@ class GPUExecutor(RemoteExecutor):
         kill builtin rejects ``-TERM -- -pid``."""
         await conn.run(f"kill -s TERM -- -{pid} 2>/dev/null || kill -s TERM {pid} 2>/dev/null; true")
 
-    async def _kill(self, conn: Transport, staged: StagedTask) -> None:
+    async def _kill(self, conns: list[Transport], staged: StagedTask) -> None:
         """``run``'s own teardown of its harnesses (timeout, cancellation,
-        a gang whose process failed)."""
-        for pid in self._pids.get(staged.operation_id, ()):
+        a gang whose process failed), each behind its own channel."""
+        for conn, pid in zip(conns, self._pids.get(staged.operation_id, ())):
             if pid is not None:
                 await self._kill_group(conn, pid)
 
@@ -643,28 +939,23 @@ class GPUExecutor(RemoteExecutor):
                    or op.startswith(f"{operation_id}_")]
         if mark:
             self._cancelled_ops.update(targets)
-        pids = [pid for op in targets for pid in self._pids.get(op, ())
-                if pid is not None]
-        if not pids:
-            return
-        conn = LocalTransport()
-        try:
-            for pid in pids:
-                await self._kill_group(conn, pid)
-        finally:
-            await conn.close()
+        for op in targets:
+            for conn, pid in zip(self._op_conns.get(op, ()), list(self._pids.get(op, ()))):
+                if pid is not None:
+                    await self._kill_group(conn, pid)
 
-    async def cleanup(self, conn: Transport, staged: StagedTask) -> None:
-        """Delete the operation's staged files locally and on the worker
-        (reference: ``ssh.py:284-315``)."""
+    async def cleanup(self, conns: list[Transport], staged: StagedTask) -> None:
+        """Delete the operation's staged files locally and on each worker
+        (reference: ``ssh.py:284-315``); the CAS harness stays."""
         for path in staged.local_files():
             try:
                 os.remove(path)
             except FileNotFoundError:
                 pass
-        result = await conn.remove(staged.remote_files())
-        if result.exit_status != 0:
-            app_log.warning("cleanup on %s: %s", conn.address, result.stderr.strip())
+        for i, conn in enumerate(conns):
+            result = await conn.remove(staged.remote_files(i))
+            if result.exit_status != 0:
+                app_log.warning("cleanup on %s: %s", conn.address, result.stderr.strip())
 
     # ------------------------------------------------------------------ #
     # Resident pool servers (reference: tpu.py lease_gang, _agent_for,   #
@@ -676,28 +967,39 @@ class GPUExecutor(RemoteExecutor):
         tokens/s)."""
         return {sid: handle.status() for sid, handle in list(self._serve_handles.items())}
 
-    def _worker_addresses(self) -> list[str]:
-        return ["localhost"]  # the local transport's one worker
-
-    @staticmethod
-    def _pool_key(address: str) -> str:
-        return f"local:{address}"
-
     async def lease_gang(self, dialed: list[Transport] | None = None) -> GangLease:
-        """Connect to every worker and warm its pool server.
+        """Connect to every worker, pre-flight each new channel and warm
+        its pool server (tpu.py:1234-1280).
 
-        ``dialed`` receives the channels as soon as they exist, before the
+        The dial and the pool server's start or ping are the ``connect``
+        stage, the pre-flight the ``preflight`` stage.  ``dialed`` receives
+        the channels as soon as they exist, before pre-flight or the
         warm-up can fail, so a caller that discards a failed attempt's
         channels holds them either way.
         """
-        addresses = self._worker_addresses()
-        conns = [self._transports.setdefault(a, LocalTransport()) for a in addresses]
+        with Span("executor.connect"):
+            conns = await self._connect_all()
         if dialed is not None:
             dialed.extend(conns)
-        await asyncio.gather(*(self._agent_for(c) for c in conns))
+        addresses = self._worker_addresses()
+        keys = [self._pool_key(a) for a in addresses]
+        with Span("executor.preflight"):
+            await asyncio.gather(*(self._preflight(c, k) for c, k in zip(conns, keys)))
+        with Span("executor.connect"):
+            await asyncio.gather(*(self._agent_for(c, k) for c, k in zip(conns, keys)))
         return GangLease(conns, addresses)
 
-    async def _agent_for(self, conn: Transport) -> AgentClient | None:
+    async def _stage_harness(self, conn: Transport, key: str) -> str:
+        """The harness in the worker's CAS (shipped once per connection);
+        returns its remote path, which the pool server runs."""
+        staged_path = cas_path(self.remote_cache, harness_digest(), ".py")
+        await self._cas.ensure_probed(key, conn, [(harness_digest(), staged_path)])
+        await self._cas.ensure(key, conn, harness_digest(), _harness_module.__file__,
+                               staged_path, codec=self._codec_for(key, conn),
+                               python_path=self.python_path)
+        return staged_path
+
+    async def _agent_for(self, conn: Transport, key: str) -> AgentClient | None:
         """A live pool server for this worker, or None (``use_agent`` off,
         or the server could not start: the worker is then remembered as
         having none, and electrons launch with nohup + poll).
@@ -724,20 +1026,21 @@ class GPUExecutor(RemoteExecutor):
                                         error=repr(err))
                 await client.close()
                 self._agents.pop(conn.address, None)
-            client = await self._try_adopt_orphan(conn)
-            if client is None:
-                try:
+            try:
+                harness_path = await self._stage_harness(conn, key)
+                client = await self._try_adopt_orphan(conn, harness_path)
+                if client is None:
                     client = await start_pool_server(
                         conn, self.remote_cache, self.python_path, env=self.task_env,
                         preload=self.pool_preload, frames_enabled=self.agent_frames,
+                        harness_path=harness_path, conda_env=self.conda_env,
                     )
-                except (AgentError, TransportError) as err:
-                    app_log.info("worker %s: no pool runtime (%s); using nohup + poll",
-                                 conn.address, err)
-                    obs_events.emit("agent.unavailable", address=conn.address,
-                                    error=repr(err))
-                    self._agents[conn.address] = None
-                    return None
+            except (AgentError, TransportError, OSError) as err:
+                app_log.info("worker %s: no pool runtime (%s); using nohup + poll",
+                             conn.address, err)
+                obs_events.emit("agent.unavailable", address=conn.address, error=repr(err))
+                self._agents[conn.address] = None
+                return None
             self._agents[conn.address] = client
             await self._declare_epoch(client)
             obs_events.emit("agent.started", address=conn.address)
@@ -756,7 +1059,7 @@ class GPUExecutor(RemoteExecutor):
             app_log.debug("epoch declaration on %s failed (%s); channel unfenced",
                           client.address, err)
 
-    async def _try_adopt_orphan(self, conn: Transport) -> AgentClient | None:
+    async def _try_adopt_orphan(self, conn: Transport, harness_path: str) -> AgentClient | None:
         """Re-attach a pool server a dead dispatcher orphaned, or None.
 
         Only with a journal (a dispatcher without one has no epoch to
@@ -779,7 +1082,8 @@ class GPUExecutor(RemoteExecutor):
         try:
             client = await attach_pool_server(
                 conn, self.remote_cache, self.python_path, str(meta.get("sock") or ""),
-                journal.epoch, frames_enabled=self.agent_frames,
+                journal.epoch, frames_enabled=self.agent_frames, harness_path=harness_path,
+                conda_env=self.conda_env,
             )
         except (AgentError, TransportError, asyncio.TimeoutError) as err:
             app_log.info("worker %s: orphan adoption failed (%s); starting fresh",
@@ -808,30 +1112,38 @@ class GPUExecutor(RemoteExecutor):
         return await recovery_mod.recover(self, timeout_s=timeout_s)
 
     async def _discard_workers(self, conns: list[Transport] | None = None) -> None:
-        """Drop the pooled channels (``None``: all of them), their pool
-        servers and what the executor knew of them (the artifacts the
-        worker holds, the functions its runtime registered) after a
-        control-plane failure, so the next lease starts fresh ones."""
-        for address, conn in list(self._transports.items()):
+        """Drop the pooled channels (``None``: all of them) after a
+        control-plane failure, so the next lease redials (tpu.py:1161-1214).
+
+        ``conns`` scopes the discard to the channels the caller saw fail: a
+        fresh channel another electron redialed under the same key stays.
+        A pool server lives and dies with its channel (an SSH server kills
+        the command when the channel closes), so a discarded channel's
+        server is closed too, and what the executor knew under that key is
+        forgotten: the pre-flight, the codec, the artifacts the worker
+        holds and the functions its runtime registered.
+        """
+        for key, conn in list(self._transports.items()):
             if conns is not None and not any(conn is c for c in conns):
                 continue
-            self._transports.pop(address, None)
-            client = self._agents.pop(address, None)
+            client = self._agents.pop(conn.address, None)
             if client is not None:
-                await client.close()
-            self._cas.forget(self._pool_key(address))
-            self._fn_registry.forget(self._pool_key(address))
-            await conn.close()
+                await client.close()  # while its channel still carries the EOF
+            await self._pool.discard(key)
+            self._preflighted.discard(key)
+            self._wire_codecs.pop(key, None)
+            self._cas.forget(key)
+            self._fn_registry.forget(key)
 
     async def close(self) -> None:
         """Shut every pool server down and release the channels."""
         await self._discard_workers()
+        await self._pool.close_all()
 
     async def _resident_client(self, dialed: list[Transport]) -> AgentClient | None:
-        """The worker's live pool server (None without one), inside the
-        ``connect`` stage: the server's start on first use, a ping after."""
-        with Span("executor.connect"):
-            lease = await self.lease_gang(dialed=dialed)
+        """Worker 0's live pool server (None without one): its start on
+        first use, a ping after."""
+        lease = await self._lease(dialed)
         client = self._agents.get(lease.conns[0].address)
         return client if client is not None and client.alive else None
 
@@ -888,7 +1200,7 @@ class GPUExecutor(RemoteExecutor):
             except AgentError as err:
                 app_log.info("task %s: pool channel died (%s); polling its files",
                              staged.operation_id, err)
-                return (await self._poll_task(conn, staged, [pid]))[0]
+                return (await self._poll_task([conn], staged, [pid]))[0]
         finally:
             waiter.cancel()
             try:
@@ -897,7 +1209,7 @@ class GPUExecutor(RemoteExecutor):
                 pass
         status = await self.get_status(conn, staged, pid)
         if status in (TaskStatus.RUNNING, TaskStatus.STARTING):
-            return (await self._poll_task(conn, staged, [pid]))[0]
+            return (await self._poll_task([conn], staged, [pid]))[0]
         return status
 
     # ------------------------------------------------------------------ #
@@ -997,6 +1309,11 @@ class GPUExecutor(RemoteExecutor):
                 raise exception
             outcome = "completed"
             return result
+        except _DispatchFailed as failed:
+            result = await self._on_dispatch_fail(function, args, kwargs, str(failed),
+                                                  operation_id, failed.log_tail)
+            outcome = "fallback_local"
+            return result
         except asyncio.CancelledError:
             outcome = "cancelled"
             raise
@@ -1013,6 +1330,23 @@ class GPUExecutor(RemoteExecutor):
                 client.forget(operation_id)
             self._epilogue(root, outcome, operation_id)
 
+    async def _on_dispatch_fail(self, fn: Callable, args: tuple, kwargs: dict, message: str,
+                                operation_id: str, log_tail: str = "") -> Any:
+        """The degraded-mode policy (reference: ``_on_ssh_fail``,
+        ssh.py:181-208; tpu.py:1407-1440): emit ``task.dispatch_failed``,
+        then raise ``RuntimeError(message)``, or, with
+        ``run_local_on_dispatch_fail``, run the electron here on a worker
+        thread (the event loop keeps serving every other dispatch)."""
+        obs_events.emit("task.dispatch_failed", operation_id=operation_id, message=message,
+                        fallback_local=self.run_local_on_dispatch_fail,
+                        **({"log_tail": log_tail} if log_tail else {}))
+        if self.run_local_on_dispatch_fail:
+            app_log.warning("GPU dispatch failed (%s); running the electron locally on the "
+                            "dispatcher", message)
+            return await asyncio.to_thread(fn, *args, **kwargs)
+        app_log.error(message)
+        raise RuntimeError(message)
+
     @staticmethod
     def _record_execute(root: Span, times: dict | None) -> None:
         """The electron's own runtime, as the harness measured it, becomes
@@ -1028,27 +1362,53 @@ class GPUExecutor(RemoteExecutor):
         stages["execute"] = execute
         stages["poll"] = max(0.0, stages.get("poll", 0.0) - execute)
 
-    async def _run_staged(self, root: Span, staged: StagedTask):
-        """Upload, launch, wait for, fetch and clean up one staged task (every
-        process of a gang): ``(result, exception)``."""
-        operation_id = staged.operation_id
-        conn = LocalTransport()
-        client = None
+    async def _lease(self, conns: list[Transport]) -> GangLease:
+        """``lease_gang`` with its failure as a dispatch failure: the
+        channels that were dialed are discarded (a redial must not reuse
+        what pre-flight proved broken)."""
         try:
+            return await self.lease_gang(dialed=conns)
+        except (TransportError, OSError, ValueError) as err:
+            if conns:
+                await self._discard_workers(conns)
+            raise _DispatchFailed(f"could not reach GPU workers: {err}") from err
+
+    async def _run_staged(self, root: Span, staged: StagedTask):
+        """Connect, upload, launch, wait for, fetch and clean up one staged
+        task (every process of a gang, process ``i`` behind worker ``i``'s
+        channel): ``(result, exception)``."""
+        operation_id = staged.operation_id
+        conns: list[Transport] = []
+        staged_on: list[Transport] = []  # the channels whose workers got files
+        clients: list[AgentClient | None] = []
+        try:
+            lease = await self._lease(conns)
+            keys = [self._pool_key(a) for a in lease.addresses]
+            self._op_conns[operation_id] = conns
+            staged_on.extend(conns)
             with Span("executor.upload"):
-                await self._upload_task(conn, staged)
-            client = await self._resident_client([]) if self.use_agent else None
+                try:
+                    await asyncio.gather(*(self._upload_task(conn, staged, i, key)
+                                           for i, (conn, key) in enumerate(zip(conns, keys))))
+                except TransportError:
+                    await self._discard_workers(conns)
+                    raise
+            for conn in conns:
+                client = self._agents.get(conn.address) if self.use_agent else None
+                clients.append(client if client is not None and client.alive else None)
             if operation_id in self._cancelled_ops:
                 raise asyncio.CancelledError(f"task {operation_id} cancelled")
             with Span("executor.submit"):
                 pids: list = []
                 self._pids[operation_id] = pids
-                for process in range(staged.processes):
+                for process, conn in enumerate(conns):
                     pid = None
-                    if client is not None:
+                    if clients[process] is not None:
                         try:
-                            pid = await self._submit_via_agent(client, conn, staged, process)
-                            self._op_agents[operation_id] = client
+                            pid = await self._submit_via_agent(clients[process], conn, staged,
+                                                               process)
+                            if process == 0:
+                                self._op_agents[operation_id] = clients[0]
                         except AgentError as err:
                             if classify_error(err)[0] is FaultClass.PERMANENT:
                                 raise
@@ -1057,35 +1417,41 @@ class GPUExecutor(RemoteExecutor):
                                             "nohup", operation_id, err)
                             obs_events.emit("task.agent_fallback", operation_id=operation_id,
                                             reason=str(err))
-                            client = None
+                            clients[process] = None
                     if pid is None:
-                        pid = await self.submit_task(conn, staged, process)
+                        try:
+                            pid = await self.submit_task(conn, staged, process)
+                        except TransportError as err:
+                            if operation_id in self._cancelled_ops:
+                                raise asyncio.CancelledError(
+                                    f"task {operation_id} cancelled during launch") from err
+                            await self._kill(conns, staged)
+                            raise _DispatchFailed(f"task launch failed: {err}") from err
                     pids.append(pid)
             try:
                 with Span("executor.poll"):
-                    if client is not None and staged.processes == 1:
+                    if clients[0] is not None and staged.processes == 1:
                         status, blamed = await self._await_agent_exit(
-                            client, conn, staged, pids[0]), 0
+                            clients[0], conns[0], staged, pids[0]), 0
                     else:
-                        status, blamed = await self._poll_task(conn, staged, pids)
+                        status, blamed = await self._poll_task(conns, staged, pids)
             except asyncio.CancelledError:
-                await self._kill(conn, staged)
+                await self._kill(conns, staged)
                 raise
             if status is not TaskStatus.READY:
                 if operation_id in self._cancelled_ops:
                     raise asyncio.CancelledError(f"task {operation_id} cancelled")
                 if status is TaskStatus.TIMEOUT or staged.processes > 1:
                     # a gang's other processes may wait in the rendezvous
-                    await self._kill(conn, staged)
-                log_tail = await self._remote_log_tail(conn, staged, blamed)
+                    await self._kill(conns, staged)
+                log_tail = await self._remote_log_tail(conns[blamed], staged, blamed)
                 who = (f" process {blamed} (worker {self.workers[blamed]!r})"
                        if staged.processes > 1 else "")
-                raise RuntimeError(
-                    f"remote task {operation_id} failed on {conn.address}{who} "
-                    f"({status.value}); log tail:\n{log_tail}"
-                )
+                raise _DispatchFailed(
+                    f"remote task {operation_id} failed on {conns[blamed].address}{who} "
+                    f"({status.value}); log tail:\n{log_tail}", log_tail)
             with Span("executor.fetch"):
-                result, exception, times = await self.query_result(conn, staged)
+                result, exception, times = await self.query_result(conns[0], staged, keys[0])
             self._record_execute(root, times)
             if times and "rendezvous" in times:
                 # the gang's process group opening: dispatch overhead the
@@ -1096,13 +1462,22 @@ class GPUExecutor(RemoteExecutor):
             return result, exception
         finally:
             self._pids.pop(operation_id, None)
-            if client is not None:
-                for process in range(1, staged.processes):
+            self._op_conns.pop(operation_id, None)
+            for process, client in enumerate(clients):
+                if client is not None:
                     client.forget(self._task_id(staged, process))
             if self.do_cleanup:
                 with Span("executor.cleanup"):
-                    await self.cleanup(conn, staged)
-            await conn.close()
+                    await self._cleanup_quietly(staged_on, staged)
+
+    async def _cleanup_quietly(self, conns: list[Transport], staged: StagedTask) -> None:
+        """``cleanup`` that never masks the task's own outcome: a channel
+        that died meanwhile leaves the worker's files (logged)."""
+        try:
+            await self.cleanup(conns, staged)
+        except (TransportError, OSError) as err:
+            app_log.warning("task %s: cleanup failed (%s); staged files may remain on the "
+                            "worker", staged.operation_id, err)
 
     # ------------------------------------------------------------------ #
     # RPC dispatch: execute by digest in the warm pool server             #
@@ -1232,6 +1607,7 @@ class GPUExecutor(RemoteExecutor):
                                       f"{self._worker_addresses()[0]}")
             conn, address = conns[0], self._worker_addresses()[0]
             key = self._pool_key(address)
+            codec = self._codec_for(key, conn)
             remote_fn = cas_path(self.remote_cache, fn_digest, ".pkl")
             spec: dict[str, Any] = {"operation_id": operation_id}
             if self.task_env:
@@ -1241,13 +1617,15 @@ class GPUExecutor(RemoteExecutor):
             try:
                 with Span("executor.upload"):
                     await self._cas.ensure_probed(key, conn, [(fn_digest, remote_fn)])
-                    await self._cas.ensure(key, conn, fn_digest, local_fn, remote_fn)
+                    await self._cas.ensure(key, conn, fn_digest, local_fn, remote_fn,
+                                           codec=codec, python_path=self.python_path)
                     await self._fn_registry.ensure(key, client, fn_digest, remote_fn)
                     if inline:
                         invoke_kwargs["args_bytes"] = args_payload
                     else:
                         remote_args = cas_path(self.remote_cache, args_digest, ".pkl")
-                        await self._cas.ensure(key, conn, args_digest, local_args, remote_args)
+                        await self._cas.ensure(key, conn, args_digest, local_args, remote_args,
+                                               codec=codec, python_path=self.python_path)
                         invoke_kwargs.update(args_path=remote_args, args_digest=args_digest)
                         obs_events.emit("task.rpc_args_staged", operation_id=operation_id,
                                         bytes=len(args_payload))

@@ -2146,7 +2146,11 @@ ORPHAN_RENDEZVOUS = "pool_orphan.json"
 
 
 def _orphan_dir() -> str:
-    return os.path.dirname(os.path.abspath(__file__))
+    """The remote cache: this file runs from its CAS copy
+    (``{remote_cache}/cas/<digest>.py``) or from
+    ``{remote_cache}/covalent_gpu_harness.py``."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    return os.path.dirname(here) if os.path.basename(here) == "cas" else here
 
 
 def _orphan_ttl_s() -> float:

@@ -508,6 +508,10 @@ class SessionSupervisor:
 
     async def _dial_generation_on(self, dialed: list) -> dict:
         executor = self.executor
+        if not executor.use_agent:
+            # refused before any dial: nothing is started or staged
+            raise AgentError("no resident pool server (serving needs the pool runtime: "
+                             "use_agent=True, 'auto' or use_agent='pool')")
         lease = await executor.lease_gang(dialed=dialed)
         if len(lease.conns) != 1:
             raise ServeError(f"serving sessions target single-worker gangs, got "

@@ -28,6 +28,15 @@ class TransportProcess:
         self._describe = describe
         self._closed = False
 
+    @property
+    def returncode(self) -> int | None:
+        """The process's exit code once it is known, else None: asyncio's
+        ``returncode``, or an SSH process object's ``exit_status``."""
+        if self._proc is None:
+            return None
+        code = getattr(self._proc, "returncode", None)
+        return code if code is not None else getattr(self._proc, "exit_status", None)
+
     async def write_line(self, line: str) -> None:
         await self.write_bytes((line + "\n").encode())
 
@@ -41,6 +50,17 @@ class TransportProcess:
             await self._writer.drain()
         except (ConnectionError, BrokenPipeError, OSError) as err:
             raise TransportError(f"{self._describe}: write failed: {err}") from err
+
+    async def read_line(self, timeout: float | None = None) -> str:
+        """Next stdout line, stripped.  EOF raises: a dead channel is an
+        error, never an empty event."""
+        try:
+            raw = await asyncio.wait_for(self._reader.readline(), timeout)
+        except asyncio.TimeoutError:
+            raise TransportError(f"{self._describe}: no event within {timeout}s") from None
+        if not raw:
+            raise TransportError(f"{self._describe}: channel EOF")
+        return raw.decode(errors="replace").rstrip("\r\n")
 
     async def _read_exactly(self, n: int, what: str) -> bytes:
         """``readexactly`` with the channel's death as :class:`TransportError`.

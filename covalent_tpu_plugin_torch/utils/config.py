@@ -13,6 +13,12 @@ default (the reference's pattern, ``covalent_ssh_plugin/ssh.py:94-124``).
   the file the JAX package's ``[executors.tpu]`` section lives in too).
 
 Keys are dotted paths, e.g. ``get_config("executors.gpu.remote_workdir")``.
+``gpu.py`` merges its defaults into ``[executors.gpu]``, the SSH keys of
+the reference's ``[executors.tpu]`` among them (``transport``,
+``hostname``, ``username``, ``ssh_key_file``, ``known_host_key_file``,
+``strict_host_keys``, ``conda_env``, ``max_connection_attempts``,
+``retry_wait_time``, ``run_local_on_dispatch_fail``, ``compress``,
+``bundle``).
 """
 
 from __future__ import annotations

@@ -6,7 +6,9 @@ group ``covalent.executor.executor_plugins`` (``setup.py:36,74-76`` in the
 reference); the standalone engine keeps a plain registry with the same
 semantics: a string alias maps to an executor class, instantiated from its
 config defaults, and instances pass through unchanged.  The built-ins are
-``"local"`` and ``"gpu"`` (:class:`..gpu.GPUExecutor`).
+``"local"`` and ``"gpu"`` (:class:`..gpu.GPUExecutor`).  ``"gpu"`` builds
+its executor from ``[executors.gpu]``: with ``transport = "ssh"`` or
+``"minissh"`` and ``hostname`` (or ``workers``) there, an SSH executor.
 """
 
 from __future__ import annotations

@@ -5,6 +5,7 @@ own harness file in a subprocess, polls, fetches and cleans up, exactly as
 it does on a GPU host; here the electrons run on CPU tensors.
 """
 
+import hashlib
 import json
 import os
 import pickle
@@ -20,6 +21,7 @@ import pytest
 import torch
 
 from covalent_tpu_plugin_torch import GPUExecutor, harness
+from covalent_tpu_plugin_torch.cache import harness_digest
 from covalent_tpu_plugin_torch.gpu import StagedTask
 from covalent_tpu_plugin_torch.transport import LocalTransport
 
@@ -55,9 +57,12 @@ def _raising_electron():
 
 
 def _leftovers(tmp_path):
+    """Staged files left on either side; the harness stays in the worker's
+    CAS (it ships once per connection, under its digest)."""
+    kept = ("cas", f"{harness_digest()}.py")
     return sorted(
-        p.name for d in ("cache", "remote") if (tmp_path / d).exists()
-        for p in (tmp_path / d).iterdir()
+        p.name for d in ("cache", "remote", "remote/cas") if (tmp_path / d).exists()
+        for p in (tmp_path / d).iterdir() if p.name not in kept
     )
 
 
@@ -80,15 +85,25 @@ def test_executor_reraises_the_remote_exception_and_cleans_up(tmp_path, run_asyn
 
 def test_executor_ships_the_ports_own_harness(tmp_path):
     staged = StagedTask("op", tmp_path, "remote")
-    shipped = {Path(local).name: remote for local, remote in staged.uploads()}
+    local, remote, digest = staged.harness_artifact()
+    assert local == harness.__file__
     assert Path(harness.__file__).resolve().parent == REPO / "covalent_tpu_plugin_torch"
-    assert shipped["harness.py"] == "remote/harness_op.py"
+    # content-addressed: shipped once per connection, under its digest
+    assert (remote, digest) == (f"remote/cas/{harness_digest()}.py", harness_digest())
+    assert harness_digest() == hashlib.sha256(Path(harness.__file__).read_bytes()).hexdigest()
     assert "import covalent_tpu_plugin" not in Path(harness.__file__).read_text()
 
 
 def test_executor_refuses_transports_of_later_slices():
-    with pytest.raises(NotImplementedError, match="SSH transport"):
-        GPUExecutor(transport="ssh")
+    """The SSH transports are ported; an unknown name is refused as the
+    reference refuses it, and chaos plans wait for Queue 1 item 6."""
+    for kind in ("local", "ssh", "minissh"):
+        assert GPUExecutor(transport=kind, hostname="user@host:2222").transport_kind == kind
+    with pytest.raises(ValueError, match='transport must be "local", "ssh" or "minissh"'):
+        GPUExecutor(transport="telnet")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        GPUExecutor(transport="ssh", hostname="host", chaos={"drop_connect": 1})
+    assert GPUExecutor().run_local_on_dispatch_fail is False
 
 
 def test_harness_refuses_spec_keys_of_later_slices(tmp_path):
@@ -155,7 +170,8 @@ print(len(names), sorted(foreign() - before), " ".join(names))
         "workflow", "workflow.dag", "workflow.deps", "workflow.executors",
         "workflow.runner", "parallel", "parallel.mesh", "parallel.sharding",
         "parallel.distributed", "parallel.collectives", "parallel.launch",
-        "parallel.probe")} <= set(walked.split())
+        "parallel.probe", "transport.ssh", "transport.minissh", "transport.codec",
+        "transport.pool")} <= set(walked.split())
     assert int(count) >= 45
     assert added == "[]"
 

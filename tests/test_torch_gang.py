@@ -25,6 +25,7 @@ import pytest
 import torch
 
 from covalent_tpu_plugin_torch import GPUExecutor, harness
+from covalent_tpu_plugin_torch.cache import harness_digest
 from covalent_tpu_plugin_torch.gpu import StagedTask
 from covalent_tpu_plugin_torch.models import train
 from covalent_tpu_plugin_torch.parallel import MeshPlan
@@ -50,9 +51,12 @@ def _executor(tmp_path, **kwargs):
 
 
 def _leftovers(tmp_path):
-    return sorted(p.name for d in ("cache", "remote") if (tmp_path / d).exists()
+    """Staged files left on either side; the pool server's files and the
+    harness in the worker's CAS stay."""
+    kept = ("cas", f"{harness_digest()}.py")
+    return sorted(p.name for d in ("cache", "remote", "remote/cas") if (tmp_path / d).exists()
                   for p in (tmp_path / d).iterdir()
-                  if not p.name.startswith(("pool_", "covalent_gpu_harness")))
+                  if not p.name.startswith("pool_") and p.name not in kept)
 
 
 def _where_am_i(x):

@@ -16,14 +16,22 @@ Phases, one JSON object per line on stdout, in this order:
 4. ``parity``: each kernel against its plain PyTorch version on the card, at the
    training shape and at small GQA, window+sinks, explicit-position,
    non-causal, ragged, head dim 128, bf16, f16 and f32 cases, each with the
-   tolerance it was held to.
+   tolerance it was held to.  Then the f32-output variants (ring
+   attention's per-hop partials): bf16 inputs at one hop of the ``gang``
+   phase's 2-ring, (8, 12, 512, 64) causal at the zigzag positions of rank
+   0's queries and rank 1's keys and the other way round, and at head dim
+   128, each sweep against its plain f32 version at the bf16 tolerance and,
+   rounded to bf16, bit-equal to the bf16-output kernel.
 5. ``timing``: at the training shape, and again at head dim 128, each
    kernel's device time (profiler; warm, and with the L2 cache flushed
    before every call) beside its plain version's, one PyTorch library
    call's (a yardstick only; the port never calls it) and the least time
    the card could take (``bound_ms``); and the dQ plus dK/dV kernels
    together (``backward_pair``) beside the library's backward for dq, dk
-   and dv.
+   and dv.  Then the f32-output variants at the ring's hop (rank 0's
+   queries, rank 1's keys): each beside the bf16-output kernel on the same
+   inputs, its plain version, its bound and ``scaled_dot_product_attention``
+   with the hop's boolean mask (bf16 out, no lse: a yardstick only).
 6. ``model_check``: a small LM on the card, flash kernels against the dense
    reference, logits and gradients.
 7. ``train``: the main path.  ``GPUExecutor(transport="local")`` dispatches the
@@ -160,16 +168,23 @@ Phases, one JSON object per line on stdout, in this order:
     device), each ok or its error.  Then the flash kernels against their
     plain versions at each rank's shape: (4, 12, 1024, 64) under FSDP (the
     batch cut), (8, 6, 1024, 64) under tensor parallelism (the heads cut).
-    Then three electrons through ``GPUExecutor(workers=["w0", "w1"])``:
+    Then five electrons through ``GPUExecutor(workers=["w0", "w1"])``:
     ``lm_fsdp2`` (the 125M LM at full width, ``MeshPlan(fsdp=2)``, global
     batch 8, seq 1024, 5 steps, standard loss), ``lm_tensor2`` (the same,
-    ``MeshPlan(tensor=2)``) and ``cnn_data2`` (the MNIST CNN,
+    ``MeshPlan(tensor=2)``), ``cnn_data2`` (the MNIST CNN,
     ``MeshPlan(data=2)``, ``train_mnist``'s 64 batches of 256, one timed
-    epoch).  Per electron: the mesh, backend and each rank's device, the
-    losses and their largest gap to the ``train`` phase's standard arm
-    (same seed and global batch; bound 1e-2), each rank's steady step,
-    tokens/s, peak memory, flash launches (12 a step on every rank) and the
-    query shapes its kernels took, the electron's wall and the rendezvous.
+    epoch), ``lm_ring2`` (the LM under ``MeshPlan(seq=2)`` with
+    ``attention="ring"``: each rank holds the zigzag stripes of its half of
+    every sequence, and every layer's attention is the ring-flash pair of
+    passes on the f32-output kernels, 2 hops of (8, 12, 512, 64) a layer)
+    and ``lm_ulysses2`` (``MeshPlan(seq=2)``, ``attention="ulysses"``: two
+    all-to-alls around the bf16 kernels on (8, 6, 1024, 64)).  Per
+    electron: the mesh, backend and each rank's device, the losses and
+    their largest gap to the ``train`` phase's standard arm (same seed and
+    global batch; bound 1e-2), each rank's steady step, tokens/s, peak
+    memory, flash launches (12 a step on every rank, 24 on the ring) and the
+    query shapes and output types its kernels took, the electron's wall and
+    the rendezvous.
     The two ranks share one card, so the times measure the gang's
     overhead, not scaling.
 20. ``ssh``: the paper's road over a real, encrypted SSH channel on
@@ -195,7 +210,10 @@ Phases, one JSON object per line on stdout, in this order:
     the phase prints one line naming what is missing and runs no arm.
 21. ``kernels``: every kernel with its launches on its path (the flash
     kernels: training, with the gang's launches beside as
-    ``gang_launches`` and the ``ssh`` phase's as ``ssh_launches``; the
+    ``gang_launches``, the ``lm_ring2`` arm's f32-output launches as
+    ``ring_launches`` with the variant's times under ``f32_variant``, the
+    ``lm_ulysses2`` arm's as ``ulysses_launches``, and the ``ssh`` phase's
+    as ``ssh_launches``; the
     batch-invariant ones: the ``serve`` phase, and
     the f32 CUDA-core product ``serve_check``'s f32 LM, with its 0 launches
     on the ``serve`` phase beside),
@@ -404,6 +422,20 @@ PARITY_CASES = [
 ]
 
 
+#: One hop of the gang phase's 2-ring (lm_ring2): bf16, (B, H, S/2, D).
+HOP_SHAPE = (8, 12, 12, 512, 512, 64)
+#: The f32-output variants: queries at one rank's zigzag stripes, keys at the
+#: other's (positions ("zigzag", q rank, k rank) of a 2-ring).
+VARIANT_CASES = [
+    dict(name="hop_q0_k1", shape=HOP_SHAPE, dtype="bfloat16", causal=True,
+         positions=("zigzag", 0, 1)),
+    dict(name="hop_q1_k0", shape=HOP_SHAPE, dtype="bfloat16", causal=True,
+         positions=("zigzag", 1, 0)),
+    dict(name="hop_d128", shape=(8, 12, 12, 512, 512, 128), dtype="bfloat16", causal=True,
+         positions=("zigzag", 1, 0)),
+]
+
+
 def _case_inputs(case: dict, seed: int):
     import torch
 
@@ -416,7 +448,14 @@ def _case_inputs(case: dict, seed: int):
 
     q, k, v, dout = randn(b, h, sq, d), randn(b, hkv, sk, d), randn(b, hkv, sk, d), randn(b, h, sq, d)
     qpos = kpos = None
-    if case.get("positions") == "split":
+    if isinstance(case.get("positions"), tuple):
+        from covalent_tpu_plugin_torch.ops.ring_attention import sequence_positions
+
+        _, q_rank, k_rank = case["positions"]
+        qpos, kpos = (torch.as_tensor(sequence_positions(2 * length, 2, rank, True),
+                                      device="cuda")
+                      for length, rank in ((sq, q_rank), (sk, k_rank)))
+    elif case.get("positions") == "split":
         # rows 0..63 at positions 0..63, the rest from 1000 on; keys 0..S_k-1
         qpos = torch.arange(sq, device="cuda", dtype=torch.int32)
         qpos[64:] += 1000 - 64
@@ -460,6 +499,47 @@ def parity_case(case: dict, seed: int) -> dict:
     _compare("flash_bwd_dkdv.dk", dk, dk_p, dtype, report)
     _compare("flash_bwd_dkdv.dv", dv, dv_p, dtype, report)
     _compare("flash_bwd_dq.dq", dq, dq_p, dtype, report)
+    return report
+
+
+def variant_parity_case(case: dict, seed: int) -> dict:
+    """The three sweeps with f32 outputs against their plain f32 versions
+    (the bf16 tolerance: the same casts, another order of summation), and
+    each rounded to bf16 against the same sweep's bf16 output, bit for bit:
+    the variant stores the same accumulator without the last rounding."""
+    import torch
+
+    from covalent_tpu_plugin_torch.ops import _kernels
+    from covalent_tpu_plugin_torch.ops import attention as attn
+
+    q, k, v, dout, qpos, kpos, band = _case_inputs(case, seed)
+    f32, low = torch.float32, getattr(torch, case["dtype"])
+    out, lse = _kernels.flash_fwd(q, k, v, qpos, kpos, *band, out_dtype=f32)
+    out_p, _ = attn.flash_fwd_plain(q, k, v, qpos, kpos, *band, f32)
+    out16, lse16 = _kernels.flash_fwd(q, k, v, qpos, kpos, *band)
+    delta = attn.flash_delta(out, dout)
+    args = (q, k, v, dout, lse, delta, qpos, kpos, *band)
+    dk, dv = _kernels.flash_bwd_dkdv(*args, grad_dtype=f32)
+    dk_p, dv_p = attn.flash_bwd_dkdv_plain(*args, f32)
+    dk16, dv16 = _kernels.flash_bwd_dkdv(*args)
+    dq = _kernels.flash_bwd_dq(*args, grad_dtype=f32)
+    dq_p = attn.flash_bwd_dq_plain(*args, f32)
+    dq16 = _kernels.flash_bwd_dq(*args)
+    report: dict = {}
+    for name, got, want, rounded in (("flash_fwd.out", out, out_p, out16),
+                                     ("flash_bwd_dkdv.dk", dk, dk_p, dk16),
+                                     ("flash_bwd_dkdv.dv", dv, dv_p, dv16),
+                                     ("flash_bwd_dq.dq", dq, dq_p, dq16)):
+        if got.dtype != f32:
+            raise AssertionError(f"{name}: the variant wrote {got.dtype}")
+        _compare(name, got, want, case["dtype"], report)
+        equal = bool(torch.equal(got.to(low), rounded))
+        report[name]["rounds_to_bf16_kernel"] = equal
+        if not equal:
+            raise AssertionError(f"{name}: the f32 variant rounded to {low} differs from the "
+                                 f"{low}-output kernel")
+    if not torch.equal(lse, lse16):
+        raise AssertionError("flash_fwd: the f32 variant's lse differs from the bf16 kernel's")
     return report
 
 
@@ -562,6 +642,68 @@ def timing_phase(case: dict) -> dict:
         library_ms=device_ms(
             lambda: torch.autograd.grad(lib_out, (ql, kl, vl), dout, retain_graph=True), 20),
     )
+    return results
+
+
+def variant_timing() -> dict:
+    """Device time of the three f32-output variants at the ring's hop
+    (rank 0's queries, rank 1's keys), each beside the bf16-output kernel on
+    the same inputs, its plain version, its bound (its f32 outputs counted at
+    4 bytes) and ``scaled_dot_product_attention`` with the hop's boolean
+    mask (bf16 out and no lse; its backward a whole backward)."""
+    import torch
+    import torch.nn.functional as F
+
+    from covalent_tpu_plugin_torch.ops import _kernels
+    from covalent_tpu_plugin_torch.ops import attention as attn
+
+    case = VARIANT_CASES[0]
+    q, k, v, dout, qpos, kpos, band = _case_inputs(case, seed=2)
+    f32 = torch.float32
+    out, lse = _kernels.flash_fwd(q, k, v, qpos, kpos, *band, out_dtype=f32)
+    delta = attn.flash_delta(out, dout)
+    pairs = visible_pairs(q, k, qpos, kpos, band)
+    d = q.shape[-1]
+    size = lambda *ts: sum(t.numel() * t.element_size() for t in ts)  # noqa: E731
+    mask = attn._band_visible(qpos[:, None], kpos[None, :], None)
+    fwd = (q, k, v, qpos, kpos, *band)
+    bwd = (q, k, v, dout, lse, delta, qpos, kpos, *band)
+    dq32 = torch.empty(q.shape, dtype=f32, device=q.device)
+    dk32 = torch.empty(k.shape, dtype=f32, device=q.device)
+    ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask)
+    calls = {
+        "flash_fwd": (
+            lambda: _kernels.flash_fwd(*fwd, out_dtype=f32), lambda: _kernels.flash_fwd(*fwd),
+            lambda: attn.flash_fwd_plain(*fwd, f32),
+            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask),
+            4 * d * pairs, size(q, k, v, out, lse)),
+        "flash_bwd_dkdv": (
+            lambda: _kernels.flash_bwd_dkdv(*bwd, grad_dtype=f32),
+            lambda: _kernels.flash_bwd_dkdv(*bwd),
+            lambda: attn.flash_bwd_dkdv_plain(*bwd, f32),
+            lambda: torch.autograd.grad(lib_out, (kl, vl), dout, retain_graph=True),
+            8 * d * pairs, size(q, k, v, dout, lse, delta, dk32, dk32)),
+        "flash_bwd_dq": (
+            lambda: _kernels.flash_bwd_dq(*bwd, grad_dtype=f32), lambda: _kernels.flash_bwd_dq(*bwd),
+            lambda: attn.flash_bwd_dq_plain(*bwd, f32),
+            lambda: torch.autograd.grad(lib_out, (ql,), dout, retain_graph=True),
+            6 * d * pairs, size(q, k, v, dout, lse, delta, dq32)),
+    }
+    results = {}
+    for name, (variant, low, plain, library, flops, nbytes) in calls.items():
+        results[name] = dict(
+            kernel_ms=device_ms(variant, 20, match=name),
+            bf16_out_ms=device_ms(low, 20, match=name),
+            plain_ms=time_ms(plain, 3),
+            library_ms=device_ms(library, 20),
+            flops=flops, bytes=nbytes, visible_pairs=pairs,
+        )
+        results[name]["bound_ms"], results[name]["bound_by"] = bound(flops, nbytes,
+                                                                     case["dtype"])
+    results["library_note"] = ("scaled_dot_product_attention with the hop's boolean mask: "
+                               "bf16 output and no lse; its backward rows each time a whole "
+                               "backward (dq, dk and dv)")
     return results
 
 
@@ -2438,23 +2580,36 @@ def lattice_phase() -> tuple[list[dict], dict]:
     return lines, launches
 
 
-#: The gang phase's electrons: (function, mesh plan, arguments).
+#: The gang phase's electrons: (function, mesh plan, config overrides).
 GANG_STEPS = 5
 GANG_ARMS = {
-    "lm_fsdp2": ("lm", dict(fsdp=2)),
-    "lm_tensor2": ("lm", dict(tensor=2)),
-    "cnn_data2": ("cnn", dict(data=2)),
+    "lm_fsdp2": ("lm", dict(fsdp=2), {}),
+    "lm_tensor2": ("lm", dict(tensor=2), {}),
+    "cnn_data2": ("cnn", dict(data=2), {}),
+    "lm_ring2": ("lm", dict(seq=2), dict(attention="ring")),
+    "lm_ulysses2": ("lm", dict(seq=2), dict(attention="ulysses")),
 }
-#: Each rank's flash shape: (batch, heads, kv heads, seq q, seq k, head dim).
+#: Each rank's flash shape under fsdp2 and tensor2 (the parity check at it):
+#: (batch, heads, kv heads, seq q, seq k, head dim).
 GANG_SHAPES = {"lm_fsdp2": (4, 12, 12, 1024, 1024, 64), "lm_tensor2": (8, 6, 6, 1024, 1024, 64)}
+#: Each LM arm's launches of every flash kernel a step on each rank, by query
+#: shape and type: the ring runs 2 hops a layer with f32 outputs; Ulysses
+#: the bf16 kernels on half the heads over the whole sequence.
+GANG_LAUNCHES = {
+    "lm_fsdp2": {"4x12x1024x64 bfloat16": 12},
+    "lm_tensor2": {"8x6x1024x64 bfloat16": 12},
+    "lm_ring2": {"8x12x512x64 bfloat16->float32": 24},
+    "lm_ulysses2": {"8x6x1024x64 bfloat16": 12},
+}
 GANG_NOTE = ("the two ranks share one card: these times measure the gang's overhead "
              "(gloo through host memory, two processes on one device), not scaling")
 
 
-def gang_phase(train_losses: list) -> tuple[list[dict], dict]:
+def gang_phase(train_losses: list) -> tuple[list[dict], dict, dict]:
     """BASELINE configs 5 and 4 as two-process gangs on the card: the
-    collective probe, parity at each rank's shape, then three gang
-    electrons.  Returns the phase's lines and the gang's flash launches."""
+    collective probe, parity at each rank's shape, then five gang
+    electrons.  Returns the phase's lines, the gang's flash launches and
+    each LM arm's (summed over its ranks)."""
     import math
 
     from covalent_tpu_plugin_torch import GPUExecutor
@@ -2490,14 +2645,15 @@ def gang_phase(train_losses: list) -> tuple[list[dict], dict]:
         task_timeout=600, workers=["w0", "w1"], coordinator_port=0,
         task_env={"PYTHONPATH": str(ROOT)})
     launches: dict = {}
+    arm_launches: dict = {}
 
     async def run_arms():
         outs = {}
         try:
-            for node, (arm, (kind, plan)) in enumerate(GANG_ARMS.items()):
+            for node, (arm, (kind, plan, overrides)) in enumerate(GANG_ARMS.items()):
                 if kind == "lm":
                     fn, kwargs = train_lm, dict(steps=GANG_STEPS, batch_size=BATCH,
-                                                seq_len=SEQ, seed=0)
+                                                seq_len=SEQ, seed=0, **overrides)
                 else:
                     fn, kwargs = train_mnist, dict(model="cnn", batch_size=256,
                                                    n_batches=64, epochs=1, seed=0)
@@ -2514,12 +2670,12 @@ def gang_phase(train_losses: list) -> tuple[list[dict], dict]:
 
     outs = asyncio.run(run_arms())
     for arm, out in outs.items():
-        kind, plan = GANG_ARMS[arm]
+        kind, plan, overrides = GANG_ARMS[arm]
         if out["world_size"] != 2 or len(out["ranks"]) != 2:
             raise AssertionError(f"gang {arm}: world {out['world_size']}, ranks {out['ranks']}")
         if any(not str(r["device"]).startswith("NVIDIA") for r in out["ranks"]):
             raise AssertionError(f"gang {arm}: a rank ran off the card: {out['ranks']}")
-        line = {"arm": arm, "mesh": out["mesh"], "backend": out["backend"],
+        line = {"arm": arm, "mesh": out["mesh"], "backend": out["backend"], **overrides,
                 "dispatch_mode": out["dispatch_mode"],
                 "devices": [r["device"] for r in out["ranks"]],
                 "electron_wall_s": out["wall_s"], "rendezvous_s": out["timings"].get("rendezvous"),
@@ -2533,17 +2689,18 @@ def gang_phase(train_losses: list) -> tuple[list[dict], dict]:
             if gap > TRAIN_LOSS_TOL:
                 raise AssertionError(f"gang {arm}: losses {losses} are {gap} from the train "
                                      f"phase's {train_losses}")
-            want_shape = "x".join(map(str, (GANG_SHAPES[arm][0], GANG_SHAPES[arm][1],
-                                             GANG_SHAPES[arm][3], GANG_SHAPES[arm][5])))
+            want = {shape: n * GANG_STEPS for shape, n in GANG_LAUNCHES[arm].items()}
             for r in out["ranks"]:
                 for name, n in r["launches"].items():
-                    if n != 12 * GANG_STEPS:
+                    if n != sum(want.values()):
                         raise AssertionError(f"gang {arm}: rank {r['rank']} launched {name} "
-                                             f"{n} times, expected {12 * GANG_STEPS}")
-                    if r["launch_shapes"][name] != {f"{want_shape} bfloat16": n}:
+                                             f"{n} times, expected {sum(want.values())}")
+                    if r["launch_shapes"][name] != want:
                         raise AssertionError(f"gang {arm}: rank {r['rank']} {name} took "
-                                             f"{r['launch_shapes'][name]}")
+                                             f"{r['launch_shapes'][name]}, expected {want}")
                     launches[name] = launches.get(name, 0) + n
+                    arm_launches.setdefault(arm, {})
+                    arm_launches[arm][name] = arm_launches[arm].get(name, 0) + n
             steady = [statistics.median(r["step_s"][1:]) for r in out["ranks"]]
             line.update({
                 "losses": losses, "train_losses": train_losses,
@@ -2553,6 +2710,7 @@ def gang_phase(train_losses: list) -> tuple[list[dict], dict]:
                 "tokens_per_s": out["tokens_per_step"] / max(steady),
                 "flash_launches": [r["launches"] for r in out["ranks"]],
                 "flash_shapes": [r["launch_shapes"] for r in out["ranks"]],
+                "flash_launches_per_step": GANG_LAUNCHES[arm],
             })
         else:
             if not out["loss_last"] < out["loss_first"]:
@@ -2565,7 +2723,7 @@ def gang_phase(train_losses: list) -> tuple[list[dict], dict]:
                          "batch_size": out["batch_size"], "n_batches": out["n_batches"],
                          "epochs": out["epochs"]})
         lines.append(line)
-    return lines, launches
+    return lines, launches, arm_launches
 
 
 #: The ssh phase: the marker only the SSH server's environment carries, the
@@ -3088,12 +3246,24 @@ def main() -> int:
               "window": case.get("window"), "sinks": case.get("sinks", 0),
               "positions": case.get("positions", False), "errors": parity[case["name"]],
               "tol_reason": TOL_REASON})
+    # the f32-output variants at the ring's hops
+    for i, case in enumerate(VARIANT_CASES):
+        parity[case["name"]] = variant_parity_case(case, seed=200 + i)
+        torch.cuda.synchronize()
+        emit({"phase": "parity", "case": case["name"], "shape": case["shape"],
+              "dtype": case["dtype"], "out_dtype": "float32", "causal": case["causal"],
+              "positions": case["positions"], "errors": parity[case["name"]],
+              "tol_reason": TOL_REASON + "; the f32 variant rounded to bf16 must equal the "
+                                         "bf16-output kernel bit for bit"})
 
     timing = timing_phase(PARITY_CASES[0])
     emit({"phase": "timing", "shape": PATH_SHAPE, "dtype": "bfloat16", "card": smi,
           "kernels": timing})
     emit({"phase": "timing", "shape": D128_CASE["shape"], "dtype": D128_CASE["dtype"],
           "card": smi, "kernels": timing_phase(D128_CASE)})
+    variants = variant_timing()
+    emit({"phase": "timing", "shape": HOP_SHAPE, "dtype": "bfloat16", "out_dtype": "float32",
+          "positions": VARIANT_CASES[0]["positions"], "card": smi, "kernels": variants})
 
     emit({"phase": "model_check", **model_check()})
 
@@ -3187,7 +3357,7 @@ def main() -> int:
     # reports its own launches; the phase fails if a rank of an LM arm ran a
     # flash kernel a number of times other than 12 a step.
     start = time.perf_counter()
-    gang_lines, gang_launches = gang_phase(arms[0]["losses"])
+    gang_lines, gang_launches, gang_arm_launches = gang_phase(arms[0]["losses"])
     for line in gang_lines:
         emit({"phase": "gang", "card": smi, **line})
     emit({"phase": "gang", "card": smi, "seconds": time.perf_counter() - start,
@@ -3220,6 +3390,8 @@ def main() -> int:
             "source": f"covalent_tpu_plugin_torch/csrc/{kernel.source}",
             "replaces": kernel.replaces, "launches": launches[kernel.name],
             "gang_launches": gang_launches.get(kernel.name, 0),
+            "ring_launches": gang_arm_launches["lm_ring2"][kernel.name],
+            "ulysses_launches": gang_arm_launches["lm_ulysses2"][kernel.name],
             "ssh_launches": ssh_launches.get(kernel.name, 0),
             "max_abs_err": max(path_errs), "ms": res["kernel_ms"], "plain_ms": res["plain_ms"],
             "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
@@ -3227,11 +3399,28 @@ def main() -> int:
             # the kernel each (dtype/head dim) takes; the path is bfloat16/64
             "routes": {f"{dt}/{d}": kernel.route(getattr(torch, dt), d)
                        for dt in ("bfloat16", "float16", "float32") for d in _kernels.HEAD_DIMS},
+            # the variant with f32 outputs, on the lm_ring2 arm's path
+            "f32_variant": {
+                "launches": gang_arm_launches["lm_ring2"][kernel.name],
+                "shape": "8x12x512x64 bfloat16->float32",
+                "max_abs_err": max(v["max_abs_err"] for case in VARIANT_CASES
+                                   for k, v in parity[case["name"]].items()
+                                   if k.startswith(kernel.name + ".")),
+                "ms": variants[kernel.name]["kernel_ms"],
+                "bf16_out_ms": variants[kernel.name]["bf16_out_ms"],
+                "plain_ms": variants[kernel.name]["plain_ms"],
+                "bound_ms": variants[kernel.name]["bound_ms"],
+                "bound_by": variants[kernel.name]["bound_by"],
+                "library_ms": variants[kernel.name]["library_ms"],
+                "library_note": variants["library_note"],
+            },
         })
         if launches[kernel.name] < 1:
             raise AssertionError(f"{kernel.name} was not launched on the main path")
         if gang_launches.get(kernel.name, 0) < 1:
             raise AssertionError(f"{kernel.name} was not launched on the gang's path")
+        if gang_arm_launches["lm_ring2"][kernel.name] < 1:
+            raise AssertionError(f"{kernel.name}'s f32 variant was not launched on the ring")
         if ssh_launches.get(kernel.name, 0) < 1 and "skipped" not in ssh_lines[0]:
             raise AssertionError(f"{kernel.name} was not launched on the ssh phase's path")
     # The serving kernels port no Pallas kernel: the main path is the serve

@@ -40,13 +40,13 @@ namespace {
 
 using namespace flash;
 
-template <typename T, int D>
+template <typename T, int D, typename O>
 __global__ void __launch_bounds__(THREADS)
     flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const T* __restrict__ v, const T* __restrict__ dout,
                           const float* __restrict__ lse, const float* __restrict__ delta,
                           const int* __restrict__ qpos, const int* __restrict__ kpos,
-                          T* __restrict__ dk, T* __restrict__ dv, int H, int Hkv, int Sq,
+                          O* __restrict__ dk, O* __restrict__ dv, int H, int Hkv, int Sq,
                           int Sk, float scale, Band band) {
   constexpr int SL = D / TEAM;
   extern __shared__ __align__(16) float smem[];
@@ -109,12 +109,12 @@ __global__ void __launch_bounds__(THREADS)
   }
 
   if (row_ok) {
-    store_slice<T, D>(dk + kv_off, lane, dk_acc, 1.f);
-    store_slice<T, D>(dv + kv_off, lane, dv_acc, 1.f);
+    store_slice<O, D>(dk + kv_off, lane, dk_acc, 1.f);
+    store_slice<O, D>(dv + kv_off, lane, dv_acc, 1.f);
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, typename O>
 cudaError_t run(const void* q, const void* k, const void* v, const void* dout,
                 const float* lse, const float* delta, const int* qpos, const int* kpos,
                 void* dk, void* dv, int B, int H, int Hkv, int Sq, int Sk, float scale,
@@ -124,8 +124,8 @@ cudaError_t run(const void* q, const void* k, const void* v, const void* dout,
   } else {
     const dim3 grid((Sk + ROWS - 1) / ROWS, Hkv, B);
     const size_t smem = (2 * TILE * D + 2 * TILE) * sizeof(float);
-    return launch(flash_bwd_dkdv_kernel<T, D>, grid, smem, stream, (const T*)q, (const T*)k,
-                  (const T*)v, (const T*)dout, lse, delta, qpos, kpos, (T*)dk, (T*)dv, H, Hkv,
+    return launch(flash_bwd_dkdv_kernel<T, D, O>, grid, smem, stream, (const T*)q, (const T*)k,
+                  (const T*)v, (const T*)dout, lse, delta, qpos, kpos, (O*)dk, (O*)dv, H, Hkv,
                   Sq, Sk, scale, band);
   }
 }
@@ -190,7 +190,7 @@ template <typename L> struct LseDelta {
   }
 };
 
-template <typename T, int D>
+template <typename T, int D, typename O>
 __global__ void __launch_bounds__(DkdvLayout<D>::THREADS, 1)
     flash_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap q_map,
                              const __grid_constant__ CUtensorMap k_map,
@@ -198,7 +198,7 @@ __global__ void __launch_bounds__(DkdvLayout<D>::THREADS, 1)
                              const __grid_constant__ CUtensorMap do_map,
                              const float* __restrict__ lse, const float* __restrict__ delta,
                              const int* __restrict__ qpos, const int* __restrict__ kpos,
-                             T* __restrict__ dk, T* __restrict__ dv, int H, int Hkv, int Sq,
+                             O* __restrict__ dk, O* __restrict__ dv, int H, int Hkv, int Sq,
                              int Sk, float scale, Band band) {
   using L = DkdvLayout<D>;
   constexpr int BN = DKDV_BN;
@@ -366,11 +366,11 @@ __global__ void __launch_bounds__(DkdvLayout<D>::THREADS, 1)
     stream.release(prev);
   }
 
-  store_rows<T, D>(dk + (size_t)kv_plane * Sk * D, rows, Sk, dk_acc, 1.f, 1.f);
-  store_rows<T, D>(dv + (size_t)kv_plane * Sk * D, rows, Sk, dv_acc, 1.f, 1.f);
+  store_rows<O, D>(dk + (size_t)kv_plane * Sk * D, rows, Sk, dk_acc, 1.f, 1.f);
+  store_rows<O, D>(dv + (size_t)kv_plane * Sk * D, rows, Sk, dv_acc, 1.f, 1.f);
 }
 
-template <typename T, int D>
+template <typename T, int D, typename O>
 cudaError_t run_tc(const void* q, const void* k, const void* v, const void* dout,
                    const float* lse, const float* delta, const int* qpos, const int* kpos,
                    void* dk, void* dv, int B, int H, int Hkv, int Sq, int Sk, float scale,
@@ -383,8 +383,8 @@ cudaError_t run_tc(const void* q, const void* k, const void* v, const void* dout
       hopper::encode_rows_map(&do_map, dout, bf16, D, Sq, B * H, DKDV_BN) != CUDA_SUCCESS) {
     return cudaErrorInvalidValue;
   }
-  return launch_tc<DkdvLayout<D>>(flash_bwd_dkdv_tc_kernel<T, D>, B * Hkv, Sk, stream, q_map,
-                                  k_map, v_map, do_map, lse, delta, qpos, kpos, (T*)dk, (T*)dv,
+  return launch_tc<DkdvLayout<D>>(flash_bwd_dkdv_tc_kernel<T, D, O>, B * Hkv, Sk, stream, q_map,
+                                  k_map, v_map, do_map, lse, delta, qpos, kpos, (O*)dk, (O*)dv,
                                   H, Hkv, Sq, Sk, scale, band);
 }
 
@@ -392,20 +392,21 @@ cudaError_t run_tc(const void* q, const void* k, const void* v, const void* dout
 
 // q, dout (B, H, Sq, D); k, v (B, Hkv, Sk, D); lse, delta (B, H, Sq) f32;
 // qpos (Sq) and kpos (Sk) int32 or null for 0..S-1; dk, dv (B, Hkv, Sk, D)
-// in k's type.  window < 0 means no window.  Returns the first CUDA error.
+// in out_dtype (k's type or f32).  window < 0 means no window.  Returns the
+// first CUDA error.
 extern "C" int flash_bwd_dkdv(const void* q, const void* k, const void* v, const void* dout,
                               const void* lse, const void* delta, const void* qpos,
-                              const void* kpos, void* dk, void* dv, int dtype, int B, int H,
-                              int Hkv, int Sq, int Sk, int D, float scale, int causal,
-                              int window, int sinks, void* stream) {
+                              const void* kpos, void* dk, void* dv, int dtype, int out_dtype,
+                              int B, int H, int Hkv, int Sq, int Sk, int D, float scale,
+                              int causal, int window, int sinks, void* stream) {
   const Band band{causal, window, sinks};
   switch (route(dtype, D)) {
     case kTensorCore:
-      return (int)FLASH_TC_DISPATCH(dtype, D, run_tc, q, k, v, dout, (const float*)lse,
+      return (int)FLASH_TC_DISPATCH(dtype, out_dtype, D, run_tc, q, k, v, dout, (const float*)lse,
                                     (const float*)delta, (const int*)qpos, (const int*)kpos, dk,
                                     dv, B, H, Hkv, Sq, Sk, scale, band, (cudaStream_t)stream);
     case kScalar:
-      return (int)FLASH_DISPATCH(dtype, D, run, q, k, v, dout, (const float*)lse,
+      return (int)FLASH_DISPATCH(dtype, out_dtype, D, run, q, k, v, dout, (const float*)lse,
                                  (const float*)delta, (const int*)qpos, (const int*)kpos, dk, dv,
                                  B, H, Hkv, Sq, Sk, scale, band, (cudaStream_t)stream);
   }

@@ -31,13 +31,13 @@ namespace {
 
 using namespace flash;
 
-template <typename T, int D>
+template <typename T, int D, typename O>
 __global__ void __launch_bounds__(THREADS)
     flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const T* __restrict__ dout,
                         const float* __restrict__ lse, const float* __restrict__ delta,
                         const int* __restrict__ qpos, const int* __restrict__ kpos,
-                        T* __restrict__ dq, int H, int Hkv, int Sq, int Sk, float scale,
+                        O* __restrict__ dq, int H, int Hkv, int Sq, int Sk, float scale,
                         Band band) {
   constexpr int SL = D / TEAM;
   extern __shared__ __align__(16) float smem[];
@@ -90,10 +90,10 @@ __global__ void __launch_bounds__(THREADS)
     }
   }
 
-  if (row_ok) store_slice<T, D>(dq + q_off, lane, dq_acc, 1.f);
+  if (row_ok) store_slice<O, D>(dq + q_off, lane, dq_acc, 1.f);
 }
 
-template <typename T, int D>
+template <typename T, int D, typename O>
 cudaError_t run(const void* q, const void* k, const void* v, const void* dout,
                 const float* lse, const float* delta, const int* qpos, const int* kpos,
                 void* dq, int B, int H, int Hkv, int Sq, int Sk, float scale, Band band,
@@ -103,8 +103,8 @@ cudaError_t run(const void* q, const void* k, const void* v, const void* dout,
   } else {
     const dim3 grid((Sq + ROWS - 1) / ROWS, H, B);
     const size_t smem = 2 * TILE * D * sizeof(float);
-    return launch(flash_bwd_dq_kernel<T, D>, grid, smem, stream, (const T*)q, (const T*)k,
-                  (const T*)v, (const T*)dout, lse, delta, qpos, kpos, (T*)dq, H, Hkv, Sq, Sk,
+    return launch(flash_bwd_dq_kernel<T, D, O>, grid, smem, stream, (const T*)q, (const T*)k,
+                  (const T*)v, (const T*)dout, lse, delta, qpos, kpos, (O*)dq, H, Hkv, Sq, Sk,
                   scale, band);
   }
 }
@@ -119,7 +119,7 @@ constexpr int DQ_BN = 64;
 
 template <int D> using DqLayout = TcLayout<D, DQ_BN, D == 64 ? 4 : 3, 2, 2>;
 
-template <typename T, int D>
+template <typename T, int D, typename O>
 __global__ void __launch_bounds__(DqLayout<D>::THREADS, 1)
     flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap q_map,
                            const __grid_constant__ CUtensorMap k_map,
@@ -127,7 +127,7 @@ __global__ void __launch_bounds__(DqLayout<D>::THREADS, 1)
                            const __grid_constant__ CUtensorMap do_map,
                            const float* __restrict__ lse, const float* __restrict__ delta,
                            const int* __restrict__ qpos, const int* __restrict__ kpos,
-                           T* __restrict__ dq, int H, int Hkv, int Sq, int Sk, float scale,
+                           O* __restrict__ dq, int H, int Hkv, int Sq, int Sk, float scale,
                            Band band) {
   using L = DqLayout<D>;
   constexpr int BN = DQ_BN;
@@ -255,10 +255,10 @@ __global__ void __launch_bounds__(DqLayout<D>::THREADS, 1)
     stream.release(prev);
   }
 
-  store_rows<T, D>(dq + (size_t)bh * Sq * D, rows, Sq, acc, 1.f, 1.f);
+  store_rows<O, D>(dq + (size_t)bh * Sq * D, rows, Sq, acc, 1.f, 1.f);
 }
 
-template <typename T, int D>
+template <typename T, int D, typename O>
 cudaError_t run_tc(const void* q, const void* k, const void* v, const void* dout,
                    const float* lse, const float* delta, const int* qpos, const int* kpos,
                    void* dq, int B, int H, int Hkv, int Sq, int Sk, float scale, Band band,
@@ -271,29 +271,30 @@ cudaError_t run_tc(const void* q, const void* k, const void* v, const void* dout
       hopper::encode_rows_map(&do_map, dout, bf16, D, Sq, B * H, 64) != CUDA_SUCCESS) {
     return cudaErrorInvalidValue;
   }
-  return launch_tc<DqLayout<D>>(flash_bwd_dq_tc_kernel<T, D>, B * H, Sq, stream, q_map, k_map,
-                                v_map, do_map, lse, delta, qpos, kpos, (T*)dq, H, Hkv, Sq, Sk,
+  return launch_tc<DqLayout<D>>(flash_bwd_dq_tc_kernel<T, D, O>, B * H, Sq, stream, q_map, k_map,
+                                v_map, do_map, lse, delta, qpos, kpos, (O*)dq, H, Hkv, Sq, Sk,
                                 scale, band);
 }
 
 }  // namespace
 
-// q, dout, dq (B, H, Sq, D); k, v (B, Hkv, Sk, D); lse, delta (B, H, Sq) f32;
-// qpos (Sq) and kpos (Sk) int32 or null for 0..S-1.  window < 0 means no
-// window.  Returns the first CUDA error, 0 on success.
+// q, dout (B, H, Sq, D); k, v (B, Hkv, Sk, D); lse, delta (B, H, Sq) f32;
+// qpos (Sq) and kpos (Sk) int32 or null for 0..S-1; dq (B, H, Sq, D) in
+// out_dtype (q's type or f32).  window < 0 means no window.  Returns the
+// first CUDA error, 0 on success.
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                             const void* lse, const void* delta, const void* qpos,
-                            const void* kpos, void* dq, int dtype, int B, int H, int Hkv,
-                            int Sq, int Sk, int D, float scale, int causal, int window,
+                            const void* kpos, void* dq, int dtype, int out_dtype, int B, int H,
+                            int Hkv, int Sq, int Sk, int D, float scale, int causal, int window,
                             int sinks, void* stream) {
   const Band band{causal, window, sinks};
   switch (route(dtype, D)) {
     case kTensorCore:
-      return (int)FLASH_TC_DISPATCH(dtype, D, run_tc, q, k, v, dout, (const float*)lse,
+      return (int)FLASH_TC_DISPATCH(dtype, out_dtype, D, run_tc, q, k, v, dout, (const float*)lse,
                                     (const float*)delta, (const int*)qpos, (const int*)kpos, dq,
                                     B, H, Hkv, Sq, Sk, scale, band, (cudaStream_t)stream);
     case kScalar:
-      return (int)FLASH_DISPATCH(dtype, D, run, q, k, v, dout, (const float*)lse,
+      return (int)FLASH_DISPATCH(dtype, out_dtype, D, run, q, k, v, dout, (const float*)lse,
                                  (const float*)delta, (const int*)qpos, (const int*)kpos, dq, B,
                                  H, Hkv, Sq, Sk, scale, band, (cudaStream_t)stream);
   }

@@ -16,6 +16,12 @@
 // masked probability is exactly 0, and the casts the Pallas kernels make
 // before their matmuls (P to V's type, dS to Q's or K's type) are made here
 // by rounding through the input type.
+//
+// Output types.  Each sweep writes its results (out; dk and dv; dq) in the
+// input type, or in f32 where the caller asks for it (the reference's
+// out_dtype / grad_dtype: ring attention sums one partial per hop and must
+// not round each one to 16 bits).  Only the final store differs: the
+// accumulators are f32 either way.  The route is chosen by the input type.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -169,14 +175,15 @@ __device__ __forceinline__ void load_slice(const T* __restrict__ src, bool ok, i
   }
 }
 
-template <typename T, int D>
-__device__ __forceinline__ void store_slice(T* __restrict__ dst, int lane, const float* reg,
+// Stores the team's slice, divided by `div`, in the output type O.
+template <typename O, int D>
+__device__ __forceinline__ void store_slice(O* __restrict__ dst, int lane, const float* reg,
                                             float div) {
 #pragma unroll
   for (int ch = 0; ch < D / (4 * TEAM); ++ch) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      dst[column(ch, lane, e)] = from_f<T>(reg[4 * ch + e] / div);
+      dst[column(ch, lane, e)] = from_f<O>(reg[4 * ch + e] / div);
     }
   }
 }
@@ -210,29 +217,42 @@ template <typename T> constexpr int dtype_code() {
   return std::is_same<T, float>::value ? kF32 : std::is_same<T, __half>::value ? kF16 : kBF16;
 }
 
-// Instantiates `fn<T, D>(args...)` for the head widths and types the scalar
-// kernels take; anything else is cudaErrorInvalidValue.
-#define FLASH_DISPATCH(dtype, head_dim, fn, ...)                                  \
+// Instantiates `fn<T, D, O>(args...)` for the head widths and types the
+// scalar kernels take, O the input type T or f32 (out_dtype); anything else
+// is cudaErrorInvalidValue.
+#define FLASH_DISPATCH(dtype, out_dtype, head_dim, fn, ...)                        \
   [&]() -> cudaError_t {                                                          \
     switch (dtype) {                                                              \
-      case flash::kF32: return FLASH_DISPATCH_D(float, head_dim, fn, __VA_ARGS__); \
-      case flash::kF16: return FLASH_DISPATCH_D(__half, head_dim, fn, __VA_ARGS__); \
+      case flash::kF32:                                                           \
+        return FLASH_DISPATCH_O(float, out_dtype, head_dim, fn, __VA_ARGS__);     \
+      case flash::kF16:                                                           \
+        return FLASH_DISPATCH_O(__half, out_dtype, head_dim, fn, __VA_ARGS__);    \
       case flash::kBF16:                                                          \
-        return FLASH_DISPATCH_D(__nv_bfloat16, head_dim, fn, __VA_ARGS__);       \
+        return FLASH_DISPATCH_O(__nv_bfloat16, out_dtype, head_dim, fn, __VA_ARGS__); \
       default: return cudaErrorInvalidValue;                                      \
     }                                                                             \
   }()
 
-#define FLASH_DISPATCH_D(T, head_dim, fn, ...)               \
-  [&]() -> cudaError_t {                                     \
-    switch (head_dim) {                                      \
-      case 16: return fn<T, 16>(__VA_ARGS__);                \
-      case 32: return fn<T, 32>(__VA_ARGS__);                \
-      case 64: return fn<T, 64>(__VA_ARGS__);                \
-      case 128: return fn<T, 128>(__VA_ARGS__);              \
-      case 256: return fn<T, 256>(__VA_ARGS__);              \
-      default: return cudaErrorInvalidValue;                 \
-    }                                                        \
+// O is T when out_dtype names the input type, f32 when it names f32.
+#define FLASH_DISPATCH_O(T, out_dtype, head_dim, fn, ...)                     \
+  [&]() -> cudaError_t {                                                     \
+    if ((out_dtype) == flash::dtype_code<T>())                               \
+      return FLASH_DISPATCH_D(T, T, head_dim, fn, __VA_ARGS__);              \
+    if ((out_dtype) == flash::kF32)                                          \
+      return FLASH_DISPATCH_D(T, float, head_dim, fn, __VA_ARGS__);          \
+    return cudaErrorInvalidValue;                                            \
+  }()
+
+#define FLASH_DISPATCH_D(T, O, head_dim, fn, ...)               \
+  [&]() -> cudaError_t {                                        \
+    switch (head_dim) {                                         \
+      case 16: return fn<T, 16, O>(__VA_ARGS__);                \
+      case 32: return fn<T, 32, O>(__VA_ARGS__);                \
+      case 64: return fn<T, 64, O>(__VA_ARGS__);                \
+      case 128: return fn<T, 128, O>(__VA_ARGS__);              \
+      case 256: return fn<T, 256, O>(__VA_ARGS__);              \
+      default: return cudaErrorInvalidValue;                    \
+    }                                                           \
   }()
 
 }  // namespace flash

@@ -35,11 +35,11 @@ namespace {
 
 using namespace flash;
 
-template <typename T, int D>
+template <typename T, int D, typename O>
 __global__ void __launch_bounds__(THREADS)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const int* __restrict__ qpos,
-                     const int* __restrict__ kpos, T* __restrict__ o,
+                     const int* __restrict__ kpos, O* __restrict__ o,
                      float* __restrict__ lse, int H, int Hkv, int Sq, int Sk, float scale,
                      Band band) {
   constexpr int SL = D / TEAM;
@@ -107,12 +107,12 @@ __global__ void __launch_bounds__(THREADS)
 
   if (row_ok) {
     const float l_safe = fmaxf(l, 1e-37f);
-    store_slice<T, D>(o + ((size_t)(b * H + h) * Sq + qi) * D, lane, acc, l_safe);
+    store_slice<O, D>(o + ((size_t)(b * H + h) * Sq + qi) * D, lane, acc, l_safe);
     if (lane == 0) lse[(size_t)(b * H + h) * Sq + qi] = m + logf(l_safe);
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, typename O>
 cudaError_t run(const void* q, const void* k, const void* v, const int* qpos,
                 const int* kpos, void* o, float* lse, int B, int H, int Hkv, int Sq, int Sk,
                 float scale, Band band, cudaStream_t stream) {
@@ -121,8 +121,8 @@ cudaError_t run(const void* q, const void* k, const void* v, const int* qpos,
   } else {
     const dim3 grid((Sq + ROWS - 1) / ROWS, H, B);
     const size_t smem = (2 * TILE * D + ROWS * (TILE + 1)) * sizeof(float);
-    return launch(flash_fwd_kernel<T, D>, grid, smem, stream, (const T*)q, (const T*)k,
-                  (const T*)v, qpos, kpos, (T*)o, lse, H, Hkv, Sq, Sk, scale, band);
+    return launch(flash_fwd_kernel<T, D, O>, grid, smem, stream, (const T*)q, (const T*)k,
+                  (const T*)v, qpos, kpos, (O*)o, lse, H, Hkv, Sq, Sk, scale, band);
   }
 }
 
@@ -135,12 +135,12 @@ constexpr int FWD_BN = 64;
 
 template <int D> using FwdLayout = TcLayout<D, FWD_BN, 4, 1, D == 64 ? 3 : 2>;
 
-template <typename T, int D>
+template <typename T, int D, typename O>
 __global__ void __launch_bounds__(FwdLayout<D>::THREADS, 1)
     flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap q_map,
                         const __grid_constant__ CUtensorMap k_map,
                         const __grid_constant__ CUtensorMap v_map, const int* __restrict__ qpos,
-                        const int* __restrict__ kpos, T* __restrict__ o,
+                        const int* __restrict__ kpos, O* __restrict__ o,
                         float* __restrict__ lse, int H, int Hkv, int Sq, int Sk, float scale,
                         Band band) {
   using L = FwdLayout<D>;
@@ -287,7 +287,7 @@ __global__ void __launch_bounds__(FwdLayout<D>::THREADS, 1)
   }
 
   const float ls_a = fmaxf(quad_sum(l_a), 1e-37f), ls_b = fmaxf(quad_sum(l_b), 1e-37f);
-  store_rows<T, D>(o + (size_t)bh * Sq * D, rows, Sq, acc, 1.f / ls_a, 1.f / ls_b);
+  store_rows<O, D>(o + (size_t)bh * Sq * D, rows, Sq, acc, 1.f / ls_a, 1.f / ls_b);
   if (rows.lane % 4 == 0) {
     // m is in base-2 units; a row that saw no key keeps the reference's -1e30
     float* row_lse = lse + (size_t)bh * Sq;
@@ -296,7 +296,7 @@ __global__ void __launch_bounds__(FwdLayout<D>::THREADS, 1)
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, typename O>
 cudaError_t run_tc(const void* q, const void* k, const void* v, const int* qpos, const int* kpos,
                    void* o, float* lse, int B, int H, int Hkv, int Sq, int Sk, float scale,
                    Band band, cudaStream_t stream) {
@@ -307,27 +307,28 @@ cudaError_t run_tc(const void* q, const void* k, const void* v, const int* qpos,
       hopper::encode_rows_map(&v_map, v, bf16, D, Sk, B * Hkv, FWD_BN) != CUDA_SUCCESS) {
     return cudaErrorInvalidValue;
   }
-  return launch_tc<FwdLayout<D>>(flash_fwd_tc_kernel<T, D>, B * H, Sq, stream, q_map, k_map,
-                                 v_map, qpos, kpos, (T*)o, lse, H, Hkv, Sq, Sk, scale, band);
+  return launch_tc<FwdLayout<D>>(flash_fwd_tc_kernel<T, D, O>, B * H, Sq, stream, q_map, k_map,
+                                 v_map, qpos, kpos, (O*)o, lse, H, Hkv, Sq, Sk, scale, band);
 }
 
 }  // namespace
 
 // q (B, H, Sq, D); k, v (B, Hkv, Sk, D); qpos (Sq) and kpos (Sk) int32 or
-// null for 0..S-1; o (B, H, Sq, D) in q's type; lse (B, H, Sq) f32.
-// window < 0 means no window.  Returns the first CUDA error, 0 on success.
+// null for 0..S-1; o (B, H, Sq, D) in out_dtype (q's type or f32); lse
+// (B, H, Sq) f32.  window < 0 means no window.  Returns the first CUDA
+// error, 0 on success.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, const void* qpos,
-                         const void* kpos, void* o, void* lse, int dtype, int B, int H,
-                         int Hkv, int Sq, int Sk, int D, float scale, int causal, int window,
-                         int sinks, void* stream) {
+                         const void* kpos, void* o, void* lse, int dtype, int out_dtype,
+                         int B, int H, int Hkv, int Sq, int Sk, int D, float scale, int causal,
+                         int window, int sinks, void* stream) {
   const Band band{causal, window, sinks};
   switch (route(dtype, D)) {
     case kTensorCore:
-      return (int)FLASH_TC_DISPATCH(dtype, D, run_tc, q, k, v, (const int*)qpos,
+      return (int)FLASH_TC_DISPATCH(dtype, out_dtype, D, run_tc, q, k, v, (const int*)qpos,
                                     (const int*)kpos, o, (float*)lse, B, H, Hkv, Sq, Sk, scale,
                                     band, (cudaStream_t)stream);
     case kScalar:
-      return (int)FLASH_DISPATCH(dtype, D, run, q, k, v, (const int*)qpos, (const int*)kpos, o,
+      return (int)FLASH_DISPATCH(dtype, out_dtype, D, run, q, k, v, (const int*)qpos, (const int*)kpos, o,
                                  (float*)lse, B, H, Hkv, Sq, Sk, scale, band,
                                  (cudaStream_t)stream);
   }

@@ -412,22 +412,32 @@ __device__ __forceinline__ uint64_t tile_visibility(const TcRows& rows, const Ba
   return bits;
 }
 
+// Two neighbouring values of a row in the output type O: a packed pair of
+// 16-bit values, or an f32 pair (the f32 outputs, out_dtype).
+template <typename O>
+__device__ __forceinline__ void store_pair(O* dst, float lo, float hi) {
+  if constexpr (std::is_same<O, float>::value) {
+    *reinterpret_cast<float2*>(dst) = make_float2(lo, hi);
+  } else {
+    *reinterpret_cast<uint32_t*>(dst) = hopper::pack2<O>(lo, hi);
+  }
+}
+
 // Stores the thread's two rows of a (64, D) f32 accumulator, times `mul_a`
 // and `mul_b`, to rows `rows.a`, `rows.b` of `dst` (row-major, D columns) in
-// T, skipping rows at or past S.
-template <typename T, int D>
-__device__ __forceinline__ void store_rows(T* dst, const TcRows& rows, int S,
+// O, skipping rows at or past S.
+template <typename O, int D>
+__device__ __forceinline__ void store_rows(O* dst, const TcRows& rows, int S,
                                            const float (&acc)[D / 2], float mul_a, float mul_b) {
 #pragma unroll
   for (int i = 0; i < D / 8; ++i) {
     const int col = 8 * i + rows.col;
     if (rows.a < S) {
-      *reinterpret_cast<uint32_t*>(dst + (size_t)rows.a * D + col) =
-          hopper::pack2<T>(acc[4 * i] * mul_a, acc[4 * i + 1] * mul_a);
+      store_pair<O>(dst + (size_t)rows.a * D + col, acc[4 * i] * mul_a, acc[4 * i + 1] * mul_a);
     }
     if (rows.b < S) {
-      *reinterpret_cast<uint32_t*>(dst + (size_t)rows.b * D + col) =
-          hopper::pack2<T>(acc[4 * i + 2] * mul_b, acc[4 * i + 3] * mul_b);
+      store_pair<O>(dst + (size_t)rows.b * D + col, acc[4 * i + 2] * mul_b,
+                    acc[4 * i + 3] * mul_b);
     }
   }
 }
@@ -444,18 +454,31 @@ inline cudaError_t launch_tc(Kernel kernel, int BH, int Sq, cudaStream_t stream,
   return cudaGetLastError();
 }
 
-// Instantiates `fn<T, D>(args...)` for the types and head dims of the
-// tensor-core route (route() == kTensorCore).
-#define FLASH_TC_DISPATCH(dtype, head_dim, fn, ...)                                   \
-  [&]() -> cudaError_t {                                                              \
-    const bool bf16 = (dtype) == flash::kBF16;                                        \
-    switch (head_dim) {                                                               \
-      case 64:                                                                        \
-        return bf16 ? fn<__nv_bfloat16, 64>(__VA_ARGS__) : fn<__half, 64>(__VA_ARGS__); \
-      case 128:                                                                       \
-        return bf16 ? fn<__nv_bfloat16, 128>(__VA_ARGS__) : fn<__half, 128>(__VA_ARGS__); \
-      default: return cudaErrorInvalidValue;                                          \
-    }                                                                                 \
+// Instantiates `fn<T, D, O>(args...)` for the types and head dims of the
+// tensor-core route (route() == kTensorCore), O the input type or f32.
+#define FLASH_TC_DISPATCH(dtype, out_dtype, head_dim, fn, ...)                       \
+  [&]() -> cudaError_t {                                                             \
+    if ((dtype) == flash::kBF16)                                                     \
+      return FLASH_TC_DISPATCH_O(__nv_bfloat16, out_dtype, head_dim, fn, __VA_ARGS__); \
+    return FLASH_TC_DISPATCH_O(__half, out_dtype, head_dim, fn, __VA_ARGS__);        \
+  }()
+
+#define FLASH_TC_DISPATCH_O(T, out_dtype, head_dim, fn, ...)                   \
+  [&]() -> cudaError_t {                                                      \
+    if ((out_dtype) == flash::dtype_code<T>())                                \
+      return FLASH_TC_DISPATCH_D(T, T, head_dim, fn, __VA_ARGS__);            \
+    if ((out_dtype) == flash::kF32)                                           \
+      return FLASH_TC_DISPATCH_D(T, float, head_dim, fn, __VA_ARGS__);        \
+    return cudaErrorInvalidValue;                                             \
+  }()
+
+#define FLASH_TC_DISPATCH_D(T, O, head_dim, fn, ...)      \
+  [&]() -> cudaError_t {                                  \
+    switch (head_dim) {                                   \
+      case 64: return fn<T, 64, O>(__VA_ARGS__);          \
+      case 128: return fn<T, 128, O>(__VA_ARGS__);        \
+      default: return cudaErrorInvalidValue;              \
+    }                                                     \
   }()
 
 }  // namespace flash

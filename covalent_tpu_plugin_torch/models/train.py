@@ -9,9 +9,10 @@ at ``optax.adam(1e-3)``'s.
 Sharded training (``make_sharded_train_state``, ``make_train_step(...,
 mesh=...)``): every rank of a gang (one process a device) builds the same
 weights, shards them over the mesh (``parallel.sharding.apply_rules``) and
-takes each step on its rows of the global batch.  The step's ``loss`` is the
-global mean and its ``grad_norm`` the norm of the whole gradient, as the
-reference's jitted step reports them.
+takes each step on its rows of the global batch (and, over ``seq``, on its
+part of every sequence).  The step's ``loss`` is the global mean and its
+``grad_norm`` the norm of the whole gradient, as the reference's jitted step
+reports them.
 """
 
 from __future__ import annotations
@@ -67,22 +68,34 @@ def classifier_loss(model: torch.nn.Module, batch: dict) -> torch.Tensor:
 
 
 def lm_loss(model: torch.nn.Module, batch: dict, vocab_chunk: int | None = None):
-    """Next-token loss over a {"tokens": (B, S)} batch.
+    """Next-token loss over a {"tokens": (B, S)} batch: the mean over its
+    tokens.
+
+    A rank of a mesh with ``seq`` > 1 takes its part of the sequence
+    instead, ``{"tokens", "labels", "positions"}``
+    (``parallel.sharding.shard_batch``): the inputs, the labels cut from the
+    globally shifted sequence and the rows' global positions; the loss is
+    then the mean over this rank's tokens.
 
     ``vocab_chunk`` switches to the fused vocab-chunked cross-entropy
     (``ops/xent.py``): the model returns its final features and the loss
     streams over lm_head chunks, so the (B, S, vocab) logits never exist.
     """
     tokens = _tokens(model, batch)
+    if "labels" in batch:
+        inputs, labels = tokens, _on_model(model, batch["labels"]).long()
+        positions = _on_model(model, batch["positions"])
+    else:
+        inputs, labels, positions = tokens[:, :-1], tokens[:, 1:], None
     tp = getattr(model, "tp", None)
     if vocab_chunk is None:
-        logits = model(tokens[:, :-1])
+        logits = model(inputs, positions=positions)
         if tp is not None:
-            return vocab_parallel_cross_entropy(logits, tokens[:, 1:], tp, model.vocab_block())
-        return cross_entropy_loss(logits, tokens[:, 1:])
+            return vocab_parallel_cross_entropy(logits, labels, tp, model.vocab_block())
+        return cross_entropy_loss(logits, labels)
     if tp is not None:
         refuse_sharded_vocab()
-    feats = model(tokens[:, :-1], return_features=True)
+    feats = model(inputs, return_features=True, positions=positions)
     kernel = model.lm_head.weight
     if not kernel.is_floating_point():
         raise ValueError(
@@ -90,8 +103,7 @@ def lm_loss(model: torch.nn.Module, batch: dict, vocab_chunk: int | None = None)
             "(quantized/LoRA heads take the standard path)"
         )
     flat = feats.reshape(-1, feats.shape[-1])
-    labels = tokens[:, 1:].reshape(-1)
-    return fused_cross_entropy(flat, kernel.t(), labels, vocab_chunk)
+    return fused_cross_entropy(flat, kernel.t(), labels.reshape(-1), vocab_chunk)
 
 
 def make_train_step(
@@ -111,9 +123,11 @@ def make_train_step(
 
     With ``mesh`` (a model sharded over it, :func:`make_sharded_train_state`)
     ``batch`` is the global batch: each rank takes its rows
-    (``parallel.sharding.shard_batch``), the gradients are averaged over the
-    batch axes (by FSDP2, or over ``data`` for plain replicas), ``loss`` is
-    averaged over them too and ``grad_norm`` covers every shard.
+    (``parallel.sharding.shard_batch``; over ``seq`` also its part of every
+    sequence, in the model's layout), the gradients are averaged over the
+    batch axes (by FSDP2, or over ``data`` for plain replicas) and over
+    ``seq``, ``loss`` is averaged over them too and ``grad_norm`` covers
+    every shard.
     """
     from ..parallel import sharding
 
@@ -125,7 +139,7 @@ def make_train_step(
     def step(batch: dict) -> dict:
         nonlocal count
         if mesh is not None:
-            batch = sharding.shard_batch(batch, mesh)
+            batch = sharding.shard_batch(batch, mesh, zigzag=_zigzag(model, mesh, batch))
         optimizer.zero_grad(set_to_none=True)
         if accumulate_steps == 1:
             loss = loss_fn(model, batch)
@@ -159,6 +173,14 @@ def make_train_step(
         return {"loss": loss, "grad_norm": grad_norm, "step": count}
 
     return step
+
+
+def _zigzag(model: torch.nn.Module, mesh, batch: dict) -> bool:
+    """The sequence layout of a batch split over ``seq``: the model's
+    (``TransformerLM.sequence_zigzag``) for the sequence the loss reads."""
+    if mesh["seq"].size() == 1:
+        return False
+    return model.sequence_zigzag(len(batch["tokens"][0]) - 1, mesh["seq"].size())
 
 
 def make_classifier_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
@@ -224,8 +246,12 @@ def train_lm(
     process group is open (a gang electron's harness opens it), every rank
     builds the same weights, shards them over the plan's mesh and steps on
     its rows of the same global batches.  ``losses`` are then the global
-    means, and ``ranks`` holds each rank's launches, the query shapes its
-    flash kernels took, its peak memory and step times (:func:`gang_report`).
+    means, and ``ranks`` holds each rank's launches, the query shapes (and
+    output types) its flash kernels took, its peak memory and step times
+    (:func:`gang_report`).  Under ``MeshPlan(seq=n)`` with
+    ``attention="ring"`` or ``"ulysses"`` each rank also takes its part of
+    every sequence: the ring's kernels then take ``(B, H, S / n, D)`` with
+    f32 outputs, a hop each.
     """
     device = resolve_device(device)
     _reset_peak_memory(device)

@@ -30,9 +30,14 @@ the model over a device mesh: FSDP2 over ``fsdp``, and over ``tensor`` the
 attention heads, the MLP hidden width and the vocabulary (Megatron's column
 and row parallelism, :meth:`tensor_parallel`).  Each layer then computes on
 its local shards as plain tensors: the flash kernels take ``(B, H / tensor,
-S, D)``.  The reference's layer stacking (``scan_layers``) has no
-counterpart: layers are an ``nn.ModuleList``, and the converter reads either
-stacked or unrolled reference parameters.
+S, D)``.  Over ``seq`` (``attention="ring"`` or ``"ulysses"``) each rank
+holds its part of every sequence, at the global positions
+``forward(..., positions=)`` must give (``parallel.sharding.shard_batch``
+cuts them in the model's layout, :meth:`TransformerLM.sequence_zigzag`):
+rotary takes them, and the attention joins the parts
+(``ops/ring_attention.py``).  The reference's layer stacking
+(``scan_layers``) has no counterpart: layers are an ``nn.ModuleList``, and
+the converter reads either stacked or unrolled reference parameters.
 """
 
 from __future__ import annotations
@@ -46,6 +51,7 @@ from torch import nn
 
 from ..ops import batch_invariant as bi
 from ..ops.attention import NEG_INF, flash_attention, mha_reference, on_cuda
+from ..ops.ring_attention import default_zigzag, sequence_parallel_attention
 from ..parallel.sharding import _local
 
 #: Config knobs that later slices of the port bring, with the slice that
@@ -73,7 +79,7 @@ class TransformerConfig:
     param_dtype: torch.dtype = torch.float32   # master weights
     #: lm_head matmul dtype (the loss re-casts to f32 for the softmax).
     logits_dtype: torch.dtype = torch.float32
-    #: auto | flash | reference ("ring" and "ulysses" come with scale-out).
+    #: auto | flash | reference | ring | ulysses (the last two need a mesh).
     attention: str = "auto"
     #: sliding-window attention: each query sees the `sliding_window` most
     #: recent positions.
@@ -112,13 +118,10 @@ class TransformerConfig:
                 )
             if self.sliding_window is None:
                 raise ValueError("attention_sinks require sliding_window")
-        if self.attention in ("ring", "ulysses"):
-            raise NotImplementedError(
-                f"attention={self.attention!r} comes with slice 4 (scale-out)"
-            )
-        if self.attention not in ("auto", "flash", "reference"):
+        if self.attention not in ("auto", "flash", "reference", "ring", "ulysses"):
             raise ValueError(
-                f"attention must be auto, flash or reference, got {self.attention!r}"
+                "attention must be auto, flash, reference, ring or ulysses, got "
+                f"{self.attention!r}"
             )
         for name, slice_name in _LATER_SLICES.items():
             if getattr(self, name):
@@ -272,6 +275,9 @@ class Attention(nn.Module):
     batch_invariant = False
     #: the ``parallel.sharding.TensorParallel`` handle under tensor parallelism
     tp = None
+    #: the mesh of sequence-parallel attention (``sequence_parallel``), when
+    #: the config carries none
+    mesh = None
 
     def __init__(self, cfg: TransformerConfig, device, generator):
         super().__init__()
@@ -311,7 +317,12 @@ class Attention(nn.Module):
             rows = slice(first * cfg.head_dim, (first + count) * cfg.head_dim)
             self.k_proj.shared_rows = self.v_proj.shared_rows = (tp, rows)
 
-    def forward(self, x, cache: LayerCache | None = None):
+    def sequence_parallel(self, mesh) -> None:
+        """The mesh whose ``seq`` axis ``attention="ring"``/``"ulysses"`` runs
+        over (``parallel.sharding.apply_rules`` hands it over)."""
+        self.mesh = mesh
+
+    def forward(self, x, cache: LayerCache | None = None, positions=None):
         cfg = self.cfg
         batch, seq, _ = x.shape
         if self.tp is not None:
@@ -325,16 +336,44 @@ class Attention(nn.Module):
         v = self.v_proj(x).view(batch, seq, -1, cfg.head_dim)
         if cache is not None:
             return self._decode_step(q, k, v, cache)
-        q = _rotary(q, base=cfg.rope_base)
-        k = _rotary(k, base=cfg.rope_base)
+        # the rows' global positions: this rank's part of the sequence under
+        # seq parallelism, where arange(S) would be wrong
+        q = _rotary(q, base=cfg.rope_base, positions=positions)
+        k = _rotary(k, base=cfg.rope_base, positions=positions)
         # (B, S, H, D) -> (B, H, S, D) for the attention kernels
         qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
         impl = cfg.attention
         if impl == "auto":
             impl = "flash" if on_cuda(x) else "reference"
-        attend = flash_attention if impl == "flash" else mha_reference
-        out = attend(qh, kh, vh, causal=True, window=cfg.sliding_window,
-                     sinks=cfg.attention_sinks)
+        if impl in ("ring", "ulysses"):
+            mesh = cfg.mesh if cfg.mesh is not None else self.mesh
+            if mesh is None:
+                raise ValueError(f"attention={impl!r} requires config.mesh")
+            if positions is None and mesh["seq"].size() > 1:
+                # arange(S) is not where this rank's rows sit in the sequence
+                raise ValueError(
+                    f"attention={impl!r} over seq={mesh['seq'].size()} needs the global "
+                    "positions of this rank's rows (parallel.sharding.shard_batch)")
+            if cfg.attention_sinks and impl == "ring":
+                # Sink columns live on shard 0 only; every hop would need them
+                # resident.  Ulysses' full-sequence local attention composes.
+                raise ValueError(
+                    "attention_sinks are unsupported with attention='ring'"
+                    " — use attention='ulysses'"
+                )
+            if impl == "ring" and kh.shape[1] != qh.shape[1]:
+                # the ring shards the sequence, not the heads: repeat kv heads
+                group = qh.shape[1] // kh.shape[1]
+                kh = kh.repeat_interleave(group, dim=1)
+                vh = vh.repeat_interleave(group, dim=1)
+            out = sequence_parallel_attention(
+                qh, kh, vh, mesh, causal=True, window=cfg.sliding_window,
+                sinks=cfg.attention_sinks, impl="ulysses" if impl == "ulysses" else None,
+            )
+        else:
+            attend = flash_attention if impl == "flash" else mha_reference
+            out = attend(qh, kh, vh, causal=True, window=cfg.sliding_window,
+                         sinks=cfg.attention_sinks)
         out = self.out_proj(out.transpose(1, 2).reshape(batch, seq, -1))
         return out if self.tp is None else self.tp.leave(out)
 
@@ -472,12 +511,12 @@ class Block(nn.Module):
         self.ln_mlp = RMSNorm(cfg.d_model, cfg.dtype, device)
         self.mlp = MlpBlock(cfg, device, generator)
 
-    def forward(self, x, h, after: RMSNorm, cache: LayerCache | None = None):
+    def forward(self, x, h, after: RMSNorm, cache: LayerCache | None = None, positions=None):
         """The layer on the residual stream ``x`` and its norm ``h =
         ln_attn(x)``: the new stream and ``after``'s norm of it (the next
         layer's ``ln_attn``, or ``ln_final``).  Each residual add goes with
         the norm that follows it (:meth:`RMSNorm.add_norm`)."""
-        x, h = self.ln_mlp.add_norm(x, self.attention(h, cache))
+        x, h = self.ln_mlp.add_norm(x, self.attention(h, cache, positions))
         return after.add_norm(x, self.mlp(h))
 
 
@@ -546,6 +585,15 @@ class TransformerLM(nn.Module):
         tp.block(self.config.vocab_size)  # refuses a vocabulary that does not split
         self.tp = tp
 
+    def sequence_zigzag(self, seq_len: int, n: int) -> bool:
+        """Whether a ``seq_len`` sequence split over ``n`` ``seq`` ranks lies
+        zigzag-striped on them (else contiguous): the reference's rule
+        (``ops.ring_attention.default_zigzag``), which the data layer
+        (``parallel.sharding.shard_batch``) and the attention both follow."""
+        cfg = self.config
+        impl = "ulysses" if cfg.attention == "ulysses" else None
+        return default_zigzag(True, n, seq_len, cfg.sliding_window, impl)
+
     def vocab_block(self) -> slice:
         """The block of the vocabulary this rank's logits hold."""
         if self.tp is None:
@@ -564,7 +612,10 @@ class TransformerLM(nn.Module):
         return self.tp.leave(rows * inside[..., None].to(rows.dtype))
 
     def forward(self, tokens: torch.Tensor, return_features: bool = False,
-                cache: list[LayerCache] | None = None):
+                cache: list[LayerCache] | None = None, positions=None):
+        """``positions`` ((S,)) are the global positions of the rows of
+        ``tokens``: under sequence parallelism this rank's part of each
+        sequence (required there), else 0..S-1 by default."""
         cfg = self.config
         if tokens.shape[-1] > cfg.max_seq:
             raise ValueError(
@@ -577,12 +628,14 @@ class TransformerLM(nn.Module):
             cache = [None] * len(self.layers)
         elif len(cache) != len(self.layers):
             raise ValueError(f"cache has {len(cache)} layers, the model {len(self.layers)}")
+        if positions is not None:
+            positions = torch.as_tensor(positions, device=tokens.device)
         x = self._embed(tokens)
         # Only the first norm has no residual add before it.
         norms = [layer.ln_attn for layer in self.layers] + [self.ln_final]
         h = norms[0](x)
         for layer, after, layer_cache in zip(self.layers, norms[1:], cache):
-            x, h = layer(x, h, after, layer_cache)
+            x, h = layer(x, h, after, layer_cache, positions)
         if return_features:
             # The fused-xent loss (ops/xent.py) consumes the final features
             # and the lm_head weight directly, so the logits never exist.

@@ -55,7 +55,8 @@ class Kernel:
         self.source = source
         self.replaces = replaces
         self.launches = 0
-        #: "BxHxSxD dtype" of the query each launch took -> launches (flash kernels)
+        #: "BxHxSxD dtype" of the query each launch took -> launches (flash
+        #: kernels); "BxHxSxD dtype->float32" for a launch with f32 outputs
         self.shapes: dict[str, int] = {}
         self._argtypes = argtypes
         self._fn = None
@@ -72,9 +73,12 @@ class Kernel:
         code = self._export(f"{self.name}_route", [_I, _I])(_DTYPE_CODES[dtype], head_dim)
         return ROUTES[code]
 
-    def note_shape(self, q: torch.Tensor) -> None:
-        """Count a launch's query shape (called beside a launch)."""
+    def note_shape(self, q: torch.Tensor, out_dtype: torch.dtype) -> None:
+        """Count a launch's query shape and output type (called beside a
+        launch)."""
         key = "x".join(map(str, q.shape)) + " " + str(q.dtype).removeprefix("torch.")
+        if out_dtype != q.dtype:
+            key += "->" + str(out_dtype).removeprefix("torch.")
         self.shapes[key] = self.shapes.get(key, 0) + 1
 
     def launch(self, *args) -> None:
@@ -88,17 +92,17 @@ class Kernel:
 
 FLASH_FWD = Kernel(
     "flash_fwd", "flash_fwd.cu",
-    [_P] * 7 + [_I] * 7 + [_F] + [_I] * 3 + [_P],
+    [_P] * 7 + [_I] * 8 + [_F] + [_I] * 3 + [_P],
     "covalent_tpu_plugin/ops/attention.py:356",
 )
 FLASH_BWD_DKDV = Kernel(
     "flash_bwd_dkdv", "flash_bwd_dkdv.cu",
-    [_P] * 10 + [_I] * 7 + [_F] + [_I] * 3 + [_P],
+    [_P] * 10 + [_I] * 8 + [_F] + [_I] * 3 + [_P],
     "covalent_tpu_plugin/ops/attention.py:591",
 )
 FLASH_BWD_DQ = Kernel(
     "flash_bwd_dq", "flash_bwd_dq.cu",
-    [_P] * 9 + [_I] * 7 + [_F] + [_I] * 3 + [_P],
+    [_P] * 9 + [_I] * 8 + [_F] + [_I] * 3 + [_P],
     "covalent_tpu_plugin/ops/attention.py:694",
 )
 #: The ports of the reference's three Pallas kernels (the training path).
@@ -212,7 +216,8 @@ def launch_counts() -> dict[str, int]:
 
 
 def launch_shapes() -> dict[str, dict[str, int]]:
-    """The flash kernels' launches by query shape and type ("BxHxSxD dtype")."""
+    """The flash kernels' launches by query shape and type ("BxHxSxD dtype",
+    "...->float32" where the launch wrote f32)."""
     return {kernel.name: dict(kernel.shapes) for kernel in KERNELS}
 
 
@@ -285,59 +290,74 @@ def _band(causal: bool, window: int | None, sinks: int) -> tuple[int, int, int]:
     return int(causal), -1 if window is None else int(window), int(sinks)
 
 
-def flash_fwd(q, k, v, qpos, kpos, causal: bool, window: int | None, sinks: int):
-    """Forward sweep: ``(out, lse)`` with ``out`` in q's type and ``lse``
-    (B, H, S) f32."""
+def _out_dtype(out_dtype: torch.dtype | None, like: torch.dtype) -> torch.dtype:
+    """The type a sweep writes: the input's, or float32 (the reference's
+    ``out_dtype`` / ``grad_dtype``, for callers that sum partials)."""
+    out_dtype = like if out_dtype is None else out_dtype
+    if out_dtype not in (like, torch.float32):
+        raise ValueError(f"the flash kernels write {like} or float32, not {out_dtype}")
+    return out_dtype
+
+
+def flash_fwd(q, k, v, qpos, kpos, causal: bool, window: int | None, sinks: int,
+              out_dtype: torch.dtype | None = None):
+    """Forward sweep: ``(out, lse)`` with ``out`` in ``out_dtype`` (q's type
+    by default, or float32) and ``lse`` (B, H, S) f32."""
     b, h, hkv, sq, sk, d = _check_qkv(q, k, v, {"qpos": qpos, "kpos": kpos})
-    out = torch.empty_like(q)
+    out_dtype = _out_dtype(out_dtype, q.dtype)
+    out = torch.empty(q.shape, dtype=out_dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     FLASH_FWD.launch(
         _ptr(q), _ptr(k), _ptr(v), _ptr(qpos), _ptr(kpos), _ptr(out), _ptr(lse),
-        _DTYPE_CODES[q.dtype], b, h, hkv, sq, sk, d, d**-0.5,
+        _DTYPE_CODES[q.dtype], _DTYPE_CODES[out_dtype], b, h, hkv, sq, sk, d, d**-0.5,
         *_band(causal, window, sinks), torch.cuda.current_stream(q.device).cuda_stream,
     )
-    FLASH_FWD.note_shape(q)
+    FLASH_FWD.note_shape(q, out_dtype)
     return out, lse
 
 
 def flash_bwd_dkdv(q, k, v, dout, lse, delta, qpos, kpos, causal: bool,
-                   window: int | None, sinks: int):
-    """dK/dV sweep: ``(dk, dv)`` at kv-head shape, in k's type."""
+                   window: int | None, sinks: int, grad_dtype: torch.dtype | None = None):
+    """dK/dV sweep: ``(dk, dv)`` at kv-head shape, in ``grad_dtype`` (k's
+    type by default, or float32)."""
     b, h, hkv, sq, sk, d = _check_qkv(
         q, k, v,
         {"dout": dout, "lse": lse, "delta": delta, "qpos": qpos, "kpos": kpos},
     )
     if dout.shape != q.shape:
         raise ValueError(f"dout {tuple(dout.shape)} != q {tuple(q.shape)}")
-    dk = torch.empty_like(k)
-    dv = torch.empty_like(v)
+    grad_dtype = _out_dtype(grad_dtype, k.dtype)
+    dk = torch.empty(k.shape, dtype=grad_dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=grad_dtype, device=v.device)
     FLASH_BWD_DKDV.launch(
         _ptr(q), _ptr(k), _ptr(v), _ptr(dout), _ptr(lse), _ptr(delta),
         _ptr(qpos), _ptr(kpos), _ptr(dk), _ptr(dv),
-        _DTYPE_CODES[q.dtype], b, h, hkv, sq, sk, d, d**-0.5,
+        _DTYPE_CODES[q.dtype], _DTYPE_CODES[grad_dtype], b, h, hkv, sq, sk, d, d**-0.5,
         *_band(causal, window, sinks), torch.cuda.current_stream(q.device).cuda_stream,
     )
-    FLASH_BWD_DKDV.note_shape(q)
+    FLASH_BWD_DKDV.note_shape(q, grad_dtype)
     return dk, dv
 
 
 def flash_bwd_dq(q, k, v, dout, lse, delta, qpos, kpos, causal: bool,
-                 window: int | None, sinks: int):
-    """dQ sweep: ``dq`` in q's type."""
+                 window: int | None, sinks: int, grad_dtype: torch.dtype | None = None):
+    """dQ sweep: ``dq`` in ``grad_dtype`` (q's type by default, or
+    float32)."""
     b, h, hkv, sq, sk, d = _check_qkv(
         q, k, v,
         {"dout": dout, "lse": lse, "delta": delta, "qpos": qpos, "kpos": kpos},
     )
     if dout.shape != q.shape:
         raise ValueError(f"dout {tuple(dout.shape)} != q {tuple(q.shape)}")
-    dq = torch.empty_like(q)
+    grad_dtype = _out_dtype(grad_dtype, q.dtype)
+    dq = torch.empty(q.shape, dtype=grad_dtype, device=q.device)
     FLASH_BWD_DQ.launch(
         _ptr(q), _ptr(k), _ptr(v), _ptr(dout), _ptr(lse), _ptr(delta),
         _ptr(qpos), _ptr(kpos), _ptr(dq),
-        _DTYPE_CODES[q.dtype], b, h, hkv, sq, sk, d, d**-0.5,
+        _DTYPE_CODES[q.dtype], _DTYPE_CODES[grad_dtype], b, h, hkv, sq, sk, d, d**-0.5,
         *_band(causal, window, sinks), torch.cuda.current_stream(q.device).cuda_stream,
     )
-    FLASH_BWD_DQ.note_shape(q)
+    FLASH_BWD_DQ.note_shape(q, grad_dtype)
     return dq
 
 

@@ -162,9 +162,10 @@ def mha_reference(
 #
 # Same function, same casts as the CUDA kernels (and as the reference's
 # Pallas kernels): products accumulate in f32, P is cast to V's (dO's) type
-# before PV (P^T dO), dS to K's or Q's type before dS K (dS^T Q).  They
-# compute dense score matrices, so they serve the CPU and the kernel checks,
-# not long sequences.
+# before PV (P^T dO), dS to K's or Q's type before dS K (dS^T Q).  Results
+# are written in the input type, or in ``out_dtype`` / ``grad_dtype``
+# (float32: ring attention's per-hop partials).  They compute dense score
+# matrices, so they serve the CPU and the kernel checks, not long sequences.
 
 
 def _positions(positions, length: int, device) -> torch.Tensor:
@@ -187,8 +188,9 @@ def _scores(q, k, qpos, kpos, causal, window, sinks):
                        _positions(kpos, k.shape[2], q.device), causal, window, sinks)
 
 
-def flash_fwd_plain(q, k, v, qpos, kpos, causal, window, sinks):
-    """Plain version of the forward kernel: ``(out, lse)``."""
+def flash_fwd_plain(q, k, v, qpos, kpos, causal, window, sinks, out_dtype=None):
+    """Plain version of the forward kernel: ``(out, lse)``, ``out`` in
+    ``out_dtype`` (q's type by default)."""
     s, mask = _scores(q, k, qpos, kpos, causal, window, sinks)
     if mask is not None:
         s = s.masked_fill(~mask, NEG_INF)
@@ -199,7 +201,7 @@ def flash_fwd_plain(q, k, v, qpos, kpos, causal, window, sinks):
     l = p.sum(dim=-1, keepdim=True).clamp_min(1e-37)
     vx = v.repeat_interleave(_gqa_group(q, k), dim=1)
     acc = torch.matmul(p.to(v.dtype).float(), vx.float())
-    return (acc / l).to(q.dtype), (m + torch.log(l)).squeeze(-1)
+    return (acc / l).to(out_dtype or q.dtype), (m + torch.log(l)).squeeze(-1)
 
 
 def _probs(q, k, lse, qpos, kpos, causal, window, sinks):
@@ -214,8 +216,10 @@ def _ds(q, v, dout, p, delta):
     return p * (dp - delta[..., None]) * q.shape[-1] ** -0.5
 
 
-def flash_bwd_dkdv_plain(q, k, v, dout, lse, delta, qpos, kpos, causal, window, sinks):
-    """Plain version of the dK/dV kernel: ``(dk, dv)`` at kv-head shape."""
+def flash_bwd_dkdv_plain(q, k, v, dout, lse, delta, qpos, kpos, causal, window, sinks,
+                         grad_dtype=None):
+    """Plain version of the dK/dV kernel: ``(dk, dv)`` at kv-head shape, in
+    ``grad_dtype`` (k's type by default)."""
     p = _probs(q, k, lse, qpos, kpos, causal, window, sinks)
     ds = _ds(q, v, dout, p, delta)
     dv = torch.matmul(p.to(dout.dtype).float().transpose(-1, -2), dout.float())
@@ -223,17 +227,19 @@ def flash_bwd_dkdv_plain(q, k, v, dout, lse, delta, qpos, kpos, causal, window, 
     b, h_kv, s_k, d = k.shape
     group = q.shape[1] // h_kv
     return (
-        dk.view(b, h_kv, group, s_k, d).sum(dim=2).to(k.dtype),
-        dv.view(b, h_kv, group, s_k, d).sum(dim=2).to(v.dtype),
+        dk.view(b, h_kv, group, s_k, d).sum(dim=2).to(grad_dtype or k.dtype),
+        dv.view(b, h_kv, group, s_k, d).sum(dim=2).to(grad_dtype or v.dtype),
     )
 
 
-def flash_bwd_dq_plain(q, k, v, dout, lse, delta, qpos, kpos, causal, window, sinks):
-    """Plain version of the dQ kernel."""
+def flash_bwd_dq_plain(q, k, v, dout, lse, delta, qpos, kpos, causal, window, sinks,
+                       grad_dtype=None):
+    """Plain version of the dQ kernel, ``dq`` in ``grad_dtype`` (q's type by
+    default)."""
     p = _probs(q, k, lse, qpos, kpos, causal, window, sinks)
     ds = _ds(q, v, dout, p, delta)
     kx = k.repeat_interleave(_gqa_group(q, k), dim=1)
-    return torch.matmul(ds.to(k.dtype).float(), kx.float()).to(q.dtype)
+    return torch.matmul(ds.to(k.dtype).float(), kx.float()).to(grad_dtype or q.dtype)
 
 
 # --- Device dispatch: the kernel on CUDA, its plain version on the CPU ----
@@ -247,20 +253,32 @@ def _pick(kernel, plain, q):
     raise ValueError(f"flash attention runs on cuda or cpu, not {q.device}")
 
 
-def _flash_forward(q, k, v, qpos, kpos, causal, window, sinks):
+def _flash_forward(q, k, v, qpos, kpos, causal, window, sinks, out_dtype=None):
+    """``(out, lse)``: out in ``out_dtype`` (q's type by default; float32
+    lets ring callers merge unrounded block partials), lse (B, H, S) f32."""
     return _pick(_kernels.flash_fwd, flash_fwd_plain, q)(
-        q, k, v, qpos, kpos, causal, window, sinks
+        q, k, v, qpos, kpos, causal, window, sinks, out_dtype
     )
 
 
-def _flash_backward(q, k, v, out, lse, g, qpos, kpos, causal, window, sinks):
-    # delta_i = rowsum(dO_i * O_i) in f32: a cheap reduce, left to PyTorch.
-    delta = (g.float() * out.float()).sum(dim=-1)
+def flash_delta(out: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """``delta_i = rowsum(dO_i * O_i)`` in f32, (B, H, S): a cheap reduce,
+    left to PyTorch."""
+    return (g.float() * out.float()).sum(dim=-1)
+
+
+def _flash_backward(q, k, v, out, lse, g, qpos, kpos, causal, window, sinks,
+                    delta=None, grad_dtype=None):
+    """``(dq, dk, dv)`` in ``grad_dtype`` (the inputs' types by default).
+    Ring callers pass ``delta`` (:func:`flash_delta`), computed once for
+    every hop, and ``grad_dtype=float32`` for per-hop partials."""
+    if delta is None:
+        delta = flash_delta(out, g)
     dk, dv = _pick(_kernels.flash_bwd_dkdv, flash_bwd_dkdv_plain, q)(
-        q, k, v, g, lse, delta, qpos, kpos, causal, window, sinks
+        q, k, v, g, lse, delta, qpos, kpos, causal, window, sinks, grad_dtype
     )
     dq = _pick(_kernels.flash_bwd_dq, flash_bwd_dq_plain, q)(
-        q, k, v, g, lse, delta, qpos, kpos, causal, window, sinks
+        q, k, v, g, lse, delta, qpos, kpos, causal, window, sinks, grad_dtype
     )
     return dq, dk, dv
 

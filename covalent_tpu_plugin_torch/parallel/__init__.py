@@ -5,10 +5,12 @@ task over a gang of processes, one a device, joined by a
 ``torch.distributed`` process group that the harness opens from the task
 spec's ``distributed`` block.  ``mesh`` names the axes, ``sharding`` maps a
 model's logical axes onto them (FSDP2 over ``fsdp``, tensor parallelism over
-``tensor``; ``logical_sharding`` and the like answer DTensor placements),
-``collectives`` runs the tiled collectives on one axis, ``launch`` runs a
-function as a local gang, and ``probe`` says which collectives a backend
-carries on a device's tensors.
+``tensor``, replicas over ``seq``, each rank's part of the sequence from
+``shard_batch``; ``logical_sharding`` and the like answer DTensor
+placements), ``collectives`` runs the tiled collectives on one axis (the
+ring permute and the all-to-all differentiable, for
+``ops/ring_attention.py``), ``launch`` runs a function as a local gang, and
+``probe`` says which collectives a backend carries on a device's tensors.
 Pipeline parallelism (``pipeline.py``) comes with slice 4, part 2.
 """
 

@@ -6,7 +6,12 @@ semantics.  Here each takes the mesh axis name and the mesh, and runs on
 that axis's process group (``mesh.get_group(axis_name)``) with
 ``torch.distributed``'s own collectives; the order of a gathered or
 scattered axis is the rank order along the mesh axis, as in the reference.
-They are forward-only functions of their input (none mutates it).
+None mutates its input.  :func:`ring_permute` and :func:`all_to_all` are
+differentiable (ring and Ulysses attention train through them, as the
+reference differentiates through ``ppermute`` and ``all_to_all``): the
+gradient of a permute by ``shift`` is the permute by ``-shift``, that of an
+all-to-all the all-to-all with the split and concatenated axes swapped.
+The others are forward-only.
 
 What a backend carries differs: gloo with tensors on the card has every
 collective these functions use except point-to-point sends
@@ -68,11 +73,7 @@ def reduce_scatter(x: torch.Tensor, axis_name: str, mesh, *, axis: int = 0) -> t
     return out.movedim(0, axis)
 
 
-def all_to_all(x: torch.Tensor, axis_name: str, mesh, *, split_axis: int,
-               concat_axis: int) -> torch.Tensor:
-    """Send block ``j`` of ``split_axis`` to member ``j``; concatenate what
-    arrives along ``concat_axis`` in member order (the Ulysses swap)."""
-    group = _group(axis_name, mesh)
+def _all_to_all(x: torch.Tensor, group, split_axis: int, concat_axis: int) -> torch.Tensor:
     n = dist.get_world_size(group)
     split_axis %= x.dim()
     concat_axis %= x.dim()
@@ -85,11 +86,27 @@ def all_to_all(x: torch.Tensor, axis_name: str, mesh, *, split_axis: int,
     return torch.cat(pieces, dim=concat_axis)
 
 
-def ring_permute(x: torch.Tensor, axis_name: str, mesh, *, shift: int = 1) -> torch.Tensor:
-    """Member ``i``'s tensor moves to member ``(i + shift) % n`` (ring
-    attention's K/V hop), as one ``all_to_all_single`` with one non-empty
-    split each way (module docstring)."""
-    group = _group(axis_name, mesh)
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, split_axis, concat_axis):
+        ctx.args = (group, concat_axis, split_axis)
+        return _all_to_all(x, group, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_to_all(grad, *ctx.args), None, None, None
+
+
+def all_to_all(x: torch.Tensor, axis_name: str, mesh, *, split_axis: int,
+               concat_axis: int) -> torch.Tensor:
+    """Send block ``j`` of ``split_axis`` to member ``j``; concatenate what
+    arrives along ``concat_axis`` in member order (the Ulysses swap).
+    Differentiable: the gradient takes the swap back."""
+    return _AllToAll.apply(x, _group(axis_name, mesh), split_axis % x.dim(),
+                           concat_axis % x.dim())
+
+
+def _ring_permute(x: torch.Tensor, group, shift: int) -> torch.Tensor:
     n = dist.get_world_size(group)
     if shift % n == 0:
         return x.clone()
@@ -102,6 +119,25 @@ def ring_permute(x: torch.Tensor, axis_name: str, mesh, *, shift: int = 1) -> to
     dist.all_to_all_single(out, flat, output_split_sizes=recv, input_split_sizes=send,
                            group=group)
     return out.reshape(x.shape)
+
+
+class _RingPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, shift):
+        ctx.group, ctx.shift = group, shift
+        return _ring_permute(x, group, shift)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _ring_permute(grad.contiguous(), ctx.group, -ctx.shift), None, None
+
+
+def ring_permute(x: torch.Tensor, axis_name: str, mesh, *, shift: int = 1) -> torch.Tensor:
+    """Member ``i``'s tensor moves to member ``(i + shift) % n`` (ring
+    attention's K/V hop), as one ``all_to_all_single`` with one non-empty
+    split each way (module docstring).  Differentiable: the gradient moves
+    back by ``-shift``."""
+    return _RingPermute.apply(x, _group(axis_name, mesh), shift)
 
 
 def axis_index(axis_name: str, mesh) -> int:

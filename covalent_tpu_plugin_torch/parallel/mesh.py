@@ -8,8 +8,9 @@ tighter ones):
 * ``fsdp``   — data parallelism with parameter sharding (FSDP2 gathers
   weights just in time); the batch is sharded over ``data × fsdp``
 * ``tensor`` — Megatron-style tensor parallelism inside layers
-* ``seq``    — sequence/context parallelism (ring attention, a later slice)
-* ``pipe``   — pipeline parallelism (a later slice)
+* ``seq``    — sequence/context parallelism (ring and Ulysses attention,
+  ``ops/ring_attention.py``)
+* ``pipe``   — pipeline parallelism (a later slice: GPipe)
 
 A dimension of 1 stays in the mesh, as in the reference: one train-step
 definition serves every plan.  Each rank of the process group drives one

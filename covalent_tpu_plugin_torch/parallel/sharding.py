@@ -27,10 +27,22 @@ the train step averages the gradients over ``data``
 is replicated over ``tensor``, as in the reference; each rank computes the
 kv heads its query heads read, and the projections' gradients are summed
 over ``tensor``.
+
+The ``seq`` axis (sequence parallelism) shards activations, not
+parameters: every parameter is replicated over it.  Each ``seq`` rank
+takes its part of every sequence (:func:`shard_batch`: the inputs, the
+labels cut from the globally shifted sequence, and the global positions of
+its rows, contiguous or zigzag-striped) and the model's ring or Ulysses
+attention (``ops/ring_attention.py``) joins the parts.  A rank's loss is a
+mean over its S/n tokens and the ring's backward has already sent every
+dK/dV partial to its owner, so the gradients are averaged over ``seq`` as
+over ``data`` (:func:`average_gradients`, also under FSDP2, which averages
+over ``fsdp`` only).
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Any
 
@@ -136,7 +148,31 @@ def _map(fn, tree):
     return fn(tree)
 
 
-def shard_batch(batch: Any, mesh, rules=DEFAULT_RULES) -> Any:
+def _seq_cut(batch: Any, mesh, zigzag: bool) -> Any:
+    """With ``seq`` > 1: this rank's part of a language-model batch
+    ``{"tokens": (B, S + 1)}`` as ``{"tokens": inputs, "labels": labels,
+    "positions": positions}``: the inputs and the labels (the sequence
+    shifted by one, cut after the shift) at the global positions of this
+    rank's rows, ``(B, S / seq)`` each, and those positions ((S / seq,)
+    int64), contiguous or zigzag-striped (``ops.ring_attention``).  With
+    ``seq`` 1 the batch as it is."""
+    n = mesh["seq"].size()
+    if n == 1:
+        return batch
+    from ..ops.ring_attention import sequence_positions
+
+    if not isinstance(batch, dict) or set(batch) != {"tokens"}:
+        raise ValueError(
+            "a batch split over 'seq' is a language model's {'tokens': (B, S + 1)}, "
+            f"got {sorted(batch) if isinstance(batch, dict) else type(batch).__name__}")
+    tokens = torch.as_tensor(batch["tokens"])
+    positions = sequence_positions(tokens.shape[1] - 1, n, mesh.get_local_rank("seq"), zigzag)
+    index = torch.as_tensor(positions, dtype=torch.int64)
+    return {"tokens": tokens[:, :-1][:, index], "labels": tokens[:, 1:][:, index],
+            "positions": index}
+
+
+def shard_batch(batch: Any, mesh, rules=DEFAULT_RULES, *, zigzag: bool = False) -> Any:
     """This rank's rows of a host-global batch, on the mesh's device.
 
     Every leaf's dim 0 is the batch, split over the batch axes (data ×
@@ -144,20 +180,26 @@ def shard_batch(batch: Any, mesh, rules=DEFAULT_RULES) -> Any:
     the same rows.  Scalars come through whole.  Each rank holds the whole
     batch and keeps its block, the counterpart of the reference's
     ``device_put`` of a global array.
+
+    With ``seq`` > 1 the batch is a language model's ``{"tokens": (B, S +
+    1)}`` and each rank also keeps its part of the sequence
+    (``{"tokens", "labels", "positions"}``, see :func:`_seq_cut`), striped
+    when ``zigzag`` (the model's layout: ``TransformerLM.sequence_zigzag``).
     """
     block, count = _batch_block(mesh, rules)
     device = _device(mesh)
 
-    def place(x):
+    def rows(x):
         x = torch.as_tensor(np.asarray(x) if not isinstance(x, torch.Tensor) else x)
         if x.dim() == 0:
-            return x.to(device)
+            return x
         if x.shape[0] % count:
             raise ValueError(f"batch dim {x.shape[0]} not divisible by the {count} batch shards")
         span = x.shape[0] // count
-        return x[block * span:(block + 1) * span].to(device)
+        return x[block * span:(block + 1) * span]
 
-    return _map(place, batch)
+    batch = _seq_cut(_map(rows, batch), mesh, zigzag)
+    return _map(lambda x: x.to(device), batch)
 
 
 def shard_batch_per_process(local_batch: Any, mesh, rules=DEFAULT_RULES) -> Any:
@@ -269,13 +311,18 @@ def _shard_on_tensor(module: torch.nn.Module, prefix: str, shardings: dict,
 def apply_rules(model: torch.nn.Module, mesh, rules=DEFAULT_RULES) -> torch.nn.Module:
     """Shard ``model`` in place over ``mesh`` per the rules (module
     docstring); returns it.  Every rank of the mesh calls it on identical
-    weights.  ``seq`` and ``pipe`` > 1 are refused (slice 4, part 2)."""
+    weights.  Parameters are replicated over ``seq``; each module that runs
+    sequence-parallel attention takes the mesh (``sequence_parallel``).
+    ``pipe`` > 1 is refused (GPipe: slice 4, part 2)."""
     plan = mesh_plan(mesh)
-    if plan.seq > 1 or plan.pipe > 1:
+    if plan.pipe > 1:
         raise NotImplementedError(
-            f"mesh {plan.sizes}: sequence and pipeline parallelism come with slice 4, "
-            "part 2 (ring attention, GPipe)"
+            f"mesh {plan.sizes}: pipeline parallelism comes with slice 4, part 2 "
+            "(GPipe: parallel/pipeline.py)"
         )
+    for module in model.modules():
+        if hasattr(module, "sequence_parallel"):
+            module.sequence_parallel(mesh)
     shardings = param_shardings(model, mesh, rules)
     if plan.tensor > 1:
         tp = TensorParallel(mesh.get_group("tensor"), mesh.get_local_rank("tensor"), plan.tensor)
@@ -296,16 +343,21 @@ def apply_rules(model: torch.nn.Module, mesh, rules=DEFAULT_RULES) -> torch.nn.M
 
 
 def average_gradients(model: torch.nn.Module, mesh) -> None:
-    """Average every gradient over ``data`` when the replicas are plain data
-    parallelism (``fsdp`` 1): one all-reduce of the flattened gradients.
-    FSDP2 averages them itself when ``fsdp`` > 1."""
+    """Average every gradient over the axes whose ranks hold replicas of the
+    parameters and see other tokens: ``data`` when the replicas are plain
+    data parallelism (``fsdp`` 1; FSDP2 averages over ``data`` and ``fsdp``
+    itself), and ``seq``.  One all-reduce of the flattened gradients (this
+    rank's shards of them) on each such axis."""
     plan = mesh_plan(mesh)
-    if plan.data == 1 or plan.fsdp > 1:
+    axes = [a for a, on in (("data", plan.data > 1 and plan.fsdp == 1), ("seq", plan.seq > 1))
+            if on]
+    if not axes:
         return
     grads = [_local(p.grad) for p in model.parameters() if p.grad is not None]
     flat = torch.cat([g.reshape(-1) for g in grads])
-    flat /= plan.data
-    dist.all_reduce(flat, group=mesh.get_group("data"))
+    flat /= math.prod(mesh[a].size() for a in axes)
+    for axis in axes:
+        dist.all_reduce(flat, group=mesh.get_group(axis))
     offset = 0
     for g in grads:
         g.copy_(flat[offset:offset + g.numel()].view_as(g))
@@ -313,10 +365,11 @@ def average_gradients(model: torch.nn.Module, mesh) -> None:
 
 
 def batch_mean(value: torch.Tensor, mesh, rules=DEFAULT_RULES) -> torch.Tensor:
-    """The mean of a per-rank value (a loss over the rank's rows) over the
-    batch axes: the global mean when every rank holds as many rows."""
+    """The mean of a per-rank value (a loss over the rank's rows and, under
+    ``seq``, its part of the sequence) over the batch axes and ``seq``: the
+    global mean when every rank holds as many tokens."""
     total, count = value.detach().float().clone(), 1
-    for axis in _axes(_mesh_axes_for("batch", rules)):
+    for axis in _axes(_mesh_axes_for("batch", rules)) + ("seq",):
         n = mesh[axis].size()
         if n > 1:
             dist.all_reduce(total, group=mesh.get_group(axis))

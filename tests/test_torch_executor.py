@@ -171,7 +171,7 @@ print(len(names), sorted(foreign() - before), " ".join(names))
         "workflow.runner", "parallel", "parallel.mesh", "parallel.sharding",
         "parallel.distributed", "parallel.collectives", "parallel.launch",
         "parallel.probe", "transport.ssh", "transport.minissh", "transport.codec",
-        "transport.pool")} <= set(walked.split())
+        "transport.pool", "ops.ring_attention")} <= set(walked.split())
     assert int(count) >= 45
     assert added == "[]"
 

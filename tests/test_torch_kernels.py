@@ -25,6 +25,7 @@ import torch
 
 from covalent_tpu_plugin_torch.ops import _kernels
 from covalent_tpu_plugin_torch.ops import attention as torch_attention
+from covalent_tpu_plugin_torch.ops.ring_attention import sequence_positions
 
 FWD_ATOL = 1e-5
 GRAD_ATOL = 1e-4
@@ -174,6 +175,62 @@ def test_tensor_core_kernels_match_plain_on_the_card(card, name):
     _assert_close(dq, dq_p, EPS[dtype])
     _assert_close(dk, dk_p, EPS[dtype])
     _assert_close(dv, dv_p, EPS[dtype])
+
+
+#: The f32-output variants (ring attention's per-hop partials): bf16 inputs
+#: at one hop of a 2-ring of the 125M LM (queries at one rank's stripes, keys
+#: at the other's), at head dim 128, and on the scalar route; (q rank, k rank).
+VARIANT_CASES = {
+    "hop_q0_k1_bf16": dict(shape=(8, 12, 12, 512, 512, 64), dtype="bfloat16", ranks=(0, 1)),
+    "hop_q1_k0_bf16": dict(shape=(8, 12, 12, 512, 512, 64), dtype="bfloat16", ranks=(1, 0)),
+    "hop_d128_gqa_bf16": dict(shape=(2, 8, 2, 512, 512, 128), dtype="bfloat16", ranks=(1, 0)),
+    "hop_scalar_d32_f16": dict(shape=(1, 4, 2, 256, 256, 32), dtype="float16", ranks=(0, 1)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(VARIANT_CASES))
+def test_f32_output_variants_match_plain_on_the_card(card, name):
+    """Each sweep with f32 outputs against its plain version at the 16-bit
+    tolerance, and, rounded to the input type, bit-equal to the same sweep's
+    16-bit output: the variant stores the same accumulator, unrounded."""
+    case = VARIANT_CASES[name]
+    batch, heads, kv_heads, seq_q, seq_k, dim = case["shape"]
+    dtype = getattr(torch, case["dtype"])
+    rng = np.random.default_rng(11)
+    q, k, v, dout = (
+        torch.tensor(rng.standard_normal(shape, dtype=np.float32), device=card).to(dtype)
+        for shape in ((batch, heads, seq_q, dim), (batch, kv_heads, seq_k, dim),
+                      (batch, kv_heads, seq_k, dim), (batch, heads, seq_q, dim))
+    )
+    q_rank, k_rank = case["ranks"]
+    qpos = torch.tensor(sequence_positions(2 * seq_q, 2, q_rank, True), device=card)
+    kpos = torch.tensor(sequence_positions(2 * seq_k, 2, k_rank, True), device=card)
+    band = (True, None, 0)
+    f32 = torch.float32
+
+    _kernels.reset_launch_counts()
+    out, lse = _kernels.flash_fwd(q, k, v, qpos, kpos, *band, out_dtype=f32)
+    out16, lse16 = _kernels.flash_fwd(q, k, v, qpos, kpos, *band)
+    out_p, _ = torch_attention.flash_fwd_plain(q, k, v, qpos, kpos, *band, f32)
+    delta = torch_attention.flash_delta(out, dout)
+    bwd_args = (q, k, v, dout, lse, delta, qpos, kpos, *band)
+    dq = _kernels.flash_bwd_dq(*bwd_args, grad_dtype=f32)
+    dq16 = _kernels.flash_bwd_dq(*bwd_args)
+    dq_p = torch_attention.flash_bwd_dq_plain(*bwd_args, f32)
+    dk, dv = _kernels.flash_bwd_dkdv(*bwd_args, grad_dtype=f32)
+    dk16, dv16 = _kernels.flash_bwd_dkdv(*bwd_args)
+    dk_p, dv_p = torch_attention.flash_bwd_dkdv_plain(*bwd_args, f32)
+    torch.cuda.synchronize()
+    assert _kernels.launch_counts() == {"flash_fwd": 2, "flash_bwd_dkdv": 2, "flash_bwd_dq": 2}
+    key = f"{batch}x{heads}x{seq_q}x{dim} {case['dtype']}"
+    assert _kernels.launch_shapes()["flash_fwd"] == {f"{key}->float32": 1, key: 1}
+    assert torch.equal(lse, lse16)
+    for got, plain, low in ((out, out_p, out16), (dq, dq_p, dq16), (dk, dk_p, dk16),
+                            (dv, dv_p, dv16)):
+        assert got.dtype == f32 and plain.dtype == f32
+        _assert_close(got, plain, EPS[dtype])
+        assert torch.equal(got.to(dtype), low)
 
 
 @pytest.mark.cuda
@@ -647,3 +704,26 @@ def test_gloo_carries_the_gangs_collectives_on_one_card(card):
     assert not failed, failed
     for name, entry in probe["collectives"].items():
         assert entry["ok"] or entry.get("error"), name
+
+
+def test_chip_smoke_covers_the_f32_variants_and_the_seq_gang():
+    """chip_smoke.py holds the f32-output variants against their plain
+    versions at both directions of a 2-ring's cross hop and at head dim 128,
+    and trains the LM on the ring and on Ulysses as two-process seq gangs,
+    the ring's launches all with f32 outputs."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    cases = chip_smoke.VARIANT_CASES
+    assert {c["positions"][1:] for c in cases} >= {(0, 1), (1, 0)}
+    assert {c["shape"][-1] for c in cases} == {64, 128}
+    assert chip_smoke.HOP_SHAPE == (8, 12, 12, 512, 512, 64)
+    arms = chip_smoke.GANG_ARMS
+    assert arms["lm_ring2"] == ("lm", dict(seq=2), dict(attention="ring"))
+    assert arms["lm_ulysses2"] == ("lm", dict(seq=2), dict(attention="ulysses"))
+    assert chip_smoke.GANG_LAUNCHES["lm_ring2"] == {"8x12x512x64 bfloat16->float32": 24}
+    assert chip_smoke.GANG_LAUNCHES["lm_ulysses2"] == {"8x6x1024x64 bfloat16": 12}

@@ -201,15 +201,29 @@ def test_default_device_is_the_card():
     ("quantized", True, "slice 3"),
     ("lora_rank", 4, "slice 3"),
     ("moe_experts", 4, "slice 4"),
-    ("attention", "ring", "slice 4"),
-    ("attention", "ulysses", "slice 4"),
+    ("attention", "ring", "mesh"),
+    ("attention", "ulysses", "mesh"),
     ("remat", True, "slice 5"),
 ])
 def test_later_slice_knobs_raise(knob, value, slice_name):
     """Knobs of later slices raise, naming their slice; the serving knobs of
-    slice 2 are ported now and construct."""
+    slice 2 are ported now and construct.  Sequence-parallel attention (slice
+    4, part 2) constructs, and a forward without a mesh raises the
+    reference's error."""
     if slice_name == "slice 2":
         assert getattr(torch_tf.TransformerConfig(**{knob: value}), knob) == value
+        return
+    if slice_name == "mesh":
+        config = torch_tf.TransformerConfig(**TINY, dtype=torch.float32, **{knob: value})
+        model = torch_tf.TransformerLM(config, device="cpu")
+        ref = jax_tf.TransformerLM(jax_tf.TransformerConfig(
+            **TINY, dtype=jnp.float32, **{knob: value}))
+        tokens = _tokens(seq=16)
+        with pytest.raises(ValueError) as want:
+            ref.init(jax.random.PRNGKey(0), jnp.asarray(tokens))
+        with pytest.raises(ValueError) as got:
+            model(torch.tensor(tokens).long())
+        assert str(got.value) == str(want.value) == f"attention={value!r} requires config.mesh"
         return
     with pytest.raises(NotImplementedError, match=slice_name):
         torch_tf.TransformerConfig(**{knob: value})

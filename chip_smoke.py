@@ -152,7 +152,8 @@ Phases, one JSON object per line on stdout, in this order:
     exactly 1.0); the dispatch overhead of a warm trivial electron over 5
     probes (``last_timings``), against BASELINE's budget of 2 s; config 3,
     three fan-outs of 8 electrons (trivial, 0.3 s of sleep, one MNIST MLP
-    Adam step on the card each), 3 trials each; config 4, the MNIST MLP and
+    Adam step on the card each), 3 trials each (the launch arm's MNIST-step
+    fan-out 2: its line says ``cut``); config 4, the MNIST MLP and
     CNN (``models.train.train_mnist``: 64 batches of 256, loss first and
     last, steps/s).  Every electron must take its arm's road, and the warm
     arms' values must equal the launch arm's.  Then, with the pool server
@@ -208,12 +209,41 @@ Phases, one JSON object per line on stdout, in this order:
     0's host).  Any missing marker, ``task.dispatch_failed`` or electron on
     another road fails the run.  Without an SSH backend on the machine
     the phase prints one line naming what is missing and runs no arm.
-21. ``kernels``: every kernel with its launches on its path (the flash
+21. ``agent``: the native C++ agent, resident profiling, the per-session
+    serving families and fleet ``Pool`` targets, one line per step.
+    ``build``: ``GPUExecutor(use_agent="native")`` compiles the port's
+    ``native/agent.cc`` on first use (seconds).  ``rpc_child``: the
+    ``train`` cell's electron by RPC, each invoke a fresh ``harness.py
+    --rpc-child`` the agent forks: losses within 1e-2 of the ``train``
+    phase's standard arm (the line says whether the bits are equal), 12
+    launches a step of each flash kernel, the runner's start (the
+    ``submit`` span: the agent's fork and exec of the runner until its
+    ``started``; the agent's build is in ``connect``, printed apart) and
+    the electron's wall.  ``capture_pool_rpc``: ``capture_profile(2 s)`` on a
+    pool server while an RPC training electron runs in it: the artifact's
+    digest checked, its trace's device events by flash kernel (each must be
+    there).  ``serve_child``: the ``session`` phase's 16 requests on a
+    session opened on a ``Pool`` over the native executor (the model in a
+    ``--serve-child``): open seconds, tokens/s and TTFT beside the
+    ``session`` phase's, the per-session families read back (requests,
+    tokens, TTFT count and p50 bucket, queue depth, tokens/s, prefix
+    counters), and 0 tokens different from the ``session`` phase's
+    streams.  ``capture_serve_child``: ``capture_profile(2 s)`` on that
+    session while it decodes (bursts of the 16 requests, one after the
+    other, until the capture is back): the trace must hold the tensor-core
+    products, the mix and the norm.  ``pool_handoff``: the 16 twice over
+    (32 requests), handed off to a second ``Pool`` (a pool-mode executor)
+    as soon as the first tokens arrive: the requests the supervisor
+    replayed onto the new runtime (at least the 8 slots) and those of them
+    already streaming, every stream complete exactly once and equal to the
+    ``session`` phase's, the slot moved with the session, the handoff's
+    seconds and the completion after it.
+22. ``kernels``: every kernel with its launches on its path (the flash
     kernels: training, with the gang's launches beside as
     ``gang_launches``, the ``lm_ring2`` arm's f32-output launches as
     ``ring_launches`` with the variant's times under ``f32_variant``, the
-    ``lm_ulysses2`` arm's as ``ulysses_launches``, and the ``ssh`` phase's
-    as ``ssh_launches``; the
+    ``lm_ulysses2`` arm's as ``ulysses_launches``, the ``ssh`` phase's
+    as ``ssh_launches`` and the ``agent`` phase's as ``agent_launches``; the
     batch-invariant ones: the ``serve`` phase, and
     the f32 CUDA-core product ``serve_check``'s f32 LM, with its 0 launches
     on the ``serve`` phase beside),
@@ -2245,6 +2275,11 @@ MATMUL_TAGS = ("gemm", "gemv", "xmma", "cutlass", "nvjet", "splitK")
 MATMUL_N, MATMUL_CHAIN, MATMUL_REPS = 4096, 16, 50
 #: Config 3 (``bench.py:2413-2470``): electrons per fan-out, trials, busy seconds.
 FANOUT, FANOUT_TRIALS, BUSY_S = 8, 3, 0.3
+#: Trials of the launch arm's MNIST-step fan-out, cut from 3 to keep the run
+#: under 1000 s with the ``agent`` phase: each is 8 fresh interpreters that
+#: import torch at once (35.6-38.1 s a trial, and the whole run 1014 s with
+#: 3, on an NVIDIA H100 80GB HBM3, 700 W).
+LAUNCH_MNIST_TRIALS = 2
 #: Config 4 (``bench.py:1181-1253``): timed epochs over the 64 batches.
 MNIST_EPOCHS = 20
 OVERHEAD_PROBES = 5
@@ -2472,7 +2507,9 @@ def lattice_arm(arm: str, reference: dict | None) -> tuple[list[dict], dict, dic
             fan = ct.lattice(lambda n: [electron(i, *extra) for i in range(n)])
             _, single_wall = dispatch(single)
             walls, values_seen = [], []
-            for _ in range(FANOUT_TRIALS):
+            trials = (LAUNCH_MNIST_TRIALS if (arm, kind) == ("launch", "mnist_step")
+                      else FANOUT_TRIALS)
+            for _ in range(trials):
                 values_seen, wall = dispatch(fan, FANOUT)
                 if len(values_seen) != FANOUT or not all(
                         ok(i, v) for i, v in enumerate(values_seen)):
@@ -2485,6 +2522,8 @@ def lattice_arm(arm: str, reference: dict | None) -> tuple[list[dict], dict, dic
                           "fanout8_wall_s": fanout_wall, "fanout8_per_electron_s": fanout_wall / FANOUT,
                           "single_wall_s": single_wall,
                           "speedup_vs_serial": FANOUT * single_wall / fanout_wall,
+                          **({"cut": f"{trials} trials of {FANOUT_TRIALS}"}
+                             if trials < FANOUT_TRIALS else {}),
                           **({"losses": values_seen} if kind == "mnist_step" else {})})
 
         # Config 4: the MNIST arms.
@@ -3066,6 +3105,361 @@ def ssh_phase(train_losses: list, local_overheads: dict) -> tuple[list[dict], di
     return lines, launches
 
 
+# --- the native agent, resident profiling, metrics and Pool targets ----------
+
+#: The flash kernels by the names of their device functions (scalar or
+#: tensor-core): what a trace of a training step must hold.
+FLASH_KERNEL_TAGS = {"flash_fwd": "flash_fwd_", "flash_bwd_dq": "flash_bwd_dq_",
+                     "flash_bwd_dkdv": "flash_bwd_dkdv_"}
+#: Steps of the RPC electron traced on the pool server: its training outlasts
+#: the 2 s capture that starts after its warm-up.
+AGENT_PROFILE_STEPS = 60
+AGENT_CAPTURE_S = 2.0
+
+
+def agent_profile_electron(marker: str, steps: int) -> dict:
+    """``train_lm`` twice in the resident runtime: 2 warm-up steps, then the
+    marker file (the dispatcher's cue to start its capture), then ``steps``
+    steps under the capture."""
+    from covalent_tpu_plugin_torch.models.train import train_lm
+
+    train_lm(steps=2, batch_size=BATCH, seq_len=SEQ, seed=0)
+    with open(marker, "w"):
+        pass
+    return train_lm(steps=steps, batch_size=BATCH, seq_len=SEQ, seed=0)
+
+
+def trace_kernels(path: str, tags: dict) -> dict:
+    """Device kernel events in a packed ``torch.profiler`` trace, counted by
+    tag (a substring of the kernel's name), with the events' total."""
+    import tarfile
+
+    counts = dict.fromkeys(tags, 0)
+    total = 0
+    with tarfile.open(path, "r:gz") as tar:
+        members = [m for m in tar.getmembers() if m.name.endswith(".json")]
+        if not members:
+            raise AssertionError(f"profile artifact {path} holds no trace: "
+                                 f"{[m.name for m in tar.getmembers()]}")
+        for member in members:
+            trace = json.load(tar.extractfile(member))
+            for event in trace.get("traceEvents", []):
+                if event.get("cat") != "kernel":
+                    continue
+                total += 1
+                name = str(event.get("name") or "")
+                for tag, sub in tags.items():
+                    if sub in name:
+                        counts[tag] += 1
+    return {"kernel_events": total, "by_kernel": counts}
+
+
+def _checked_artifact(info: dict | None, what: str) -> dict:
+    """A capture's artifact, its sha256 checked here again."""
+    from covalent_tpu_plugin_torch.cache import file_digest
+
+    if not info:
+        raise AssertionError(f"agent: {what}: no resident runtime was traced (None)")
+    if file_digest(info["path"]) != info["digest"]:
+        raise AssertionError(f"agent: {what}: the artifact does not match its digest")
+    return info
+
+
+def serve_families() -> dict:
+    """The per-session serving families' process-wide values so far."""
+    from covalent_tpu_plugin_torch.serving import metrics as m
+
+    return {"requests": {labels["outcome"]: child.value
+                         for labels, child in m.SERVE_REQUESTS_TOTAL._series()},
+            "tokens": m.SERVE_TOKENS_TOTAL.value, "sessions": m.SERVE_SESSIONS.value,
+            "ttft": list(m.SERVE_TTFT_SECONDS._default_child().counts),
+            "request_s": list(m.SERVE_REQUEST_SECONDS._default_child().counts)}
+
+
+def _bucket_p50(bounds: tuple, counts: list) -> float | None:
+    """The upper bound of the bucket that holds the median of ``counts``."""
+    total, running = sum(counts), 0
+    for bound, n in zip(list(bounds) + [float("inf")], counts):
+        running += n
+        if total and running >= total / 2:
+            return bound
+    return None
+
+
+def families_delta(before: dict, after: dict) -> dict:
+    from covalent_tpu_plugin_torch.serving import metrics as m
+
+    ttft = [a - b for a, b in zip(after["ttft"], before["ttft"])]
+    request_s = [a - b for a, b in zip(after["request_s"], before["request_s"])]
+    return {
+        "requests": {k: v - before["requests"].get(k, 0.0)
+                     for k, v in after["requests"].items()
+                     if v - before["requests"].get(k, 0.0)},
+        "tokens": after["tokens"] - before["tokens"],
+        "ttft_count": sum(ttft), "ttft_p50_bucket_s": _bucket_p50(m.SERVE_TTFT_SECONDS.buckets,
+                                                                  ttft),
+        "request_count": sum(request_s),
+        "request_p50_bucket_s": _bucket_p50(m.SERVE_REQUEST_SECONDS.buckets, request_s),
+    }
+
+
+def agent_phase(train_losses: list, pool_session: dict, device: str = "cuda") -> dict:
+    """The native agent's roads, resident profiling, the per-session
+    families and fleet Pool targets, on the card (see the module
+    docstring); each step emits one ``agent`` line.  ``train_losses`` are
+    the ``train`` phase's standard arm's, ``pool_session`` the ``session``
+    phase's (its streams, tokens/s and TTFT p50).  Returns the flash
+    launches of the electrons it ran, by kernel."""
+    import numpy as np
+
+    from covalent_tpu_plugin_torch import GPUExecutor
+    from covalent_tpu_plugin_torch.fleet.pools import Pool, PoolSpec
+    from covalent_tpu_plugin_torch.models.train import train_lm
+    from covalent_tpu_plugin_torch.models.transformer import lm_125m_config
+    from covalent_tpu_plugin_torch.obs import events as obs_events
+    from covalent_tpu_plugin_torch.serving import metrics as serve_metrics
+    from covalent_tpu_plugin_torch.serving import open_session
+
+    work = WORK / "agent"
+    common = dict(transport="local", python_path=sys.executable, task_timeout=600,
+                  remote_workdir=str(work / "work"), task_env={"PYTHONPATH": str(ROOT)})
+    native = GPUExecutor(**common, cache_dir=str(work / "cache_native"),
+                         remote_cache=str(work / "remote_native"), use_agent="native",
+                         dispatch_mode="rpc")
+    pooled = GPUExecutor(**common, cache_dir=str(work / "cache_pool"),
+                         remote_cache=str(work / "remote_pool"), use_agent="pool",
+                         dispatch_mode="rpc")
+    pool_a = Pool(PoolSpec(name="agent-native", capacity=2), executor=native)
+    pool_b = Pool(PoolSpec(name="agent-pool", capacity=2), executor=pooled)
+    wrong_road: list = []
+    #: at each ``serve.handoff_complete``: (requests replayed, those of them
+    #: with tokens delivered before the replay), from ``at_handoff``
+    handoffs: list = []
+    at_handoff: list = [lambda: 0]
+
+    def listener(event):
+        if event.get("type") in WRONG_ROAD_EVENTS:
+            wrong_road.append(event)
+        elif event.get("type") == "serve.handoff_complete":
+            handoffs.append((event["replayed"], at_handoff[0]()))
+
+    config = lm_125m_config(max_seq=512)
+    prompts, caps = session_prompts(config.vocab_size)
+    want = pool_session["results"]
+    smi = nvidia_smi() if device == "cuda" else "cpu"
+    launches: dict = {}
+
+    def line(step: str, **fields) -> None:
+        if wrong_road:
+            raise AssertionError(f"agent {step}: {[e.get('type') for e in wrong_road]}: "
+                                 f"{wrong_road[0]}")
+        emit({"phase": "agent", "step": step, "card": smi, **fields})
+
+    async def traffic(handle) -> list:
+        return list(await asyncio.gather(*(
+            handle.request(p, params={"max_new_tokens": c}) for p, c in zip(prompts, caps))))
+
+    def differing_tokens(results: list) -> int:
+        return sum(sum(a != b for a, b in zip(r, w)) + abs(len(r) - len(w))
+                   for r, w in zip(results, want))
+
+    async def run() -> None:
+        try:
+            await steps()
+        finally:
+            await native.close()
+            await pooled.close()
+
+    async def steps() -> None:
+        # 1-2. the RPC training electron through the native agent: the
+        # agent compiles on first use, each invoke forks a --rpc-child
+        wall = time.perf_counter()
+        out = await native.run(train_lm, [], dict(steps=STEPS, batch_size=BATCH, seq_len=SEQ,
+                                                  seed=0),
+                               {"dispatch_id": "chip_smoke_agent", "node_id": 0})
+        wall = time.perf_counter() - wall
+        client = native._agents.get("localhost")
+        if client is None or client.mode != "native" or native.last_dispatch_mode != "rpc":
+            raise AssertionError(f"agent rpc: mode {getattr(client, 'mode', None)}, road "
+                                 f"{native.last_dispatch_mode}")
+        line("build", seconds=native.agent_build_s, source="covalent_tpu_plugin_torch/"
+             "native/agent.cc", compiler="g++|c++|clang++ -O2 -std=c++17")
+        gaps = [abs(a - b) for a, b in zip(out["losses"], train_losses)]
+        if len(out["losses"]) != STEPS or max(gaps) > TRAIN_LOSS_TOL:
+            raise AssertionError(f"agent rpc: losses {out['losses']} against {train_losses}")
+        for name, count in out["launches"].items():
+            if count != 12 * STEPS:
+                raise AssertionError(f"agent rpc: {name} launched {count} times")
+            launches[name] = launches.get(name, 0) + count
+        timings = dict(native.last_timings)
+        line("rpc_child", losses=out["losses"], losses_bit_equal_train=out["losses"] ==
+             list(train_losses), max_loss_gap_train=max(gaps), loss_tol=TRAIN_LOSS_TOL,
+             flash_launches=out["launches"], electron_wall_s=wall,
+             execute_s=timings.get("execute"), rpc_child_start_s=timings.get("submit"),
+             agent_connect_s=timings.get("connect"),
+             steady_step_ms=statistics.median(out["step_s"][1:]) * 1e3,
+             frames_active=client.frames_active, timings=timings)
+
+        # 4b. a capture on the pool server while an RPC training electron runs
+        marker = work / "profile_marker"
+        marker.unlink(missing_ok=True)
+        wall = time.perf_counter()
+        electron = asyncio.ensure_future(pooled.run(
+            agent_profile_electron, [str(marker), AGENT_PROFILE_STEPS], {},
+            {"dispatch_id": "chip_smoke_agent", "node_id": 1}))
+        while not marker.exists():
+            if electron.done():
+                electron.result()
+                raise AssertionError("agent profile: the electron ended before its marker")
+            await asyncio.sleep(0.05)
+        t0 = time.perf_counter()
+        info = _checked_artifact(await pooled.capture_profile(duration_s=AGENT_CAPTURE_S),
+                                 "pool server capture")
+        capture_s = time.perf_counter() - t0
+        trained = await electron
+        if pooled.last_dispatch_mode != "rpc" or pooled._agents["localhost"].mode != "pool":
+            raise AssertionError("agent profile: the electron did not run in the pool server")
+        kernels = await asyncio.to_thread(trace_kernels, info["path"], FLASH_KERNEL_TAGS)
+        if not all(kernels["by_kernel"].values()):
+            raise AssertionError(f"agent profile: the pool server's trace lacks a flash "
+                                 f"kernel: {kernels}")
+        for name, count in trained["launches"].items():
+            launches[name] = launches.get(name, 0) + count
+        line("capture_pool_rpc", worker=info["worker"], duration_s=AGENT_CAPTURE_S,
+             capture_s=capture_s, artifact_bytes=info["bytes"], digest=info["digest"],
+             trace=kernels, electron_wall_s=time.perf_counter() - wall,
+             electron_steps=AGENT_PROFILE_STEPS, flash_launches=trained["launches"])
+
+        # 3. a --serve-child session of the serve cell, opened on Pool A
+        # (the native executor), against the pool-mode session's streams
+        t0 = time.perf_counter()
+        handle = await open_session(pool_a, serve_factory(config, device),
+                                    stats_interval_s=1.0, open_timeout_s=300)
+        open_s = time.perf_counter() - t0
+        try:
+            if handle.supervisor._client.mode != "native" or pool_a.in_use != 1:
+                raise AssertionError(f"agent session: mode {handle.supervisor._client.mode}, "
+                                     f"pool slots {pool_a.in_use}")
+            warm_prompt = np.random.default_rng(1).integers(0, config.vocab_size,
+                                                           SESSION["prompt_len"])
+            warm = await handle.request(warm_prompt, params={"max_new_tokens": SESSION["short"]})
+            await warm.result(timeout=600)
+            before = serve_families()
+            t0 = time.perf_counter()
+            requests = await traffic(handle)
+            results = await asyncio.gather(*(r.result(timeout=600) for r in requests))
+            wall = time.perf_counter() - t0
+            stats = await _settled_stats(handle.supervisor, len(prompts) + 1)
+            families = families_delta(before, serve_families())
+            gauges = {"queue_depth": serve_metrics.SERVE_QUEUE_DEPTH.labels(
+                          session=handle.sid).value,
+                      "tokens_per_s": serve_metrics.SERVE_TOKENS_PER_S.labels(
+                          session=handle.sid).value,
+                      "prefix_hits": serve_metrics.SERVE_PREFIX_HITS.labels(
+                          session=handle.sid).value,
+                      "prefill_positions": serve_metrics.SERVE_PREFILL_POSITIONS.labels(
+                          session=handle.sid).value,
+                      "sessions": serve_metrics.SERVE_SESSIONS.value}
+            differ = differing_tokens(results)
+            if differ or families["requests"].get("ok") != len(prompts) \
+                    or families["tokens"] != sum(caps) or families["ttft_count"] != len(prompts):
+                raise AssertionError(f"agent session: {differ} tokens differ from the pool-mode "
+                                     f"session's; families {families}")
+            if any(_flash(stats).values()):
+                raise AssertionError(f"agent session: flash launches {_flash(stats)}")
+            ttft = [r.ttft_s for r in requests]
+            line("serve_child", pool=pool_a.name, pool_in_use=pool_a.in_use, open_s=open_s,
+                 requests=len(prompts), tokens_per_s=sum(caps) / wall,
+                 ttft_p50_s=statistics.median(ttft), families=families, gauges=gauges,
+                 divergent_tokens=differ, streams_equal_pool_session=sum(
+                     r == w for r, w in zip(results, want)),
+                 pool_session={"tokens_per_s": pool_session["tokens_per_s"],
+                               "ttft_p50_s": (pool_session.get("ttft_s") or {}).get("p50")},
+                 frames_active=handle.supervisor._client.frames_active,
+                 worker_peak_mem_bytes=(stats.get("device_mem") or {}).get(
+                     "peak_bytes_in_use"))
+
+            # 4a. a capture of the --serve-child while it decodes: bursts of
+            # the 16 requests follow each other until the capture is back (a
+            # burst is over in about 4 s; the profiler's start in a fresh
+            # process can take most of that)
+            capturing = True
+
+            async def keep_decoding() -> list:
+                bursts = []
+                while capturing:
+                    burst = await traffic(handle)
+                    bursts.append(await asyncio.gather(*(r.result(timeout=600)
+                                                         for r in burst)))
+                return bursts
+
+            busy = asyncio.ensure_future(keep_decoding())
+            while not handle.in_flight:
+                await asyncio.sleep(0.01)
+            t0 = time.perf_counter()
+            try:
+                info = _checked_artifact(
+                    await handle.capture_profile(duration_s=AGENT_CAPTURE_S), "session capture")
+            finally:
+                capturing = False
+            capture_s = time.perf_counter() - t0
+            bursts = await busy
+            kernels = await asyncio.to_thread(trace_kernels, info["path"], SERVING_KERNEL_TAGS)
+            on_path = {k: kernels["by_kernel"][k] for k in SERVING_ROUTES_ON_PATH}
+            differ = sum(differing_tokens(results) for results in bursts)
+            if not all(on_path.values()) or differ:
+                raise AssertionError(f"agent session capture: serving kernels {kernels}, "
+                                     f"{differ} tokens differ")
+            line("capture_serve_child", sid=info["sid"], duration_s=AGENT_CAPTURE_S,
+                 capture_s=capture_s, artifact_bytes=info["bytes"], digest=info["digest"],
+                 trace=kernels, bursts_during_capture=len(bursts))
+
+            # 5. the session handed off from Pool A to Pool B mid-stream: the
+            # 16 twice over, moved as soon as the first tokens arrive, so the
+            # replay (after the replacement opened) finds the slots busy
+            requests = await traffic(handle) + await traffic(handle)
+            while not any(r.tokens for r in requests):
+                await asyncio.sleep(0.002)
+            delivered = sum(len(r.tokens) for r in requests)
+            at_handoff[0] = lambda: sum(bool(r.tokens) and r.t_done is None for r in requests)
+            t0 = time.perf_counter()
+            moved = await handle.handoff(target=pool_b)
+            handoff_s = time.perf_counter() - t0
+            results = await asyncio.gather(*(r.result(timeout=600) for r in requests))
+            complete_s = time.perf_counter() - t0
+            differ = differing_tokens(results[:len(want)]) + differing_tokens(
+                results[len(want):])
+            replayed, streaming = handoffs[-1] if handoffs else (0, 0)
+            exactly_once = sum(r == w for r, w in zip(results, want + want))
+            if not moved or handle.handoffs != 1 or differ or handle.replay_mismatches \
+                    or replayed < SESSION["slots"] or not streaming \
+                    or handle.executor is not pooled or (pool_a.in_use, pool_b.in_use) != (0, 1):
+                raise AssertionError(
+                    f"agent handoff: moved {moved}, handoffs {handle.handoffs}, {differ} tokens "
+                    f"differ, replay mismatches {handle.replay_mismatches}, in flight at the "
+                    f"handoff {replayed} ({streaming} streaming), slots "
+                    f"{pool_a.in_use}/{pool_b.in_use}")
+            line("pool_handoff", source=pool_a.name, target=pool_b.name,
+                 runtime=handle.supervisor._client.mode, handoff_s=handoff_s,
+                 completion_after_handoff_s=complete_s, tokens_before_handoff=delivered,
+                 tokens_total=sum(len(r) for r in results), in_flight_at_handoff=replayed,
+                 streaming_at_handoff=streaming, slots_per_runtime=SESSION["slots"],
+                 streams=len(requests), streams_exactly_once=exactly_once,
+                 replay_mismatches=handle.replay_mismatches,
+                 slots={pool_a.name: pool_a.in_use, pool_b.name: pool_b.in_use})
+        finally:
+            await handle.close()
+        if (pool_a.in_use, pool_b.in_use) != (0, 0):
+            raise AssertionError(f"agent: slots held after close {pool_a.in_use}/{pool_b.in_use}")
+
+    obs_events.add_listener(listener)
+    try:
+        asyncio.run(run())
+    finally:
+        obs_events.remove_listener(listener)
+    return launches
+
+
 #: The batch-invariant kernels by the names of their device functions: the
 #: tensor-core tiles (skinny, wide), the mix, the f32 CUDA-core product, the norm.
 SERVING_KERNEL_TAGS = {"bi_gemm_tc": "bi_gemm_tc_", "bi_gemm_mix": "bi_gemm_mix_kernel",
@@ -3329,7 +3723,8 @@ def main() -> int:
     # on frames and on JSON lines.
     start = time.perf_counter()
     session = session_phase(serve_streams)
-    session.pop("_results")
+    pool_session = {"results": session.pop("_results"), "tokens_per_s": session["tokens_per_s"],
+                    "ttft_s": session["ttft_s"]}
     emit({"phase": "session", "card": smi, "seconds": time.perf_counter() - start, **session})
     # Several resident workers on the card: a replica set, then a
     # disaggregated set, each with the serve cell's traffic.
@@ -3380,6 +3775,17 @@ def main() -> int:
     emit({"phase": "ssh", "card": smi, "seconds": time.perf_counter() - start,
           "flash_launches": ssh_launches})
 
+    # The native agent's roads, resident profiling, the per-session
+    # families and Pool targets: the electrons report their own launches
+    # (the RPC training electron ran in a --rpc-child), ours are added.
+    _kernels.reset_launch_counts()
+    start = time.perf_counter()
+    agent_launches = agent_phase(arms[0]["losses"], pool_session)
+    agent_launches = {name: n + agent_launches.get(name, 0)
+                      for name, n in _kernels.launch_counts().items()}
+    emit({"phase": "agent", "card": smi, "seconds": time.perf_counter() - start,
+          "flash_launches": agent_launches})
+
     kernels = []
     for kernel in _kernels.KERNELS:
         res = timing[kernel.name]
@@ -3393,6 +3799,7 @@ def main() -> int:
             "ring_launches": gang_arm_launches["lm_ring2"][kernel.name],
             "ulysses_launches": gang_arm_launches["lm_ulysses2"][kernel.name],
             "ssh_launches": ssh_launches.get(kernel.name, 0),
+            "agent_launches": agent_launches.get(kernel.name, 0),
             "max_abs_err": max(path_errs), "ms": res["kernel_ms"], "plain_ms": res["plain_ms"],
             "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
             "library_ms": res["library_ms"], "ms_cold_l2": res["kernel_cold_ms"],
@@ -3423,6 +3830,8 @@ def main() -> int:
             raise AssertionError(f"{kernel.name}'s f32 variant was not launched on the ring")
         if ssh_launches.get(kernel.name, 0) < 1 and "skipped" not in ssh_lines[0]:
             raise AssertionError(f"{kernel.name} was not launched on the ssh phase's path")
+        if agent_launches.get(kernel.name, 0) < 1:
+            raise AssertionError(f"{kernel.name} was not launched on the agent phase's path")
     # The serving kernels port no Pallas kernel: the main path is the serve
     # phase, where the bf16 LM runs the tensor-core products, the mix and
     # the norm; the f32 CUDA-core product's path is serve_check's f32 LM

@@ -1,5 +1,21 @@
-"""Client of the resident pool server (own copy of the pool-client part of
-``covalent_tpu_plugin/agent.py``).
+"""Client of the resident worker runtimes: the pool server and the native
+agent (own copy of ``covalent_tpu_plugin/agent.py``).
+
+Two runtimes speak one protocol, and :attr:`AgentClient.mode` says which
+one a channel reaches:
+
+* ``"pool"``: :func:`start_pool_server` starts this package's ``harness.py``
+  as ``--serve``, a warm interpreter that runs RPC invocations and serving
+  sessions in-process and forks launch-mode tasks from its zygote.
+* ``"native"``: :func:`ensure_agent_binary` uploads ``native/agent.cc`` (the
+  port's copy of the reference's agent; C++17, POSIX only) and compiles it
+  on the worker once per content hash, with ``g++``, ``c++`` or ``clang++``;
+  :meth:`AgentClient.start` runs it.  It execs launch-mode tasks from an
+  argv, forks a fresh ``harness.py --rpc-child`` per invocation and a
+  ``harness.py --serve-child`` per serving session (the ``runner`` argv the
+  client names), and forwards each session's commands, the profile verbs
+  included, to its child.  It holds no Python, so no CUDA context crosses
+  its forks.
 
 :func:`start_pool_server` starts this package's ``harness.py`` on a worker
 as ``harness.py --serve`` (the executor stages it in the worker's CAS by
@@ -13,7 +29,9 @@ The verbs: ``run`` (a launch-mode spec forked from the server's zygote)
 with ``wait_exit``, ``kill``, ``watch``/``unwatch`` and ``task_inventory``;
 RPC execute-by-digest (``register_fn``, ``invoke``, ``wait_result``); the
 serving session's ``serve_*``, ``serve_prefill`` (the disaggregated set's
-prefill tier) included.
+prefill tier) included; ``profile_start``/``profile_stop``
+(:meth:`AgentClient.profile_start`), which trace the resident runtime with
+``torch.profiler`` and pack the trace into one content-addressed artifact.
 
 The channel starts on JSON lines.  When the server's ready banner
 advertises frames, :meth:`AgentClient.negotiate_frames` switches it to
@@ -33,17 +51,20 @@ lower one), :meth:`AgentClient.serve_inventory` and
 :meth:`AgentClient.serve_resume` re-attaches a stream from a token offset.
 A pool server whose dispatcher died waits in orphan mode behind
 ``pool_orphan.json`` (:func:`read_orphan_rendezvous`);
-:func:`attach_pool_server` adopts it through the ``--attach`` relay.  The
-reference's native C++ agent (ROADMAP item 2c.6) is not ported yet.
+:func:`attach_pool_server` adopts it through the ``--attach`` relay.
 """
 
 from __future__ import annotations
 
 import asyncio
 import base64
+import hashlib
 import json
 import os
 import shlex
+import uuid
+from functools import lru_cache
+from pathlib import Path
 from typing import Any
 
 from .obs.metrics import AGENT_BATCHED_INVOKES_TOTAL, AGENT_FRAMES_TOTAL, AGENT_WIRE_BYTES_TOTAL
@@ -54,6 +75,9 @@ from .utils.log import app_log
 
 #: Remote filename of the staged harness the pool server runs.
 HARNESS_BASENAME = "covalent_gpu_harness.py"
+
+#: The native agent's source, compiled on each worker.
+AGENT_SOURCE = Path(__file__).parent / "native" / "agent.cc"
 
 #: Modules the pool server and its zygote import once, at start-up: the cold
 #: start is paid there, not by each electron or session.  ``torch._dynamo``
@@ -86,6 +110,11 @@ class AgentError(TransportError):
     channel failed."""
 
 
+class AgentTimeoutError(AgentError):
+    """No answer within the waiter's timeout: the command may still have
+    taken effect on the worker."""
+
+
 def _refusal(address: str, what: str, event: dict) -> AgentError:
     """A ``serve_error`` event as an exception, tagged PERMANENT (for
     :func:`~.resilience.classify_error`) when the worker says so."""
@@ -96,6 +125,47 @@ def _refusal(address: str, what: str, event: dict) -> AgentError:
         tag_fault(failure, str(event.get("label") or f"serve_{event.get('code') or 'error'}"),
                   transient=False)
     return failure
+
+
+@lru_cache(maxsize=1)
+def agent_source_hash() -> str:
+    """Content hash naming the compiled agent, so a stale binary never runs."""
+    return hashlib.sha256(AGENT_SOURCE.read_bytes()).hexdigest()[:12]
+
+
+async def ensure_agent_binary(conn: Transport, remote_cache: str) -> str:
+    """Upload and compile the native agent on the worker, once per content
+    hash (``{remote_cache}/agent_<hash>``); returns the binary's path.
+
+    One round trip when the binary exists; the upload and one compile
+    round trip the first time (a unique temporary name and an atomic
+    ``mv``, so concurrent dispatchers race safely).  Raises
+    :class:`AgentError` when the worker has no C++ compiler or the build
+    fails.
+    """
+    binary = f"{remote_cache}/agent_{agent_source_hash()}"
+    q_binary = shlex.quote(binary)
+    try:
+        probe = await conn.run(f"mkdir -p {shlex.quote(remote_cache)}; "
+                               f"test -x {q_binary} && echo HAVE || echo MISSING")
+        if "HAVE" in probe.stdout:
+            return binary
+        source = f"{binary}.cc"
+        await conn.put(str(AGENT_SOURCE), source)
+        tmp = shlex.quote(f"{binary}.tmp.{uuid.uuid4().hex[:8]}")
+        build = await conn.run(
+            "CXX=$(command -v g++ || command -v c++ || command -v clang++) "
+            '&& [ -n "$CXX" ] '
+            f"&& $CXX -O2 -std=c++17 -o {tmp} {shlex.quote(source)} "
+            f"&& mv {tmp} {q_binary}",
+            timeout=120.0,
+        )
+    except (TransportError, OSError) as err:
+        raise AgentError(f"cannot build the agent on {conn.address}: {err}") from err
+    if build.exit_status != 0:
+        raise AgentError(f"no agent on {conn.address}: compile failed or no C++ compiler "
+                         f"({build.stderr.strip()[:200]})")
+    return binary
 
 
 async def start_pool_server(
@@ -148,6 +218,7 @@ async def start_pool_server(
     except TransportError as err:
         raise AgentError(f"cannot start pool server on {conn.address}: {err}") from err
     client = AgentClient(process, conn.address)
+    client.mode = "pool"
     try:
         await client.ping(timeout)
         await client.negotiate_frames(enabled=frames_enabled)
@@ -219,6 +290,7 @@ async def attach_pool_server(
     except TransportError as err:
         raise AgentError(f"cannot start attach relay on {conn.address}: {err}") from err
     client = AgentClient(process, conn.address)
+    client.mode = "pool"
     try:
         await client._send({"cmd": "adopt", "epoch": int(epoch)})
 
@@ -243,7 +315,12 @@ async def attach_pool_server(
 
 
 class AgentClient:
-    """One pool-server channel, demultiplexing pushed events."""
+    """One channel to a worker's resident runtime, demultiplexing pushed
+    events."""
+
+    #: "native" (the C++ agent: argv exec, runner children) or "pool" (the
+    #: harness's pool server: zygote forks, in-process RPC and sessions)
+    mode: str = "native"
 
     def __init__(self, process, address: str):
         self._process = process
@@ -285,6 +362,11 @@ class AgentClient:
         #: "sid/rid" -> pushed ``serve_kv`` answer to a prefill (a KV bundle
         #: or an error), bounded: a late answer nobody waits for is dropped
         self._serve_kv: dict[str, dict] = {}
+        #: resident profiling: profile id -> pushed profile_started /
+        #: profile_stopped / profile_error event
+        self._profile_started: dict[str, dict] = {}
+        self._profile_stopped: dict[str, dict] = {}
+        self._profile_errors: dict[str, dict] = {}
         #: frames: the ready banner (the server's capabilities), the pushed
         #: ``frames`` ack, and whether the channel runs on frames
         self._banner: dict = {}
@@ -298,6 +380,31 @@ class AgentClient:
         #: live flusher tasks (the loop keeps only weak references)
         self._flush_tasks: set = set()
         self._reader = asyncio.ensure_future(self._read_loop())
+
+    @classmethod
+    async def start(cls, conn: Transport, binary: str, timeout: float = 15.0,
+                    frames_enabled: bool | None = None, env: dict[str, str] | None = None,
+                    conda_env: str = "") -> "AgentClient":
+        """Run the compiled native agent on a worker, prove it with a ping and
+        negotiate frames.  ``env`` goes into its environment, and so into
+        every runner it forks (the executor's ``task_env``: a runner unpickles
+        the function before the invocation's own env applies, so
+        ``PYTHONPATH`` must be there from the start)."""
+        assignments = " ".join(shlex.quote(f"{k}={v}") for k, v in (env or {}).items())
+        command = _in_conda(f"env {assignments} {shlex.quote(binary)}" if assignments
+                            else shlex.quote(binary), conda_env)
+        try:
+            process = await conn.start_process(command, describe=f"agent@{conn.address}")
+        except TransportError as err:
+            raise AgentError(f"cannot start agent on {conn.address}: {err}") from err
+        client = cls(process, conn.address)
+        try:
+            await client.ping(timeout)
+            await client.negotiate_frames(enabled=frames_enabled)
+        except AgentError:
+            await client.close()
+            raise
+        return client
 
     @property
     def alive(self) -> bool:
@@ -421,6 +528,12 @@ class AgentClient:
                             self._serve_resumed.pop(next(iter(self._serve_resumed)))
                     elif kind == "epoch_ok":
                         self._epoch_ack = event
+                    elif kind == "profile_started":
+                        self._profile_started[task_id] = event
+                    elif kind == "profile_stopped":
+                        self._profile_stopped[task_id] = event
+                    elif kind == "profile_error":
+                        self._profile_errors[task_id] = event
                     elif kind == "serve_opened":
                         self._serve_opened[task_id] = event
                     elif kind == "serve_error":
@@ -482,7 +595,7 @@ class AgentClient:
         try:
             return await asyncio.wait_for(waiter(), timeout)
         except asyncio.TimeoutError:
-            raise AgentError(f"agent@{self.address}: no event within {timeout}s") from None
+            raise AgentTimeoutError(f"agent@{self.address}: no event within {timeout}s") from None
 
     async def _send(self, command: dict) -> None:
         if self._dead is not None:
@@ -567,10 +680,12 @@ class AgentClient:
 
     # -- the run verb ---------------------------------------------------------
 
-    async def run_task(self, task_id: str, spec: str, log: str = "",
-                       timeout: float = 30.0) -> int:
-        """Run a staged launch-mode spec as a fork of the server's zygote;
-        returns the child's pid from the ``started`` event.
+    async def run_task(self, task_id: str, spec: str = "", log: str = "",
+                       timeout: float = 30.0, argv: list[str] | None = None) -> int:
+        """Run a launch-mode task; returns its pid from the ``started`` event.
+
+        ``spec`` (the pool server) names a staged spec the zygote forks a
+        child for; ``argv`` (the native agent) is the command it execs.
 
         The task's files (spec, log, pid, result) are those a launch-mode
         harness uses, so the pid and result-file probes still work if the
@@ -579,7 +694,11 @@ class AgentClient:
         a rejection, so the task may be running there and must not be
         launched again.
         """
-        command: dict = {"cmd": "run", "id": task_id, "spec": spec}
+        command: dict = {"cmd": "run", "id": task_id}
+        if spec:
+            command["spec"] = spec
+        else:
+            command["argv"] = [str(part) for part in argv or ()]
         if log:
             command["log"] = log
         sent = False
@@ -695,7 +814,8 @@ class AgentClient:
         """Function digests this channel's resident runtime holds."""
         return frozenset(self._registered)
 
-    async def register_fn(self, digest: str, path: str, timeout: float = 60.0) -> None:
+    async def register_fn(self, digest: str, path: str, runner: list[str] | None = None,
+                          timeout: float = 60.0) -> None:
         """Register a CAS-staged cloudpickled function by its digest.
 
         The runtime verifies ``path``'s sha256 against ``digest`` before
@@ -703,10 +823,15 @@ class AgentClient:
         this channel already registered is a no-op.  A digest mismatch (a
         torn or stale artifact) raises :class:`AgentError` tagged PERMANENT
         (``rpc_digest_mismatch``): sending the same bytes again cannot help.
+        ``runner`` (the native agent) is the argv it forks per invocation,
+        ``[python, harness, "--rpc-child"]``.
         """
         if digest in self._registered:
             return
-        await self._send({"cmd": "register_fn", "digest": digest, "path": path})
+        command: dict = {"cmd": "register_fn", "digest": digest, "path": path}
+        if runner:
+            command["runner"] = [str(part) for part in runner]
+        await self._send(command)
 
         def settled(c: "AgentClient"):
             if digest in c._register_errors:
@@ -767,8 +892,13 @@ class AgentClient:
         if result_path and result_max_inline is not None:
             command["result_path"] = result_path
             command["result_max_inline"] = int(result_max_inline)
-        if framed:
+        if framed and self.mode == "pool":
             self._enqueue_invoke(digest, command, args_bytes or b"")
+        elif framed:
+            # The native agent forks one runner per invoke: frames, but
+            # nothing to batch.
+            await self._send_frame(frames.VERB_INVOKE, {**command, "_body": "args_bytes"},
+                                   args_bytes or b"")
         else:
             await self._send(command)
 
@@ -848,7 +978,7 @@ class AgentClient:
 
     async def serve_open(self, sid: str, digest: str, path: str,
                          options: dict | None = None, spec: dict | None = None,
-                         timeout: float = 120.0) -> dict:
+                         runner: list[str] | None = None, timeout: float = 120.0) -> dict:
         """Open a resident serving session; returns the ``serve_opened``
         event (``slots``, worker ``pid``).
 
@@ -857,13 +987,17 @@ class AgentClient:
         hence the generous timeout) and serves requests for the session's
         lifetime.  A refused open raises :class:`AgentError`, tagged
         PERMANENT when the refusal is deterministic (a digest mismatch, a
-        factory refusing its model).
+        factory refusing its model).  ``runner`` (the native agent) is the
+        argv it forks to host the session, ``[python, harness,
+        "--serve-child"]``.
         """
         command: dict = {"cmd": "serve_open", "id": sid, "digest": digest, "path": path}
         if options:
             command["options"] = dict(options)
         if spec:
             command["spec"] = dict(spec)
+        if runner:
+            command["runner"] = [str(part) for part in runner]
         await self._send(command)
 
         def settled(c: "AgentClient"):
@@ -874,8 +1008,9 @@ class AgentClient:
         return await self._wait(settled, timeout)
 
     async def serve_request(self, sid: str, rid: str, prompt, params: dict | None = None,
-                            deadline_s: float = 0.0, kv_bytes: bytes | None = None,
-                            kv_digest: str = "", kv_path: str = "") -> None:
+                            deadline_s: float = 0.0, tenant: str = "",
+                            kv_bytes: bytes | None = None, kv_digest: str = "",
+                            kv_path: str = "", trace: dict | None = None) -> None:
         """Submit one request to an open session (fire-and-stream): its
         ``serve.token`` records, or a ``serve.reject``, arrive at the
         session's :meth:`watch_serve` sink.
@@ -884,13 +1019,19 @@ class AgentClient:
         ``kv_bytes`` rides a raw frame body on a negotiated channel (base64
         in the line otherwise), ``kv_path`` names a CAS-staged copy.  Either
         way the worker checks ``kv_digest`` before the engine unpickles
-        anything, and any mismatch degrades to a full prefill.
+        anything, and any mismatch degrades to a full prefill.  ``trace`` (an
+        :func:`~.obs.trace.context_of` carrier) rides the command, so the
+        worker's spans of the request join its trace.
         """
         command: dict = {"cmd": "serve_request", "id": sid, "rid": rid, "prompt": prompt}
         if params:
             command["params"] = dict(params)
         if deadline_s:
             command["deadline_s"] = float(deadline_s)
+        if tenant:
+            command["tenant"] = str(tenant)
+        if trace:
+            command["trace"] = dict(trace)
         if kv_digest:
             command["kv_digest"] = kv_digest
         if kv_path:
@@ -903,7 +1044,7 @@ class AgentClient:
         await self._send_serve(command, kv_bytes if inline_kv else None)
 
     async def serve_prefill(self, sid: str, rid: str, prompt, params: dict | None = None,
-                            timeout: float = 60.0) -> dict:
+                            timeout: float = 60.0, trace: dict | None = None) -> dict:
         """Run a prefill-only pass on an open session; returns the
         ``serve_kv`` event, the bundle under ``data_bytes`` and its sha256
         (as the worker computed it) under ``digest``.
@@ -917,6 +1058,8 @@ class AgentClient:
         command: dict = {"cmd": "serve_prefill", "id": sid, "rid": rid, "prompt": prompt}
         if params:
             command["params"] = dict(params)
+        if trace:
+            command["trace"] = dict(trace)
         await self._send_serve(command)
         key = f"{sid}/{rid}"
         event = await self._wait(lambda c: c._serve_kv.pop(key, None), timeout)
@@ -950,6 +1093,61 @@ class AgentClient:
         """Cancel one in-flight request (fire-and-forget): the worker frees
         the lane and ends the stream with ``error="cancelled"``."""
         await self._send({"cmd": "serve_cancel", "id": sid, "rid": rid})
+
+    # -- resident profiling ---------------------------------------------------
+
+    async def profile_start(self, profile_id: str, trace_dir: str, sid: str = "",
+                            timeout: float = 60.0) -> dict:
+        """Start a ``torch.profiler`` trace inside the resident runtime;
+        returns the ``profile_started`` event.
+
+        The pool server traces itself (its RPC invocations and sessions run
+        in-process); the native agent forwards the command into a live
+        ``--serve-child`` (``sid`` pins which one).  One trace per runtime:
+        a second start is refused ``busy``."""
+        command: dict = {"cmd": "profile_start", "id": profile_id, "dir": trace_dir}
+        if sid:
+            command["sid"] = sid
+        await self._send(command)
+        return await self._wait(self._profile_settled(profile_id, self._profile_started),
+                                timeout)
+
+    async def profile_stop(self, profile_id: str, artifact_dir: str = "", sid: str = "",
+                           timeout: float = 120.0, discard: bool = False) -> dict:
+        """Stop the active trace; returns the ``profile_stopped`` event.
+
+        The worker packs the trace directory into one content-addressed
+        ``<sha256>.profile.tgz`` under ``artifact_dir`` and announces
+        ``path``/``digest``/``bytes``; the caller fetches it and checks the
+        digest before trusting it.  ``discard`` (the stop of an abandoned
+        capture) skips the packing: the worker deletes the trace."""
+        command: dict = {"cmd": "profile_stop", "id": profile_id}
+        if artifact_dir:
+            command["artifact_dir"] = artifact_dir
+        if sid:
+            command["sid"] = sid
+        if discard:
+            command["discard"] = True
+        await self._send(command)
+        return await self._wait(self._profile_settled(profile_id, self._profile_stopped),
+                                timeout)
+
+    async def profile_wait_stopped(self, profile_id: str, timeout: float = 120.0) -> dict:
+        """Wait out an in-flight stop's ``profile_stopped`` without sending
+        the command again (a second stop during the packing is refused, and
+        would leave the artifact unclaimed)."""
+        return await self._wait(self._profile_settled(profile_id, self._profile_stopped),
+                                timeout)
+
+    def _profile_settled(self, profile_id: str, table: dict):
+        def settled(c: "AgentClient"):
+            if profile_id in c._profile_errors:
+                event = c._profile_errors.pop(profile_id)
+                raise AgentError(f"agent@{c.address}: profile {profile_id} failed "
+                                 f"({event.get('code')}): {event.get('message')}")
+            return table.pop(profile_id, None)
+
+        return settled
 
     def watch_serve(self, sid: str, sink) -> None:
         """Route session ``sid``'s side-band records to ``sink(sid, data)``.

@@ -335,13 +335,15 @@ class FnRegistry:
             out |= held
         return out
 
-    async def ensure(self, key: str, client, digest: str, path: str) -> None:
+    async def ensure(self, key: str, client, digest: str, path: str,
+                     runner: list[str] | None = None) -> None:
         """Register ``digest`` on ``key``'s resident runtime, at most once.
 
         ``client`` is the live :class:`~.agent.AgentClient`; its
         ``register_fn`` digest-verifies the CAS artifact remotely before
-        unpickling.  Raises exactly what the client raises (a digest
-        mismatch arrives tagged PERMANENT), leaving the digest unregistered.
+        unpickling (``runner``: the native agent's ``--rpc-child`` argv).
+        Raises exactly what the client raises (a digest mismatch arrives
+        tagged PERMANENT), leaving the digest unregistered.
         """
         if self._owners.get(key) != id(client):
             # A fresh client under this key: the old runtime and its
@@ -361,7 +363,10 @@ class FnRegistry:
         self._inflight[(key, digest)] = future
         try:
             with Span("executor.rpc_register", {"key": key, "digest": digest[:12]}):
-                await client.register_fn(digest, path)
+                if runner:
+                    await client.register_fn(digest, path, runner=runner)
+                else:
+                    await client.register_fn(digest, path)
             registered.add(digest)
             RPC_REGISTRATIONS_TOTAL.labels(result="miss").inc()
         finally:

@@ -2,8 +2,8 @@
 
 Own copy of ``covalent_tpu_plugin/fleet/queue.py``, whole.  The port's
 replica-set router (``serving/replicas.py``) drives it; the fleet
-scheduler that drives it in the reference comes with ROADMAP item 2c.7 and
-slice 5b.  Two properties make the queue safe in front of sustained
+scheduler that drives it in the reference comes with slice 5b (ROADMAP
+Queue 1 item 6).  Two properties make the queue safe in front of sustained
 multi-tenant traffic:
 
 * **Admission control.**  Depth is bounded (``max_depth``); past the

@@ -33,7 +33,21 @@ Each electron takes one of two roads (``dispatch_mode``):
   function's cloudpickle is shipped once per connection into the worker's
   content-addressed store and registered once per digest; each electron is
   then one ``invoke`` with its args inline (or staged in the store when
-  larger than ``rpc_inline_args_max``) and one pushed ``result``.
+  larger than ``rpc_inline_args_max``) and one pushed ``result``.  On the
+  native agent each invoke forks a fresh ``harness.py --rpc-child``.
+  With ``profile_dir`` set, the electron is traced inside the runtime
+  (``profile_start`` after the invoke's ack, ``profile_stop`` after its
+  result); the digest-checked ``.profile.tgz`` lands under
+  ``{cache_dir}/profiles/`` and in ``last_timings["profile_trace"]``.
+
+The resident runtime (``use_agent``): ``True`` or ``"auto"`` try the pool
+server, then the native C++ agent (``native/agent.cc``, compiled on the
+worker once per content hash); ``"pool"`` and ``"native"`` pin one;
+``False`` neither.  A worker on which no runtime starts is remembered as
+having none (its electrons launch with nohup, its sessions are refused),
+except under ``"native"``, where an agent that does not build or start is
+an error.  :meth:`GPUExecutor.capture_profile` traces a live resident runtime
+on demand: pool servers first, then native agents with a session.
 
 Each ``run`` is one root span (``executor.task``) with a child per stage:
 ``stage``, ``connect`` (the dial, then the pool server's start or its
@@ -77,9 +91,9 @@ started; :meth:`GPUExecutor.recover` then re-adopts its sessions and
 streams (``fleet/recovery.py``).  A journaled electron that was in flight
 is reported, not run again: the checkpoint-resume discovery of the
 reference (``_discover_resume``) comes with ``utils/checkpoint.py`` in
-slice 5b.  The native C++ agent comes with ROADMAP item 2c.6; the result
-cache, fleet, task retries, chaos plans and the ops endpoint with ROADMAP
-Queue 1 item 6 (slice 5b, the rest of the executor).
+slice 5b.  The result cache, the fleet scheduler, task retries, chaos
+plans and the ops endpoint come with ROADMAP Queue 1 item 6 (slice 5b,
+the rest of the executor).
 """
 
 from __future__ import annotations
@@ -105,12 +119,14 @@ from .agent import (
     POOL_PRELOAD,
     AgentClient,
     AgentError,
+    AgentTimeoutError,
     _in_conda,
     attach_pool_server,
+    ensure_agent_binary,
     read_orphan_rendezvous,
     start_pool_server,
 )
-from .cache import CASIndex, FnRegistry, bytes_digest, cas_path, harness_digest
+from .cache import CASIndex, FnRegistry, bytes_digest, cas_path, file_digest, harness_digest
 from .executor_base import RemoteExecutor
 from .fleet import journal as journal_mod
 from .obs import events as obs_events
@@ -354,7 +370,7 @@ class GPUExecutor(RemoteExecutor):
     the electron with ``torch.profiler`` into
     ``{profile_dir}/{operation_id}/trace.json`` on the worker.
 
-    ``use_agent`` (True, "auto", "pool", False or "off") and
+    ``use_agent`` (True, "auto", "pool", "native", False or "off") and
     ``dispatch_mode`` ("launch", "auto" or "rpc") choose the road (module
     docstring); ``rpc_inline_args_max`` is the inline size limit of RPC args
     and results, ``pool_preload`` the pool server's and zygote's preloads,
@@ -441,14 +457,9 @@ class GPUExecutor(RemoteExecutor):
             compress = "auto"
         if compress not in _COMPRESS:
             raise ValueError(f'compress must be "auto"/"off"/"zlib"/"zstd", got {compress!r}')
-        if use_agent == "native":
-            raise NotImplementedError(
-                "use_agent='native' is not ported yet: the native agent comes with "
-                "ROADMAP item 2c.6; True, 'auto' and 'pool' use the pool server"
-            )
-        if use_agent not in (True, False, "auto", "pool", "off"):
+        if use_agent not in (True, False, "auto", "pool", "native", "off"):
             raise ValueError(
-                f"use_agent must be True/False/'auto'/'pool'/'off', got {use_agent!r}"
+                f"use_agent must be True/False/'auto'/'pool'/'native'/'off', got {use_agent!r}"
             )
         env_mode = os.environ.get("COVALENT_TPU_DISPATCH_MODE")
         if dispatch_mode is None and env_mode is not None:
@@ -538,6 +549,14 @@ class GPUExecutor(RemoteExecutor):
         self._fn_registry = FnRegistry()
         #: sid -> live serving-session supervisor (``serve_sessions``).
         self._serve_handles: dict[str, Any] = {}
+        #: seconds the last native agent took to build (0 when it was cached)
+        self.agent_build_s = 0.0
+        #: operation id -> fetched, digest-checked profile artifact
+        #: (``last_timings["profile_trace"]``)
+        self._profile_artifacts: dict[str, str] = {}
+        #: detached compensating profile stops, held so they are not
+        #: collected mid-await
+        self._cleanup_tasks: set = set()
 
     # -- RPC registry views ------------------------------------------------
 
@@ -1000,15 +1019,21 @@ class GPUExecutor(RemoteExecutor):
         return staged_path
 
     async def _agent_for(self, conn: Transport, key: str) -> AgentClient | None:
-        """A live pool server for this worker, or None (``use_agent`` off,
-        or the server could not start: the worker is then remembered as
+        """A live resident runtime for this worker, or None (``use_agent``
+        off, or no runtime could start: the worker is then remembered as
         having none, and electrons launch with nohup + poll).
 
-        A cached server is proved by a ping before it is handed out; one
-        that fails it is replaced.  One start at a time per worker.
+        The ladder (tpu.py:1903-1990): ``True``/``"auto"`` try the pool
+        server, then the native agent; ``"pool"`` and ``"native"`` try only
+        that one.  Under ``"native"`` an agent that does not build or start
+        raises :class:`AgentError` (the reference falls back to nohup).  A
+        cached runtime is proved by a ping before it is handed out; one that
+        fails it is replaced.  One start at a time per worker.
         """
         if not self.use_agent:
             return None
+        modes = (["pool", "native"] if self.use_agent in (True, "auto")
+                 else [str(self.use_agent)])
         lock = self._agent_locks.setdefault(conn.address, asyncio.Lock())
         async with lock:
             if conn.address in self._agents:
@@ -1026,25 +1051,52 @@ class GPUExecutor(RemoteExecutor):
                                         error=repr(err))
                 await client.close()
                 self._agents.pop(conn.address, None)
-            try:
-                harness_path = await self._stage_harness(conn, key)
-                client = await self._try_adopt_orphan(conn, harness_path)
-                if client is None:
-                    client = await start_pool_server(
-                        conn, self.remote_cache, self.python_path, env=self.task_env,
-                        preload=self.pool_preload, frames_enabled=self.agent_frames,
-                        harness_path=harness_path, conda_env=self.conda_env,
-                    )
-            except (AgentError, TransportError, OSError) as err:
-                app_log.info("worker %s: no pool runtime (%s); using nohup + poll",
-                             conn.address, err)
-                obs_events.emit("agent.unavailable", address=conn.address, error=repr(err))
-                self._agents[conn.address] = None
-                return None
-            self._agents[conn.address] = client
-            await self._declare_epoch(client)
-            obs_events.emit("agent.started", address=conn.address)
-            return client
+            errors: dict[str, str] = {}
+            for mode in modes:
+                try:
+                    if mode == "pool":
+                        harness_path = await self._stage_harness(conn, key)
+                        client = await self._try_adopt_orphan(conn, harness_path)
+                        if client is None:
+                            client = await start_pool_server(
+                                conn, self.remote_cache, self.python_path, env=self.task_env,
+                                preload=self.pool_preload, frames_enabled=self.agent_frames,
+                                harness_path=harness_path, conda_env=self.conda_env,
+                            )
+                    else:
+                        t0 = time.perf_counter()
+                        binary = await ensure_agent_binary(conn, self.remote_cache)
+                        self.agent_build_s = time.perf_counter() - t0
+                        client = await AgentClient.start(
+                            conn, binary, frames_enabled=self.agent_frames, env=self.task_env,
+                            conda_env=self.conda_env)
+                except (AgentError, TransportError, OSError) as err:
+                    errors[mode] = repr(err)
+                    app_log.info("worker %s: no %s runtime (%s)", conn.address, mode, err)
+                    continue
+                self._agents[conn.address] = client
+                await self._declare_epoch(client)
+                obs_events.emit("agent.started", address=conn.address, mode=client.mode)
+                return client
+            error = "; ".join(f"{m}: {e}" for m, e in errors.items())
+            obs_events.emit("agent.unavailable", address=conn.address, tried=modes,
+                            error=error)
+            if self.use_agent == "native":
+                # pinned: no other road may hide the agent's absence
+                raise AgentError(f"worker {conn.address}: the native agent did not start "
+                                 f"({error})")
+            app_log.info("worker %s: no resident runtime; using nohup + poll", conn.address)
+            self._agents[conn.address] = None
+            return None
+
+    async def _runner(self, conn: Transport, key: str, mode: str) -> list[str]:
+        """The argv the native agent forks for an RPC invocation
+        (``--rpc-child``) or a serving session (``--serve-child``): the
+        harness in the worker's CAS, its stderr appended to
+        ``{remote_cache}/agent_child.log``."""
+        harness_path = await self._stage_harness(conn, key)
+        return [self.python_path, harness_path, mode, "--log",
+                f"{self.remote_cache}/agent_child.log"]
 
     async def _declare_epoch(self, client: AgentClient) -> None:
         """Fence this channel with the journal's dispatcher epoch (nothing
@@ -1154,12 +1206,17 @@ class GPUExecutor(RemoteExecutor):
 
     async def _submit_via_agent(self, client: AgentClient, conn: Transport,
                                 staged: StagedTask, process: int = 0) -> int:
-        """Start one process's staged harness as a fork of the pool's zygote;
-        returns its pid.  The task's files are those of a nohup launch, so
-        every probe (pid liveness, result file, kill by pid) still works if
-        the channel dies later."""
+        """Start one process's staged harness through the resident runtime
+        (a fork of the pool's zygote, or the native agent's exec of the
+        command line :meth:`submit_task` runs); returns its pid.  The task's
+        files are those of a nohup launch, so every probe (pid liveness,
+        result file, kill by pid) still works if the channel dies later."""
         files = staged.rank(process)
         try:
+            if client.mode != "pool":
+                return await client.run_task(
+                    self._task_id(staged, process), log=files["log"],
+                    argv=["/bin/sh", "-c", self._task_command(staged, process)])
             return await client.run_task(self._task_id(staged, process),
                                          spec=files["remote_spec"], log=files["log"])
         except AgentError as err:
@@ -1232,22 +1289,24 @@ class GPUExecutor(RemoteExecutor):
     def _rpc_preselect(self, task_metadata: dict) -> bool:
         """Whether an electron takes the RPC road, decided before it starts.
 
-        RPC runs the electron inside the shared resident process, so it is
-        kept to what that process can serve faithfully: an agent policy
-        that allows the pool runtime, no pip installs (they change the
-        process), and no ``profile_dir``.  The reference profiles an RPC
-        electron inside its runtime with ``profile_start``/``profile_stop``;
-        in the port those verbs come with ROADMAP item 2c.5, so a profiled
-        electron launches.  The worker's lack of a live runtime is found
-        later and falls back through :class:`_RpcUnavailable`.
+        RPC runs the electron inside a resident runtime, so it is kept to
+        what that runtime can serve faithfully: a resident runtime on
+        (``use_agent``) and no pip installs (they change the process).
+        ``profile_dir`` does not disqualify: the runtime traces the
+        invocation itself (``profile_start``/``profile_stop``).  On the
+        native agent each invoke forks a fresh ``--rpc-child``; the
+        reference sends a native-agent worker's electrons down the launch
+        road instead (tpu.py:5002-5010), the port runs them by digest there
+        too.  The worker's lack of a live runtime is found later and falls
+        back through :class:`_RpcUnavailable`.
         """
         if self._resolve_dispatch_mode(task_metadata) == "launch":
             return False
         if self._num_processes() > 1:
             return False  # a gang's bootstrap is the launch harness's
-        if self.use_agent not in (True, "auto", "pool"):
+        if not self.use_agent:
             return False
-        return not (task_metadata.get("pip_deps") or self.profile_dir)
+        return not task_metadata.get("pip_deps")
 
     async def run(
         self,
@@ -1603,7 +1662,7 @@ class GPUExecutor(RemoteExecutor):
                     await asyncio.to_thread(self._write_payload_file, local_args, args_payload)
             client = await self._resident_client(conns)
             if client is None:
-                raise _RpcUnavailable("no live pool runtime on "
+                raise _RpcUnavailable("no live resident runtime on "
                                       f"{self._worker_addresses()[0]}")
             conn, address = conns[0], self._worker_addresses()[0]
             key = self._pool_key(address)
@@ -1619,7 +1678,10 @@ class GPUExecutor(RemoteExecutor):
                     await self._cas.ensure_probed(key, conn, [(fn_digest, remote_fn)])
                     await self._cas.ensure(key, conn, fn_digest, local_fn, remote_fn,
                                            codec=codec, python_path=self.python_path)
-                    await self._fn_registry.ensure(key, client, fn_digest, remote_fn)
+                    runner = (None if client.mode == "pool"
+                              else await self._runner(conn, key, "--rpc-child"))
+                    await self._fn_registry.ensure(key, client, fn_digest, remote_fn,
+                                                   runner=runner)
                     if inline:
                         invoke_kwargs["args_bytes"] = args_payload
                     else:
@@ -1642,6 +1704,12 @@ class GPUExecutor(RemoteExecutor):
                     raise  # a torn payload: no road can make its bytes match
                 await self._discard_workers(conns)
                 raise tag_fault(err, "rpc_channel", transient=True)
+            # Traced inside the runtime that runs it: started after the
+            # invoke's ack (a refused start, ``busy`` or no profiler, is an
+            # event, never a failed electron); the failure roads below tear
+            # the runtime down, and the trace with it.
+            profiling = bool(self.profile_dir) and await self._start_resident_profile(
+                client, operation_id)
             with Span("executor.poll"):
                 verdict, payload = await self._await_rpc_result(client, operation_id)
             if verdict != "result":
@@ -1652,6 +1720,10 @@ class GPUExecutor(RemoteExecutor):
                                        "runtime torn down")
                 raise tag_fault(AgentError(f"resident worker died mid-invoke on {address}: "
                                            f"{payload}"), "rpc_channel", transient=True)
+            if profiling:
+                with Span("executor.profile"):
+                    await self._finish_resident_profile(client, conn, operation_id,
+                                                        operation_id)
             with Span("executor.fetch"):
                 if payload.get("data_path"):
                     result, exception, times = await self._fetch_staged_rpc_result(
@@ -1676,6 +1748,178 @@ class GPUExecutor(RemoteExecutor):
                 except OSError:
                     pass
 
+    # ------------------------------------------------------------------ #
+    # Resident profiling (reference: tpu.py:4384-4720)                   #
+    # ------------------------------------------------------------------ #
+
+    async def _start_resident_profile(self, client: AgentClient, profile_id: str,
+                                      sid: str = "") -> bool:
+        """Start a ``torch.profiler`` trace inside a resident runtime.
+
+        Best-effort: profiling observes the dispatch, so a refused start
+        (``busy``: one trace per process; ``unavailable``) is an event and
+        False, never a failed electron."""
+        try:
+            await client.profile_start(profile_id, f"{self.remote_cache}/profile_{profile_id}",
+                                       sid=sid)
+        except AgentError as err:
+            if isinstance(err, AgentTimeoutError):
+                # the trace may have started and only the ack been lost:
+                # free the runtime's one profiler slot
+                self._detach_profile_abort(client, profile_id, sid)
+            obs_events.emit("task.profile_error", operation_id=profile_id, stage="start",
+                            error=str(err))
+            app_log.warning("resident profile start for %s failed: %s", profile_id, err)
+            return False
+        return True
+
+    def _detach_profile_abort(self, client: AgentClient, profile_id: str, sid: str) -> None:
+        """A compensating stop, detached from the caller, for a capture that
+        lost track of a possibly active trace: the artifact is dropped and
+        the runtime's profiler slot freed (a stop of a trace that never
+        started answers ``not_running``, harmlessly)."""
+        async def abort() -> None:
+            try:
+                await client.profile_stop(profile_id, sid=sid, timeout=30.0, discard=True)
+            except (AgentError, OSError):
+                pass
+
+        task = asyncio.ensure_future(abort())
+        self._cleanup_tasks.add(task)
+        task.add_done_callback(self._cleanup_tasks.discard)
+
+    def _profile_stop_failed(self, operation_id: str, profile_id: str, err: Exception) -> None:
+        obs_events.emit("task.profile_error", operation_id=operation_id, stage="stop",
+                        error=str(err))
+        app_log.warning("resident profile stop for %s failed: %s", profile_id, err)
+        return None
+
+    async def _finish_resident_profile(self, client: AgentClient, conn: Transport,
+                                       profile_id: str, operation_id: str,
+                                       sid: str = "") -> dict[str, Any] | None:
+        """Stop the trace, fetch the packed artifact and check its digest.
+
+        A stop that outlives its waiter is still packing on the worker: its
+        answer is awaited again, not the command resent (a second stop would
+        be refused and the artifact left unclaimed).  A failed stop
+        (``stop_failed``) keeps the trace running, so it is sent once more.
+        """
+        artifact_dir = cas_path(self.remote_cache, "").rstrip("/")
+        try:
+            event = await client.profile_stop(profile_id, artifact_dir=artifact_dir, sid=sid)
+        except AgentTimeoutError:
+            try:
+                event = await client.profile_wait_stopped(profile_id)
+            except AgentError as err:
+                return self._profile_stop_failed(operation_id, profile_id, err)
+        except AgentError:
+            await asyncio.sleep(0.5)
+            try:
+                event = await client.profile_stop(profile_id, artifact_dir=artifact_dir,
+                                                  sid=sid)
+            except AgentError as err:
+                return self._profile_stop_failed(operation_id, profile_id, err)
+        return await self._retrieve_profile_artifact(
+            conn, str(event.get("path") or ""), str(event.get("digest") or ""), operation_id)
+
+    async def _retrieve_profile_artifact(self, conn: Transport, remote_path: str, digest: str,
+                                         operation_id: str) -> dict[str, Any] | None:
+        """Fetch one announced trace artifact into ``{cache_dir}/profiles/``,
+        check its sha256 against the announced digest, record it, and remove
+        the worker's copy."""
+        if not remote_path or not digest:
+            return None
+        profiles_dir = os.path.join(self.cache_dir, "profiles")
+        local = os.path.join(profiles_dir, f"{operation_id}_{digest[:12]}.profile.tgz")
+        tmp = f"{local}.tmp.{os.getpid()}.{os.urandom(4).hex()}"
+        try:
+            os.makedirs(profiles_dir, exist_ok=True)
+            await conn.get(remote_path, tmp)
+            if file_digest(tmp) != digest:
+                raise RuntimeError(f"profile artifact for {operation_id} does not match its "
+                                   "announced digest (torn artifact)")
+            size = os.path.getsize(tmp)
+            os.replace(tmp, local)
+        except (TransportError, OSError, RuntimeError) as err:
+            obs_events.emit("task.profile_error", operation_id=operation_id, stage="fetch",
+                            error=str(err))
+            app_log.warning("profile artifact fetch for %s failed: %s", operation_id, err)
+            return None
+        finally:
+            try:
+                os.remove(tmp)
+            except OSError:
+                pass
+            try:
+                await conn.remove([remote_path])
+            except (TransportError, OSError):
+                pass
+        self._profile_artifacts[operation_id] = local
+        obs_events.emit("task.profile_captured", operation_id=operation_id, path=local,
+                        digest=digest, bytes=size, worker=conn.address)
+        return {"path": local, "digest": digest, "bytes": size}
+
+    def _profile_targets(self, sid: str) -> tuple[str, list[tuple[str, AgentClient]]]:
+        """A capture's ``(remote sid, candidate runtimes)``: pool servers
+        first (they run RPC invocations and pool-mode sessions in-process),
+        then native agents.  A sid naming one of this executor's sessions
+        becomes its current generation's remote id and pins the candidates
+        to the runtime hosting it."""
+        handle = self._serve_handles.get(sid)
+        pinned = None
+        if handle is not None:
+            sid = getattr(handle, "_sid_g", sid)
+            pinned = getattr(handle, "_client", None)
+        targets = [(address, client) for address, client in list(self._agents.items())
+                   if client is not None and client.alive]
+        targets.sort(key=lambda t: t[1].mode != "pool")
+        if pinned is not None:
+            hosted = [t for t in targets if t[1] is pinned]
+            if hosted:
+                targets = hosted
+        return sid, targets
+
+    async def capture_profile(self, duration_s: float = 2.0,
+                              sid: str = "") -> dict[str, Any] | None:
+        """Trace a live resident runtime for ``duration_s`` and bring the
+        trace back: ``{worker, duration_s, path, digest, bytes}``, the
+        artifact digest-checked under ``{cache_dir}/profiles/``.
+
+        Pool servers first, then native agents, which forward the capture
+        into a ``--serve-child`` (a native agent with no session has nothing
+        to trace).  ``sid`` pins a serving session (a handle's sid or a
+        remote session id).  None when no resident runtime could be traced.
+        """
+        sid, targets = self._profile_targets(sid)
+        profile_id = f"prof-{os.urandom(4).hex()}"
+        for address, client in targets:
+            if client.mode != "pool" and not sid and not self._serve_handles:
+                continue
+            conn = next((c for c in self._transports.values() if c.address == address), None)
+            if conn is None:
+                continue
+            if not await self._start_resident_profile(client, profile_id, sid=sid):
+                continue
+            info = await self._finish_capture(client, conn, profile_id, duration_s, sid=sid)
+            if info:
+                return {"worker": address, "duration_s": float(duration_s), **info}
+        return None
+
+    async def _finish_capture(self, client: AgentClient, conn: Transport, profile_id: str,
+                              duration_s: float, sid: str = "") -> dict[str, Any] | None:
+        """The on-demand capture's tail: record for ``duration_s``, stop,
+        fetch.  A cancel mid-capture detaches a compensating stop, so the
+        runtime's profiler slot is freed."""
+        try:
+            await asyncio.sleep(max(0.0, float(duration_s)))
+            return await self._finish_resident_profile(client, conn, profile_id, profile_id,
+                                                       sid=sid)
+        except asyncio.CancelledError:
+            self._detach_profile_abort(client, profile_id, sid)
+            raise
+        finally:
+            self._profile_artifacts.pop(profile_id, None)
+
     def _epilogue(self, root: Span, outcome: str, operation_id: str) -> None:
         """Terminal accounting on every exit path (``tpu.py:4211-4243``)."""
         root.set_attribute("outcome", outcome)
@@ -1688,6 +1932,9 @@ class GPUExecutor(RemoteExecutor):
         self.last_timings = root.summary()
         self.last_timings["overhead"] = overhead
         self.last_timings["wall_overhead"] = wall_overhead
+        artifact = self._profile_artifacts.pop(operation_id, None)
+        if artifact is not None:
+            self.last_timings["profile_trace"] = artifact  # type: ignore[assignment]
         _ACTIVE_ELECTRONS.dec()
         _TASKS_TOTAL.labels(outcome=outcome).inc()
         _OVERHEAD_HIST.observe(overhead)

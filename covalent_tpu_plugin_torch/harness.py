@@ -1,6 +1,6 @@
 """Worker-side bootstrap: ``python harness.py <task_spec.json>``,
-``python harness.py --serve``, ``python harness.py --zygote`` or
-``python harness.py --attach <socket>``.
+``python harness.py --serve``, ``--zygote``, ``--rpc-child``,
+``--serve-child`` or ``--attach <socket>``.
 
 Counterpart of ``covalent_tpu_plugin/harness.py``.  The executor ships this
 one file to the worker (it imports nothing of the package).
@@ -34,6 +34,17 @@ one file to the worker (it imports nothing of the package).
   and from an orphaned pool server's unix socket, so a successor
   dispatcher adopts the orphan over the road it starts servers on (see
   :func:`attach_relay`).
+* **The native agent's runners** (``harness.py --rpc-child`` and
+  ``harness.py --serve-child``): the C++ agent (``native/agent.cc``) forks
+  and execs a fresh interpreter per RPC invocation, the invoke command on
+  its stdin (:func:`rpc_child`), and one per serving session, the session's
+  commands forwarded to its stdin for its life (:func:`serve_child`).  The
+  agent itself never imports Python, so no CUDA context crosses its forks.
+
+Resident profiling: ``profile_start``/``profile_stop`` trace the pool
+server (or a ``--serve-child``) with ``torch.profiler`` while it serves,
+and pack the trace into one content-addressed ``<sha256>.profile.tgz``
+(see :func:`_profile_start`).
 """
 
 from __future__ import annotations
@@ -152,6 +163,168 @@ def _stop_profiler(profiler, profile_dir: str) -> None:
     profiler.stop()
     os.makedirs(profile_dir, exist_ok=True)
     profiler.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
+
+
+# ---------------------------------------------------------------------------
+# Resident profiling: ``torch.profiler`` inside the resident runtime
+# (reference: harness.py:1641-1820, on ``jax.profiler``).
+#
+#   -> {"cmd":"profile_start","id":"<pid>","dir":"/path/trace_dir"[,"sid"]}
+#   <- {"event":"profile_started","id":"<pid>","pid":123}
+#   <- {"event":"profile_error","id":"<pid>","code":"busy"|"unavailable"|
+#       "bad_request"|"not_running"|"unknown_session"|"stop_failed"|
+#       "package_failed","message":"..."}                    (on failure)
+#   -> {"cmd":"profile_stop","id":"<pid>","artifact_dir":"/cache/cas"
+#       [,"discard":true]}
+#   <- {"event":"profile_stopped","id":"<pid>",
+#       "path":"/cache/cas/<sha256>.profile.tgz","digest":"<sha256>","bytes":N}
+#
+# One trace at a time per process (Kineto allows one profiler), so a second
+# start is refused ``busy``, and so is a launch-mode ``profile_dir`` in the
+# same process while a resident trace runs.  The profiler is started and
+# stopped on a thread of its own: ``torch.profiler`` must stop on the thread
+# that started it, and the command loop must not wait on the stop, the
+# Chrome-trace export or the packing (tens of MB for a decode trace).  Its
+# CUDA activity (CUPTI) is process-wide, so the trace holds the device
+# kernels every thread launched; its CPU operators are those of the
+# profiler's own thread and of threads torch starts from it.  The stop
+# packs the trace directory into ONE tar.gz named by its own sha256 under
+# ``artifact_dir`` and announces path and digest; the dispatcher fetches
+# the file and checks the digest before it trusts the bytes.
+# ---------------------------------------------------------------------------
+
+_PROFILE_LOCK = threading.Lock()
+#: ``{"id", "dir", "requests"}`` while a trace runs (``stopping`` once a stop
+#: was taken); empty otherwise.
+_PROFILE_ACTIVE: dict = {}
+
+
+def _claim_profiler(profile_id: str, trace_dir: str) -> bool:
+    """Take this process's one profiler slot for a launch-mode trace;
+    False (with a note on stderr) while a resident trace holds it."""
+    with _PROFILE_LOCK:
+        if _PROFILE_ACTIVE:
+            print(f"profile_dir: trace {_PROFILE_ACTIVE.get('id')!r} is active in this "
+                  "process (busy); the electron runs unprofiled", file=sys.stderr)
+            return False
+        _PROFILE_ACTIVE.update({"id": profile_id, "dir": trace_dir})
+        return True
+
+
+def _profile_start(command: dict, sessions: dict | None = None) -> None:
+    import queue as queue_mod
+
+    profile_id = str(command.get("id") or "")
+    trace_dir = command.get("dir")
+    if not profile_id or not trace_dir:
+        _emit({"event": "profile_error", "id": profile_id, "code": "bad_request",
+               "message": "profile_start requires id and dir"})
+        return
+    sid = str(command.get("sid") or "")
+    if sid and sid not in (sessions or {}):
+        # A capture pinned to a session must trace the process that hosts
+        # it; the dispatcher moves on to the next runtime.
+        _emit({"event": "profile_error", "id": profile_id, "code": "unknown_session",
+               "message": f"no live serving session {sid!r} here"})
+        return
+    with _PROFILE_LOCK:
+        if _PROFILE_ACTIVE:
+            _emit({"event": "profile_error", "id": profile_id, "code": "busy",
+                   "message": f"trace {_PROFILE_ACTIVE.get('id')!r} already active "
+                              "(one profiler per process)"})
+            return
+        requests: "queue_mod.Queue" = queue_mod.Queue()
+        _PROFILE_ACTIVE.update({"id": profile_id, "dir": str(trace_dir), "requests": requests})
+    threading.Thread(target=_profile_thread, args=(profile_id, str(trace_dir), requests),
+                     name="covalent-gpu-profiler", daemon=True).start()
+
+
+def _profile_thread(profile_id: str, trace_dir: str, requests) -> None:
+    """Start the profiler, answer, then serve stop requests until one
+    stops it (a failed stop leaves the trace running, so it can be
+    retried)."""
+    try:
+        os.makedirs(trace_dir, exist_ok=True)
+        profiler = _start_profiler(trace_dir)
+    except Exception as err:  # noqa: BLE001 - any profiler failure
+        with _PROFILE_LOCK:
+            _PROFILE_ACTIVE.clear()
+        _emit({"event": "profile_error", "id": profile_id, "code": "unavailable",
+               "message": repr(err)})
+        return
+    _emit({"event": "profile_started", "id": profile_id, "pid": os.getpid()})
+    while True:
+        artifact_dir, discard = requests.get()
+        try:
+            _stop_profiler(profiler, trace_dir)
+        except Exception as err:  # noqa: BLE001
+            with _PROFILE_LOCK:
+                _PROFILE_ACTIVE.pop("stopping", None)
+            _emit({"event": "profile_error", "id": profile_id, "code": "stop_failed",
+                   "message": repr(err)})
+            continue
+        break
+    with _PROFILE_LOCK:
+        _PROFILE_ACTIVE.clear()
+    if discard:
+        # a compensating stop for an abandoned capture: nobody fetches it
+        import shutil
+
+        shutil.rmtree(trace_dir, ignore_errors=True)
+        _emit({"event": "profile_stopped", "id": profile_id, "discarded": True})
+        return
+    try:
+        path, digest, size = _package_trace(trace_dir, artifact_dir)
+    except Exception as err:  # noqa: BLE001 - tar/disk failures
+        _emit({"event": "profile_error", "id": profile_id, "code": "package_failed",
+               "message": repr(err)})
+        return
+    _emit({"event": "profile_stopped", "id": profile_id, "path": path, "digest": digest,
+           "bytes": size})
+
+
+def _package_trace(trace_dir: str, artifact_dir: str) -> tuple:
+    """``(path, digest, bytes)`` of the trace directory packed as one
+    ``<sha256>.profile.tgz`` under ``artifact_dir`` (the digest is of the
+    bytes shipped); the raw directory is removed."""
+    import hashlib
+    import shutil
+    import tarfile
+
+    os.makedirs(artifact_dir, exist_ok=True)
+    tmp = os.path.join(artifact_dir, f".profile.tmp.{os.getpid()}.{time.time_ns()}.tgz")
+    with tarfile.open(tmp, "w:gz") as tar:
+        tar.add(trace_dir, arcname=".")
+    sha = hashlib.sha256()
+    with open(tmp, "rb") as f:
+        for chunk in iter(lambda: f.read(1 << 20), b""):
+            sha.update(chunk)
+    digest = sha.hexdigest()
+    final = os.path.join(artifact_dir, f"{digest}.profile.tgz")
+    os.replace(tmp, final)
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    return final, digest, os.path.getsize(final)
+
+
+def _profile_stop(command: dict) -> None:
+    """Hand the stop to the profiler's thread; the command loop never waits
+    on the stop, the export or the packing."""
+    profile_id = str(command.get("id") or "")
+    with _PROFILE_LOCK:
+        active = dict(_PROFILE_ACTIVE)
+        if not active or "requests" not in active or (
+                profile_id and active.get("id") != profile_id):
+            _emit({"event": "profile_error", "id": profile_id, "code": "not_running",
+                   "message": f"no active trace for {profile_id!r}"})
+            return
+        if active.get("stopping"):
+            _emit({"event": "profile_error", "id": profile_id, "code": "not_running",
+                   "message": f"trace {profile_id!r} is already stopping"})
+            return
+        _PROFILE_ACTIVE["stopping"] = True
+    artifact_dir = command.get("artifact_dir") or os.path.dirname(
+        str(active["dir"]).rstrip("/"))
+    active["requests"].put((str(artifact_dir), bool(command.get("discard"))))
 
 
 def _rank_env(distributed: dict) -> None:
@@ -274,7 +447,9 @@ def run_task(spec: dict) -> int:
         fn, args, kwargs = pickle.load(f)
 
     profile_dir = spec.get("profile_dir")
-    profiler = _start_profiler(profile_dir) if profile_dir else None
+    profiler = None
+    if profile_dir and _claim_profiler(str(spec.get("operation_id") or "launch"), profile_dir):
+        profiler = _start_profiler(profile_dir)
 
     workdir = spec.get("workdir")
     current_dir = os.getcwd()
@@ -300,7 +475,11 @@ def run_task(spec: dict) -> int:
         ended = time.time()
         os.chdir(current_dir)
         if profiler is not None:
-            _stop_profiler(profiler, profile_dir)
+            try:
+                _stop_profiler(profiler, profile_dir)
+            finally:
+                with _PROFILE_LOCK:
+                    _PROFILE_ACTIVE.clear()
         if distributed:
             import torch.distributed as dist
 
@@ -435,14 +614,6 @@ def _write_marker(path: str, text: str) -> None:
 _LATER_VERBS = {
     "serve_attach": "slice 3 (LoRA adapters)",
     "serve_detach": "slice 3 (LoRA adapters)",
-    "profile_start": "ROADMAP item 2c.5 (serving metrics and tracing)",
-    "profile_stop": "ROADMAP item 2c.5 (serving metrics and tracing)",
-}
-
-#: Command-line modes of the reference's harness that this one refuses.
-_LATER_MODES = {
-    "--rpc-child": "ROADMAP item 2c.6 (the native agent's one-shot RPC runner)",
-    "--serve-child": "ROADMAP item 2c.6 (the native agent's serving runner)",
 }
 
 #: Per-process record sequence: the dispatcher drops a record whose seq is
@@ -909,6 +1080,32 @@ class _ServeSession:
         window, everything else goes at once, in order."""
         _BATCHER.emit(self.sid, _build_worker_event(self.spec, type, rpc=True, **fields))
 
+    def _emit_span(self, name: str, trace, t0: float, t1: float | None = None,
+                   **attrs) -> None:
+        """One worker-side span on the side-band, in the request's trace.
+
+        ``trace`` is the request's carrier off its ``serve_request`` (or
+        ``serve_prefill``) command; without one nothing is sent, so a
+        worker never starts a trace of its own.  The dispatcher re-emits
+        the record with these ids (``SessionSupervisor._on_remote_span``),
+        which puts the worker's queue, admission, prefill and decode time
+        inside the request's waterfall.  ``t0``/``t1`` are monotonic; the
+        wall-clock ``start_ts`` is rebuilt here."""
+        if not isinstance(trace, dict) or not trace.get("trace_id"):
+            return
+        t1 = time.monotonic() if t1 is None else t1
+        parent = trace.get("span_id")
+        fields = {
+            "name": name, "trace_id": str(trace["trace_id"]),
+            "parent_id": str(parent) if parent else None,
+            "span_id": os.urandom(8).hex(),
+            "start_ts": round(time.time() - (time.monotonic() - t0), 6),
+            "duration_s": round(max(0.0, t1 - t0), 6), "status": "OK",
+        }
+        if attrs:
+            fields["attributes"] = attrs
+        self._emit_serve("span", **fields)
+
     def _emit_kv(self, rid: str, data: bytes | None = None, code: str = "",
                  message: str = "") -> None:
         """One ``serve_kv`` answer to a prefill command: the bundle rides a
@@ -950,6 +1147,7 @@ class _ServeSession:
                 self._emit_kv(rid, code="unsupported",
                               message="engine has no prefill_only surface")
                 continue
+            t_prefill = time.monotonic()
             try:
                 data = prefill(command.get("prompt"), dict(command.get("params") or {}))
                 if not isinstance(data, (bytes, bytearray)):
@@ -958,6 +1156,8 @@ class _ServeSession:
                 self._emit_kv(rid, code="prefill_failed", message=repr(err))
                 continue
             self.prefills += 1
+            self._emit_span("serve.worker.prefill", command.get("trace"), t_prefill, rid=rid,
+                            kv_bytes=len(data))
             self._emit_kv(rid, bytes(data))
 
     @staticmethod
@@ -1145,6 +1345,10 @@ class _ServeSession:
                 )
                 continue
             params = dict(command.get("params") or {})
+            trace = command.get("trace")
+            t_admit_start = time.monotonic()
+            self._emit_span("serve.worker.queue_wait", trace, command["_enqueued"],
+                            t_admit_start, rid=rid)
             admitted = False
             if (command.get("kv_bytes") is not None or command.get("kv")
                     or command.get("kv_path")):
@@ -1170,10 +1374,14 @@ class _ServeSession:
                 except BaseException as err:  # noqa: BLE001 - rejections
                     self._emit_reject(rid, "engine_error", repr(err))
                     continue
+            t_admitted = time.monotonic()
+            self._emit_span("serve.worker.admission", trace, t_admit_start, t_admitted,
+                            rid=rid, kv=admitted)
             self.running[rid] = {
                 "deadline": command["_enqueued"] + deadline_s if deadline_s > 0 else None,
                 "emitted": 0,
-                "t_admit": time.monotonic(),
+                "t_admit": t_admitted,
+                "trace": trace,
             }
 
     def _cancel_lane(self, rid: str) -> None:
@@ -1187,6 +1395,9 @@ class _ServeSession:
     def _end_lane(self, rid: str, error: str) -> None:
         """Free a running lane early and close its stream with ``error``."""
         self._cancel_lane(rid)
+        state = self.running[rid]
+        self._emit_span("serve.worker.decode", state.get("trace"), state["t_admit"], rid=rid,
+                        tokens=state["emitted"], error=error)
         with self._history_lock:
             state = self.running.pop(rid)
             self._emit_serve("serve.token", rid=rid, idx=state["emitted"], tokens=[],
@@ -1231,6 +1442,10 @@ class _ServeSession:
             extra = {k: v for k, v in event.items() if k not in ("rid", "tokens", "done")}
             if done:
                 extra.setdefault("gen_s", round(time.monotonic() - state["t_admit"], 6))
+                # the span before the last chunk: the dispatcher closes the
+                # request's trace on ``done``
+                self._emit_span("serve.worker.decode", state.get("trace"), state["t_admit"],
+                                rid=rid, tokens=state["emitted"] + len(tokens))
             # history and emission are one unit under the lock a resume
             # takes: a resume's snapshot holds this chunk, or the chunk's
             # idx lands at or past the resume's end
@@ -1668,7 +1883,7 @@ def _run_rpc_task(command: dict, fn) -> None:
     _emit_rpc_result(task_id, result, exception, {"start": started, "end": ended}, command)
 
 
-def _rpc_invoke(command: dict, registry: dict) -> None:
+def _rpc_invoke(command: dict, registry: dict, sync: bool = False) -> None:
     task_id = command.get("id")
     digest = command.get("digest")
     if not task_id or not digest:
@@ -1688,6 +1903,9 @@ def _rpc_invoke(command: dict, registry: dict) -> None:
                "message": f"no registered function for digest {digest[:12]}"})
         return
     _emit({"event": "started", "id": task_id, "pid": os.getpid(), "rpc": True})
+    if sync:
+        _run_rpc_task(command, fn)
+        return
     threading.Thread(target=_run_rpc_task, args=(command, fn),
                      name=f"covalent-gpu-rpc-{task_id}", daemon=True).start()
 
@@ -2519,6 +2737,10 @@ def serve() -> int:
                         _serve_cancel(command, sessions)
                     elif name == "serve_close":
                         _serve_close(command, sessions)
+                    elif name == "profile_start":
+                        _profile_start(command, sessions)
+                    elif name == "profile_stop":
+                        _profile_stop(command)
                     elif name == "kill":
                         _kill_task(command, children)
                     elif name == "watch":
@@ -2550,20 +2772,143 @@ def serve() -> int:
         zygote_proc.close()
 
 
+def _runner_channel(argv: list[str]) -> None:
+    """Set a runner's channel up: protocol lines go to a copy of the
+    original stdout and fd 1 points at stderr (the agent discards a
+    runner's stderr), so a torch or CUDA warning, a kernel build's output
+    or a factory's ``print`` never lands in the protocol; ``--log <path>``
+    after the mode appends stderr to that file instead."""
+    global _PROTO
+    _PROTO = os.fdopen(os.dup(1), "wb")
+    if len(argv) >= 4 and argv[2] == "--log":
+        try:
+            fd = os.open(argv[3], os.O_WRONLY | os.O_CREAT | os.O_APPEND, 0o644)
+        except OSError:
+            pass
+        else:
+            os.dup2(fd, 2)
+            os.close(fd)
+    os.dup2(2, 1)
+
+
+def rpc_child(argv: list[str]) -> int:
+    """``harness.py --rpc-child [--log <path>]``: one invocation, the
+    command on stdin (reference: harness.py:1607-1640).
+
+    The native agent forks this runner per ``invoke``, pipes the command
+    (which carries the function's CAS ``path``: the runner loads and checks
+    it, then runs it on this thread) and closes the pipe; the runner's
+    ``started``, side-band records and ``result`` go back over the agent's
+    channel verbatim.  A fresh interpreter per invocation: slower than the
+    pool's warm loop, with the same protocol."""
+    _runner_channel(argv)
+    buffer = bytearray()
+    saw_bytes = False
+    while True:
+        for command in _extract_commands(buffer):
+            if command.get("cmd") == "frames":
+                # the agent announces the channel's frame mode first
+                _handle_frames_cmd(command)
+                continue
+            _rpc_invoke(command, {}, sync=True)
+            _BATCHER.flush()
+            return 0
+        data = sys.stdin.buffer.read1(65536)
+        if not data:
+            break
+        saw_bytes = True
+        buffer.extend(data)
+    if saw_bytes:
+        _emit({"event": "error", "message": "malformed invoke command"})
+        return 1
+    print("usage: harness.py --rpc-child  (invoke command on stdin)", file=sys.stderr)
+    return 2
+
+
+def serve_child(argv: list[str]) -> int:
+    """``harness.py --serve-child [--log <path>]``: one serving session over
+    stdin (reference: harness.py:3353-3400).
+
+    The native agent forks this runner at ``serve_open`` with its stdin
+    held open, forwards the session's commands to it (requests, cancels,
+    prefills, resumes, the inventory, the profile verbs, the close) and
+    streams its events back verbatim.  The close, or EOF, ends the
+    session: its requests drain first."""
+    _runner_channel(argv)
+    sessions: dict = {}
+    _install_serve_preempt_notice(sessions)
+    opened: list = []  # every session ever opened, for the final drain
+    buffer = bytearray()
+    closing = False
+    while not closing:
+        for command in _extract_commands(buffer):
+            name = command.get("cmd")
+            if name == "frames":
+                _handle_frames_cmd(command)
+            elif name == "serve_open":
+                _serve_open(command, sessions)
+                session = sessions.get(str(command.get("id") or ""))
+                if session is not None and session not in opened:
+                    opened.append(session)
+            elif name == "serve_request":
+                _serve_request(command, sessions)
+            elif name == "serve_cancel":
+                _serve_cancel(command, sessions)
+            elif name == "serve_resume":
+                _serve_resume(command, sessions)
+            elif name == "serve_inventory":
+                _serve_inventory(sessions)
+            elif name == "serve_prefill":
+                _serve_prefill(command, sessions)
+            elif name == "profile_start":
+                _profile_start(command, sessions)
+            elif name == "profile_stop":
+                _profile_stop(command)
+            elif name == "serve_close":
+                _serve_close(command, sessions)
+                closing = True
+                break
+            elif name in _LATER_VERBS:
+                _emit({"event": name + "ed", "id": str(command.get("id") or ""),
+                       "adapter": str(command.get("adapter") or ""), "code": "not_ported",
+                       "message": f"{name} is not ported yet: it comes with "
+                                  f"{_LATER_VERBS[name]}", "permanent": True})
+            else:
+                _emit({"event": "error", "message": f"unknown cmd: {name}"})
+        if closing:
+            break
+        data = sys.stdin.buffer.read1(65536)
+        if not data:
+            break  # EOF closes the session
+        buffer.extend(data)
+    for session in sessions.values():
+        session.close()
+    for session in opened:
+        session._thread.join()
+    with _PROFILE_LOCK:
+        stopping = bool(_PROFILE_ACTIVE.get("stopping"))
+    if stopping:
+        # a trace being packed finishes before the process goes
+        for thread in threading.enumerate():
+            if thread.name == "covalent-gpu-profiler":
+                thread.join(timeout=120.0)
+    return 0
+
+
 def main(argv: list[str]) -> int:
     if len(argv) == 2 and argv[1] == "--serve":
         return serve()
     if len(argv) == 2 and argv[1] == "--zygote":
         return zygote()
+    if len(argv) >= 2 and argv[1] == "--rpc-child":
+        return rpc_child(argv)
+    if len(argv) >= 2 and argv[1] == "--serve-child":
+        return serve_child(argv)
     if len(argv) >= 3 and argv[1] == "--attach":
         return attach_relay(argv[2])
-    if len(argv) >= 2 and argv[1] in _LATER_MODES:
-        print(f"harness.py {argv[1]} is not ported yet: it comes with "
-              f"{_LATER_MODES[argv[1]]}", file=sys.stderr)
-        return 2
     if len(argv) != 2:
-        print("usage: harness.py <task_spec.json> | --serve | --attach <socket>",
-              file=sys.stderr)
+        print("usage: harness.py <task_spec.json> | --serve | --rpc-child | --serve-child "
+              "| --attach <socket>", file=sys.stderr)
         return 2
     # Become a session/process-group leader: a kill of `-- -pid` then reaches
     # the electron's own subprocesses too.

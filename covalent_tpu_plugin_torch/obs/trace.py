@@ -1,7 +1,6 @@
 """Span-based tracing for the dispatch control plane.
 
-Own copy of ``covalent_tpu_plugin/obs/trace.py``, without the wire
-propagation of later slices.  A :class:`Span` carries trace/span/parent ids,
+Own copy of ``covalent_tpu_plugin/obs/trace.py``.  A :class:`Span` carries trace/span/parent ids,
 status and attributes, propagates through ``contextvars`` (so asyncio tasks
 nest correctly without threading a handle through every call), and on close
 fans out to both sinks:
@@ -19,6 +18,11 @@ Usage::
             ...
     root.stage_durations   # {"upload": 0.012}
 
+Across a process boundary a span travels as :func:`context_of`'s carrier
+(``trace_id``, ``span_id``): a serving request's carrier rides its
+``serve_request`` command, and the worker's spans come back on the session's
+side-band with those ids, re-emitted by :func:`record_span`.
+
 Parent spans accumulate each direct child's duration under the child's
 *leaf* name (the part after the last dot); the executor's timings summary
 (total and overhead accounting) falls out of that.
@@ -34,7 +38,7 @@ from typing import Any
 from . import events as _events
 from .metrics import REGISTRY
 
-__all__ = ["Span", "span", "current_span", "SPAN_HISTOGRAM", "record_span"]
+__all__ = ["Span", "span", "current_span", "SPAN_HISTOGRAM", "context_of", "record_span"]
 
 #: Name of the histogram every finished span observes into.
 SPAN_HISTOGRAM = "covalent_tpu_span_duration_seconds"
@@ -51,6 +55,13 @@ def _new_id(nbytes: int) -> str:
 def current_span() -> "Span | None":
     """The innermost open span in this task/thread context, if any."""
     return _current.get()
+
+
+def context_of(span: "Span", **extra: Any) -> dict[str, Any]:
+    """The wire form of a span's trace context: ``trace_id`` (the trace to
+    join) and ``span_id`` (the parent of whatever the remote side records);
+    ``extra`` rides along verbatim."""
+    return {"trace_id": span.trace_id, "span_id": span.span_id, **extra}
 
 
 class Span:

@@ -4,7 +4,9 @@ request-level streams over the held-open channel for the session's life.
 Own copy of ``covalent_tpu_plugin/serving``:
 
 * :func:`open_session` — ship a model factory by digest, open ONE session on
-  the executor's resident pool server, get a :class:`ServeHandle` back.
+  the resident runtime of an executor or a fleet ``Pool`` (the pool server,
+  or a ``--serve-child`` of the native agent), get a :class:`ServeHandle`
+  back; ``capture_profile`` traces that runtime while it serves.
 * :class:`SessionSupervisor` — the supervised session behind it: reconnect
   after channel death, exactly-once ``idx``-spliced stream replay, the warm
   handoff (planned, or on the worker's SIGTERM preemption notice), and the
@@ -18,9 +20,8 @@ Own copy of ``covalent_tpu_plugin/serving``:
   and a decode tier, joined by content-addressed KV bundles that ride
   binary frames.
 
-Per-session serving metrics and profiling (ROADMAP item 2c.5), the native
-agent (2c.6), fleet ``Pool`` targets (2c.7) and LoRA adapters (slice 3)
-are not ported yet.
+Every session moves the per-session families of :mod:`.metrics` and one
+trace per request.  LoRA adapters (slice 3) are not ported yet.
 """
 
 from .disagg import DisaggregatedSet, open_disaggregated_set

@@ -30,9 +30,12 @@ lets a long prompt's admission hold up every stream sharing its loop.  A
 ``COVALENT_TPU_SERVE_DISAGG=0`` routes everything direct;
 ``COVALENT_TPU_SERVE_DISAGG_MIN_PROMPT`` (64), ``_KV_TIMEOUT_S`` (30) and
 ``_PREFILL`` (1) set the threshold, the prefill round trip's budget and the
-prefill tier's width.  The first replica opened is the prefill tier's, on
-the first target; placement by a pool's declared role comes with fleet
-``Pool`` targets (ROADMAP item 2c.7).
+prefill tier's width.  The first replica opened is the prefill tier's.  A
+tier's replicas go first to targets whose fleet ``Pool`` declares that
+role (``PoolSpec.role``: ``"prefill"`` or ``"decode"``), last to pools of
+the other role, role-less targets in between; after that the replica
+set's own ranking holds.  A request's prefill round trip is the ``prefill``
+segment of its trace, and the prefill tier's worker span joins it.
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ from typing import Any
 
 from ..cache import prune_cas_dir
 from ..obs import events as obs_events
+from ..obs.trace import context_of
 from ..utils.log import app_log
 from .metrics import (
     SERVE_DISAGG_REQUESTS_TOTAL,
@@ -109,6 +113,8 @@ class DisaggregatedSet(ReplicaSet):
         #: prefill-role opens in flight: the role goes by the tier's
         #: deficit, so a failed open does not lose the prefill tier for good
         self._prefill_opening = 0
+        #: the role of the replica being placed (target ranking reads it)
+        self._opening_role = ""
         #: prefill work in flight per prefill replica id
         self._prefill_load: collections.Counter = collections.Counter()
         #: transfer accounting (the metrics' raw feed)
@@ -129,16 +135,36 @@ class DisaggregatedSet(ReplicaSet):
             1 for rid, sup in self._replicas.items()
             if self._role_of.get(rid) == "prefill" and sup.alive)
         role = "prefill" if have < self.prefill_replicas else "decode"
+        self._opening_role = role
         if role == "prefill":
             self._prefill_opening += 1
         try:
             supervisor = await super()._open_replica()
         finally:
+            self._opening_role = ""
             if role == "prefill":
                 self._prefill_opening -= 1
         if supervisor.replica_of is not None:
             self._role_of[supervisor.replica_of[1]] = role
         return supervisor
+
+    def _rank_targets(self):
+        """The replica set's ranking, re-sorted so that pools declaring the
+        opening tier's role come first and pools of the other role last
+        (role-less targets stay in between; stable within each class)."""
+        ranked = super()._rank_targets()
+        role = self._opening_role
+        if not role:
+            return ranked
+
+        def mismatch(entry) -> int:
+            _executor, pool = entry
+            target_role = str(getattr(getattr(pool, "spec", None), "role", "") or "")
+            if not target_role:
+                return 1
+            return 0 if target_role == role else 2
+
+        return sorted(ranked, key=mismatch)
 
     def _views(self):
         """The router sees the decode tier only."""
@@ -169,6 +195,9 @@ class DisaggregatedSet(ReplicaSet):
             SERVE_DISAGG_REQUESTS_TOTAL.labels(path="direct").inc()
             return
         kv = await self._prefill_kv_for(request)
+        # the round trip's time is the trace's ``prefill`` segment, failed
+        # or not
+        request.t_prefill_done = time.monotonic()
         path = "disagg" if kv is not None else "fallback"
         self.requests_by_path[path] += 1
         SERVE_DISAGG_REQUESTS_TOTAL.labels(path=path).inc()
@@ -198,7 +227,8 @@ class DisaggregatedSet(ReplicaSet):
             event = await asyncio.wait_for(
                 supervisor.prefill_kv(request.prompt, request.params,
                                       rid=f"{request.rid}-kv{uuid.uuid4().hex[:6]}",
-                                      timeout_s=self.kv_timeout_s),
+                                      timeout_s=self.kv_timeout_s,
+                                      trace=context_of(request.span, rid=request.rid)),
                 self.kv_timeout_s + 5.0)
         except Exception as err:  # noqa: BLE001 - degrade, never error
             SERVE_KV_TRANSFERS_TOTAL.labels(outcome="error").inc()

@@ -3,8 +3,9 @@
 Own copy of ``covalent_tpu_plugin/serving/handle.py``.  A
 :class:`ServeHandle` multiplexes any number of concurrent callers onto ONE
 resident serving session: the model factory is cloudpickled once, shipped
-by digest, and opened on the executor's resident pool server
-(``serve_open``); every :meth:`ServeHandle.request` is then one
+by digest, and opened on the executor's resident runtime (``serve_open``:
+in the pool server, or in a ``--serve-child`` the native agent forks);
+every :meth:`ServeHandle.request` is then one
 ``serve_request`` line on the held-open channel, and the response streams
 back incrementally as ``serve.token`` records, so time to first token is
 one decode chunk, not the end of a batch.  Reconnect and exactly-once
@@ -15,10 +16,12 @@ Several sessions of one factory behind a router are a
 :class:`~.replicas.ReplicaSet` (``open_replica_set``); split into prefill
 and decode tiers, a :class:`~.disagg.DisaggregatedSet`.
 
-Refused until later items, with :class:`NotImplementedError`: a fleet
-``Pool`` as the target (ROADMAP item 2c.7),
-``attach_adapter``/``detach_adapter`` (slice 3's LoRA) and
-``capture_profile`` (item 2c.5).
+The target is a ``GPUExecutor`` or a fleet ``Pool`` (:mod:`..fleet.pools`):
+a session opened on a pool pins one of its capacity slots for its life,
+and :meth:`ServeHandle.handoff` may move it to another pool.
+:meth:`ServeHandle.capture_profile` traces the runtime that holds the
+model while it serves.  Refused until slice 3, with
+:class:`NotImplementedError`: ``attach_adapter``/``detach_adapter``.
 """
 
 from __future__ import annotations
@@ -30,22 +33,18 @@ from typing import Any
 import cloudpickle
 
 from ..cache import bytes_digest
-from .supervisor import ServeError, ServeRequest, ServeRequestRejected, SessionSupervisor
+from .supervisor import (
+    ServeError,
+    ServeRequest,
+    ServeRequestRejected,
+    SessionSupervisor,
+    split_target,
+)
 
 __all__ = ["ServeError", "ServeHandle", "ServeRequest", "ServeRequestRejected",
            "open_session"]
 
-POOL_TARGETS = "ROADMAP item 2c.7 (fleet Pool targets and pinning)"
-PROFILING = "ROADMAP item 2c.5 (serving metrics and tracing)"
 ADAPTERS = "slice 3 (LoRA adapters)"
-
-
-def refuse_pool_target(target: Any) -> None:
-    """A fleet ``Pool`` (it carries ``.spec`` and ``.executor``) as a
-    serving target is not ported yet."""
-    if hasattr(target, "spec") and hasattr(target, "executor"):
-        raise NotImplementedError(
-            f"a fleet Pool as a serving target is not ported yet: it comes with {POOL_TARGETS}")
 
 
 class ServeHandle:
@@ -59,14 +58,13 @@ class ServeHandle:
                  default_deadline_s: float | None = None,
                  stats_interval_s: float | None = None,
                  open_timeout_s: float | None = None, retries: int | None = None,
-                 name: str = "") -> None:
-        self.executor = executor
+                 name: str = "", pool: Any = None) -> None:
         self.factory = factory
         self.sid = name or f"serve-{uuid.uuid4().hex[:10]}"
         self._sup = SessionSupervisor(
             executor, sid=self.sid, queue_max=queue_max,
             default_deadline_s=default_deadline_s, stats_interval_s=stats_interval_s,
-            open_timeout_s=open_timeout_s, retries=retries,
+            open_timeout_s=open_timeout_s, retries=retries, pool=pool,
         )
         self._next_rid = 0
         #: bytes of the cloudpickled factory shipped to the worker
@@ -77,6 +75,17 @@ class ServeHandle:
     @property
     def supervisor(self) -> SessionSupervisor:
         return self._sup
+
+    @property
+    def executor(self) -> Any:
+        """The executor whose runtime hosts the session now (a handoff to
+        another target changes it)."""
+        return self._sup.executor
+
+    @property
+    def pool(self) -> Any:
+        """The fleet Pool whose slot the session pins, or None."""
+        return self._sup._pool
 
     @property
     def state(self) -> str:
@@ -106,11 +115,13 @@ class ServeHandle:
     def handoffs(self) -> int:
         return self._sup.handoffs
 
-    async def handoff(self, reason: str = "planned") -> bool:
+    async def handoff(self, reason: str = "planned", target: Any = None) -> bool:
         """Warm drain-and-reopen onto a fresh generation (planned churn):
         the replacement opens before the old one is retired, and every
-        in-flight stream is spliced exactly once across the move."""
-        return await self._sup.handoff(reason=reason)
+        in-flight stream is spliced exactly once across the move.
+        ``target`` (a fleet ``Pool`` or an executor) moves the session
+        there."""
+        return await self._sup.handoff(reason=reason, target=target)
 
     @property
     def replay_mismatches(self) -> int:
@@ -145,6 +156,13 @@ class ServeHandle:
         )
         return await self._sup.submit(request)
 
+    async def capture_profile(self, duration_s: float = 2.0) -> dict:
+        """Trace this session's resident runtime with ``torch.profiler`` for
+        ``duration_s`` while it serves; returns the digest-checked
+        artifact's ``{sid, duration_s, path, digest, bytes}`` (see
+        :meth:`~.supervisor.SessionSupervisor.capture_profile`)."""
+        return await self._sup.capture_profile(duration_s)
+
     async def close(self, timeout: float = 30.0) -> dict:
         """Drain and close the session; returns the ``serve_closed`` event.
         Idempotent."""
@@ -158,10 +176,6 @@ class ServeHandle:
     async def detach_adapter(self, name: str, timeout_s: float = 30.0) -> dict:
         raise NotImplementedError(f"detach_adapter is not ported yet: it comes with {ADAPTERS}")
 
-    async def capture_profile(self, duration_s: float = 2.0) -> dict:
-        raise NotImplementedError(
-            f"capture_profile is not ported yet: it comes with {PROFILING}")
-
 
 async def open_session(target: Any, factory: Any, *, queue_max: int | None = None,
                        default_deadline_s: float | None = None,
@@ -171,17 +185,19 @@ async def open_session(target: Any, factory: Any, *, queue_max: int | None = Non
     """Open a resident serving session; returns the live handle.
 
     ``target`` is a ``GPUExecutor`` whose resident runtime is on
-    (``use_agent`` True, ``"auto"`` or ``"pool"``).  ``factory``
+    (``use_agent`` True, ``"auto"``, ``"pool"`` or ``"native"``), or a
+    fleet ``Pool`` (the session then pins one of the pool's capacity slots
+    for its life, released when it closes).  ``factory``
     is a zero-argument callable returning the serving engine (see
     ``models.serve.lm_engine_factory``); it is cloudpickled, shipped by
     digest and called ONCE inside the resident worker, where the model is
     built on the card.  Knob defaults come from ``COVALENT_TPU_SERVE_{
     QUEUE_MAX, DEADLINE_S, STATS_INTERVAL_S, OPEN_TIMEOUT_S, RETRIES}``.
     """
-    refuse_pool_target(target)
+    executor, pool = split_target(target)
     handle = ServeHandle(
-        target, factory, queue_max=queue_max, default_deadline_s=default_deadline_s,
+        executor, factory, queue_max=queue_max, default_deadline_s=default_deadline_s,
         stats_interval_s=stats_interval_s, open_timeout_s=open_timeout_s, retries=retries,
-        name=name,
+        name=name, pool=pool,
     )
     return await handle._open()

@@ -1,25 +1,100 @@
-"""Serving metrics of the replica sets, the disaggregated set and handoffs.
+"""Serving metrics: request outcomes, stream latency, session load, the
+replica sets, the disaggregated set and handoffs.
 
-Own copy of the replica-set, router, hedging, KV-transfer and handoff families of
-``covalent_tpu_plugin/serving/metrics.py`` (same names, labels and
-buckets), so one dashboard reads either package.  Label cardinality is
-low: every ``outcome``/``state``/``path`` label is a closed set.  The
-per-session request, token and latency families, the engine's prefix and
-speculative counters, and the profile capture come with ROADMAP item 2c.5.
+Own copy of ``covalent_tpu_plugin/serving/metrics.py`` (same names, labels
+and buckets), so one dashboard reads either package.  Label cardinality is
+low: every ``outcome``/``state``/``path`` label is a closed set, and the
+per-session gauges key on the handle's sid (stable across reconnect
+generations), not on a generation's remote id.  The engine's speculative
+and per-mode counters and the adapter families come with slice 3.
 """
 
 from __future__ import annotations
 
 from ..obs.metrics import REGISTRY
 
+# -- sessions ---------------------------------------------------------------
+
+#: Terminal accounting of every request submitted through a session:
+#: ``ok`` (the whole stream delivered), ``deadline`` (the lane was reclaimed
+#: at its deadline: a partial stream, ``error`` on the last chunk), ``shed``
+#: (refused at admission: the bounded queue was full), ``rejected`` (refused
+#: for another reason) and ``error`` (a torn stream, a session dead past its
+#: retry budget, a close with the request in flight).
+SERVE_REQUESTS_TOTAL = REGISTRY.counter(
+    "covalent_tpu_serve_requests_total",
+    "Serving-session requests by terminal outcome",
+    ("outcome",),
+)
+
+SERVE_TOKENS_TOTAL = REGISTRY.counter(
+    "covalent_tpu_serve_tokens_total",
+    "Tokens streamed back to serving-session callers",
+)
+
+SERVE_SESSIONS = REGISTRY.gauge(
+    "covalent_tpu_serve_sessions",
+    "Live serving sessions held open by this dispatcher",
+)
+
+SERVE_QUEUE_DEPTH = REGISTRY.gauge(
+    "covalent_tpu_serve_queue_depth",
+    "Worker-side admission queue depth per serving session",
+    ("session",),
+)
+
+SERVE_TOKENS_PER_S = REGISTRY.gauge(
+    "covalent_tpu_serve_tokens_per_s",
+    "Worker-reported aggregate decode throughput per serving session",
+    ("session",),
+)
+
+SERVE_RECONNECTS_TOTAL = REGISTRY.counter(
+    "covalent_tpu_serve_reconnects_total",
+    "Serving sessions re-opened after a channel/worker death",
+)
+
+#: Submit -> first streamed chunk.
+SERVE_TTFT_SECONDS = REGISTRY.histogram(
+    "covalent_tpu_serve_ttft_seconds",
+    "Serving-request time to first streamed token",
+)
+
+SERVE_REQUEST_SECONDS = REGISTRY.histogram(
+    "covalent_tpu_serve_request_seconds",
+    "Serving-request full-stream latency (submit -> final chunk)",
+)
+
+#: The worker's slot occupancy as the dispatcher last saw it (the
+#: reference feeds it from heartbeats; the supervisor reaps its series when
+#: the last session on a worker closes).
+SERVE_WORKER_SLOTS = REGISTRY.gauge(
+    "covalent_tpu_serve_worker_slots",
+    "Serving slot occupancy reported by worker heartbeats",
+    ("worker", "state"),
+)
+
 # -- replica sets -----------------------------------------------------------
 # ``state`` is one of open, reconnecting, failed, closed; series of a closed
-# set are removed when it closes.
+# set are removed when it closes.  Per-replica series key on (set, replica)
+# and are removed when the replica retires.
 
 SERVE_REPLICAS = REGISTRY.gauge(
     "covalent_tpu_serve_replicas",
     "Replica-set member sessions by state",
     ("set", "state"),
+)
+
+SERVE_REPLICA_REQUESTS_TOTAL = REGISTRY.counter(
+    "covalent_tpu_serve_replica_requests_total",
+    "Requests submitted to each replica of a serving replica set",
+    ("set", "replica"),
+)
+
+SERVE_REPLICA_IN_FLIGHT = REGISTRY.gauge(
+    "covalent_tpu_serve_replica_in_flight",
+    "In-flight requests assigned to each replica of a serving replica set",
+    ("set", "replica"),
 )
 
 #: Router placements by outcome: ``sticky`` (a pinned caller's replica),
@@ -47,6 +122,29 @@ SERVE_ROUTER_DECISION_SECONDS = REGISTRY.histogram(
     "covalent_tpu_serve_router_decision_seconds",
     "Replica-set router per-request decision latency",
     buckets=(0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005, 0.01, 0.05, 0.25),
+)
+
+# -- the engine's prefix counters (per session, from ``serve.stats``) --------
+# Set from every stats record of engines that report them, reaped with the
+# other per-session gauges when the session closes.
+
+SERVE_PREFIX_HITS = REGISTRY.gauge(
+    "covalent_tpu_serve_prefix_hits",
+    "Engine prefix-tree admission hits per serving session",
+    ("session",),
+)
+
+SERVE_PREFIX_MISSES = REGISTRY.gauge(
+    "covalent_tpu_serve_prefix_misses",
+    "Engine prefix-tree admission misses per serving session",
+    ("session",),
+)
+
+SERVE_PREFILL_POSITIONS = REGISTRY.gauge(
+    "covalent_tpu_serve_prefill_positions",
+    "Prefill positions paid by a serving session's engine "
+    "(suffix buckets on prefix hits, full-prompt buckets on misses)",
+    ("session",),
 )
 
 # -- disaggregated prefill/decode -------------------------------------------

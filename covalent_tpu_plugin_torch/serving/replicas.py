@@ -33,12 +33,16 @@ failure semantics, only placement:
 * **Scale.**  ``scale_to(n)`` opens or drain-closes replicas;
   ``scale_to(0)`` suspends the set, and the next request re-warms it.
 
-Targets are ``GPUExecutor``\\ s; a fleet ``Pool`` target is refused
-(ROADMAP item 2c.7), and so are ``attach_adapter``/``detach_adapter``
-(slice 3), though the router keeps its adapter-site bookkeeping.  With
-journaling on, the set records its target size (``replica_set``) and each
-member's entry and exit (``replica``) beside its supervisors' session and
-stream records; its tracing spans come with ROADMAP item 2c.5.
+Targets are ``GPUExecutor``\\ s and fleet ``Pool``\\ s: a replica goes to
+the target holding the fewest of the set's replicas, then to the pool with
+the most free slots, and a pool-backed replica pins one of its pool's
+slots for its life.
+``attach_adapter``/``detach_adapter`` are refused until slice 3, though
+the router keeps its adapter-site bookkeeping.  With journaling on, the set
+records its target size (``replica_set``) and each member's entry and exit
+(``replica``) beside its supervisors' session and stream records.  The
+set's open is a ``serve.replica_set_open`` span, and each request's router
+hop a ``serve.router_hop`` span in the request's trace.
 """
 
 from __future__ import annotations
@@ -57,8 +61,9 @@ from ..fleet import journal as journal_mod
 from ..fleet.health import DEGRADED, HEALTH, PROBING, QUARANTINED
 from ..fleet.queue import DEFAULT_TENANT, FairWorkQueue, QueueFullError, WorkItem
 from ..obs import events as obs_events
+from ..obs.trace import Span, record_span
 from ..utils.log import app_log
-from .handle import ADAPTERS, refuse_pool_target
+from .handle import ADAPTERS
 from .metrics import (
     SERVE_HEDGES_TOTAL,
     SERVE_REPLICAS,
@@ -66,7 +71,13 @@ from .metrics import (
     SERVE_ROUTER_DECISIONS_TOTAL,
     SERVE_ROUTER_QUEUE_DEPTH,
 )
-from .supervisor import ServeError, ServeRequest, ServeRequestRejected, SessionSupervisor
+from .supervisor import (
+    ServeError,
+    ServeRequest,
+    ServeRequestRejected,
+    SessionSupervisor,
+    split_target,
+)
 
 __all__ = ["ReplicaView", "ReplicaRouter", "ReplicaSet", "open_replica_set"]
 
@@ -438,11 +449,10 @@ class ReplicaSet:
                  **session_options: Any) -> None:
         if not targets:
             raise ValueError("a replica set needs at least one target")
-        for target in targets:
-            refuse_pool_target(target)
         self.name = name or f"rset-{uuid.uuid4().hex[:8]}"
         self.factory = factory
-        self._targets = list(targets)
+        #: (executor, pool or None) of every target
+        self._targets = [split_target(target) for target in targets]
         self.replicas_wanted = int(replicas if replicas is not None else len(self._targets))
         if self.replicas_wanted < 1:
             raise ValueError(f"replicas must be >= 1, got {self.replicas_wanted}")
@@ -455,8 +465,8 @@ class ReplicaSet:
         )
         #: replica id -> supervisor (a failed one stays until retired)
         self._replicas: dict[str, SessionSupervisor] = {}
-        #: replica id -> the executor it was placed on
-        self._placements: dict[str, Any] = {}
+        #: replica id -> the (executor, pool or None) it was placed on
+        self._placements: dict[str, tuple[Any, Any]] = {}
         self._payload: bytes | None = None
         self._digest = ""
         self._next_rid = 0
@@ -612,13 +622,14 @@ class ReplicaSet:
     # -- open / placement ---------------------------------------------------
 
     async def _open(self) -> "ReplicaSet":
-        self._payload = await asyncio.to_thread(cloudpickle.dumps, self.factory)
-        self._digest = bytes_digest(self._payload)
-        # concurrently: each replica's pool server starts and its model
-        # builds at the same time as the others'
-        opened = await asyncio.gather(
-            *(self._open_replica() for _ in range(self.replicas_wanted)),
-            return_exceptions=True)
+        with Span("serve.replica_set_open", {"set": self.name}):
+            self._payload = await asyncio.to_thread(cloudpickle.dumps, self.factory)
+            self._digest = bytes_digest(self._payload)
+            # concurrently: each replica's pool server starts and its model
+            # builds at the same time as the others'
+            opened = await asyncio.gather(
+                *(self._open_replica() for _ in range(self.replicas_wanted)),
+                return_exceptions=True)
         failures = [r for r in opened if isinstance(r, BaseException)]
         if len(failures) == len(opened):
             raise ServeError(f"replica set {self.name}: every replica open failed") \
@@ -638,22 +649,30 @@ class ReplicaSet:
                         replicas=len(self._replicas), wanted=self.replicas_wanted)
         return self
 
-    def _next_target(self) -> Any:
-        """Where the next replica goes: the target holding the fewest of
-        this set's replicas (the first of them on a tie).  The reference
-        ranks fleet pools by digest affinity, warmth and free slots after
-        that; those come with Pool targets."""
-        assigned = collections.Counter(id(executor) for executor in self._placements.values())
-        return min(self._targets, key=lambda executor: assigned[id(executor)])
+    def _rank_targets(self) -> list[tuple[Any, Any]]:
+        """Placement order for the next replica (reference replicas.py:
+        725-780): spread first (the fewest of this set's replicas on the
+        target), then the pool with the most free slots; ties keep the
+        caller's order.  The reference's factory-digest affinity, warmth
+        and spot/stable preference read views of its fleet scheduler, which
+        comes with slice 5b."""
+        assigned = collections.Counter(id(executor) for executor, _ in self._placements.values())
+
+        def rank(entry: tuple[Any, Any]):
+            executor, pool = entry
+            return (assigned[id(executor)], -(pool.free_slots if pool is not None else 0))
+
+        return sorted(self._targets, key=rank)
 
     async def _open_replica(self) -> SessionSupervisor:
         index = self._next_replica
         self._next_replica += 1
         replica_id = f"r{index}"
-        executor = self._next_target()
-        self._placements[replica_id] = executor
+        executor, pool = self._rank_targets()[0]
+        self._placements[replica_id] = (executor, pool)
         supervisor = SessionSupervisor(
-            executor, sid=f"{self.name}:{replica_id}", replica_of=(self.name, replica_id),
+            executor, sid=f"{self.name}:{replica_id}", pool=pool,
+            replica_of=(self.name, replica_id),
             on_change=self._on_replica_change, on_failed=self._on_replica_failed,
             **self._session_options,
         )
@@ -720,7 +739,14 @@ class ReplicaSet:
         elapsed = time.perf_counter() - t0
         self.decision_s.append(elapsed)
         SERVE_ROUTER_DECISION_SECONDS.observe(elapsed)
-        if not any(i is item for i, _, _ in assignments):
+        placed = any(i is item for i, _, _ in assignments)
+        # the router's own hop, apart from the tiling ``route`` segment,
+        # which also holds the DRR queue's wait
+        record_span("serve.router_hop", trace_id=request.span.trace_id,
+                    parent_id=request.span.span_id, start_ts=time.time() - elapsed,
+                    duration_s=elapsed,
+                    attributes={"rid": rid, "outcome": "placed" if placed else "queued"})
+        if not placed:
             SERVE_ROUTER_DECISIONS_TOTAL.labels(outcome="queued").inc()
         await self._dispatch_assignments(assignments)
         self._requests_issued += 1

@@ -3,7 +3,8 @@
 Own copy of ``covalent_tpu_plugin/serving/supervisor.py``.  A
 :class:`SessionSupervisor` owns ONE remote session at a time (a
 *generation*): it leases the executor's worker, ships the factory payload
-by digest, opens the session on the resident pool server, routes the
+by digest, opens the session on the resident runtime (in the pool server
+itself, or in a ``--serve-child`` the native agent forks), routes the
 side-band records of its streams, and, when the channel dies, re-opens the
 session on a fresh server and replays every in-flight request.  A replayed
 stream restarts at token 0 and is spliced on the request's own high-water
@@ -36,9 +37,21 @@ old one still serves, then replays every in-flight request onto it; a
 ``serve.preempt`` record from the worker (its SIGTERM notice) starts one
 (``COVALENT_TPU_SERVE_HANDOFF=0`` leaves it to the reconnect road).
 
-Left out until later items, and not stubbed: the journal records of
-adapters (slice 3), per-session serving metrics and tracing (ROADMAP item
-2c.5) and fleet-pool pinning (2c.7).
+Observability: every session moves the per-session families of
+:mod:`.metrics` (requests by outcome, tokens, TTFT and full-stream
+latency, queue depth, tokens/s, the engine's prefix counters, the worker's
+slots; a replica's in-flight and request counts) and reaps its series when
+it closes.  Each request is one trace: a ``serve.request`` root span on
+the request (so the trace follows the stream across replays, re-routes
+and handoffs), its carrier on the ``serve_request`` command, the worker's
+queue/admission/decode spans re-emitted from the side-band with their ids,
+and tiling ``serve.<segment>`` spans at the end.
+:meth:`SessionSupervisor.capture_profile` traces the runtime that holds
+the model while it serves.  Opened through a fleet ``Pool``, a session
+pins one of its capacity slots for its life; a handoff may move it to
+another target (:meth:`SessionSupervisor.handoff`).
+
+Left out until slice 3, and not stubbed: the journal records of adapters.
 """
 
 from __future__ import annotations
@@ -53,15 +66,42 @@ from ..agent import AgentClient, AgentError
 from ..cache import bytes_digest, cas_path
 from ..fleet import journal as journal_mod
 from ..fleet.health import HEALTH
+from ..obs import events as obs_events
+from ..obs.trace import Span, context_of, record_span
 from ..resilience import FaultClass, RetryPolicy, classify_error
 from ..transport.base import TransportError
 from ..utils.log import app_log
-from .metrics import SERVE_HANDOFFS_TOTAL
+from .metrics import (
+    SERVE_HANDOFFS_TOTAL,
+    SERVE_PREFILL_POSITIONS,
+    SERVE_PREFIX_HITS,
+    SERVE_PREFIX_MISSES,
+    SERVE_QUEUE_DEPTH,
+    SERVE_RECONNECTS_TOTAL,
+    SERVE_REPLICA_IN_FLIGHT,
+    SERVE_REPLICA_REQUESTS_TOTAL,
+    SERVE_REQUEST_SECONDS,
+    SERVE_REQUESTS_TOTAL,
+    SERVE_SESSIONS,
+    SERVE_TOKENS_PER_S,
+    SERVE_TOKENS_TOTAL,
+    SERVE_TTFT_SECONDS,
+    SERVE_WORKER_SLOTS,
+)
 
-__all__ = ["ServeError", "ServeRequest", "ServeRequestRejected", "SessionSupervisor"]
+__all__ = ["ServeError", "ServeRequest", "ServeRequestRejected", "SessionSupervisor",
+           "split_target"]
 
 #: Fields of every worker record that are not its content.
 _ENVELOPE = frozenset(("ts", "pid", "seq", "type", "operation_id", "rpc"))
+
+
+def split_target(target: Any) -> tuple[Any, Any]:
+    """``(executor, pool or None)`` of a serving target: a fleet ``Pool``
+    (it carries ``.spec`` and ``.executor``) or a bare executor."""
+    if hasattr(target, "spec") and hasattr(target, "executor"):
+        return target.executor, target
+    return target, None
 
 
 def _env_number(name: str, default: float, cast=float):
@@ -155,8 +195,20 @@ class ServeRequest:
         self.t_submit = time.monotonic()
         self.t_first: float | None = None
         self.t_done: float | None = None
-        #: the first submit to a supervisor (a replay keeps it)
+        #: checkpoints between submit and the end, stamped once (a replay or
+        #: re-route sends the same request again and keeps them): the first
+        #: submit to a supervisor, the end of a disaggregated set's
+        #: prefill round trip, the first wire write
         self.t_dispatched: float | None = None
+        self.t_prefill_done: float | None = None
+        self.t_sent: float | None = None
+        #: the request's root span: entered here, out of the ambient context
+        #: (the stream is fed from callbacks), closed last by
+        #: :meth:`_finalize_trace`; it lives on the request, so one trace
+        #: follows the stream across replays, re-routes and handoffs
+        self.span = Span("serve.request", {"rid": rid, "tenant": tenant} if tenant
+                         else {"rid": rid}, activate=False).__enter__()
+        self._trace_done = False
         #: set when the first fresh tokens (or any terminal) land: the
         #: hedge watcher's TTFT deadline races it
         self.first_token = asyncio.Event()
@@ -208,6 +260,7 @@ class ServeRequest:
             self._chunks.put_nowait(None)
             self._done.set_result(list(self.tokens))
             self.first_token.set()
+            self._finalize_trace()
 
     def _fail(self, err: BaseException) -> None:
         if self._done.done():
@@ -216,14 +269,48 @@ class ServeRequest:
         self._chunks.put_nowait(err)
         self._done.set_exception(err)
         self.first_token.set()
+        self.span.record_error(err)
+        self._finalize_trace()
+
+    def _finalize_trace(self) -> None:
+        """Close the request's trace: each pair of adjacent checkpoints
+        becomes one ``serve.<segment>`` child span (``prefill``, ``route``,
+        ``dispatch``, ``ttft_wait``, ``decode_stream``, ``stream_flush``),
+        so the segments tile the request's latency; a checkpoint the
+        request never reached drops out and the next segment takes its
+        time.  The root ends last."""
+        if self._trace_done:
+            return
+        self._trace_done = True
+        span = self.span
+        cursor = self.t_submit
+        for name, stamp in (("prefill", self.t_prefill_done), ("route", self.t_dispatched),
+                            ("dispatch", self.t_sent), ("ttft_wait", self.t_first),
+                            ("decode_stream", self.t_done), ("stream_flush", time.monotonic())):
+            if stamp is None:
+                continue
+            if stamp > cursor:
+                record_span(f"serve.{name}", trace_id=span.trace_id, parent_id=span.span_id,
+                            start_ts=span.start_ts + (cursor - self.t_submit),
+                            duration_s=stamp - cursor,
+                            attributes={"segment": name, "rid": self.rid})
+            cursor = max(cursor, stamp)
+        span.set_attribute("tokens", len(self.tokens))
+        if self.ttft_s is not None:
+            span.set_attribute("ttft_s", round(self.ttft_s, 6))
+        if self.error:
+            span.record_error(self.error)
+        span.end()
 
 
 class SessionSupervisor:
     """One resident serving session, supervised for its whole life.
 
     Registers itself in the executor's ``_serve_handles`` (so
-    ``executor.serve_sessions()`` sees it) while open.  All methods must run
-    on the executor's event loop.  Knob defaults come from
+    ``executor.serve_sessions()`` and profile targeting see it) while open,
+    and pins one capacity slot of ``pool`` (a fleet ``Pool``) when it was
+    opened through one.  All methods must run on the executor's event loop.
+    Knob defaults come from
     ``COVALENT_TPU_SERVE_{QUEUE_MAX, DEADLINE_S, STATS_INTERVAL_S,
     OPEN_TIMEOUT_S, RETRIES}``.
 
@@ -239,7 +326,7 @@ class SessionSupervisor:
                  default_deadline_s: float | None = None,
                  stats_interval_s: float | None = None,
                  open_timeout_s: float | None = None, retries: int | None = None,
-                 replica_of: tuple[str, str] | None = None,
+                 pool: Any = None, replica_of: tuple[str, str] | None = None,
                  on_change: Callable[["SessionSupervisor"], None] | None = None,
                  on_failed: Callable[["SessionSupervisor", BaseException], bool] | None = None
                  ) -> None:
@@ -256,6 +343,11 @@ class SessionSupervisor:
         #: torch import), staging, and the factory's model build.
         self.open_timeout_s = knob(open_timeout_s, "OPEN_TIMEOUT_S", 120.0)
         self.retries = knob(retries, "RETRIES", 2, int)
+        #: the fleet Pool this session pins a capacity slot of (None: opened
+        #: on a bare executor)
+        self._pool = pool
+        #: whether this session counts in the live gauges and holds its slot
+        self._counted_live = False
         #: (set name, replica id) when a replica set owns this session
         self.replica_of = replica_of
         self._on_change = on_change
@@ -375,9 +467,21 @@ class SessionSupervisor:
         await self._open_generation()
         self.opened_at = time.time()
         self.executor._serve_handles[self.sid] = self
+        self._count_live()
         self._supervisor = asyncio.ensure_future(self._supervise())
         self._ready.set()
+        obs_events.emit("serve.session_opened", sid=self.sid, address=self.address,
+                        slots=self.slots)
         return self
+
+    def _count_live(self) -> None:
+        """Enter the live gauges and pin the pool slot (a session is
+        long-lived load: the pool's placements pack around it)."""
+        if self._pool is not None:
+            self._pool.place()
+        SERVE_SESSIONS.inc()
+        self._counted_live = True
+        self._publish_in_flight()
 
     async def adopt(self, *, client: AgentClient, conns: list, address: str, sid_g: str,
                     slots: int = 1, digest: str = "", payload_path: str = ""
@@ -406,6 +510,7 @@ class SessionSupervisor:
         client.watch_serve(sid_g, self._sink)
         self.opened_at = time.time()
         self.executor._serve_handles[self.sid] = self
+        self._count_live()
         self._journal_binding()
         # a re-adopted session starts from a neutral health score: the
         # journal keeps no scores, and a recovered fleet must not inherit
@@ -413,6 +518,8 @@ class SessionSupervisor:
         HEALTH.neutral(self.sid, group=self._health_group)
         self._supervisor = asyncio.ensure_future(self._supervise())
         self._ready.set()
+        obs_events.emit("serve.session_adopted", sid=self.sid, address=self.address,
+                        sid_g=sid_g, slots=self.slots)
         return self
 
     async def resume_stream(self, request: ServeRequest) -> str:
@@ -464,21 +571,23 @@ class SessionSupervisor:
         and bind to it."""
         self._adopt(await self._dial_generation())
 
-    async def _dial_generation(self) -> dict:
+    async def _dial_generation(self, executor: Any = None) -> dict:
         """Lease, stage and open one generation WITHOUT touching the
         current binding; returns it for :meth:`_adopt`.  The split is what
         makes a warm handoff: the old generation streams on while the
         replacement opens.  A failure discards whatever channels the
         attempt dialed, so a retry starts a fresh pool server instead of
-        reusing the broken one."""
+        reusing the broken one.  ``executor`` (a handoff's target) dials
+        another executor than the session's own."""
+        executor = executor if executor is not None else self.executor
         dialed: list = []
         try:
-            return await asyncio.wait_for(self._dial_generation_on(dialed),
+            return await asyncio.wait_for(self._dial_generation_on(dialed, executor),
                                           self.open_timeout_s)
         except BaseException as err:
             if dialed:
                 try:
-                    await self.executor._discard_workers(dialed)
+                    await executor._discard_workers(dialed)
                 except Exception:  # noqa: BLE001 - teardown is best-effort
                     pass
             if isinstance(err, asyncio.TimeoutError):
@@ -506,12 +615,12 @@ class SessionSupervisor:
             replica_of=list(self.replica_of) if self.replica_of else None, sync=True,
         )
 
-    async def _dial_generation_on(self, dialed: list) -> dict:
-        executor = self.executor
+    async def _dial_generation_on(self, dialed: list, executor: Any) -> dict:
         if not executor.use_agent:
             # refused before any dial: nothing is started or staged
-            raise AgentError("no resident pool server (serving needs the pool runtime: "
-                             "use_agent=True, 'auto' or use_agent='pool')")
+            raise AgentError("no resident runtime (serving needs the pool server or the "
+                             "native agent: use_agent=True, 'auto', use_agent='pool' or "
+                             "use_agent='native')")
         lease = await executor.lease_gang(dialed=dialed)
         if len(lease.conns) != 1:
             raise ServeError(f"serving sessions target single-worker gangs, got "
@@ -519,12 +628,17 @@ class SessionSupervisor:
         conn, address = lease.conns[0], lease.addresses[0]
         client = executor._agents.get(conn.address)
         if client is None or not client.alive:
-            raise AgentError(f"no resident pool server on {address} (serving needs "
-                             "the pool runtime: use_agent=True, 'auto' or use_agent='pool')")
+            raise AgentError(f"no resident runtime on {address} (serving needs the pool "
+                             "server or the native agent: use_agent=True, 'auto', "
+                             "use_agent='pool' or use_agent='native')")
         key = executor._pool_key(address)
         remote = cas_path(executor.remote_cache, self._digest, ".pkl")
         await executor._cas.ensure_probed(key, conn, [(self._digest, remote)])
         await executor._cas.ensure(key, conn, self._digest, self._local_payload, remote)
+        # the native agent only switches lines: it forks this runner to host
+        # the session, its stdin held open (reference supervisor.py:782)
+        runner = (None if client.mode == "pool"
+                  else await executor._runner(conn, key, "--serve-child"))
         sid_g = f"{self.sid}.g{self._gen_counter}"
         self._gen_counter += 1
         spec: dict[str, Any] = {"operation_id": sid_g}
@@ -537,7 +651,7 @@ class SessionSupervisor:
                 options={"queue_max": self.queue_max,
                          "default_deadline_s": self.default_deadline_s,
                          "stats_interval_s": self.stats_interval_s},
-                spec=spec, timeout=None,
+                spec=spec, runner=runner, timeout=None,
             )
         except BaseException:
             client.unwatch_serve(sid_g)
@@ -565,8 +679,10 @@ class SessionSupervisor:
                 raise ServeError(f"session {self.sid} is not routable ({self.state})")
             if request.t_dispatched is None:
                 request.t_dispatched = time.monotonic()
+            request.span.set_attribute("sid", self.sid)
             self._requests[request.rid] = request
             request.arms[self.sid] = time.monotonic()
+            self._publish_in_flight()
             # write-ahead: the intent is durable before the wire write, so a
             # dispatcher that dies between the two replays the request
             journal_mod.record(
@@ -579,12 +695,17 @@ class SessionSupervisor:
             except BaseException:
                 self._requests.pop(request.rid, None)
                 request.arms.pop(self.sid, None)
+                self._publish_in_flight()
                 raise
         except BaseException as err:
             if fail_on_error:
+                SERVE_REQUESTS_TOTAL.labels(outcome="error").inc()
                 request._fail(err if isinstance(err, ServeError)
                               else ServeError(f"request submit failed: {err!r}"))
             raise
+        if self.replica_of is not None:
+            SERVE_REPLICA_REQUESTS_TOTAL.labels(set=self.replica_of[0],
+                                                replica=self.replica_of[1]).inc()
         return request
 
     def detach_requests(self) -> list[ServeRequest]:
@@ -596,10 +717,12 @@ class SessionSupervisor:
         self._requests.clear()
         for request in detached:
             request.arms.pop(self.sid, None)
+        self._publish_in_flight()
         return detached
 
     async def _send_request(self, request: ServeRequest) -> None:
         assert self._client is not None
+        t_send = time.monotonic()
         kv_bytes: bytes | None = None
         kv_digest = kv_path = ""
         if request.kv is not None:
@@ -618,8 +741,21 @@ class SessionSupervisor:
                     kv_bytes, kv_digest = None, ""
         await self._client.serve_request(self._sid_g, request.rid, request.prompt,
                                          params=request.params,
-                                         deadline_s=request.deadline_s, kv_bytes=kv_bytes,
-                                         kv_digest=kv_digest, kv_path=kv_path)
+                                         deadline_s=request.deadline_s, tenant=request.tenant,
+                                         kv_bytes=kv_bytes, kv_digest=kv_digest,
+                                         kv_path=kv_path,
+                                         trace=context_of(request.span, rid=request.rid))
+        now = time.monotonic()
+        if request.kv is not None:
+            # the KV data plane is its own row of the request's waterfall
+            record_span("serve.kv_ship", trace_id=request.span.trace_id,
+                        parent_id=request.span.span_id,
+                        start_ts=request.span.start_ts + (t_send - request.t_submit),
+                        duration_s=now - t_send,
+                        attributes={"rid": request.rid, "kv_bytes": len(request.kv[0]),
+                                    "staged": bool(kv_path)})
+        if request.t_sent is None:
+            request.t_sent = now
 
     async def _stage_kv(self, data: bytes, digest: str) -> str:
         """Ship one KV bundle into this session's worker CAS; returns its
@@ -636,7 +772,7 @@ class SessionSupervisor:
         return remote
 
     async def prefill_kv(self, prompt, params: dict | None = None, rid: str = "",
-                         timeout_s: float = 60.0) -> dict:
+                         timeout_s: float = 60.0, trace: dict | None = None) -> dict:
         """Run a prefill-only pass on this session's engine; returns the
         ``serve_kv`` event (the bundle under ``data_bytes``, the worker's
         sha256 of it under ``digest``).  The caller checks the digest of
@@ -647,7 +783,7 @@ class SessionSupervisor:
             raise ServeError(f"session {self.sid} has no live runtime")
         rid = rid or f"kv-{uuid.uuid4().hex[:8]}"
         return await client.serve_prefill(self._sid_g, rid, [int(t) for t in prompt],
-                                          params=params, timeout=timeout_s)
+                                          params=params, timeout=timeout_s, trace=trace)
 
     async def _await_ready(self) -> None:
         if self._closed:
@@ -657,6 +793,12 @@ class SessionSupervisor:
             raise ServeError(f"session {self.sid} failed: {self._failed}") from self._failed
         if self._closed:
             raise ServeError(f"session {self.sid} is closed")
+
+    def _publish_in_flight(self) -> None:
+        if self.replica_of is not None:
+            SERVE_REPLICA_IN_FLIGHT.labels(set=self.replica_of[0],
+                                           replica=self.replica_of[1]).set(
+                float(len(self._requests)))
 
     # -- side-band routing ------------------------------------------------------
 
@@ -671,12 +813,31 @@ class SessionSupervisor:
             self._on_stats(data)
         elif kind == "serve.preempt":
             self._on_preempt(data)
+        elif kind == "span":
+            self._on_remote_span(data)
+
+    def _on_remote_span(self, data: dict) -> None:
+        """One worker-recorded span off the side-band, re-emitted with its
+        ids, so the worker's time shows inside the request's own trace."""
+        try:
+            record_span(str(data.get("name") or "serve.worker"),
+                        trace_id=data.get("trace_id") or None,
+                        parent_id=data.get("parent_id") or None,
+                        span_id=data.get("span_id") or None, start_ts=data.get("start_ts"),
+                        duration_s=float(data.get("duration_s") or 0.0),
+                        status=str(data.get("status") or "OK"),
+                        attributes=(data.get("attributes")
+                                    if isinstance(data.get("attributes"), dict) else None))
+        except Exception:  # noqa: BLE001 - observability is never fatal
+            pass
 
     def _on_preempt(self, data: dict) -> None:
         """The worker announced a preemption notice (its SIGTERM): start a
         warm handoff now, inside the old worker's grace window."""
         app_log.info("session %s: preemption notice from %s (%s)", self.sid, self.address,
                      data.get("reason") or "")
+        obs_events.emit("serve.preempt_notice", sid=self.sid, address=self.address,
+                        reason=str(data.get("reason") or ""))
         if not self._auto_handoff or self._closed or self._in_handoff:
             return
 
@@ -748,11 +909,14 @@ class SessionSupervisor:
             return
         request._feed(fresh, done, error=error)
         if fresh:
+            SERVE_TOKENS_TOTAL.inc(len(fresh))
             # the stream's durable high-water mark: a successor dispatcher
             # resumes it from here, exactly once
             journal_mod.record("stream_hwm", sid=self.sid, rid=rid,
                                hwm=request.resumed_from + len(request.tokens))
         if first and request.ttft_s is not None:
+            # the trace id rides as the bucket's exemplar
+            SERVE_TTFT_SECONDS.observe(request.ttft_s, trace_id=request.span.trace_id)
             # The straggler signal: TTFT against the sibling replicas.  A
             # hedge's arm is measured from its own dispatch.
             latency = request.ttft_s
@@ -772,6 +936,8 @@ class SessionSupervisor:
                 HEALTH.record_success(self.sid, group=self._health_group)
             self._finish(rid, "ok" if not error else (
                 "deadline" if error == "deadline_exceeded" else "error"))
+            if request.latency_s is not None:
+                SERVE_REQUEST_SECONDS.observe(request.latency_s, trace_id=request.span.trace_id)
 
     def _on_reject(self, data: dict) -> None:
         rid = str(data.get("rid") or "")
@@ -788,22 +954,52 @@ class SessionSupervisor:
             # triggered the hedge): the other arm still owns the request.
             self.abandon(rid)
             return
-        self._finish(rid, "rejected")
+        self._finish(rid, "shed" if code == "serve_admission_shed" else "rejected")
         request._fail(ServeRequestRejected(rid, code, str(data.get("message") or "")))
 
     def _on_stats(self, data: dict) -> None:
         """The worker's latest ``serve.stats``: occupancy, totals, the
         engine's counters and the card's memory, without the envelope."""
         self.stats = {k: v for k, v in data.items() if k not in _ENVELOPE}
-        HEALTH.record_queue_depth(self.sid, float(self.stats.get("queued") or 0),
-                                  group=self._health_group)
+        queued = float(self.stats.get("queued") or 0)
+        SERVE_QUEUE_DEPTH.labels(session=self.sid).set(queued)
+        HEALTH.record_queue_depth(self.sid, queued, group=self._health_group)
+        SERVE_TOKENS_PER_S.labels(session=self.sid).set(
+            float(self.stats.get("tokens_per_s") or 0.0))
+        # only engines that report the prefix counters create their series
+        for key, gauge in (("prefix_hits", SERVE_PREFIX_HITS),
+                           ("prefix_misses", SERVE_PREFIX_MISSES),
+                           ("prefill_positions", SERVE_PREFILL_POSITIONS)):
+            if key in self.stats:
+                gauge.labels(session=self.sid).set(float(self.stats[key] or 0))
+        self._publish_worker_slots()
+
+    def _peers_on_worker(self) -> list["SessionSupervisor"]:
+        """This executor's live sessions on this session's worker."""
+        return [h for h in list(self.executor._serve_handles.values())
+                if getattr(h, "address", "") == self.address and not h._closed]
+
+    def _publish_worker_slots(self) -> None:
+        """The worker's slot occupancy, summed over the sessions this
+        dispatcher holds there (the reference reads it off the worker's
+        heartbeats, which the port's sessions do not send)."""
+        if not self.address:
+            return
+        peers = self._peers_on_worker()
+        totals = {"sessions": float(len(peers))}
+        for state in ("slots", "busy", "queued"):
+            totals[state] = float(sum(float(h.stats.get(state) or 0) for h in peers))
+        for state, value in totals.items():
+            SERVE_WORKER_SLOTS.labels(worker=self.address, state=state).set(value)
 
     def _finish(self, rid: str, outcome: str) -> None:
         request = self._requests.pop(rid, None)
         if request is not None:
             request.arms.pop(self.sid, None)
             self.served += 1
+            SERVE_REQUESTS_TOTAL.labels(outcome=outcome).inc()
             journal_mod.record("stream_done", sid=self.sid, rid=rid, outcome=outcome, sync=True)
+            self._publish_in_flight()
             self._changed()
 
     def abandon(self, rid: str) -> None:
@@ -816,6 +1012,7 @@ class SessionSupervisor:
         request.arms.pop(self.sid, None)
         # a successor dispatcher must not resume the dead arm
         journal_mod.record("stream_done", sid=self.sid, rid=rid, outcome="hedge_abandoned")
+        self._publish_in_flight()
         client, sid_g = self._client, self._sid_g
         if client is not None and client.alive and not self._closed:
             task = asyncio.ensure_future(client.serve_cancel(sid_g, rid))
@@ -840,7 +1037,7 @@ class SessionSupervisor:
 
     # -- warm handoff ---------------------------------------------------------
 
-    async def handoff(self, reason: str = "planned") -> bool:
+    async def handoff(self, reason: str = "planned", target: Any = None) -> bool:
         """Drain-and-reopen: move this session to a fresh generation with
         no token lost or repeated.
 
@@ -855,23 +1052,47 @@ class SessionSupervisor:
         not open: the reconnect road still guards the old generation).
         ``reason`` ``"preempt_notice"`` counts the replays' mismatches
         under the ``preempt`` road, any other under ``handoff``.
+
+        ``target`` (a fleet ``Pool`` or an executor) moves the session
+        there: the replacement opens on the target's runtime, the session
+        then belongs to the target's executor, and its pool slot moves with
+        it.  This is how a session leaves a preempted node: on the session's
+        own one-address executor the replacement lands on the same worker.
+        The reference's handoff takes no target.
         """
         if self._closed or self._failed is not None or self._in_handoff \
                 or not self._ready.is_set():
             return False
+        old_executor, old_pool = self.executor, self._pool
+        new_executor, new_pool = ((old_executor, old_pool) if target is None
+                                  else split_target(target))
         self._in_handoff = True
         try:
             old_client, old_sid = self._client, self._sid_g
-            old_conns = list(self._conns)
+            old_conns, old_address = list(self._conns), self.address
+            obs_events.emit("serve.handoff_started", sid=self.sid, address=old_address,
+                            reason=reason, in_flight=self.in_flight)
             try:
-                binding = await self._dial_generation()
+                binding = await self._dial_generation(new_executor)
             except asyncio.CancelledError:
                 raise
             except BaseException as err:  # noqa: BLE001 - degrade, not fail
                 SERVE_HANDOFFS_TOTAL.labels(outcome="failed").inc()
+                obs_events.emit("serve.handoff_failed", sid=self.sid, address=old_address,
+                                reason=reason, error=repr(err))
                 app_log.warning("warm handoff of %s failed (%s); the reconnect road "
                                 "recovers when the old worker dies", self.sid, err)
                 return False
+            if new_executor is not old_executor:
+                old_executor._serve_handles.pop(self.sid, None)
+                new_executor._serve_handles[self.sid] = self
+                self.executor = new_executor
+            if new_pool is not old_pool and self._counted_live:
+                if old_pool is not None:
+                    old_pool.release()
+                if new_pool is not None:
+                    new_pool.place()
+            self._pool = new_pool
             # stop the old generation's feed before the replay, so the
             # splice sees one stream at a time
             self._adopt(binding)
@@ -881,6 +1102,9 @@ class SessionSupervisor:
             await self._replay_in_flight()
             self.handoffs += 1
             SERVE_HANDOFFS_TOTAL.labels(outcome="ok").inc()
+            obs_events.emit("serve.handoff_complete", sid=self.sid, from_address=old_address,
+                            to_address=self.address, generation=self.generation,
+                            replayed=len(self._requests), reason=reason)
             app_log.info("session %s handed off (%s) to generation %d; replayed %d requests",
                          self.sid, reason, self.generation, len(self._requests))
             if old_client is not None and old_client.alive:
@@ -900,9 +1124,11 @@ class SessionSupervisor:
             leftovers = [c for c in old_conns if id(c) not in shared]
             if leftovers:
                 try:
-                    await self.executor._discard_workers(leftovers)
+                    await old_executor._discard_workers(leftovers)
                 except Exception:  # noqa: BLE001 - teardown is best-effort
                     pass
+            if old_address != self.address or new_executor is not old_executor:
+                self._reap_worker_slots(old_executor, old_address)
             self._changed()
             return True
         finally:
@@ -971,6 +1197,10 @@ class SessionSupervisor:
                         await asyncio.sleep(policy.delay(attempt))
                 else:
                     self.reconnects += 1
+                    SERVE_RECONNECTS_TOTAL.inc()
+                    obs_events.emit("serve.session_reopened", sid=self.sid,
+                                    address=self.address, generation=self.generation,
+                                    replayed=len(self._requests))
                     self._move_road = "reconnect"
                     app_log.info("serving session %s re-opened on generation %d; "
                                  "replaying %d requests", self.sid, self.generation,
@@ -997,6 +1227,7 @@ class SessionSupervisor:
                     f"session {self.sid} died and could not be re-opened: {failure}"))
         self._ready.set()
         HEALTH.drop(self.sid)
+        obs_events.emit("serve.session_failed", sid=self.sid, error=repr(failure))
         self._changed()
         return False
 
@@ -1034,6 +1265,60 @@ class SessionSupervisor:
             request._fail(ServeError(f"session {self.sid} closed"))
         self.executor._serve_handles.pop(self.sid, None)
         journal_mod.record("session_closed", sid=self.sid, sync=True)
-        HEALTH.drop(self.sid)
+        self._drop_live()
+        obs_events.emit("serve.session_closed", sid=self.sid,
+                        served=int(closed_event.get("served") or 0))
         self._changed()
         return closed_event
+
+    def _drop_live(self) -> None:
+        """Leave the live gauges, release the pool slot, and reap this
+        session's series (a closed session must leave no stale series),
+        and the worker's slot series when no other session is there."""
+        if self._counted_live:
+            self._counted_live = False
+            SERVE_SESSIONS.dec()
+            if self._pool is not None:
+                self._pool.release()
+        HEALTH.drop(self.sid)
+        for gauge in (SERVE_QUEUE_DEPTH, SERVE_TOKENS_PER_S, SERVE_PREFIX_HITS,
+                      SERVE_PREFIX_MISSES, SERVE_PREFILL_POSITIONS):
+            gauge.remove(session=self.sid)
+        if self.replica_of is not None:
+            SERVE_REPLICA_IN_FLIGHT.remove(set=self.replica_of[0], replica=self.replica_of[1])
+            SERVE_REPLICA_REQUESTS_TOTAL.remove(set=self.replica_of[0],
+                                                replica=self.replica_of[1])
+        self._reap_worker_slots(self.executor, self.address)
+
+    def _reap_worker_slots(self, executor: Any, address: str) -> None:
+        if address and not any(h is not self and getattr(h, "address", "") == address
+                               for h in list(executor._serve_handles.values())):
+            for state in ("sessions", "slots", "busy", "queued"):
+                SERVE_WORKER_SLOTS.remove(worker=address, state=state)
+
+    # -- profiling ------------------------------------------------------------
+
+    async def capture_profile(self, duration_s: float = 2.0) -> dict:
+        """Trace this session's resident runtime with ``torch.profiler``
+        for ``duration_s`` while it serves.
+
+        The trace runs in the process that holds the model (the pool
+        server, or the native agent's ``--serve-child``), is packed there
+        into one content-addressed artifact, and comes back digest-checked:
+        ``{sid, duration_s, path, digest, bytes}``.  Raises
+        :class:`ServeError` when the capture fails (the session down,
+        another trace active in that process, no profiler)."""
+        await self._await_ready()
+        client, conns = self._client, self._conns
+        if client is None or not conns:
+            raise ServeError(f"session {self.sid} has no live runtime")
+        profile_id = f"{self.sid.replace(':', '-')}-prof{uuid.uuid4().hex[:6]}"
+        sid = self._sid_g if client.mode != "pool" else ""
+        if not await self.executor._start_resident_profile(client, profile_id, sid=sid):
+            raise ServeError(f"profiler start refused on session {self.sid} (busy or "
+                             "unavailable)")
+        info = await self.executor._finish_capture(client, conns[0], profile_id, duration_s,
+                                                   sid=sid)
+        if not info:
+            raise ServeError(f"profile capture on session {self.sid} produced no artifact")
+        return {"sid": self.sid, "duration_s": float(duration_s), **info}

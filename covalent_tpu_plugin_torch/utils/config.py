@@ -18,7 +18,9 @@ the reference's ``[executors.tpu]`` among them (``transport``,
 ``hostname``, ``username``, ``ssh_key_file``, ``known_host_key_file``,
 ``strict_host_keys``, ``conda_env``, ``max_connection_attempts``,
 ``retry_wait_time``, ``run_local_on_dispatch_fail``, ``compress``,
-``bundle``).
+``bundle``).  ``fleet.pools`` holds the pool specs
+``fleet.pools.PoolRegistry.from_environment`` reads when
+``COVALENT_TPU_POOLS`` is unset.
 """
 
 from __future__ import annotations

@@ -33,7 +33,9 @@ setup(
         "covalent_tpu_plugin": ["native/agent.cc"],
         # The PyTorch port's CUDA kernels ship as SOURCE too, compiled with
         # nvcc at first use (ops/_kernels.py).
-        "covalent_tpu_plugin_torch": ["csrc/*.cu", "csrc/*.cuh"],
+        # Its copy of the native agent is compiled on each worker the same
+        # way as the JAX package's.
+        "covalent_tpu_plugin_torch": ["csrc/*.cu", "csrc/*.cuh", "native/agent.cc"],
     },
     include_package_data=True,
     python_requires=">=3.11",  # tomllib is stdlib from 3.11

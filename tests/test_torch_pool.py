@@ -383,10 +383,16 @@ def test_gpu_alias_runs_electrons_through_the_pool(tmp_path, monkeypatch, event_
 
 def test_launch_falls_back_to_nohup_when_the_pool_cannot_start(tmp_path, run_async,
                                                               monkeypatch, event_log):
+    # use_agent=True tries the pool server, then the native agent: neither
+    # starts here
     async def no_pool(*args, **kwargs):
         raise AgentError("scripted: no pool runtime")
 
+    async def no_agent(*args, **kwargs):
+        raise AgentError("scripted: no native agent")
+
     monkeypatch.setattr(gpu_mod, "start_pool_server", no_pool)
+    monkeypatch.setattr(gpu_mod, "ensure_agent_binary", no_agent)
 
     async def flow():
         ex = make_executor(tmp_path)

@@ -402,12 +402,17 @@ def test_rpc_timeout_tears_the_runtime_down(tmp_path, run_async):
 def test_rpc_unavailable_runtime_falls_back_to_launch(tmp_path, run_async, monkeypatch,
                                                       event_log):
     """No resident runtime: the same electron takes the launch road, and
-    ``task.rpc_fallback`` says so."""
+    ``task.rpc_fallback`` says so.  ``use_agent=True`` tries the pool
+    server, then the native agent: neither starts here."""
 
     async def no_pool(*args, **kwargs):
         raise AgentError("scripted: no pool runtime")
 
+    async def no_agent(*args, **kwargs):
+        raise AgentError("scripted: no native agent")
+
     monkeypatch.setattr(gpu_mod, "start_pool_server", no_pool)
+    monkeypatch.setattr(gpu_mod, "ensure_agent_binary", no_agent)
 
     async def flow():
         ex = make_rpc_executor(tmp_path)
@@ -431,8 +436,11 @@ def test_rpc_preselect_static_fallbacks(tmp_path):
     assert launch._rpc_preselect({}) is False
     assert launch._rpc_preselect({"dispatch_mode": "rpc"}) is True  # the electron's pin
     assert make_rpc_executor(tmp_path / "na", use_agent=False)._rpc_preselect({}) is False
-    # profile_start/profile_stop come with ROADMAP item 2c.5: a profiled electron launches
-    assert make_rpc_executor(tmp_path / "pd", profile_dir="traces")._rpc_preselect({}) is False
+    # a profiled electron stays on the RPC road: the runtime traces it
+    # (profile_start/profile_stop), as the reference's does
+    assert make_rpc_executor(tmp_path / "pd", profile_dir="traces")._rpc_preselect({}) is True
+    # the native agent runs electrons by digest in a --rpc-child
+    assert make_rpc_executor(tmp_path / "nat", use_agent="native")._rpc_preselect({}) is True
 
 
 def test_rpc_resets_the_global_generators_per_invocation(tmp_path, run_async):

@@ -336,9 +336,15 @@ def test_the_rpc_script_covers_every_outcome(both_runs):
     assert pickle.loads((root / "result_r1.pkl").read_bytes())[:2] == (25, None)
 
 
-@pytest.mark.parametrize("mode,item", [("--rpc-child", "2c.6"), ("--serve-child", "2c.6")])
-def test_port_harness_refuses_modes_of_later_items(mode, item):
-    proc = subprocess.run([sys.executable, str(RUNTIMES["port"]), mode, "x"],
-                          capture_output=True, text=True, timeout=60)
-    assert proc.returncode == 2
-    assert "not ported yet" in proc.stderr and item in proc.stderr
+@pytest.mark.parametrize("mode,rc", [("--rpc-child", 2), ("--serve-child", 0)])
+def test_a_runner_mode_given_no_command_exits_like_the_reference(mode, rc):
+    """The native agent's runners with nothing on stdin: the RPC runner
+    prints its usage and exits 2, the session runner closes its (no)
+    session and exits 0, in both harnesses; neither writes anything on the
+    protocol channel."""
+    runs = {name: subprocess.run([sys.executable, str(harness), mode], capture_output=True,
+                                 text=True, timeout=60, stdin=subprocess.DEVNULL)
+            for name, harness in RUNTIMES.items()}
+    for name, proc in runs.items():
+        assert (proc.returncode, proc.stdout) == (rc, ""), name
+        assert ("usage: harness.py --rpc-child" in proc.stderr) == (mode == "--rpc-child"), name

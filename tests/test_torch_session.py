@@ -30,7 +30,12 @@ from covalent_tpu_plugin_torch import GPUExecutor
 from covalent_tpu_plugin_torch.models import convert, serve
 from covalent_tpu_plugin_torch.models import transformer as torch_tf
 from covalent_tpu_plugin_torch.resilience import FaultClass, classify_error
-from covalent_tpu_plugin_torch.serving import ServeHandle, ServeRequestRejected, open_session
+from covalent_tpu_plugin_torch.serving import (
+    ServeError,
+    ServeHandle,
+    ServeRequestRejected,
+    open_session,
+)
 
 from .test_torch_session_protocol import gated_factory
 
@@ -51,10 +56,11 @@ def _executor(tmp_path, **kwargs):
     )
 
 
-def make_factory(step_delay=0.0, slots=2, chunk=2, default_cap=6, noisy=False):
+def make_factory(step_delay=0.0, slots=2, chunk=2, default_cap=6, noisy=False, hold=None):
     """A stub engine pickled by value: prompt ``[..., base]`` streams
     ``base+1, base+2, ...``.  ``noisy`` prints on stdout, without newlines,
-    from the factory and from every step."""
+    from the factory and from every step.  With ``hold`` (a path) a lane
+    emits nothing after its first chunk until that file exists."""
 
     def factory():
         import os as os_mod
@@ -68,6 +74,7 @@ def make_factory(step_delay=0.0, slots=2, chunk=2, default_cap=6, noisy=False):
             def __init__(self):
                 self.slots = slots
                 self.lanes = {}
+                self.started = set()
 
             def admit(self, rid, prompt, params):
                 cap = int((params or {}).get("max_new_tokens", default_cap))
@@ -80,6 +87,9 @@ def make_factory(step_delay=0.0, slots=2, chunk=2, default_cap=6, noisy=False):
                     time_mod.sleep(step_delay)
                 events = []
                 for rid in list(self.lanes):
+                    if hold and rid in self.started and not os_mod.path.exists(hold):
+                        continue
+                    self.started.add(rid)
                     taken, self.lanes[rid] = self.lanes[rid][:chunk], self.lanes[rid][chunk:]
                     done = not self.lanes[rid]
                     if done:
@@ -447,16 +457,18 @@ def test_the_session_thread_runs_with_autograd_off(tmp_path, run_async):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("use_agent", ["native"])
-def test_executor_refuses_the_native_agent(use_agent):
-    with pytest.raises(NotImplementedError, match="item 2c.6"):
-        GPUExecutor(use_agent=use_agent)
+def test_executor_takes_the_native_agent_pin():
+    """``use_agent="native"`` pins the native agent
+    (``tests/test_torch_native_agent.py`` drives it); a value off the
+    ladder is refused."""
+    assert GPUExecutor(use_agent="native").use_agent == "native"
+    with pytest.raises(ValueError, match="use_agent must be"):
+        GPUExecutor(use_agent="natve")
 
 
 @pytest.mark.parametrize("method,args,item", [
     ("attach_adapter", ("t",), "slice 3"),
     ("detach_adapter", ("t",), "slice 3"),
-    ("capture_profile", (), "item 2c"),
 ])
 def test_handle_refuses_features_of_later_items(tmp_path, method, args, item):
     handle = ServeHandle(_executor(tmp_path), make_factory())
@@ -464,13 +476,28 @@ def test_handle_refuses_features_of_later_items(tmp_path, method, args, item):
         asyncio.run(getattr(handle, method)(*args))
 
 
-def test_open_session_refuses_a_fleet_pool(tmp_path, run_async):
-    class Pool:  # the reference's fleet Pool carries .spec and .executor
-        spec = object()
-        executor = _executor(tmp_path)
+def test_a_closed_handle_captures_no_profile(tmp_path):
+    """``capture_profile`` on a closed session fails as closed
+    (``tests/test_torch_profile.py`` captures a live one)."""
+    handle = ServeHandle(_executor(tmp_path), make_factory())
+    handle._sup._closed = True
+    with pytest.raises(ServeError, match="is closed"):
+        asyncio.run(handle.capture_profile())
 
-    with pytest.raises(NotImplementedError, match="fleet Pool"):
-        run_async(open_session(Pool(), make_factory()))
+
+def test_a_pool_without_a_resident_runtime_refuses_the_session_before_pinning(
+        tmp_path, run_async):
+    """A fleet Pool's executor hosts the session, whose open pins a slot;
+    an executor without a resident runtime refuses the session before it
+    pins anything."""
+    from covalent_tpu_plugin_torch.fleet.pools import Pool, PoolSpec
+
+    ex = GPUExecutor(cache_dir=str(tmp_path / "cache"), remote_cache=str(tmp_path / "remote"),
+                     use_agent=False)
+    pool = Pool(PoolSpec(name="refusing"), executor=ex)
+    with pytest.raises(Exception, match="use_agent='pool'"):
+        run_async(open_session(pool, make_factory()))
+    assert pool.in_use == 0
 
 
 def test_a_session_needs_the_pool_runtime(tmp_path, run_async):

@@ -95,7 +95,8 @@ B64_FIELD = {"args_bytes": "args", "kv_bytes": "kv"}
 
 
 class Runtime:
-    """One ``harness.py --serve`` subprocess with every event it printed.
+    """One ``harness.py --serve`` subprocess (or another runtime ``mode``,
+    such as ``--serve-child``) with every event it printed.
 
     Its stdout is read as the client reads it: JSON lines and binary frames
     interleaved, each frame decoded with the reference's codec; a
@@ -106,9 +107,9 @@ class Runtime:
     field goes base64 in the JSON line.
     """
 
-    def __init__(self, harness: Path, cwd: Path, frames: bool = False):
+    def __init__(self, harness: Path, cwd: Path, frames: bool = False, mode: str = "--serve"):
         self.proc = subprocess.Popen(
-            [sys.executable, str(harness), "--serve"], cwd=cwd, stdin=subprocess.PIPE,
+            [sys.executable, str(harness), mode], cwd=cwd, stdin=subprocess.PIPE,
             stdout=subprocess.PIPE, stderr=subprocess.DEVNULL,
         )
         self.frames = frames
@@ -403,7 +404,6 @@ def test_frames_capability_is_the_only_banner_difference(both_runs):
 
 @pytest.mark.parametrize("verb,item", [
     ("serve_attach", "slice 3"), ("serve_detach", "slice 3"),
-    ("profile_start", "2c.5"), ("profile_stop", "2c.5"),
 ])
 def test_port_runtime_refuses_verbs_of_later_items(tmp_path, verb, item):
     rt = Runtime(RUNTIMES["port"], tmp_path)
@@ -421,3 +421,30 @@ def test_port_runtime_refuses_verbs_of_later_items(tmp_path, verb, item):
     finally:
         rt.close()
     assert rt.proc.returncode == 0
+
+
+@pytest.mark.parametrize("verb,code", [
+    ("profile_start", "bad_request"), ("profile_stop", "not_running"),
+])
+def test_a_profile_verb_without_a_trace_answers_like_the_reference(tmp_path, verb, code):
+    """A start that names no trace directory, and a stop with no trace
+    running, are refused by both runtimes with the same code and nothing
+    else (``tests/test_torch_profile.py`` runs the whole profile script on
+    both)."""
+    answers = {}
+    for name, harness in RUNTIMES.items():
+        (tmp_path / name).mkdir()
+        rt = Runtime(harness, tmp_path / name)
+        try:
+            rt.wait(is_event("ready"))
+            rt.send({"cmd": verb, "id": "x"})
+            rt.send({"cmd": "ping"})
+            rt.wait(is_event("pong"))
+            answers[name] = [(e["event"], e.get("code")) for e in rt.events
+                             if e.get("id") == "x" or e.get("event") == "error"]
+            rt.send({"cmd": "shutdown"})
+            rt.wait(is_event("bye"))
+        finally:
+            rt.close()
+        assert rt.proc.returncode == 0, name
+    assert answers["port"] == answers["reference"] == [("profile_error", code)]

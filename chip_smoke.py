@@ -33,15 +33,24 @@ Phases, one JSON object per line on stdout, in this order:
    inputs, its plain version, its bound and ``scaled_dot_product_attention``
    with the hop's boolean mask (bf16 out, no lse: a yardstick only).
 6. ``model_check``: a small LM on the card, flash kernels against the dense
-   reference, logits and gradients.
+   reference, logits and gradients; and a small LM with Switch MoE blocks
+   (tokens dropped) on the card against the same weights on the CPU: the
+   aux-aware loss, the aux and every gradient.
 7. ``train``: the main path.  ``GPUExecutor(transport="local")`` dispatches the
    training electron (``models.train.train_lm``): the 125M LM at full width,
    5 AdamW steps at batch 8, seq 1024, with the standard loss and with the
    fused vocab-chunked loss, each in a fresh interpreter (launch mode), then
-   the standard loss again by RPC inside a fresh pool server, whose channel
-   must run on binary frames.  Losses must be finite and falling, the RPC
-   arm's within 1e-2 of the first arm's (the line says whether the bits are
-   equal), and every kernel launched 12 times per step in every arm.
+   inside one fresh pool server by RPC (its channel on binary frames) the
+   standard loss again, ``remat_dots`` (the reference's ``lm_step`` remat
+   arm: each block under activation checkpointing that saves only the 2-D
+   products' outputs) and ``moe8`` (every MLP a Switch MoE of 8 experts,
+   capacity 1.25, the loss with the load-balance aux at 0.01).  Losses must
+   be finite and falling, the RPC and remat arms' within 1e-2 of the first
+   arm's (each line says whether the bits are equal; the remat line its
+   peak memory and step beside the RPC standard arm's), and every kernel
+   launched 12 times a step in every arm, but the flash forward 24 times
+   under remat (each block's forward runs again in the backward).  Each
+   line gives the launches by query shape and type.
 8. ``profile``: one training step under ``torch.profiler``: device time by
    kernel and the device's busy share; the step must run each of the three
    tensor-core kernels once per layer and no scalar kernel.
@@ -169,7 +178,7 @@ Phases, one JSON object per line on stdout, in this order:
     device), each ok or its error.  Then the flash kernels against their
     plain versions at each rank's shape: (4, 12, 1024, 64) under FSDP (the
     batch cut), (8, 6, 1024, 64) under tensor parallelism (the heads cut).
-    Then five electrons through ``GPUExecutor(workers=["w0", "w1"])``:
+    Then eight electrons through ``GPUExecutor(workers=["w0", "w1"])``:
     ``lm_fsdp2`` (the 125M LM at full width, ``MeshPlan(fsdp=2)``, global
     batch 8, seq 1024, 5 steps, standard loss), ``lm_tensor2`` (the same,
     ``MeshPlan(tensor=2)``), ``cnn_data2`` (the MNIST CNN,
@@ -179,13 +188,21 @@ Phases, one JSON object per line on stdout, in this order:
     every sequence, and every layer's attention is the ring-flash pair of
     passes on the f32-output kernels, 2 hops of (8, 12, 512, 64) a layer)
     and ``lm_ulysses2`` (``MeshPlan(seq=2)``, ``attention="ulysses"``: two
-    all-to-alls around the bf16 kernels on (8, 6, 1024, 64)).  Per
-    electron: the mesh, backend and each rank's device, the losses and
-    their largest gap to the ``train`` phase's standard arm (same seed and
-    global batch; bound 1e-2), each rank's steady step, tokens/s, peak
-    memory, flash launches (12 a step on every rank, 24 on the ring) and the
-    query shapes and output types its kernels took, the electron's wall and
-    the rendezvous.
+    all-to-alls around the bf16 kernels on (8, 6, 1024, 64)), ``lm_pipe2``
+    (``MeshPlan(pipe=2)``: GPipe over two stages of 6 layers, 4 microbatches
+    of 2 rows, each hop a ring permute; flash on (2, 12, 1024, 64)),
+    ``lm_tensor2_fused`` (``MeshPlan(tensor=2)`` with the fused loss, each
+    rank streaming its half of the vocabulary in chunks of 8192, and
+    ``accumulate_steps=2``: 2 microbatches of 4 rows) and ``lm_moe_tensor2``
+    (``MeshPlan(tensor=2)`` with 8 experts, 4 a rank).  Per electron: the
+    mesh, backend and each rank's device, the losses and their largest gap
+    to the ``train`` phase's arm of the same loss (the standard arm, the
+    fused arm, ``moe8``; same seed and global batch; bound 1e-2), each
+    rank's steady step, tokens/s, peak memory, flash launches (12 a step on
+    every rank, 24 on the ring, the pipeline and the accumulated arm) and
+    the query shapes and output types its kernels took, the electron's wall
+    and the rendezvous; ``lm_pipe2``'s line has ``lm_fsdp2``'s step beside
+    its own.  The LM arms take 3 of the 5 steps (their lines say ``cut``).
     The two ranks share one card, so the times measure the gang's
     overhead, not scaling.
 20. ``ssh``: the paper's road over a real, encrypted SSH channel on
@@ -766,16 +783,72 @@ def model_check() -> dict:
     if not (logit_err <= 1e-4 and grad_err <= 1e-5):
         raise AssertionError(f"small LM: logits err {logit_err}, grad err {grad_err}")
     return {"logits_max_abs_err": logit_err, "grads_max_abs_err": grad_err,
-            "tol": {"logits": 1e-4, "grads": 1e-5}}
+            "tol": {"logits": 1e-4, "grads": 1e-5}, "moe": moe_check()}
+
+
+def moe_check() -> dict:
+    """A small f32 LM with Switch MoE blocks (4 experts, capacity 0.5: tokens
+    dropped) on the card against the same weights on the CPU: the
+    aux-aware loss, the aux and every gradient.  The routing's argmax, the
+    slots' cumsum and the dispatch's scatter run on the card; f32 sums in
+    another order over at most 128 tokens."""
+    import torch
+
+    from covalent_tpu_plugin_torch.models import TransformerConfig, TransformerLM
+    from covalent_tpu_plugin_torch.models.moe import collect_moe_aux, lm_loss_with_moe_aux
+
+    cfg = TransformerConfig(vocab_size=512, d_model=128, n_layers=2, n_heads=4, d_ff=256,
+                            max_seq=64, dtype=torch.float32, attention="reference",
+                            moe_experts=4, moe_capacity_factor=0.5)
+    tokens = torch.randint(0, 512, (2, 65), generator=torch.Generator().manual_seed(3))
+    cpu = TransformerLM(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    card = TransformerLM(cfg, device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    runs = {}
+    for name, model in (("card", card), ("cpu", cpu)):
+        loss = lm_loss_with_moe_aux(model, {"tokens": tokens})
+        loss.backward()
+        runs[name] = (float(loss.detach()), float(collect_moe_aux(model).detach()),
+                      {n: p.grad.cpu() for n, p in model.named_parameters()})
+    loss_err = abs(runs["card"][0] - runs["cpu"][0])
+    aux_err = abs(runs["card"][1] - runs["cpu"][1])
+    grad_err = max((runs["card"][2][n] - g).abs().max().item() for n, g in runs["cpu"][2].items())
+    if not (loss_err <= 1e-5 and aux_err <= 1e-5 and grad_err <= 1e-5):
+        raise AssertionError(f"MoE on the card: loss err {loss_err}, aux err {aux_err}, "
+                             f"grad err {grad_err}")
+    return {"loss": runs["card"][0], "aux": runs["card"][1], "loss_abs_err": loss_err,
+            "aux_abs_err": aux_err, "grads_max_abs_err": grad_err, "tol": 1e-5,
+            # 128 tokens for 4 experts of 16 slots: at least 64 dropped
+            "tokens": 128, "slots": 64}
 
 
 # --- the main path: the training electron through the executor ---------------
 
 
+#: The train phase's arms: (name, road, vocab_chunk, config overrides).  The
+#: standard and the fused loss each in a fresh interpreter (launch mode), then
+#: in one fresh pool server by RPC the standard loss, the reference's
+#: ``lm_step`` remat arm (``remat_policy="dots"``) and the Switch MoE of 8
+#: experts (capacity 1.25, the aux-aware loss).
+TRAIN_ARMS = (
+    ("standard", "launch", None, {}),
+    ("fused", "launch", 8192, {}),
+    ("standard_rpc", "rpc", None, {}),
+    ("remat_dots", "rpc", None, dict(remat=True, remat_policy="dots")),
+    ("moe8", "rpc", None, dict(moe_experts=8)),
+)
+#: Flash launches a step by kernel, 12 (one a layer) unless named here: a
+#: rematerialised block runs its flash forward again in the backward.
+TRAIN_LAUNCHES = {"remat_dots": {"flash_fwd": 24}}
+
+
+def train_launches_per_step(arm: str, kernel: str) -> int:
+    return TRAIN_LAUNCHES.get(arm, {}).get(kernel, 12)
+
+
 def train_phase() -> list[dict]:
-    """The training electron three times: the standard and the fused loss
-    each in a fresh interpreter (launch mode, nohup + poll), then the
-    standard loss over RPC inside a fresh pool server."""
+    """The training electron once an arm of :data:`TRAIN_ARMS`, each arm's
+    result named by ``arm``."""
     from covalent_tpu_plugin_torch import GPUExecutor
     from covalent_tpu_plugin_torch.models.train import train_lm
 
@@ -797,16 +870,17 @@ def train_phase() -> list[dict]:
     async def run_arms():
         arms = []
         try:
-            for node, (executor, vocab_chunk) in enumerate(
-                    ((launch, None), (launch, 8192), (rpc, None))):
+            for node, (name, road, vocab_chunk, overrides) in enumerate(TRAIN_ARMS):
+                executor = launch if road == "launch" else rpc
                 wall = time.perf_counter()
                 out = await executor.run(
                     train_lm, [],
                     dict(steps=STEPS, batch_size=BATCH, seq_len=SEQ, vocab_chunk=vocab_chunk,
-                         seed=0),
+                         seed=0, **overrides),
                     {"dispatch_id": "chip_smoke", "node_id": node},
                 )
                 out["wall_s"] = time.perf_counter() - wall
+                out["arm"], out["overrides"] = name, overrides
                 out["vocab_chunk"] = vocab_chunk
                 out["dispatch_mode"] = executor.last_dispatch_mode
                 out["timings"] = dict(executor.last_timings)
@@ -818,38 +892,59 @@ def train_phase() -> list[dict]:
         return arms
 
     arms = asyncio.run(run_arms())
-    if [arm["dispatch_mode"] for arm in arms] != ["launch", "launch", "rpc"]:
-        raise AssertionError(f"train: roads {[arm['dispatch_mode'] for arm in arms]}")
-    if arms[2]["frames_active"] is not True:
-        raise AssertionError(f"train: the RPC arm's channel is not on frames "
-                             f"({arms[2]['frames_active']})")
+    roads = [arm["dispatch_mode"] for arm in arms]
+    if roads != [road for _, road, _, _ in TRAIN_ARMS]:
+        raise AssertionError(f"train: roads {roads}")
+    if any(arm["frames_active"] is not True for arm in arms if arm["dispatch_mode"] == "rpc"):
+        raise AssertionError(f"train: an RPC arm's channel is not on frames "
+                             f"({[arm['frames_active'] for arm in arms]})")
     return arms
+
+
+#: The MoE loss's load-balance weight (``models.moe.lm_loss_with_moe_aux``).
+MOE_AUX_WEIGHT = 0.01
+
+
+def lm_losses(arm: dict) -> list:
+    """An arm's language-model losses: its losses, less the weighted
+    load-balance term for an MoE arm.  Over 5 steps at lr 3e-4 that term
+    grows as the router sharpens (the reference's model does the same on
+    the same weights: ``tools/moe_aux_cpu.py``), so an MoE arm's total may
+    rise while its LM loss falls."""
+    aux = arm.get("moe_aux") or [0.0] * len(arm["losses"])
+    return [loss - MOE_AUX_WEIGHT * a for loss, a in zip(arm["losses"], aux)]
 
 
 def check_train(arms: list[dict]) -> None:
     import math
 
     for arm in arms:
-        losses = arm["losses"]
-        if len(losses) != STEPS or not all(math.isfinite(x) for x in losses):
-            raise AssertionError(f"losses not finite: {losses}")
+        losses = lm_losses(arm)
+        if len(losses) != STEPS or not all(math.isfinite(x) for x in arm["losses"] + losses):
+            raise AssertionError(f"{arm['arm']}: losses not finite: {arm['losses']}")
         if not losses[-1] < losses[0]:
-            raise AssertionError(f"loss did not fall: {losses}")
+            raise AssertionError(f"{arm['arm']}: LM loss did not fall: {losses}")
         for name, count in arm["launches"].items():
-            if count != 12 * STEPS:
-                raise AssertionError(f"{name} launched {count} times, expected {12 * STEPS}")
+            want = train_launches_per_step(arm["arm"], name) * STEPS
+            if count != want:
+                raise AssertionError(f"{arm['arm']}: {name} launched {count} times, "
+                                     f"expected {want}")
+    by_arm = {arm["arm"]: arm for arm in arms}
     # Same weights and batches: the two losses differ only by the fused
     # loss's bf16 cast of the lm_head weight (the reference's rule).
-    first = [arm["losses"][0] for arm in arms]
+    first = [by_arm[name]["losses"][0] for name in ("standard", "fused")]
     if abs(first[0] - first[1]) > TRAIN_LOSS_TOL:
         raise AssertionError(f"standard and fused first losses differ: {first}")
-    # The RPC arm is the first arm's electron in another process: every
-    # step's loss within the same tolerance (equal bits when the kernels
-    # and the GEMMs are deterministic, reported by the train line).
-    gaps = [abs(a - b) for a, b in zip(arms[2]["losses"], arms[0]["losses"])]
-    if max(gaps) > TRAIN_LOSS_TOL:
-        raise AssertionError(f"RPC arm's losses {arms[2]['losses']} differ from "
-                             f"{arms[0]['losses']}")
+    # The RPC arm is the first arm's electron in another process, and the
+    # remat arm the same steps with each block recomputed: every step's loss
+    # within the same tolerance (equal bits when the kernels and the GEMMs
+    # are deterministic, reported by the train line).
+    for name in ("standard_rpc", "remat_dots"):
+        gaps = [abs(a - b) for a, b in zip(by_arm[name]["losses"],
+                                           by_arm["standard"]["losses"])]
+        if max(gaps) > TRAIN_LOSS_TOL:
+            raise AssertionError(f"{name} arm's losses {by_arm[name]['losses']} differ from "
+                                 f"{by_arm['standard']['losses']}")
 
 
 def model_flops_per_step(n_params: int) -> float:
@@ -2276,10 +2371,11 @@ MATMUL_N, MATMUL_CHAIN, MATMUL_REPS = 4096, 16, 50
 #: Config 3 (``bench.py:2413-2470``): electrons per fan-out, trials, busy seconds.
 FANOUT, FANOUT_TRIALS, BUSY_S = 8, 3, 0.3
 #: Trials of the launch arm's MNIST-step fan-out, cut from 3 to keep the run
-#: under 1000 s with the ``agent`` phase: each is 8 fresh interpreters that
-#: import torch at once (35.6-38.1 s a trial, and the whole run 1014 s with
-#: 3, on an NVIDIA H100 80GB HBM3, 700 W).
-LAUNCH_MNIST_TRIALS = 2
+#: under 1000 s with the ``agent`` phase and the gang's pipeline, MoE and
+#: fused-loss arms: each is 8 fresh interpreters that import torch at once
+#: (28.96-38.1 s a trial, and the whole run 1014 s with 3, on an NVIDIA H100
+#: 80GB HBM3, 700 W).
+LAUNCH_MNIST_TRIALS = 1
 #: Config 4 (``bench.py:1181-1253``): timed epochs over the 64 batches.
 MNIST_EPOCHS = 20
 OVERHEAD_PROBES = 5
@@ -2619,14 +2715,25 @@ def lattice_phase() -> tuple[list[dict], dict]:
     return lines, launches
 
 
-#: The gang phase's electrons: (function, mesh plan, config overrides).
-GANG_STEPS = 5
+#: The gang phase's electrons: (function, mesh plan, train_lm's options, the
+#: train phase's arm whose losses the LM arm's are held against).  The LM
+#: arms take 3 steps of the train phase's 5 (cut to keep the run under 1000
+#: s with the pipeline, fused-loss and MoE arms), their losses compared over
+#: those steps.
+GANG_STEPS = 3
 GANG_ARMS = {
-    "lm_fsdp2": ("lm", dict(fsdp=2), {}),
-    "lm_tensor2": ("lm", dict(tensor=2), {}),
-    "cnn_data2": ("cnn", dict(data=2), {}),
-    "lm_ring2": ("lm", dict(seq=2), dict(attention="ring")),
-    "lm_ulysses2": ("lm", dict(seq=2), dict(attention="ulysses")),
+    "lm_fsdp2": ("lm", dict(fsdp=2), {}, "standard"),
+    "lm_tensor2": ("lm", dict(tensor=2), {}, "standard"),
+    "cnn_data2": ("cnn", dict(data=2), {}, None),
+    "lm_ring2": ("lm", dict(seq=2), dict(attention="ring"), "standard"),
+    "lm_ulysses2": ("lm", dict(seq=2), dict(attention="ulysses"), "standard"),
+    # GPipe over 2 stages of 6 layers, 4 microbatches of 2 rows
+    "lm_pipe2": ("lm", dict(pipe=2), dict(n_micro=4), "standard"),
+    # each rank streams its half of the vocabulary; 2 microbatches of 4 rows
+    "lm_tensor2_fused": ("lm", dict(tensor=2), dict(vocab_chunk=8192, accumulate_steps=2),
+                         "fused"),
+    # the Switch MoE of 8 experts, 4 a rank
+    "lm_moe_tensor2": ("lm", dict(tensor=2), dict(moe_experts=8), "moe8"),
 }
 #: Each rank's flash shape under fsdp2 and tensor2 (the parity check at it):
 #: (batch, heads, kv heads, seq q, seq k, head dim).
@@ -2639,16 +2746,22 @@ GANG_LAUNCHES = {
     "lm_tensor2": {"8x6x1024x64 bfloat16": 12},
     "lm_ring2": {"8x12x512x64 bfloat16->float32": 24},
     "lm_ulysses2": {"8x6x1024x64 bfloat16": 12},
+    # 6 layers a stage, once for each of the 4 microbatches
+    "lm_pipe2": {"2x12x1024x64 bfloat16": 24},
+    # half the heads, once for each of the 2 microbatches
+    "lm_tensor2_fused": {"4x6x1024x64 bfloat16": 24},
+    "lm_moe_tensor2": {"8x6x1024x64 bfloat16": 12},
 }
 GANG_NOTE = ("the two ranks share one card: these times measure the gang's overhead "
              "(gloo through host memory, two processes on one device), not scaling")
 
 
-def gang_phase(train_losses: list) -> tuple[list[dict], dict, dict]:
+def gang_phase(train_losses: dict) -> tuple[list[dict], dict, dict]:
     """BASELINE configs 5 and 4 as two-process gangs on the card: the
-    collective probe, parity at each rank's shape, then five gang
-    electrons.  Returns the phase's lines, the gang's flash launches and
-    each LM arm's (summed over its ranks)."""
+    collective probe, parity at each rank's shape, then the gang electrons
+    of :data:`GANG_ARMS`, each LM arm's losses against ``train_losses[its
+    reference arm]``.  Returns the phase's lines, the gang's flash launches
+    and each LM arm's (summed over its ranks)."""
     import math
 
     from covalent_tpu_plugin_torch import GPUExecutor
@@ -2689,7 +2802,7 @@ def gang_phase(train_losses: list) -> tuple[list[dict], dict, dict]:
     async def run_arms():
         outs = {}
         try:
-            for node, (arm, (kind, plan, overrides)) in enumerate(GANG_ARMS.items()):
+            for node, (arm, (kind, plan, overrides, _)) in enumerate(GANG_ARMS.items()):
                 if kind == "lm":
                     fn, kwargs = train_lm, dict(steps=GANG_STEPS, batch_size=BATCH,
                                                 seq_len=SEQ, seed=0, **overrides)
@@ -2709,7 +2822,7 @@ def gang_phase(train_losses: list) -> tuple[list[dict], dict, dict]:
 
     outs = asyncio.run(run_arms())
     for arm, out in outs.items():
-        kind, plan, overrides = GANG_ARMS[arm]
+        kind, plan, overrides, reference = GANG_ARMS[arm]
         if out["world_size"] != 2 or len(out["ranks"]) != 2:
             raise AssertionError(f"gang {arm}: world {out['world_size']}, ranks {out['ranks']}")
         if any(not str(r["device"]).startswith("NVIDIA") for r in out["ranks"]):
@@ -2721,13 +2834,13 @@ def gang_phase(train_losses: list) -> tuple[list[dict], dict, dict]:
                 "timings": out["timings"], "note": GANG_NOTE,
                 "peak_mem_bytes": [r["peak_mem_bytes"] for r in out["ranks"]]}
         if kind == "lm":
-            losses = out["losses"]
+            losses, want_losses = out["losses"], train_losses[reference][:GANG_STEPS]
             if len(losses) != GANG_STEPS or not all(math.isfinite(x) for x in losses):
                 raise AssertionError(f"gang {arm}: losses {losses}")
-            gap = max(abs(a - b) for a, b in zip(losses, train_losses))
+            gap = max(abs(a - b) for a, b in zip(losses, want_losses))
             if gap > TRAIN_LOSS_TOL:
                 raise AssertionError(f"gang {arm}: losses {losses} are {gap} from the train "
-                                     f"phase's {train_losses}")
+                                     f"phase's {reference} arm's {want_losses}")
             want = {shape: n * GANG_STEPS for shape, n in GANG_LAUNCHES[arm].items()}
             for r in out["ranks"]:
                 for name, n in r["launches"].items():
@@ -2742,8 +2855,9 @@ def gang_phase(train_losses: list) -> tuple[list[dict], dict, dict]:
                     arm_launches[arm][name] = arm_launches[arm].get(name, 0) + n
             steady = [statistics.median(r["step_s"][1:]) for r in out["ranks"]]
             line.update({
-                "losses": losses, "train_losses": train_losses,
+                "losses": losses, "train_arm": reference, "train_losses": want_losses,
                 "max_loss_gap_train": gap, "loss_tol": TRAIN_LOSS_TOL,
+                "cut": f"{GANG_STEPS} steps of the train phase's {STEPS}",
                 "step_s": [r["step_s"] for r in out["ranks"]],
                 "steady_step_ms": [t * 1e3 for t in steady],
                 "tokens_per_s": out["tokens_per_step"] / max(steady),
@@ -2762,6 +2876,9 @@ def gang_phase(train_losses: list) -> tuple[list[dict], dict, dict]:
                          "batch_size": out["batch_size"], "n_batches": out["n_batches"],
                          "epochs": out["epochs"]})
         lines.append(line)
+    by_arm = {line["arm"]: line for line in lines if "arm" in line}
+    if "lm_pipe2" in by_arm and "lm_fsdp2" in by_arm:
+        by_arm["lm_pipe2"]["lm_fsdp2_steady_step_ms"] = by_arm["lm_fsdp2"]["steady_step_ms"]
     return lines, launches, arm_launches
 
 
@@ -3541,8 +3658,16 @@ def serve_profile() -> dict:
         w32 = weight.to(torch.float32)
         lm_head_gemm_ms = device_ms(lambda: torch.nn.functional.linear(feats, w32), 20)
         acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-        _kernels.reset_launch_counts()
-        with torch.profiler.profile(activities=acts) as prof:
+        # One step under the profiler first, not recorded: a trace that starts
+        # cold can lose the first kernels of its step (the step's first norm
+        # was once missing from the events while its launch was counted).
+        with torch.profiler.profile(
+                activities=acts,
+                schedule=torch.profiler.schedule(wait=0, warmup=1, active=1)) as prof:
+            step()
+            torch.cuda.synchronize()
+            prof.step()
+            _kernels.reset_launch_counts()
             wall = time.perf_counter()
             step()
             torch.cuda.synchronize()
@@ -3672,23 +3797,44 @@ def main() -> int:
     launches = {name: local[name] + sum(arm["launches"][name] for arm in arms)
                 for name in local}
     model_flops = model_flops_per_step(arms[0]["n_params"])
+    by_arm = {arm["arm"]: arm for arm in arms}
+    steady_ms = {arm["arm"]: statistics.median(arm["step_s"][1:]) * 1e3 for arm in arms}
     for arm in arms:
-        steady = statistics.median(arm["step_s"][1:])
-        emit({"phase": "train", "dispatch_mode": arm["dispatch_mode"],
-              "vocab_chunk": arm["vocab_chunk"], "losses": arm["losses"],
-              "losses_bit_equal_first_arm": arm["losses"] == arms[0]["losses"],
-              "max_loss_gap_first_arm": max(abs(a - b) for a, b in
-                                            zip(arm["losses"], arms[0]["losses"])),
-              "timings": arm["timings"],
-              "step_s": arm["step_s"], "steady_step_ms": steady * 1e3,
-              "tokens_per_s": arm["tokens_per_step"] / steady,
-              "model_flops_per_step": model_flops,
-              "model_flops_utilization": model_flops / steady / PEAK_FLOPS["bfloat16"],
-              "launches": arm["launches"],
-              "launches_per_step": {k: n / STEPS for k, n in arm["launches"].items()},
-              "n_params": arm["n_params"], "peak_mem_bytes": arm["peak_mem_bytes"],
-              "electron_wall_s": arm["wall_s"], "frames_active": arm["frames_active"],
-              "device": arm["device"], "card": smi})
+        steady = steady_ms[arm["arm"]] / 1e3
+        # the model's operations count dense layers; an MoE step's are not counted
+        flops = None if arm["overrides"].get("moe_experts") else model_flops
+        line = {"phase": "train", "arm": arm["arm"], "dispatch_mode": arm["dispatch_mode"],
+                "vocab_chunk": arm["vocab_chunk"], "overrides": arm["overrides"],
+                "losses": arm["losses"],
+                "losses_bit_equal_first_arm": arm["losses"] == arms[0]["losses"],
+                "max_loss_gap_first_arm": max(abs(a - b) for a, b in
+                                              zip(arm["losses"], arms[0]["losses"])),
+                "timings": arm["timings"],
+                "step_s": arm["step_s"], "steady_step_ms": steady * 1e3,
+                "tokens_per_s": arm["tokens_per_step"] / steady,
+                "model_flops_per_step": flops,
+                "model_flops_utilization": flops and flops / steady / PEAK_FLOPS["bfloat16"],
+                "launches": arm["launches"],
+                "launches_per_step": {k: n / STEPS for k, n in arm["launches"].items()},
+                "launch_shapes": arm["launch_shapes"],
+                "n_params": arm["n_params"], "peak_mem_bytes": arm["peak_mem_bytes"],
+                "electron_wall_s": arm["wall_s"], "frames_active": arm["frames_active"],
+                "device": arm["device"], "card": smi}
+        if "moe_aux" in arm:
+            line.update({"moe_aux": arm["moe_aux"], "lm_losses": lm_losses(arm),
+                         "aux_weight": MOE_AUX_WEIGHT})
+        if arm["arm"] == "remat_dots":
+            # beside the standard loss in the same pool server: memory and time
+            base = by_arm["standard_rpc"]
+            line.update({
+                "losses_bit_equal_standard_rpc": arm["losses"] == base["losses"],
+                "standard_rpc_peak_mem_bytes": base["peak_mem_bytes"],
+                "standard_rpc_steady_step_ms": steady_ms["standard_rpc"],
+                "peak_mem_saved_bytes": base["peak_mem_bytes"] - arm["peak_mem_bytes"],
+                "step_time_ratio": steady_ms["remat_dots"] / steady_ms["standard_rpc"],
+                "launch_note": "each block's flash forward runs again in the backward "
+                               "(recomputed, not a 2-D product): 24 a step"})
+        emit(line)
 
     emit({"phase": "profile", "card": smi, **profile_phase()})
 
@@ -3752,7 +3898,8 @@ def main() -> int:
     # reports its own launches; the phase fails if a rank of an LM arm ran a
     # flash kernel a number of times other than 12 a step.
     start = time.perf_counter()
-    gang_lines, gang_launches, gang_arm_launches = gang_phase(arms[0]["losses"])
+    gang_lines, gang_launches, gang_arm_launches = gang_phase(
+        {name: by_arm[name]["losses"] for name in ("standard", "fused", "moe8")})
     for line in gang_lines:
         emit({"phase": "gang", "card": smi, **line})
     emit({"phase": "gang", "card": smi, "seconds": time.perf_counter() - start,

@@ -11,7 +11,11 @@ the q/k/v projections, ``(heads, dim, out)`` for ``out_proj`` and
 ``(in, out)`` for the MLP and the lm_head, none with a bias.  The port's
 dense layers hold PyTorch's ``(out, in)``.  Block parameters come either
 stacked on a leading layer axis under ``layers`` (``scan_layers=True``) or
-unrolled as ``layer_{i}`` (``scan_layers=False``); both convert.
+unrolled as ``layer_{i}`` (``scan_layers=False``); both convert.  An MoE
+block's ``moe`` holds the router's ``(in, experts)`` kernel and ``wi``/``wo``
+stacked per expert, which the port keeps in the reference's layout.  A
+``pipe`` rank takes its stage's slice of the layers (``stage=``), numbered
+from 0 as that rank's model holds them.
 
 A gang starts from the same weights: :func:`place_on_mesh` copies the full
 converted tensors into a model already sharded over a mesh (each rank keeps
@@ -43,8 +47,8 @@ def _kernel(tree: dict, name: str) -> np.ndarray:
 def _block(tree: dict, cfg: TransformerConfig, prefix: str) -> dict:
     d, hd = cfg.d_model, cfg.head_dim
     kv = cfg.n_kv_heads or cfg.n_heads
-    attn, mlp = tree["attention"], tree["mlp"]
-    return {
+    attn = tree["attention"]
+    state = {
         f"{prefix}.ln_attn.scale": tree["ln_attn"]["scale"],
         f"{prefix}.attention.q_proj.weight":
             _kernel(attn, "q_proj").reshape(d, cfg.n_heads * hd).T,
@@ -53,13 +57,22 @@ def _block(tree: dict, cfg: TransformerConfig, prefix: str) -> dict:
         f"{prefix}.attention.out_proj.weight":
             _kernel(attn, "out_proj").reshape(cfg.n_heads * hd, d).T,
         f"{prefix}.ln_mlp.scale": tree["ln_mlp"]["scale"],
-        f"{prefix}.mlp.wi.weight": _kernel(mlp, "wi").T,
-        f"{prefix}.mlp.wo.weight": _kernel(mlp, "wo").T,
     }
+    if "moe" in tree:
+        moe = tree["moe"]
+        state.update({f"{prefix}.mlp.router": _kernel(moe, "router").T,
+                      f"{prefix}.mlp.wi": moe["wi"], f"{prefix}.mlp.wo": moe["wo"]})
+    else:
+        state.update({f"{prefix}.mlp.wi.weight": _kernel(tree["mlp"], "wi").T,
+                      f"{prefix}.mlp.wo.weight": _kernel(tree["mlp"], "wo").T})
+    return state
 
 
-def params_from_jax(params: dict, config: TransformerConfig) -> dict[str, torch.Tensor]:
-    """State dict for :class:`TransformerLM` from the reference's params."""
+def params_from_jax(params: dict, config: TransformerConfig,
+                    stage: tuple[int, int] | None = None) -> dict[str, torch.Tensor]:
+    """State dict for :class:`TransformerLM` from the reference's params;
+    with ``stage=(index, count)``, for the rank of pipeline stage ``index``
+    of ``count``: its layers only."""
     if "layers" in params:
         stacked = params["layers"]
         depth = {np.shape(a)[0] for a in _leaves(stacked)}
@@ -70,6 +83,10 @@ def params_from_jax(params: dict, config: TransformerConfig) -> dict[str, torch.
         blocks = [params[f"layer_{i}"] for i in range(config.n_layers)]
         if f"layer_{config.n_layers}" in params:
             raise ValueError(f"params hold more than {config.n_layers} layers")
+    if stage is not None:
+        from ..parallel.pipeline import pipeline_stages
+
+        blocks = pipeline_stages(blocks, stage[1])[stage[0]]
     state = {
         "embedding": params["embedding"],
         "ln_final.scale": params["ln_final"]["scale"],

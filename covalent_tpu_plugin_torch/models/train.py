@@ -10,7 +10,8 @@ Sharded training (``make_sharded_train_state``, ``make_train_step(...,
 mesh=...)``): every rank of a gang (one process a device) builds the same
 weights, shards them over the mesh (``parallel.sharding.apply_rules``) and
 takes each step on its rows of the global batch (and, over ``seq``, on its
-part of every sequence).  The step's ``loss`` is the global mean and its
+part of every sequence; over ``pipe``, through the GPipe schedule of
+``models/pipeline_lm.py``).  The step's ``loss`` is the global mean and its
 ``grad_norm`` the norm of the whole gradient, as the reference's jitted step
 reports them.
 """
@@ -26,9 +27,15 @@ import torch
 import torch.nn.functional as F
 
 from ..ops import _kernels
-from ..ops.xent import fused_cross_entropy, refuse_sharded_vocab, vocab_parallel_cross_entropy
+from ..ops.xent import (
+    fused_cross_entropy,
+    vocab_parallel_cross_entropy,
+    vocab_parallel_fused_cross_entropy,
+)
+from ..parallel.sharding import _local
 from .data import synthetic_lm_batches
 from .mlp import MLP, MnistCNN, synthetic_mnist
+from .moe import collect_moe_aux, lm_loss_with_moe_aux
 from .transformer import TransformerLM, lm_125m_config, resolve_device
 
 
@@ -80,6 +87,7 @@ def lm_loss(model: torch.nn.Module, batch: dict, vocab_chunk: int | None = None)
     ``vocab_chunk`` switches to the fused vocab-chunked cross-entropy
     (``ops/xent.py``): the model returns its final features and the loss
     streams over lm_head chunks, so the (B, S, vocab) logits never exist.
+    Under tensor parallelism each rank streams its block of the vocabulary.
     """
     tokens = _tokens(model, batch)
     if "labels" in batch:
@@ -93,17 +101,18 @@ def lm_loss(model: torch.nn.Module, batch: dict, vocab_chunk: int | None = None)
         if tp is not None:
             return vocab_parallel_cross_entropy(logits, labels, tp, model.vocab_block())
         return cross_entropy_loss(logits, labels)
-    if tp is not None:
-        refuse_sharded_vocab()
     feats = model(inputs, return_features=True, positions=positions)
-    kernel = model.lm_head.weight
+    kernel = _local(model.lm_head.weight)
     if not kernel.is_floating_point():
         raise ValueError(
             "vocab_chunk needs a plain float lm_head kernel "
             "(quantized/LoRA heads take the standard path)"
         )
-    flat = feats.reshape(-1, feats.shape[-1])
-    return fused_cross_entropy(flat, kernel.t(), labels.reshape(-1), vocab_chunk)
+    flat, labels = feats.reshape(-1, feats.shape[-1]), labels.reshape(-1)
+    if tp is not None:
+        return vocab_parallel_fused_cross_entropy(tp.enter(flat), kernel.t(), labels, tp,
+                                                  model.vocab_block(), vocab_chunk)
+    return fused_cross_entropy(flat, kernel.t(), labels, vocab_chunk)
 
 
 def make_train_step(
@@ -124,27 +133,25 @@ def make_train_step(
     With ``mesh`` (a model sharded over it, :func:`make_sharded_train_state`)
     ``batch`` is the global batch: each rank takes its rows
     (``parallel.sharding.shard_batch``; over ``seq`` also its part of every
-    sequence, in the model's layout), the gradients are averaged over the
-    batch axes (by FSDP2, or over ``data`` for plain replicas) and over
-    ``seq``, ``loss`` is averaged over them too and ``grad_norm`` covers
-    every shard.
+    sequence, in the model's layout; with accumulation, its rows of every
+    microbatch), the gradients are averaged over the batch axes (by FSDP2,
+    or over ``data`` for plain replicas) and over ``seq``, ``loss`` is
+    averaged over them too and ``grad_norm`` covers every shard and every
+    pipeline stage's layers once.  Under FSDP2 the microbatches before the
+    last skip their gradient reduce-scatter (the gradients accumulate
+    unsharded, and the last microbatch's backward reduces their sum).
     """
     from ..parallel import sharding
 
     params = [p for p in model.parameters() if p.requires_grad]
+    staged = {id(p) for p in getattr(model, "stage_parameters", list)()}
     count = 0
-    if accumulate_steps > 1 and mesh is not None:
-        raise NotImplementedError("gradient accumulation on a mesh comes with slice 4, part 2")
+    sync = getattr(model, "set_requires_gradient_sync", None) if accumulate_steps > 1 else None
 
     def step(batch: dict) -> dict:
         nonlocal count
-        if mesh is not None:
-            batch = sharding.shard_batch(batch, mesh, zigzag=_zigzag(model, mesh, batch))
-        optimizer.zero_grad(set_to_none=True)
         if accumulate_steps == 1:
-            loss = loss_fn(model, batch)
-            loss.backward()
-            loss = loss.detach()
+            parts = [batch]
         else:
             lead = {len(leaf) for leaf in batch.values()}
             if lead != {accumulate_steps}:
@@ -153,11 +160,19 @@ def make_train_step(
                     f"leaves have leading axis {sorted(lead)}; every "
                     "leaf needs a leading microbatch axis of that length"
                 )
-            loss = 0.0
-            for i in range(accumulate_steps):
-                micro = loss_fn(model, {key: leaf[i] for key, leaf in batch.items()})
-                micro.backward()
-                loss = loss + micro.detach()
+            parts = [{key: leaf[i] for key, leaf in batch.items()}
+                     for i in range(accumulate_steps)]
+        optimizer.zero_grad(set_to_none=True)
+        loss = 0.0
+        for i, part in enumerate(parts):
+            if mesh is not None:
+                part = sharding.shard_batch(part, mesh, zigzag=_zigzag(model, mesh, part))
+            if sync is not None:
+                sync(i == accumulate_steps - 1)
+            micro = loss_fn(model, part)
+            micro.backward()
+            loss = loss + micro.detach()
+        if accumulate_steps > 1:
             scale = 1.0 / accumulate_steps
             loss = loss * scale
             for p in params:
@@ -166,7 +181,9 @@ def make_train_step(
             grad_norm = torch.nn.utils.get_total_norm([p.grad for p in params])
         else:
             sharding.average_gradients(model, mesh)
-            grad_norm = sharding.global_norm([p.grad for p in params], mesh)
+            grad_norm = sharding.global_norm(
+                [p.grad for p in params if id(p) not in staged], mesh,
+                stage_tensors=[p.grad for p in params if id(p) in staged])
             loss = sharding.batch_mean(loss, mesh)
         optimizer.step()
         count += 1
@@ -231,6 +248,8 @@ def train_lm(
     seed: int = 0,
     device=None,
     mesh_plan=None,
+    accumulate_steps: int = 1,
+    n_micro: int | None = None,
     **config_overrides,
 ) -> dict:
     """The slice's training electron: build the LM, take ``steps`` AdamW
@@ -251,8 +270,18 @@ def train_lm(
     (:func:`gang_report`).  Under ``MeshPlan(seq=n)`` with
     ``attention="ring"`` or ``"ulysses"`` each rank also takes its part of
     every sequence: the ring's kernels then take ``(B, H, S / n, D)`` with
-    f32 outputs, a hop each.
+    f32 outputs, a hop each.  Under ``MeshPlan(pipe=n)`` each rank holds its
+    stage's layers and the step runs the GPipe schedule of ``n_micro``
+    microbatches (``models.pipeline_lm.pipeline_lm_loss``).
+
+    ``accumulate_steps`` > 1 cuts each batch into that many microbatches of
+    ``batch_size / accumulate_steps`` rows and takes one optimizer step on
+    their mean gradient.  A config with ``moe_experts`` trains on
+    ``models.moe.lm_loss_with_moe_aux`` (aux weight 0.01).
     """
+    if batch_size % accumulate_steps:
+        raise ValueError(f"batch {batch_size} does not split into {accumulate_steps} "
+                         "microbatches")
     device = resolve_device(device)
     _reset_peak_memory(device)
     config = lm_125m_config(**config_overrides)
@@ -263,18 +292,33 @@ def train_lm(
         optimizer = adamw(model)
     else:
         model, optimizer, _ = make_sharded_train_state(model, adamw, mesh)
-    step = make_train_step(
-        model, optimizer,
-        loss_fn=lambda m, b: lm_loss(m, b, vocab_chunk=vocab_chunk), mesh=mesh,
-    )
-    batches = list(synthetic_lm_batches(
-        steps=steps, batch_size=batch_size, seq_len=seq_len + 1,
-        vocab_size=config.vocab_size, seed=seed,
-    ))
+    if mesh is not None and mesh_plan.pipe > 1:
+        from .pipeline_lm import pipeline_lm_loss
+
+        if n_micro is None or vocab_chunk is not None:
+            raise ValueError(f"mesh plan {mesh_plan.sizes} needs n_micro, the microbatch "
+                             "count, and takes the standard loss (no vocab_chunk)")
+
+        def loss_fn(m, b):
+            return pipeline_lm_loss(m, b, mesh, n_micro)
+    elif config.moe_experts:
+        def loss_fn(m, b):
+            return lm_loss_with_moe_aux(m, b, vocab_chunk=vocab_chunk)
+    else:
+        def loss_fn(m, b):
+            return lm_loss(m, b, vocab_chunk=vocab_chunk)
+    step = make_train_step(model, optimizer, loss_fn=loss_fn,
+                           accumulate_steps=accumulate_steps, mesh=mesh)
+    batches = [{"tokens": b["tokens"].reshape(accumulate_steps, -1, seq_len + 1)}
+               if accumulate_steps > 1 else b
+               for b in synthetic_lm_batches(steps=steps, batch_size=batch_size,
+                                             seq_len=seq_len + 1,
+                                             vocab_size=config.vocab_size, seed=seed)]
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
     launched = _kernels.launch_counts()
     shapes = _kernels.launch_shapes()
     losses, step_s = [], []
+    moe_aux = []
     for batch in batches:
         sync()
         start = time.perf_counter()
@@ -282,8 +326,12 @@ def train_lm(
         losses.append(float(metrics["loss"]))  # waits for the step
         sync()
         step_s.append(time.perf_counter() - start)
+        if config.moe_experts:
+            moe_aux.append(float(collect_moe_aux(model).detach()))
     result = {
         "losses": losses,
+        # the MoE load-balance loss of each step's last forward, summed over layers
+        **({"moe_aux": moe_aux} if config.moe_experts else {}),
         "step_s": step_s,
         "tokens_per_step": batch_size * seq_len,
         "launches": _launches_since(launched),

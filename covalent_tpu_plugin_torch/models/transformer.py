@@ -35,24 +35,38 @@ holds its part of every sequence, at the global positions
 ``forward(..., positions=)`` must give (``parallel.sharding.shard_batch``
 cuts them in the model's layout, :meth:`TransformerLM.sequence_zigzag`):
 rotary takes them, and the attention joins the parts
-(``ops/ring_attention.py``).  The reference's layer stacking
-(``scan_layers``) has no counterpart: layers are an ``nn.ModuleList``, and
-the converter reads either stacked or unrolled reference parameters.
+(``ops/ring_attention.py``).  Over ``pipe`` each rank keeps the contiguous
+run of layers its stage holds (:meth:`TransformerLM.pipeline_parallel`) and
+``models/pipeline_lm.py`` runs the GPipe schedule.  The reference's layer
+stacking (``scan_layers``) has no counterpart: layers are an
+``nn.ModuleList``, and the converter reads either stacked or unrolled
+reference parameters.
+
+``moe_experts`` > 0 swaps every block's MLP for the Switch MoE of
+``models/moe.py``.  ``remat`` runs each block under non-reentrant
+``torch.utils.checkpoint``: ``remat_policy="full"`` recomputes the whole
+block in the backward, ``"dots"`` saves the outputs of its 2-D products
+(``aten.mm``/``addmm``, the reference's ``dots_with_no_batch_dims_saveable``,
+which likewise saves no batched product) and recomputes the rest, the
+flash forward included.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from ..ops import batch_invariant as bi
 from ..ops.attention import NEG_INF, flash_attention, mha_reference, on_cuda
 from ..ops.ring_attention import default_zigzag, sequence_parallel_attention
 from ..parallel.sharding import _local
+from .moe import MoEMlp
 
 #: Config knobs that later slices of the port bring, with the slice that
 #: does.  Setting one raises instead of being silently ignored.
@@ -60,9 +74,9 @@ SLICE_3 = "slice 3 (quantization, LoRA, speculative and beam decoding)"
 _LATER_SLICES = {
     "quantized": SLICE_3,
     "lora_rank": SLICE_3,
-    "moe_experts": "slice 4 (scale-out), part 2",
-    "remat": "slice 5 (remat and the rest of the executor)",
 }
+#: Decoding a tensor-parallel or an MoE model comes with this slice.
+SLICE_4_PART_3 = "slice 4, part 3 (tensor-parallel and MoE decoding)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,11 +109,18 @@ class TransformerConfig:
     rolling_cache: bool = False
     #: int8 KV cache with one f32 scale per (row, slot, kv head).
     quantized_kv_cache: bool = False
+    #: > 0 replaces every block's MLP with a Switch top-1 MoE of that many
+    #: experts (models/moe.py); the "expert" logical axis shards them over
+    #: the tensor mesh axis.
+    moe_experts: int = 0
+    moe_capacity_factor: float = 1.25
+    #: rematerialise each block in the backward (torch.utils.checkpoint)
+    remat: bool = False
+    #: "full" recomputes everything; "dots" saves the 2-D products' outputs
+    remat_policy: str = "full"
     # Knobs of later slices (see _LATER_SLICES); only the defaults run here.
     quantized: bool = False
     lora_rank: int = 0
-    moe_experts: int = 0
-    remat: bool = False
     #: a ``parallel.mesh`` DeviceMesh: the model shards itself over it
     #: (``parallel.sharding.apply_rules``) once built.
     mesh: Any = None
@@ -129,6 +150,16 @@ class TransformerConfig:
                     f"{name}={getattr(self, name)!r} is not ported yet: it comes "
                     f"with {slice_name}"
                 )
+        if self.remat and self.remat_policy not in ("full", "dots"):
+            # the reference's message, raised when its remat block is built
+            raise ValueError(
+                f"remat_policy must be 'full' or 'dots', got {self.remat_policy!r}"
+            )
+        if self.moe_experts and self.decode:
+            raise NotImplementedError(
+                f"decoding an MoE model (moe_experts={self.moe_experts}) comes with "
+                f"{SLICE_4_PART_3}"
+            )
 
     @property
     def head_dim(self) -> int:
@@ -328,7 +359,7 @@ class Attention(nn.Module):
         if self.tp is not None:
             if cache is not None:
                 raise NotImplementedError(
-                    "decoding a tensor-parallel model comes with slice 4, part 2")
+                    f"decoding a tensor-parallel model comes with {SLICE_4_PART_3}")
             x = self.tp.enter(x)
         # -1: this rank's heads under tensor parallelism, else all of them
         q = self.q_proj(x).view(batch, seq, -1, cfg.head_dim)
@@ -509,15 +540,28 @@ class Block(nn.Module):
         self.ln_attn = RMSNorm(cfg.d_model, cfg.dtype, device)
         self.attention = Attention(cfg, device, generator)
         self.ln_mlp = RMSNorm(cfg.d_model, cfg.dtype, device)
-        self.mlp = MlpBlock(cfg, device, generator)
+        mlp = MoEMlp if cfg.moe_experts > 0 else MlpBlock
+        self.mlp = mlp(cfg, device, generator)
 
-    def forward(self, x, h, after: RMSNorm, cache: LayerCache | None = None, positions=None):
+    def forward(self, x, h, after: RMSNorm | None, cache: LayerCache | None = None,
+                positions=None):
         """The layer on the residual stream ``x`` and its norm ``h =
         ln_attn(x)``: the new stream and ``after``'s norm of it (the next
         layer's ``ln_attn``, or ``ln_final``).  Each residual add goes with
-        the norm that follows it (:meth:`RMSNorm.add_norm`)."""
+        the norm that follows it (:meth:`RMSNorm.add_norm`).  Without
+        ``after`` (the last layer of a pipeline stage) the norm is None."""
         x, h = self.ln_mlp.add_norm(x, self.attention(h, cache, positions))
+        if after is None:
+            return x + self.mlp(h), None
         return after.add_norm(x, self.mlp(h))
+
+
+def _save_products(ctx, op, *args, **kwargs):
+    """``remat_policy="dots"``: keep the 2-D products' outputs, recompute the
+    rest."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
 
 
 class TransformerLM(nn.Module):
@@ -532,6 +576,8 @@ class TransformerLM(nn.Module):
 
     #: the ``parallel.sharding.TensorParallel`` handle under tensor parallelism
     tp = None
+    #: the mesh whose ``pipe`` axis splits the layers (``pipeline_parallel``)
+    pipe_mesh = None
 
     def __init__(self, config: TransformerConfig, device=None,
                  generator: torch.Generator | None = None):
@@ -564,8 +610,14 @@ class TransformerLM(nn.Module):
             "attention.k_proj.weight": (kv, "embed"),
             "attention.v_proj.weight": (kv, "embed"),
             "attention.out_proj.weight": ("embed", "heads"),
-            "mlp.wi.weight": ("mlp", "embed"), "mlp.wo.weight": ("embed", "mlp"),
         }
+        if self.config.moe_experts:
+            per_layer.update({"mlp.router": (None, "embed"),
+                              "mlp.wi": ("expert", "embed", "expert_mlp"),
+                              "mlp.wo": ("expert", "expert_mlp", "embed")})
+        else:
+            per_layer.update({"mlp.wi.weight": ("mlp", "embed"),
+                              "mlp.wo.weight": ("embed", "mlp")})
         axes = {"embedding": ("vocab", "embed"), "ln_final.scale": ("embed",),
                 "lm_head.weight": ("vocab", "embed")}
         for i in range(len(self.layers)):
@@ -584,6 +636,36 @@ class TransformerLM(nn.Module):
         lm_head is column-parallel."""
         tp.block(self.config.vocab_size)  # refuses a vocabulary that does not split
         self.tp = tp
+
+    def pipeline_parallel(self, mesh) -> None:
+        """The layers over ``pipe``: this rank keeps the contiguous run of
+        layers its stage holds (``parallel.pipeline.pipeline_stages``), built
+        from the same generator stream as the whole model, and the layers
+        are numbered from 0 on every stage.  The embedding, ``ln_final`` and
+        the lm_head stay whole on every rank."""
+        from ..parallel.pipeline import pipeline_stages
+
+        stage = mesh.get_local_rank("pipe")
+        self.layers = nn.ModuleList(pipeline_stages(list(self.layers), mesh["pipe"].size())[stage])
+        self.pipe_mesh = mesh
+
+    def stage_parameters(self) -> list[nn.Parameter]:
+        """The parameters only this rank's pipeline stage holds (none unless
+        the layers are split over ``pipe``)."""
+        return [] if self.pipe_mesh is None else list(self.layers.parameters())
+
+    def run_layer(self, layer: Block, x, h, after, cache=None, positions=None):
+        """``layer(x, h, after, cache, positions)``, under activation
+        checkpointing when the config asks for ``remat`` (training only)."""
+        cfg = self.config
+        if not (cfg.remat and cache is None and torch.is_grad_enabled()):
+            return layer(x, h, after, cache, positions)
+        context = ckpt.noop_context_fn
+        if cfg.remat_policy == "dots":
+            context = functools.partial(ckpt.create_selective_checkpoint_contexts,
+                                        _save_products)
+        return ckpt.checkpoint(layer, x, h, after, None, positions, use_reentrant=False,
+                               context_fn=context)
 
     def sequence_zigzag(self, seq_len: int, n: int) -> bool:
         """Whether a ``seq_len`` sequence split over ``n`` ``seq`` ranks lies
@@ -622,6 +704,13 @@ class TransformerLM(nn.Module):
                 f"sequence length {tokens.shape[-1]} exceeds config.max_seq "
                 f"{cfg.max_seq}"
             )
+        if self.pipe_mesh is not None:
+            raise ValueError("a model split over pipe runs through "
+                             "models.pipeline_lm.pipeline_lm_forward")
+        if cache is not None and cfg.moe_experts:
+            raise NotImplementedError(
+                f"decoding an MoE model (moe_experts={cfg.moe_experts}) comes with "
+                f"{SLICE_4_PART_3}")
         if cache is None:
             if cfg.decode:
                 raise ValueError("a decode=True model needs a cache (models.decode.init_cache)")
@@ -635,7 +724,7 @@ class TransformerLM(nn.Module):
         norms = [layer.ln_attn for layer in self.layers] + [self.ln_final]
         h = norms[0](x)
         for layer, after, layer_cache in zip(self.layers, norms[1:], cache):
-            x, h = layer(x, h, after, layer_cache, positions)
+            x, h = self.run_layer(layer, x, h, after, layer_cache, positions)
         if return_features:
             # The fused-xent loss (ops/xent.py) consumes the final features
             # and the lm_head weight directly, so the logits never exist.

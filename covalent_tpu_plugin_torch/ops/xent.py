@@ -11,9 +11,16 @@ live memory is O(T·chunk + T·d) instead of O(T·V).
 Plain PyTorch around ``torch.matmul``: the reference computes it outside any
 Pallas kernel, so there is no kernel here to port.
 
-Under tensor parallelism the logits are sharded over the vocabulary, and the
-standard loss runs on the shards (:func:`vocab_parallel_cross_entropy`); the
-fused loss is refused there (:func:`refuse_sharded_vocab`).
+Under tensor parallelism the lm_head is sharded over the vocabulary.  The
+standard loss runs on the logits' shards (:func:`vocab_parallel_cross_entropy`)
+and the fused loss on the kernel's (:func:`vocab_parallel_fused_cross_entropy`):
+each rank streams its block of the vocabulary in chunks, carrying its online
+``(m, l)`` and the label's logit, and the group combines them (the max of
+``m``, the rescaled sum of ``l``, the sum of the label logits, which one
+rank's block holds).  The backward recomputes each chunk against the global
+log-sum-exp; ``dx`` is this rank's part (the caller sums it over the group,
+``TensorParallel.enter``) and ``dW`` stays local.  The reference shards its
+fused loss like any dense layer, vocab on the chunked axis.
 """
 
 from __future__ import annotations
@@ -37,25 +44,51 @@ def _logits_chunk(xf, w, j, chunk, dtype):
     return torch.matmul(xf, wc.float()), wc
 
 
+def _stream(x, w, labels, chunk):
+    """The forward's pass over the chunks of ``w`` (d, V): per token the
+    running max ``m`` and sum ``l`` of the logits' exponentials, and the
+    label's logit (0 where no chunk holds the label)."""
+    tokens = x.shape[0]
+    n = _chunks(w.shape[1], chunk)
+    xf = x.float()
+    m = torch.full((tokens,), float("-inf"), device=x.device)
+    l = torch.zeros(tokens, device=x.device)
+    lab = torch.zeros(tokens, device=x.device)
+    for j in range(n):
+        s, _ = _logits_chunk(xf, w, j, chunk, x.dtype)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        l = l * torch.exp(m - m_new) + torch.exp(s - m_new[:, None]).sum(dim=-1)
+        idx = labels - j * chunk
+        in_chunk = (idx >= 0) & (idx < chunk)
+        got = s.gather(1, idx.clamp(0, chunk - 1)[:, None])[:, 0]
+        lab = torch.where(in_chunk, got, lab)
+        m = m_new
+    return m, l, lab
+
+
+def _grads(x, w, labels, lse, chunk, coef):
+    """``(dx, dw)`` of ``coef * sum(lse - label logit)``: each chunk's
+    softmax recomputed from ``lse``, the label's one-hot taken off."""
+    n = _chunks(w.shape[1], chunk)
+    cols = torch.arange(chunk, device=x.device)[None, :]
+    xf = x.float()
+    dx = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    dw_chunks = []
+    for j in range(n):
+        s, wc = _logits_chunk(xf, w, j, chunk, x.dtype)
+        p = torch.exp(s - lse[:, None])  # softmax chunk, recomputed
+        p = p - (cols == (labels - j * chunk)[:, None]).float()
+        dl = (p * coef).to(x.dtype)
+        dx = dx + torch.matmul(dl.float(), wc.float().t())
+        dw_chunks.append(torch.matmul(xf.t(), dl.float()).to(w.dtype))
+    return dx.to(x.dtype), torch.cat(dw_chunks, dim=1)
+
+
 class _FusedCrossEntropy(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, labels, chunk):
-        tokens = x.shape[0]
-        n = _chunks(w.shape[1], chunk)
         labels = labels.long()
-        xf = x.float()
-        m = torch.full((tokens,), float("-inf"), device=x.device)
-        l = torch.zeros(tokens, device=x.device)
-        lab = torch.zeros(tokens, device=x.device)
-        for j in range(n):
-            s, _ = _logits_chunk(xf, w, j, chunk, x.dtype)
-            m_new = torch.maximum(m, s.amax(dim=-1))
-            l = l * torch.exp(m - m_new) + torch.exp(s - m_new[:, None]).sum(dim=-1)
-            idx = labels - j * chunk
-            in_chunk = (idx >= 0) & (idx < chunk)
-            got = s.gather(1, idx.clamp(0, chunk - 1)[:, None])[:, 0]
-            lab = torch.where(in_chunk, got, lab)
-            m = m_new
+        m, l, lab = _stream(x, w, labels, chunk)
         lse = m + torch.log(l)
         ctx.save_for_backward(x, w, labels, lse)
         ctx.chunk = chunk
@@ -64,22 +97,8 @@ class _FusedCrossEntropy(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, w, labels, lse = ctx.saved_tensors
-        chunk = ctx.chunk
-        tokens = x.shape[0]
-        n = _chunks(w.shape[1], chunk)
-        coef = (g / tokens).float()
-        cols = torch.arange(chunk, device=x.device)[None, :]
-        xf = x.float()
-        dx = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
-        dw_chunks = []
-        for j in range(n):
-            s, wc = _logits_chunk(xf, w, j, chunk, x.dtype)
-            p = torch.exp(s - lse[:, None])  # softmax chunk, recomputed
-            p = p - (cols == (labels - j * chunk)[:, None]).float()
-            dl = (p * coef).to(x.dtype)
-            dx = dx + torch.matmul(dl.float(), wc.float().t())
-            dw_chunks.append(torch.matmul(xf.t(), dl.float()).to(w.dtype))
-        return dx.to(x.dtype), torch.cat(dw_chunks, dim=1), None, None
+        dx, dw = _grads(x, w, labels, lse, ctx.chunk, (g / x.shape[0]).float())
+        return dx, dw, None, None
 
 
 def fused_cross_entropy(x, w, labels, chunk: int = 8192):
@@ -92,13 +111,40 @@ def fused_cross_entropy(x, w, labels, chunk: int = 8192):
     return _FusedCrossEntropy.apply(x, w, labels, chunk)
 
 
-def refuse_sharded_vocab() -> None:
-    """The fused loss over a vocabulary sharded over ``tensor`` would carry
-    each rank's online log-sum-exp across the group: not ported yet."""
-    raise NotImplementedError(
-        "vocab_chunk (the fused loss) with tensor parallelism comes with slice 4, "
-        "part 2; the standard loss runs on vocab-sharded logits"
-    )
+class _VocabParallelFusedCrossEntropy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, labels, chunk, group, start):
+        # labels relative to this rank's block: those outside it match no column
+        labels = labels.long() - start
+        m, l, lab = _stream(x, w, labels, chunk)
+        top = m.clone()
+        dist.all_reduce(top, op=dist.ReduceOp.MAX, group=group)
+        l = l * torch.exp(m - top)
+        dist.all_reduce(l, group=group)
+        dist.all_reduce(lab, group=group)
+        lse = top + torch.log(l)
+        ctx.save_for_backward(x, w, labels, lse)
+        ctx.chunk = chunk
+        return (lse - lab).mean()
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, labels, lse = ctx.saved_tensors
+        dx, dw = _grads(x, w, labels, lse, ctx.chunk, (g / x.shape[0]).float())
+        return dx, dw, None, None, None, None
+
+
+def vocab_parallel_fused_cross_entropy(x, w, labels, tp, block: slice, chunk: int = 8192):
+    """:func:`fused_cross_entropy` with the vocabulary sharded over ``tensor``
+    (module docstring).
+
+    ``x``: (T, d) features, the same on every rank of the group, after
+    ``tp.enter`` (whose backward sums the ranks' ``dx``); ``w``: (d, V /
+    tensor), this rank's ``block`` of the lm_head kernel; ``labels``: (T,)
+    global token ids; the block must split into chunks of ``chunk``.  Every
+    rank returns the same loss.
+    """
+    return _VocabParallelFusedCrossEntropy.apply(x, w, labels, chunk, tp.group, block.start)
 
 
 def vocab_parallel_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, tp,

@@ -10,8 +10,8 @@ model's logical axes onto them (FSDP2 over ``fsdp``, tensor parallelism over
 placements), ``collectives`` runs the tiled collectives on one axis (the
 ring permute and the all-to-all differentiable, for
 ``ops/ring_attention.py``), ``launch`` runs a function as a local gang, and
-``probe`` says which collectives a backend carries on a device's tensors.
-Pipeline parallelism (``pipeline.py``) comes with slice 4, part 2.
+``probe`` says which collectives a backend carries on a device's tensors,
+and ``pipeline`` runs the GPipe schedule over ``pipe``.
 """
 
 # Lazy (PEP 562) re-exports: the dispatcher's control plane imports this
@@ -39,6 +39,9 @@ _EXPORTS = {
     "shard_batch": ".sharding",
     "shard_batch_per_process": ".sharding",
     "process_local_slice": ".sharding",
+    "pipelined": ".pipeline",
+    "pipeline_apply": ".pipeline",
+    "pipeline_stages": ".pipeline",
 }
 
 
@@ -68,6 +71,9 @@ __all__ = [
     "shard_batch",
     "shard_batch_per_process",
     "process_local_slice",
+    "pipelined",
+    "pipeline_apply",
+    "pipeline_stages",
     "replicated",
     "psum",
     "all_gather",

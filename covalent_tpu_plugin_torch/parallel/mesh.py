@@ -10,7 +10,7 @@ tighter ones):
 * ``tensor`` — Megatron-style tensor parallelism inside layers
 * ``seq``    — sequence/context parallelism (ring and Ulysses attention,
   ``ops/ring_attention.py``)
-* ``pipe``   — pipeline parallelism (a later slice: GPipe)
+* ``pipe``   — pipeline parallelism (GPipe, ``parallel/pipeline.py``)
 
 A dimension of 1 stays in the mesh, as in the reference: one train-step
 definition serves every plan.  Each rank of the process group drives one

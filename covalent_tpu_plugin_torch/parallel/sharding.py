@@ -38,6 +38,13 @@ mean over its S/n tokens and the ring's backward has already sent every
 dK/dV partial to its owner, so the gradients are averaged over ``seq`` as
 over ``data`` (:func:`average_gradients`, also under FSDP2, which averages
 over ``fsdp`` only).
+
+The ``pipe`` axis (GPipe, ``parallel/pipeline.py``) splits the layers: each
+``pipe`` rank keeps its stage's (``TransformerLM.pipeline_parallel``), the
+rest of the model stays whole on every rank.  It composes with ``data``
+(each ``data`` rank pipelines its rows); ``fsdp``, ``tensor`` and ``seq``
+inside a pipeline are not ported.  A model that routes tokens over the
+global batch (the MoE's ``batch_parallel``) takes the mesh.
 """
 
 from __future__ import annotations
@@ -65,8 +72,7 @@ DEFAULT_RULES: tuple[tuple[str, Any], ...] = (
     # typically smaller than the tensor axis, and kv weights are small).
     ("kv_heads", None),
     ("kv", None),
-    # MoE (a later slice): experts over tensor, the per-expert hidden dim
-    # unsharded.
+    # MoE: experts over tensor, the per-expert hidden dim unsharded.
     ("expert", "tensor"),
     ("expert_mlp", None),
     ("mlp", "tensor"),
@@ -312,17 +318,23 @@ def apply_rules(model: torch.nn.Module, mesh, rules=DEFAULT_RULES) -> torch.nn.M
     """Shard ``model`` in place over ``mesh`` per the rules (module
     docstring); returns it.  Every rank of the mesh calls it on identical
     weights.  Parameters are replicated over ``seq``; each module that runs
-    sequence-parallel attention takes the mesh (``sequence_parallel``).
-    ``pipe`` > 1 is refused (GPipe: slice 4, part 2)."""
+    sequence-parallel attention takes the mesh (``sequence_parallel``), as
+    does each that routes over the global batch (``batch_parallel``).  Over
+    ``pipe`` the model keeps its stage's layers (``pipeline_parallel``)."""
     plan = mesh_plan(mesh)
     if plan.pipe > 1:
-        raise NotImplementedError(
-            f"mesh {plan.sizes}: pipeline parallelism comes with slice 4, part 2 "
-            "(GPipe: parallel/pipeline.py)"
-        )
+        if plan.fsdp > 1 or plan.tensor > 1 or plan.seq > 1:
+            raise NotImplementedError(
+                f"mesh {plan.sizes}: the pipeline composes with data only; fsdp, tensor "
+                "and seq inside a pipeline stage are not ported")
+        if not hasattr(model, "pipeline_parallel"):
+            raise ValueError(f"{type(model).__name__} has no layers to split over pipe")
+        model.pipeline_parallel(mesh)
     for module in model.modules():
         if hasattr(module, "sequence_parallel"):
             module.sequence_parallel(mesh)
+        if hasattr(module, "batch_parallel"):
+            module.batch_parallel(mesh)
     shardings = param_shardings(model, mesh, rules)
     if plan.tensor > 1:
         tp = TensorParallel(mesh.get_group("tensor"), mesh.get_local_rank("tensor"), plan.tensor)
@@ -385,13 +397,20 @@ def _local(t: torch.Tensor) -> torch.Tensor:
     return t.to_local() if isinstance(t, DTensor) else t
 
 
-def global_norm(tensors, mesh) -> torch.Tensor:
+def global_norm(tensors, mesh, stage_tensors=()) -> torch.Tensor:
     """The 2-norm of the whole of ``tensors`` (gradients, possibly DTensor
-    shards): each shard's squares summed over the mesh axes that shard it,
-    a replica counted once.  Every collective is an all-reduce."""
+    shards) and ``stage_tensors`` (those of this rank's pipeline stage only):
+    each shard's squares summed over the mesh axes that shard it, a stage's
+    over ``pipe``, a replica counted once.  Every collective is an
+    all-reduce."""
     from torch.distributed.tensor import DTensor
 
     partial: dict = {}
+    for t in stage_tensors:
+        entry = partial.setdefault(("pipe", ()), [[mesh.get_group("pipe")],
+                                                  torch.zeros((), dtype=torch.float32,
+                                                              device=t.device)])
+        entry[1] = entry[1] + t.float().square().sum()
     for t in tensors:
         if isinstance(t, DTensor):
             if any(p.is_partial() for p in t.placements):

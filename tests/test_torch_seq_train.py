@@ -242,15 +242,22 @@ def test_a_seq_forward_without_positions_raises(attention):
 
 
 def test_pipeline_parallelism_is_refused_naming_its_slice():
+    """GPipe is ported (tests/test_torch_pipeline.py): ``apply_rules`` over
+    ``pipe`` refuses a model with no layers to split, and a pipeline stage
+    sharded over ``tensor`` (not ported), naming what is missing."""
     from covalent_tpu_plugin_torch.parallel.mesh import MeshPlan
 
     class Mesh:
         mesh_dim_names = ("data", "fsdp", "tensor", "seq", "pipe")
 
-        def size(self, i):
-            return 2 if i == 4 else 1
+        def __init__(self, sizes):
+            self.sizes = sizes
 
-    plan = MeshPlan(pipe=2)
-    assert sharding.mesh_plan(Mesh()) == plan
-    with pytest.raises(NotImplementedError, match="slice 4, part 2 \\(GPipe"):
-        sharding.apply_rules(torch.nn.Linear(2, 2), Mesh())
+        def size(self, i):
+            return self.sizes.get(self.mesh_dim_names[i], 1)
+
+    assert sharding.mesh_plan(Mesh({"pipe": 2})) == MeshPlan(pipe=2)
+    with pytest.raises(ValueError, match="Linear has no layers to split over pipe"):
+        sharding.apply_rules(torch.nn.Linear(2, 2), Mesh({"pipe": 2}))
+    with pytest.raises(NotImplementedError, match="composes with data only"):
+        sharding.apply_rules(torch.nn.Linear(2, 2), Mesh({"pipe": 2, "tensor": 2}))

@@ -13,7 +13,11 @@ steps; the gradient norms at rtol 1e-5.  The 2-process runs must also match
 one process at the same global batch.  GQA arms (``n_kv_heads`` 2: a rank's
 query heads are one group; ``n_kv_heads`` 1: they are half of one) hold the
 replicated k/v projections of the rules' ``kv_heads`` under ``tensor=2``,
-alone and with ``fsdp=2``.
+alone and with ``fsdp=2``.  Two arms change the step: the fused loss
+(``vocab_chunk`` 64) under ``tensor=2``, each rank streaming its half of the
+vocabulary, and gradient accumulation (2 microbatches of 4 rows) under
+``fsdp=2``, each microbatch split over the ranks, against the reference's
+``lm_loss(vocab_chunk=64)`` and ``make_train_step(accumulate_steps=2)``.
 
 The data-parallel CNN (``MeshPlan(data=2)``, BASELINE config 4) against the
 reference's ``make_classifier_train_step`` on a 2-device data mesh: losses
@@ -36,6 +40,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+from jax.sharding import NamedSharding, PartitionSpec
 
 from covalent_tpu_plugin.models import mlp as ref_mlp
 from covalent_tpu_plugin.models import train as ref_train
@@ -60,13 +65,15 @@ TINY = dict(vocab_size=256, d_model=64, n_layers=2, n_heads=4, d_ff=128, max_seq
 BATCH, SEQ = 8, 17
 CNN_BATCH = 16
 
-#: arm -> (plan, processes, n_kv_heads)
-LM_ARMS = {"fsdp2": (dict(fsdp=2), 2, None), "tensor2": (dict(tensor=2), 2, None),
-           "fsdp2_tensor2": (dict(fsdp=2, tensor=2), 4, None),
-           "gqa_tensor2": (dict(tensor=2), 2, 2), "mqa_tensor2": (dict(tensor=2), 2, 1),
-           "gqa_fsdp2_tensor2": (dict(fsdp=2, tensor=2), 4, 2)}
-TWO = [arm for arm, (_, n, _) in LM_ARMS.items() if n == 2]
-FOUR = [arm for arm, (_, n, _) in LM_ARMS.items() if n == 4]
+#: arm -> (plan, processes, n_kv_heads, step options: vocab_chunk, accumulate_steps)
+LM_ARMS = {"fsdp2": (dict(fsdp=2), 2, None, {}), "tensor2": (dict(tensor=2), 2, None, {}),
+           "fsdp2_tensor2": (dict(fsdp=2, tensor=2), 4, None, {}),
+           "gqa_tensor2": (dict(tensor=2), 2, 2, {}), "mqa_tensor2": (dict(tensor=2), 2, 1, {}),
+           "gqa_fsdp2_tensor2": (dict(fsdp=2, tensor=2), 4, 2, {}),
+           "fused_tensor2": (dict(tensor=2), 2, None, dict(vocab_chunk=64)),
+           "accumulate_fsdp2": (dict(fsdp=2), 2, None, dict(accumulate_steps=2))}
+TWO = [arm for arm, (_, n, _, _) in LM_ARMS.items() if n == 2]
+FOUR = [arm for arm, (_, n, _, _) in LM_ARMS.items() if n == 4]
 
 
 def _torch_config(kv_heads=None):
@@ -76,6 +83,20 @@ def _torch_config(kv_heads=None):
 
 def _batches():
     return list(data.synthetic_lm_batches(STEPS, BATCH, SEQ, TINY["vocab_size"], seed=0))
+
+
+def _microbatched(batches, accumulate_steps=1):
+    """``batches``, each cut into microbatches on a leading axis when the step
+    accumulates."""
+    if accumulate_steps == 1:
+        return batches
+    return [{"tokens": b["tokens"].reshape(accumulate_steps, -1, SEQ)} for b in batches]
+
+
+def _step(model, optimizer, mesh=None, vocab_chunk=None, accumulate_steps=1):
+    return train.make_train_step(
+        model, optimizer, loss_fn=lambda m, b: train.lm_loss(m, b, vocab_chunk=vocab_chunk),
+        accumulate_steps=accumulate_steps, mesh=mesh)
 
 
 def _cnn_batches():
@@ -96,8 +117,9 @@ def _lm_arm(arm, states, batches, place_after):
     from covalent_tpu_plugin_torch.models import transformer as tf
     from covalent_tpu_plugin_torch.parallel.mesh import MeshPlan, make_mesh
 
-    plan, _, kv_heads = LM_ARMS[arm]
+    plan, _, kv_heads, opts = LM_ARMS[arm]
     state = states[kv_heads]
+    batches = _microbatched(batches, opts.get("accumulate_steps", 1))
     model = tf.TransformerLM(_torch_config(kv_heads), device="cpu")
     mesh = make_mesh(MeshPlan(**plan), device_type="cpu")
     if place_after:
@@ -107,7 +129,7 @@ def _lm_arm(arm, states, batches, place_after):
     else:
         model.load_state_dict(state)
         model, optimizer, shardings = train.make_sharded_train_state(model, train.adamw, mesh)
-    step = train.make_train_step(model, optimizer, mesh=mesh)
+    step = _step(model, optimizer, mesh, **opts)
     losses, norms, params = [], [], None
     for i, batch in enumerate(batches):
         metrics = step(batch)
@@ -165,9 +187,10 @@ def _four_process_arms(states, batches):
     return {arm: _lm_arm(arm, states, batches, True) for arm in FOUR}
 
 
-def _reference_lm(plan: dict, kv_heads, batches):
+def _reference_lm(plan: dict, kv_heads, batches, vocab_chunk=None, accumulate_steps=1):
     """The reference's sharded steps on a virtual mesh: initial params (as
-    numpy), losses, grad norms and params after two steps."""
+    numpy), losses, grad norms and params after two steps.  With
+    accumulation each microbatch is split over the batch axes (dim 1)."""
     n = int(np.prod(list(plan.values())))
     mesh = ref_make_mesh(RefPlan(**plan), jax.devices()[:n])
     cfg = ref_tf.TransformerConfig(**TINY, n_kv_heads=kv_heads, dtype=jnp.float32,
@@ -177,10 +200,18 @@ def _reference_lm(plan: dict, kv_heads, batches):
     state, shardings = ref_train.make_sharded_train_state(
         model, optax.adamw(3e-4), jax.random.PRNGKey(0), sample, mesh)
     initial = jax.tree.map(np.asarray, flax.core.meta.unbox(state.params))
-    step = ref_train.make_train_step(ref_train.lm_loss, mesh, shardings)
+    step = ref_train.make_train_step(
+        lambda p, apply_fn, b: ref_train.lm_loss(p, apply_fn, b, vocab_chunk=vocab_chunk),
+        mesh, shardings, accumulate_steps=accumulate_steps)
+    micro = NamedSharding(mesh, PartitionSpec(None, ("data", "fsdp")))
     losses, norms, after_two = [], [], None
     for i, batch in enumerate(batches):
-        state, metrics = step(state, ref_shard_batch({"tokens": batch["tokens"]}, mesh))
+        if accumulate_steps > 1:
+            (tokens,) = _microbatched([batch], accumulate_steps)
+            placed = {"tokens": jax.device_put(tokens["tokens"], micro)}
+        else:
+            placed = ref_shard_batch({"tokens": batch["tokens"]}, mesh)
+        state, metrics = step(state, placed)
         losses.append(float(metrics["loss"]))
         norms.append(float(metrics["grad_norm"]))
         if i == 1:
@@ -208,7 +239,8 @@ def _reference_cnn(batches):
 @pytest.fixture(scope="module")
 def reference():
     batches = _batches()
-    lm = {arm: _reference_lm(plan, kv, batches) for arm, (plan, _, kv) in LM_ARMS.items()}
+    lm = {arm: _reference_lm(plan, kv, batches, **opts)
+          for arm, (plan, _, kv, opts) in LM_ARMS.items()}
     return {"batches": batches, "lm": lm, "cnn": _reference_cnn(_cnn_batches())}
 
 
@@ -219,7 +251,7 @@ def port(reference):
     sharding)."""
     # every reference arm of one n_kv_heads starts from the same PRNGKey(0) params
     states = {kv: convert.params_from_jax(reference["lm"][arm][0], _torch_config(kv))
-              for arm, (_, _, kv) in reversed(LM_ARMS.items())}
+              for arm, (_, _, kv, _) in reversed(LM_ARMS.items())}
     cnn_state = convert.cnn_params_from_jax(reference["cnn"][0])
     batches, cnn_batches = reference["batches"], _cnn_batches()
     cloudpickle.register_pickle_by_value(sys.modules[__name__])
@@ -265,12 +297,12 @@ def test_sharded_params_match_the_reference_after_two_steps(port, reference, arm
 
 @pytest.mark.parametrize("arm", TWO)
 def test_two_processes_match_one_at_the_same_global_batch(port, arm):
-    kv_heads = LM_ARMS[arm][2]
+    _, _, kv_heads, opts = LM_ARMS[arm]
     model = torch_tf.TransformerLM(_torch_config(kv_heads), device="cpu")
     model.load_state_dict(port["states"][kv_heads])
-    step = train.make_train_step(model, train.adamw(model))
+    step = _step(model, train.adamw(model), **opts)
     losses, params = [], None
-    for i, batch in enumerate(_batches()):
+    for i, batch in enumerate(_microbatched(_batches(), opts.get("accumulate_steps", 1))):
         losses.append(float(step(batch)["loss"]))
         if i == 1:
             params = {n: p.detach().clone() for n, p in model.named_parameters()}
@@ -316,13 +348,6 @@ def test_a_config_mesh_shards_the_model_as_apply_rules_does(port):
         assert built == applied
         assert built["layers.0.attention.q_proj.weight"] == "(Shard(dim=0),)"
         assert built["ln_final.scale"] == "(Replicate(),)"
-
-
-def test_the_fused_loss_is_refused_under_tensor_parallelism():
-    from covalent_tpu_plugin_torch.ops import xent
-
-    with pytest.raises(NotImplementedError, match="slice 4, part 2"):
-        xent.refuse_sharded_vocab()
 
 
 def test_a_mesh_plan_needs_the_gang():

@@ -138,6 +138,33 @@ def test_accumulated_step_equals_full_batch_step():
         train.make_train_step(model_acc, train.adamw(model_acc), accumulate_steps=3)(micro)
 
 
+@pytest.mark.parametrize("policy", ["full", "dots"])
+def test_remat_steps_equal_the_plain_steps(policy):
+    """Each block rematerialised (every activation recomputed, or all but the
+    2-D products' outputs): two AdamW steps take the plain steps' losses,
+    grad norms and parameters bit for bit."""
+    batches = list(data.synthetic_lm_batches(2, 2, 33, TINY["vocab_size"], seed=3))
+    runs = []
+    for remat in (False, True):
+        _, _, model, _ = _setup(remat=remat, remat_policy=policy)
+        step = train.make_train_step(model, train.adamw(model))
+        metrics = [step(batch) for batch in batches]
+        runs.append(([float(m["loss"]) for m in metrics], [float(m["grad_norm"]) for m in metrics],
+                     [p.detach().clone() for p in model.parameters()]))
+    (losses, norms, params), (r_losses, r_norms, r_params) = runs
+    assert r_losses == losses and r_norms == norms
+    assert all(torch.equal(a, b) for a, b in zip(params, r_params))
+
+
+def test_remat_policy_is_checked_as_the_reference_checks_it():
+    with pytest.raises(ValueError) as want:
+        cfg = jax_tf.TransformerConfig(**TINY, remat=True, remat_policy="some")
+        jax_tf.TransformerLM(cfg).init(jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32))
+    with pytest.raises(ValueError) as got:
+        torch_tf.TransformerConfig(**TINY, remat=True, remat_policy="some")
+    assert str(got.value) == str(want.value)
+
+
 def test_batches_are_byte_identical_to_reference():
     for got, want in zip(data.synthetic_lm_batches(3, 2, 65, 1000, seed=7),
                          jax_batches(3, 2, 65, 1000, seed=7)):

@@ -200,10 +200,8 @@ def test_default_device_is_the_card():
     ("quantized_kv_cache", True, "slice 2"),
     ("quantized", True, "slice 3"),
     ("lora_rank", 4, "slice 3"),
-    ("moe_experts", 4, "slice 4"),
     ("attention", "ring", "mesh"),
     ("attention", "ulysses", "mesh"),
-    ("remat", True, "slice 5"),
 ])
 def test_later_slice_knobs_raise(knob, value, slice_name):
     """Knobs of later slices raise, naming their slice; the serving knobs of

@@ -47,7 +47,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     cs.GANG_ARMS = {arm: cs.GANG_ARMS[arm] for arm in ("lm_ring2", "lm_ulysses2")}
     start = time.perf_counter()
-    gang_lines, launches, arm_launches = cs.gang_phase(losses)
+    gang_lines, launches, arm_launches = cs.gang_phase({"standard": losses})
     lines.extend(gang_lines)
     lines.append({"launches": launches, "arm_launches": arm_launches,
                   "gang_seconds": time.perf_counter() - start})

@@ -163,11 +163,12 @@ Phases, one JSON object per line on stdout, in this order:
     probes (3 on the launch arm: its line says ``cut``; ``last_timings``),
     against BASELINE's budget of 2 s; config 3,
     three fan-outs of 8 electrons (trivial, 0.3 s of sleep, one MNIST MLP
-    Adam step on the card each), 3 trials each (the launch arm's MNIST-step
-    fan-out 1: its line says ``cut``); config 4, the MNIST MLP and
-    CNN (``models.train.train_mnist``: 64 batches of 256, loss first and
-    last, steps/s).  Every electron must take its arm's road, and the warm
-    arms' values must equal the launch arm's.  Then, with the pool server
+    Adam step on the card each), 2 trials each of the 3 (the launch arm runs
+    no MNIST-step fan-out: the lines say ``cut``); config 4, the MNIST MLP and
+    CNN (``models.train.train_mnist``: 64 batches of 256, 2 epochs of 20,
+    loss first and last, steps/s; the launch arm the MLP only).  Every
+    electron must take its arm's road, and the warm arms' values must equal
+    the launch arm's (the pool_run arm's for what the launch arm cut).  Then, with the pool server
     holding a CUDA context from the RPC electrons, one CUDA electron
     through the pool's ``run`` verb (a zygote fork) on the same pool.  No
     flash kernel runs.  Each warm arm's channel must run on frames; each
@@ -252,10 +253,20 @@ Phases, one JSON object per line on stdout, in this order:
     the ``train`` cell's electron by RPC (losses within 1e-2 of the
     ``train`` phase's standard arm, 12 launches a step of each flash
     kernel); a gang whose two workers are two SSH addresses of the one
-    server (``lm_fsdp2`` as in the ``gang`` phase, its rendezvous on worker
-    0's host).  Any missing marker, ``task.dispatch_failed`` or electron on
-    another road fails the run.  Without an SSH backend on the machine
-    the phase prints one line naming what is missing and runs no arm.
+    server (``lm_fsdp2`` as in the ``gang`` phase, 2 of the 5 steps, its
+    rendezvous on worker 0's host).  Arm ``cache``, on the same warm pool with ``cache_results``
+    from there on: the ``train`` cell's electron by RPC at 2 steps (a
+    miss), the same call (a hit), seed 1 (a miss), seed 0 on the launch
+    road (a miss: the RPC road's entry is not its) and again (a hit), then
+    a cheap electron on the launch road, by RPC twice and on the launch
+    road again (miss, miss, hit, hit): each call's wall, its
+    ``executor.cache_lookup`` span and its flash launches (read from the
+    pool server before and after an RPC call, from the worker on the
+    launch road), every kernel on each miss and none on a hit, which dials
+    nothing; a hit's losses bit-equal to its miss's.  Any missing marker,
+    ``task.dispatch_failed`` or electron on another road fails the run.
+    Without an SSH backend on the machine the phase prints one line naming
+    what is missing and runs no arm.
 22. ``agent``: the native C++ agent, resident profiling, the per-session
     serving families and fleet ``Pool`` targets, one line per step.
     ``build``: ``GPUExecutor(use_agent="native")`` compiles the port's
@@ -285,17 +296,43 @@ Phases, one JSON object per line on stdout, in this order:
     already streaming, every stream complete exactly once and equal to the
     ``session`` phase's, the slot moved with the session, the handoff's
     seconds and the completion after it.
-23. ``kernels``: every kernel with its launches on its path (the flash
+23. ``lifecycle``: the executor's lifecycle over minissh (a second
+    server on loopback, two logins for a third worker address).
+    ``prewarm``: a lattice whose downstream node runs over minissh (a pool
+    server preloading cloudpickle) and waits on a 2.5 s upstream node on the
+    dispatcher, with ``prewarm`` on and off: the downstream node's
+    ``connect``, the ``executor.prewarm`` span and
+    ``covalent_tpu_prewarm_seconds``.  ``teardown``: ``teardown_gang()``
+    while an electron runs (refused) and after (done), ``is_warm`` after,
+    and the next electron's fresh dial.  ``straggler``: a gang of three
+    over three SSH addresses whose last rank leaves 3 s after the others,
+    under ``COVALENT_TPU_STRAGGLER_BUDGET_S=1`` and
+    ``COVALENT_TPU_STRAGGLER_REDIAL=1``: the flagged worker and its
+    differential, its channel dropped and dialed afresh by the next
+    electron; then ``health_canary`` on a live pool server and on one
+    killed.  ``cas``: three electrons whose pickles each carry one block
+    of the 125M LM under ``cas_max_bytes`` of the harness and 1.2 blocks:
+    ``CAS_EVICTED``, the harness and the running pickle kept after every
+    electron, the TTL's ``-mmin`` in the pre-flight.  ``ssh_session``:
+    the ``session`` phase's 16 requests through ``open_session`` on a
+    minissh executor: open seconds, tokens/s, TTFT and completion p50/p95,
+    wire bytes per token, the serving kernels' launches in the worker and
+    0 tokens different from the ``session`` phase's streams;
+    ``ssh_replicas``: the same through a replica set of two SSH addresses
+    (tokens/s, placement, 0 tokens different).
+24. ``kernels``: every kernel with its launches on its path (the flash
     kernels: training, with the gang's launches beside as
     ``gang_launches``, the ``lm_ring2`` arm's f32-output launches as
     ``ring_launches`` with the variant's times under ``f32_variant``, the
     ``lm_ulysses2`` arm's as ``ulysses_launches``, the ``ssh`` phase's
     as ``ssh_launches``, the ``agent`` phase's as ``agent_launches`` and
     the ``elastic`` phase's (both attempts of ``preempt``) as
-    ``elastic_launches``; the
+    ``elastic_launches``, the ``cache`` arm's misses as
+    ``cache_miss_launches``; the
     batch-invariant ones: the ``serve`` phase, and
     the f32 CUDA-core product ``serve_check``'s f32 LM, with its 0 launches
-    on the ``serve`` phase beside),
+    on the ``serve`` phase beside, and the serve cell over SSH's as
+    ``ssh_session_launches``),
     error, times and bound, and the route (tensor-core or scalar kernel)
     each input type and head dim of a flash kernel takes.
 
@@ -1669,7 +1706,9 @@ SESSION = dict(requests=16, prompt_len=128, long=128, short=32, slots=8, sync_st
 
 def counting_factory(inner):
     """Wrap an engine factory so that the engine's stats (and so every
-    ``serve.stats`` record) carry the worker's flash-kernel launch counts,
+    ``serve.stats`` record) carry the worker's launch counts (the flash
+    kernels' as ``launches.*``, the serving kernels' as
+    ``serving_launches.*``),
     and ``first_wave``: the requests admitted at the first step after the
     engine was idle, for the latest burst of traffic.  Defined here, it
     ships by value; ``inner`` is the port's, pickled by reference."""
@@ -1688,6 +1727,8 @@ def counting_factory(inner):
             events = step()
             idle[0] = engine.busy == 0
             engine.stats.update({f"launches.{k}": n for k, n in _kernels.launch_counts().items()})
+            engine.stats.update({f"serving_launches.{k}": n
+                                 for k, n in _kernels.serving_launch_counts().items()})
             return events
 
         engine.step = step_and_count
@@ -2406,16 +2447,24 @@ MATMUL_TAGS = ("gemm", "gemv", "xmma", "cutlass", "nvjet", "splitK")
 MATMUL_N, MATMUL_CHAIN, MATMUL_REPS = 4096, 16, 50
 #: Config 3 (``bench.py:2413-2470``): electrons per fan-out, trials, busy seconds.
 FANOUT, FANOUT_TRIALS, BUSY_S = 8, 3, 0.3
-#: Trials of the launch arm's MNIST-step fan-out, cut from 3 to keep the run
-#: under 1000 s with the ``agent`` phase and the gang's pipeline, MoE and
-#: fused-loss arms: each is 8 fresh interpreters that import torch at once
-#: (28.96-38.1 s a trial, and the whole run 1014 s with 3, on an NVIDIA H100
-#: 80GB HBM3, 700 W).
-LAUNCH_MNIST_TRIALS = 1
-#: Config 4 (``bench.py:1181-1253``): timed epochs over the 64 batches, 5 of
-#: the 20 it takes in full: a cut made for the ``elastic`` phase (the lines
-#: say ``cut``).
-MNIST_EPOCHS, MNIST_EPOCHS_FULL = 5, 20
+#: The trials each arm runs of the trivial and sleep fan-outs (and of the
+#: warm arms' MNIST-step one): 2 of the 3, a cut made for the
+#: ``lifecycle`` phase (the lines say ``cut``).
+FANOUT_TRIALS_RUN = 2
+#: Trials of the launch arm's MNIST-step fan-out, cut from 3 to 1 for the
+#: ``agent`` phase and the gang's pipeline, MoE and fused-loss arms, then to
+#: 0 (with its single electron) for the ``lifecycle`` phase: each trial is 8
+#: fresh interpreters that import torch at once (28.96-38.1 s a trial on an
+#: NVIDIA H100 80GB HBM3, 700 W).  The warm arms still run it, the rpc arm
+#: held against the pool_run arm's values.
+LAUNCH_MNIST_TRIALS = 0
+#: Config 4's models on the launch arm (a fresh interpreter each): the MLP;
+#: the CNN runs on the warm arms only, a cut made for the ``lifecycle`` phase.
+LAUNCH_MNIST_MODELS = ("mlp",)
+#: Config 4 (``bench.py:1181-1253``): timed epochs over the 64 batches, 2 of
+#: the 20 it takes in full: cuts made for the ``elastic`` phase (to 5) and
+#: the ``lifecycle`` phase (to 2; the lines say ``cut``).
+MNIST_EPOCHS, MNIST_EPOCHS_FULL = 2, 20
 OVERHEAD_PROBES = 5
 #: The launch arm's probes (each a fresh interpreter): 3 of the 5, a cut
 #: made for the ``elastic`` phase (its overhead line says ``cut``).
@@ -2642,13 +2691,17 @@ def lattice_arm(arm: str, reference: dict | None) -> tuple[list[dict], dict, dic
                  "busy": (busy_electron, (BUSY_S,), lambda i, v: v == i),
                  "mnist_step": (mnist_step_electron, (), lambda i, v: math.isfinite(v) and v > 0)}
         for kind, (fn, extra, ok) in kinds.items():
+            if (arm, kind) == ("launch", "mnist_step") and not LAUNCH_MNIST_TRIALS:
+                lines.append({"config": 3, "kind": kind, "electrons": 0,
+                              "cut": f"0 trials of {FANOUT_TRIALS} on the launch arm"})
+                continue
             electron = on_arm(fn)
             single = ct.lattice(lambda: electron(0, *extra))
             fan = ct.lattice(lambda n: [electron(i, *extra) for i in range(n)])
             _, single_wall = dispatch(single)
             walls, values_seen = [], []
             trials = (LAUNCH_MNIST_TRIALS if (arm, kind) == ("launch", "mnist_step")
-                      else FANOUT_TRIALS)
+                      else FANOUT_TRIALS_RUN)
             for _ in range(trials):
                 values_seen, wall = dispatch(fan, FANOUT)
                 if len(values_seen) != FANOUT or not all(
@@ -2669,7 +2722,11 @@ def lattice_arm(arm: str, reference: dict | None) -> tuple[list[dict], dict, dic
         # Config 4: the MNIST arms.
         trainer = on_arm(train_mnist)
         mnist = []
-        for model in ("mlp", "cnn"):
+        models = LAUNCH_MNIST_MODELS if arm == "launch" else ("mlp", "cnn")
+        if arm == "launch":
+            lines.append({"config": 4, "models": list(models),
+                          "cut": "the CNN on the warm arms only"})
+        for model in models:
             out, wall = dispatch(ct.lattice(lambda m: trainer(m, epochs=MNIST_EPOCHS)), model)
             losses = [out["loss_first"], out["loss_last"], out["loss_final_epoch"]]
             if not all(math.isfinite(x) for x in losses) or not out["loss_last"] < out["loss_first"]:
@@ -2724,7 +2781,8 @@ def lattice_arm(arm: str, reference: dict | None) -> tuple[list[dict], dict, dic
         raise AssertionError(f"lattice {arm}: {[e.get('type') for e in wrong_road]}: "
                              f"{wrong_road[0]}")
     if reference is not None:
-        # Every value of a warm arm equals the launch arm's.
+        # Every value of a warm arm equals the launch arm's (pool_run's, for
+        # what the launch arm cut).
         diffs = {}
         for key, want in reference.items():
             got = values[key]
@@ -2735,7 +2793,7 @@ def lattice_arm(arm: str, reference: dict | None) -> tuple[list[dict], dict, dic
                 diffs[key] = max(abs(a - b) / abs(b) for a, b in zip(got, want))
                 close = len(got) == len(want) and diffs[key] <= rtol
             if not close:
-                raise AssertionError(f"lattice {arm}: {key} {got} != launch arm's {want}")
+                raise AssertionError(f"lattice {arm}: {key} {got} != an earlier arm's {want}")
         lines.append({"equal_to_launch_arm": sorted(reference), "max_rel_diff": diffs,
                       "rtol": {"config3.mnist_step": LOSS_RTOL, "config4": CONFIG4_RTOL}})
     for line in lines:
@@ -2753,7 +2811,9 @@ def lattice_phase() -> tuple[list[dict], dict]:
     for arm in LATTICE_ARMS:
         start = time.perf_counter()
         arm_lines, arm_launches, values = lattice_arm(arm, reference)
-        reference = reference or values
+        # the launch arm's values, and a warm arm's for what the launch arm
+        # cut: a later arm is held against the earliest arm that ran each
+        reference = {**values, **(reference or {})}
         arm_lines.append({"arm": arm, "seconds": time.perf_counter() - start})
         lines.extend(arm_lines)
         for name, n in arm_launches.items():
@@ -3371,12 +3431,20 @@ def elastic_stall(device: str = "cuda", alloc_mib: int = STALL_ALLOC_MIB,
 
 SSH_MARKER = "COVALENT_SSH_SMOKE_MARKER"
 SSH_USER = "smoke"
+#: A second login the server authorizes (the same key): a third worker
+#: address of the one server, for the ``lifecycle`` phase's gang of three.
+SSH_USER_2 = "smoke2"
 SSH_PROBES = 5
 SSH_STEPS = 5
+#: The gang over two SSH addresses: 2 of the 5 steps, as the ``gang``
+#: phase's LM arms (a cut made for the ``lifecycle`` phase; its line says
+#: ``cut``).
+SSH_GANG_STEPS = 2
 #: The server, in an interpreter of its own (never the dispatcher's event
 #: loop, which a synchronous wait would starve): the port's minissh on
-#: 127.0.0.1, an ed25519 host key, one authorized client key; it prints its
-#: port and serves until its stdin closes.
+#: 127.0.0.1, an ed25519 host key, one authorized client key for each login
+#: of the comma-separated list; it prints its port and serves until its
+#: stdin closes.
 SSH_SERVER = r"""
 import asyncio, os, sys
 sys.path.insert(0, sys.argv[2])
@@ -3387,7 +3455,7 @@ host = serialization.load_ssh_private_key(open(root + "/host_ed25519", "rb").rea
 client = serialization.load_ssh_public_key(open(root + "/id_ed25519.pub", "rb").read())
 async def main():
     server = await minissh.serve("127.0.0.1", 0, host_key=host,
-                                 authorized_keys={user: [client]})
+                                 authorized_keys={u: [client] for u in user.split(",")})
     print(server.port, flush=True)
     await asyncio.get_running_loop().run_in_executor(None, sys.stdin.read)
     server.close()
@@ -3419,6 +3487,133 @@ def ssh_train_electron(kwargs: dict) -> dict:
     return out
 
 
+#: The ``cache`` arm's training electrons: the train cell at 2 steps.
+CACHE_STEPS = 2
+
+
+def cache_probe_electron(i: int) -> dict:
+    """A cheap electron whose two roads' cache keys are compared: its
+    argument and the process it ran in."""
+    import os
+
+    return {"i": i, "pid": os.getpid()}
+
+
+def launch_counts_electron(nonce: str) -> dict:
+    """The resident worker's flash launches so far (RPC electrons share its
+    process, so the counts only grow); ``nonce`` makes every call a cache
+    miss."""
+    from covalent_tpu_plugin_torch.ops import _kernels
+
+    return dict(_kernels.launch_counts())
+
+
+async def _cache_arm(pool, check) -> tuple[dict, dict]:
+    """Result memoization on the warm minissh pool (``cache_results``): the
+    train cell's electron by RPC (2 steps, seed 0) misses and runs, the
+    same call hits, seed 1 misses; on the launch road seed 0 misses (the
+    RPC road's entry is not its) and then hits.  The RPC road does not
+    take a launch road's entry either (a cheap electron: launch, RPC, RPC,
+    launch).  A call's flash launches are read from the pool server before
+    and after it (RPC), or from its worker (launch): every kernel on each
+    miss, none on a hit.  Returns the line and the misses' launches."""
+    from covalent_tpu_plugin_torch.cache import ResultCache
+    from covalent_tpu_plugin_torch.obs import events as obs_events
+    from covalent_tpu_plugin_torch.ops import _kernels
+
+    # From here on the pool memoises: the probes above measured the road
+    # without the cache.
+    pool.cache_results = True
+    pool._result_cache = ResultCache(os.path.join(pool.cache_dir, "results"))
+    pool._result_cache.clear()
+    seen: list = []
+    obs_events.add_listener(seen.append)
+
+    async def server_counts() -> dict:
+        return await pool.run(launch_counts_electron, [os.urandom(8).hex()], {},
+                              {"dispatch_id": "ssh_cache", "node_id": 99,
+                               "dispatch_mode": "rpc"})
+
+    async def call(fn, args, mode, node) -> dict:
+        before = await server_counts() if mode == "rpc" else None
+        mark, local = len(seen), dict(_kernels.launch_counts())
+        wall = time.perf_counter()
+        out = await pool.run(fn, args, {}, {"dispatch_id": "ssh_cache", "node_id": node,
+                                            "dispatch_mode": mode})
+        wall = time.perf_counter() - wall
+        timings = dict(pool.last_timings)
+        new = seen[mark:]
+        spans = lambda name: [e["duration_s"] for e in new  # noqa: E731
+                              if e.get("type") == "span" and e.get("name") == name]
+        cached = any(e.get("type") == "task.result_cached" for e in new)
+        row = {"road": mode, "cached": cached, "wall_s": wall,
+               "cache_lookup_s": spans("executor.cache_lookup"),
+               "connect_spans": len(spans("executor.connect")), "timings": timings}
+        if fn is ssh_train_electron:
+            after = await server_counts() if mode == "rpc" else None
+            here = {k: n - local.get(k, 0) for k, n in _kernels.launch_counts().items()}
+            # a miss on the RPC road ran in the pool server; one on the
+            # launch road in a fork that reports its own counts; a hit ran
+            # nowhere but here
+            row["launches"] = {k: here[k] + (after[k] - before[k] if mode == "rpc" else
+                                             (0 if cached else out["launches"][k]))
+                               for k in here}
+            row["losses"], row["seed"] = out["losses"], args[0]["seed"]
+            if not cached:
+                check("cache", out, pool, mode)
+        else:
+            row["value"] = out
+        return row
+
+    try:
+        lm = lambda seed: [dict(steps=CACHE_STEPS, batch_size=BATCH, seq_len=SEQ,  # noqa: E731
+                                seed=seed)]
+        calls = [await call(ssh_train_electron, lm(0), "rpc", 20),
+                 await call(ssh_train_electron, lm(0), "rpc", 21),
+                 await call(ssh_train_electron, lm(1), "rpc", 22),
+                 await call(ssh_train_electron, lm(0), "launch", 23),
+                 await call(ssh_train_electron, lm(0), "launch", 24)]
+        reverse = [await call(cache_probe_electron, [7], mode, 30 + i)
+                   for i, mode in enumerate(("launch", "rpc", "rpc", "launch"))]
+    finally:
+        obs_events.remove_listener(seen.append)
+    problems = []
+    if [c["cached"] for c in calls] != [False, True, False, False, True]:
+        problems.append(f"hits {[c['cached'] for c in calls]}, expected miss, hit, miss, "
+                        "miss, hit")
+    if [c["cached"] for c in reverse] != [False, False, True, True]:
+        problems.append(f"the roads' keys: hits {[c['cached'] for c in reverse]} for launch, "
+                        "rpc, rpc, launch; expected miss, miss, hit, hit")
+    for c in calls:
+        if c["cached"] and (any(c["launches"].values()) or c["connect_spans"]):
+            problems.append(f"a hit launched {c['launches']} or dialed ({c['connect_spans']})")
+        if FLASH_KERNEL_TAGS and not c["cached"] and min(c["launches"].values()) < 1:
+            problems.append(f"a miss on the {c['road']} road launched {c['launches']}")
+        if not c["cache_lookup_s"]:
+            problems.append("a call without its executor.cache_lookup span")
+    if calls[1]["losses"] != calls[0]["losses"] or calls[4]["losses"] != calls[3]["losses"]:
+        problems.append("a hit's losses differ from its miss's")
+    gap = max(abs(a - b) for a, b in zip(calls[3]["losses"], calls[0]["losses"]))
+    if gap > TRAIN_LOSS_TOL or calls[2]["losses"] == calls[0]["losses"]:
+        problems.append(f"losses: launch road {calls[3]['losses']}, rpc {calls[0]['losses']}, "
+                        f"seed 1 {calls[2]['losses']}")
+    if problems:
+        raise AssertionError("ssh cache: " + "; ".join(problems))
+    misses = [c for c in calls if not c["cached"]]
+    hits = [c for c in calls if c["cached"]]
+    launches = {k: sum(c["launches"][k] for c in misses) for k in misses[0]["launches"]}
+    line = {
+        "arm": "cache", "steps": CACHE_STEPS, "calls": calls, "reverse": reverse,
+        "hit_wall_s": [c["wall_s"] for c in hits], "miss_wall_s": [c["wall_s"] for c in misses],
+        "hit_cache_lookup_s": [c["cache_lookup_s"] for c in hits],
+        "miss_launches": [c["launches"] for c in misses],
+        "hit_launches": [c["launches"] for c in hits],
+        "hit_losses_bit_equal_miss": True, "launch_vs_rpc_max_loss_gap": gap,
+        "launch_vs_rpc_losses_bit_equal": calls[3]["losses"] == calls[0]["losses"],
+        "result_cache_entries": len(pool._result_cache), "marker_ok": True}
+    return line, launches
+
+
 class SSHServer:
     """The minissh server of the ssh phase, in a child interpreter, with
     its keys generated into ``root``."""
@@ -3440,7 +3635,8 @@ class SSHServer:
         os.chmod(root / "id_ed25519", 0o600)
         self.key_file, self.host_pub = str(root / "id_ed25519"), str(root / "host_ed25519.pub")
         self.proc = subprocess.Popen(
-            [sys.executable, "-c", SSH_SERVER, str(root), str(ROOT), SSH_USER],
+            [sys.executable, "-c", SSH_SERVER, str(root), str(ROOT),
+             f"{SSH_USER},{SSH_USER_2}"],
             stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True, cwd=str(root),
             env={**os.environ, SSH_MARKER: self.marker})
         line = self.proc.stdout.readline().strip()
@@ -3449,8 +3645,8 @@ class SSHServer:
             raise AssertionError(f"ssh: the minissh server did not start ({line!r})")
         self.port = int(line)
 
-    def address(self, host: str = "127.0.0.1") -> str:
-        return f"{SSH_USER}@{host}:{self.port}"
+    def address(self, host: str = "127.0.0.1", user: str = SSH_USER) -> str:
+        return f"{user}@{host}:{self.port}"
 
     def close(self) -> None:
         try:
@@ -3494,12 +3690,13 @@ def _overheads(timings: list) -> dict:
             "within_budget": _percentile(walls, 0.95) <= OVERHEAD_BUDGET_S}
 
 
-def ssh_phase(train_losses: list, local_overheads: dict) -> tuple[list[dict], dict]:
+def ssh_phase(train_losses: list, local_overheads: dict) -> tuple[list[dict], dict, dict]:
     """The paper's road over a real SSH channel (BASELINE config 1, the warm
-    pool, the 125M LM's electron by RPC, a two-worker FSDP gang whose
-    workers are two SSH addresses), every executor on the minissh backend
-    with the server's host key pinned.  Returns the phase's lines and the
-    flash launches of its LM arms."""
+    pool, the 125M LM's electron by RPC, the result cache on that pool, a
+    two-worker FSDP gang whose workers are two SSH addresses), every
+    executor on the minissh backend with the server's host key pinned.
+    Returns the phase's lines, the flash launches of its LM arms and those
+    of the ``cache`` arm's misses."""
     import math
     import socket
 
@@ -3514,7 +3711,7 @@ def ssh_phase(train_losses: list, local_overheads: dict) -> tuple[list[dict], di
         if not (stack["binaries"]["sshd"] and stack["binaries"]["ssh-keygen"]):
             missing += ", and sshd/ssh-keygen (openssh)"
         return [{"skipped": f"no SSH backend on this machine: missing {missing}",
-                 "stack": stack}], {}
+                 "stack": stack}], {}, {}
 
     work = WORK / "ssh"
     server = SSHServer(work / "keys")
@@ -3548,8 +3745,9 @@ def ssh_phase(train_losses: list, local_overheads: dict) -> tuple[list[dict], di
         return [e["duration_s"] for e in seen
                 if e["type"] == "span" and e.get("name") == "pool.connect"]
 
-    def lm_check(arm: str, losses: list, per_rank: list, shape: str | None) -> float:
-        if len(losses) != SSH_STEPS or not all(math.isfinite(x) for x in losses) \
+    def lm_check(arm: str, losses: list, per_rank: list, shape: str | None,
+                 steps: int = SSH_STEPS) -> float:
+        if len(losses) != steps or not all(math.isfinite(x) for x in losses) \
                 or not losses[-1] < losses[0]:
             raise AssertionError(f"ssh {arm}: losses {losses}")
         gap = max(abs(a - b) for a, b in zip(losses, train_losses))
@@ -3558,9 +3756,9 @@ def ssh_phase(train_losses: list, local_overheads: dict) -> tuple[list[dict], di
                                  f"phase's {train_losses}")
         for rank in per_rank:
             for name, n in rank["launches"].items():
-                if n != 12 * SSH_STEPS:
+                if n != 12 * steps:
                     raise AssertionError(f"ssh {arm}: {name} launched {n} times, "
-                                         f"expected {12 * SSH_STEPS}")
+                                         f"expected {12 * steps}")
                 if shape and rank["launch_shapes"][name] != {f"{shape} bfloat16": n}:
                     raise AssertionError(f"ssh {arm}: {name} took {rank['launch_shapes'][name]}")
                 launches[name] = launches.get(name, 0) + n
@@ -3636,11 +3834,13 @@ def ssh_phase(train_losses: list, local_overheads: dict) -> tuple[list[dict], di
                 trained["wall_s"] = time.perf_counter() - wall
                 trained["timings"] = dict(pool.last_timings)
                 check("train_rpc", trained, pool, "rpc")
-                return first, start, roads, frames, trained
+                cache = await _cache_arm(pool, check)
+                return first, start, roads, frames, trained, cache
             finally:
                 await pool.close()
 
-        first, start, roads, frames, trained = asyncio.run(pool_arms())
+        first, start, roads, frames, trained, (cache_line, cache_launches) = \
+            asyncio.run(pool_arms())
         if frames is not True:
             raise AssertionError(f"ssh pool: the channel is not on frames ({frames})")
         gap = lm_check("train_rpc", trained["losses"], [trained], None)
@@ -3660,6 +3860,7 @@ def ssh_phase(train_losses: list, local_overheads: dict) -> tuple[list[dict], di
                                             for k, n in trained["launches"].items()},
                       "peak_mem_bytes": trained["peak_mem_bytes"], "device": trained["device"],
                       "electron_wall_s": trained["wall_s"], "timings": trained["timings"]})
+        lines.append(cache_line)
 
         # 3. A two-worker FSDP gang whose workers are two addresses of the one
         # server; the rendezvous goes to worker 0's host.
@@ -3672,7 +3873,7 @@ def ssh_phase(train_losses: list, local_overheads: dict) -> tuple[list[dict], di
                 wall = time.perf_counter()
                 out = await gang.run(
                     ssh_train_electron,
-                    [dict(steps=SSH_STEPS, batch_size=BATCH, seq_len=SEQ, seed=0,
+                    [dict(steps=SSH_GANG_STEPS, batch_size=BATCH, seq_len=SEQ, seed=0,
                           mesh_plan=MeshPlan(fsdp=2))], {},
                     {"dispatch_id": "ssh_gang", "node_id": 0})
                 out["wall_s"] = time.perf_counter() - wall
@@ -3688,7 +3889,7 @@ def ssh_phase(train_losses: list, local_overheads: dict) -> tuple[list[dict], di
             raise AssertionError(f"ssh gang: world {out['world_size']}, channels "
                                  f"{out['channels']}")
         shape = "x".join(map(str, (BATCH // 2, PATH_SHAPE[1], SEQ, PATH_SHAPE[5])))
-        gap = lm_check("gang", out["losses"], out["ranks"], shape)
+        gap = lm_check("gang", out["losses"], out["ranks"], shape, SSH_GANG_STEPS)
         steady = [statistics.median(r["step_s"][1:]) for r in out["ranks"]]
         lines.append({"arm": "gang_fsdp2", "workers": workers, "channels": out["channels"],
                       "mesh": out["mesh"], "backend": out["backend"],
@@ -3700,11 +3901,434 @@ def ssh_phase(train_losses: list, local_overheads: dict) -> tuple[list[dict], di
                       "flash_shapes": [r["launch_shapes"] for r in out["ranks"]],
                       "rendezvous_s": out["timings"].get("rendezvous"),
                       "electron_wall_s": out["wall_s"], "timings": out["timings"],
-                      "note": GANG_NOTE})
+                      "note": GANG_NOTE, "steps": SSH_GANG_STEPS,
+                      "cut": f"{SSH_GANG_STEPS} steps of {SSH_STEPS}"})
     finally:
         obs_events.remove_listener(seen.append)
         server.close()
-    return lines, launches
+    return lines, launches, cache_launches
+
+
+# --- the gang's lifecycle, the CAS's budget and serving over SSH -------------
+
+#: The prewarm arm's upstream node: this long on the dispatcher, while the
+#: downstream node's executor may dial its worker.
+PREWARM_UPSTREAM_S = 2.5
+#: The straggler arm: the gang's last rank leaves this long after the
+#: others, against this budget.
+STRAGGLER_DELAY_S = 3.0
+STRAGGLER_BUDGET_S = 1.0
+#: The cas arm's electrons, one bundle each: the weights of one block of
+#: the 125M LM (attention and MLP, bf16) drawn from these seeds.  A block,
+#: not the 50 MB token embedding: minissh moves 6.5-7.2 MB/s on loopback on
+#: the H100's host, so three embeddings took 22 s.
+CAS_SEEDS = (0, 1, 2)
+
+
+def ssh_after_electron(x: int) -> dict:
+    """The prewarm arm's downstream node: config 1's electron after its
+    upstream's value."""
+    return {**ssh_where_electron(), "after": x}
+
+
+def late_rank_electron(delay: float) -> int:
+    """A gang electron whose last rank leaves ``delay`` seconds after the
+    others (the harness exports the rank before the electron runs)."""
+    import os
+    import time
+
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    if rank == world - 1:
+        time.sleep(delay)
+    return rank
+
+
+def cas_bundle_electron(blob: bytes) -> dict:
+    """The cas arm's electron: what it was given, by size and digest."""
+    import hashlib
+
+    return {"bytes": len(blob), "sha256": hashlib.sha256(blob).hexdigest()}
+
+
+def lm_block_bundle(seed: int) -> bytes:
+    """One block of the 125M LM (its four attention projections, the MLP's
+    two products and two norms) drawn from ``seed``, bf16, as bytes."""
+    import torch
+
+    from covalent_tpu_plugin_torch.models.transformer import lm_125m_config
+
+    config = lm_125m_config()
+    d, ff = config.d_model, config.d_ff
+    weights = torch.randn(4 * d * d + 2 * d * ff + 2 * d,
+                          generator=torch.Generator().manual_seed(seed)).to(torch.bfloat16)
+    return weights.view(torch.int16).numpy().tobytes()
+
+
+def _metric(name: str, **labels) -> float:
+    from covalent_tpu_plugin_torch.obs.metrics import REGISTRY
+
+    family = REGISTRY.get(name)
+    if family is None:
+        return 0.0
+    child = family.labels(**labels)
+    # a histogram's sum of observations, a counter's value
+    return child.sum if hasattr(child, "sum") else child.value
+
+
+def _on_dispatcher(coro):
+    """Run ``coro`` on the workflow runner's loop, where the lattices' executors live."""
+    from covalent_tpu_plugin_torch.workflow import runner
+
+    return asyncio.run_coroutine_threadsafe(coro, runner._dispatcher_loop()).result(600)
+
+
+def _prewarm_arm(executor) -> list[dict]:
+    """A two-node lattice whose downstream node runs over minissh and waits
+    on a ``PREWARM_UPSTREAM_S`` upstream node on the dispatcher: the
+    downstream node's ``connect`` with ``prewarm`` on (dialed while it
+    waited) and off (dialed on its own critical path).  Then
+    ``teardown_gang`` on the warm executor: refused while an electron is in
+    flight, done after; the next electron dials afresh."""
+    import covalent_tpu_plugin_torch.workflow as ct
+    from covalent_tpu_plugin_torch.obs import events as obs_events
+
+    seen: list = []
+    obs_events.add_listener(seen.append)
+    lines, warm = [], None
+    try:
+        for prewarm in (True, False):
+            ex = executor(f"prewarm_{'on' if prewarm else 'off'}", use_agent="pool",
+                          pool_preload="cloudpickle", prewarm=prewarm)
+            upstream = ct.electron(busy_electron)
+            downstream = ct.electron(ssh_after_electron, executor=ex)
+            flow = ct.lattice(lambda: downstream(upstream(1, PREWARM_UPSTREAM_S)))
+            mark = len(seen)
+            seconds_before = _metric("covalent_tpu_prewarm_seconds", pool="")
+            out, wall = _dispatch(ct, flow)
+            timings = dict(ex.last_timings)
+            new = seen[mark:]
+            spans = [e["duration_s"] for e in new
+                     if e.get("type") == "span" and e.get("name") == "executor.prewarm"]
+            prewarm_seconds = _metric("covalent_tpu_prewarm_seconds", pool="")
+            line = {"arm": "prewarm", "prewarm": prewarm, "upstream_s": PREWARM_UPSTREAM_S,
+                    "lattice_wall_s": wall, "downstream_connect_s": timings.get("connect"),
+                    "downstream_preflight_s": timings.get("preflight"),
+                    "downstream_wall_overhead_s": timings.get("wall_overhead"),
+                    "downstream_breakdown": timings, "executor_prewarm_span_s": spans,
+                    "prewarm_seconds_observed": prewarm_seconds - seconds_before,
+                    "prewarmed": [e for e in new if e.get("type") == "executor.prewarm"],
+                    "prewarm_failed": [e for e in new
+                                       if e.get("type") == "executor.prewarm_failed"]}
+            if out["after"] != 1 or (len(spans) != 1) is prewarm or line["prewarm_failed"]:
+                raise AssertionError(f"lifecycle prewarm={prewarm}: {line}")
+            lines.append(line)
+            if prewarm:
+                warm = ex
+            else:
+                _close(ex)
+        on, off = lines
+        if not on["downstream_connect_s"] < off["downstream_connect_s"]:
+            raise AssertionError(f"lifecycle prewarm: connect {on['downstream_connect_s']} s "
+                                 f"with prewarm, {off['downstream_connect_s']} s without")
+
+        async def teardown():
+            misses = _metric("covalent_tpu_pool_acquires_total", result="miss")
+            task = asyncio.ensure_future(warm.run(busy_electron, [2, 3.0], {},
+                                                  {"dispatch_id": "teardown", "node_id": 0}))
+            while not warm._pids:
+                await asyncio.sleep(0.02)
+            during = await warm.teardown_gang()
+            await task
+            after = await warm.teardown_gang()
+            cold = (warm.is_warm, dict(warm._agents))
+            await warm.run(trivial_electron, [3], {}, {"dispatch_id": "teardown", "node_id": 1})
+            return (during, after, cold, dict(warm.last_timings),
+                    _metric("covalent_tpu_pool_acquires_total", result="miss") - misses)
+
+        during, after, cold, timings, dialed = _on_dispatcher(teardown())
+        torn = [e for e in seen if e.get("type") == "executor.gang_teardown"]
+        line = {"arm": "teardown", "in_flight_refused": during is False, "after": after,
+                "is_warm_after": cold[0], "agents_after": len(cold[1]),
+                "next_connect_s": timings.get("connect"), "next_breakdown": timings,
+                "fresh_dials": dialed, "gang_teardown_events": len(torn)}
+        if during is not False or after is not True or cold[0] or cold[1] or dialed != 1:
+            raise AssertionError(f"lifecycle teardown: {line}")
+        lines.append(line)
+    finally:
+        obs_events.remove_listener(seen.append)
+        if warm is not None:
+            _close(warm)
+    return lines
+
+
+def _straggler_arm(executor, server) -> dict:
+    """A gang of three over three SSH addresses of the one server whose
+    last rank leaves ``STRAGGLER_DELAY_S`` after the others, under a budget
+    of ``STRAGGLER_BUDGET_S`` and ``COVALENT_TPU_STRAGGLER_REDIAL``: the
+    flagged worker and its differential, its channel dropped and dialed
+    afresh by the next electron; then ``health_canary`` on a live pool
+    server and on one killed.  (A gang of two is never flagged: the
+    median of an even gang is its upper middle, the reference's rule.)"""
+    from covalent_tpu_plugin_torch.fleet.health import HEALTH
+    from covalent_tpu_plugin_torch.obs import events as obs_events
+
+    workers = [server.address("127.0.0.1"), server.address("localhost"),
+               server.address("127.0.0.1", SSH_USER_2)]
+    ex = executor("straggler", workers=workers, coordinator_port=0, use_agent="pool",
+                  pool_preload="cloudpickle")
+    saved = {k: os.environ.get(k) for k in ("COVALENT_TPU_STRAGGLER_BUDGET_S",
+                                            "COVALENT_TPU_STRAGGLER_REDIAL")}
+    os.environ["COVALENT_TPU_STRAGGLER_BUDGET_S"] = str(STRAGGLER_BUDGET_S)
+    os.environ["COVALENT_TPU_STRAGGLER_REDIAL"] = "1"
+    seen: list = []
+    obs_events.add_listener(seen.append)
+
+    async def run():
+        try:
+            wall = time.perf_counter()
+            first = await ex.run(late_rank_electron, [STRAGGLER_DELAY_S], {},
+                                 {"dispatch_id": "straggler", "node_id": 0})
+            wall = time.perf_counter() - wall
+            await asyncio.gather(*list(ex._cleanup_tasks))
+            dropped = ex._pool_key(workers[2]) not in ex._transports
+            misses = _metric("covalent_tpu_pool_acquires_total", result="miss")
+            second = await ex.run(late_rank_electron, [0.0], {},
+                                  {"dispatch_id": "straggler", "node_id": 1})
+            dialed = _metric("covalent_tpu_pool_acquires_total", result="miss") - misses
+            live = await ex.health_canary(workers[0])
+            client = ex._agent_of(workers[0])
+            conn = ex._transports[ex._pool_key(workers[0])]
+            await conn.run(f"kill -9 {client._banner['pid']}")
+            for _ in range(200):
+                if not client.alive:
+                    break
+                await asyncio.sleep(0.05)
+            dead = await ex.health_canary(workers[0])
+            return first, second, wall, dropped, dialed, live, dead
+        finally:
+            await ex.close()
+
+    try:
+        first, second, wall, dropped, dialed, live, dead = asyncio.run(run())
+    finally:
+        obs_events.remove_listener(seen.append)
+        for key, value in saved.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+    flagged = [e for e in seen if e.get("type") == "fleet.straggler"]
+    redials = [e for e in seen if e.get("type") == "fleet.straggler_redial"]
+    line = {"arm": "straggler", "workers": workers, "gang_size": len(workers),
+            "delay_s": STRAGGLER_DELAY_S, "budget_s": STRAGGLER_BUDGET_S,
+            "flagged": [{"worker": e["worker"], "differential_s": e["differential"]}
+                        for e in flagged],
+            "straggler_redial": [{"worker": e["worker"], "discarded": e["discarded"]}
+                                 for e in redials],
+            "channel_dropped": dropped, "next_electron_fresh_dials": dialed,
+            "health": HEALTH.snapshot().get(workers[2]), "electron_wall_s": wall,
+            "canary_live": live, "canary_after_kill": dead}
+    if (first, second) != (0, 0) or [f["worker"] for f in line["flagged"]] != [workers[2]] \
+            or not (STRAGGLER_BUDGET_S < flagged[0]["differential"] < STRAGGLER_DELAY_S + 3.0) \
+            or [r["worker"] for r in line["straggler_redial"]] != [workers[2]] \
+            or not dropped or dialed != 1 or live is not True or dead is not False:
+        raise AssertionError(f"lifecycle straggler: {line}")
+    return line
+
+
+def _cas_arm(executor) -> dict:
+    """The worker CAS's byte budget over minissh: electrons whose function
+    pickles each carry one LM bundle (a block of the 125M LM), a budget of
+    the harness and 1.2 bundles, so each electron's maintenance
+    evicts the bundle before it; the harness and the running electron's
+    pickle survive every prune.  The TTL clause rides the pre-flight."""
+    import hashlib
+    import re
+
+    from covalent_tpu_plugin_torch import harness as harness_mod
+    from covalent_tpu_plugin_torch.cache import harness_digest
+    from covalent_tpu_plugin_torch.obs import events as obs_events
+
+    bundles = [lm_block_bundle(seed) for seed in CAS_SEEDS]
+    budget = os.path.getsize(harness_mod.__file__) + int(1.2 * len(bundles[0]))
+    ex = executor("cas", use_agent=False, cas_max_bytes=budget)
+    cas_dir = Path(ex.remote_cache) / "cas"
+    digests: list = []
+    stage = ex._write_function_files
+
+    def keep(*args, **kwargs):
+        staged = stage(*args, **kwargs)
+        digests.append(staged.function_digest)
+        return staged
+
+    ex._write_function_files = keep
+    seen: list = []
+    obs_events.add_listener(seen.append)
+
+    async def run():
+        rows = []
+        try:
+            for seed, blob in zip(CAS_SEEDS, bundles):
+                wall = time.perf_counter()
+                out = await ex.run(cas_bundle_electron, [blob], {},
+                                   {"dispatch_id": "cas", "node_id": seed})
+                held = sorted(p.name for p in cas_dir.iterdir())
+                rows.append({"seed": seed, "bytes": out["bytes"],
+                             "wall_s": time.perf_counter() - wall,
+                             "upload_s": ex.last_timings.get("upload"),
+                             "cas_files": len(held), "cas_bytes": sum(
+                                 (cas_dir / n).stat().st_size for n in held),
+                             "harness_kept": f"{harness_digest()}.py" in held,
+                             "running_pickle_kept": f"{digests[-1]}.pkl" in held,
+                             "ok": out["sha256"] == hashlib.sha256(blob).hexdigest()})
+            return rows, ex._preflight_command()
+        finally:
+            await ex.close()
+
+    try:
+        rows, preflight = asyncio.run(run())
+    finally:
+        obs_events.remove_listener(seen.append)
+    evicted = [e["evicted"] for e in seen
+               if e.get("type") == "cas.bytes_pruned" and e.get("site") == "remote"]
+    ttl = re.search(r"-mmin \+(\d+)", preflight)
+    line = {"arm": "cas", "bundle_bytes": len(bundles[0]), "cas_max_bytes": budget,
+            "electrons": rows, "cas_evicted": evicted, "cas_evicted_total": sum(evicted),
+            "ttl_mmin": int(ttl.group(1)) if ttl else None, "cas_ttl_hours": ex.cas_ttl_hours}
+    if sum(evicted) != len(CAS_SEEDS) - 1 or not all(
+            r["ok"] and r["harness_kept"] and r["running_pickle_kept"] for r in rows) \
+            or line["ttl_mmin"] != int(ex.cas_ttl_hours * 60):
+        raise AssertionError(f"lifecycle cas: {line}")
+    return line
+
+
+def _serving_launches(stats: dict) -> dict:
+    return {k.split(".", 1)[1]: v for k, v in stats.items() if k.startswith("serving_launches.")}
+
+
+async def _ssh_serving(executor, server, serve_streams: list, config,
+                       device: str = "cuda") -> tuple[list, dict]:
+    """The serve cell over minissh: one session through ``open_session``,
+    then a replica set of two, each replica behind its own SSH address.
+    Every stream against the local ``session`` phase's."""
+    from covalent_tpu_plugin_torch.serving import open_replica_set, open_session
+
+    prompts, caps = session_prompts(config.vocab_size)
+    lines = []
+    ex = executor("ssh_session", use_agent="pool", pool_preload=SERVE_PRELOAD)
+    try:
+        wall = time.perf_counter()
+        handle = await open_session(ex, serve_factory(config, device), stats_interval_s=1.0,
+                                    open_timeout_s=300)
+        open_s = time.perf_counter() - wall
+        await _warm(handle, config, 1)
+        before = wire_bytes()
+        results, wall, ttft, latency = await _timed_burst(handle, prompts, caps)
+        wire = wire_delta(before, sum(caps))
+        stats = await _settled_stats(handle.supervisor, len(prompts) + 1)
+        frames = handle.supervisor._client.frames_active
+        address = handle.supervisor.address
+        closed = await handle.close()
+    finally:
+        await ex.close()
+    differ = sum(a != b for s, w in zip(results, serve_streams) for a, b in zip(s, w))
+    serving = _serving_launches(stats)
+    line = {"arm": "ssh_session", "address": address, "open_s": open_s,
+            "requests": len(prompts), "caps": caps, "tokens_per_s": sum(caps) / wall,
+            "wall_s": wall, "ttft_s": _percentiles(ttft), "completion_s": _percentiles(latency),
+            "wire": wire, "wire_bytes_per_token": wire["down_bytes_per_token"],
+            "frames_active": frames, "tokens_differ_session_phase": differ,
+            "streams_complete": sum(len(r) == c for r, c in zip(results, caps)),
+            "served": closed.get("served"), "serving_launches": dict(serving),
+            "flash_launches": _flash(stats),
+            "worker_peak_mem_bytes": (stats.get("device_mem") or {}).get("peak_bytes_in_use")}
+    if differ or line["streams_complete"] != len(prompts) or not frames \
+            or not all(serving.get(k, 0) >= 1 for k in SERVING_ROUTES_ON_PATH) \
+            or any(_flash(stats).values()):
+        raise AssertionError(f"lifecycle ssh_session: {line}")
+    lines.append(line)
+
+    replicas = [executor(f"ssh_replica_{i}", use_agent="pool", pool_preload=SERVE_PRELOAD,
+                         hostname=server.address(host))
+                for i, host in enumerate(("127.0.0.1", "localhost"))]
+    try:
+        start = time.perf_counter()
+        await asyncio.gather(*(r.lease_gang() for r in replicas))
+        pools_s = time.perf_counter() - start
+        start = time.perf_counter()
+        rset = await open_replica_set(replicas, serve_factory(config, device),
+                                      stats_interval_s=1.0, open_timeout_s=300)
+        open_s = time.perf_counter() - start
+        await _warm(rset, config, 2)
+        results, wall, ttft, latency = await _timed_burst(rset, prompts, caps)
+        placed = dict(rset.placed)
+        set_stats = {rid: await _settled_stats(sup, sup.served)
+                     for rid, sup in rset.supervisors.items()}
+        addresses = {rid: sup.address for rid, sup in rset.supervisors.items()}
+        await rset.close()
+    finally:
+        for r in replicas:
+            await r.close()
+    differ = sum(a != b for s, w in zip(results, serve_streams) for a, b in zip(s, w))
+    for rid, st in set_stats.items():
+        for k, n in _serving_launches(st).items():
+            serving[k] = serving.get(k, 0) + n
+    line = {"arm": "ssh_replicas", "replicas": 2, "addresses": addresses,
+            "pools_start_s": pools_s, "open_s": open_s, "tokens_per_s": sum(caps) / wall,
+            "wall_s": wall, "ttft_s": _percentiles(ttft), "completion_s": _percentiles(latency),
+            "placed": placed, "tokens_differ_session_phase": differ,
+            "streams_complete": sum(len(r) == c for r, c in zip(results, caps)),
+            "serving_launches": {rid: _serving_launches(st) for rid, st in set_stats.items()}}
+    if differ or line["streams_complete"] != len(prompts) or set(placed) != {"r0", "r1"}:
+        raise AssertionError(f"lifecycle ssh_replicas: {line}")
+    lines.append(line)
+    return lines, serving
+
+
+def lifecycle_phase(session_streams: list, device: str = "cuda") -> tuple[list[dict], dict]:
+    """The executor's lifecycle over minissh (slice 5b-iii): the ``prewarm``
+    and ``teardown`` arms, the ``straggler`` arm (and the canary), the
+    ``cas`` arm, and the serve cell over SSH (``ssh_session``,
+    ``ssh_replicas``) held token for token against the ``session`` phase.
+    Returns the lines and the serving kernels' launches over SSH."""
+    from covalent_tpu_plugin_torch import GPUExecutor
+    from covalent_tpu_plugin_torch.models.transformer import lm_125m_config
+
+    stack = _ssh_stack()
+    if not stack["python"]["cryptography"]:
+        return [{"skipped": "no SSH backend on this machine: missing the `cryptography` "
+                            "package (minissh)", "stack": stack}], {}
+    work = WORK / "lifecycle"
+    server = SSHServer(work / "keys")
+
+    def executor(name: str, **kwargs) -> "GPUExecutor":
+        settings = dict(
+            transport="minissh", hostname=server.address(), ssh_key_file=server.key_file,
+            known_host_key_file=server.host_pub, strict_host_keys=True,
+            cache_dir=str(work / name / "cache"), remote_cache=str(work / name / "remote"),
+            remote_workdir=str(work / name / "work"), python_path=sys.executable,
+            task_env={"PYTHONPATH": str(ROOT)}, task_timeout=600, poll_freq=0.25,
+            max_connection_attempts=3, retry_wait_time=1.0)
+        settings.update(kwargs)
+        return GPUExecutor(**settings)
+
+    lines: list = []
+    try:
+        for arm, run in (("prewarm", lambda: _prewarm_arm(executor)),
+                         ("straggler", lambda: [_straggler_arm(executor, server)]),
+                         ("cas", lambda: [_cas_arm(executor)])):
+            start = time.perf_counter()
+            arm_lines = run()
+            arm_lines[-1]["seconds"] = time.perf_counter() - start
+            lines.extend(arm_lines)
+        start = time.perf_counter()
+        serving_lines, serving = asyncio.run(_ssh_serving(
+            executor, server, session_streams, lm_125m_config(max_seq=512), device))
+        serving_lines[-1]["seconds"] = time.perf_counter() - start
+        lines.extend(serving_lines)
+    finally:
+        server.close()
+    return lines, serving
 
 
 # --- the native agent, resident profiling, metrics and Pool targets ----------
@@ -4413,7 +5037,7 @@ def main() -> int:
         for line in lattice_lines if "overhead" in line}
     _kernels.reset_launch_counts()
     start = time.perf_counter()
-    ssh_lines, ssh_launches = ssh_phase(arms[0]["losses"], local_overheads)
+    ssh_lines, ssh_launches, cache_launches = ssh_phase(arms[0]["losses"], local_overheads)
     # the electrons ran in the workers, which report their counts; ours
     # (0 after the reset unless the dispatcher launched one) are added
     ssh_launches = {name: n + ssh_launches.get(name, 0)
@@ -4422,6 +5046,18 @@ def main() -> int:
         emit({"phase": "ssh", "card": smi, **line})
     emit({"phase": "ssh", "card": smi, "seconds": time.perf_counter() - start,
           "flash_launches": ssh_launches})
+
+    # The executor's lifecycle over minissh: prewarm and teardown, a
+    # straggler and the canary, the CAS's byte budget, and the serve cell
+    # over SSH, whose workers report the serving kernels' launches.
+    _kernels.reset_launch_counts()
+    start = time.perf_counter()
+    lifecycle_lines, lifecycle_serving = lifecycle_phase(pool_session["results"])
+    for line in lifecycle_lines:
+        emit({"phase": "lifecycle", "card": smi, **line})
+    emit({"phase": "lifecycle", "card": smi, "seconds": time.perf_counter() - start,
+          "serving_launches": lifecycle_serving,
+          "flash_launches": _kernels.launch_counts()})
 
     # The native agent's roads, resident profiling, the per-session
     # families and Pool targets: the electrons report their own launches
@@ -4449,6 +5085,7 @@ def main() -> int:
             "ssh_launches": ssh_launches.get(kernel.name, 0),
             "agent_launches": agent_launches.get(kernel.name, 0),
             "elastic_launches": elastic_launches.get(kernel.name, 0),
+            "cache_miss_launches": cache_launches.get(kernel.name, 0),
             "max_abs_err": max(path_errs), "ms": res["kernel_ms"], "plain_ms": res["plain_ms"],
             "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
             "library_ms": res["library_ms"], "ms_cold_l2": res["kernel_cold_ms"],
@@ -4483,6 +5120,8 @@ def main() -> int:
             raise AssertionError(f"{kernel.name} was not launched on the agent phase's path")
         if elastic_launches.get(kernel.name, 0) < 1:
             raise AssertionError(f"{kernel.name} was not launched on the elastic phase's path")
+        if cache_launches.get(kernel.name, 0) < 1 and "skipped" not in ssh_lines[0]:
+            raise AssertionError(f"{kernel.name} was not launched on the cache arm's misses")
     # The serving kernels port no Pallas kernel: the main path is the serve
     # phase, where the bf16 LM runs the tensor-core products, the mix and
     # the norm; the f32 CUDA-core product's path is serve_check's f32 LM
@@ -4511,6 +5150,7 @@ def main() -> int:
             "replaces": kernel.replaces, "launches": launches,
             "path": "serve" if on_serve else "serve_check (f32 LM)",
             "serve_launches": serving_launches[kernel.name],
+            "ssh_session_launches": lifecycle_serving.get(kernel.name, 0),
             "max_abs_err": err, "ms": res["ms"], "plain_ms": res["plain_ms"],
             "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
             "library_ms": res["library_ms"], "shape": key,
@@ -4519,6 +5159,9 @@ def main() -> int:
         })
         if launches < 1:
             raise AssertionError(f"{kernel.name} was not launched on its path")
+        if on_serve and lifecycle_serving.get(kernel.name, 0) < 1 \
+                and "skipped" not in lifecycle_lines[0]:
+            raise AssertionError(f"{kernel.name} was not launched on the serve cell over SSH")
     if serving_launches["bi_gemm"]:
         raise AssertionError(f"the bf16 serve path launched the f32 CUDA-core product "
                              f"{serving_launches['bi_gemm']} times")

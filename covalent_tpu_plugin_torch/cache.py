@@ -19,9 +19,14 @@ bundle under the operation's own names (``op_files``) and leave with it.
 * :class:`FnRegistry` — per-connection registered-function digests: one
   ``register_fn`` per digest and resident runtime.
 * :func:`prune_cas_dir` — the byte-budget LRU prune of one CAS directory,
-  which bounds the disaggregated set's local mirror of KV bundles.
-
-The result cache and the TTL prune are not ported yet (ROADMAP Queue 1).
+  which bounds the disaggregated set's local mirror of KV bundles, and
+  :func:`cas_bytes_prune_command`, the same prune as a shell clause the
+  executor runs on a worker after each electron (it prints
+  ``CAS_EVICTED=<n>``).  The TTL prune is the executor's (``find -mmin``).
+* :class:`ResultCache` — the opt-in, disk-backed LRU of completed electron
+  results (``cache_results``): a repeat dispatch of an identical electron
+  returns the stored result without touching the transport.  Bounded by
+  entries and bytes, oldest first; only clean completions are stored.
 """
 
 from __future__ import annotations
@@ -29,26 +34,36 @@ from __future__ import annotations
 import asyncio
 import hashlib
 import os
+import pickle
+import shlex
+import threading
 import uuid
 from functools import lru_cache
+from typing import Any
+
+import cloudpickle
 
 from .obs import events as obs_events
 from .obs.metrics import REGISTRY
 from .obs.trace import Span
 from .transport import codec as codec_mod
 from .transport.base import Transport, TransportError
+from .utils.log import app_log
 
 __all__ = [
     "CAS_DIR",
     "CASIndex",
     "FnRegistry",
+    "ResultCache",
     "bytes_digest",
+    "cas_bytes_prune_command",
     "cas_path",
     "file_digest",
     "harness_digest",
     "prune_cas_dir",
     "CAS_EVICTIONS_TOTAL",
     "CAS_UPLOADS_TOTAL",
+    "RESULT_CACHE_TOTAL",
     "RPC_REGISTRATIONS_TOTAL",
     "STAGING_OPS_TOTAL",
 ]
@@ -60,6 +75,11 @@ CAS_UPLOADS_TOTAL = REGISTRY.counter(
     "covalent_tpu_cas_uploads_total",
     "CAS artifact upload decisions (hit = worker already holds the digest, "
     "put skipped; miss = payload shipped)",
+    ("result",),
+)
+RESULT_CACHE_TOTAL = REGISTRY.counter(
+    "covalent_tpu_result_cache_total",
+    "Electron result-memoization events by result",
     ("result",),
 )
 RPC_REGISTRATIONS_TOTAL = REGISTRY.counter(
@@ -151,6 +171,47 @@ def prune_cas_dir(root: str, max_bytes: int) -> int:
     return evicted
 
 
+#: :func:`prune_cas_dir` as a stdlib-only program for a worker's own
+#: interpreter (``python -E -S -c``): it prints ``CAS_EVICTED=<n>`` for the
+#: dispatcher's eviction counter.
+_REMOTE_PRUNE_PROGRAM = """\
+import os, sys
+root, budget = sys.argv[1], int(sys.argv[2])
+entries = []
+try:
+    names = os.listdir(root)
+except OSError:
+    names = []
+for name in names:
+    path = os.path.join(root, name)
+    try:
+        stat = os.stat(path)
+    except OSError:
+        continue
+    if os.path.isfile(path):
+        entries.append((stat.st_mtime, stat.st_size, path))
+entries.sort()
+total = sum(size for _, size, _ in entries)
+evicted = 0
+for _, size, path in entries:
+    if total <= budget:
+        break
+    try:
+        os.remove(path)
+    except OSError:
+        continue
+    total -= size
+    evicted += 1
+print('CAS_EVICTED=%d' % evicted)
+"""
+
+
+def cas_bytes_prune_command(python_path: str, cas_dir: str, max_bytes: int) -> str:
+    """Shell clause running the byte-budget LRU prune on a worker."""
+    return (f"{python_path} -E -S -c {shlex.quote(_REMOTE_PRUNE_PROGRAM)} "
+            f"{shlex.quote(cas_dir)} {int(max_bytes)}")
+
+
 class CASIndex:
     """Per-connection "already present" digest sets with single-flight puts.
 
@@ -166,6 +227,13 @@ class CASIndex:
         #: losers re-check the present set and retry if the put failed.
         self._inflight: dict[tuple[str, str], asyncio.Future] = {}
         self._probe_locks: dict[str, asyncio.Lock] = {}
+
+    def known(self, key: str, digest: str) -> bool:
+        return digest in self._present.get(key, ())
+
+    def holds(self, digest: str) -> bool:
+        """Whether ANY live connection's present set holds ``digest``."""
+        return bool(digest) and any(digest in present for present in self._present.values())
 
     async def ensure_probed(
         self, key: str, conn: Transport, entries: list[tuple[str, str]]
@@ -303,6 +371,12 @@ class CASIndex:
         self._probed.discard(key)
         self._probe_locks.pop(key, None)
 
+    def forget_digest(self, digest: str) -> None:
+        """Drop one digest from every present set (its remote file was
+        deleted)."""
+        for present in self._present.values():
+            present.discard(digest)
+
 
 class FnRegistry:
     """Per-connection registered-function digests for RPC dispatch.
@@ -378,3 +452,115 @@ class FnRegistry:
         """Evict one connection's registrations (channel discarded)."""
         self._registered.pop(key, None)
         self._owners.pop(key, None)
+
+
+class ResultCache:
+    """Disk-backed LRU of completed electron results (the reference's
+    ``ResultCache``, ``covalent_tpu_plugin/cache.py:563``).
+
+    One file per entry (``{key}.pkl`` under ``root``); recency is the
+    file's mtime, touched on every hit, so the store outlives the process
+    and is shared by every executor pointing at the same ``cache_dir``
+    (the fresh executor each workflow dispatch builds from an alias among
+    them).  Bounded by ``max_entries`` and ``max_bytes``, oldest first.
+    """
+
+    def __init__(self, root: str, max_entries: int = 512,
+                 max_bytes: int = 256 * 1024 * 1024) -> None:
+        self.root = root
+        self.max_entries = max(1, int(max_entries))
+        self.max_bytes = max(1, int(max_bytes))
+        self._lock = threading.Lock()
+
+    @staticmethod
+    def make_key(*parts: str) -> str:
+        return bytes_digest("\x00".join(parts).encode())
+
+    def _path(self, key: str) -> str:
+        return os.path.join(self.root, f"{key}.pkl")
+
+    def get(self, key: str) -> tuple[bool, Any]:
+        """``(hit, value)``: a missing or corrupt entry is a miss, never an
+        error in the dispatch it would have spared."""
+        path = self._path(key)
+        with self._lock:
+            try:
+                with open(path, "rb") as f:
+                    value = pickle.load(f)
+                os.utime(path)  # the LRU touch
+            except Exception:  # noqa: BLE001 - any unreadable entry is a miss
+                RESULT_CACHE_TOTAL.labels(result="miss").inc()
+                return False, None
+        RESULT_CACHE_TOTAL.labels(result="hit").inc()
+        return True, value
+
+    def put(self, key: str, value: Any) -> bool:
+        """Best-effort store; True when the entry landed.  An unpicklable
+        or oversized value is counted and skipped."""
+        try:
+            data = cloudpickle.dumps(value)
+        except Exception as err:  # noqa: BLE001 - arbitrary user objects
+            RESULT_CACHE_TOTAL.labels(result="unpicklable").inc()
+            app_log.debug("result cache: value not picklable (%s)", err)
+            return False
+        if len(data) > self.max_bytes:
+            RESULT_CACHE_TOTAL.labels(result="oversize").inc()
+            return False
+        path = self._path(key)
+        with self._lock:
+            try:
+                os.makedirs(self.root, exist_ok=True)
+                tmp = f"{path}.tmp.{os.getpid()}"
+                with open(tmp, "wb") as f:
+                    f.write(data)
+                os.replace(tmp, path)
+            except OSError as err:
+                RESULT_CACHE_TOTAL.labels(result="error").inc()
+                app_log.warning("result cache write failed: %s", err)
+                return False
+            RESULT_CACHE_TOTAL.labels(result="store").inc()
+            self._evict_locked()
+        return True
+
+    def _entries(self) -> list[tuple[float, int, str]]:
+        out = []
+        try:
+            with os.scandir(self.root) as it:
+                for entry in it:
+                    if not entry.name.endswith(".pkl"):
+                        continue
+                    try:
+                        stat = entry.stat()
+                    except OSError:
+                        continue
+                    out.append((stat.st_mtime, stat.st_size, entry.path))
+        except OSError:
+            return []
+        return sorted(out)
+
+    def _evict_locked(self) -> None:
+        entries = self._entries()
+        total = sum(size for _, size, _ in entries)
+        evicted = 0
+        while entries and (len(entries) > self.max_entries or total > self.max_bytes):
+            _, size, path = entries.pop(0)
+            try:
+                os.remove(path)
+            except OSError:
+                continue
+            total -= size
+            evicted += 1
+            RESULT_CACHE_TOTAL.labels(result="evict").inc()
+        if evicted:
+            obs_events.emit("result_cache.evicted", count=evicted, root=self.root)
+
+    def clear(self) -> None:
+        with self._lock:
+            for _, _, path in self._entries():
+                try:
+                    os.remove(path)
+                except OSError:
+                    pass
+
+    def __len__(self) -> int:
+        return len(self._entries())

@@ -131,11 +131,24 @@ started; :meth:`GPUExecutor.recover` then re-adopts its sessions and
 streams (``fleet/recovery.py``).  A journaled electron that was in flight
 is reported, not run again.
 
-Not ported (slice 5b-iii, refused by name): the gang's stragglers and
-lifecycle (``prewarm``, ``teardown_gang``, ``health_canary``), the
-result cache and the worker CAS's TTL and byte-budget prunes
-(``cache_results``, ``cas_ttl_hours``, ``cas_max_bytes``), the fleet
-scheduler and the ops endpoint.
+The gang's lifecycle (``tpu.py:1289-1407, 2604-2690``): ``prewarm`` (on by
+default) lets the workflow runner dial a node's workers while the node
+waits on its upstream nodes (:meth:`GPUExecutor.prewarm`);
+:meth:`GPUExecutor.teardown_gang` releases a warm gang;
+:meth:`GPUExecutor.health_canary` pings a worker's resident runtime.  A
+gang process that finishes more than ``COVALENT_TPU_STRAGGLER_BUDGET_S``
+(default 5 s) after the gang's median is flagged to the health monitor
+(``fleet/health.py``) and, with ``COVALENT_TPU_STRAGGLER_REDIAL``, its
+channel is dialed afresh for the next electron.
+
+Caches (``covalent_tpu_plugin_torch/cache.py``): with ``cache_results`` (or
+``COVALENT_TPU_RESULT_CACHE=1``) a repeat of an identical electron returns
+the stored result from ``{cache_dir}/results`` ahead of the connect, on
+either road (each its own key); the worker's CAS is pruned by age
+(``cas_ttl_hours``, at pre-flight and after each launched electron) and
+by bytes (``cas_max_bytes``, after each launched electron).
+
+Not ported: the fleet scheduler and the ops endpoint (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -169,9 +182,21 @@ from .agent import (
     read_orphan_rendezvous,
     start_pool_server,
 )
-from .cache import CASIndex, FnRegistry, bytes_digest, cas_path, file_digest, harness_digest
+from .cache import (
+    CAS_EVICTIONS_TOTAL,
+    RESULT_CACHE_TOTAL,
+    CASIndex,
+    FnRegistry,
+    ResultCache,
+    bytes_digest,
+    cas_bytes_prune_command,
+    cas_path,
+    file_digest,
+    harness_digest,
+)
 from .executor_base import RemoteExecutor
 from .fleet import journal as journal_mod
+from .fleet.health import HEALTH
 from .obs import events as obs_events
 from .obs.heartbeat import MONITOR, STALLS_TOTAL
 from .obs.metrics import REGISTRY
@@ -301,6 +326,23 @@ _EXECUTOR_PLUGIN_DEFAULTS = {
     # COVALENT_TPU_CHECKPOINT_INTERVAL_S / _KEEP override.
     "checkpoint_interval_s": 0.0,
     "checkpoint_keep_n": 3,
+    # Result memoization (tpu.py:174-180, cache.ResultCache): a repeat of an
+    # identical electron returns the stored result without touching the
+    # transport.  Sound only for side-effect-free electrons, hence off;
+    # COVALENT_TPU_RESULT_CACHE=1 turns it on for the process.
+    "cache_results": False,
+    "result_cache_max_entries": 512,
+    "result_cache_max_bytes": 256 * 1024 * 1024,
+    # Age bound on {remote_cache}/cas/ (tpu.py:185): pruned at each
+    # channel's pre-flight and after each launched electron; 0 disables.
+    "cas_ttl_hours": 168.0,
+    # Byte budget on the same directory, oldest first, after each launched
+    # electron (its own artifacts touched first, so they go last); 0
+    # disables.  COVALENT_TPU_CAS_MAX_BYTES overrides.
+    "cas_max_bytes": 0,
+    # The workflow runner pre-dials this executor (lease_gang) while a node
+    # waits on its upstream nodes (tpu.py:221); never under a chaos plan.
+    "prewarm": True,
 }
 
 _TASKS_TOTAL = REGISTRY.counter(
@@ -320,6 +362,18 @@ _WALL_OVERHEAD_HIST = REGISTRY.histogram(
     "covalent_tpu_wall_overhead_seconds",
     "Per-electron wall-clock dispatch overhead (elapsed minus execute)",
 )
+_PREWARM_TOTAL = REGISTRY.counter(
+    "covalent_tpu_prewarm_total",
+    "DAG-driven connection prewarm attempts by result",
+    ("result",),
+)
+#: How long a whole gang's prewarm (dial, pre-flight, pool server) takes,
+#: by fleet pool ("" for an executor outside one).
+_PREWARM_SECONDS = REGISTRY.histogram(
+    "covalent_tpu_prewarm_seconds",
+    "Gang prewarm (cold-start) duration per fleet pool",
+    ("pool",),
+)
 
 CHECKPOINT_SAVES_TOTAL = REGISTRY.counter(
     "covalent_tpu_checkpoint_saves_total",
@@ -334,9 +388,6 @@ _CHECKPOINT_RESUMED_STEP = REGISTRY.gauge(
     "covalent_tpu_checkpoint_resumed_step",
     "Step of the most recent checkpoint shipped as a resume reference",
 )
-
-#: Parts of the reference's executor that come with slice 5b-iii.
-SLICE_5B_III = "slice 5b-iii (ROADMAP Queue 1 item 2)"
 
 #: Stages that are the electron's own work, not dispatch overhead.
 _NOT_OVERHEAD = ("execute", "profile")
@@ -458,13 +509,16 @@ class TaskStatus(str, Enum):
 
 
 class StagedTask:
-    """Paths produced by staging one task (reference: ``ssh.py:173-179``).
+    """Paths produced by staging one task (reference: ``ssh.py:173-179``,
+    ``tpu.py:354-425``).
 
-    The harness is content-addressed (``{remote_cache}/cas/{digest}.py``):
-    it ships once per connection and stays.  Everything else is the
-    operation's own and is cleaned up after it: the function pickle, the
-    specs, the result, the logs, the pid files, the telemetry files and
-    heartbeat snapshots, and a resume bundle shipped to a retry attempt.
+    The harness and the function pickle are content-addressed
+    (``{remote_cache}/cas/{digest}.py`` and ``.pkl``): each ships once per
+    connection and stays, aged out by the CAS's prunes.  Everything else is
+    the operation's own and is cleaned up after it: the specs (they name the
+    operation, so they never dedupe), the result, the logs, the pid files,
+    the telemetry files and heartbeat snapshots, and a resume bundle
+    shipped to a retry attempt.
     A gang of ``processes`` > 1 has a spec, a log and a pid file per
     process (``..._{i}``) and the done markers of processes 1.. beside the
     one result file (:meth:`rank`); a single process keeps the plain names.
@@ -477,7 +531,6 @@ class StagedTask:
         self.function_file = str(cache_dir / f"function_{operation_id}.pkl")
         self.spec_file = str(cache_dir / f"spec_{operation_id}.json")
         self.local_result_file = str(cache_dir / f"result_{operation_id}.pkl")
-        self.remote_function_file = f"{remote_cache}/function_{operation_id}.pkl"
         self.harness_digest = harness_digest()
         self.remote_harness_file = cas_path(remote_cache, self.harness_digest, ".py")
         self.remote_spec_file = f"{remote_cache}/spec_{operation_id}.json"
@@ -494,6 +547,10 @@ class StagedTask:
         #: there, and must not unlink the one this attempt restores from)
         self.resume_artifact: tuple[str, str, str] | None = None
         self._remote_cache = remote_cache
+
+    @property
+    def remote_function_file(self) -> str:
+        return cas_path(self._remote_cache, self.function_digest, ".pkl")
 
     def rank(self, i: int) -> dict[str, str]:
         """Process ``i``'s files: ``spec`` (local), ``remote_spec``, ``log``,
@@ -520,12 +577,15 @@ class StagedTask:
         """``(local, remote, digest)`` of the harness, a CAS artifact."""
         return _harness_module.__file__, self.remote_harness_file, self.harness_digest
 
+    def function_artifact(self) -> tuple[str, str, str]:
+        """``(local, remote, digest)`` of the function pickle, a CAS artifact."""
+        return self.function_file, self.remote_function_file, self.function_digest
+
     def artifacts(self, i: int) -> list[tuple[str, str, str]]:
         """``(local, remote, digest)`` of the files process ``i``'s worker
-        gets that are the operation's own: the function pickle and its spec."""
+        gets that are the operation's own: its spec."""
         files = self.rank(i)
-        return [(self.function_file, self.remote_function_file, self.function_digest),
-                (files["spec"], files["remote_spec"], self.spec_digests[i])]
+        return [(files["spec"], files["remote_spec"], self.spec_digests[i])]
 
     def local_files(self) -> list[str]:
         return [self.function_file, self.local_result_file] + [
@@ -533,8 +593,8 @@ class StagedTask:
 
     def remote_files(self, i: int | None = None) -> list[str]:
         """The operation's files on process ``i``'s worker (on every
-        process's when None); the CAS harness is not among them."""
-        files = [self.remote_function_file, self.remote_result_file]
+        process's when None); the CAS artifacts are not among them."""
+        files = [self.remote_result_file]
         if self.resume_artifact is not None:
             files.append(self.resume_artifact[1])
         for r in (self.rank(p) for p in (range(self.processes) if i is None else (i,))):
@@ -583,8 +643,12 @@ class GPUExecutor(RemoteExecutor):
     ``COVALENT_TPU_CHAOS``, ``COVALENT_TPU_HEARTBEAT_S``,
     ``COVALENT_TPU_STALL_S``, ``COVALENT_TPU_CHECKPOINT_INTERVAL_S`` and
     ``COVALENT_TPU_CHECKPOINT_KEEP`` stand in for an argument left at None.
-    ``prewarm``, ``cache_results``, ``cas_ttl_hours`` and ``cas_max_bytes``
-    are refused: they come with slice 5b-iii.
+
+    The lifecycle and caches (module docstring): ``prewarm``,
+    ``cache_results`` with ``result_cache_max_entries`` and
+    ``result_cache_max_bytes``, ``cas_ttl_hours`` and ``cas_max_bytes``;
+    ``COVALENT_TPU_RESULT_CACHE`` and ``COVALENT_TPU_CAS_MAX_BYTES`` stand in
+    for an argument left at None.
 
     An argument left at None takes ``get_config("executors.gpu.<key>")``,
     else the default in ``_EXECUTOR_PLUGIN_DEFAULTS``: that is how
@@ -660,6 +724,8 @@ class GPUExecutor(RemoteExecutor):
         checkpoint_keep_n: int | None = None,
         prewarm: bool | None = None,
         cache_results: bool | None = None,
+        result_cache_max_entries: int | None = None,
+        result_cache_max_bytes: int | None = None,
         cas_ttl_hours: float | None = None,
         cas_max_bytes: int | None = None,
     ) -> None:
@@ -672,11 +738,6 @@ class GPUExecutor(RemoteExecutor):
         use_agent = resolve(use_agent, "use_agent")
         if transport not in _TRANSPORTS:
             raise ValueError(f'transport must be "local", "ssh" or "minissh", got {transport!r}')
-        for name, value in (("prewarm", prewarm), ("cache_results", cache_results),
-                            ("cas_ttl_hours", cas_ttl_hours), ("cas_max_bytes", cas_max_bytes)):
-            if value:
-                raise NotImplementedError(f"{name} is not ported yet: it comes with "
-                                          f"{SLICE_5B_III}")
         compress = str(resolve(compress, "compress")).lower()
         if compress in ("0", "false", "no", "none", "raw"):
             compress = "off"
@@ -784,6 +845,32 @@ class GPUExecutor(RemoteExecutor):
         self.checkpoint_keep_n = max(1, int(resolve(
             from_env(checkpoint_keep_n, "COVALENT_TPU_CHECKPOINT_KEEP", int),
             "checkpoint_keep_n")))
+        #: whether the workflow runner may pre-dial this executor, and
+        #: whether a prewarm already warmed it (reset when workers are
+        #: discarded); the fleet pool it serves, for the prewarm histogram
+        self.prewarm_enabled = bool(resolve(prewarm, "prewarm"))
+        self._prewarmed = False
+        self.pool_label = ""
+        #: result memoization (tpu.py:666-671, 817): argument >
+        #: COVALENT_TPU_RESULT_CACHE > config; the store lives under
+        #: ``{cache_dir}/results`` and is shared by executors on that dir
+        env_cache = os.environ.get("COVALENT_TPU_RESULT_CACHE")
+        if cache_results is None and env_cache is not None:
+            cache_results = env_cache.strip().lower() not in ("", "0", "false", "no", "off")
+        self.cache_results = bool(resolve(cache_results, "cache_results"))
+        self._result_cache: ResultCache | None = ResultCache(
+            os.path.join(self.cache_dir, "results"),
+            max_entries=int(resolve(result_cache_max_entries, "result_cache_max_entries")),
+            max_bytes=int(resolve(result_cache_max_bytes, "result_cache_max_bytes")),
+        ) if self.cache_results else None
+        #: attempt ids served from the result cache (their run's outcome is
+        #: "cached")
+        self._cache_hits: set[str] = set()
+        #: the worker CAS's prunes (tpu.py:672-687): the TTL at pre-flight and
+        #: after each launched electron, the byte budget after each
+        self.cas_ttl_hours = float(resolve(cas_ttl_hours, "cas_ttl_hours"))
+        self.cas_max_bytes = max(0, int(resolve(
+            from_env(cas_max_bytes, "COVALENT_TPU_CAS_MAX_BYTES", int), "cas_max_bytes")))
         #: attempts of the latest ``run``, and per lineage (``attempts_of``)
         self.last_attempts = 0
         self._op_attempts: dict[str, int] = {}
@@ -800,6 +887,9 @@ class GPUExecutor(RemoteExecutor):
         self._resume_plans: dict[str, dict[str, Any]] = {}
         #: attempt ids whose worker announced worker.preempt_notice
         self._preempt_notices: set[str] = set()
+        #: (attempt id, worker) -> the marks of the records already handled
+        #: (the roads overlap: see _handle_backhaul)
+        self._backhaul_seen: dict[tuple[str, str], set] = {}
         #: attempt id -> its channels, when a channel died under it
         self._failed_conns: dict[str, list[Transport]] = {}
         #: the road the most recent electron took ("rpc" or "launch")
@@ -926,18 +1016,152 @@ class GPUExecutor(RemoteExecutor):
             )
         return ChaosTransport(conn, self._chaos) if self._chaos is not None else conn
 
-    # -- the 5b-iii lifecycle, refused by name -----------------------------
+    # -- the gang's lifecycle (reference: tpu.py:1289-1407, 2604-2690) ------
+
+    @property
+    def is_warm(self) -> bool:
+        """Whether at least one pooled channel has passed pre-flight: the
+        next electron skips the dial and the pre-flight."""
+        return bool(self._preflighted)
+
+    def gang_state(self) -> dict[str, Any]:
+        """Placement's view: warmth and each worker's breaker state (an
+        address never dialed reports ``closed``)."""
+        try:
+            addresses = self._worker_addresses()
+        except ValueError:
+            addresses = []
+        states = self._breakers.states()
+        return {"warm": self.is_warm, "workers": addresses,
+                "breakers": ({a: states.get(a, "closed") for a in addresses}
+                             if addresses else dict(states))}
 
     async def prewarm(self) -> bool:
-        raise NotImplementedError(f"prewarm is not ported yet: it comes with {SLICE_5B_III}")
+        """Best-effort pre-dial of every worker (:meth:`lease_gang`: the
+        dial, the pre-flight, the pool server's start) under an
+        ``executor.prewarm`` span, so a node blocked on its upstream nodes
+        pays none of it on its own critical path.  Single-flight; nothing
+        when ``prewarm`` is off, under a chaos plan (its faults are for real
+        dispatches) or when a prewarm already warmed the gang.  A failure is
+        swallowed (``executor.prewarm_failed``): the dispatch meets it again
+        with its retry envelope.  True when this call warmed the gang."""
+        if not self.prewarm_enabled or self._chaos is not None or self._prewarmed:
+            return False
+        self._prewarmed = True  # concurrent callers skip
+        started = time.monotonic()
+        try:
+            with Span("executor.prewarm", {"transport": self.transport_kind}):
+                lease = await self.lease_gang()
+        except asyncio.CancelledError:
+            self._prewarmed = False
+            raise
+        except Exception as err:  # noqa: BLE001 - warming is advisory
+            self._prewarmed = False  # a later node tries again
+            _PREWARM_TOTAL.labels(result="failed").inc()
+            obs_events.emit("executor.prewarm_failed", transport=self.transport_kind,
+                            error=repr(err))
+            app_log.debug("prewarm failed (the dispatch will retry): %s", err)
+            return False
+        _PREWARM_TOTAL.labels(result="warmed").inc()
+        _PREWARM_SECONDS.labels(pool=self.pool_label).observe(time.monotonic() - started)
+        obs_events.emit("executor.prewarm", transport=self.transport_kind,
+                        workers=len(lease.conns))
+        return True
 
     async def teardown_gang(self) -> bool:
-        raise NotImplementedError(
-            f"teardown_gang is not ported yet: it comes with {SLICE_5B_III}")
+        """Release the warm gang: its channels, pool servers and what was
+        known under each key.  Refused (False) while an electron is in
+        flight or a serving session is live, and when nothing is warm; the
+        next dispatch or prewarm dials from cold."""
+        if self._active_ops or self._serve_handles or not self.is_warm:
+            return False
+        await self._discard_workers()
+        obs_events.emit("executor.gang_teardown", transport=self.transport_kind,
+                        **({"pool": self.pool_label} if self.pool_label else {}))
+        return True
+
+    def _agent_of(self, address: str) -> AgentClient | None:
+        """The resident runtime of a worker address (its pooled channel's
+        address keys :attr:`_agents`) or of a channel address."""
+        conn = self._transports.get(self._pool_key(address))
+        client = self._agents.get(conn.address) if conn is not None else None
+        return client if client is not None else self._agents.get(address)
 
     async def health_canary(self, address: str) -> bool:
-        raise NotImplementedError(
-            f"health_canary is not ported yet: it comes with {SLICE_5B_III}")
+        """One ping round trip to a worker's resident runtime: True when it
+        answers.  The readmission probe for a worker health quarantined."""
+        client = self._agent_of(address)
+        if client is None or not client.alive:
+            return False
+        try:
+            await client.ping(timeout=10.0)
+            return True
+        except (AgentError, TransportError, asyncio.TimeoutError, OSError):
+            return False
+
+    def _note_gang_stragglers(self, operation_id: str, addresses: list[str],
+                              exit_at: dict[int, float]) -> None:
+        """Flag a finished gang's straggler (tpu.py:2604-2652): a process
+        whose exit lags the gang's median (``sorted(times)[n // 2]``) by
+        more than ``COVALENT_TPU_STRAGGLER_BUDGET_S`` (default 5 s; 0
+        disables) is gray-failing.  It is flagged to :data:`HEALTH`, and
+        with ``COVALENT_TPU_STRAGGLER_REDIAL`` its channel is dropped, so
+        the next electron dials fresh.  The median is the upper middle, as
+        in the reference, so a gang of two is never flagged."""
+        if len(exit_at) < 2:
+            return
+        try:
+            budget = float(os.environ.get("COVALENT_TPU_STRAGGLER_BUDGET_S", "5") or 5)
+        except ValueError:
+            budget = 5.0
+        if budget <= 0:
+            return
+        times = sorted(exit_at.values())
+        median = times[len(times) // 2]
+        slowest = max(exit_at, key=lambda i: exit_at[i])
+        differential = exit_at[slowest] - median
+        if differential <= budget:
+            return
+        worker = addresses[slowest] if slowest < len(addresses) else f"worker-{slowest}"
+        HEALTH.flag_straggler(worker, differential, operation_id=operation_id,
+                              gang_size=len(exit_at))
+        if os.environ.get("COVALENT_TPU_STRAGGLER_REDIAL", "").strip().lower() in (
+                "1", "on", "true", "yes"):
+            task = asyncio.ensure_future(self._redial_straggler(worker))
+            self._cleanup_tasks.add(task)
+            task.add_done_callback(self._cleanup_tasks.discard)
+
+    async def _redial_straggler(self, address: str) -> None:
+        """Drop one straggler's pooled channel, its pool server and what was
+        known under its key (tpu.py:2669-2690): the next electron dials,
+        pre-flights and probes afresh."""
+        conn = self._transports.get(self._pool_key(address))
+        if conn is not None:
+            await self._discard_workers([conn])
+        obs_events.emit("fleet.straggler_redial", worker=address, discarded=conn is not None)
+
+    def _status_snapshot(self) -> dict[str, Any]:
+        """This executor's state for an operator (tpu.py:906-935): workers,
+        liveness settings, the electrons in flight with their heartbeats,
+        breakers, health and resident runtimes."""
+        try:
+            addresses = self._worker_addresses()
+        except ValueError:
+            addresses = []
+        return {
+            "transport": self.transport_kind, "workers": addresses,
+            "heartbeat_interval_s": self.heartbeat_interval,
+            "stall_after_s": self._stall_after(), "dispatch_mode": self.dispatch_mode,
+            "rpc_registered": self._fn_registry.counts(), "serving": self.serve_sessions(),
+            "in_flight": {op: {"mode": self._op_modes.get(op, ""),
+                               "pids": list(self._pids.get(op, ())),
+                               "heartbeats": MONITOR.last(op)}
+                          for op in sorted(self._active_ops)},
+            "circuit_breakers": self._breakers.states(), "health": HEALTH.snapshot(),
+            "warm": self.is_warm,
+            "agents": {address: (client.mode if client is not None else None)
+                       for address, client in self._agents.items()},
+        }
 
     def _pool_key(self, address: str) -> str:
         return f"{self.transport_kind}:{address}"
@@ -969,11 +1193,15 @@ class GPUExecutor(RemoteExecutor):
 
     def _preflight_command(self) -> str:
         """One compound pre-flight (tpu.py:1652-1693): the reference's three
-        round trips (conda check, python3 check, cache mkdir; ssh.py:508-532)
-        and the codec probe in one exec.  ``-E -S`` keeps site hooks out of
-        the version check."""
+        round trips (conda check, python3 check, cache mkdir; ssh.py:508-532),
+        the CAS's TTL prune (before the channel's first existence probe, so
+        its present set never names a pruned file) and the codec probe in
+        one exec.  ``-E -S`` keeps site hooks out of the version check."""
         cas_dir = shlex.quote(cas_path(self.remote_cache, "").rstrip("/"))
         checks = [f"mkdir -p {shlex.quote(self.remote_cache)} {cas_dir}"]
+        prune = self._cas_prune_clause()
+        if prune:
+            checks.append(f"({prune} || true)")
         if self.conda_env:
             checks.append(f'eval "$(conda shell.bash hook)" && conda activate '
                           f"{shlex.quote(self.conda_env)}")
@@ -982,6 +1210,33 @@ class GPUExecutor(RemoteExecutor):
             checks.append(probe)
         checks.append(f"{self.python_path} -E -S -c 'import sys; print(sys.version_info[0])'")
         return " && ".join(checks)
+
+    def _cas_prune_clause(self) -> str | None:
+        """The CAS's age prune as a shell clause (tpu.py:1720-1729); None
+        when ``cas_ttl_hours`` is 0."""
+        if self.cas_ttl_hours <= 0:
+            return None
+        cas_dir = shlex.quote(cas_path(self.remote_cache, "").rstrip("/"))
+        minutes = max(1, int(self.cas_ttl_hours * 60))
+        return f"find {cas_dir} -type f -mmin +{minutes} -exec rm -f {{}} + 2>/dev/null"
+
+    def _cas_maintenance_command(self, staged: StagedTask) -> str:
+        """The CAS's upkeep after one launched electron, one round trip
+        (tpu.py:1731-1762): ``touch -c`` of its hot artifacts (the function
+        pickle and the harness), then the TTL prune, then the byte budget,
+        which prints ``CAS_EVICTED=<n>``.  The touch comes first, so the
+        electron's own artifacts are the newest and go last."""
+        hot = " ".join(shlex.quote(p)
+                       for p in (staged.remote_function_file, staged.remote_harness_file))
+        parts = [f"touch -c {hot} 2>/dev/null"]
+        prune = self._cas_prune_clause()
+        if prune:
+            parts.append(prune)
+        if self.cas_max_bytes > 0:
+            parts.append(cas_bytes_prune_command(
+                self.python_path, cas_path(self.remote_cache, "").rstrip("/"),
+                self.cas_max_bytes))
+        return "; ".join(parts) + "; true"
 
     async def _preflight(self, conn: Transport, key: str) -> None:
         """The environment checks, once per pooled connection (the reference
@@ -1024,7 +1279,7 @@ class GPUExecutor(RemoteExecutor):
     def _write_function_files(
         self, operation_id: str, fn: Callable, args: tuple, kwargs: dict,
         workdir: str, pip_deps=(), lineage: str = "", resume: dict | None = None,
-        trace: dict | None = None, run: str = "",
+        trace: dict | None = None, run: str = "", payload: bytes | None = None,
     ) -> StagedTask:
         """Stage the function pickle and one task spec per process locally
         (reference: ``ssh.py:126-179``, ``tpu.py:1494-1566``).
@@ -1033,16 +1288,23 @@ class GPUExecutor(RemoteExecutor):
         ``run`` the run they belong to (its base operation id: the worker's
         manifest keeps one run's), ``resume`` a checked bundle the attempt
         ships to every process, and ``trace`` the trace context stamped on
-        the workers' events.
+        the workers' events.  ``payload`` is the ``(fn, args, kwargs)``
+        cloudpickle when the result cache already made it (one pass serves
+        both).
         """
         from .parallel.distributed import coordinator_spec
 
         Path(self.cache_dir).mkdir(parents=True, exist_ok=True)
         processes = self._num_processes()
         staged = StagedTask(operation_id, Path(self.cache_dir), self.remote_cache, processes)
-        dump_task(fn, args, kwargs, staged.function_file)
-        with open(staged.function_file, "rb") as f:
-            function_digest = staged.function_digest = bytes_digest(f.read())
+        if payload is None:
+            dump_task(fn, args, kwargs, staged.function_file)
+            with open(staged.function_file, "rb") as f:
+                payload = f.read()
+        else:
+            with open(staged.function_file, "wb") as f:
+                f.write(payload)
+        function_digest = staged.function_digest = bytes_digest(payload)
         blocks = (coordinator_spec(coordinator_address=self._coordinator_address(),
                                    num_processes=processes) if processes > 1 else None)
         checkpoint_block = None
@@ -1101,23 +1363,23 @@ class GPUExecutor(RemoteExecutor):
         """Ship process ``process``'s files to its worker (reference:
         ``ssh.py:337-361``, ``tpu.py:1802-1850``).
 
-        The harness goes through the CAS: skipped when the worker holds its
-        digest (one probe per connection).  The operation's own files (the
-        function pickle and this process's spec) ship every time.  With
+        The harness and the function pickle go through the CAS: skipped when
+        the worker holds their digests (one probe per connection).  The
+        operation's own file (this process's spec) ships every time.  With
         ``bundle`` whatever ships goes as one tar (one put, one unpack
         exec, each member checked against its digest); either road
         compresses with the connection's codec when that pays.
         """
-        harness_local, harness_remote, digest = staged.harness_artifact()
-        await self._cas.ensure_probed(key, conn, [(digest, harness_remote)])
+        shared = [staged.harness_artifact(), staged.function_artifact()]
+        await self._cas.ensure_probed(key, conn, [(digest, remote) for _, remote, digest in shared])
         codec = self._codec_for(key, conn)
         if self.bundle:
-            await self._cas.ensure_bundle(key, conn, [staged.harness_artifact()],
-                                          op_files=staged.artifacts(process), codec=codec,
-                                          python_path=self.python_path)
+            await self._cas.ensure_bundle(key, conn, shared, op_files=staged.artifacts(process),
+                                          codec=codec, python_path=self.python_path)
         else:
-            await self._cas.ensure(key, conn, digest, harness_local, harness_remote,
-                                   codec=codec, python_path=self.python_path)
+            for local, remote, digest in shared:
+                await self._cas.ensure(key, conn, digest, local, remote, codec=codec,
+                                       python_path=self.python_path)
             for local, remote, file_digest in staged.artifacts(process):
                 await codec_mod.put_file(conn, local, remote, codec=codec,
                                          python_path=self.python_path, digest=file_digest)
@@ -1213,8 +1475,8 @@ class GPUExecutor(RemoteExecutor):
     GANG_EXIT_GRACE_S = 60.0
 
     async def _poll_task(self, conns: list[Transport], staged: StagedTask,
-                         pids: list[int | None],
-                         feed: _TelemetryFeed | None = None) -> tuple[TaskStatus, int]:
+                         pids: list[int | None], feed: _TelemetryFeed | None = None,
+                         exit_at: dict[int, float] | None = None) -> tuple[TaskStatus, int]:
         """Wait for every process of the task: ``(status, index to blame)``
         (the reference's ``_poll_all``, ``tpu.py:2894-2905``).
 
@@ -1229,9 +1491,12 @@ class GPUExecutor(RemoteExecutor):
         late marker; what is left after it is killed.  ``conns[i]`` is the
         channel process ``i`` runs behind.  With heartbeats on (``feed``
         reads them) a running worker silent past its stall threshold ends
-        the wait as STALLED, before ``task_timeout`` would.
+        the wait as STALLED, before ``task_timeout`` would.  ``exit_at``
+        receives, for each process, the loop time of the first probe that
+        found it finished (the straggler bookkeeping of tpu.py:2560-2600).
         """
         interval, waited, starting_for, ready_for = 0.05, 0.0, 0.0, 0.0
+        loop = asyncio.get_running_loop()
         watch_stalls = feed is not None and self._stall_after() > 0
         while True:
             statuses = await asyncio.gather(*(
@@ -1241,6 +1506,11 @@ class GPUExecutor(RemoteExecutor):
                     return TaskStatus.DEAD, i
             live = [i for i, st in enumerate(statuses)
                     if st in (TaskStatus.RUNNING, TaskStatus.STARTING)]
+            if exit_at is not None:
+                now = loop.time()
+                for i, st in enumerate(statuses):
+                    if st is TaskStatus.READY:
+                        exit_at.setdefault(i, now)
             if 0 not in live and (statuses[0] is not TaskStatus.READY or not live):
                 return statuses[0], 0
             if 0 not in live:
@@ -1262,7 +1532,7 @@ class GPUExecutor(RemoteExecutor):
                 if self.task_timeout and waited >= self.task_timeout:
                     return TaskStatus.TIMEOUT, 0
                 if watch_stalls:
-                    stalled = MONITOR.stalled(staged.operation_id)
+                    stalled = await self._stall_verdict(staged.operation_id, conns, staged, feed)
                     if stalled:
                         return TaskStatus.STALLED, feed.workers.index(stalled[0][0])
             await asyncio.sleep(interval)
@@ -1420,7 +1690,12 @@ class GPUExecutor(RemoteExecutor):
 
     async def cleanup(self, conns: list[Transport], staged: StagedTask) -> None:
         """Delete the operation's staged files locally and on each worker
-        (reference: ``ssh.py:284-315``); the CAS harness stays."""
+        (reference: ``ssh.py:284-315``, ``tpu.py:3189-3270``); the CAS
+        artifacts stay, and each worker's CAS gets its upkeep
+        (:meth:`_cas_maintenance_command`, best-effort).  What the byte
+        budget evicted is counted, and the channel's present set is
+        forgotten, so the next electron probes again instead of trusting a
+        digest whose file is gone."""
         for path in staged.local_files():
             try:
                 os.remove(path)
@@ -1430,6 +1705,27 @@ class GPUExecutor(RemoteExecutor):
             result = await conn.remove(staged.remote_files(i))
             if result.exit_status != 0:
                 app_log.warning("cleanup on %s: %s", conn.address, result.stderr.strip())
+            try:
+                maintained = await conn.run(self._cas_maintenance_command(staged))
+            except (TransportError, OSError) as err:
+                app_log.debug("CAS maintenance on %s skipped: %s", conn.address, err)
+                continue
+            evicted = 0
+            for token in (maintained.stdout or "").split():
+                if token.startswith("CAS_EVICTED="):
+                    try:
+                        evicted = int(token.split("=", 1)[1])
+                    except ValueError:
+                        pass
+                    break
+            if evicted > 0:
+                CAS_EVICTIONS_TOTAL.labels(site="remote").inc(evicted)
+                obs_events.emit("cas.bytes_pruned", root=cas_path(self.remote_cache, ""),
+                                evicted=evicted, budget=self.cas_max_bytes, site="remote",
+                                worker=conn.address)
+                for key, pooled in list(self._transports.items()):
+                    if pooled is conn:
+                        self._cas.forget(key)
 
     # ------------------------------------------------------------------ #
     # Resident pool servers (reference: tpu.py lease_gang, _agent_for,   #
@@ -1641,6 +1937,9 @@ class GPUExecutor(RemoteExecutor):
             self._wire_codecs.pop(key, None)
             self._cas.forget(key)
             self._fn_registry.forget(key)
+        # a worker recreated behind a discarded channel is dialed again by
+        # the next prewarm too
+        self._prewarmed = False
 
     async def close(self) -> None:
         """Shut every pool server down and release the channels."""
@@ -1704,7 +2003,8 @@ class GPUExecutor(RemoteExecutor):
         status probes, which the task's own files answer.  With heartbeats
         on (the pool channel tails them back) the wait wakes on a short
         tick to consult the stall detector; a suspected stall is confirmed
-        against the worker's heartbeat snapshot before it ends the wait.
+        against the worker's telemetry and heartbeat snapshot, read up to
+        now, before it ends the wait (:meth:`_stall_verdict`).
         """
         operation_id = staged.operation_id
         stall_after = self._stall_after() if feed is not None else 0.0
@@ -1722,10 +2022,9 @@ class GPUExecutor(RemoteExecutor):
                 done, _ = await asyncio.wait({waiter}, timeout=timeout)
                 if done:
                     break
-                if wake is not None and MONITOR.stalled(operation_id):
-                    await self._confirm_heartbeats(operation_id, conn, staged, feed)
-                    if MONITOR.stalled(operation_id):
-                        return TaskStatus.STALLED
+                if wake is not None and await self._stall_verdict(operation_id, [conn], staged,
+                                                                  feed):
+                    return TaskStatus.STALLED
             try:
                 waiter.result()
             except AgentError as err:
@@ -1753,6 +2052,9 @@ class GPUExecutor(RemoteExecutor):
         ``seq``: the roads re-read) is re-emitted as ``worker.heartbeat``."""
         if not MONITOR.record(operation_id, worker, heartbeat):
             return
+        # the health monitor's passive feed: the cadence of the same fresh
+        # beats (an erratic one loses score before a beat is missed)
+        HEALTH.record_heartbeat(worker)
         body = {k: v for k, v in heartbeat.items() if k not in ("type", "pid", "ts")}
         worker_ts = heartbeat.get("ts")
         obs_events.emit("worker.heartbeat", worker=worker,
@@ -1760,12 +2062,20 @@ class GPUExecutor(RemoteExecutor):
 
     def _handle_backhaul(self, operation_id: str, worker: str, data: dict) -> None:
         """One worker record from either road (the poll's telemetry read,
-        the pool channel's side-band).  Heartbeats feed the monitor; the
-        start of a save or a restore holds the worker's stall clock and its
-        end (saved, failed, restored) releases it; a checkpoint is recorded
-        and mirrored; a preemption notice relabels the coming death; every
-        other record is re-emitted into the dispatcher's stream
-        (``backhaul=True``)."""
+        the pool channel's side-band, a stall verdict's read of the file).
+        A record already delivered (the same ``seq``, or for a record
+        without one the same type and time) is dropped.  Heartbeats feed
+        the monitor; the start of a save or a restore holds the worker's
+        stall clock and its end (saved, failed, restored) releases it; a
+        checkpoint is recorded and mirrored; a preemption notice relabels
+        the coming death; every other record is re-emitted into the
+        dispatcher's stream (``backhaul=True``)."""
+        seq = data.get("seq")
+        mark = seq if isinstance(seq, int) else (data.get("type"), data.get("ts"))
+        seen = self._backhaul_seen.setdefault((operation_id, worker), set())
+        if mark in seen:
+            return
+        seen.add(mark)
         kind = data.get("type")
         if kind == "worker.heartbeat":
             self._record_heartbeat(operation_id, worker, data)
@@ -1973,19 +2283,40 @@ class GPUExecutor(RemoteExecutor):
         except AgentError:
             pass
 
-    async def _confirm_heartbeats(self, operation_id: str, conn: Transport,
+    async def _stall_verdict(self, operation_id: str, conns: list[Transport],
+                             staged: StagedTask,
+                             feed: _TelemetryFeed | None) -> list[tuple[str, float]]:
+        """The workers of one attempt that are stalled now: ``(worker,
+        silence)``.  The monitor's answer is a suspicion only: before it
+        becomes a verdict, each suspect's telemetry file is read up to now
+        and its heartbeat snapshot confirmed (tpu.py:2435).  A record the
+        worker wrote before it fell silent (the ``worker.checkpoint_started``
+        of a save that holds its clock) may still be on its way, behind a
+        status probe that read the file before it was written or a pool
+        channel's side-band that has not forwarded it yet; the verdict must
+        not be given without it."""
+        if not MONITOR.stalled(operation_id):
+            return []
+        await self._confirm_heartbeats(operation_id, conns, staged, feed)
+        return MONITOR.stalled(operation_id)
+
+    async def _confirm_heartbeats(self, operation_id: str, conns: list[Transport],
                                   staged: StagedTask, feed: _TelemetryFeed | None) -> None:
-        """Read a suspect worker's heartbeat snapshot over the control
-        channel (tpu.py:2435): the stall verdict must not hinge on the
-        side-band alone, and a healthy worker whose stream failed refreshes
-        its liveness here.  Best-effort."""
+        """Read each suspect's new telemetry lines and its heartbeat
+        snapshot over the control channel (``conns[i]`` is process ``i``'s):
+        a healthy worker whose side-band failed refreshes its liveness
+        here.  Best-effort."""
         workers = feed.workers if feed is not None else ["localhost"]
         suspects = {worker for worker, _ in MONITOR.stalled(operation_id)}
         for i, worker in enumerate(workers):
-            if worker not in suspects:
+            if worker not in suspects or i >= len(conns):
                 continue
+            conn, files = conns[i], staged.rank(i)
             try:
-                result = await conn.run(f"cat {shlex.quote(staged.rank(i)['hb'])} 2>/dev/null")
+                if feed is not None:
+                    read = await conn.run(feed.clause(files["telemetry"], i) + "true")
+                    feed.consume(i, read.stdout)
+                result = await conn.run(f"cat {shlex.quote(files['hb'])} 2>/dev/null")
                 beat = json.loads(result.stdout) if result.stdout.strip() else None
             except (TransportError, OSError, ValueError):
                 continue
@@ -1995,6 +2326,91 @@ class GPUExecutor(RemoteExecutor):
     # ------------------------------------------------------------------ #
     # Orchestration                                                       #
     # ------------------------------------------------------------------ #
+
+    # ------------------------------------------------------------------ #
+    # Result memoization (reference: tpu.py:1577-1650, 3763-3800, 4750)  #
+    # ------------------------------------------------------------------ #
+
+    @staticmethod
+    def _fn_code_digest(fn: Callable) -> str:
+        """Digest of the electron's own bytecode, or "" when it has none.
+
+        cloudpickle pickles an importable function by reference (module and
+        qualified name), so the payload alone would not change when its
+        body is edited; the marshalled code object covers the electron
+        itself (not the helpers it imports)."""
+        import marshal
+
+        code = getattr(fn, "__code__", None)
+        if code is None:
+            code = getattr(getattr(fn, "__call__", None), "__code__", None)
+        if code is None:
+            return ""
+        try:
+            return bytes_digest(marshal.dumps(code))
+        except (TypeError, ValueError):
+            return ""
+
+    def _cache_fingerprint(self, task_metadata: dict, **extra: str) -> str:
+        """Everything outside the payload that could change what the
+        electron computes: the transport, interpreter, conda env, task env,
+        pip deps, workers and workdir (tpu.py:1628-1642).  The reference's
+        ``workers`` falls back to its ``tpu_name`` before the hostname; the
+        port has no TPU name, so it is the hostname, else ``"local"``."""
+        return json.dumps({
+            "transport": self.transport_kind,
+            "python_path": self.python_path,
+            "conda_env": self.conda_env,
+            "task_env": self.task_env,
+            "pip_deps": list(task_metadata.get("pip_deps", ()) or ()),
+            "workers": self.workers or [self.hostname or "local"],
+            "workdir": self.remote_workdir,
+            **extra,
+        }, sort_keys=True, default=str)
+
+    def _result_cache_key(self, fn: Callable, args: tuple, kwargs: dict, task_metadata: dict,
+                          payload: bytes | None = None) -> str | None:
+        """The launch road's memoization key (tpu.py:1600-1650), or None
+        when the electron does not pickle (counted, never fatal): the
+        digest of the staged ``(fn, args, kwargs)`` payload, the function's
+        code digest and the fingerprint's."""
+        if payload is None:
+            try:
+                payload = cloudpickle.dumps((fn, tuple(args), dict(kwargs)))
+            except Exception as err:  # noqa: BLE001 - arbitrary payloads
+                RESULT_CACHE_TOTAL.labels(result="unpicklable").inc()
+                app_log.debug("result cache: electron not picklable (%s)", err)
+                return None
+        return ResultCache.make_key(
+            bytes_digest(payload), self._fn_code_digest(fn),
+            bytes_digest(self._cache_fingerprint(task_metadata).encode()))
+
+    def _rpc_result_cache_key(self, fn: Callable, fn_digest: str, args_digest: str,
+                              task_metadata: dict) -> str:
+        """The RPC road's key (tpu.py:4750-4785): the function and the args
+        pickle apart there, and ``"mode": "rpc"`` in the fingerprint keeps
+        the two roads from serving each other's entries."""
+        return ResultCache.make_key(
+            bytes_digest(f"{fn_digest}:{args_digest}".encode()), self._fn_code_digest(fn),
+            bytes_digest(self._cache_fingerprint(task_metadata, mode="rpc").encode()))
+
+    async def _cache_lookup(self, root: Span, operation_id: str, key: str | None) -> tuple:
+        """``(hit, value)`` of one key; a hit emits ``task.result_cached``
+        and marks the attempt as served from the cache."""
+        if key is None:
+            return False, None
+        hit, value = await asyncio.to_thread(self._result_cache.get, key)
+        if hit:
+            self._cache_hits.add(operation_id)
+            obs_events.emit("task.result_cached", operation_id=operation_id,
+                            trace_id=root.trace_id)
+        return hit, value
+
+    async def _cache_store(self, key: str | None, result: Any, exception) -> None:
+        """Store a clean completion; a remote exception is never memoised."""
+        if key is not None and exception is None:
+            with Span("executor.cache_store"):
+                await asyncio.to_thread(self._result_cache.put, key, result)
 
     def _resolve_dispatch_mode(self, task_metadata: dict) -> str:
         """An electron's mode: its metadata's ``dispatch_mode``, else the
@@ -2098,6 +2514,10 @@ class GPUExecutor(RemoteExecutor):
                     result, exception = await self._run_attempt(
                         root, function, args, kwargs, task_metadata, operation_id, lineage,
                         attempt, deadline, workdir)
+                    if operation_id in self._cache_hits:
+                        self._cache_hits.discard(operation_id)
+                        outcome = "cached"
+                        return result
                     break
                 except _RetryDispatch as retry:
                     await self._prepare_retry(retry, base_id, lineage, operation_id, attempt,
@@ -2122,7 +2542,7 @@ class GPUExecutor(RemoteExecutor):
         finally:
             root.set_attribute("attempts", attempt + 1)
             journal_mod.record("task_terminal", op=base_id, outcome=(
-                "ok" if outcome == "completed" else
+                "ok" if outcome in ("completed", "cached") else
                 "cancelled" if outcome == "cancelled" else "error"), sync=True)
             self._active_ops.discard(base_id)
             self._cancelled_ops.discard(base_id)
@@ -2209,7 +2629,8 @@ class GPUExecutor(RemoteExecutor):
                 journal_mod.record("task", op=self._attempt_base[operation_id],
                                    operation_id=operation_id, attempt=attempt + 1, mode="rpc")
                 try:
-                    return await self._run_rpc(root, operation_id, function, args, kwargs)
+                    return await self._run_rpc(root, operation_id, function, args, kwargs,
+                                               task_metadata)
                 except _RpcUnavailable as unavailable:
                     obs_events.emit("task.rpc_fallback", operation_id=operation_id,
                                     reason=str(unavailable))
@@ -2225,6 +2646,23 @@ class GPUExecutor(RemoteExecutor):
                         raise retry from err
                     raise
             self.last_dispatch_mode = self._op_modes[operation_id] = "launch"
+            cache_key, payload = None, None
+            if self._result_cache is not None:
+                # ahead of connect: a hit touches no transport, and a miss
+                # stages the same pickle
+                with Span("executor.cache_lookup"):
+                    try:
+                        payload = await asyncio.to_thread(
+                            cloudpickle.dumps, (function, args, kwargs))
+                    except Exception as err:  # noqa: BLE001 - user payloads
+                        RESULT_CACHE_TOTAL.labels(result="unpicklable").inc()
+                        app_log.debug("result cache: electron not picklable (%s)", err)
+                    else:
+                        cache_key = self._result_cache_key(function, args, kwargs,
+                                                           task_metadata, payload=payload)
+                    hit, cached = await self._cache_lookup(root, operation_id, cache_key)
+                if hit:
+                    return cached, None
             journal_mod.record("task", op=self._attempt_base[operation_id],
                                operation_id=operation_id, attempt=attempt + 1, mode="launch")
             resume = self._resume_plans.get(lineage)
@@ -2233,7 +2671,7 @@ class GPUExecutor(RemoteExecutor):
                 staged = await asyncio.to_thread(
                     self._write_function_files, operation_id, function, args, kwargs,
                     workdir, task_metadata.get("pip_deps", ()), lineage, resume, trace,
-                    self._attempt_base[operation_id])
+                    self._attempt_base[operation_id], payload)
             if staged.resume_artifact is not None:
                 # this attempt restores instead of recomputing
                 CHECKPOINT_RESTORES_TOTAL.inc()
@@ -2242,7 +2680,9 @@ class GPUExecutor(RemoteExecutor):
                                 attempt=attempt, step=resume.get("step"),
                                 digest=resume.get("digest"), trace_id=root.trace_id)
             try:
-                return await self._run_staged(root, staged)
+                result, exception = await self._run_staged(root, staged)
+                await self._cache_store(cache_key, result, exception)
+                return result, exception
             except _DispatchFailed as failed:
                 self._retry_or_raise(failed, attempt, deadline)
             except (TransportError, OSError) as err:
@@ -2269,6 +2709,8 @@ class GPUExecutor(RemoteExecutor):
             self._op_modes.pop(operation_id, None)
             self._preempt_notices.discard(operation_id)
             MONITOR.forget(operation_id)
+            for key in [k for k in self._backhaul_seen if k[0] == operation_id]:
+                del self._backhaul_seen[key]
             client = self._op_agents.pop(operation_id, None)
             if client is not None:
                 # whatever the channel kept for this task, on every exit path
@@ -2334,8 +2776,13 @@ class GPUExecutor(RemoteExecutor):
         conns: list[Transport] = []
         staged_on: list[Transport] = []  # the channels whose workers got files
         clients: list[AgentClient | None] = []
+        #: each gang process's exit, for the straggler check after cleanup
+        exit_at: dict[int, float] = {}
+        addresses: list[str] = []
+        finished = False  # every process finished: a gang whose stragglers count
         try:
             lease = await self._lease(conns)
+            addresses = lease.addresses
             keys = [self._pool_key(a) for a in lease.addresses]
             self._op_conns[operation_id] = conns
             staged_on.extend(conns)
@@ -2402,12 +2849,14 @@ class GPUExecutor(RemoteExecutor):
                         status, blamed = await self._await_agent_exit(
                             clients[0], conns[0], staged, pids[0], feed), 0
                     else:
-                        status, blamed = await self._poll_task(conns, staged, pids, feed)
+                        status, blamed = await self._poll_task(conns, staged, pids, feed,
+                                                               exit_at)
             except asyncio.CancelledError:
                 await self._kill(conns, staged)
                 raise
             if status is not TaskStatus.READY:
                 await self._failed_attempt(conns, staged, status, blamed, feed)
+            finished = True
             with Span("executor.fetch"):
                 result, exception, times = await self.query_result(conns[0], staged, keys[0])
             self._record_execute(root, times)
@@ -2431,6 +2880,9 @@ class GPUExecutor(RemoteExecutor):
             if self.do_cleanup:
                 with Span("executor.cleanup"):
                     await self._cleanup_quietly(staged_on, staged)
+            if finished:
+                # after the cleanup: a straggler's redial closes its channel
+                self._note_gang_stragglers(operation_id, addresses, exit_at)
 
     async def _failed_attempt(self, conns: list[Transport], staged: StagedTask,
                               status: TaskStatus, blamed: int,
@@ -2586,7 +3038,7 @@ class GPUExecutor(RemoteExecutor):
                 pass
 
     async def _run_rpc(self, root: Span, operation_id: str, function: Callable,
-                       args: tuple, kwargs: dict):
+                       args: tuple, kwargs: dict, task_metadata: dict):
         """One electron by digest in the warm pool server: ``(result,
         exception)``, under the launch road's stage spans.
 
@@ -2597,7 +3049,8 @@ class GPUExecutor(RemoteExecutor):
         mismatch is permanent.  A timeout or cancel tears the resident
         runtime down: an invocation inside a shared process cannot be
         killed any other way.  No live runtime raises
-        :class:`_RpcUnavailable`.
+        :class:`_RpcUnavailable`.  With ``cache_results`` the RPC road's own
+        key is looked up ahead of the connect, and a clean result stored.
         """
         conns: list[Transport] = []
         local_args = None
@@ -2617,6 +3070,14 @@ class GPUExecutor(RemoteExecutor):
                     local_args = os.path.join(
                         self.cache_dir, f"args_rpc_{args_digest}.{os.urandom(6).hex()}.pkl")
                     await asyncio.to_thread(self._write_payload_file, local_args, args_payload)
+            cache_key = None
+            if self._result_cache is not None:
+                with Span("executor.cache_lookup"):
+                    cache_key = self._rpc_result_cache_key(function, fn_digest, args_digest,
+                                                           task_metadata)
+                    hit, cached = await self._cache_lookup(root, operation_id, cache_key)
+                if hit:
+                    return cached, None
             client = await self._resident_client(conns)
             if client is None:
                 raise _RpcUnavailable("no live resident runtime on "
@@ -2689,6 +3150,7 @@ class GPUExecutor(RemoteExecutor):
                     result, exception, times = await asyncio.to_thread(
                         self._decode_rpc_result, payload)
             self._record_execute(root, times)
+            await self._cache_store(cache_key, result, exception)
             return result, exception
         except asyncio.CancelledError:
             if conns:
@@ -2880,7 +3342,7 @@ class GPUExecutor(RemoteExecutor):
     def _epilogue(self, root: Span, outcome: str, operation_id: str) -> None:
         """Terminal accounting on every exit path (``tpu.py:4211-4243``)."""
         root.set_attribute("outcome", outcome)
-        if outcome != "completed":
+        if outcome not in ("completed", "cached"):
             root.record_error(outcome)
         root.end()
         overhead = root.overhead(exclude=_NOT_OVERHEAD)

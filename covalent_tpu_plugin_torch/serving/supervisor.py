@@ -98,17 +98,12 @@ _ENVELOPE = frozenset(("ts", "pid", "seq", "type", "operation_id", "rpc"))
 
 def split_target(target: Any) -> tuple[Any, Any]:
     """``(executor, pool or None)`` of a serving target: a fleet ``Pool``
-    (it carries ``.spec`` and ``.executor``) or a bare executor.  A target
-    over SSH is refused: sessions over SSH come with slice 5b-iii."""
-    executor, pool = ((target.executor, target)
-                      if hasattr(target, "spec") and hasattr(target, "executor")
-                      else (target, None))
-    kind = getattr(executor, "transport_kind", "local")
-    if kind != "local":
-        raise NotImplementedError(
-            f"serving sessions over SSH (transport {kind!r}) are not ported yet: they come "
-            "with slice 5b-iii (ROADMAP Queue 1 item 2)")
-    return executor, pool
+    (it carries ``.spec`` and ``.executor``) or a bare executor, over any
+    transport (the session's verbs and frames ride the pool server's
+    channel, an SSH exec channel under ``"ssh"``/``"minissh"``)."""
+    if hasattr(target, "spec") and hasattr(target, "executor"):
+        return target.executor, target
+    return target, None
 
 
 def _env_number(name: str, default: float, cast=float):

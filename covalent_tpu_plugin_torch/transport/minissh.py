@@ -725,7 +725,9 @@ class _ChannelStdin:
             await self._ch.send_data(chunk)
 
     def write_eof(self) -> None:
-        asyncio.ensure_future(self._ch.send_eof())
+        task = asyncio.ensure_future(self._ch.send_eof())
+        # an EOF on a connection already lost has nothing to tell anyone
+        task.add_done_callback(lambda t: t.cancelled() or t.exception())
 
     def close(self) -> None:
         self.write_eof()

@@ -380,9 +380,13 @@ def stop_in_save(marker):
     """Attempt 1 registers a snapshot whose pickling stops the process once
     (a save that keeps the beat thread from running), and returns once the
     test has continued it and written ``<marker>.go``; a later attempt
-    returns at once."""
+    returns at once.  The stop is sent to the pickling thread itself: sent
+    to the process, it is taken by whichever thread the kernel wakes for it
+    (the main thread, asleep in this function), and the save can finish
+    before the process stops."""
     import os
     import signal
+    import threading
     import time
 
     from covalent_tpu_plugin_torch.utils import checkpoint as ckpt
@@ -395,7 +399,7 @@ def stop_in_save(marker):
             if not os.path.exists(marker):
                 with open(marker, "w") as f:
                     f.write(str(os.getpid()))
-                os.kill(os.getpid(), signal.SIGSTOP)
+                signal.pthread_kill(threading.get_ident(), signal.SIGSTOP)
             return (dict, ())
 
     ckpt.register_snapshot(lambda: ({"state": StopsThePickler()}, 0))
@@ -409,20 +413,21 @@ def stop_in_save(marker):
 
 
 class StallChecks:
-    """Every stall check that found a worker silent past its threshold, and
-    what it answered."""
+    """Every stall verdict (``GPUExecutor._stall_verdict``) given while a
+    worker was silent past its threshold, and what it answered."""
 
     def __init__(self, monkeypatch):
         self.seen: list = []
-        self._real = hb_mod.MONITOR.stalled
-        monkeypatch.setattr(hb_mod.MONITOR, "stalled", self)
+        real = GPUExecutor._stall_verdict
 
-    def __call__(self, operation_id):
-        out = self._real(operation_id)
-        for worker, last in hb_mod.MONITOR.last(operation_id).items():
-            if last["age_s"] > hb_mod.MONITOR.effective_stall_after(operation_id, worker):
-                self.seen.append((worker, last["age_s"], list(out)))
-        return out
+        async def verdict(ex, operation_id, *args):
+            out = await real(ex, operation_id, *args)
+            for worker, last in hb_mod.MONITOR.last(operation_id).items():
+                if last["age_s"] > hb_mod.MONITOR.effective_stall_after(operation_id, worker):
+                    self.seen.append((worker, last["age_s"], list(out)))
+            return out
+
+        monkeypatch.setattr(GPUExecutor, "_stall_verdict", verdict)
 
 
 def _continue(marker):
@@ -434,7 +439,7 @@ def _continue(marker):
 
 def test_a_save_that_silences_the_worker_is_not_a_stall(tmp_path, monkeypatch):
     """The save announces itself (``worker.checkpoint_started``), so the
-    dispatcher holds the stall clock: stall checks see the stopped worker
+    dispatcher holds the stall clock: stall verdicts see the stopped worker
     silent past its threshold (three beats) and answer nothing; continued,
     the save lands and the one attempt completes."""
     marker = tmp_path / "marker"
@@ -461,6 +466,46 @@ def test_a_save_that_silences_the_worker_is_not_a_stall(tmp_path, monkeypatch):
     assert ex.last_attempts == 1 and not log.of("task.retry")
     assert [e["step"] for e in log.of("worker.checkpoint_started")] == [0]
     assert [e["step"] for e in log.of("worker.checkpoint_saved")] == [0]
+
+
+def test_a_stall_verdict_reads_the_telemetry_the_side_band_has_not_brought(tmp_path,
+                                                                           monkeypatch):
+    """The interleaving that failed before the verdict read the worker's
+    telemetry itself: on the pool road the side-band forwards the worker's
+    records at its own pace, so a save's ``worker.checkpoint_started`` can
+    still be on its way when the silence passes the threshold.  Here the
+    side-band never forwards (its watch is not started), the worker stops
+    inside its save, and the verdict, which read only the heartbeat
+    snapshot, called it stalled; it now reads the telemetry file up to now,
+    finds the save's start, and holds."""
+    marker = tmp_path / "marker"
+    ex = _executor(tmp_path, use_agent="pool", pool_preload="cloudpickle",
+                   checkpoint_interval_s=0.1, heartbeat_interval=0.5, max_task_retries=0)
+
+    async def no_side_band(self, client, staged, worker):
+        return None
+
+    monkeypatch.setattr(GPUExecutor, "_start_backhaul", no_side_band)
+    checks = StallChecks(monkeypatch)
+
+    async def flow():
+        task = asyncio.ensure_future(ex.run(stop_in_save, [str(marker)], {},
+                                            {"dispatch_id": "unforwarded", "node_id": 0}))
+        try:
+            while not checks.seen and not task.done():
+                await asyncio.sleep(0.05)
+            _continue(marker)
+            Path(f"{marker}.go").write_text("")
+            return await task
+        finally:
+            _continue(marker)
+            await ex.close()
+
+    with EventLog() as log:
+        assert asyncio.run(asyncio.wait_for(flow(), 120)) == "first"
+    assert checks.seen and all(answer == [] for _, _, answer in checks.seen)
+    assert ex.last_attempts == 1 and not log.of("task.stall_escalated")
+    assert [e["step"] for e in log.of("worker.checkpoint_started")] == [0]
 
 
 def test_a_save_past_the_hold_cap_is_a_stall(tmp_path):

@@ -56,13 +56,19 @@ def _raising_electron():
     raise KeyError("electron failed on the worker")
 
 
+def _content_addressed(p) -> bool:
+    """A file of the worker's CAS named by the sha256 of its content."""
+    return (p.parent.name == "cas" and p.suffix in (".py", ".pkl")
+            and p.stem == hashlib.sha256(p.read_bytes()).hexdigest())
+
+
 def _leftovers(tmp_path):
-    """Staged files left on either side; the harness stays in the worker's
-    CAS (it ships once per connection, under its digest)."""
-    kept = ("cas", f"{harness_digest()}.py")
+    """Staged files left on either side; the harness and the function
+    pickle stay in the worker's CAS (each ships once per connection, under
+    its digest)."""
     return sorted(
         p.name for d in ("cache", "remote", "remote/cas") if (tmp_path / d).exists()
-        for p in (tmp_path / d).iterdir() if p.name not in kept
+        for p in (tmp_path / d).iterdir() if p.name != "cas" and not _content_addressed(p)
     )
 
 
@@ -97,7 +103,7 @@ def test_executor_ships_the_ports_own_harness(tmp_path):
 def test_executor_refuses_transports_of_later_slices():
     """The SSH transports and chaos plans are ported; an unknown transport
     name or chaos key is refused as the reference refuses it, and the
-    result cache waits for slice 5b-iii."""
+    result cache is taken (off unless asked for)."""
     for kind in ("local", "ssh", "minissh"):
         assert GPUExecutor(transport=kind, hostname="user@host:2222").transport_kind == kind
     with pytest.raises(ValueError, match='transport must be "local", "ssh" or "minissh"'):
@@ -105,8 +111,8 @@ def test_executor_refuses_transports_of_later_slices():
     assert GPUExecutor(transport="ssh", hostname="host", chaos="drop_after=1")._chaos.drop_after == 1
     with pytest.raises(ValueError, match="unknown chaos spec key"):
         GPUExecutor(transport="ssh", hostname="host", chaos="drop_connect=1")
-    with pytest.raises(NotImplementedError, match="5b-iii"):
-        GPUExecutor(cache_results=True)
+    assert GPUExecutor(cache_results=True)._result_cache is not None
+    assert GPUExecutor()._result_cache is None
     assert GPUExecutor().run_local_on_dispatch_fail is False
 
 

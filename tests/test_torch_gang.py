@@ -14,6 +14,7 @@ The end-to-end electron trains the small LM of ``dryrun_multichip`` under
 global batch within the single-process bound (atol 1e-5).
 """
 
+import hashlib
 import json
 import os
 import pickle
@@ -25,7 +26,6 @@ import pytest
 import torch
 
 from covalent_tpu_plugin_torch import GPUExecutor, harness
-from covalent_tpu_plugin_torch.cache import harness_digest
 from covalent_tpu_plugin_torch.gpu import StagedTask
 from covalent_tpu_plugin_torch.models import train
 from covalent_tpu_plugin_torch.parallel import MeshPlan
@@ -52,11 +52,16 @@ def _executor(tmp_path, **kwargs):
 
 def _leftovers(tmp_path):
     """Staged files left on either side; the pool server's files and the
-    harness in the worker's CAS stay."""
-    kept = ("cas", f"{harness_digest()}.py")
+    harness and function pickle in the worker's CAS (under their digests)
+    stay."""
+    def content_addressed(p) -> bool:
+        return (p.parent.name == "cas" and p.suffix in (".py", ".pkl")
+                and p.stem == hashlib.sha256(p.read_bytes()).hexdigest())
+
     return sorted(p.name for d in ("cache", "remote", "remote/cas") if (tmp_path / d).exists()
                   for p in (tmp_path / d).iterdir()
-                  if not p.name.startswith("pool_") and p.name not in kept)
+                  if not p.name.startswith("pool_") and p.name != "cas"
+                  and not content_addressed(p))
 
 
 def _where_am_i(x):

@@ -152,26 +152,37 @@ def test_executor_builds_its_policy_from_arguments_environment_and_defaults(monk
     assert ex.max_task_retries == 1 and ex._stall_after() == 1.5  # three intervals
 
 
-@pytest.mark.parametrize("key", ["prewarm", "cache_results", "cas_ttl_hours",
-                                 "cas_max_bytes"])
-def test_the_5b_iii_keys_are_refused_by_name(key):
-    with pytest.raises(NotImplementedError, match=f"{key} .*5b-iii"):
-        GPUExecutor(**{key: 1})
+@pytest.mark.parametrize("key,value", [("prewarm_enabled", False), ("cache_results", True),
+                                       ("cas_ttl_hours", 2.5), ("cas_max_bytes", 4096)])
+def test_the_lifecycle_and_cache_keys_take_the_reference_defaults(key, value, tmp_path):
+    """``prewarm``, ``cache_results``, ``cas_ttl_hours`` and ``cas_max_bytes``
+    default as the JAX package's executor does, and an argument is taken."""
+    from covalent_tpu_plugin import TPUExecutor
+
+    common = dict(transport="local", cache_dir=str(tmp_path / "cache"))
+    assert getattr(GPUExecutor(**common), key) == getattr(TPUExecutor(**common), key)
+    arg = "prewarm" if key == "prewarm_enabled" else key
+    assert getattr(GPUExecutor(**common, **{arg: value}), key) == value
 
 
-@pytest.mark.parametrize("method,args", [("prewarm", ()), ("teardown_gang", ()),
-                                         ("health_canary", ("localhost",))])
-def test_the_5b_iii_lifecycle_is_refused_by_name(method, args):
-    with pytest.raises(NotImplementedError, match=f"{method} .*5b-iii"):
-        asyncio.run(getattr(GPUExecutor(), method)(*args))
+@pytest.mark.parametrize("method,args,kwargs", [
+    ("prewarm", (), {"chaos": "drop_after=1"}), ("prewarm", (), {"prewarm": False}),
+    ("teardown_gang", (), {}), ("health_canary", ("localhost",), {})])
+def test_the_lifecycle_on_a_cold_executor_answers_as_the_reference(method, args, kwargs,
+                                                                    tmp_path):
+    """Nothing dialed: a prewarm under a chaos plan or turned off, a
+    teardown of nothing warm and a canary of a worker with no runtime all
+    answer False, as the JAX package's executor does, and dial nothing."""
+    from covalent_tpu_plugin import TPUExecutor
 
+    common = dict(transport="local", cache_dir=str(tmp_path / "cache"), **kwargs)
 
-@pytest.mark.parametrize("kind", ["ssh", "minissh"])
-def test_serving_sessions_over_ssh_are_refused_by_name(kind):
-    from covalent_tpu_plugin_torch.serving.supervisor import split_target
+    async def ask(ex):
+        try:
+            return await getattr(ex, method)(*args)
+        finally:
+            await ex.close()
 
-    ex = GPUExecutor(transport=kind, hostname="user@host:2222")
-    with pytest.raises(NotImplementedError, match="over SSH .*5b-iii"):
-        split_target(ex)
-    local = GPUExecutor()
-    assert split_target(local) == (local, None)
+    ours = GPUExecutor(**common)
+    assert asyncio.run(ask(ours)) is asyncio.run(ask(TPUExecutor(**common))) is False
+    assert not ours._transports and not ours.is_warm

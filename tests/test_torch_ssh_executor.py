@@ -34,6 +34,7 @@ at the top.
 from __future__ import annotations
 
 import asyncio
+import hashlib
 import os
 import socket
 import sys
@@ -185,10 +186,13 @@ def test_config1_runs_as_a_lattice_over_ssh(tmp_path, sshd, events):
     spans = [e for e in events if e["type"] == "span" and e["name"] == "pool.connect"]
     assert len(spans) == 1
     assert codec.WIRE_BYTES_TOTAL.labels(direction="up", codec="raw").value >= up
-    # the harness stays in the worker's CAS under its digest; nothing else is left
+    # the harness and the function pickle stay in the worker's CAS under
+    # their digests; nothing else is left
     remote = tmp_path / "remote"
     assert sorted(p.name for p in remote.iterdir()) == ["cas"]
-    assert [p.suffix for p in (remote / "cas").iterdir()] == [".py"]
+    held = [(p.suffix, p.stem == hashlib.sha256(p.read_bytes()).hexdigest())
+            for p in (remote / "cas").iterdir()]
+    assert {suffix for suffix, _ in held} == {".pkl", ".py"} and all(ok for _, ok in held)
 
 
 def test_the_warm_pool_runs_both_roads_over_ssh(tmp_path, sshd, run_async, events):
@@ -343,7 +347,7 @@ def test_addressing_and_preflight_follow_the_reference(tmp_path, sshd):
                   ssh_key_file=str(sshd.key_file), cache_dir=str(tmp_path / "cache"),
                   remote_cache="/abs/cache", python_path="/py/python3", use_agent=False,
                   conda_env="env one")
-    ours, theirs = GPUExecutor(**common), TPUExecutor(**common, cas_ttl_hours=0)
+    ours, theirs = GPUExecutor(**common), TPUExecutor(**common)
     assert ours._worker_addresses() == theirs._worker_addresses()
     assert ours._coordinator_address() == theirs._coordinator_address() == "w0:8476"
     for address in common["workers"]:

@@ -4,9 +4,9 @@
 
 Builds the kernels, trains the ``train`` phase's standard arm in-process
 for the losses the phase compares against, then runs
-``chip_smoke.ssh_phase`` (config 1, the warm pool, the 125M LM by RPC and
-the FSDP gang over two SSH addresses, through a minissh server on
-loopback).  Prints the card and each line of the phase, and writes the
+``chip_smoke.ssh_phase`` (config 1, the warm pool, the 125M LM by RPC, the
+result cache on that pool and the FSDP gang over two SSH addresses, through
+a minissh server on loopback).  Prints the card and each line of the phase, and writes the
 lines to ``lines.jsonl`` when a path is given.
 """
 
@@ -38,14 +38,15 @@ def main() -> int:
     losses = train_lm(steps=cs.SSH_STEPS, batch_size=cs.BATCH, seq_len=cs.SEQ, seed=0)["losses"]
     torch.cuda.empty_cache()
     start = time.perf_counter()
-    lines, launches = cs.ssh_phase(losses, {})
+    lines, launches, cache_launches = cs.ssh_phase(losses, {})
     if len(sys.argv) > 1:
         with open(sys.argv[1], "w") as f:
             for line in lines:
                 f.write(json.dumps(line, default=str) + "\n")
     for line in lines:
         print(json.dumps(line, default=str), flush=True)
-    print(json.dumps({"launches": launches, "seconds": time.perf_counter() - start}))
+    print(json.dumps({"launches": launches, "cache_launches": cache_launches,
+                      "seconds": time.perf_counter() - start}))
     return 0
 
 

@@ -3,7 +3,20 @@
 
     python3 chip_smoke.py
 
-Phases, one JSON object per line on stdout, in this order:
+Phases, one JSON object per line on stdout.  They run in this order: 1, 2;
+3 beside the ``stall`` arm of 20 (the build needs the host's cores, the arm
+a card no other process holds); 4-6, 8-11, 13 and the ``w8_kernel`` arm of
+24; then 7.  All of these run alone on the card, so every kernel's times
+and the main path's step times are measured on a quiet card.  Then three
+lanes run at once: lane a in this process (12, 14-17, then the rest of 24;
+their lines say ``"lane": "a"``), lane b in a child process
+(``python3 chip_smoke.py --lane b``: 18, the ``preempt`` arm of 20, 19) and
+lane c in another (the prewarm, straggler and cas arms of 23, 21, the
+serving arms of 23, 22).  A child lane waits for what it needs from lane a
+(the ``train`` losses, the ``session`` streams) as files under
+``build/chip_smoke/lanes``; its lines are printed when every lane is done,
+so their ``elapsed_s`` are not in order, and a time measured in a lane was
+measured beside the other two lanes' load.  25 comes last.
 
 1. ``device``: the card, with its name and power limit as ``nvidia-smi`` gives them.
 2. ``startup``: what a fresh interpreter pays before an electron's first op
@@ -305,12 +318,13 @@ Phases, one JSON object per line on stdout, in this order:
     ``covalent_tpu_prewarm_seconds``.  ``teardown``: ``teardown_gang()``
     while an electron runs (refused) and after (done), ``is_warm`` after,
     and the next electron's fresh dial.  ``straggler``: a gang of three
-    over three SSH addresses whose last rank leaves 3 s after the others,
-    under ``COVALENT_TPU_STRAGGLER_BUDGET_S=1`` and
+    over three SSH addresses whose ranks gather on a barrier, the last
+    then leaving 3 s after the others, under
+    ``COVALENT_TPU_STRAGGLER_BUDGET_S=1`` and
     ``COVALENT_TPU_STRAGGLER_REDIAL=1``: the flagged worker and its
     differential, its channel dropped and dialed afresh by the next
-    electron; then ``health_canary`` on a live pool server and on one
-    killed.  ``cas``: three electrons whose pickles each carry one block
+    electron (run with the detection off); then ``health_canary`` on a live
+    pool server and on one killed.  ``cas``: three electrons whose pickles each carry one block
     of the 125M LM under ``cas_max_bytes`` of the harness and 1.2 blocks:
     ``CAS_EVICTED``, the harness and the running pickle kept after every
     electron, the TTL's ``-mmin`` in the pre-flight.  ``ssh_session``:
@@ -320,7 +334,36 @@ Phases, one JSON object per line on stdout, in this order:
     0 tokens different from the ``session`` phase's streams;
     ``ssh_replicas``: the same through a replica set of two SSH addresses
     (tokens/s, placement, 0 tokens different).
-24. ``kernels``: every kernel with its launches on its path (the flash
+24. ``adapters``: slice 3a (int8 weight-only serving and LoRA), at the
+    125M LM's full width.  ``w8_kernel``: the int8-weight product
+    (``csrc/bi_gemm_w8.cu``) at M 1, 8, 128 and 1024 on q/k/v/o, wi, wo and
+    the lm_head (bf16 features, f32 out): the elements that differ from
+    ``bi_gemm_tc`` on the widened weight followed by the reference's scale
+    step (0), device ms beside the plain version, ``F.linear`` on a weight
+    widened beforehand (a yardstick) and the bound, and the rows that
+    differ at batch 8 from each row alone (0).  ``lora_train``: two
+    fine-tune electrons by RPC, run on the ``train`` phase's warm pool
+    after its arms (``models.lora.train_lora``: rank 16 on the
+    default targets, B=8, S=1024, 3 steps; the float base, then QLoRA on
+    the int8 base): losses finite and falling, 12 launches of each flash
+    kernel a step, step ms, the base bit-unchanged, every adapter leaf
+    moved, the worker's digest of the adapter equal to the one of the
+    bundle the executor's registry ships (its bytes in the CAS, unpacked
+    and digested again).  ``modes_bank``:
+    one session on a pool server whose engine hosts the decode modes
+    ``fp``, ``int8``, ``kv_quant`` and ``full_quant`` and a bank of two
+    adapters (``lora_train``'s and a seeded one); the serve cell's 16
+    requests mixing ``quality`` and ``adapter``, a third adapter put in the
+    executor's registry and attached mid-burst (requests after it use it),
+    then detached: per mode tokens/s, TTFT p50, the weight bytes a decode
+    step reads and the int8 launches a decode step (0 on ``fp`` and
+    ``kv_quant``, 73 on ``int8`` and ``full_quant``); each quantized
+    twin's logit cosine against fp (above 0.999 for ``int8`` and
+    ``kv_quant``); the tokens that differ between each bank lane and a
+    single-adapter engine's stream, and between each base lane and the
+    ``session`` phase's (0); the attach's seconds and its
+    ``serve_attached`` record.
+25. ``kernels``: every kernel with its launches on its path (the flash
     kernels: training, with the gang's launches beside as
     ``gang_launches``, the ``lm_ring2`` arm's f32-output launches as
     ``ring_launches`` with the variant's times under ``f32_variant``, the
@@ -328,11 +371,13 @@ Phases, one JSON object per line on stdout, in this order:
     as ``ssh_launches``, the ``agent`` phase's as ``agent_launches`` and
     the ``elastic`` phase's (both attempts of ``preempt``) as
     ``elastic_launches``, the ``cache`` arm's misses as
-    ``cache_miss_launches``; the
+    ``cache_miss_launches``, the ``adapters`` phase's fine-tunes as
+    ``lora_launches``; the
     batch-invariant ones: the ``serve`` phase, and
     the f32 CUDA-core product ``serve_check``'s f32 LM, with its 0 launches
     on the ``serve`` phase beside, and the serve cell over SSH's as
-    ``ssh_session_launches``),
+    ``ssh_session_launches``; the int8-weight product: the ``adapters``
+    phase's session),
     error, times and bound, and the route (tensor-core or scalar kernel)
     each input type and head dim of a flash kernel takes.
 
@@ -356,7 +401,11 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 WORK = ROOT / "build" / "chip_smoke"
-_START = time.perf_counter()
+#: The script's start on the system's monotonic clock: a lane (``--lane``)
+#: reads the main process's, so every ``elapsed_s`` counts from one start.
+_START = float(os.environ.get("CHIP_SMOKE_START") or time.monotonic())
+#: The child lane this process runs (``--lane``), named on its phase lines.
+_LANE = None
 
 #: H100 SXM data-sheet peaks (dense): tensor-core rate by input type, and HBM3.
 PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}
@@ -371,7 +420,8 @@ TRAIN_LOSS_TOL = 1e-2
 
 def emit(obj: dict) -> None:
     if "phase" in obj:  # when each phase line left, from the script's start
-        obj = {**obj, "elapsed_s": time.perf_counter() - _START}
+        obj = {**obj, **({"lane": _LANE} if _LANE else {}),
+               "elapsed_s": time.monotonic() - _START}
     print(json.dumps(obj), flush=True)
 
 
@@ -919,9 +969,11 @@ def train_launches_per_step(arm: str, kernel: str) -> int:
     return TRAIN_LAUNCHES.get(arm, {}).get(kernel, 12)
 
 
-def train_phase() -> list[dict]:
+def train_phase() -> tuple[list[dict], list[dict]]:
     """The training electron once an arm of :data:`TRAIN_ARMS`, each arm's
-    result named by ``arm``."""
+    result named by ``arm``; then, on the same warm pool, the ``adapters``
+    phase's two LoRA fine-tune electrons (:func:`lora_train_arm`), whose
+    results it returns beside the arms'."""
     from covalent_tpu_plugin_torch import GPUExecutor
     from covalent_tpu_plugin_torch.models.train import train_lm
 
@@ -960,10 +1012,12 @@ def train_phase() -> list[dict]:
                 client = executor._agents.get("localhost")
                 out["frames_active"] = None if client is None else client.frames_active
                 arms.append(out)
+            await run_lora(rpc)
         finally:
             await rpc.close()
         return arms
 
+    lora, run_lora = lora_train_arm()
     arms = asyncio.run(run_arms())
     roads = [arm["dispatch_mode"] for arm in arms]
     if roads != [road for _, road, _, _ in TRAIN_ARMS]:
@@ -971,7 +1025,7 @@ def train_phase() -> list[dict]:
     if any(arm["frames_active"] is not True for arm in arms if arm["dispatch_mode"] == "rpc"):
         raise AssertionError(f"train: an RPC arm's channel is not on frames "
                              f"({[arm['frames_active'] for arm in arms]})")
-    return arms
+    return arms, lora
 
 
 #: The MoE loss's load-balance weight (``models.moe.lm_loss_with_moe_aux``).
@@ -1990,7 +2044,8 @@ def session_phase(serve_streams: list) -> dict:
     config = lm_125m_config(max_seq=512)
 
     async def run():
-        executor = GPUExecutor(**common, remote_cache=str(WORK / "remote"))
+        executor = GPUExecutor(**common, remote_cache=str(WORK / "remote"),
+                               pool_preload=SERVE_PRELOAD)
         try:
             framed = await _serve_session(executor, serve_streams, config, "cuda")
         finally:
@@ -3690,7 +3745,7 @@ def _overheads(timings: list) -> dict:
             "within_budget": _percentile(walls, 0.95) <= OVERHEAD_BUDGET_S}
 
 
-def ssh_phase(train_losses: list, local_overheads: dict) -> tuple[list[dict], dict, dict]:
+def ssh_phase(train_losses: list) -> tuple[list[dict], dict, dict]:
     """The paper's road over a real SSH channel (BASELINE config 1, the warm
     pool, the 125M LM's electron by RPC, the result cache on that pool, a
     two-worker FSDP gang whose workers are two SSH addresses), every
@@ -3798,7 +3853,7 @@ def ssh_phase(train_losses: list, local_overheads: dict) -> tuple[list[dict], di
             "within_budget": first["wall_overhead"] <= OVERHEAD_BUDGET_S,
             "handshake_s": handshakes(), "preflight_s": first.get("preflight"),
             "wire_bytes_first": first_wire, "codec": codec.name if codec else "raw",
-            "advertised_codecs": advertised, "local_lattice": local_overheads.get("launch"),
+            "advertised_codecs": advertised,
             "warm": {**_overheads(warm), "electron_wall_p50_s": _percentile(walls, 0.5),
                      "breakdown": warm[-1]}})
 
@@ -3822,8 +3877,7 @@ def ssh_phase(train_losses: list, local_overheads: dict) -> tuple[list[dict], di
                             "dispatch_id": "ssh", "node_id": 1 + i, "dispatch_mode": mode})
                         check(road, got, pool, mode)
                         timings.append(dict(pool.last_timings))
-                    roads[road] = {**_overheads(timings), "breakdown": timings[-1],
-                                   "local_lattice": local_overheads.get(road)}
+                    roads[road] = {**_overheads(timings), "breakdown": timings[-1]}
                 (client,) = [c for c in pool._agents.values() if c is not None]
                 frames = client.frames_active
                 wall = time.perf_counter()
@@ -3931,13 +3985,23 @@ def ssh_after_electron(x: int) -> dict:
     return {**ssh_where_electron(), "after": x}
 
 
-def late_rank_electron(delay: float) -> int:
+def late_rank_electron(delay: float, barrier: str) -> int:
     """A gang electron whose last rank leaves ``delay`` seconds after the
-    others (the harness exports the rank before the electron runs)."""
+    others (the harness exports the rank before the electron runs).  Every
+    rank first waits until all ranks have entered the electron (a file each
+    in ``barrier``), so the ranks' start-up, which differs under load, does
+    not order their exits: the early ranks leave together, only the last
+    one waits."""
     import os
     import time
 
     rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    open(os.path.join(barrier, f"in.{rank}"), "w").close()
+    deadline = time.monotonic() + 120.0
+    while len(os.listdir(barrier)) < world:
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"rank {rank}: the gang never gathered in {barrier}")
+        time.sleep(0.01)
     if rank == world - 1:
         time.sleep(delay)
     return rank
@@ -4066,9 +4130,14 @@ def _straggler_arm(executor, server) -> dict:
     last rank leaves ``STRAGGLER_DELAY_S`` after the others, under a budget
     of ``STRAGGLER_BUDGET_S`` and ``COVALENT_TPU_STRAGGLER_REDIAL``: the
     flagged worker and its differential, its channel dropped and dialed
-    afresh by the next electron; then ``health_canary`` on a live pool
-    server and on one killed.  (A gang of two is never flagged: the
-    median of an even gang is its upper middle, the reference's rule.)"""
+    afresh by the next electron (which runs with the detection off: it
+    only counts the dials); then ``health_canary`` on a live pool server
+    and on one killed.  The ranks gather on a barrier before they leave,
+    so no exit order comes from the machine's load.  (A gang of two is
+    never flagged: the median of an even gang is its upper middle, the
+    reference's rule.)"""
+    import shutil
+
     from covalent_tpu_plugin_torch.fleet.health import HEALTH
     from covalent_tpu_plugin_torch.obs import events as obs_events
 
@@ -4080,19 +4149,24 @@ def _straggler_arm(executor, server) -> dict:
                                             "COVALENT_TPU_STRAGGLER_REDIAL")}
     os.environ["COVALENT_TPU_STRAGGLER_BUDGET_S"] = str(STRAGGLER_BUDGET_S)
     os.environ["COVALENT_TPU_STRAGGLER_REDIAL"] = "1"
+    barriers = [WORK / "lifecycle" / f"barrier{i}" for i in range(2)]
+    for barrier in barriers:
+        shutil.rmtree(barrier, ignore_errors=True)
+        barrier.mkdir(parents=True)
     seen: list = []
     obs_events.add_listener(seen.append)
 
     async def run():
         try:
             wall = time.perf_counter()
-            first = await ex.run(late_rank_electron, [STRAGGLER_DELAY_S], {},
+            first = await ex.run(late_rank_electron, [STRAGGLER_DELAY_S, str(barriers[0])], {},
                                  {"dispatch_id": "straggler", "node_id": 0})
             wall = time.perf_counter() - wall
             await asyncio.gather(*list(ex._cleanup_tasks))
             dropped = ex._pool_key(workers[2]) not in ex._transports
             misses = _metric("covalent_tpu_pool_acquires_total", result="miss")
-            second = await ex.run(late_rank_electron, [0.0], {},
+            os.environ["COVALENT_TPU_STRAGGLER_BUDGET_S"] = "0"
+            second = await ex.run(late_rank_electron, [0.0, str(barriers[1])], {},
                                   {"dispatch_id": "straggler", "node_id": 1})
             dialed = _metric("covalent_tpu_pool_acquires_total", result="miss") - misses
             live = await ex.health_canary(workers[0])
@@ -4285,12 +4359,18 @@ async def _ssh_serving(executor, server, serve_streams: list, config,
     return lines, serving
 
 
-def lifecycle_phase(session_streams: list, device: str = "cuda") -> tuple[list[dict], dict]:
-    """The executor's lifecycle over minissh (slice 5b-iii): the ``prewarm``
-    and ``teardown`` arms, the ``straggler`` arm (and the canary), the
-    ``cas`` arm, and the serve cell over SSH (``ssh_session``,
-    ``ssh_replicas``) held token for token against the ``session`` phase.
-    Returns the lines and the serving kernels' launches over SSH."""
+LIFECYCLE_PARTS = ("arms", "serving")
+
+
+def lifecycle_phase(session_streams: list | None, device: str = "cuda",
+                    parts: tuple = LIFECYCLE_PARTS) -> tuple[list[dict], dict]:
+    """The executor's lifecycle over minissh (slice 5b-iii): the ``arms``
+    part (the ``prewarm`` and ``teardown`` arms, the ``straggler`` arm and
+    the canary, the ``cas`` arm), and the ``serving`` part, the serve cell
+    over SSH (``ssh_session``, ``ssh_replicas``) held token for token
+    against the ``session`` phase's ``session_streams``.  Either part may
+    run alone, each on its own server.  Returns the lines and the serving
+    kernels' launches over SSH."""
     from covalent_tpu_plugin_torch import GPUExecutor
     from covalent_tpu_plugin_torch.models.transformer import lm_125m_config
 
@@ -4313,19 +4393,23 @@ def lifecycle_phase(session_streams: list, device: str = "cuda") -> tuple[list[d
         return GPUExecutor(**settings)
 
     lines: list = []
+    serving: dict = {}
     try:
         for arm, run in (("prewarm", lambda: _prewarm_arm(executor)),
                          ("straggler", lambda: [_straggler_arm(executor, server)]),
                          ("cas", lambda: [_cas_arm(executor)])):
+            if "arms" not in parts:
+                break
             start = time.perf_counter()
             arm_lines = run()
             arm_lines[-1]["seconds"] = time.perf_counter() - start
             lines.extend(arm_lines)
-        start = time.perf_counter()
-        serving_lines, serving = asyncio.run(_ssh_serving(
-            executor, server, session_streams, lm_125m_config(max_seq=512), device))
-        serving_lines[-1]["seconds"] = time.perf_counter() - start
-        lines.extend(serving_lines)
+        if "serving" in parts:
+            start = time.perf_counter()
+            serving_lines, serving = asyncio.run(_ssh_serving(
+                executor, server, session_streams, lm_125m_config(max_seq=512), device))
+            serving_lines[-1]["seconds"] = time.perf_counter() - start
+            lines.extend(serving_lines)
     finally:
         server.close()
     return lines, serving
@@ -4840,7 +4924,634 @@ def serve_profile() -> dict:
     }
 
 
+# --- slice 3a: int8 weights and LoRA adapters ---------------------------------
+
+#: The 125M LM's int8 products: (K, N, output type) of q/k/v/o, the MLP's wi
+#: and wo, and the lm_head (bf16 features, f32 logits).
+W8_SHAPES = {"qkvo": (768, 768, "bfloat16"), "mlp_wi": (768, 3072, "bfloat16"),
+             "mlp_wo": (3072, 768, "bfloat16"), "lm_head": (768, 32768, "float32")}
+#: The fine-tune: rank 16 on the default targets, B=8, S=1024, 3 steps.
+LORA_RANK = 16
+LORA_STEPS = 3
+ADAPTER_MODES = ("fp", "int8", "kv_quant", "full_quant")
+#: The modes_bank burst: request i takes the mode ADAPTER_MODES[i % 4] and
+#: this adapter ("" the base); requests 12-15 are sent after ``third`` is
+#: attached mid-burst.
+ADAPTER_MIX = ("", "tuned", "seeded", "tuned") * 3 + ("", "third", "third", "tuned")
+#: Dense products a decode step of an int8 model runs: 6 a layer and the lm_head.
+W8_PER_STEP = 6 * 12 + 1
+
+
+def _w8_operands(m: int, k: int, n: int, seed: int):
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+    w = torch.randn(n, k, generator=gen, device="cuda") * 0.02
+    scale = w.abs().amax(dim=1).clamp_min(1e-8) / 127.0
+    q = torch.clamp(torch.round(w / scale[:, None]), -127, 127).to(torch.int8)
+    return x, q, scale
+
+
+def w8_kernel_check() -> dict:
+    """The int8-weight product (``csrc/bi_gemm_w8.cu``) at M 1, 8, 128 and
+    1024 on the 125M LM's shapes: the elements that differ from
+    ``bi_gemm_tc`` on the widened weight followed by the reference's scale
+    step (must be 0), device ms beside the plain version, the library call
+    on a weight widened to bf16 beforehand (``F.linear``: the same function
+    with twice the weight bytes; a yardstick only) and the bound (the int8
+    weight's bytes at 3.35 TB/s, or the operations); and the rows that
+    differ at batch 8 from each row alone (must be 0)."""
+    import torch
+    import torch.nn.functional as F
+
+    from covalent_tpu_plugin_torch.ops import _kernels
+    from covalent_tpu_plugin_torch.ops import batch_invariant as bi
+
+    cases, fns, mismatched = {}, {}, {}
+    for name, (k, n, out_name) in W8_SHAPES.items():
+        dtype = getattr(torch, out_name)
+        for tag, m in BI_ROWS.items():
+            x, q, scale = _w8_operands(m, k, n, seed=m + n)
+            wide = q.to(torch.bfloat16)
+            got = bi.linear_w8(x, q, scale, dtype)
+            twin = torch.empty(m, n, dtype=dtype, device="cuda")
+            _kernels.bi_gemm(x, wide, twin)
+            twin = twin * scale.to(dtype)
+            label = f"{name}.{tag}"
+            mismatched[label] = int((got != twin).sum())
+            plan = _kernels.plan_bi_gemm(torch.bfloat16, torch.int8, (1, 1, 1, m, n, k))
+            nbytes = x.numel() * 2 + q.numel() + scale.numel() * 4 + got.numel() * got.element_size()
+            cases[label] = dict(m=m, k=k, n=n, out=out_name, tiles=plan.tiles, route=plan.route,
+                                flops=2 * m * n * k, bytes=nbytes,
+                                **_max_err(got, bi.linear_w8_plain(x, q, scale, dtype)))
+            fns[f"{label}:kernel"] = (lambda x=x, q=q, s=scale, d=dtype: bi.linear_w8(x, q, s, d),
+                                      "w8_")
+            fns[f"{label}:plain"] = (lambda x=x, q=q, s=scale, d=dtype:
+                                     bi.linear_w8_plain(x, q, s, d), None)
+            fns[f"{label}:library"] = (lambda x=x, w=wide: F.linear(x, w), None)
+    times = device_ms_labelled(fns, 20)
+    for label, row in cases.items():
+        bound_ms, bound_by = bound(row["flops"], row["bytes"], "bfloat16")
+        row.update(ms=times[f"{label}:kernel"], plain_ms=times[f"{label}:plain"],
+                   library_ms=times[f"{label}:library"], bound_ms=bound_ms, bound_by=bound_by,
+                   elements_differ_bi_gemm_tc=mismatched[label])
+    rows_differ = {}
+    for name, (k, n, out_name) in W8_SHAPES.items():
+        dtype = getattr(torch, out_name)
+        x, q, scale = _w8_operands(8, k, n, seed=k + n)
+        batch = bi.linear_w8(x, q, scale, dtype)
+        rows_differ[name] = sum(not torch.equal(bi.linear_w8(x[r:r + 1], q, scale, dtype)[0],
+                                                batch[r]) for r in range(8))
+    out = {"shapes": cases, "elements_differ_bi_gemm_tc": sum(mismatched.values()),
+           "rows_differ_batch8": rows_differ,
+           "library_note": "F.linear on the weight widened to bf16 beforehand"}
+    bad = [label for label, row in cases.items() if not row["ok"] or row["route"] != "w8"]
+    if out["elements_differ_bi_gemm_tc"] or any(rows_differ.values()) or bad:
+        raise AssertionError(f"adapters w8_kernel: differ {mismatched}, rows {rows_differ}, "
+                             f"off the plain version or the route: {bad}")
+    return out
+
+
+def seeded_adapter(config, seed: int) -> list:
+    """An adapter of rank :data:`LORA_RANK` in the reference's wire form,
+    every leaf from a generator seeded with ``seed`` (A ~ N(0, 1/r), B ~
+    N(0, 0.02)): B non-zero, so it changes the streams."""
+    import dataclasses
+
+    import numpy as np
+
+    from covalent_tpu_plugin_torch.models import lora
+    from covalent_tpu_plugin_torch.models.transformer import TransformerLM
+
+    template = TransformerLM(dataclasses.replace(config, lora_rank=LORA_RANK), device="meta")
+    rng = np.random.default_rng(seed)
+    return [(rng.standard_normal(shape) * (0.02 if i % 2 else 1.0 / LORA_RANK)
+             ).astype(np.float32) for i, shape in enumerate(lora.adapter_shapes(template))]
+
+
+def lora_train_arm() -> tuple[list, object]:
+    """Two LoRA fine-tune electrons by RPC, on the float base, then QLoRA
+    (``quantize_then_lora``): ``(results, run)``, ``run(executor)`` filling
+    ``results``.  The ``train`` phase runs them on its warm pool; the
+    ``adapters`` phase checks them."""
+    from covalent_tpu_plugin_torch.models.lora import train_lora
+
+    lines = []
+
+    async def run(executor):
+        for node, quantized in enumerate((False, True)):
+            wall = time.perf_counter()
+            out = await executor.run(
+                train_lora, [], dict(steps=LORA_STEPS, batch_size=BATCH, seq_len=SEQ,
+                                     rank=LORA_RANK, quantized=quantized, seed=0),
+                {"dispatch_id": "chip_smoke_lora", "node_id": node})
+            out["wall_s"] = time.perf_counter() - wall
+            out["dispatch_mode"] = executor.last_dispatch_mode
+            lines.append(out)
+    return lines, run
+
+
+def _oracle_model(base, mode: str, leaves):
+    """The single-adapter model of one lane: ``base`` (bf16 weights) in
+    ``mode``'s twin with the adapter of ``leaves`` on top, in
+    ``quantize_then_lora``'s order; ``base``'s twin alone without one."""
+    import dataclasses
+
+    import torch
+
+    from covalent_tpu_plugin_torch.models import lora, quant
+    from covalent_tpu_plugin_torch.models.transformer import TransformerLM
+
+    model = quant.quantize_lm(base) if mode in ("int8", "full_quant") else base
+    if leaves is not None:
+        model = lora.load_adapter(lora.add_lora(model, LORA_RANK), leaves)
+    if mode in ("kv_quant", "full_quant"):
+        twin = TransformerLM(dataclasses.replace(model.config, quantized_kv_cache=True),
+                             device=torch.device("meta"))
+        twin.load_state_dict(model.state_dict(), assign=True)
+        model = twin
+    return model
+
+
+def _weight_bytes(model) -> int:
+    """Bytes of the weights a decode step reads: every parameter but the
+    embedding (a step gathers its rows), adapters excluded."""
+    return sum(p.numel() * p.element_size() for n, p in model.named_parameters()
+               if n != "embedding" and not n.endswith(("lora_a", "lora_b")))
+
+
+async def _modes_bank_session(executor, config, adapters: dict, third: list) -> dict:
+    """The serve cell's 16 requests through one session whose engine hosts
+    the four decode modes and a bank of ``adapters``; ``third`` registered
+    and attached mid-burst, then detached."""
+    from covalent_tpu_plugin_torch.models import serve
+    from covalent_tpu_plugin_torch.serving import open_session
+
+    prompts, caps = session_prompts(config.vocab_size)
+    factory = counting_factory(serve.lm_engine_factory(
+        config=config, seed=0, device="cuda", max_batch=SESSION["slots"],
+        sync_steps=SESSION["sync_steps"], max_new_tokens=SESSION["long"],
+        decode_modes=ADAPTER_MODES, adapters=adapters, adapter_rank=LORA_RANK))
+    start = time.perf_counter()
+    handle = await open_session(executor, factory, stats_interval_s=1.0, open_timeout_s=300)
+    open_s = time.perf_counter() - start
+    await _warm(handle, config, 1)
+
+    def params(i):
+        p = {"max_new_tokens": caps[i], "quality": ADAPTER_MODES[i % 4]}
+        if ADAPTER_MIX[i]:
+            p["adapter"] = ADAPTER_MIX[i]
+        return p
+
+    start = time.perf_counter()
+    first = [await handle.request(prompts[i], params=params(i)) for i in range(12)]
+    while not any(r.tokens for r in first):
+        await asyncio.sleep(0.01)
+    record = executor.adapter_registry().put("third", third, rank=LORA_RANK)
+    attach_start = time.perf_counter()
+    attached = await handle.attach_adapter("third")
+    attach_s = time.perf_counter() - attach_start
+    in_flight_at_attach = sum(0 < len(r.tokens) < c for r, c in zip(first, caps))
+    rest = [await handle.request(prompts[i], params=params(i)) for i in range(12, 16)]
+    requests = first + rest
+    results = await asyncio.gather(*(r.result(timeout=600) for r in requests))
+    wall = time.perf_counter() - start
+    detached = await handle.detach_adapter("third")
+    stats = await _settled_stats(handle.supervisor, len(prompts) + 1)
+    held = handle.adapters
+    await handle.close()
+    return {"results": results, "requests": requests, "wall": wall, "open_s": open_s,
+            "attach_s": attach_s, "attached": attached, "detached": detached,
+            "record": record, "stats": stats, "held_after_detach": held,
+            "in_flight_at_attach": in_flight_at_attach}
+
+
+def adapters_phase(pool_session: dict, trained: list | None = None,
+                   w8: dict | None = None) -> tuple[list[dict], dict]:
+    """Slice 3a on the card: the int8-weight kernel (``w8``: the line of
+    :func:`w8_kernel_check`, which ``main`` runs on the quiet card before
+    the lanes; run here when not given), the LoRA fine-tune electrons
+    (``trained``: the ``train`` phase ran them on its warm pool; run here
+    by RPC when not given), and one session hosting the four
+    decode modes and a bank of adapters (attached and detached mid-burst),
+    each lane held token for token to its single-adapter engine and each
+    base lane to the ``session`` phase.  Returns the lines and the serving
+    kernels' launches in the session's worker (the int8 kernel's path)."""
+    import numpy as np
+    import torch
+
+    from covalent_tpu_plugin_torch import GPUExecutor
+    from covalent_tpu_plugin_torch.models import decode, quant, serve
+    from covalent_tpu_plugin_torch.models.transformer import TransformerLM, lm_125m_config
+    from covalent_tpu_plugin_torch.ops import _kernels
+
+    from covalent_tpu_plugin_torch.serving.registry import adapter_content_digest, unpack_adapter
+
+    if w8 is None:
+        start = time.perf_counter()
+        w8 = {"arm": "w8_kernel", **w8_kernel_check(), "seconds": time.perf_counter() - start}
+    lines = [w8]
+
+    config = lm_125m_config(max_seq=512)
+    common = dict(transport="local", cache_dir=str(WORK / "cache_adapters"),
+                  remote_workdir=str(WORK / "work"), python_path=sys.executable,
+                  task_timeout=600, task_env={"PYTHONPATH": str(ROOT)})
+    start = time.perf_counter()
+    if trained is None:
+        trained, run_training = lora_train_arm()
+
+        async def train():
+            executor = GPUExecutor(**common, remote_cache=str(WORK / "remote_lora"),
+                                   dispatch_mode="rpc")
+            try:
+                await run_training(executor)
+            finally:
+                await executor.close()
+
+        asyncio.run(train())
+    executor = GPUExecutor(**common, remote_cache=str(WORK / "remote_adapters"),
+                           use_agent="pool", pool_preload=SERVE_PRELOAD)
+
+    async def drive():
+        try:
+            adapters = {"tuned": trained[0]["leaves"], "seeded": seeded_adapter(config, 1)}
+            return await _modes_bank_session(executor, config, adapters,
+                                             seeded_adapter(config, 2))
+        finally:
+            await executor.close()
+
+    session = asyncio.run(drive())
+    registry = executor.adapter_registry()
+    for arm in trained:
+        # the adapter as the registry ships it: its bundle's bytes in the
+        # CAS, unpacked and digested again, against the worker's digest
+        record = registry.put(f"lora_{'int8' if arm['quantized'] else 'float'}", arm["leaves"],
+                              rank=LORA_RANK)
+        shipped = unpack_adapter(Path(record["path"]).read_bytes())
+        arm_line = {
+            "arm": "lora_train", "quantized": arm["quantized"], "rank": arm["rank"],
+            "dispatch_mode": arm["dispatch_mode"], "losses": arm["losses"],
+            "step_ms": [s * 1e3 for s in arm["step_s"]], "launches": arm["launches"],
+            "launches_per_step": {k: v / LORA_STEPS for k, v in arm["launches"].items()},
+            "base_unchanged": arm["base_unchanged"],
+            "adapter_leaves_moved": arm["adapter_leaves_moved"],
+            "adapter_leaves_total": arm["adapter_leaves_total"], "digest": arm["digest"],
+            "registry_digest": record["content"],
+            "bundle_digest": adapter_content_digest(shipped["leaves"]),
+            "bundle_bytes": record["size"],
+            "electron_wall_s": arm["wall_s"], "device": arm["device"]}
+        ok = (all(np.isfinite(arm["losses"])) and arm["losses"][-1] < arm["losses"][0]
+              and all(v == 12 * LORA_STEPS for v in arm["launches"].values())
+              and arm["base_unchanged"]
+              and arm_line["digest"] == arm_line["registry_digest"] == arm_line["bundle_digest"]
+              and arm["adapter_leaves_moved"] == arm["adapter_leaves_total"] == 144
+              and arm["dispatch_mode"] == "rpc")
+        if not ok:
+            raise AssertionError(f"adapters lora_train: {arm_line}")
+        lines.append(arm_line)
+
+    # in-process on the card: the single-adapter engines, the lane groups'
+    # int8 launches per decode step and the quantized lanes' logit cosines
+    base = decode.inference_params(TransformerLM(
+        config, device="cuda", generator=torch.Generator(device="cuda").manual_seed(0)))
+    adapters = {"tuned": trained[0]["leaves"], "seeded": seeded_adapter(config, 1),
+                "third": seeded_adapter(config, 2)}
+    prompts, caps = session_prompts(config.vocab_size)
+    results = session["results"]
+    differ = {}
+    pairs = sorted({(ADAPTER_MODES[i % 4], ADAPTER_MIX[i]) for i in range(16)})
+    for mode, name in pairs:
+        idx = [i for i in range(16) if (ADAPTER_MODES[i % 4], ADAPTER_MIX[i]) == (mode, name)]
+        if mode == "fp" and not name:
+            # base lanes against the session phase's streams
+            differ["fp/base"] = sum(a != b for i in idx
+                                    for a, b in zip(results[i], pool_session["results"][i]))
+            continue
+        engine = serve.ContinuousEngine(
+            _oracle_model(base, mode, adapters[name] if name else None),
+            max_batch=SESSION["slots"], sync_steps=SESSION["sync_steps"],
+            max_new_tokens=SESSION["long"])
+        for i in idx:
+            engine.admit(str(i), prompts[i], {"max_new_tokens": caps[i]})
+        oracle: dict = {}
+        while engine.busy:
+            for event in engine.step():
+                oracle.setdefault(int(event["rid"]), []).extend(event["tokens"])
+        engine.close()
+        differ[f"{mode}/{name or 'base'}"] = sum(
+            (len(results[i]) != len(oracle[i])) + sum(a != b for a, b in zip(results[i], oracle[i]))
+            for i in idx)
+    groups = serve.ContinuousEngine(base, max_batch=1, sync_steps=1, max_new_tokens=4,
+                                    decode_modes=ADAPTER_MODES,
+                                    adapters={"tuned": adapters["tuned"]})
+    w8_per_step, weight_bytes = {}, {}
+    for mode in ADAPTER_MODES:
+        groups.admit(mode, prompts[0][:16], {"quality": mode, "adapter": "tuned",
+                                             "max_new_tokens": 4})
+        groups.step()
+        _kernels.reset_launch_counts()
+        groups.step()
+        w8_per_step[mode] = _kernels.serving_launch_counts()["bi_gemm_w8"]
+        groups.cancel(mode)
+        weight_bytes[mode] = _weight_bytes(groups.group(mode)._model)
+    groups.close()
+    tokens = torch.as_tensor(np.stack(prompts[:2]), dtype=torch.long, device="cuda")
+    with torch.no_grad():
+        fp = base(tokens, cache=decode.init_cache(base, 2)).double().flatten()
+        cosine = {}
+        for mode in ADAPTER_MODES[1:]:
+            twin = quant.mode_variant(base, mode)
+            got = twin(tokens, cache=decode.init_cache(twin, 2)).double().flatten()
+            cosine[mode] = float(fp @ got / (fp.norm() * got.norm()))
+    del base
+    torch.cuda.empty_cache()
+
+    reqs, stats = session["requests"], session["stats"]
+    per_mode = {}
+    for m_i, mode in enumerate(ADAPTER_MODES):
+        idx = range(m_i, 16, 4)
+        per_mode[mode] = {
+            "requests": len(idx), "tokens": sum(caps[i] for i in idx),
+            "tokens_per_s": sum(caps[i] for i in idx) / session["wall"],
+            "ttft_p50_s": float(np.percentile([reqs[i].ttft_s for i in idx], 50)),
+            "weight_bytes_per_step": weight_bytes[mode],
+            "int8_launches_per_step": w8_per_step[mode],
+            "engine_tokens": stats.get(f"mode_tokens_{mode}")}
+    serving = _serving_launches(stats)
+    line = {
+        "arm": "modes_bank", "decode_modes": ADAPTER_MODES, "adapters": sorted(adapters),
+        "mix": [f"{ADAPTER_MODES[i % 4]}/{ADAPTER_MIX[i] or 'base'}" for i in range(16)],
+        "open_s": session["open_s"], "wall_s": session["wall"],
+        "tokens_per_s": sum(caps) / session["wall"], "per_mode": per_mode,
+        "adapter_bytes_per_row": sum(leaf.size * 2 for leaf in adapters["tuned"]),
+        "logit_cosine_vs_fp": cosine, "tokens_differ_single_adapter": differ,
+        "streams_complete": sum(len(r) == c for r, c in zip(results, caps)),
+        "attach_s": session["attach_s"], "serve_attached": session["attached"],
+        "serve_detached": session["detached"], "registry_record": session["record"],
+        "in_flight_at_attach": session["in_flight_at_attach"],
+        "held_after_detach": session["held_after_detach"],
+        "engine_stats": {k: v for k, v in stats.items()
+                         if k.startswith(("adapter_", "mode_")) or k == "mode_refusals"},
+        "serving_launches": serving, "flash_launches": _flash(stats),
+        "worker_peak_mem_bytes": (stats.get("device_mem") or {}).get("peak_bytes_in_use")}
+    ok = (line["streams_complete"] == 16 and not any(differ.values())
+          and cosine["int8"] > 0.999 and cosine["kv_quant"] > 0.999
+          and w8_per_step["fp"] == w8_per_step["kv_quant"] == 0
+          and w8_per_step["int8"] == w8_per_step["full_quant"] == W8_PER_STEP
+          and serving.get("bi_gemm_w8", 0) >= 1 and not any(_flash(stats).values())
+          and session["attached"].get("digest") == adapter_content_digest(adapters["third"])
+          and "third" not in session["held_after_detach"] and stats.get("mode_refusals") == 0)
+    if not ok:
+        raise AssertionError(f"adapters modes_bank: {line}")
+    line["seconds"] = time.perf_counter() - start
+    lines.append(line)
+    return lines, serving
+
+
+# --- lanes: the phases after the quiet prefix, three at a time ---------------
+
+#: The phases each child lane runs, in order (``python3 chip_smoke.py --lane
+#: NAME``, started by ``main``); ``main`` itself runs the third lane (serve,
+#: session, replicas and disagg, recovery, adapters).  Everything before the
+#: lanes runs alone on the card: the kernels' parity and times, the train
+#: phase, the profiles and the elastic phase's stall arm (whose check counts
+#: the card's processes).  Each lane's own times are measured beside the
+#: other two lanes' load: its lines say so (``lane``).
+LANES = {"b": ("lattice", "elastic_preempt", "gang"),
+         "c": ("lifecycle_arms", "ssh", "lifecycle_serving", "agent")}
+LANE_DIR = WORK / "lanes"
+#: The longest a lane waits for what another lane publishes.
+LANE_WAIT_S = 900.0
+
+
+def _publish(name: str, obj) -> None:
+    """Hand ``obj`` to the other lanes (written whole, then renamed)."""
+    LANE_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = LANE_DIR / f".{name}.{os.getpid()}.tmp"
+    # numpy scalars and arrays as plain numbers and lists
+    tmp.write_text(json.dumps(obj, default=lambda o: o.tolist()))
+    os.replace(tmp, LANE_DIR / f"{name}.json")
+
+
+def _awaited(name: str):
+    """What another lane published as ``name``, once it has."""
+    path = LANE_DIR / f"{name}.json"
+    deadline = time.monotonic() + LANE_WAIT_S
+    parent = os.getppid()
+    while not path.exists():
+        if os.getppid() != parent or time.monotonic() > deadline:
+            raise AssertionError(f"lane: {name} was never published")
+        time.sleep(0.2)
+    return json.loads(path.read_text())
+
+
+def _lane_lattice(smi: str, out: dict) -> None:
+    """BASELINE configs 2-4 as lattices: no flash kernel, here or in the
+    MNIST workers (which report their counts)."""
+    from covalent_tpu_plugin_torch.ops import _kernels
+
+    _kernels.reset_launch_counts()
+    start = time.perf_counter()
+    lattice_lines, worker_launches = lattice_phase()
+    lattice_s = time.perf_counter() - start
+    flash = {name: n + worker_launches[name] for name, n in _kernels.launch_counts().items()}
+    if any(flash.values()):
+        raise AssertionError(f"lattice: flash kernels launched {flash}")
+    for line in lattice_lines:
+        emit({"phase": "lattice", "card": smi, **line})
+    emit({"phase": "lattice", "card": smi, "seconds": lattice_s, "flash_launches": flash})
+    _publish("lattice", {line["arm"]: {k: line["overhead"][k] for k in (
+        "dispatch_overhead_s", "wall_overhead_p50_s", "wall_overhead_p95_s")}
+        for line in lattice_lines if "overhead" in line})
+
+
+def _lane_elastic_preempt(smi: str, out: dict) -> None:
+    """The 125M LM preempted once and resumed from its checkpoint beside an
+    uninterrupted twin.  The attempts report their own launches (the first
+    up to the checkpoint it left); ours are added."""
+    from covalent_tpu_plugin_torch.ops import _kernels
+
+    _kernels.reset_launch_counts()
+    start = time.perf_counter()
+    preempt = elastic_preempt()
+    emit({"phase": "elastic", "card": smi, **preempt})
+    out["elastic_s"] = time.perf_counter() - start
+    out["elastic_launches"] = {
+        name: n + preempt["launches"]["attempt1_to_checkpoint"].get(name, 0)
+        + preempt["launches"]["attempt2"].get(name, 0)
+        for name, n in _kernels.launch_counts().items()}
+
+
+def _lane_gang(smi: str, out: dict) -> None:
+    """BASELINE configs 5 and 4 as two-process gangs on the card: every rank
+    reports its own launches; the phase fails if a rank of an LM arm ran a
+    flash kernel a number of times other than 12 a step."""
+    losses = _awaited("train")
+    start = time.perf_counter()
+    gang_lines, gang_launches, arm_launches = gang_phase(
+        {name: losses[name] for name in ("standard", "fused", "moe8")})
+    for line in gang_lines:
+        emit({"phase": "gang", "card": smi, **line})
+    emit({"phase": "gang", "card": smi, "seconds": time.perf_counter() - start,
+          "flash_launches": gang_launches})
+    out.update(gang_launches=gang_launches, gang_arm_launches=arm_launches)
+
+
+def _lane_lifecycle_arms(smi: str, out: dict) -> None:
+    """The executor's lifecycle over minissh, its first part: prewarm and
+    teardown, a straggler and the canary, the CAS's byte budget.  Its lines
+    leave with the second part's."""
+    from covalent_tpu_plugin_torch.ops import _kernels
+
+    _kernels.reset_launch_counts()
+    start = time.perf_counter()
+    lines, _ = lifecycle_phase(None, parts=("arms",))
+    out["lifecycle"] = {"lines": lines, "seconds": time.perf_counter() - start}
+
+
+def _lane_ssh(smi: str, out: dict) -> None:
+    """The paper's road over a real SSH channel on loopback: config 1, the
+    warm pool, the LM by RPC and the FSDP gang over two SSH addresses; the
+    electrons ran in the workers, which report their counts, and ours (0
+    after the reset unless the dispatcher launched one) are added.  The
+    local lattice's overheads (lane b) stand beside the SSH ones."""
+    from covalent_tpu_plugin_torch.ops import _kernels
+
+    losses = _awaited("train")
+    _kernels.reset_launch_counts()
+    start = time.perf_counter()
+    ssh_lines, ssh_launches, cache_launches = ssh_phase(losses["standard"])
+    seconds = time.perf_counter() - start
+    ssh_launches = {name: n + ssh_launches.get(name, 0)
+                    for name, n in _kernels.launch_counts().items()}
+    if "skipped" not in ssh_lines[0]:
+        local = _awaited("lattice")
+        for line in ssh_lines:
+            if line.get("arm") == "config1":
+                line["local_lattice"] = local.get("launch")
+            for road, entry in (line.get("roads") or {}).items():
+                entry["local_lattice"] = local.get(road)
+    for line in ssh_lines:
+        emit({"phase": "ssh", "card": smi, **line})
+    emit({"phase": "ssh", "card": smi, "seconds": seconds, "flash_launches": ssh_launches})
+    out.update(ssh_launches=ssh_launches, cache_launches=cache_launches,
+               ssh_skipped="skipped" in ssh_lines[0])
+
+
+def _lane_lifecycle_serving(smi: str, out: dict) -> None:
+    """The lifecycle phase's second part: the serve cell over minissh, whose
+    workers report the serving kernels' launches, against the ``session``
+    phase's streams; then every lifecycle line."""
+    from covalent_tpu_plugin_torch.ops import _kernels
+
+    session = _awaited("session")
+    start = time.perf_counter()
+    lines, serving = lifecycle_phase(session["results"], parts=("serving",))
+    first = out.pop("lifecycle")
+    lines = first["lines"] + lines
+    for line in lines:
+        emit({"phase": "lifecycle", "card": smi, **line})
+    emit({"phase": "lifecycle", "card": smi,
+          "seconds": first["seconds"] + time.perf_counter() - start,
+          "serving_launches": serving, "flash_launches": _kernels.launch_counts()})
+    out.update(lifecycle_serving=serving, lifecycle_skipped="skipped" in lines[0])
+
+
+def _lane_agent(smi: str, out: dict) -> None:
+    """The native agent's roads, resident profiling, the per-session
+    families and Pool targets: the electrons report their own launches (the
+    RPC training electron ran in a --rpc-child), ours are added."""
+    from covalent_tpu_plugin_torch.ops import _kernels
+
+    losses, session = _awaited("train"), _awaited("session")
+    _kernels.reset_launch_counts()
+    start = time.perf_counter()
+    launches = agent_phase(losses["standard"], session)
+    launches = {name: n + launches.get(name, 0) for name, n in _kernels.launch_counts().items()}
+    emit({"phase": "agent", "card": smi, "seconds": time.perf_counter() - start,
+          "flash_launches": launches})
+    out["agent_launches"] = launches
+
+
+LANE_PHASES = {"lattice": _lane_lattice, "elastic_preempt": _lane_elastic_preempt,
+               "gang": _lane_gang, "lifecycle_arms": _lane_lifecycle_arms, "ssh": _lane_ssh,
+               "lifecycle_serving": _lane_lifecycle_serving, "agent": _lane_agent}
+
+
+def lane_main(name: str) -> int:
+    """One child lane: its phases in order, its lines on stdout (a file the
+    main process prints once the lane is done), its results published as
+    ``lane_<name>``.  SIGTERM (the main process giving up) unwinds it
+    through every phase's clean-up."""
+    import torch
+
+    global _LANE
+    _LANE = name
+    signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # the lattices' workflow config, one file a lane
+    os.environ["COVALENT_TPU_CONFIG"] = str(WORK / f"config_{name}.toml")
+    sys.path.insert(0, str(ROOT))
+    smi = nvidia_smi()
+    out: dict = {}
+    for phase in LANES[name]:
+        LANE_PHASES[phase](smi, out)
+    _publish(f"lane_{name}", out)
+    return 0
+
+
+def _start_lanes() -> dict:
+    env = dict(os.environ, CHIP_SMOKE_START=repr(_START))
+    lanes = {}
+    for name in LANES:
+        with open(LANE_DIR / f"{name}.out", "w") as stdout:
+            lanes[name] = subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                                            "--lane", name], stdout=stdout, env=env,
+                                           cwd=str(ROOT))
+    return lanes
+
+
+def _check_lanes(lanes: dict) -> None:
+    """Fail at once when a lane has failed, its last lines on stderr (its
+    traceback is there already: a lane's stderr is ours)."""
+    for name, proc in lanes.items():
+        if proc.poll() not in (None, 0):
+            tail = (LANE_DIR / f"{name}.out").read_text().splitlines()[-5:]
+            print("\n".join(line[:2000] for line in tail), file=sys.stderr, flush=True)
+            raise AssertionError(f"lane {name} failed (exit code {proc.returncode})")
+
+
+def _join_lanes(lanes: dict) -> dict:
+    """Each lane's results once it is done, its lines printed."""
+    results = {}
+    for name, proc in lanes.items():
+        proc.wait(timeout=LANE_WAIT_S)
+        _check_lanes({name: proc})
+        results[name] = json.loads((LANE_DIR / f"lane_{name}.json").read_text())
+    for name in lanes:
+        for raw in (LANE_DIR / f"{name}.out").read_text().splitlines():
+            print(raw, flush=True)
+    return results
+
+
+def _stop_lanes(lanes: dict) -> None:
+    for proc in lanes.values():
+        if proc.poll() is None:
+            proc.terminate()
+    for proc in lanes.values():
+        try:
+            proc.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+
+
 def main() -> int:
+    import concurrent.futures
+    import shutil
+
     import torch
 
     if not torch.cuda.is_available():
@@ -4853,6 +5564,8 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     from covalent_tpu_plugin_torch.ops import _kernels
 
+    shutil.rmtree(LANE_DIR, ignore_errors=True)
+    LANE_DIR.mkdir(parents=True)
     smi = nvidia_smi()
     kind = torch.cuda.get_device_name(0)
     emit({"phase": "device", "kind": kind, "count": torch.cuda.device_count(),
@@ -4860,10 +5573,23 @@ def main() -> int:
 
     emit({"phase": "startup", "card": smi, **startup_phase()})
 
-    start = time.perf_counter()
-    libs = _kernels.build()
-    emit({"phase": "build", "seconds": time.perf_counter() - start,
+    # The build (nvcc, on the host's cores) beside the elastic phase's stall
+    # arm, which needs no kernel and must see the card alone: an electron
+    # that stops itself on attempt 1 is found stalled, escalated and
+    # retried, and attempt 2 must not find attempt 1's process on the card.
+    def timed_build():
+        start = time.perf_counter()
+        return _kernels.build(), time.perf_counter() - start
+
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        building = pool.submit(timed_build)
+        start = time.perf_counter()
+        stall = elastic_stall(before=_compute_apps())
+        stall_s = time.perf_counter() - start
+        libs, build_s = building.result()
+    emit({"phase": "build", "seconds": build_s,
           "libraries": sorted(str(p.relative_to(ROOT)) for p in libs.values())})
+    emit({"phase": "elastic", "card": smi, **stall})
 
     parity = {}
     for i, case in enumerate(PARITY_CASES):
@@ -4894,13 +5620,34 @@ def main() -> int:
           "positions": VARIANT_CASES[0]["positions"], "card": smi, "kernels": variants})
 
     emit({"phase": "model_check", **model_check()})
+    emit({"phase": "profile", "card": smi, **profile_phase()})
+
+    # The small f32 LM of serve_check runs its serving products on the f32
+    # CUDA-core route: that route's path.
+    _kernels.reset_launch_counts()
+    emit({"phase": "serve_check", **serve_check()})
+    f32_path_launches = _kernels.serving_launch_counts()
+    # The serving ops' rows at batch 1 and in a batch of 8, on the library
+    # route (the diagnosis) and on the batch-invariant kernels (the repair),
+    # then the kernels' times at the serve cell's shapes, a decode step's
+    # profile and the int8-weight product's check and times (its line leaves
+    # with the adapters phase's).
+    start = time.perf_counter()
+    invariance = batch_invariance_phase()
+    emit({"phase": "batch_invariance", "card": smi, "seconds": time.perf_counter() - start,
+          **invariance})
+    serving_timing = serving_kernels_timing()
+    emit({"phase": "serving_kernels", "card": smi, "shapes": serving_timing})
+    emit({"phase": "serve_profile", "card": smi, **serve_profile()})
+    start = time.perf_counter()
+    w8_check = {"arm": "w8_kernel", **w8_kernel_check(), "seconds": time.perf_counter() - start}
 
     # The main path.  Each wrapper counts its launches in the process that
     # launches it; the electrons run in the harness subprocess, which starts
     # at 0 and reports its counts, so the path's launches are ours (0 after
     # the reset) plus the worker's.
     _kernels.reset_launch_counts()
-    arms = train_phase()
+    arms, lora_arms = train_phase()
     local = _kernels.launch_counts()
     check_train(arms)
     launches = {name: local[name] + sum(arm["launches"][name] for arm in arms)
@@ -4944,131 +5691,71 @@ def main() -> int:
                 "launch_note": "each block's flash forward runs again in the backward "
                                "(recomputed, not a 2-D product): 24 a step"})
         emit(line)
+    _publish("train", {arm["arm"]: arm["losses"] for arm in arms})
 
-    emit({"phase": "profile", "card": smi, **profile_phase()})
-
-    # The small f32 LM of serve_check runs its serving products on the f32
-    # CUDA-core route: that route's path.
-    _kernels.reset_launch_counts()
-    emit({"phase": "serve_check", **serve_check()})
-    f32_path_launches = _kernels.serving_launch_counts()
-    # The serving ops' rows at batch 1 and in a batch of 8, on the library
-    # route (the diagnosis) and on the batch-invariant kernels (the repair),
-    # then the kernels' times at the serve cell's shapes.
-    start = time.perf_counter()
-    invariance = batch_invariance_phase()
-    emit({"phase": "batch_invariance", "card": smi, "seconds": time.perf_counter() - start,
-          **invariance})
-    serving_timing = serving_kernels_timing()
-    emit({"phase": "serving_kernels", "card": smi, "shapes": serving_timing})
-    # The serving path.  Its attention over the KV cache runs no flash
-    # kernel, and every product and norm takes the batch-invariant kernels:
-    # the electron resets the launch counts in its own process and reports
-    # them; the flash counts must stay 0, the serving ones not.
-    _kernels.reset_launch_counts()
-    served = serve_phase()
-    if any(_kernels.launch_counts().values()):
-        raise AssertionError(f"serve: flash kernels launched {_kernels.launch_counts()}")
-    serving_launches = {name: n + served["serving_launches"][name]
-                        for name, n in _kernels.serving_launch_counts().items()}
-    serve_streams = served.pop("_streams")
-    emit({"phase": "serve", "card": smi, **served})
-    emit({"phase": "serve_profile", "card": smi, **serve_profile()})
-    # The resident session: the serve cell's traffic through open_session,
-    # on frames and on JSON lines.
-    start = time.perf_counter()
-    session = session_phase(serve_streams)
-    pool_session = {"results": session.pop("_results"), "tokens_per_s": session["tokens_per_s"],
-                    "ttft_s": session["ttft_s"]}
-    emit({"phase": "session", "card": smi, "seconds": time.perf_counter() - start, **session})
-    # Several resident workers on the card: a replica set, then a
-    # disaggregated set, each with the serve cell's traffic.
-    replicas, disagg = replica_phases(serve_streams)
-    emit({"phase": "replicas", "card": smi, **replicas})
-    emit({"phase": "disagg", "card": smi, **disagg})
-    # A journaling dispatcher crashes mid-burst and a second one adopts its
-    # orphaned pool server; then a planned handoff and a SIGTERM notice.
-    emit({"phase": "recovery", "card": smi, **recovery_phase(serve_streams)})
-
-    # BASELINE configs 2-4 as lattices: no flash kernel, here or in the
-    # MNIST workers (which report their counts).
-    _kernels.reset_launch_counts()
-    start = time.perf_counter()
-    lattice_lines, worker_launches = lattice_phase()
-    lattice_s = time.perf_counter() - start
-    flash = {name: n + worker_launches[name] for name, n in _kernels.launch_counts().items()}
-    if any(flash.values()):
-        raise AssertionError(f"lattice: flash kernels launched {flash}")
-    for line in lattice_lines:
-        emit({"phase": "lattice", "card": smi, **line})
-    emit({"phase": "lattice", "card": smi, "seconds": lattice_s, "flash_launches": flash})
-
-    # BASELINE configs 5 and 4 as two-process gangs on the card: every rank
-    # reports its own launches; the phase fails if a rank of an LM arm ran a
-    # flash kernel a number of times other than 12 a step.
-    start = time.perf_counter()
-    gang_lines, gang_launches, gang_arm_launches = gang_phase(
-        {name: by_arm[name]["losses"] for name in ("standard", "fused", "moe8")})
-    for line in gang_lines:
-        emit({"phase": "gang", "card": smi, **line})
-    emit({"phase": "gang", "card": smi, "seconds": time.perf_counter() - start,
-          "flash_launches": gang_launches})
-
-    # Elastic electrons: the 125M LM preempted once and resumed from its
-    # checkpoint beside an uninterrupted twin, then a stalled electron
-    # escalated and retried.  The attempts report their own launches (the
-    # first up to the checkpoint it left); ours are added.
-    _kernels.reset_launch_counts()
-    start = time.perf_counter()
-    before = _compute_apps()
-    preempt = elastic_preempt()
-    emit({"phase": "elastic", "card": smi, **preempt})
-    emit({"phase": "elastic", "card": smi, **elastic_stall(before=before)})
-    elastic_launches = {name: n + preempt["launches"]["attempt1_to_checkpoint"].get(name, 0)
-                        + preempt["launches"]["attempt2"].get(name, 0)
-                        for name, n in _kernels.launch_counts().items()}
-    emit({"phase": "elastic", "card": smi, "seconds": time.perf_counter() - start,
+    # what this process cached on the card for the prefix goes back to it
+    torch.cuda.empty_cache()
+    lanes = _start_lanes()
+    try:
+        # Lane a.  The serving path.  Its attention over the KV cache runs
+        # no flash kernel, and every product and norm takes the
+        # batch-invariant kernels: the electron resets the launch counts in
+        # its own process and reports them; the flash counts must stay 0,
+        # the serving ones not.
+        _kernels.reset_launch_counts()
+        served = serve_phase()
+        if any(_kernels.launch_counts().values()):
+            raise AssertionError(f"serve: flash kernels launched {_kernels.launch_counts()}")
+        serving_launches = {name: n + served["serving_launches"][name]
+                            for name, n in _kernels.serving_launch_counts().items()}
+        serve_streams = served.pop("_streams")
+        emit({"phase": "serve", "card": smi, "lane": "a", **served})
+        _check_lanes(lanes)
+        # The resident session: the serve cell's traffic through
+        # open_session, on frames and on JSON lines.
+        start = time.perf_counter()
+        session = session_phase(serve_streams)
+        pool_session = {"results": session.pop("_results"),
+                        "tokens_per_s": session["tokens_per_s"], "ttft_s": session["ttft_s"]}
+        _publish("session", pool_session)
+        emit({"phase": "session", "card": smi, "lane": "a",
+              "seconds": time.perf_counter() - start, **session})
+        _check_lanes(lanes)
+        # Several resident workers on the card: a replica set, then a
+        # disaggregated set, each with the serve cell's traffic.
+        replicas, disagg = replica_phases(serve_streams)
+        emit({"phase": "replicas", "card": smi, "lane": "a", **replicas})
+        emit({"phase": "disagg", "card": smi, "lane": "a", **disagg})
+        _check_lanes(lanes)
+        # A journaling dispatcher crashes mid-burst and a second one adopts
+        # its orphaned pool server; then a planned handoff and a SIGTERM
+        # notice.
+        emit({"phase": "recovery", "card": smi, "lane": "a", **recovery_phase(serve_streams)})
+        _check_lanes(lanes)
+        # Slice 3a: the LoRA fine-tune electrons (their worker reports their
+        # flash launches) and one session hosting the four decode modes and
+        # an adapter bank, whose worker reports the serving kernels'
+        # launches: the int8 kernel's path.
+        _kernels.reset_launch_counts()
+        start = time.perf_counter()
+        adapter_lines, adapter_serving = adapters_phase(pool_session, lora_arms, w8_check)
+        lora_launches = {name: n + sum(line["launches"][name] for line in adapter_lines
+                                       if line["arm"] == "lora_train")
+                         for name, n in _kernels.launch_counts().items()}
+        for line in adapter_lines:
+            emit({"phase": "adapters", "card": smi, "lane": "a", **line})
+        emit({"phase": "adapters", "card": smi, "lane": "a",
+              "seconds": time.perf_counter() - start, "flash_launches": lora_launches,
+              "serving_launches": adapter_serving})
+        lane = _join_lanes(lanes)
+    finally:
+        _stop_lanes(lanes)
+    gang_launches, gang_arm_launches = lane["b"]["gang_launches"], lane["b"]["gang_arm_launches"]
+    elastic_launches = lane["b"]["elastic_launches"]
+    emit({"phase": "elastic", "card": smi, "seconds": stall_s + lane["b"]["elastic_s"],
           "flash_launches": elastic_launches})
-
-    # The paper's road over a real SSH channel on loopback: config 1, the
-    # warm pool, the LM by RPC and the FSDP gang over two SSH addresses.
-    local_overheads = {line["arm"]: {k: line["overhead"][k] for k in (
-        "dispatch_overhead_s", "wall_overhead_p50_s", "wall_overhead_p95_s")}
-        for line in lattice_lines if "overhead" in line}
-    _kernels.reset_launch_counts()
-    start = time.perf_counter()
-    ssh_lines, ssh_launches, cache_launches = ssh_phase(arms[0]["losses"], local_overheads)
-    # the electrons ran in the workers, which report their counts; ours
-    # (0 after the reset unless the dispatcher launched one) are added
-    ssh_launches = {name: n + ssh_launches.get(name, 0)
-                    for name, n in _kernels.launch_counts().items()}
-    for line in ssh_lines:
-        emit({"phase": "ssh", "card": smi, **line})
-    emit({"phase": "ssh", "card": smi, "seconds": time.perf_counter() - start,
-          "flash_launches": ssh_launches})
-
-    # The executor's lifecycle over minissh: prewarm and teardown, a
-    # straggler and the canary, the CAS's byte budget, and the serve cell
-    # over SSH, whose workers report the serving kernels' launches.
-    _kernels.reset_launch_counts()
-    start = time.perf_counter()
-    lifecycle_lines, lifecycle_serving = lifecycle_phase(pool_session["results"])
-    for line in lifecycle_lines:
-        emit({"phase": "lifecycle", "card": smi, **line})
-    emit({"phase": "lifecycle", "card": smi, "seconds": time.perf_counter() - start,
-          "serving_launches": lifecycle_serving,
-          "flash_launches": _kernels.launch_counts()})
-
-    # The native agent's roads, resident profiling, the per-session
-    # families and Pool targets: the electrons report their own launches
-    # (the RPC training electron ran in a --rpc-child), ours are added.
-    _kernels.reset_launch_counts()
-    start = time.perf_counter()
-    agent_launches = agent_phase(arms[0]["losses"], pool_session)
-    agent_launches = {name: n + agent_launches.get(name, 0)
-                      for name, n in _kernels.launch_counts().items()}
-    emit({"phase": "agent", "card": smi, "seconds": time.perf_counter() - start,
-          "flash_launches": agent_launches})
+    ssh_launches, cache_launches = lane["c"]["ssh_launches"], lane["c"]["cache_launches"]
+    agent_launches, lifecycle_serving = lane["c"]["agent_launches"], lane["c"]["lifecycle_serving"]
 
     kernels = []
     for kernel in _kernels.KERNELS:
@@ -5086,6 +5773,7 @@ def main() -> int:
             "agent_launches": agent_launches.get(kernel.name, 0),
             "elastic_launches": elastic_launches.get(kernel.name, 0),
             "cache_miss_launches": cache_launches.get(kernel.name, 0),
+            "lora_launches": lora_launches.get(kernel.name, 0),
             "max_abs_err": max(path_errs), "ms": res["kernel_ms"], "plain_ms": res["plain_ms"],
             "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
             "library_ms": res["library_ms"], "ms_cold_l2": res["kernel_cold_ms"],
@@ -5114,14 +5802,16 @@ def main() -> int:
             raise AssertionError(f"{kernel.name} was not launched on the gang's path")
         if gang_arm_launches["lm_ring2"][kernel.name] < 1:
             raise AssertionError(f"{kernel.name}'s f32 variant was not launched on the ring")
-        if ssh_launches.get(kernel.name, 0) < 1 and "skipped" not in ssh_lines[0]:
+        if ssh_launches.get(kernel.name, 0) < 1 and not lane["c"]["ssh_skipped"]:
             raise AssertionError(f"{kernel.name} was not launched on the ssh phase's path")
         if agent_launches.get(kernel.name, 0) < 1:
             raise AssertionError(f"{kernel.name} was not launched on the agent phase's path")
         if elastic_launches.get(kernel.name, 0) < 1:
             raise AssertionError(f"{kernel.name} was not launched on the elastic phase's path")
-        if cache_launches.get(kernel.name, 0) < 1 and "skipped" not in ssh_lines[0]:
+        if cache_launches.get(kernel.name, 0) < 1 and not lane["c"]["ssh_skipped"]:
             raise AssertionError(f"{kernel.name} was not launched on the cache arm's misses")
+        if lora_launches.get(kernel.name, 0) < 1:
+            raise AssertionError(f"{kernel.name} was not launched by the LoRA fine-tune")
     # The serving kernels port no Pallas kernel: the main path is the serve
     # phase, where the bf16 LM runs the tensor-core products, the mix and
     # the norm; the f32 CUDA-core product's path is serve_check's f32 LM
@@ -5160,11 +5850,30 @@ def main() -> int:
         if launches < 1:
             raise AssertionError(f"{kernel.name} was not launched on its path")
         if on_serve and lifecycle_serving.get(kernel.name, 0) < 1 \
-                and "skipped" not in lifecycle_lines[0]:
+                and not lane["c"]["lifecycle_skipped"]:
             raise AssertionError(f"{kernel.name} was not launched on the serve cell over SSH")
     if serving_launches["bi_gemm"]:
         raise AssertionError(f"the bf16 serve path launched the f32 CUDA-core product "
                              f"{serving_launches['bi_gemm']} times")
+    # The int8-weight product ports no Pallas kernel either: its path is the
+    # adapters phase's session, whose int8 and full_quant lanes run it; the
+    # row is the decode step's lm_head (8 rows), "shapes" has every other.
+    w8 = w8_check["shapes"]["lm_head.m8"]
+    kernels.append({
+        "name": _kernels.BI_GEMM_W8.name, "route": "cuda",
+        "source": f"covalent_tpu_plugin_torch/csrc/{_kernels.BI_GEMM_W8.source}",
+        "replaces": _kernels.BI_GEMM_W8.replaces,
+        "launches": adapter_serving.get(_kernels.BI_GEMM_W8.name, 0),
+        "path": "adapters (modes_bank: the int8 and full_quant lanes)",
+        "max_abs_err": max(r["max_abs_err"] for r in w8_check["shapes"].values()),
+        "elements_differ_bi_gemm_tc": w8_check["elements_differ_bi_gemm_tc"],
+        "ms": w8["ms"], "plain_ms": w8["plain_ms"], "bound_ms": w8["bound_ms"],
+        "bound_by": w8["bound_by"], "library_ms": w8["library_ms"],
+        "library_note": w8_check["library_note"], "shape": "bi_gemm_w8.lm_head.m8",
+        "shapes": w8_check["shapes"],
+    })
+    if kernels[-1]["launches"] < 1:
+        raise AssertionError("bi_gemm_w8 was not launched on the adapters session's path")
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -5173,4 +5882,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--lane"]:
+        sys.exit(lane_main(sys.argv[2]))
     sys.exit(main())

@@ -362,6 +362,9 @@ class AgentClient:
         #: "sid/rid" -> pushed ``serve_kv`` answer to a prefill (a KV bundle
         #: or an error), bounded: a late answer nobody waits for is dropped
         self._serve_kv: dict[str, dict] = {}
+        #: "kind:sid/adapter" -> pushed ``serve_attached``/``serve_detached``
+        #: ack or refusal of a live adapter splice, bounded the same way
+        self._serve_attached: dict[str, dict] = {}
         #: resident profiling: profile id -> pushed profile_started /
         #: profile_stopped / profile_error event
         self._profile_started: dict[str, dict] = {}
@@ -526,6 +529,10 @@ class AgentClient:
                         self._serve_resumed[f"{task_id}/{event.get('rid') or ''}"] = event
                         while len(self._serve_resumed) > 1024:
                             self._serve_resumed.pop(next(iter(self._serve_resumed)))
+                    elif kind in ("serve_attached", "serve_detached"):
+                        self._serve_attached[f"{kind}:{task_id}/{event.get('adapter') or ''}"] = event
+                        while len(self._serve_attached) > 256:
+                            self._serve_attached.pop(next(iter(self._serve_attached)))
                     elif kind == "epoch_ok":
                         self._epoch_ack = event
                     elif kind == "profile_started":
@@ -1043,6 +1050,42 @@ class AgentClient:
             command["kv"] = base64.b64encode(kv_bytes).decode("ascii")
         await self._send_serve(command, kv_bytes if inline_kv else None)
 
+    async def serve_attach(self, sid: str, adapter: str, digest: str, path: str,
+                           timeout: float = 60.0) -> dict:
+        """Splice a LoRA adapter bundle into a running session (reference
+        ``agent.py:1315-1340``).  ``path`` names a CAS-staged bundle on the
+        worker and ``digest`` its sha256: the worker checks the bytes before
+        the engine reads them.  Returns the ``serve_attached`` ack (the
+        content ``digest`` and ``attach_s``); a refusal raises
+        :class:`AgentError`, tagged permanent where the worker says so (no
+        bank, a digest mismatch, an unknown adapter, a geometry refusal)."""
+        return await self._serve_attach_rpc(
+            {"cmd": "serve_attach", "id": sid, "adapter": str(adapter),
+             "digest": str(digest), "path": str(path)}, timeout)
+
+    async def serve_detach(self, sid: str, adapter: str, timeout: float = 30.0) -> dict:
+        """Retire a named adapter of a running session (its bank slot frees
+        once the requests pinned to it finish)."""
+        return await self._serve_attach_rpc(
+            {"cmd": "serve_detach", "id": sid, "adapter": str(adapter)}, timeout)
+
+    async def _serve_attach_rpc(self, command: dict, timeout: float) -> dict:
+        name = str(command["cmd"])
+        sid, adapter = str(command["id"]), str(command["adapter"])
+        key = f"{name}ed:{sid}/{adapter}"
+        self._serve_attached.pop(key, None)
+        await self._send_serve(command)
+        event = await self._wait(lambda c: c._serve_attached.pop(key, None), timeout)
+        if event.get("code"):
+            failure = AgentError(f"agent@{self.address}: {name} {adapter!r} on {sid} failed "
+                                 f"({event.get('code')}): {event.get('message')}")
+            if event.get("permanent"):
+                failure.fault_label = str(event.get("label")
+                                          or f"serve_{event.get('code') or 'error'}")
+                failure.fault_transient = False
+            raise failure
+        return event
+
     async def serve_prefill(self, sid: str, rid: str, prompt, params: dict | None = None,
                             timeout: float = 60.0, trace: dict | None = None) -> dict:
         """Run a prefill-only pass on an open session; returns the
@@ -1161,6 +1204,8 @@ class AgentClient:
         self._serve_opened.pop(sid, None)
         self._serve_errors.pop(sid, None)
         self._serve_closed.pop(sid, None)
+        for key in [k for k in self._serve_attached if k.partition(":")[2].startswith(f"{sid}/")]:
+            del self._serve_attached[key]
 
     async def wait_dead(self) -> None:
         """Block until this channel dies, then raise :class:`AgentError`:

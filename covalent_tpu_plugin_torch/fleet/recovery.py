@@ -28,10 +28,13 @@ module reconciles the two on restart:
    discovery (``_discover_resume``) comes with ``utils/checkpoint.py`` in
    slice 5b.
 
-Journaled LoRA adapters (the reference's ``session_adapter`` records, which
-a journal written by the JAX package may hold) are refused by name: the
-adapters come with slice 3, so each is reported ``refused`` and
-``RECOVERY_ADAPTERS`` counts none.
+Journaled LoRA adapters (``session_adapter`` records) are restored to each
+re-adopted session before its streams resume: an adapter the worker's
+engine still holds (its inventory names the same content digest) is
+book-kept without shipping a byte (``resident``), any other is re-attached
+from the dispatcher's CAS bundle the journal points at (``attached``), and a
+failed restore is reported ``error``; ``RECOVERY_ADAPTERS`` counts each by
+state.
 
 The whole pass is fenced by the epoch bump :meth:`Journal.open` already
 performed — a zombie predecessor that wakes up mid-recovery finds every
@@ -50,9 +53,6 @@ from ..obs.metrics import REGISTRY
 from ..utils.log import app_log
 
 __all__ = ["recover", "RecoveryReport", "last_report"]
-
-#: What brings the adapter verbs a journaled session may name.
-ADAPTERS = "slice 3 (LoRA adapters)"
 
 RECOVERY_DURATION = REGISTRY.histogram(
     "covalent_tpu_recovery_duration_seconds",
@@ -77,7 +77,7 @@ RECOVERY_ADAPTERS = REGISTRY.counter(
     "covalent_tpu_recovery_adapters_total",
     "Journaled LoRA adapters restored to re-adopted sessions "
     "(resident: the worker still held it; attached: re-shipped from "
-    "the local CAS; error: restore failed); none until adapters are ported",
+    "the local CAS; error: restore failed)",
     ("state",),
 )
 
@@ -230,17 +230,30 @@ async def recover(executor: Any, timeout_s: float = 120.0) -> RecoveryReport:
         report["adopted_sessions"].append(sid)
         report.supervisors[sid] = supervisor
         RECOVERY_ADOPTED.inc()
-        # Journaled adapters cannot be restored: the adapter verbs come
-        # with slice 3.  Each is reported by name and the session's
-        # streams resume without it (a stream that names one is refused
-        # by the engine).
-        for aname in sorted(dict(meta.get("adapters") or {})):
-            app_log.warning("recovery: adapter %r of %s not restored: LoRA adapters "
-                            "come with %s", aname, sid, ADAPTERS)
-            report["reattached_adapters"].append({
-                "sid": sid, "adapter": aname, "state": "refused",
-                "reason": f"LoRA adapters come with {ADAPTERS}",
-            })
+        # Restore journaled adapters before resuming streams (reference
+        # recovery.py:232-271): a resumed request naming an adapter the
+        # engine lacks would be refused.  What the worker's engine still
+        # holds (by content digest) is book-kept, the rest re-attached.
+        resident = entry.get("adapters") if isinstance(entry.get("adapters"), dict) else {}
+        for aname, arec in dict(meta.get("adapters") or {}).items():
+            arec = arec if isinstance(arec, dict) else {}
+            content = str(arec.get("content") or "")
+            try:
+                if content and str(resident.get(aname) or "") == content:
+                    supervisor.note_adapter(aname, digest=str(arec.get("digest") or ""),
+                                            path=str(arec.get("path") or ""), content=content)
+                    state = "resident"
+                else:
+                    await supervisor.attach_adapter(aname, path=str(arec.get("path") or ""),
+                                                    digest=str(arec.get("digest") or ""))
+                    state = "attached"
+            except Exception as err:  # noqa: BLE001 - keep recovering
+                app_log.warning("recovery: adapter %r re-attach on %s failed: %r",
+                                aname, sid, err)
+                state = "error"
+            RECOVERY_ADAPTERS.labels(state=state).inc()
+            report["reattached_adapters"].append({"sid": sid, "adapter": aname,
+                                                  "state": state})
         for key, srec in streams.items():
             ssid, _, rid = key.partition("\x00")
             if ssid != sid or not rid:

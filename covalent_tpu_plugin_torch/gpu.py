@@ -927,6 +927,8 @@ class GPUExecutor(RemoteExecutor):
         self._fn_registry = FnRegistry()
         #: sid -> live serving-session supervisor (``serve_sessions``).
         self._serve_handles: dict[str, Any] = {}
+        #: the LoRA adapter registry, built at first use (adapter_registry)
+        self._adapter_registry = None
         #: seconds the last native agent took to build (0 when it was cached)
         self.agent_build_s = 0.0
         #: operation id -> fetched, digest-checked profile artifact
@@ -1736,6 +1738,17 @@ class GPUExecutor(RemoteExecutor):
         """sid -> live serving-session view (state, slots, queue depth,
         tokens/s)."""
         return {sid: handle.status() for sid, handle in list(self._serve_handles.items())}
+
+    def adapter_registry(self):
+        """This executor's LoRA adapter registry over ``{cache_dir}/cas``
+        (reference ``tpu.py:963-972``), built at first use: register bundles
+        here (``put``) and the sessions opened on this executor attach them
+        by name."""
+        if self._adapter_registry is None:
+            from .serving.registry import AdapterRegistry
+
+            self._adapter_registry = AdapterRegistry(self.cache_dir)
+        return self._adapter_registry
 
     async def lease_gang(self, dialed: list[Transport] | None = None) -> GangLease:
         """Connect to every worker, pre-flight each new channel and warm

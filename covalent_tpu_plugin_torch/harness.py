@@ -1045,12 +1045,6 @@ def _write_marker(path: str, text: str) -> None:
 # never initialises CUDA.
 # ---------------------------------------------------------------------------
 
-#: Verbs of the reference's runtime that this one refuses, and what brings them.
-_LATER_VERBS = {
-    "serve_attach": "slice 3 (LoRA adapters)",
-    "serve_detach": "slice 3 (LoRA adapters)",
-}
-
 #: Per-process record sequence: the dispatcher drops a record whose seq is
 #: not above the last one it saw for the same id.
 _worker_event_seq = 0
@@ -1445,6 +1439,9 @@ class _ServeSession:
         #: serve_prefill commands awaiting the session thread (the
         #: disaggregated set's prefill-only work: no decode lane taken)
         self.prefill_queue: "queue_mod.Queue" = queue_mod.Queue()
+        #: serve_attach/serve_detach commands awaiting the session thread
+        self.attach_queue: "queue_mod.Queue" = queue_mod.Queue()
+        self.attaches = 0
         #: rid -> {"deadline": abs monotonic | None, "emitted": n, "t_admit"}
         self.running: dict = {}
         #: rids accepted into the queue and not yet admitted or refused.
@@ -1507,6 +1504,20 @@ class _ServeSession:
         self.queued.add(rid)
         self.submitted.add(rid)
         self.queue.put(command)
+
+    def submit_attach(self, command: dict) -> None:
+        """Queue one serve_attach/serve_detach for the session thread: the
+        splice happens between decode chunks on the engine's own thread, and
+        its answer (``serve_attached``/``serve_detached``) is emitted from
+        there, so it cannot reorder against the splice (reference
+        ``harness.py:2154-2170``)."""
+        if self._closed.is_set():
+            _emit({"event": str(command.get("cmd") or "serve_attach") + "ed", "id": self.sid,
+                   "adapter": str(command.get("adapter") or ""), "code": "unknown_session",
+                   "message": "session closed", "permanent": True})
+            return
+        self.attach_queue.put(dict(command))
+        self.queue.put(None)  # wake an idle loop now
 
     def submit_prefill(self, command: dict) -> None:
         """Queue one prefill-only command (the disaggregated set's prefill
@@ -1600,6 +1611,61 @@ class _ServeSession:
 
             event["data"] = base64.b64encode(data).decode("ascii")
             _emit(event)
+
+    def _pump_attach(self) -> None:
+        """Apply the queued adapter splices (reference ``harness.py:2312-
+        2383``): ``serve_attach`` loads a sha256-verified CAS bundle (the
+        registry's wire form) and calls the engine's ``attach_adapter(name,
+        payload)``; ``serve_detach`` its ``detach_adapter(name)``.  A failure
+        answers with the same event carrying ``code``/``message`` and
+        ``permanent``: an engine refusal tagged permanent (a geometry
+        mismatch, a full bank, an unknown adapter) is refused once, not
+        retried."""
+        import queue as queue_mod
+
+        while True:
+            try:
+                command = self.attach_queue.get_nowait()
+            except queue_mod.Empty:
+                return
+            verb = str(command.get("cmd") or "serve_attach")
+            event, name = verb + "ed", str(command.get("adapter") or "")
+            t_attach = time.monotonic()
+
+            def fail(code: str, err, permanent: bool = True, label: str = "") -> None:
+                _emit({"event": event, "id": self.sid, "adapter": name, "code": code,
+                       "message": repr(err), "permanent": bool(permanent),
+                       **({"label": label} if label else {})})
+
+            method = getattr(self._engine, "detach_adapter" if verb == "serve_detach"
+                             else "attach_adapter", None)
+            if method is None:
+                fail("unsupported", f"engine has no {verb[6:]}_adapter surface")
+                continue
+            if verb == "serve_detach":
+                try:
+                    method(name)
+                except BaseException as err:  # noqa: BLE001 - engine refusals
+                    fail("unknown_adapter", err)
+                    continue
+                _emit({"event": event, "id": self.sid, "adapter": name})
+                continue
+            code, payload = _load_fn_payload(str(command.get("path") or ""),
+                                             str(command.get("digest") or ""))
+            if code:
+                fail(code, payload, permanent=(code == "digest_mismatch"))
+                continue
+            try:
+                digest = method(name, payload)
+            except BaseException as err:  # noqa: BLE001 - engine refusals
+                label = str(getattr(err, "fault_label", "") or "")
+                fail("attach_failed", err,
+                     permanent=bool(label) and not getattr(err, "fault_transient", False),
+                     label=label)
+                continue
+            self.attaches += 1
+            _emit({"event": event, "id": self.sid, "adapter": name, "digest": str(digest or ""),
+                   "attach_s": round(time.monotonic() - t_attach, 6)})
 
     def _pump_prefill(self) -> None:
         """Run the queued prefill-only commands on the session thread (the
@@ -1716,9 +1782,15 @@ class _ServeSession:
                        for rid, state in self.running.items()}
             finished = {rid: {"tokens": len(entry["tokens"]), "error": entry.get("error") or ""}
                         for rid, entry in self.finished.items()}
-        return {"sid": self.sid, "digest": self.digest, "slots": self.slots,
-                "served": self.served, "queued": self.queue.qsize(),
-                "running": running, "finished": finished}
+        entry = {"sid": self.sid, "digest": self.digest, "slots": self.slots,
+                 "served": self.served, "queued": self.queue.qsize(),
+                 "running": running, "finished": finished}
+        # the attached adapters (name -> content digest): recovery compares
+        # them with the journaled records to decide which to re-attach
+        digests = getattr(self._engine, "adapter_digests", None)
+        if isinstance(digests, dict) and digests:
+            entry["adapters"] = {str(k): str(v) for k, v in digests.items()}
+        return entry
 
     def _emit_stats(self) -> None:
         # The engine's own counters (a ContinuousEngine's prefix-tree hits,
@@ -1956,6 +2028,7 @@ class _ServeSession:
         try:
             while not (self._closed.is_set() and not self.running and self.queue.empty()):
                 self._drain_cancels()
+                self._pump_attach()
                 self._pump_prefill()
                 self._admit_waiting()
                 if self.running:
@@ -2101,6 +2174,18 @@ def _serve_prefill(command: dict, sessions: dict) -> None:
                "code": "unknown_session", "message": f"no open session {sid!r}"})
         return
     session.submit_prefill(command)
+
+
+def _serve_attach(command: dict, sessions: dict) -> None:
+    """Route one adapter splice (attach or detach) to its session."""
+    sid = str(command.get("id") or "")
+    session = sessions.get(sid)
+    if session is None:
+        _emit({"event": str(command.get("cmd") or "serve_attach") + "ed", "id": sid,
+               "adapter": str(command.get("adapter") or ""), "code": "unknown_session",
+               "message": f"no open session {sid!r}", "permanent": True})
+        return
+    session.submit_attach(command)
 
 
 def _serve_close(command: dict, sessions: dict) -> None:
@@ -3231,11 +3316,8 @@ def serve() -> int:
                     elif name == "shutdown":
                         _emit({"event": "bye"})
                         return 0
-                    elif name in _LATER_VERBS:
-                        _emit({"event": "error", "id": str(command.get("id") or ""),
-                               "code": "not_ported",
-                               "message": f"{name} is not ported yet: it comes with "
-                                          f"{_LATER_VERBS[name]}"})
+                    elif name in ("serve_attach", "serve_detach"):
+                        _serve_attach(command, sessions)
                     else:
                         _emit({"event": "error", "message": f"unknown cmd: {name}"})
             if orphan is not None and time.monotonic() >= orphan["deadline"]:
@@ -3347,11 +3429,8 @@ def serve_child(argv: list[str]) -> int:
                 _serve_close(command, sessions)
                 closing = True
                 break
-            elif name in _LATER_VERBS:
-                _emit({"event": name + "ed", "id": str(command.get("id") or ""),
-                       "adapter": str(command.get("adapter") or ""), "code": "not_ported",
-                       "message": f"{name} is not ported yet: it comes with "
-                                  f"{_LATER_VERBS[name]}", "permanent": True})
+            elif name in ("serve_attach", "serve_detach"):
+                _serve_attach(command, sessions)
             else:
                 _emit({"event": "error", "message": f"unknown cmd: {name}"})
         if closing:

@@ -9,7 +9,12 @@ kernel is a plain transpose too.
 The LM (``params_from_jax``): the reference keeps flax ``DenseGeneral`` kernels: ``(in, heads, dim)`` for
 the q/k/v projections, ``(heads, dim, out)`` for ``out_proj`` and
 ``(in, out)`` for the MLP and the lm_head, none with a bias.  The port's
-dense layers hold PyTorch's ``(out, in)``.  Block parameters come either
+dense layers hold PyTorch's ``(out, in)``.  A quantized model's int8
+kernels take the same reshapes and transposes (and stay int8), each
+``scale`` flattened with its features; a LoRA model's ``lora_a``
+``(in..., rank)`` becomes ``(rank, in)`` and ``lora_b`` ``(rank, out...)``
+becomes ``(out, rank)``.  The way back, for the adapter, is
+``models.lora.adapter_leaves`` (the reference's leaf list).  Block parameters come either
 stacked on a leading layer axis under ``layers`` (``scan_layers=True``) or
 unrolled as ``layer_{i}`` (``scan_layers=False``); both convert.  An MoE
 block's ``moe`` holds the router's ``(in, experts)`` kernel and ``wi``/``wo``
@@ -44,27 +49,42 @@ def _kernel(tree: dict, name: str) -> np.ndarray:
     return np.asarray(layer["kernel"])
 
 
+def _dense(layer: dict, prefix: str, n_in: int, n_out: int) -> dict:
+    """One ``DenseGeneral`` (float or int8 ``kernel``, its ``scale``, the
+    ``lora_a``/``lora_b`` adapter) flattened to ``n_in`` inputs and
+    ``n_out`` outputs, in the port's ``(out, in)`` layout: the kernel and
+    ``lora_a`` transposed, the scale flat, ``lora_b`` as ``(out, rank)``."""
+    keys = set(layer)
+    if keys - {"scale", "lora_a", "lora_b"} != {"kernel"} or \
+            ("lora_a" in keys) != ("lora_b" in keys):
+        raise ValueError(f"{prefix}: only plain float dense layers, their int8 form and "
+                         f"their LoRA form convert, got keys {sorted(layer)}")
+    state = {f"{prefix}.weight": np.asarray(layer["kernel"]).reshape(n_in, n_out).T}
+    if "scale" in layer:
+        state[f"{prefix}.scale"] = np.asarray(layer["scale"]).reshape(n_out)
+    if "lora_a" in layer:
+        rank = np.shape(layer["lora_a"])[-1]
+        state[f"{prefix}.lora_a"] = np.asarray(layer["lora_a"]).reshape(n_in, rank).T
+        state[f"{prefix}.lora_b"] = np.asarray(layer["lora_b"]).reshape(rank, n_out).T
+    return state
+
+
 def _block(tree: dict, cfg: TransformerConfig, prefix: str) -> dict:
     d, hd = cfg.d_model, cfg.head_dim
     kv = cfg.n_kv_heads or cfg.n_heads
     attn = tree["attention"]
-    state = {
-        f"{prefix}.ln_attn.scale": tree["ln_attn"]["scale"],
-        f"{prefix}.attention.q_proj.weight":
-            _kernel(attn, "q_proj").reshape(d, cfg.n_heads * hd).T,
-        f"{prefix}.attention.k_proj.weight": _kernel(attn, "k_proj").reshape(d, kv * hd).T,
-        f"{prefix}.attention.v_proj.weight": _kernel(attn, "v_proj").reshape(d, kv * hd).T,
-        f"{prefix}.attention.out_proj.weight":
-            _kernel(attn, "out_proj").reshape(cfg.n_heads * hd, d).T,
-        f"{prefix}.ln_mlp.scale": tree["ln_mlp"]["scale"],
-    }
+    state = {f"{prefix}.ln_attn.scale": tree["ln_attn"]["scale"],
+             f"{prefix}.ln_mlp.scale": tree["ln_mlp"]["scale"]}
+    for name, n_in, n_out in (("q_proj", d, cfg.n_heads * hd), ("k_proj", d, kv * hd),
+                              ("v_proj", d, kv * hd), ("out_proj", cfg.n_heads * hd, d)):
+        state.update(_dense(attn[name], f"{prefix}.attention.{name}", n_in, n_out))
     if "moe" in tree:
         moe = tree["moe"]
         state.update({f"{prefix}.mlp.router": _kernel(moe, "router").T,
                       f"{prefix}.mlp.wi": moe["wi"], f"{prefix}.mlp.wo": moe["wo"]})
     else:
-        state.update({f"{prefix}.mlp.wi.weight": _kernel(tree["mlp"], "wi").T,
-                      f"{prefix}.mlp.wo.weight": _kernel(tree["mlp"], "wo").T})
+        state.update(_dense(tree["mlp"]["wi"], f"{prefix}.mlp.wi", d, cfg.d_ff))
+        state.update(_dense(tree["mlp"]["wo"], f"{prefix}.mlp.wo", cfg.d_ff, d))
     return state
 
 
@@ -90,7 +110,7 @@ def params_from_jax(params: dict, config: TransformerConfig,
     state = {
         "embedding": params["embedding"],
         "ln_final.scale": params["ln_final"]["scale"],
-        "lm_head.weight": _kernel(params, "lm_head").T,
+        **_dense(params["lm_head"], "lm_head", config.d_model, config.vocab_size),
     }
     for i, block in enumerate(blocks):
         state.update(_block(block, config, f"layers.{i}"))
@@ -99,6 +119,8 @@ def params_from_jax(params: dict, config: TransformerConfig,
 
 def _tensor(name: str, value, config: TransformerConfig) -> torch.Tensor:
     array = np.array(value, order="C")
+    if array.dtype == np.int8:  # a quantized kernel stays int8
+        return torch.from_numpy(array)
     if array.dtype.name == "bfloat16":
         # numpy knows bfloat16 only through JAX's ml_dtypes, and torch does
         # not take it: reinterpret the 16 bits instead.

@@ -27,15 +27,22 @@ Greedy rows of a batch are not bit-identical to batch-1 ``generate()`` rows
 wherever the matrix products round differently at another batch size (the
 card's GEMMs may pick another kernel for 8 rows than for 1); the reference
 notes the same for TPU bf16.  ``rolling_cache`` models are refused
-(:class:`RollingCacheUnsupported`).  Speculative decoding (``draft_model``),
-decode modes other than ``("fp",)`` and adapter banks come with a later
-slice and raise :class:`NotImplementedError`.
+(:class:`RollingCacheUnsupported`).  Speculative decoding (``draft_model``)
+comes with a later slice and raises :class:`NotImplementedError`.
+
+:class:`ContinuousEngine` also hosts **decode-mode lane groups**
+(``decode_modes``: an int8-weight, an int8-KV or a fully int8 twin of the
+model, each a sub-engine of its own that a request's ``quality`` picks) and a
+**multi-adapter bank** (``adapters``: one resident base and up to
+``adapters_max`` named LoRA adapters that co-batch in one wave, each row
+gathering its own ``A``/``B``; attached and detached while the session runs).
 """
 
 from __future__ import annotations
 
 import collections
 import hashlib
+import os
 import pickle
 import statistics
 import time
@@ -53,8 +60,9 @@ from .decode import (
     init_cache,
     set_cursor,
 )
+from .lora import LoRADense, adapter_digest, adapter_leaves, adapter_state, add_lora
+from .quant import SERVING_MODES, mode_variant
 from .transformer import (
-    SLICE_3,
     LayerCache,
     TransformerLM,
     lm_125m_config,
@@ -70,6 +78,11 @@ KV_BUNDLE_FORMAT = "covalent_tpu_plugin_torch"
 #: Mixed into the generator's seed to start the admission key chain.
 _ADMISSION_SALT = 0x5E1
 
+#: Speculative and beam decoding come with this slice.
+SLICE_3B = "slice 3b (speculative and beam decoding)"
+#: The adapter bank's named slots when ``adapters_max`` is not given.
+ADAPTERS_MAX_ENV = "COVALENT_TPU_SERVE_ADAPTERS_MAX"
+
 
 class RollingCacheUnsupported(ValueError):
     """Typed refusal: continuous serving assumes the plain cache layout.
@@ -79,6 +92,16 @@ class RollingCacheUnsupported(ValueError):
     (``fault_label``/``fault_transient``) like the reference's, so a
     misconfigured session is refused once instead of retried.
     """
+
+    fault_label = "serve_model_unsupported"
+    fault_transient = False
+
+
+class AdapterUnsupported(ValueError):
+    """Typed refusal: this engine cannot host the requested adapter set (a
+    base that carries adapters already, a rank or geometry that does not
+    match the bank's template, a full bank).  PERMANENT, like
+    :class:`RollingCacheUnsupported`, so it is refused once, not retried."""
 
     fault_label = "serve_model_unsupported"
     fault_transient = False
@@ -141,6 +164,9 @@ class _State:
 
     def __init__(self, model: TransformerLM, slots: int, length: int, pad: int):
         device = model.embedding.device
+        #: the adapter bank's modules, and each slot's bank slot (0: base)
+        self.lora = [m for m in model.modules() if isinstance(m, LoRADense) and m.bank is not None]
+        self.aslot = torch.zeros(slots, dtype=torch.long, device=device)
         self.caches = init_cache(model, slots)
         self.buffer = torch.full((slots, length), pad, dtype=torch.long, device=device)
         self.pos = torch.zeros(slots, dtype=torch.long, device=device)
@@ -164,11 +190,15 @@ class _State:
         return [_lane_copy(c, slot, cursor) for c in self.caches]
 
     def admit(self, slots: Sequence[int], rows: np.ndarray, plens: Sequence[int],
-              caps: Sequence[int], firsts: torch.Tensor, eos: int | None) -> None:
+              caps: Sequence[int], firsts: torch.Tensor, eos: int | None,
+              aslots: Sequence[int] | None = None) -> None:
         """Start decoding in ``slots``: buffer rows (prompt, then the first
-        token at the prompt's end), positions, budgets, one token generated."""
+        token at the prompt's end), positions, budgets, one token generated,
+        and each row's bank slot."""
         device = self.pos.device
         index = torch.tensor(list(slots), device=device)
+        if aslots is not None:
+            self.aslot[index] = torch.tensor(list(aslots), device=device)
         plens_t = torch.tensor(list(plens), device=device)
         caps_t = torch.tensor(list(caps), device=device)
         rows_t = torch.as_tensor(rows, dtype=torch.long).to(device)
@@ -195,15 +225,26 @@ def _lane_copy(cache: LayerCache, row: int, cursor: int) -> LayerCache:
     )
 
 
+def _set_rows(lora: list[LoRADense], rows: torch.Tensor) -> None:
+    """The bank slot of each row of the next forward, for every adapter
+    module of a bank."""
+    for module in lora:
+        module.rows = rows
+
+
 def _prefill(model: TransformerLM, padded: np.ndarray, lens: Sequence[int],
-             start: list[LayerCache] | None = None, start_len: int = 0):
+             start: list[LayerCache] | None = None, start_len: int = 0,
+             lora: Sequence[LoRADense] = (), aslots: Sequence[int] | None = None):
     """One admission prefill pass over ``padded`` ((g, bucket) tokens) on
     fresh zero lanes, or on copies of the batch-1 ``start`` lanes whose
-    first ``start_len`` positions are a cached prefix.  Returns the g lanes,
-    cursors parked at ``start_len + lens``, and each row's logits at its
-    last real position."""
+    first ``start_len`` positions are a cached prefix.  With an adapter
+    bank (``lora``) row ``r`` runs under bank slot ``aslots[r]``.  Returns
+    the g lanes, cursors parked at ``start_len + lens``, and each row's
+    logits at its last real position."""
     device = model.embedding.device
     g = padded.shape[0]
+    if lora:
+        _set_rows(list(lora), torch.tensor(list(aslots or [0] * g), device=device))
     lanes = init_cache(model, g)
     if start is not None:
         for dst, src in zip(lanes, start):
@@ -231,6 +272,7 @@ def _run_steps(model: TransformerLM, state: _State, steps: int, temperature: flo
     """
     buffer, length = state.buffer, state.buffer.shape[1]
     rows = torch.arange(buffer.shape[0], device=buffer.device)
+    _set_rows(state.lora, state.aslot)
     for _ in range(steps):
         set_cursor(state.caches, state.pos, length - 1)
         token = buffer.gather(1, state.pos[:, None])
@@ -448,11 +490,13 @@ def continuous_generate(
 
 def _admit_wave(model: TransformerLM, state: _State, group: list, bucket: int, length: int,
                 pad: int, temperature: float, top_k: int | None, eos: int | None,
-                start: list[LayerCache] | None = None, start_len: int = 0) -> None:
+                start: list[LayerCache] | None = None, start_len: int = 0,
+                aslots: Sequence[int] | None = None) -> None:
     """One fused admission wave: prefill the group's prompts (suffixes past
     ``start_len`` when starting from a cached prefix lane) padded to
-    ``bucket``, and start them decoding in their slots.  ``group`` holds
-    ``(slot, tokens, cap, key, ...)``."""
+    ``bucket``, and start them decoding in their slots, each under its bank
+    slot (``aslots``; rows of different adapters share the wave).  ``group``
+    holds ``(slot, tokens, cap, key, ...)``."""
     g = len(group)
     rows = np.full((g, length), pad, np.int64)
     padded = np.full((g, bucket), pad, np.int64)
@@ -460,11 +504,12 @@ def _admit_wave(model: TransformerLM, state: _State, group: list, bucket: int, l
         rows[r, : tokens.size] = tokens
         padded[r, : tokens.size - start_len] = tokens[start_len:]
     lens = [tokens.size - start_len for _, tokens, *_ in group]
-    lanes, last = _prefill(model, padded, lens, start, start_len)
+    lanes, last = _prefill(model, padded, lens, start, start_len, state.lora, aslots)
     firsts = _first_tokens(last, [p[3] for p in group], temperature, top_k)
     slots = [p[0] for p in group]
     state.write_lanes(slots, lanes)
-    state.admit(slots, rows, [start_len + n for n in lens], [p[2] for p in group], firsts, eos)
+    state.admit(slots, rows, [start_len + n for n in lens], [p[2] for p in group], firsts, eos,
+                aslots)
 
 
 def _tokens_digest(tokens: np.ndarray) -> str:
@@ -474,14 +519,18 @@ def _tokens_digest(tokens: np.ndarray) -> str:
 
 class _PrefixEntry:
     """One cached KV lane: the tokens it prefilled; ``pinned`` marks the
-    constructor's ``shared_prefix``, exempt from LRU eviction."""
+    constructor's ``shared_prefix``, exempt from LRU eviction; ``aslot`` is
+    the bank slot whose weights computed it (0: the base), the only adapter
+    it is reused under."""
 
-    __slots__ = ("tokens", "lane", "pinned")
+    __slots__ = ("tokens", "lane", "pinned", "aslot")
 
-    def __init__(self, tokens: np.ndarray, lane: list[LayerCache], pinned: bool):
+    def __init__(self, tokens: np.ndarray, lane: list[LayerCache], pinned: bool,
+                 aslot: int = 0):
         self.tokens = tokens
         self.lane = lane
         self.pinned = pinned
+        self.aslot = aslot
 
 
 def _lane_leaves(lane: list[LayerCache]) -> list[torch.Tensor]:
@@ -519,17 +568,48 @@ class ContinuousEngine:
     buffer width is ``length`` (default ``config.max_seq``).
 
     **Prefix tree.**  Every admission's prefilled lane is kept in a small
-    LRU keyed by its tokens' digest; a later prompt reuses the deepest
-    cached lane sharing at least ``prefix_min_tokens`` leading tokens with
-    it (rewound to the common prefix, capped one short of the prompt) and
-    prefills only the rest.  ``shared_prefix`` seeds a pinned entry.
-    ``stats`` counts ``prefix_hits``/``prefix_misses``/``prefix_evictions``
-    and the ``prefill_positions`` every admission paid.
+    LRU keyed by its tokens' digest and its bank slot; a later prompt under
+    the same adapter reuses the deepest cached lane sharing at least
+    ``prefix_min_tokens`` leading tokens with it (rewound to the common
+    prefix, capped one short of the prompt) and prefills only the rest.
+    ``shared_prefix`` seeds a pinned entry.  ``stats`` counts
+    ``prefix_hits``/``prefix_misses``/``prefix_evictions``, the
+    ``prefill_positions`` every admission paid and
+    ``adapter_prefix_blocked`` (a match under another adapter, not reused).
 
     **KV export/import.**  :meth:`prefill_only` runs one admission prefill
     without taking a slot and returns a serialized KV bundle (this port's
-    own format, ``KV_BUNDLE_VERSION``); :meth:`admit_from_kv` admits such a
-    bundle into a free slot with no prefill.
+    own format, ``KV_BUNDLE_VERSION``) carrying the lane group's ``quant``
+    mode and the adapter's name and digest; :meth:`admit_from_kv` admits
+    such a bundle into a free slot of the matching group with no prefill,
+    and refuses a bundle of a mode it did not build or of a superseded
+    adapter generation.
+
+    **Decode-mode lane groups** (reference ``serve.py:1373-1456``).
+    ``decode_modes`` is a subset of ``quant.SERVING_MODES`` holding ``fp``.
+    Every other mode is a sub-engine of its own (its slots, its prefix
+    tree) over :func:`..quant.mode_variant`'s twin of the model; a request's
+    ``params["quality"]`` picks it (``None``, ``"exact"`` and ``"fp"`` the
+    fp lane).  An unknown mode, or one whose twin refused to build (an MoE
+    model has no int8 twin), falls back to fp, bit-exact, and counts
+    ``mode_refusals``.  ``busy`` sums the groups; ``stats`` folds theirs in
+    and counts ``mode_tokens_<mode>``.
+
+    **Multi-adapter bank** (reference ``serve.py:1019-1200``).
+    ``adapters={name: payload}`` (or ``adapter_rank`` for an empty bank)
+    keeps one base resident and stacks each adapter's ``A``/``B`` into bank
+    tensors of ``adapters_max + 1`` slots; slot 0 is the zero-B identity, so
+    a base lane computes what an engine without a bank computes.  Each row
+    gathers its own adapter in every product (``LoRADense.bank``), so
+    requests of different adapters share a wave.  A payload is the wire
+    form (``lora.adapter_leaves``), a registry bundle dict or a LoRA model.
+    :meth:`attach_adapter` installs one while the session runs; re-attaching
+    a live name is a hot swap (lanes in flight keep the old slot, which is
+    reclaimed when they finish); :meth:`detach_adapter` retires one.  Every
+    decode-mode group attaches the same adapters over its own base
+    (``lora.quantize_then_lora``'s order).  ``stats`` counts
+    ``adapter_tokens_<name>``, ``adapter_requests_<name>``,
+    ``adapter_attaches``, ``adapter_detaches`` and ``adapter_swaps``.
     """
 
     def __init__(
@@ -552,23 +632,15 @@ class ContinuousEngine:
         draft_model: TransformerLM | None = None,
         adapters: dict[str, Any] | None = None,
         adapter_rank: int | None = None,
+        adapter_alpha: float = 16.0,
+        adapters_max: int | None = None,
     ) -> None:
         config = model.config
         _require_plain_cache(config, "ContinuousEngine")
         use_batch_invariant(model)
         if draft_model is not None:
             raise NotImplementedError(
-                f"draft_model (speculative decoding) is not ported yet: it comes with {SLICE_3}"
-            )
-        if tuple(decode_modes or ("fp",)) != ("fp",):
-            raise NotImplementedError(
-                f"decode_modes {tuple(decode_modes)!r}: only ('fp',) is ported; the "
-                f"quantized modes come with {SLICE_3}"
-            )
-        if adapters is not None or adapter_rank is not None:
-            raise NotImplementedError(
-                f"adapters (the multi-adapter LoRA bank) are not ported yet: they come "
-                f"with {SLICE_3}"
+                f"draft_model (speculative decoding) is not ported yet: it comes with {SLICE_3B}"
             )
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
@@ -577,20 +649,46 @@ class ContinuousEngine:
         if max_new_tokens < 1:
             raise ValueError(f"max_new_tokens must be >= 1, got {max_new_tokens}")
         _check_sampling(config, temperature, top_k)
+        modes = tuple(dict.fromkeys(decode_modes or ("fp",)))
+        for mode in modes:
+            if mode not in SERVING_MODES:
+                raise ValueError(f"unknown decode mode {mode!r}; expected a subset of "
+                                 f"{SERVING_MODES}")
+        if "fp" not in modes:
+            raise ValueError("decode_modes must include 'fp' (the bit-exact fallback lane "
+                             "every refusal degrades to)")
         self._length = int(length or config.max_seq)
         if not 2 <= self._length <= config.max_seq:
             raise ValueError(f"length must be in [2, {config.max_seq}], got {self._length}")
         #: host-loop counters: prefix-tree hits and misses, the prefill
-        #: positions each admission paid, and the KV plane's traffic.
+        #: positions each admission paid, the KV plane's traffic, the mode
+        #: refusals and the adapter bank's lifecycle.
         self.stats: dict[str, int] = {
             "prefix_hits": 0, "prefix_misses": 0, "prefill_positions": 0,
-            "prefix_evictions": 0, "kv_admits": 0, "kv_exports": 0,
+            "prefix_evictions": 0, "kv_admits": 0, "kv_exports": 0, "mode_refusals": 0,
+            "adapter_prefix_blocked": 0, "adapter_attaches": 0, "adapter_detaches": 0,
+            "adapter_swaps": 0,
         }
         self._prefix_tree: collections.OrderedDict[str, _PrefixEntry] = collections.OrderedDict()
         self._prefix_cache_size = max(0, int(prefix_cache_size))
         self._prefix_min = max(1, int(prefix_min_tokens))
         self._model = model
         self._config = config
+        # -- the multi-adapter bank -------------------------------------------
+        self._bank: list[LoRADense] | None = None
+        self._adapter_slot: dict[str, int] = {}
+        self._adapter_digests: dict[str, str] = {}
+        self._adapter_free: list[int] = []
+        self._adapter_retired: list[int] = []
+        self._slot_refs: list[int] = []
+        self._rid_adapter: dict[str, tuple[int, str]] = {}
+        self._adapter_rank = 0
+        self._adapter_alpha = float(adapter_alpha)
+        self._adapters_max = 0
+        self._payloads: dict[str, list] = {}
+        if adapters is not None or adapter_rank is not None:
+            adapters = {str(k): v for k, v in (adapters or {}).items()}
+            self._open_bank(adapters, adapter_rank, adapters_max)
         self._temperature = float(temperature)
         self._top_k = top_k
         self._eos = eos_token_id
@@ -603,15 +701,16 @@ class ContinuousEngine:
         self.slots = int(max_batch)
         self._generator = _default_generator(model, generator)
         self._chain = _AdmissionChain(self._generator)
-        self._state: _State | None = _State(model, self.slots, self._length, self._pad)
+        self._state: _State | None = _State(self._model, self.slots, self._length, self._pad)
         #: slot -> rid (None = free), and generated tokens already streamed.
         self._slot_rid: list[str | None] = [None] * self.slots
         self._reported = [0] * self.slots
         self._rid_slot: dict[str, int] = {}
-        #: admissions awaiting a flush: (rid, tokens, cap).
-        self._pending: list[tuple[str, np.ndarray, int]] = []
-        #: KV-bundle admissions awaiting a flush: (rid, tokens, cap, first, lane).
-        self._pending_kv: list[tuple[str, np.ndarray, int, int, list[LayerCache]]] = []
+        #: admissions awaiting a flush: (rid, tokens, cap, bank slot).
+        self._pending: list[tuple[str, np.ndarray, int, int]] = []
+        #: KV-bundle admissions awaiting a flush:
+        #: (rid, tokens, cap, first, lane, bank slot).
+        self._pending_kv: list[tuple[str, np.ndarray, int, int, list[LayerCache], int]] = []
         #: (shape, dtype name) of every leaf of a batch-1 lane.
         self._lane_shapes = [
             ((1,) + tuple(t.shape[1:]), str(t.dtype).removeprefix("torch."))
@@ -628,26 +727,70 @@ class ContinuousEngine:
                     f"static length ({self._length})"
                 )
             # One exact-length pass on a zero lane, cursor parked at the
-            # prefix's end: a pinned entry of the prefix tree.
+            # prefix's end: a pinned entry of the prefix tree (base slot).
             with torch.no_grad():
-                lane, _ = _prefill(model, ptoks[None].astype(np.int64), [ptoks.size])
+                lane, _ = _prefill(self._model, ptoks[None].astype(np.int64), [ptoks.size],
+                                   lora=self._state.lora, aslots=[0])
             self._insert_prefix(ptoks, lambda: lane, pinned=True)
+        # -- decode-mode lane groups ----------------------------------------
+        self._mode = "fp"
+        self._subs: dict[str, ContinuousEngine] = {}
+        self._sub_stats_seen: dict[str, dict[str, int]] = {}
+        self._rid_mode: dict[str, str] = {}
+        self._mode_refusal: dict[str, str] = {}
+        for mode in modes:
+            if mode == "fp":
+                continue
+            bank = {}
+            if self._bank is not None:
+                # quantize_then_lora's order: the twin quantizes the base,
+                # the sub-engine attaches the same adapters over it
+                bank = dict(adapters=self._adapter_payloads(), adapter_rank=self._adapter_rank,
+                            adapter_alpha=self._adapter_alpha, adapters_max=self._adapters_max)
+            try:
+                sub = ContinuousEngine(
+                    mode_variant(model, mode), max_batch=max_batch, temperature=temperature,
+                    top_k=top_k,
+                    generator=torch.Generator(device=self._generator.device).manual_seed(
+                        self._generator.initial_seed()),
+                    eos_token_id=eos_token_id, pad_token_id=pad_token_id,
+                    sync_steps=sync_steps, max_new_tokens=max_new_tokens, length=self._length,
+                    shared_prefix=shared_prefix, prefix_cache_size=prefix_cache_size,
+                    prefix_min_tokens=prefix_min_tokens, **bank,
+                )
+            except ValueError as exc:
+                self._mode_refusal[mode] = str(exc)
+                self.stats["mode_refusals"] += 1
+                continue
+            sub._mode = mode
+            self._subs[mode] = sub
+            self._sub_stats_seen[mode] = {}
+        for mode in modes:
+            self.stats.setdefault(f"mode_tokens_{mode}", 0)
 
     # -- serving-engine surface -------------------------------------------
 
     def _dup(self, rid: str) -> bool:
         return (
             rid in self._rid_slot
+            or rid in self._rid_mode
             or any(p[0] == rid for p in self._pending)
             or any(p[0] == rid for p in self._pending_kv)
         )
 
-    @staticmethod
-    def _check_request(params: dict) -> None:
-        """A request for an adapter is refused: this engine hosts no bank."""
-        name = str(params.get("adapter") or "")
-        if name and name != "base":
-            raise ValueError(f"unknown adapter {name!r} (this session hosts no adapter bank)")
+    def _route_mode(self, params: dict) -> str:
+        """A request's ``quality`` as a lane group (``serve.py:1457-1475``):
+        ``None``, ``"exact"`` and ``"fp"`` the fp lane, a built mode its
+        group; anything else falls back to fp and counts ``mode_refusals``
+        (a session degrades, it does not reject a request over a knob)."""
+        quality = params.get("quality")
+        if quality is None:
+            return self._mode
+        mode = "fp" if quality == "exact" else str(quality)
+        if mode == self._mode or mode in self._subs:
+            return mode
+        self.stats["mode_refusals"] += 1
+        return self._mode
 
     def _check_budget(self, tokens: np.ndarray, params: dict) -> int:
         cap = int(params.get("max_new_tokens", self._default_cap))
@@ -662,32 +805,53 @@ class ContinuousEngine:
             raise RuntimeError("no free lane (all slots busy)")
         return cap
 
+    def _hold_adapter(self, rid: str, aslot: int, name: str) -> None:
+        """Count a request's hold on its bank slot (a no-op without a bank)."""
+        if self._bank is None:
+            return
+        self._rid_adapter[rid] = (aslot, name)
+        self._slot_refs[aslot] += 1
+        key = f"adapter_requests_{name}"
+        self.stats[key] = self.stats.get(key, 0) + 1
+
     def admit(self, rid: str, prompt, params: dict | None = None) -> None:
         """Reserve a lane for one request (flushed at the next step).
 
-        ``params`` may carry ``max_new_tokens``; sampling and EOS are
-        session-static.  Raises on malformed prompts, so the session rejects
-        the request instead of wedging a lane.
+        ``params`` may carry ``max_new_tokens``, ``quality`` (a decode mode)
+        and ``adapter`` (a bank name; ``"base"`` or none the base); sampling
+        and EOS are session-static.  Raises on malformed prompts and unknown
+        adapters, so the session rejects the request instead of wedging a
+        lane.
         """
         params = params or {}
         if self._dup(rid):
             raise ValueError(f"request id {rid!r} already admitted")
-        self._check_request(params)
+        mode = self._route_mode(params)
+        if mode != self._mode:
+            if self.busy >= self.slots:
+                raise RuntimeError("no free lane (all slots busy)")
+            self._subs[mode].admit(rid, prompt, params)
+            self._rid_mode[rid] = mode
+            return
         tokens = np.asarray(prompt, np.int32).reshape(-1)
         if tokens.size < 1:
             raise ValueError("prompt needs at least one token")
         cap = self._check_budget(tokens, params)
-        self._pending.append((rid, tokens, cap))
+        aslot, aname = self._resolve_adapter(params)
+        self._hold_adapter(rid, aslot, aname)
+        self._pending.append((rid, tokens, cap, aslot))
 
     @torch.no_grad()
     def prefill_only(self, prompt, params: dict | None = None) -> bytes:
         """Run the admission prefill for one prompt without taking a slot;
         returns a serialized KV bundle: the prompt, the prefilled lane, the
-        first generated token and the sampling fingerprint.  Consumes one
-        key of the admission chain, like an admission; warms the prefix
-        tree."""
+        first generated token, the sampling fingerprint, the lane group's
+        ``quant`` mode and the adapter's name and digest.  Consumes one key
+        of the admission chain, like an admission; warms the prefix tree."""
         params = params or {}
-        self._check_request(params)
+        mode = self._route_mode(params)
+        if mode != self._mode:
+            return self._subs[mode].prefill_only(prompt, params)
         tokens = np.asarray(prompt, np.int32).reshape(-1)
         if tokens.size < 1:
             raise ValueError("prompt needs at least one token")
@@ -697,8 +861,9 @@ class ContinuousEngine:
                 f"generation inside the session's static length "
                 f"({self._length})"
             )
+        aslot, aname = self._resolve_adapter(params)
         key = self._chain.next_key()
-        m, lane_m, _ = self._lookup_prefix(tokens)
+        m, lane_m, _ = self._lookup_prefix(tokens, aslot)
         if m:
             bucket = _bucket(tokens.size - m, self._config.max_seq - m)
             self.stats["prefix_hits"] += 1
@@ -708,11 +873,12 @@ class ContinuousEngine:
                 self.stats["prefix_misses"] += 1
         padded = np.full((1, bucket), self._pad, np.int64)
         padded[0, : tokens.size - m] = tokens[m:]
-        lane, last = _prefill(self._model, padded, [tokens.size - m], lane_m if m else None, m)
+        lane, last = _prefill(self._model, padded, [tokens.size - m], lane_m if m else None, m,
+                              self._state.lora, [aslot])
         first = int(_first_tokens(last, [key], self._temperature, self._top_k)[0])
         self.stats["prefill_positions"] += bucket
         self.stats["kv_exports"] += 1
-        self._insert_prefix(tokens, lambda: lane)
+        self._insert_prefix(tokens, lambda: lane, aslot=aslot)
         bundle = {
             "v": KV_BUNDLE_VERSION,
             "format": KV_BUNDLE_FORMAT,
@@ -723,9 +889,11 @@ class ContinuousEngine:
             "temperature": self._temperature,
             "top_k": self._top_k,
             "eos": self._eos,
-            "quant": "fp",
-            "adapter": "",
-            "adapter_digest": "",
+            "quant": self._mode,
+            # the bank slot is this engine's own: the bundle names the
+            # adapter and its generation, the importer resolves its slot
+            "adapter": "" if aname == "base" else aname,
+            "adapter_digest": self._adapter_digests.get(aname, ""),
             "leaves": [_to_wire(t) for t in _lane_leaves(lane)],
         }
         return pickle.dumps(bundle, protocol=4)
@@ -733,10 +901,12 @@ class ContinuousEngine:
     def admit_from_kv(self, rid: str, bundle, params: dict | None = None) -> None:
         """Reserve a lane for a request whose prefill ran elsewhere (flushed
         at the next step).  ``bundle`` is :meth:`prefill_only`'s bytes or
-        the unpickled dict.  Its lane is validated leaf by leaf against this
-        engine's cache layout and its sampling fingerprint against this
-        engine's; a mismatch raises :class:`ValueError`, so the caller falls
-        back to a full prefill.  No admission key is consumed."""
+        the unpickled dict.  Its ``quant`` mode picks the lane group; its
+        lane is validated leaf by leaf against that group's cache layout,
+        its sampling fingerprint against this engine's, its adapter against
+        the bank (a name it does not host, or a digest of a superseded
+        generation); a mismatch raises :class:`ValueError`, so the caller
+        falls back to a full prefill.  No admission key is consumed."""
         params = params or {}
         if isinstance(bundle, (bytes, bytearray)):
             bundle = pickle.loads(bytes(bundle))
@@ -745,11 +915,27 @@ class ContinuousEngine:
             raise ValueError("unrecognized KV bundle")
         if self._dup(rid):
             raise ValueError(f"request id {rid!r} already admitted")
-        if str(bundle.get("quant", "fp") or "fp") != "fp":
-            raise ValueError(
-                f"KV bundle quantization fingerprint {bundle.get('quant')!r} does not "
-                "match this engine's 'fp'"
-            )
+        quant = str(bundle.get("quant", "fp") or "fp")
+        if quant != self._mode:
+            sub = self._subs.get(quant)
+            if sub is None:
+                raise ValueError(
+                    f"KV bundle quantization fingerprint {quant!r} does not match this "
+                    f"engine's {self._mode!r} and no {quant!r} lane group is configured"
+                )
+            if self.busy >= self.slots:
+                raise RuntimeError("no free lane (all slots busy)")
+            sub._admit_from_kv_dict(rid, bundle, params)
+            self._rid_mode[rid] = quant
+            return
+        self._admit_from_kv_dict(rid, bundle, params)
+
+    def _admit_from_kv_dict(self, rid: str, bundle: dict, params: dict) -> None:
+        """Validate and queue one unpickled bundle into this lane group."""
+        quant = str(bundle.get("quant", "fp") or "fp")
+        if quant != self._mode:
+            raise ValueError(f"KV bundle quantization fingerprint {quant!r} does not match "
+                             f"this lane group's {self._mode!r}")
         fingerprint = (
             float(bundle.get("temperature", 0.0) or 0.0), bundle.get("top_k"), bundle.get("eos"),
         )
@@ -758,11 +944,21 @@ class ContinuousEngine:
             raise ValueError(
                 f"KV bundle sampling fingerprint {fingerprint} does not match this engine's {ours}"
             )
-        if bundle.get("adapter"):
+        aname = str(bundle.get("adapter") or "")
+        if aname and self._bank is None:
             raise ValueError(
-                f"KV bundle was prefilled under adapter {bundle['adapter']!r} and "
+                f"KV bundle was prefilled under adapter {aname!r} and "
                 "this session hosts no adapter bank"
             )
+        aslot, alabel = self._resolve_adapter({"adapter": aname} if aname else {})
+        if aname:
+            want = str(bundle.get("adapter_digest") or "")
+            have = self._adapter_digests.get(alabel, "")
+            if want and have and want != have:
+                raise ValueError(
+                    f"KV bundle adapter digest {want[:12]} does not match the attached "
+                    f"{aname!r} generation {have[:12]} (stale bundle after a hot swap)"
+                )
         tokens = np.asarray(bundle.get("prompt") or (), np.int32).reshape(-1)
         if tokens.size < 1:
             raise ValueError("KV bundle has an empty prompt")
@@ -792,19 +988,50 @@ class ContinuousEngine:
             if layer.k_scale is not None:
                 entry.k_scale, entry.v_scale = next(it), next(it)
             lane.append(entry)
-        self._pending_kv.append((rid, tokens, cap, int(bundle.get("first") or 0), lane))
+        self._hold_adapter(rid, aslot, alabel)
+        self._pending_kv.append((rid, tokens, cap, int(bundle.get("first") or 0), lane, aslot))
         self.stats["kv_admits"] += 1
 
     @torch.no_grad()
     def step(self) -> list[dict]:
-        """Flush admissions, run one sync chunk, return fresh tokens.
+        """Flush admissions, run one sync chunk in every busy lane group,
+        return fresh tokens.
 
         One event per request with new output since the previous chunk:
         ``{"rid", "tokens": [int, ...], "done": bool}``; the first event
         includes the admission-prefill token, the final one the EOS (when
         configured): the rows ``continuous_generate`` would return, in
-        pieces.
+        pieces.  The groups' counters fold into :attr:`stats`.
         """
+        if self._bank is not None:
+            self._reclaim_adapter_slots()
+        events = self._step_local()
+        fresh = sum(len(ev["tokens"]) for ev in events)
+        if fresh:
+            key = f"mode_tokens_{self._mode}"
+            self.stats[key] = self.stats.get(key, 0) + fresh
+        for sub in self._subs.values():
+            if not sub.busy:
+                continue
+            for event in sub.step():
+                if event.get("done"):
+                    self._rid_mode.pop(event["rid"], None)
+                events.append(event)
+        self._sync_sub_stats()
+        return events
+
+    def _sync_sub_stats(self) -> None:
+        """Add what each group counted since the last call to :attr:`stats`."""
+        for mode, sub in self._subs.items():
+            seen = self._sub_stats_seen[mode]
+            for key, value in sub.stats.items():
+                delta = value - seen.get(key, 0)
+                if delta:
+                    self.stats[key] = self.stats.get(key, 0) + delta
+                    seen[key] = value
+
+    def _step_local(self) -> list[dict]:
+        """One sync chunk of this lane group alone."""
         self._flush_admissions()
         if not self._rid_slot:
             return []
@@ -826,18 +1053,27 @@ class ContinuousEngine:
             finished = bool(done_h[slot])
             if fresh.size or finished:
                 events.append({"rid": rid, "tokens": [int(t) for t in fresh], "done": finished})
+            if self._bank is not None and fresh.size:
+                key = f"adapter_tokens_{self._rid_adapter.get(rid, (0, 'base'))[1]}"
+                self.stats[key] = self.stats.get(key, 0) + int(fresh.size)
             self._reported[slot] += int(fresh.size)
             if finished:
                 self._slot_rid[slot] = None
                 self._rid_slot.pop(rid, None)
+                self._release_adapter(rid)
         return events
 
     def cancel(self, rid: str) -> None:
         """Free a request's lane early (deadline/disconnect): the row is
         marked done on the device, which freezes it like any finished row,
         and the slot is free for the next admission."""
+        mode = self._rid_mode.pop(rid, None)
+        if mode is not None:
+            self._subs[mode].cancel(rid)
+            return
         self._pending = [p for p in self._pending if p[0] != rid]
         self._pending_kv = [p for p in self._pending_kv if p[0] != rid]
+        self._release_adapter(rid)
         slot = self._rid_slot.pop(rid, None)
         if slot is None:
             return
@@ -852,50 +1088,252 @@ class ContinuousEngine:
         self._prefix_tree.clear()
         self._rid_slot.clear()
         self._slot_rid = [None] * self.slots
+        self._rid_adapter.clear()
+        self._slot_refs = [0] * len(self._slot_refs)
+        for sub in self._subs.values():
+            sub.close()
+        self._rid_mode.clear()
 
     @property
     def busy(self) -> int:
-        return len(self._rid_slot) + len(self._pending) + len(self._pending_kv)
+        return (len(self._rid_slot) + len(self._pending) + len(self._pending_kv)
+                + sum(sub.busy for sub in self._subs.values()))
+
+    @property
+    def decode_modes(self) -> tuple[str, ...]:
+        """The built lane groups, fp first (refused modes absent)."""
+        return (self._mode,) + tuple(self._subs)
+
+    def group(self, mode: str) -> "ContinuousEngine":
+        """The engine of one built lane group (``self`` for fp)."""
+        return self if mode == self._mode else self._subs[mode]
+
+    # -- the multi-adapter bank --------------------------------------------
+
+    def _open_bank(self, adapters: dict, rank: int | None, limit: int | None) -> None:
+        """The bank's template (``add_lora`` over the base, shared weights)
+        and its tensors, then each named adapter installed."""
+        if self._config.lora_rank:
+            raise AdapterUnsupported(
+                "the adapter bank needs the base model, and this one already carries "
+                f"adapters (lora_rank={self._config.lora_rank}): serve the base and attach "
+                "adapters on top (lora.quantize_then_lora's order)")
+        if rank is None:
+            if not adapters:
+                raise AdapterUnsupported("an empty bank needs adapter_rank to size its template")
+            try:
+                rank = int(np.shape(self._payload_leaves(next(iter(adapters.values())))[0])[-1])
+            except (ValueError, IndexError, TypeError) as exc:
+                raise AdapterUnsupported(f"cannot infer the adapter rank: {exc}") from exc
+        if int(rank) < 1:
+            raise AdapterUnsupported(f"adapter_rank must be >= 1, got {rank}")
+        if limit is None:
+            limit = int(os.environ.get(ADAPTERS_MAX_ENV) or 8)
+        if int(limit) < max(1, len(adapters)):
+            raise AdapterUnsupported(f"{len(adapters)} adapters exceed the bank's {limit} named "
+                                     f"slots ({ADAPTERS_MAX_ENV})")
+        try:
+            lmodel = add_lora(self._model, rank=int(rank), alpha=self._adapter_alpha)
+        except ValueError as exc:
+            raise AdapterUnsupported(str(exc)) from exc
+        use_batch_invariant(lmodel)
+        self._adapter_rank, self._adapters_max = int(rank), int(limit)
+        n_slots = self._adapters_max + 1  # + the identity at slot 0
+        self._bank = [m for m in lmodel.modules() if isinstance(m, LoRADense)]
+        for module in self._bank:
+            a = torch.zeros((n_slots,) + tuple(module.lora_a.shape), dtype=module.dtype,
+                            device=module.lora_a.device)
+            b = torch.zeros((n_slots,) + tuple(module.lora_b.shape), dtype=module.dtype,
+                            device=module.lora_b.device)
+            a[0] = module.lora_a.detach().to(module.dtype)  # B zero: the identity
+            module.bank = (a, b)
+        self._model = lmodel
+        self._adapter_free = list(range(1, n_slots))
+        self._slot_refs = [0] * n_slots
+        for name, payload in adapters.items():
+            self._install_adapter(name, payload)
+        self.stats.setdefault("adapter_tokens_base", 0)
+
+    @staticmethod
+    def _payload_leaves(payload) -> list:
+        """An adapter payload as its wire-form leaf list: a registry bundle
+        dict (``{"leaves": [...]}``), a leaf list, or a LoRA model."""
+        if isinstance(payload, dict) and "leaves" in payload:
+            return list(payload["leaves"])
+        if isinstance(payload, (list, tuple)):
+            return list(payload)
+        return adapter_leaves(payload)
+
+    def _adapter_payloads(self) -> dict[str, list]:
+        """The attached adapters' wire forms, for a lane group to attach."""
+        return {name: self._payloads[name] for name in self._adapter_slot}
+
+    def _install_adapter(self, name: str, payload) -> str:
+        """Write one adapter into a free bank slot; returns its digest.  A
+        live name is hot-swapped: the new generation takes a fresh slot and
+        the name points there; lanes in flight keep the old slot, retired
+        until their holds drain (``serve.py:1537-1600``)."""
+        if (not name or name == "base"
+                or not all(ch.isalnum() or ch in "._-" for ch in name)):
+            raise AdapterUnsupported(f"invalid adapter name {name!r} ('base' is reserved; "
+                                     "names are [A-Za-z0-9._-])")
+        try:
+            leaves = [np.asarray(leaf, np.float32) for leaf in self._payload_leaves(payload)]
+            state = adapter_state(self._model, leaves)
+        except (ValueError, KeyError, TypeError) as exc:
+            raise AdapterUnsupported(f"adapter {name!r} does not fit this bank: {exc}") from exc
+        if isinstance(payload, dict) and payload.get("digest"):
+            digest = str(payload["digest"])
+        else:
+            digest = adapter_digest(leaves)
+        self._reclaim_adapter_slots()
+        if not self._adapter_free:
+            raise AdapterUnsupported(
+                f"adapter bank is full ({self._adapters_max} named slots, {ADAPTERS_MAX_ENV}); "
+                "detach one or raise the limit")
+        slot = self._adapter_free.pop(0)
+        names = {m: n for n, m in self._model.named_modules() if isinstance(m, LoRADense)}
+        with torch.no_grad():
+            for module in self._bank:
+                a, b = module.bank
+                a[slot] = state[f"{names[module]}.lora_a"].to(a.device, a.dtype)
+                b[slot] = state[f"{names[module]}.lora_b"].to(b.device, b.dtype)
+        old = self._adapter_slot.get(name)
+        self._adapter_slot[name] = slot
+        self._adapter_digests[name] = digest
+        self._payloads[name] = leaves
+        self.stats.setdefault(f"adapter_tokens_{name}", 0)
+        if old is not None:
+            self._adapter_retired.append(old)
+            self._purge_prefix_slot(old)
+            self.stats["adapter_swaps"] += 1
+        return digest
+
+    def attach_adapter(self, name: str, payload) -> str:
+        """Install an adapter into the running session (or hot-swap a live
+        name); returns its digest.  Every decode-mode group attaches it too
+        (``serve.py:1602-1625``)."""
+        if self._bank is None:
+            raise AdapterUnsupported("this session hosts no adapter bank (construct the engine "
+                                     "with adapters= or adapter_rank=)")
+        digest = self._install_adapter(str(name), payload)
+        for sub in self._subs.values():
+            if sub._bank is not None:
+                sub.attach_adapter(name, self._payloads[name])
+        self.stats["adapter_attaches"] += 1
+        return digest
+
+    def detach_adapter(self, name: str) -> None:
+        """Retire a named adapter: new requests refuse it at once; its bank
+        slot is reclaimed when the lanes in flight finish."""
+        slot = self._adapter_slot.pop(name, None)
+        if slot is None:
+            raise ValueError(f"unknown adapter {name!r}; attached: "
+                             f"{sorted(self._adapter_slot) or 'none'}")
+        self._adapter_digests.pop(name, None)
+        self._payloads.pop(name, None)
+        self._adapter_retired.append(slot)
+        self._purge_prefix_slot(slot)
+        self._reclaim_adapter_slots()
+        for sub in self._subs.values():
+            if sub._bank is not None and name in sub._adapter_slot:
+                sub.detach_adapter(name)
+        self.stats["adapter_detaches"] += 1
+
+    @property
+    def adapters(self) -> tuple[str, ...]:
+        """The attached adapters' names, in attach order."""
+        return tuple(self._adapter_slot)
+
+    @property
+    def adapter_digests(self) -> dict[str, str]:
+        """name -> content digest of the attached generation."""
+        return dict(self._adapter_digests)
+
+    def _reclaim_adapter_slots(self) -> None:
+        still = []
+        for slot in self._adapter_retired:
+            if self._slot_refs[slot] == 0:
+                self._adapter_free.append(slot)
+            else:
+                still.append(slot)
+        self._adapter_retired = still
+
+    def _purge_prefix_slot(self, aslot: int) -> None:
+        """Drop the prefix-tree lanes a retired slot computed."""
+        for digest in [d for d, e in self._prefix_tree.items() if e.aslot == aslot]:
+            del self._prefix_tree[digest]
+
+    def _release_adapter(self, rid: str) -> None:
+        entry = self._rid_adapter.pop(rid, None)
+        if entry is not None and self._slot_refs:
+            self._slot_refs[entry[0]] = max(0, self._slot_refs[entry[0]] - 1)
+
+    def _resolve_adapter(self, params: dict) -> tuple[int, str]:
+        """``params["adapter"]`` as ``(bank slot, name)``, the base slot 0.
+        An unknown name raises :class:`ValueError`: the session refuses the
+        request instead of serving the base weights."""
+        name = str(params.get("adapter") or "")
+        if self._bank is None:
+            if name and name != "base":
+                raise ValueError(f"unknown adapter {name!r} (this session hosts no adapter bank)")
+            return 0, "base"
+        if not name or name == "base":
+            return 0, "base"
+        slot = self._adapter_slot.get(name)
+        if slot is None:
+            raise ValueError(f"unknown adapter {name!r}; attached: "
+                             f"{sorted(self._adapter_slot) or 'none'}")
+        return slot, name
 
     # -- internals ---------------------------------------------------------
 
-    def _lookup_prefix(self, tokens: np.ndarray) -> tuple[int, list[LayerCache] | None, str]:
+    def _lookup_prefix(self, tokens: np.ndarray,
+                       aslot: int = 0) -> tuple[int, list[LayerCache] | None, str]:
         """``(m, lane, digest)`` of the deepest cached prefix usable for
-        ``tokens``, ``(0, None, "")`` when none is.  An entry is usable at
-        depth ``m`` when its first ``m`` tokens equal the prompt's (``m`` at
-        most ``len(prompt) - 1``: the suffix pass needs a position to read
-        the first token's logits from) and ``m >= prefix_min_tokens``; the
-        positions past ``m`` of a partial match stay dead until the suffix
-        pass overwrites them."""
+        ``tokens`` under bank slot ``aslot``, ``(0, None, "")`` when none is.
+        An entry is usable at depth ``m`` when its first ``m`` tokens equal
+        the prompt's (``m`` at most ``len(prompt) - 1``: the suffix pass
+        needs a position to read the first token's logits from) and ``m >=
+        prefix_min_tokens``; the positions past ``m`` of a partial match stay
+        dead until the suffix pass overwrites them.  An entry of another
+        slot is never used: a match there counts ``adapter_prefix_blocked``
+        (``serve.py:2097-2140``)."""
         best_m, best_digest, best_entry = 0, "", None
+        blocked = False
         limit_all = int(tokens.size) - 1
         for digest, entry in self._prefix_tree.items():
             limit = min(int(entry.tokens.size), limit_all)
-            if limit < self._prefix_min or limit <= best_m:
+            if limit < self._prefix_min or (entry.aslot == aslot and limit <= best_m):
                 continue
             eq = entry.tokens[:limit] == tokens[:limit]
             m = limit if bool(eq.all()) else int(np.argmin(eq))
-            if m >= self._prefix_min and m > best_m:
+            if entry.aslot != aslot:
+                blocked |= m >= self._prefix_min
+            elif m >= self._prefix_min and m > best_m:
                 best_m, best_digest, best_entry = m, digest, entry
         if best_entry is None:
+            if blocked:
+                self.stats["adapter_prefix_blocked"] += 1
             return 0, None, ""
         self._prefix_tree.move_to_end(best_digest)
         return best_m, best_entry.lane, best_digest
 
     def _insert_prefix(self, tokens: np.ndarray, lane_fn: Callable[[], list[LayerCache]],
-                       pinned: bool = False) -> None:
-        """Cache one prefilled lane under its tokens' digest (LRU-bounded;
-        ``lane_fn`` defers the copy until the entry is known to be new)."""
+                       pinned: bool = False, aslot: int = 0) -> None:
+        """Cache one prefilled lane under its bank slot and its tokens'
+        digest (LRU-bounded; ``lane_fn`` defers the copy until the entry is
+        known to be new)."""
         if not pinned and (
             self._prefix_cache_size <= 0 or int(tokens.size) < self._prefix_min + 1
         ):
             return
-        digest = _tokens_digest(tokens)
+        digest = f"{int(aslot)}:{_tokens_digest(tokens)}"
         if digest in self._prefix_tree:
             self._prefix_tree.move_to_end(digest)
             return
         self._prefix_tree[digest] = _PrefixEntry(
-            np.array(tokens, np.int32, copy=True), lane_fn(), pinned
+            np.array(tokens, np.int32, copy=True), lane_fn(), pinned, int(aslot)
         )
         unpinned = [d for d, e in self._prefix_tree.items() if not e.pinned]
         while len(unpinned) > self._prefix_cache_size:
@@ -904,26 +1342,27 @@ class ContinuousEngine:
 
     def _flush_admissions(self) -> None:
         """Admit pending requests in bucketed waves, as ``continuous_generate``
-        does: one wave per full-prefill bucket, one per (prefix entry, depth,
-        bucket) of prefix-tree hits, one for KV bundles.  The admission keys
-        are split in admission order before the hit/miss partition, so
-        sampled streams do not depend on the road a prompt takes.  Every
-        admitted lane then goes into the prefix tree."""
+        does: one wave per full-prefill bucket (rows of any adapters), one per
+        (prefix entry, depth, bucket) of prefix-tree hits (entries are
+        adapter-scoped, so such a wave holds one adapter), one for KV
+        bundles.  The admission keys are split in admission order before the
+        hit/miss partition, so sampled streams do not depend on the road a
+        prompt takes.  Every admitted lane then goes into the prefix tree."""
         if not (self._pending or self._pending_kv):
             return
         state = self._state
         free = [s for s in range(self.slots) if self._slot_rid[s] is None]
-        picked: list[tuple[int, np.ndarray, int, int, int]] = []
+        picked: list[tuple[int, np.ndarray, int, int, int, int]] = []
         picked_prefix: dict[tuple[str, int, int], tuple[list[LayerCache], list]] = {}
         picked_kv = []
         while self._pending and free:
-            rid, tokens, cap = self._pending.pop(0)
+            rid, tokens, cap, aslot = self._pending.pop(0)
             slot = free.pop(0)
             self._slot_rid[slot] = rid
             self._rid_slot[rid] = slot
             self._reported[slot] = 0
             key = self._chain.next_key()
-            m, lane_m, entry_digest = self._lookup_prefix(tokens)
+            m, lane_m, entry_digest = self._lookup_prefix(tokens, aslot)
             if m:
                 # pad K/V land past m + the suffix: the bucket is capped to
                 # what fits beyond the reused prefix
@@ -931,25 +1370,27 @@ class ContinuousEngine:
                 self.stats["prefix_hits"] += 1
                 self.stats["prefill_positions"] += bucket
                 _, group = picked_prefix.setdefault((entry_digest, m, bucket), (lane_m, []))
-                group.append((slot, tokens, cap, key))
+                group.append((slot, tokens, cap, key, aslot))
             else:
                 bucket = _bucket(tokens.size, self._config.max_seq)
                 if self._prefix_tree:
                     self.stats["prefix_misses"] += 1
                 self.stats["prefill_positions"] += bucket
-                picked.append((slot, tokens, cap, key, bucket))
+                picked.append((slot, tokens, cap, key, bucket, aslot))
         while self._pending_kv and free:
-            rid, tokens, cap, first, lane = self._pending_kv.pop(0)
+            rid, tokens, cap, first, lane, aslot = self._pending_kv.pop(0)
             slot = free.pop(0)
             self._slot_rid[slot] = rid
             self._rid_slot[rid] = slot
             self._reported[slot] = 0
-            picked_kv.append((slot, tokens, cap, first, lane))
+            picked_kv.append((slot, tokens, cap, first, lane, aslot))
         args = (self._length, self._pad, self._temperature, self._top_k, self._eos)
         for bucket in sorted({p[4] for p in picked}):
-            _admit_wave(self._model, state, [p for p in picked if p[4] == bucket], bucket, *args)
+            group = [p for p in picked if p[4] == bucket]
+            _admit_wave(self._model, state, group, bucket, *args, aslots=[p[5] for p in group])
         for (_, m, bucket), (lane_m, group) in picked_prefix.items():
-            _admit_wave(self._model, state, group, bucket, *args, start=lane_m, start_len=m)
+            _admit_wave(self._model, state, group, bucket, *args, start=lane_m, start_len=m,
+                        aslots=[p[4] for p in group])
         if picked_kv:
             slots = [p[0] for p in picked_kv]
             rows = np.full((len(picked_kv), self._length), self._pad, np.int64)
@@ -970,17 +1411,17 @@ class ContinuousEngine:
             state.write_lanes(slots, lanes)
             firsts = torch.tensor([p[3] for p in picked_kv], device=state.pos.device)
             state.admit(slots, rows, [p[1].size for p in picked_kv], [p[2] for p in picked_kv],
-                        firsts, self._eos)
+                        firsts, self._eos, [p[5] for p in picked_kv])
         if self._prefix_cache_size > 0:
             admitted = (
-                [(p[0], p[1]) for p in picked]
-                + [(slot, tokens) for _, group in picked_prefix.values()
-                   for slot, tokens, *_ in group]
-                + [(p[0], p[1]) for p in picked_kv]
+                [(p[0], p[1], p[5]) for p in picked]
+                + [(slot, tokens, aslot) for _, group in picked_prefix.values()
+                   for slot, tokens, _cap, _key, aslot in group]
+                + [(p[0], p[1], p[5]) for p in picked_kv]
             )
-            for slot, tokens in admitted:
+            for slot, tokens, aslot in admitted:
                 self._insert_prefix(
-                    tokens, lambda slot=slot, n=tokens.size: state.lane(slot, n)
+                    tokens, lambda slot=slot, n=tokens.size: state.lane(slot, n), aslot=aslot
                 )
 
 

@@ -66,15 +66,10 @@ from ..ops import batch_invariant as bi
 from ..ops.attention import NEG_INF, flash_attention, mha_reference, on_cuda
 from ..ops.ring_attention import default_zigzag, sequence_parallel_attention
 from ..parallel.sharding import _local
+from .lora import LoRADense
 from .moe import MoEMlp
+from .quant import QuantDense
 
-#: Config knobs that later slices of the port bring, with the slice that
-#: does.  Setting one raises instead of being silently ignored.
-SLICE_3 = "slice 3 (quantization, LoRA, speculative and beam decoding)"
-_LATER_SLICES = {
-    "quantized": SLICE_3,
-    "lora_rank": SLICE_3,
-}
 #: Decoding a tensor-parallel or an MoE model comes with this slice.
 SLICE_4_PART_3 = "slice 4, part 3 (tensor-parallel and MoE decoding)"
 
@@ -118,9 +113,15 @@ class TransformerConfig:
     remat: bool = False
     #: "full" recomputes everything; "dots" saves the 2-D products' outputs
     remat_policy: str = "full"
-    # Knobs of later slices (see _LATER_SLICES); only the defaults run here.
+    #: int8 weight-only denses (models/quant.py), the lm_head included;
+    #: build via quant.quantize_lm().
     quantized: bool = False
+    #: LoRA (models/lora.py): > 0 attaches rank-r adapters to the targeted
+    #: denses; build via lora.add_lora() / lora.quantize_then_lora().
     lora_rank: int = 0
+    lora_alpha: float = 16.0
+    #: which dense layers get adapters (attention + MLP, not the lm_head).
+    lora_targets: tuple = ("q_proj", "k_proj", "v_proj", "out_proj", "wi", "wo")
     #: a ``parallel.mesh`` DeviceMesh: the model shards itself over it
     #: (``parallel.sharding.apply_rules``) once built.
     mesh: Any = None
@@ -144,12 +145,13 @@ class TransformerConfig:
                 "attention must be auto, flash, reference, ring or ulysses, got "
                 f"{self.attention!r}"
             )
-        for name, slice_name in _LATER_SLICES.items():
-            if getattr(self, name):
-                raise NotImplementedError(
-                    f"{name}={getattr(self, name)!r} is not ported yet: it comes "
-                    f"with {slice_name}"
-                )
+        if self.lora_rank < 0:
+            raise ValueError(f"lora_rank must be >= 0, got {self.lora_rank}")
+        if self.mesh is not None and (self.quantized or self.lora_rank):
+            # the reference serves and tunes them on one device only
+            raise NotImplementedError(
+                "a quantized or LoRA model under a mesh is not ported: quantization "
+                "and adapters run on one device")
         if self.remat and self.remat_policy not in ("full", "dots"):
             # the reference's message, raised when its remat block is built
             raise ValueError(
@@ -176,7 +178,7 @@ def use_batch_invariant(model: "TransformerLM") -> "TransformerLM":
     RMSNorms through the batch-invariant kernels (plain versions on the
     CPU): the serving entry points' route.  Returns ``model``."""
     for module in model.modules():
-        if isinstance(module, (Dense, RMSNorm, Attention)):
+        if isinstance(module, (Dense, LoRADense, RMSNorm, Attention)):
             module.batch_invariant = True
     return model
 
@@ -281,6 +283,22 @@ class Dense(nn.Module):
         return linear(x, weight, self.dtype)
 
 
+def make_dense(cfg: TransformerConfig, name: str, in_features: int, out_features: int,
+               dtype, std: float, device, generator) -> nn.Module:
+    """The LM's one dense-layer factory (the reference's ``dense_general``,
+    ``quant.py:92-142``): float, int8, or either with a LoRA adapter when
+    ``name`` is one of ``cfg.lora_targets``.  All four hold the base weight
+    under ``weight``, so state dicts line up across them."""
+    if cfg.lora_rank and name in cfg.lora_targets:
+        return LoRADense(in_features, out_features, dtype, cfg.param_dtype, std, device,
+                         generator, rank=cfg.lora_rank, alpha=cfg.lora_alpha,
+                         quantized=cfg.quantized)
+    if cfg.quantized:
+        return QuantDense(in_features, out_features, dtype, cfg.param_dtype, std, device,
+                          generator)
+    return Dense(in_features, out_features, dtype, cfg.param_dtype, std, device, generator)
+
+
 class RMSNorm(nn.Module):
     """RMSNorm in f32 (eps 1e-6, f32 scale), cast back to ``dtype``."""
 
@@ -319,14 +337,14 @@ class Attention(nn.Module):
                 f"n_heads {cfg.n_heads} must be divisible by n_kv_heads {self.kv_heads}"
             )
         d, hd = cfg.d_model, cfg.head_dim
-        dense = lambda i, o, std: Dense(  # noqa: E731
-            i, o, cfg.dtype, cfg.param_dtype, std, device, generator
+        dense = lambda name, i, o, std: make_dense(  # noqa: E731
+            cfg, name, i, o, cfg.dtype, std, device, generator
         )
-        self.q_proj = dense(d, cfg.n_heads * hd, 0.02)
-        self.k_proj = dense(d, self.kv_heads * hd, 0.02)
-        self.v_proj = dense(d, self.kv_heads * hd, 0.02)
+        self.q_proj = dense("q_proj", d, cfg.n_heads * hd, 0.02)
+        self.k_proj = dense("k_proj", d, self.kv_heads * hd, 0.02)
+        self.v_proj = dense("v_proj", d, self.kv_heads * hd, 0.02)
         # residual-output kernel: depth-scaled init (GPT-2 convention)
-        self.out_proj = dense(cfg.n_heads * hd, d, 0.02 / (2 * cfg.n_layers) ** 0.5)
+        self.out_proj = dense("out_proj", cfg.n_heads * hd, d, 0.02 / (2 * cfg.n_layers) ** 0.5)
 
     def tensor_parallel(self, tp) -> None:
         """Heads over ``tensor``: q/k/v column-parallel (this rank's block of
@@ -517,10 +535,10 @@ class MlpBlock(nn.Module):
 
     def __init__(self, cfg: TransformerConfig, device, generator):
         super().__init__()
-        self.wi = Dense(cfg.d_model, cfg.d_ff, cfg.dtype, cfg.param_dtype, 0.02,
-                        device, generator)
-        self.wo = Dense(cfg.d_ff, cfg.d_model, cfg.dtype, cfg.param_dtype,
-                        0.02 / (2 * cfg.n_layers) ** 0.5, device, generator)
+        self.wi = make_dense(cfg, "wi", cfg.d_model, cfg.d_ff, cfg.dtype, 0.02, device,
+                             generator)
+        self.wo = make_dense(cfg, "wo", cfg.d_ff, cfg.d_model, cfg.dtype,
+                             0.02 / (2 * cfg.n_layers) ** 0.5, device, generator)
 
     def tensor_parallel(self, tp) -> None:
         """The hidden width over ``tensor``: ``wi`` column-, ``wo`` row-parallel."""
@@ -592,8 +610,8 @@ class TransformerLM(nn.Module):
             Block(cfg, device, generator) for _ in range(cfg.n_layers)
         )
         self.ln_final = RMSNorm(cfg.d_model, cfg.dtype, device)
-        self.lm_head = Dense(cfg.d_model, cfg.vocab_size, cfg.logits_dtype,
-                             cfg.param_dtype, 0.02, device, generator)
+        self.lm_head = make_dense(cfg, "lm_head", cfg.d_model, cfg.vocab_size,
+                                  cfg.logits_dtype, 0.02, device, generator)
         if cfg.mesh is not None:
             from ..parallel.sharding import apply_rules
 

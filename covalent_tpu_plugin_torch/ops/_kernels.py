@@ -131,6 +131,15 @@ BI_GEMM_MIX = Kernel(
     "covalent_tpu_plugin/models/transformer.py:496 (no Pallas kernel: XLA's "
     "decode-attention mix)",
 )
+#: ... and the int8-weight product of the quantized denses: bf16 features,
+#: the weight read as int8 and widened in registers, the scale applied in
+#: the epilogue.
+BI_GEMM_W8 = Kernel(
+    "bi_gemm_w8", "bi_gemm_w8.cu",
+    [_P] * 4 + [_I] + [_I64P, _I64P] + [_I] * 4 + [_P],
+    "covalent_tpu_plugin/models/quant.py:84-89 (no Pallas kernel: XLA's int8-weight "
+    "dense products and lm_head)",
+)
 #: The norm, alone or with the residual add before it (one entry point, one
 #: count).
 BI_RMSNORM = Kernel(
@@ -139,9 +148,9 @@ BI_RMSNORM = Kernel(
     "RMSNorm and the residual add before it)",
 )
 #: The serving paths' batch-invariant kernels (ops/batch_invariant.py).
-SERVING_KERNELS = (BI_GEMM, BI_GEMM_TC, BI_GEMM_MIX, BI_RMSNORM)
+SERVING_KERNELS = (BI_GEMM, BI_GEMM_TC, BI_GEMM_MIX, BI_RMSNORM, BI_GEMM_W8)
 #: ``plan_bi_gemm``'s route -> the kernel that takes it.
-BI_GEMM_ROUTES = {"fma": BI_GEMM, "tc": BI_GEMM_TC, "mix": BI_GEMM_MIX}
+BI_GEMM_ROUTES = {"fma": BI_GEMM, "tc": BI_GEMM_TC, "mix": BI_GEMM_MIX, "w8": BI_GEMM_W8}
 
 _build_lock = threading.Lock()
 
@@ -224,8 +233,8 @@ def launch_shapes() -> dict[str, dict[str, int]]:
 def serving_launch_counts() -> dict[str, int]:
     """Launches of the serving paths' batch-invariant kernels, one key per
     route of the product (``bi_gemm``: f32 operands on the CUDA cores,
-    ``bi_gemm_tc``, ``bi_gemm_mix``: bf16 on the tensor cores) and the
-    norm's."""
+    ``bi_gemm_tc``, ``bi_gemm_mix``: bf16 on the tensor cores,
+    ``bi_gemm_w8``: an int8 weight on them) and the norm's."""
     return {kernel.name: kernel.launches for kernel in SERVING_KERNELS}
 
 
@@ -401,14 +410,16 @@ class GemmPlan:
 
     ``route`` follows from the dtypes alone: bf16 x bf16 on the tensor
     cores (``tc``, or ``mix`` where W is read transposed; both sum in
-    csrc/bi_mma.cuh's order), anything else on the CUDA cores (``fma``).
+    csrc/bi_mma.cuh's order), bf16 x int8 on them too (``w8``, the same
+    order on the widened weight, with ``tc``'s tiles), anything else on the
+    CUDA cores (``fma``).
     ``seg_k`` and ``segments`` follow from K.  ``tiles`` and the launch
     shape (``nt`` column tiles and ``rs`` segments a round for the skinny
     tiles, ``nt`` slices for the mix) may follow M, N and the batch: they
     change which thread computes a value, never how.
     """
 
-    route: str  # "tc", "mix" or "fma"
+    route: str  # "tc", "mix", "w8" or "fma"
     seg_k: int
     segments: int
     tiles: str  # "skinny", "wide", "mix" or "fma"
@@ -462,11 +473,16 @@ def plan_bi_gemm(a_dtype: torch.dtype, w_dtype: torch.dtype, sizes: tuple,
     ``sizes`` is (z1, z2, z3, M, N, K) of operands laid out as the route
     reads them (:func:`bi_gemm` copies them there first); ``transposed``
     says W is n-contiguous.  bf16 A and W take the tensor cores: ``tc``,
-    or ``mix`` where W is transposed; any other pair takes the f32
-    CUDA-core kernel.  M picks tiles, never the route.
+    or ``mix`` where W is transposed; bf16 A and an int8 W take ``w8``
+    (k-contiguous W only); any other pair takes the f32 CUDA-core kernel.
+    M picks tiles, never the route.
     """
     z1, z2, z3, m, n, k = sizes
-    if not a_dtype == w_dtype == torch.bfloat16:
+    if a_dtype == torch.bfloat16 and w_dtype == torch.int8 and not transposed:
+        route = "w8"
+    elif a_dtype == w_dtype == torch.bfloat16:
+        route = "tc"
+    else:
         return GemmPlan("fma", seg_k=k, segments=1, tiles="fma")
     segments = _cdiv(k, BI_SEG_K)
     if transposed:
@@ -474,9 +490,9 @@ def plan_bi_gemm(a_dtype: torch.dtype, w_dtype: torch.dtype, sizes: tuple,
         return GemmPlan("mix", BI_SEG_K, segments, "mix", nt=slices,
                         rs=min(segments, 8 // slices))
     if m > 16 and _cdiv(m, 64) * _cdiv(n, 128) * z1 * z2 * z3 >= WIDE_MIN_TILES:
-        return GemmPlan("tc", BI_SEG_K, segments, "wide")
+        return GemmPlan(route, BI_SEG_K, segments, "wide")
     nt = max(1, 8 // segments)
-    return GemmPlan("tc", BI_SEG_K, segments, "skinny", nt=nt, rs=min(segments, 16 // nt))
+    return GemmPlan(route, BI_SEG_K, segments, "skinny", nt=nt, rs=min(segments, 16 // nt))
 
 
 def _bi_operands(a: torch.Tensor, w: torch.Tensor, out: torch.Tensor):
@@ -562,6 +578,40 @@ def bi_gemm(a: torch.Tensor, w: torch.Tensor, out: torch.Tensor) -> torch.Tensor
     else:
         BI_GEMM.launch(*ptrs, _BI_DTYPES[a.dtype], _BI_DTYPES[w.dtype], _BI_DTYPES[out.dtype],
                        shape, strides, stream)
+    return out
+
+
+def bi_gemm_w8(a: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
+               out: torch.Tensor) -> torch.Tensor:
+    """``out[..., m, n] = sum_k a[..., m, k] * q[..., n, k]`` with the scale
+    step of the reference's int8 dense (``bf16(bf16(sum) * scale[n])`` for a
+    bf16 ``out``, ``sum * scale[n]`` for f32), the sums those of
+    :func:`bi_gemm` on ``q`` widened to bf16, bit for bit (csrc/bi_gemm_w8.cu).
+    ``a`` bf16, ``q`` int8 k-contiguous, ``scale`` f32 one value a column
+    (already rounded to ``out``'s type by the caller)."""
+    _bi_check({"a": a, "out": out})
+    if q.device != a.device or q.dtype != torch.int8:
+        raise ValueError(f"bi_gemm_w8: q must be int8 on {a.device}, got {q.dtype} on {q.device}")
+    if a.dtype != torch.bfloat16:
+        raise ValueError(f"bi_gemm_w8: a must be bfloat16, got {a.dtype}")
+    if scale.dtype != torch.float32 or scale.device != a.device or scale.shape != (q.shape[-2],):
+        raise ValueError(f"bi_gemm_w8: scale must be float32 ({q.shape[-2]},) on {a.device}, "
+                         f"got {scale.dtype} {tuple(scale.shape)} on {scale.device}")
+    sizes, a_strides, w_strides, c_strides = _bi_operands(a, q, out)
+    copy_a = not _runs_aligned(a_strides, 4) or a.data_ptr() % 16 != 0 or sizes[5] % 8
+    copy_w = not _runs_aligned(w_strides, 4) or q.data_ptr() % 8 != 0 or sizes[5] % 8
+    if copy_a or copy_w:
+        k8 = _cdiv(sizes[5], 8) * 8
+        a = _onto_runs(a, k8) if copy_a else a
+        q = _onto_runs(q, k8) if copy_w else q
+        sizes, a_strides, w_strides, c_strides = _bi_operands(a, q, out)
+    plan = plan_bi_gemm(a.dtype, q.dtype, sizes)
+    BI_GEMM_W8.launch(
+        _ptr(a), _ptr(q), _ptr(scale.contiguous()), _ptr(out), _BI_DTYPES[out.dtype],
+        (ctypes.c_int64 * 6)(*sizes), (ctypes.c_int64 * 15)(*(a_strides + w_strides + c_strides)),
+        _TILE_CODES[plan.tiles], plan.nt, plan.rs, plan.seg_k,
+        torch.cuda.current_stream(a.device).cuda_stream,
+    )
     return out
 
 

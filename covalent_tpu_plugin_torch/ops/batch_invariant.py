@@ -19,7 +19,8 @@ product has three routes (``_kernels.plan_bi_gemm``): bf16 operands on the
 tensor cores (``csrc/bi_gemm_tc.cu``; the decode attention's mix, its cache
 operand read transposed, in ``csrc/bi_gemm_mix.cu``), a pair with an f32
 operand on the CUDA cores (``csrc/bi_gemm.cu``); the norm, alone or with the
-residual add before it, is ``csrc/bi_rmsnorm.cu``.  CPU
+residual add before it, is ``csrc/bi_rmsnorm.cu``; the int8-weight product
+of the quantized denses is ``csrc/bi_gemm_w8.cu``.  CPU
 tensors take the ``*_plain`` versions beside them, which make the same
 casts; the model uses the plain versions outright where the route is off
 (training).
@@ -70,6 +71,72 @@ def linear(x: torch.Tensor, weight: torch.Tensor, dtype: torch.dtype) -> torch.T
     out = torch.empty(*x.shape[:-1], weight.shape[0], dtype=dtype, device=x.device)
     _kernels.bi_gemm(rows, weight, out.view(-1, weight.shape[0]))
     return out
+
+
+def linear_w8_plain(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
+                    dtype: torch.dtype) -> torch.Tensor:
+    """The int8-weight dense product of the reference's ``QuantDenseGeneral``
+    (``models/quant.py:84-89``): ``x @ q.T`` with both cast to ``dtype``,
+    rounded to ``dtype``, then times ``scale`` cast to ``dtype``."""
+    return F.linear(x.to(dtype), q.to(dtype)) * scale.to(dtype)
+
+
+class _LinearW8(torch.autograd.Function):
+    """The kernel's forward; the backward to ``x`` is the plain version's
+    (the weight and its scale are frozen), so QLoRA trains through it."""
+
+    @staticmethod
+    def forward(ctx, x, q, scale, dtype):
+        ctx.save_for_backward(q, scale)
+        ctx.dtype, ctx.x_dtype = dtype, x.dtype
+        rows = x.to(torch.bfloat16).reshape(-1, x.shape[-1])
+        out = torch.empty(*x.shape[:-1], q.shape[0], dtype=dtype, device=x.device)
+        _kernels.bi_gemm_w8(rows, q, scale.to(dtype).float(), out.view(-1, q.shape[0]))
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        q, scale = ctx.saved_tensors
+        grad_y = grad.to(ctx.dtype) * scale.to(ctx.dtype)
+        return (grad_y @ q.to(ctx.dtype)).to(ctx.x_dtype), None, None, None
+
+
+def linear_w8(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
+              dtype: torch.dtype) -> torch.Tensor:
+    """:func:`linear_w8_plain` on the int8-weight kernel for CUDA tensors
+    (``csrc/bi_gemm_w8.cu``): the weight is read as int8 and widened to bf16
+    on the way to the tensor cores (exact: |q| <= 127), summed in
+    ``bi_gemm_tc``'s order, and the scale applied in the epilogue.  Features
+    reach the kernel as bf16: the serving path's are, and f32 features of a
+    bf16 product are first rounded to bf16 as the plain version rounds them.
+    There is no fallback: on a CUDA tensor the kernel runs or raises."""
+    if not _route(x):
+        return linear_w8_plain(x, q, scale, dtype)
+    if x.dtype != torch.bfloat16 and dtype != torch.bfloat16:
+        raise ValueError(f"linear_w8: {x.dtype} features under a {dtype} product have no "
+                         "kernel (the kernel reads bf16 features)")
+    return _LinearW8.apply(x, q, scale, dtype)
+
+
+def linear_rows_plain(x: torch.Tensor, weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x[b] @ weight[b].T`` for each row ``b`` of the batch (``x`` (B, S,
+    in), ``weight`` (B, out, in) or (1, out, in) for every row), both cast to
+    ``dtype``: the adapter bank's gathered products."""
+    return torch.matmul(x.to(dtype), weight.to(dtype).transpose(-1, -2))
+
+
+def linear_rows(x: torch.Tensor, weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """:func:`linear_rows_plain` on the batch-invariant GEMM's batched route
+    for CUDA tensors: batch z = the rows, so each row's product is what it
+    computes alone, whatever weights its neighbours gathered."""
+    if not _route(x):
+        return linear_rows_plain(x, weight, dtype)
+    if not (weight.dtype == torch.bfloat16 and dtype == torch.float32):
+        weight = weight.to(dtype)
+    if not (x.dtype == weight.dtype == torch.bfloat16):
+        x = x.to(dtype)
+    out = torch.empty(x.shape[0], x.shape[1], weight.shape[1], dtype=dtype, device=x.device)
+    return _kernels.bi_gemm(x, weight, out)
 
 
 def attention_scores_plain(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:

@@ -21,7 +21,8 @@ Own copy of ``covalent_tpu_plugin/serving``:
   binary frames.
 
 Every session moves the per-session families of :mod:`.metrics` and one
-trace per request.  LoRA adapters (slice 3) are not ported yet.
+trace per request.  A session may host a bank of LoRA adapters, attached and
+detached while it serves (:mod:`.registry` keeps their bundles).
 """
 
 from .disagg import DisaggregatedSet, open_disaggregated_set

@@ -20,8 +20,9 @@ The target is a ``GPUExecutor`` or a fleet ``Pool`` (:mod:`..fleet.pools`):
 a session opened on a pool pins one of its capacity slots for its life,
 and :meth:`ServeHandle.handoff` may move it to another pool.
 :meth:`ServeHandle.capture_profile` traces the runtime that holds the
-model while it serves.  Refused until slice 3, with
-:class:`NotImplementedError`: ``attach_adapter``/``detach_adapter``.
+model while it serves.  :meth:`ServeHandle.attach_adapter` splices a named
+LoRA adapter into the running session (the engine's adapter bank) and
+:meth:`ServeHandle.detach_adapter` retires one.
 """
 
 from __future__ import annotations
@@ -43,9 +44,6 @@ from .supervisor import (
 
 __all__ = ["ServeError", "ServeHandle", "ServeRequest", "ServeRequestRejected",
            "open_session"]
-
-ADAPTERS = "slice 3 (LoRA adapters)"
-
 
 class ServeHandle:
     """One resident serving session and every caller multiplexed onto it.
@@ -168,13 +166,25 @@ class ServeHandle:
         Idempotent."""
         return await self._sup.close(timeout)
 
-    # -- refused until later items --------------------------------------------
+    # -- the multi-adapter bank --------------------------------------------------
 
-    async def attach_adapter(self, name: str, payload: Any = None, **_: Any) -> dict:
-        raise NotImplementedError(f"attach_adapter is not ported yet: it comes with {ADAPTERS}")
+    @property
+    def adapters(self) -> dict[str, str]:
+        """name -> content digest of every adapter attached here."""
+        return self._sup.adapters
+
+    async def attach_adapter(self, name: str, payload: Any = None, *, path: str = "",
+                             digest: str = "", rank: int | None = None, alpha: float = 16.0,
+                             timeout_s: float | None = None) -> dict:
+        """Splice a named LoRA adapter into the running session (a re-attach
+        of a live name is a hot swap: requests in flight finish on the old
+        generation).  See :meth:`~.supervisor.SessionSupervisor.attach_adapter`."""
+        return await self._sup.attach_adapter(name, payload, path=path, digest=digest,
+                                              rank=rank, alpha=alpha, timeout_s=timeout_s)
 
     async def detach_adapter(self, name: str, timeout_s: float = 30.0) -> dict:
-        raise NotImplementedError(f"detach_adapter is not ported yet: it comes with {ADAPTERS}")
+        """Retire a named adapter of the running session."""
+        return await self._sup.detach_adapter(name, timeout_s=timeout_s)
 
 
 async def open_session(target: Any, factory: Any, *, queue_max: int | None = None,

@@ -5,8 +5,8 @@ Own copy of ``covalent_tpu_plugin/serving/metrics.py`` (same names, labels
 and buckets), so one dashboard reads either package.  Label cardinality is
 low: every ``outcome``/``state``/``path`` label is a closed set, and the
 per-session gauges key on the handle's sid (stable across reconnect
-generations), not on a generation's remote id.  The engine's speculative
-and per-mode counters and the adapter families come with slice 3.
+generations), not on a generation's remote id.  The speculative accept
+rate comes with slice 3b (speculative decoding).
 """
 
 from __future__ import annotations
@@ -145,6 +145,57 @@ SERVE_PREFILL_POSITIONS = REGISTRY.gauge(
     "Prefill positions paid by a serving session's engine "
     "(suffix buckets on prefix hits, full-prompt buckets on misses)",
     ("session",),
+)
+
+# -- quantized decoding --------------------------------------------------------
+# Fed by the engine's ``mode_tokens_<mode>`` counters through the stats
+# backhaul; ``mode`` is a closed set (models/quant.py SERVING_MODES), so the
+# supervisor's reap enumerates it.
+
+SERVE_MODE_TOKENS = REGISTRY.gauge(
+    "covalent_tpu_serve_mode_tokens",
+    "Output tokens per serving session by decode-mode lane group "
+    "(fp / int8 / kv_quant / full_quant)",
+    ("session", "mode"),
+)
+
+# -- multi-adapter serving -----------------------------------------------------
+# Fed by the engine's ``adapter_*`` counters.  The ``adapter`` label set is
+# open (operators name adapters): the supervisor tracks the (session,
+# adapter) pairs it created and reaps exactly those.  Attach latency is the
+# dispatcher's wall time: CAS stage, the wire round trip, the engine splice.
+
+SERVE_ADAPTERS = REGISTRY.gauge(
+    "covalent_tpu_serve_adapters",
+    "LoRA adapters currently attached per serving session",
+    ("session",),
+)
+
+SERVE_ADAPTER_TOKENS = REGISTRY.gauge(
+    "covalent_tpu_serve_adapter_tokens",
+    "Output tokens per serving session by adapter lane "
+    "(cumulative; 'base' is the un-adapted lane)",
+    ("session", "adapter"),
+)
+
+SERVE_ADAPTER_REQUESTS_TOTAL = REGISTRY.gauge(
+    "covalent_tpu_serve_adapter_requests_total",
+    "Requests admitted per serving session by adapter "
+    "(cumulative engine counter, gauge-backed so the worker restates "
+    "it on every stats tick)",
+    ("session", "adapter"),
+)
+
+SERVE_ADAPTER_ATTACHES_TOTAL = REGISTRY.counter(
+    "covalent_tpu_serve_adapter_attaches_total",
+    "Adapter attach/detach operations by outcome",
+    ("op", "outcome"),
+)
+
+SERVE_ADAPTER_ATTACH_SECONDS = REGISTRY.histogram(
+    "covalent_tpu_serve_adapter_attach_seconds",
+    "Live adapter attach wall time: CAS stage -> engine splice ack",
+    buckets=(0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0),
 )
 
 # -- disaggregated prefill/decode -------------------------------------------

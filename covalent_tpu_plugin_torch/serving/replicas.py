@@ -37,8 +37,10 @@ Targets are ``GPUExecutor``\\ s and fleet ``Pool``\\ s: a replica goes to
 the target holding the fewest of the set's replicas, then to the pool with
 the most free slots, and a pool-backed replica pins one of its pool's
 slots for its life.
-``attach_adapter``/``detach_adapter`` are refused until slice 3, though
-the router keeps its adapter-site bookkeeping.  With journaling on, the set
+``attach_adapter`` attaches a named LoRA adapter on every open member (or,
+with ``replicas=n``, on the n least loaded, whose sites the router then
+learns: a request naming the adapter places there, ``adapter_affinity``);
+``detach_adapter`` retires it everywhere.  With journaling on, the set
 records its target size (``replica_set``) and each member's entry and exit
 (``replica``) beside its supervisors' session and stream records.  The
 set's open is a ``serve.replica_set_open`` span, and each request's router
@@ -63,7 +65,6 @@ from ..fleet.queue import DEFAULT_TENANT, FairWorkQueue, QueueFullError, WorkIte
 from ..obs import events as obs_events
 from ..obs.trace import Span, record_span
 from ..utils.log import app_log
-from .handle import ADAPTERS
 from .metrics import (
     SERVE_HEDGES_TOTAL,
     SERVE_REPLICAS,
@@ -764,11 +765,66 @@ class ReplicaSet:
             tenant=request.tenant or DEFAULT_TENANT,
         )
 
-    async def attach_adapter(self, name: str, payload: Any = None, **_: Any) -> dict:
-        raise NotImplementedError(f"attach_adapter is not ported yet: it comes with {ADAPTERS}")
+    def adapter_residency(self) -> dict[str, list[str]]:
+        """adapter name -> the ids of the members whose engine holds it."""
+        residency: dict[str, list[str]] = {}
+        for rid, sup in self._replicas.items():
+            for name in sup.adapters:
+                residency.setdefault(name, []).append(rid)
+        return {name: sorted(rids) for name, rids in residency.items()}
 
-    async def detach_adapter(self, name: str, timeout_s: float = 30.0) -> dict:
-        raise NotImplementedError(f"detach_adapter is not ported yet: it comes with {ADAPTERS}")
+    async def attach_adapter(self, name: str, payload: Any = None, *, path: str = "",
+                             digest: str = "", rank: int | None = None, alpha: float = 16.0,
+                             replicas: int = 0,
+                             timeout_s: float | None = None) -> dict[str, dict]:
+        """Attach a named adapter across the set (reference
+        ``replicas.py:949-1017``): on every open member (``replicas=0``), or
+        on the ``replicas`` least loaded, whose sites the router learns so
+        that requests naming the adapter place there.  Returns member id ->
+        the worker's ack, or ``{"error": ...}`` for a member that refused;
+        raises when no member took it."""
+        open_replicas = sorted(((rid, sup) for rid, sup in self._replicas.items()
+                                if sup.routable), key=lambda pair: pair[1].in_flight)
+        if not open_replicas:
+            raise ServeError(f"replica set {self.name} has no open replica to attach "
+                             f"adapter {name!r} to")
+        chosen = open_replicas[:max(1, int(replicas) if replicas else len(open_replicas))]
+        spread = bool(replicas) and len(chosen) < len(open_replicas)
+        acks: dict[str, dict] = {}
+        for rid, sup in chosen:
+            try:
+                acks[rid] = await sup.attach_adapter(name, payload, path=path, digest=digest,
+                                                     rank=rank, alpha=alpha,
+                                                     timeout_s=timeout_s)
+            except asyncio.CancelledError:
+                raise
+            except BaseException as err:  # noqa: BLE001 - one member's refusal
+                acks[rid] = {"error": repr(err)}
+                app_log.warning("adapter %r attach on replica %s failed: %r", name, rid, err)
+                continue
+            if spread:
+                self.router.record_adapter_site(str(name), rid)
+        if all("error" in ack for ack in acks.values()):
+            raise ServeError(f"adapter {name!r} attached to no replica of {self.name}: {acks}")
+        if not spread:
+            # resident everywhere: lift a constraint of an earlier partial attach
+            self.router.drop_adapter_site(str(name))
+        return acks
+
+    async def detach_adapter(self, name: str, timeout_s: float = 30.0) -> dict[str, dict]:
+        """Detach a named adapter from every member holding it."""
+        acks: dict[str, dict] = {}
+        for rid, sup in list(self._replicas.items()):
+            if name not in sup.adapters:
+                continue
+            try:
+                acks[rid] = await sup.detach_adapter(name, timeout_s=timeout_s)
+            except asyncio.CancelledError:
+                raise
+            except BaseException as err:  # noqa: BLE001 - one member's refusal
+                acks[rid] = {"error": repr(err)}
+        self.router.drop_adapter_site(str(name))
+        return acks
 
     async def _prepare_request(self, request: ServeRequest) -> None:
         """Before the router sees a request: a disaggregated set runs the

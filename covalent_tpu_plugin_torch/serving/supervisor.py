@@ -51,7 +51,10 @@ the model while it serves.  Opened through a fleet ``Pool``, a session
 pins one of its capacity slots for its life; a handoff may move it to
 another target (:meth:`SessionSupervisor.handoff`).
 
-Left out until slice 3, and not stubbed: the journal records of adapters.
+Adapters: :meth:`SessionSupervisor.attach_adapter` registers a bundle in
+the executor's :class:`~.registry.AdapterRegistry`, ships it into the
+worker's CAS and splices it into the engine; every attachment is journaled
+(``session_adapter``) and replayed onto each fresh generation.
 """
 
 from __future__ import annotations
@@ -72,7 +75,13 @@ from ..resilience import FaultClass, RetryPolicy, classify_error
 from ..transport.base import TransportError
 from ..utils.log import app_log
 from .metrics import (
+    SERVE_ADAPTER_ATTACH_SECONDS,
+    SERVE_ADAPTER_ATTACHES_TOTAL,
+    SERVE_ADAPTER_REQUESTS_TOTAL,
+    SERVE_ADAPTER_TOKENS,
+    SERVE_ADAPTERS,
     SERVE_HANDOFFS_TOTAL,
+    SERVE_MODE_TOKENS,
     SERVE_PREFILL_POSITIONS,
     SERVE_PREFIX_HITS,
     SERVE_PREFIX_MISSES,
@@ -392,6 +401,12 @@ class SessionSupervisor:
         self._supervisor: asyncio.Task | None = None
         #: fire-and-forget cancels held here so they are not collected mid-await
         self._bg_tasks: set = set()
+        #: name -> registry record of every adapter attached here, in attach
+        #: order: what a fresh generation is re-spliced with
+        self._adapters: dict[str, dict] = {}
+        #: the (session, adapter) series this supervisor created (the label
+        #: set is open, so the reap removes exactly these)
+        self._adapter_series: set[str] = set()
 
     # -- views ----------------------------------------------------------------
 
@@ -447,6 +462,8 @@ class SessionSupervisor:
                       "kv_fallbacks", "prefills"):
             if field in self.stats:
                 view[field] = self.stats[field]
+        if self._adapters:
+            view["adapters"] = self.adapters
         return view
 
     def _changed(self) -> None:
@@ -787,6 +804,169 @@ class SessionSupervisor:
         return await client.serve_prefill(self._sid_g, rid, [int(t) for t in prompt],
                                           params=params, timeout=timeout_s, trace=trace)
 
+    # -- the multi-adapter bank (live attach, detach, replay) ---------------------
+
+    def _adapter_registry(self):
+        """The executor's adapter book (its ``adapter_registry()``, so every
+        session of one executor shares one), or one kept on the executor."""
+        accessor = getattr(self.executor, "adapter_registry", None)
+        if callable(accessor):
+            return accessor()
+        registry = getattr(self.executor, "_adapter_registry", None)
+        if registry is None:
+            from .registry import AdapterRegistry
+
+            registry = AdapterRegistry(self.executor.cache_dir)
+            self.executor._adapter_registry = registry
+        return registry
+
+    @property
+    def adapters(self) -> dict[str, str]:
+        """name -> content digest of every adapter attached here."""
+        return {name: str(record.get("content") or "") for name, record in self._adapters.items()}
+
+    async def attach_adapter(self, name: str, payload: Any = None, *, path: str = "",
+                             digest: str = "", rank: int | None = None, alpha: float = 16.0,
+                             timeout_s: float | None = None) -> dict:
+        """Splice a named LoRA adapter into this running session (reference
+        ``supervisor.py:1022-1118``).
+
+        The source is, first match wins: ``payload`` (bundle bytes, a bundle
+        dict or a wire-form leaf list, registered here), ``path`` (a packed
+        bundle file; ``digest`` cross-checks it), or the executor's registry
+        by ``name``.  The bundle ships into the worker's CAS, sha256-checked
+        there, and the engine splices it between decode chunks (a live name
+        is hot-swapped).  The attachment is journaled at once, so a
+        successor dispatcher re-attaches it.  Returns the worker's ack (the
+        content ``digest``, ``attach_s``)."""
+        await self._await_ready()
+        client = self._client
+        if client is None:
+            raise ServeError(f"session {self.sid} has no live runtime")
+        t0 = time.monotonic()
+        timeout = float(timeout_s if timeout_s is not None
+                        else _env_number("COVALENT_TPU_SERVE_ATTACH_TIMEOUT_S", 60.0))
+        registry = self._adapter_registry()
+        if payload is not None:
+            record = await asyncio.to_thread(registry.put, name, payload, rank, alpha)
+        elif path:
+            data = await asyncio.to_thread(self._read_payload, path)
+            record = await asyncio.to_thread(registry.put, name, data)
+            if digest and record["digest"] != digest:
+                SERVE_ADAPTER_ATTACHES_TOTAL.labels(op="attach", outcome="digest_mismatch").inc()
+                raise ServeError(f"adapter {name!r} bundle at {path} hashes to "
+                                 f"{record['digest'][:12]}, the journal says {digest[:12]} "
+                                 "(torn or tampered artifact)")
+        else:
+            record = registry.get(name)
+            if record is None:
+                raise ServeError(f"no adapter {name!r} in the registry (register it, or pass "
+                                 "payload= or path=)")
+        try:
+            remote = await self._stage_adapter(record)
+            ack = await client.serve_attach(self._sid_g, name, record["digest"], remote,
+                                            timeout=timeout)
+        except BaseException as err:
+            SERVE_ADAPTER_ATTACHES_TOTAL.labels(op="attach", outcome="error").inc()
+            obs_events.emit("serve.adapter_attach_failed", sid=self.sid, adapter=str(name),
+                            error=repr(err))
+            raise self._adapter_refusal(err, "attach", str(name))
+        elapsed = time.monotonic() - t0
+        record = dict(record, content=str(ack.get("digest") or record.get("content") or ""))
+        self._adapters[str(name)] = record
+        SERVE_ADAPTER_ATTACHES_TOTAL.labels(op="attach", outcome="ok").inc()
+        SERVE_ADAPTER_ATTACH_SECONDS.observe(elapsed)
+        SERVE_ADAPTERS.labels(session=self.sid).set(float(len(self._adapters)))
+        journal_mod.record("session_adapter", sid=self.sid, adapter=str(name),
+                           digest=record["digest"], path=record["path"],
+                           content=record["content"], sync=True)
+        obs_events.emit("serve.adapter_attached", sid=self.sid, adapter=str(name),
+                        digest=record["content"], attach_s=round(elapsed, 4))
+        self._changed()
+        return ack
+
+    async def detach_adapter(self, name: str, timeout_s: float = 30.0) -> dict:
+        """Retire a named adapter of the running session; its bank slot
+        frees once the requests pinned to it finish.  Journaled at once, so
+        recovery does not bring the name back."""
+        await self._await_ready()
+        client = self._client
+        if client is None:
+            raise ServeError(f"session {self.sid} has no live runtime")
+        try:
+            ack = await client.serve_detach(self._sid_g, name, timeout=timeout_s)
+        except BaseException as err:
+            SERVE_ADAPTER_ATTACHES_TOTAL.labels(op="detach", outcome="error").inc()
+            raise self._adapter_refusal(err, "detach", str(name))
+        self._adapters.pop(str(name), None)
+        SERVE_ADAPTER_ATTACHES_TOTAL.labels(op="detach", outcome="ok").inc()
+        SERVE_ADAPTERS.labels(session=self.sid).set(float(len(self._adapters)))
+        journal_mod.record("session_adapter", sid=self.sid, adapter=str(name), detached=True,
+                           sync=True)
+        obs_events.emit("serve.adapter_detached", sid=self.sid, adapter=str(name))
+        self._changed()
+        return ack
+
+    def _adapter_refusal(self, err: BaseException, op: str, name: str) -> BaseException:
+        """A worker refusal that carries a ``fault_label`` as a
+        :class:`ServeError` with the same tags, so ``classify_error`` keeps
+        the worker's verdict; channel faults pass through as they are."""
+        label = str(getattr(err, "fault_label", "") or "")
+        if not label:
+            return err
+        wrapped = ServeError(f"{op} of adapter {name!r} on {self.sid} refused: {err}")
+        wrapped.fault_label = label
+        wrapped.fault_transient = bool(getattr(err, "fault_transient", True))
+        wrapped.__cause__ = err
+        return wrapped
+
+    def note_adapter(self, name: str, *, digest: str, path: str, content: str = "") -> None:
+        """Record an adapter that is already resident in the remote engine
+        (recovery: the worker held it through the dispatcher's death)
+        without shipping anything."""
+        self._adapters[str(name)] = {"name": str(name), "digest": str(digest),
+                                     "path": str(path), "content": str(content)}
+        SERVE_ADAPTERS.labels(session=self.sid).set(float(len(self._adapters)))
+        journal_mod.record("session_adapter", sid=self.sid, adapter=str(name),
+                           digest=str(digest), path=str(path), content=str(content), sync=True)
+
+    async def _stage_adapter(self, record: dict) -> str:
+        """Ship one packed bundle into this generation's worker CAS; returns
+        its remote path (digest-named: a replay onto the same worker costs
+        nothing)."""
+        executor = self.executor
+        key = executor._pool_key(self.address)
+        digest = str(record["digest"])
+        remote = cas_path(executor.remote_cache, digest, ".lora")
+        await executor._cas.ensure(key, self._conns[0], digest, str(record["path"]), remote)
+        return remote
+
+    async def _replay_adapters(self) -> None:
+        """Re-splice every attached adapter into a fresh generation (a
+        reconnect or a handoff): its engine starts with an empty bank.  One
+        failed replay is logged and the others go on."""
+        client = self._client
+        if client is None or not self._adapters:
+            return
+        for name, record in list(self._adapters.items()):
+            try:
+                remote = await self._stage_adapter(record)
+                await client.serve_attach(
+                    self._sid_g, name, str(record["digest"]), remote,
+                    timeout=_env_number("COVALENT_TPU_SERVE_ATTACH_TIMEOUT_S", 60.0))
+            except asyncio.CancelledError:
+                raise
+            except BaseException as err:  # noqa: BLE001 - degrade per name
+                app_log.warning("adapter %r replay onto %s generation %d failed: %r",
+                                name, self.sid, self.generation, err)
+                obs_events.emit("serve.adapter_replay_failed", sid=self.sid,
+                                adapter=str(name), error=repr(err))
+
+    @staticmethod
+    def _read_payload(path: str) -> bytes:
+        with open(path, "rb") as f:
+            return f.read()
+
     async def _await_ready(self) -> None:
         if self._closed:
             raise ServeError(f"session {self.sid} is closed")
@@ -974,6 +1154,18 @@ class SessionSupervisor:
                            ("prefill_positions", SERVE_PREFILL_POSITIONS)):
             if key in self.stats:
                 gauge.labels(session=self.sid).set(float(self.stats[key] or 0))
+        # the lane groups' and the bank's families: one key per mode, and
+        # one per adapter
+        for key, value in self.stats.items():
+            if key.startswith("mode_tokens_"):
+                SERVE_MODE_TOKENS.labels(session=self.sid,
+                                         mode=key[len("mode_tokens_"):]).set(float(value or 0))
+            for prefix, gauge in (("adapter_tokens_", SERVE_ADAPTER_TOKENS),
+                                  ("adapter_requests_", SERVE_ADAPTER_REQUESTS_TOTAL)):
+                if key.startswith(prefix):
+                    adapter = key[len(prefix):]
+                    self._adapter_series.add(adapter)
+                    gauge.labels(session=self.sid, adapter=adapter).set(float(value or 0))
         self._publish_worker_slots()
 
     def _peers_on_worker(self) -> list["SessionSupervisor"]:
@@ -1101,6 +1293,7 @@ class SessionSupervisor:
             self._move_road = "preempt" if reason == "preempt_notice" else "handoff"
             if old_client is not None:
                 old_client.unwatch_serve(old_sid)
+            await self._replay_adapters()
             await self._replay_in_flight()
             self.handoffs += 1
             SERVE_HANDOFFS_TOTAL.labels(outcome="ok").inc()
@@ -1207,6 +1400,7 @@ class SessionSupervisor:
                     app_log.info("serving session %s re-opened on generation %d; "
                                  "replaying %d requests", self.sid, self.generation,
                                  len(self._requests))
+                    await self._replay_adapters()
                     await self._replay_in_flight()
                     self._ready.set()
                     self._changed()
@@ -1284,8 +1478,16 @@ class SessionSupervisor:
                 self._pool.release()
         HEALTH.drop(self.sid)
         for gauge in (SERVE_QUEUE_DEPTH, SERVE_TOKENS_PER_S, SERVE_PREFIX_HITS,
-                      SERVE_PREFIX_MISSES, SERVE_PREFILL_POSITIONS):
+                      SERVE_PREFIX_MISSES, SERVE_PREFILL_POSITIONS, SERVE_ADAPTERS):
             gauge.remove(session=self.sid)
+        from ..models.quant import SERVING_MODES
+
+        for mode in SERVING_MODES:
+            SERVE_MODE_TOKENS.remove(session=self.sid, mode=mode)
+        for adapter in self._adapter_series:
+            SERVE_ADAPTER_TOKENS.remove(session=self.sid, adapter=adapter)
+            SERVE_ADAPTER_REQUESTS_TOTAL.remove(session=self.sid, adapter=adapter)
+        self._adapter_series.clear()
         if self.replica_of is not None:
             SERVE_REPLICA_IN_FLIGHT.remove(set=self.replica_of[0], replica=self.replica_of[1])
             SERVE_REPLICA_REQUESTS_TOTAL.remove(set=self.replica_of[0],

@@ -680,8 +680,12 @@ def test_batch_invariant_ops_take_plain_versions_on_cpu():
     assert torch.equal(bi.attention_scores(q, k), bi.attention_scores_plain(q, k))
     p = torch.full((2, 2, 1, 1, 7), 1 / 7)
     assert torch.equal(bi.attention_mix(p, k), bi.attention_mix_plain(p, k))
+    q8 = torch.tensor(rng.integers(-127, 128, (8, 16)), dtype=torch.int8)
+    s8 = torch.ones(8)
+    assert torch.equal(bi.linear_w8(x, q8, s8, torch.bfloat16),
+                       bi.linear_w8_plain(x, q8, s8, torch.bfloat16))
     assert _kernels.serving_launch_counts() == {"bi_gemm": 0, "bi_gemm_tc": 0, "bi_gemm_mix": 0,
-                                                "bi_rmsnorm": 0}
+                                                "bi_rmsnorm": 0, "bi_gemm_w8": 0}
     with pytest.raises(ValueError, match="CUDA tensors"):
         _kernels.bi_gemm(x[0], w, torch.empty(5, 8))
     with pytest.raises(ValueError, match="CUDA tensors"):

@@ -383,15 +383,25 @@ def test_a_gang_of_two_is_never_flagged(monkeypatch):
     assert seen == []
 
 
-def late_rank(delay: float):
+def late_rank(delay: float, barrier: str):
     """A gang electron whose last rank leaves ``delay`` seconds after the
-    others (the harness exports the rank before the electron runs)."""
+    others (the harness exports the rank before the electron runs).  Every
+    rank first waits until all ranks have entered the electron (a file each
+    in ``barrier``), so the ranks' start-up, which differs under load, does
+    not order their exits: the early ranks leave together, only the last
+    one waits."""
 
     def electron():
         import os as os_mod
         import time
 
         rank, world = int(os_mod.environ["RANK"]), int(os_mod.environ["WORLD_SIZE"])
+        open(os_mod.path.join(barrier, f"in.{rank}"), "w").close()
+        deadline = time.monotonic() + 120.0
+        while len(os_mod.listdir(barrier)) < world:
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"rank {rank}: the gang never gathered in {barrier}")
+            time.sleep(0.01)
         if rank == world - 1:
             time.sleep(delay)
         return rank
@@ -403,19 +413,26 @@ def test_a_late_rank_is_flagged_and_its_channel_redialed(tmp_path, monkeypatch, 
     """Three local processes, the last leaving 2 s after the others, a 0.5 s
     budget: the executor flags worker ``w2`` with a differential of about
     2 s, and with ``COVALENT_TPU_STRAGGLER_REDIAL`` drops its channel, so the
-    next electron dials it afresh."""
+    next electron dials it afresh.  The ranks gather on a barrier before
+    they leave, and the second electron, which only counts the dials, runs
+    with the detection off: no exit order comes from the machine's load."""
     monkeypatch.setenv("COVALENT_TPU_STRAGGLER_BUDGET_S", "0.5")
     monkeypatch.setenv("COVALENT_TPU_STRAGGLER_REDIAL", "1")
     HEALTH.drop("w2")
     ex = _executor(tmp_path, use_agent=False, workers=["w0", "w1", "w2"], coordinator_port=0)
+    barriers = [tmp_path / "barrier0", tmp_path / "barrier1"]
+    for barrier in barriers:
+        barrier.mkdir()
 
     async def flow():
         try:
-            first = await ex.run(late_rank(2.0), [], {}, METADATA)
+            first = await ex.run(late_rank(2.0, str(barriers[0])), [], {}, METADATA)
             await asyncio.gather(*list(ex._cleanup_tasks))
             dropped = ex._pool_key("w2") not in ex._transports
             misses = metric("covalent_tpu_pool_acquires_total", result="miss")
-            second = await ex.run(late_rank(0.0), [], {}, {**METADATA, "node_id": 1})
+            monkeypatch.setenv("COVALENT_TPU_STRAGGLER_BUDGET_S", "0")
+            second = await ex.run(late_rank(0.0, str(barriers[1])), [], {},
+                                  {**METADATA, "node_id": 1})
             return (first, second, dropped,
                     metric("covalent_tpu_pool_acquires_total", result="miss") - misses)
         finally:

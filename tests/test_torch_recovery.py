@@ -191,23 +191,56 @@ def test_recovered_session_serves_new_requests(tmp_path, run_async, journal_dir)
     assert sid not in state.sessions
 
 
+def adapter_gated_factory():
+    """:func:`gated_factory`'s engine with an adapter surface: it keeps the
+    content digest of every bundle it is handed (the serving engine's
+    ``attach_adapter``/``adapter_digests``), so recovery's re-attach is
+    seen by the worker's inventory."""
+    inner = gated_factory()
+
+    def factory():
+        engine = inner()
+        engine.adapter_digests = {}
+
+        def attach_adapter(name, payload):
+            engine.adapter_digests[name] = str(payload["digest"])
+            return payload["digest"]
+
+        engine.attach_adapter = attach_adapter
+        return engine
+
+    return factory
+
+
 def test_journaled_adapters_are_refused_by_name_until_slice_3(tmp_path, run_async,
                                                               journal_dir):
-    """A journal (written by the reference) whose session names a LoRA
-    adapter: the session is adopted and its stream resumed, the adapter is
-    reported refused, and RECOVERY_ADAPTERS counts none."""
-    adapters0 = counter_value("covalent_tpu_recovery_adapters_total")
+    """A journal whose session names LoRA adapters: the session is adopted,
+    ``recover()`` re-attaches a journaled adapter from the dispatcher's CAS
+    bundle before the stream resumes (``attached``), reports one whose bundle
+    is gone ``error``, and counts both by state; the stream resumes exactly
+    once.  (Until this slice the adapters were refused by name.)"""
+    from covalent_tpu_plugin_torch.serving.registry import pack_adapter
+
+    counts0 = {state: counter_value("covalent_tpu_recovery_adapters_total", state=state)
+               for state in ("attached", "error", "resident")}
+    wire = [[[0.5, -0.25]], [[1.0], [2.0]]]
+    data = pack_adapter(wire, name="tone", rank=1)
+    bundle = tmp_path / "tone.lora"
+    bundle.write_bytes(data)
+    digest = __import__("hashlib").sha256(data).hexdigest()
 
     async def flow():
         journal_mod.configure(journal_dir)
         ex_a = make_executor(tmp_path)
-        handle = await open_session(ex_a, gated_factory())
+        handle = await open_session(ex_a, adapter_gated_factory())
         gate = tmp_path / "gate"
         req = await handle.request([10], params={"max_new_tokens": 12, "hold": str(gate)})
         while not req.tokens:
             await asyncio.sleep(0.05)
-        journal_mod.record("session_adapter", sid=handle.sid, adapter="tone", digest="d",
-                           path="/x", content="c", sync=True)
+        journal_mod.record("session_adapter", sid=handle.sid, adapter="tone", digest=digest,
+                           path=str(bundle), content="c", sync=True)
+        journal_mod.record("session_adapter", sid=handle.sid, adapter="lost", digest="d",
+                           path=str(tmp_path / "missing.lora"), content="c2", sync=True)
         crash_dispatcher(ex_a)
         prefix = list(req.tokens)
         await orphaned(tmp_path)
@@ -216,18 +249,26 @@ def test_journaled_adapters_are_refused_by_name_until_slice_3(tmp_path, run_asyn
         ex_b = make_executor(tmp_path)
         try:
             report = await ex_b.recover()
+            adopted = report.supervisors[handle.sid]
             gate.touch()
             (key, resumed), = report.requests.items()
             tail = await resumed.result(timeout=RESULT_S)
+            inventory = await adopted._client.serve_inventory()
         finally:
             await ex_b.close()
-        return report, prefix, tail
+        return report, prefix, tail, adopted.adapters, inventory
 
-    report, prefix, tail = run_async(flow())
-    (adapter,) = report["reattached_adapters"]
-    assert adapter["adapter"] == "tone" and adapter["state"] == "refused"
-    assert "slice 3" in adapter["reason"]
-    assert counter_value("covalent_tpu_recovery_adapters_total") == adapters0
+    report, prefix, tail, held, inventory = run_async(flow())
+    states = {a["adapter"]: a["state"] for a in report["reattached_adapters"]}
+    assert states == {"tone": "attached", "lost": "error"}
+    content = __import__("cloudpickle").loads(data)["digest"]
+    assert held == {"tone": content}
+    (entry,) = inventory["sessions"]
+    assert entry["adapters"] == {"tone": content}
+    assert counter_value("covalent_tpu_recovery_adapters_total", state="attached") == \
+        counts0["attached"] + 1
+    assert counter_value("covalent_tpu_recovery_adapters_total", state="error") == \
+        counts0["error"] + 1
     assert prefix + tail == [10 + i + 1 for i in range(12)]
 
 

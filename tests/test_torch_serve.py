@@ -313,10 +313,16 @@ def test_typed_refusals(lm):
             call()
         assert isinstance(refusal.value, ValueError)
         assert classify_error(refusal.value) == (FaultClass.PERMANENT, "serve_model_unsupported")
-    for kwargs in (dict(draft_model=model), dict(decode_modes=("fp", "kv_quant")),
-                   dict(adapters={}), dict(adapter_rank=4)):
-        with pytest.raises(NotImplementedError, match="slice 3 \\(quantization, LoRA"):
-            serve.ContinuousEngine(model, **kwargs)
+    # speculative decoding waits for slice 3b; the lane groups and the bank
+    # construct, and the bank's refusals are typed and permanent
+    with pytest.raises(NotImplementedError, match="slice 3b \\(speculative"):
+        serve.ContinuousEngine(model, draft_model=model)
+    assert serve.ContinuousEngine(model, decode_modes=("fp", "kv_quant")).decode_modes == (
+        "fp", "kv_quant")
+    assert serve.ContinuousEngine(model, adapter_rank=4).adapters == ()
+    with pytest.raises(serve.AdapterUnsupported, match="adapter_rank") as refusal:
+        serve.ContinuousEngine(model, adapters={})
+    assert classify_error(refusal.value) == (FaultClass.PERMANENT, "serve_model_unsupported")
 
 
 def test_engine_and_continuous_generate_validation(lm):

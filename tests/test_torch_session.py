@@ -467,12 +467,16 @@ def test_executor_takes_the_native_agent_pin():
 
 
 @pytest.mark.parametrize("method,args,item", [
-    ("attach_adapter", ("t",), "slice 3"),
-    ("detach_adapter", ("t",), "slice 3"),
+    ("attach_adapter", ("t",), "is closed"),
+    ("detach_adapter", ("t",), "is closed"),
 ])
 def test_handle_refuses_features_of_later_items(tmp_path, method, args, item):
+    """The adapter verbs are ported (``tests/test_torch_adapter_session.py``
+    drives them); on a closed session they fail as closed, as the
+    reference's do."""
     handle = ServeHandle(_executor(tmp_path), make_factory())
-    with pytest.raises(NotImplementedError, match=item):
+    handle._sup._closed = True
+    with pytest.raises(ServeError, match=item):
         asyncio.run(getattr(handle, method)(*args))
 
 

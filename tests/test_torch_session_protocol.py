@@ -403,24 +403,30 @@ def test_frames_capability_is_the_only_banner_difference(both_runs):
 
 
 @pytest.mark.parametrize("verb,item", [
-    ("serve_attach", "slice 3"), ("serve_detach", "slice 3"),
+    ("serve_attach", "serve_attached"), ("serve_detach", "serve_detached"),
 ])
 def test_port_runtime_refuses_verbs_of_later_items(tmp_path, verb, item):
-    rt = Runtime(RUNTIMES["port"], tmp_path)
-    try:
-        rt.wait(is_event("ready"))
-        rt.send({"cmd": verb, "id": "x"})
-        rt.send({"cmd": "ping"})
-        rt.wait(is_event("pong"))
-        errors = [e for e in rt.events if e.get("event") == "error"]
-        assert len(errors) == 1 and errors[0]["code"] == "not_ported"
-        assert errors[0]["id"] == "x" and verb in errors[0]["message"]
-        assert item in errors[0]["message"]
-        rt.send({"cmd": "shutdown"})
-        rt.wait(is_event("bye"))
-    finally:
-        rt.close()
-    assert rt.proc.returncode == 0
+    """The adapter verbs are ported: on a session that is not open, both
+    runtimes answer with the same permanent ``unknown_session`` event."""
+    answers = {}
+    for name in ("reference", "port"):
+        (tmp_path / name).mkdir()
+        rt = Runtime(RUNTIMES[name], tmp_path / name)
+        try:
+            rt.wait(is_event("ready"))
+            rt.send({"cmd": verb, "id": "x", "adapter": "tone"})
+            rt.send({"cmd": "ping"})
+            rt.wait(is_event("pong"))
+            answers[name] = [{k: v for k, v in e.items() if k != "message"}
+                             for e in rt.events if e.get("event") in (item, "error")]
+            rt.send({"cmd": "shutdown"})
+            rt.wait(is_event("bye"))
+        finally:
+            rt.close()
+        assert rt.proc.returncode == 0
+    assert answers["port"] == answers["reference"] == [
+        {"event": item, "id": "x", "adapter": "tone", "code": "unknown_session",
+         "permanent": True}]
 
 
 @pytest.mark.parametrize("verb,code", [

@@ -204,11 +204,12 @@ def test_default_device_is_the_card():
     ("attention", "ulysses", "mesh"),
 ])
 def test_later_slice_knobs_raise(knob, value, slice_name):
-    """Knobs of later slices raise, naming their slice; the serving knobs of
-    slice 2 are ported now and construct.  Sequence-parallel attention (slice
-    4, part 2) constructs, and a forward without a mesh raises the
-    reference's error."""
-    if slice_name == "slice 2":
+    """Knobs of earlier slices are ported and construct: the serving knobs of
+    slice 2 and the weights knobs of slice 3 (int8 weights, LoRA; their
+    parity is ``tests/test_torch_quant.py`` and ``test_torch_lora.py``).
+    Sequence-parallel attention (slice 4, part 2) constructs, and a forward
+    without a mesh raises the reference's error."""
+    if slice_name in ("slice 2", "slice 3"):
         assert getattr(torch_tf.TransformerConfig(**{knob: value}), knob) == value
         return
     if slice_name == "mesh":

@@ -65,7 +65,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     out = []
     start = time.perf_counter()
-    lines, launches, cache_launches = cs.ssh_phase(losses, {})
+    lines, launches, cache_launches = cs.ssh_phase(losses)
     out += [{"phase": "ssh", **line} for line in lines]
     out.append({"phase": "ssh", "seconds": time.perf_counter() - start, "launches": launches,
                 "cache_launches": cache_launches})

@@ -43,7 +43,7 @@ def main() -> int:
     lines.append({"build_s": time.perf_counter() - start})
     lines.append({"model_check": cs.model_check()})
     start = time.perf_counter()
-    train = cs.train_phase()
+    train, _ = cs.train_phase()
     for arm in train:
         line = {"train": arm["arm"], "losses": arm["losses"],
                 "steady_step_ms": statistics.median(arm["step_s"][1:]) * 1e3,

@@ -38,7 +38,7 @@ def main() -> int:
     losses = train_lm(steps=cs.SSH_STEPS, batch_size=cs.BATCH, seq_len=cs.SEQ, seed=0)["losses"]
     torch.cuda.empty_cache()
     start = time.perf_counter()
-    lines, launches, cache_launches = cs.ssh_phase(losses, {})
+    lines, launches, cache_launches = cs.ssh_phase(losses)
     if len(sys.argv) > 1:
         with open(sys.argv[1], "w") as f:
             for line in lines:

@@ -5,10 +5,11 @@
 
 Phases, one JSON object per line on stdout.  They run in this order: 1, 2;
 3 beside the ``stall`` arm of 20 (the build needs the host's cores, the arm
-a card no other process holds); 4-6, 8-11, 13 and the ``w8_kernel`` arm of
-24; then 7.  All of these run alone on the card, so every kernel's times
-and the main path's step times are measured on a quiet card.  Then three
-lanes run at once: lane a in this process (12, 14-17, then the rest of 24;
+a card no other process holds); 4-6, 8-11, 13, the ``w8_kernel`` arm of
+24 and the ``kernel_parity`` and ``decode_profile`` arms of 25; then 7.
+All of these run alone on the card, so every kernel's times and the main
+path's step times are measured on a quiet card.  Then three lanes run at
+once: lane a in this process (12, 14-17, then the rest of 24 and of 25;
 their lines say ``"lane": "a"``), lane b in a child process
 (``python3 chip_smoke.py --lane b``: 18, the ``preempt`` arm of 20, 19) and
 lane c in another (the prewarm, straggler and cas arms of 23, 21, the
@@ -16,7 +17,7 @@ serving arms of 23, 22).  A child lane waits for what it needs from lane a
 (the ``train`` losses, the ``session`` streams) as files under
 ``build/chip_smoke/lanes``; its lines are printed when every lane is done,
 so their ``elapsed_s`` are not in order, and a time measured in a lane was
-measured beside the other two lanes' load.  25 comes last.
+measured beside the other two lanes' load.  26 comes last.
 
 1. ``device``: the card, with its name and power limit as ``nvidia-smi`` gives them.
 2. ``startup``: what a fresh interpreter pays before an electron's first op
@@ -363,7 +364,30 @@ measured beside the other two lanes' load.  25 comes last.
     single-adapter engine's stream, and between each base lane and the
     ``session`` phase's (0); the attach's seconds and its
     ``serve_attached`` record.
-25. ``kernels``: every kernel with its launches on its path (the flash
+25. ``serve_moe``: slice 4, part 3(a), the ``train`` phase's ``moe8`` LM
+    decoded: the 125M LM with 8 Switch experts at capacity factor 1.25,
+    bf16 weights from seed 0, in this process.  ``generate`` at batch 8
+    (prompt 128, 128 new tokens; a warm call, then the median of 3): decode
+    tokens/s and ms a new token, the MoE routed over the call.  ``engine``:
+    the ``serve`` phase's 16 requests through a ``ContinuousEngine`` of 8
+    slots, sync 32, each row routed over its own tokens (``per_row``):
+    tokens/s, TTFT and completion p50/p95, and the serving kernels'
+    launches on this run (the path; the f32 CUDA-core product now has
+    launches on a bf16 serving path: the router).  ``batch_invariance``:
+    each request served alone by an engine of the same ``max_batch``, the
+    tokens that differ from its stream in the batch (0).  Run in the quiet
+    prefix, their lines printed with the phase's: ``kernel_parity``:
+    layer 0's MoE block on the batch-invariant route
+    against its plain twin at a decode step of 8 rows and a wave of 8 x
+    128, and the router's and the expert products' device times beside
+    the plain twin, one library call and the bound.  ``decode_profile``:
+    one decode step of 8 rows under ``torch.profiler``: kernels a step,
+    device and host ms, the busy share, launches by serving kernel, and
+    no library GEMM by kernel name.  ``session``: the same traffic through
+    ``open_session`` on a pool server that builds the model from the seed:
+    the tokens that differ from ``engine``'s (0).  ``memory``: this
+    process's peak and the worker's.
+26. ``kernels``: every kernel with its launches on its path (the flash
     kernels: training, with the gang's launches beside as
     ``gang_launches``, the ``lm_ring2`` arm's f32-output launches as
     ``ring_launches`` with the variant's times under ``f32_variant``, the
@@ -376,8 +400,9 @@ measured beside the other two lanes' load.  25 comes last.
     batch-invariant ones: the ``serve`` phase, and
     the f32 CUDA-core product ``serve_check``'s f32 LM, with its 0 launches
     on the ``serve`` phase beside, and the serve cell over SSH's as
-    ``ssh_session_launches``; the int8-weight product: the ``adapters``
-    phase's session),
+    ``ssh_session_launches`` and the MoE engine's as ``serve_moe_launches``,
+    with the router's and the expert products' times under ``shapes``; the
+    int8-weight product: the ``adapters`` phase's session),
     error, times and bound, and the route (tensor-core or scalar kernel)
     each input type and head dim of a flash kernel takes.
 
@@ -5309,6 +5334,371 @@ def adapters_phase(pool_session: dict, trained: list | None = None,
     return lines, serving
 
 
+# --- slice 4, part 3(a): decoding the 125M Switch-MoE LM ----------------------
+
+#: The ``train`` phase's ``moe8`` arm, decoded: 8 experts at the reference's
+#: default capacity factor (1.25), bf16 weights from seed 0.
+MOE_SERVE = dict(max_seq=512, moe_experts=8)
+#: The MoE block's kernel route against its plain twin: the block rounds
+#: after each expert product and after the gate's product, so its bound is
+#: four bf16 roundings of its largest plain value; the product alone is held
+#: to ``_max_err``'s (two roundings of the largest value, at least 1).
+MOE_BLOCK_TOL = 2.0**-6
+#: Decode steps of the profiled step's warm-up chunk.
+MOE_PROFILE_WARM = 4
+
+
+def _tokens_differ(got: list, want: list) -> int:
+    """Tokens of ``got`` that differ from ``want``, stream by stream, a
+    missing or extra token counting as one."""
+    return sum(sum(a != b for a, b in zip(g, w)) + abs(len(g) - len(w))
+               for g, w in zip(got, want))
+
+
+def _moe_parity(model) -> dict:
+    """Layer 0's MoE block on the batch-invariant route against its plain
+    twin on the card (routed per row, as the engine's lanes), at a decode
+    step of 8 rows and at a wave of 8 rows of 128 tokens; and each of its
+    products alone (the f32 router on ``csrc/bi_gemm.cu``, the expert
+    products on ``csrc/bi_gemm_tc.cu``) at the decode step's shapes, with
+    device times, the plain twin's, one library call's and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from covalent_tpu_plugin_torch.ops import _kernels
+    from covalent_tpu_plugin_torch.ops import batch_invariant as bi
+
+    def launched(fn):
+        """``fn()`` and the serving kernels it launched (those launched at all)."""
+        before = _kernels.serving_launch_counts()
+        result = fn()
+        after = _kernels.serving_launch_counts()
+        return result, {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+    block = model.layers[0].mlp
+    cfg = model.config
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    out = {}
+    with torch.no_grad():
+        for name, (rows, seq) in {"decode_step": (8, 1), "wave": (8, 128)}.items():
+            x = torch.randn(rows, seq, cfg.d_model, generator=gen, device="cuda").to(cfg.dtype)
+            block.batch_invariant = True
+            got, got_launches = launched(lambda: block(x, per_row=True))
+            block.batch_invariant = False
+            want, want_launches = launched(lambda: block(x, per_row=True))
+            block.batch_invariant = True
+            # the kernel side ran the router on bi_gemm and both expert
+            # products on bi_gemm_tc; the plain side launched nothing
+            routed = got_launches == {"bi_gemm": 1, "bi_gemm_tc": 2} and not want_launches
+            err = (got.float() - want.float()).abs().max().item()
+            tol = MOE_BLOCK_TOL * want.float().abs().max().item()
+            out[f"block.{name}"] = {"shape": [rows, seq, cfg.d_model], "max_abs_err": err,
+                                    "tol": tol, "launches": got_launches,
+                                    "plain_launches": want_launches,
+                                    "ok": err <= tol and routed,
+                                    "tol_reason": "four bf16 roundings of the largest plain "
+                                                  "value (h, the expert output, the gate)"}
+        # the products at a decode step: each row's one token in its expert's
+        # slot, capacity 1, so the stacks are (E, 8, d) and (E, 8, f)
+        e, d, f = cfg.moe_experts, cfg.d_model, cfg.d_ff
+        wi, wo = block._expert_weights()
+        tokens = torch.randn(8, d, generator=gen, device="cuda").to(cfg.dtype)
+        xs = torch.randn(e, 8, d, generator=gen, device="cuda").to(cfg.dtype)
+        hs = torch.randn(e, 8, f, generator=gen, device="cuda").to(cfg.dtype)
+        router32 = block.router.float()
+        cases = {
+            "bi_gemm.router.m8": (
+                lambda: bi.linear(tokens.float(), block.router, torch.float32),
+                lambda: bi.linear_plain(tokens.float(), block.router, torch.float32),
+                lambda: F.linear(tokens.float(), router32),
+                2 * 8 * e * d, 8 * d * 4 + e * d * 2 + 8 * e * 4, "float32"),
+            "bi_gemm_tc.expert_wi.m8": (
+                lambda: bi.linear_rows(xs, wi, cfg.dtype),
+                lambda: bi.linear_rows_plain(xs, wi, cfg.dtype),
+                lambda: torch.bmm(xs, wi.transpose(1, 2)),
+                2 * e * 8 * d * f, 2 * (e * 8 * d + e * f * d + e * 8 * f), "bfloat16"),
+            "bi_gemm_tc.expert_wo.m8": (
+                lambda: bi.linear_rows(hs, wo, cfg.dtype),
+                lambda: bi.linear_rows_plain(hs, wo, cfg.dtype),
+                lambda: torch.bmm(hs, wo.transpose(1, 2)),
+                2 * e * 8 * d * f, 2 * (e * 8 * f + e * d * f + e * 8 * d), "bfloat16"),
+        }
+        for key, (kernel, plain, library, flops, nbytes, dtype) in cases.items():
+            res = _max_err(kernel(), plain())
+            bound_ms, bound_by = bound(flops, nbytes, dtype)
+            res.update({"ms": device_ms(kernel, 20), "plain_ms": device_ms(plain, 20),
+                        "library_ms": device_ms(library, 20), "bound_ms": bound_ms,
+                        "bound_by": bound_by})
+            out[key] = res
+    bad = {k: v for k, v in out.items() if not v["ok"]}
+    if bad:
+        raise AssertionError(f"serve_moe: kernel against plain out of bound: {bad}")
+    return out
+
+
+def _moe_profile(model) -> dict:
+    """One decode step of 8 live rows at position 128 under torch.profiler:
+    kernels a step, device and host ms, the card's busy share, the serving
+    kernels' launches in the step, and every product a ``bi_gemm`` kernel
+    (no library GEMM by name)."""
+    import numpy as np
+    import torch
+
+    from covalent_tpu_plugin_torch.models import serve
+    from covalent_tpu_plugin_torch.ops import _kernels
+
+    engine = serve.ContinuousEngine(model, max_batch=8, sync_steps=MOE_PROFILE_WARM,
+                                    max_new_tokens=256)
+    rng = np.random.default_rng(1)
+    for i in range(8):
+        engine.admit(str(i), rng.integers(0, model.config.vocab_size, 128),
+                     {"max_new_tokens": 256})
+    step = lambda: serve._run_steps(model, engine._state, 1, 0.0, None, None, None)  # noqa: E731
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.no_grad():
+        engine.step()
+        torch.cuda.synchronize()
+        unprofiled = time.perf_counter()
+        for _ in range(16):
+            step()
+        torch.cuda.synchronize()
+        unprofiled = (time.perf_counter() - unprofiled) / 16
+        with torch.profiler.profile(
+                activities=acts,
+                schedule=torch.profiler.schedule(wait=0, warmup=1, active=1)) as prof:
+            step()
+            torch.cuda.synchronize()
+            prof.step()
+            _kernels.reset_launch_counts()
+            wall = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - wall
+        launches = _kernels.serving_launch_counts()
+    engine.close()
+    kernels = device_events(prof)
+    if not kernels:
+        raise AssertionError("serve_moe: the profiled decode step has no device events")
+    device = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    library = sorted({e.name[:80] for e in kernels if any(t in e.name for t in MATMUL_TAGS)
+                      and "bi_gemm" not in e.name})
+    by_route = {route: sum(e.time_range.elapsed_us() for e in kernels if tag in e.name) / 1e3
+                for route, tag in SERVING_KERNEL_TAGS.items()}
+    by_name: dict[str, list] = {}
+    for evt in kernels:
+        entry = by_name.setdefault(evt.name, [0.0, 0])
+        entry[0] += evt.time_range.elapsed_us() / 1e3
+        entry[1] += 1
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    n_layers = model.config.n_layers
+    # per layer: the router (f32) and the two expert products, q/k/v/o, the
+    # scores; the lm_head; the mix; the norms
+    want = {"bi_gemm": n_layers, "bi_gemm_tc": 7 * n_layers + 1, "bi_gemm_mix": n_layers,
+            "bi_rmsnorm": 2 * n_layers + 1, "bi_gemm_w8": 0}
+    problems = []
+    if library:
+        problems.append(f"library GEMM kernels in the step: {library}")
+    if launches != want:
+        problems.append(f"the step's launches {launches}, expected {want}")
+    if problems:
+        raise AssertionError("serve_moe: " + "; ".join(problems))
+    return {"kernels_per_step": len(kernels), "device_ms": device,
+            "step_wall_ms": wall * 1e3, "unprofiled_step_wall_ms": unprofiled * 1e3,
+            "device_busy_share": device / (wall * 1e3),
+            "device_busy_share_unprofiled": device / (unprofiled * 1e3),
+            "device_ms_by_serving_kernel": by_route, "serving_kernel_launches": launches,
+            "library_gemm_kernels": library,
+            "top": [{"name": n[:80], "ms": ms, "calls": c} for n, (ms, c) in top]}
+
+
+async def _moe_session(config, prompts: list, caps: list, device: str) -> dict:
+    """The ``serve`` phase's traffic through ``open_session`` on a pool
+    server that builds the MoE LM from the seed (as ``lm_engine_factory``
+    ships it): open seconds, one warm request, the 16 at once."""
+    from covalent_tpu_plugin_torch import GPUExecutor
+    from covalent_tpu_plugin_torch.models import serve
+    from covalent_tpu_plugin_torch.serving import open_session
+
+    executor = GPUExecutor(transport="local", cache_dir=str(WORK / "cache_moe"),
+                           remote_cache=str(WORK / "remote_moe"), python_path=sys.executable,
+                           use_agent="pool", pool_preload=SERVE_PRELOAD,
+                           task_env={"PYTHONPATH": str(ROOT)})
+    try:
+        factory = counting_factory(serve.lm_engine_factory(
+            config=config, seed=0, device=device, max_batch=SESSION["slots"],
+            sync_steps=SESSION["sync_steps"], max_new_tokens=SESSION["long"]))
+        start = time.perf_counter()
+        handle = await open_session(executor, factory, stats_interval_s=1.0,
+                                    open_timeout_s=300)
+        open_s = time.perf_counter() - start
+        await _warm(handle, config, 1)
+        start = time.perf_counter()
+        requests = await asyncio.gather(*(
+            handle.request(p, params={"max_new_tokens": c}) for p, c in zip(prompts, caps)))
+        results = await asyncio.gather(*(r.result(timeout=600) for r in requests))
+        wall = time.perf_counter() - start
+        stats = await _settled_stats(handle.supervisor, len(prompts) + 1)
+        await handle.close()
+    finally:
+        await executor.close()
+    return {"results": results, "open_s": open_s, "wall_s": wall,
+            "tokens_per_s": sum(caps) / wall,
+            "ttft_s": _percentiles([r.ttft_s for r in requests]),
+            "completion_s": _percentiles([r.latency_s for r in requests]),
+            "worker_peak_mem_bytes": (stats.get("device_mem") or {}).get("peak_bytes_in_use"),
+            "worker_flash_launches": _flash(stats),
+            "worker_serving_launches": {k.removeprefix("serving_launches."): v
+                                        for k, v in stats.items()
+                                        if k.startswith("serving_launches.")}}
+
+
+def _moe_model(config, device: str):
+    """The serve_moe phase's model: bf16 inference weights from seed 0, as
+    ``lm_engine_factory(config=, seed=0)`` builds them in a worker."""
+    import torch
+
+    from covalent_tpu_plugin_torch.models import decode
+    from covalent_tpu_plugin_torch.models.transformer import TransformerLM
+
+    return decode.inference_params(TransformerLM(
+        config, device=device, generator=torch.Generator(device=device).manual_seed(0)))
+
+
+def moe_kernel_arms() -> list[dict]:
+    """The ``serve_moe`` arms that time kernels and profile a step, so need
+    the card alone: ``main`` runs them in the quiet prefix and their lines
+    leave with the phase's (the ``w8_kernel`` arm's way)."""
+    import torch
+
+    from covalent_tpu_plugin_torch.models.transformer import lm_125m_config, use_batch_invariant
+
+    # on the serving route, as the engine puts it
+    model = use_batch_invariant(_moe_model(lm_125m_config(**MOE_SERVE), "cuda"))
+    lines = []
+    for arm, fn in (("kernel_parity", _moe_parity), ("decode_profile", _moe_profile)):
+        start = time.perf_counter()
+        lines.append({"arm": arm, **fn(model), "seconds": time.perf_counter() - start})
+    del model
+    torch.cuda.empty_cache()
+    return lines
+
+
+def serve_moe_phase(kernel_lines: list | None = None, device: str = "cuda",
+                    **overrides) -> tuple[list[dict], dict]:
+    """The 125M Switch-MoE LM (``train``'s ``moe8`` arm, decoded) in bf16
+    from seed 0: ``generate``, the engine on the serve cell's traffic, each
+    stream against the same request served alone, the resident session and
+    the peak memory, with ``kernel_lines`` (:func:`moe_kernel_arms`'s; run
+    here when not given): the MoE block's kernels against their plain
+    twins and one profiled decode step.  Returns the lines and the serving
+    kernels' launches on the engine's run (the path).  To rehearse it on
+    the CPU, give ``device="cpu"`` and a tiny config's ``overrides``: the
+    kernel arms are then left out (they need the card)."""
+    import numpy as np
+    import torch
+
+    from covalent_tpu_plugin_torch.models import decode, serve
+    from covalent_tpu_plugin_torch.models.transformer import lm_125m_config
+    from covalent_tpu_plugin_torch.ops import _kernels
+
+    config = lm_125m_config(**{**MOE_SERVE, **overrides})
+    cuda = device == "cuda"
+    if cuda and kernel_lines is None:
+        kernel_lines = moe_kernel_arms()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    model = _moe_model(config, device)
+    lines = []
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+
+    # (a) generate at batch 8, prompt 128, 128 new tokens: a warm call,
+    # then the median of 3
+    start = time.perf_counter()
+    prompt = np.random.default_rng(0).integers(
+        0, config.vocab_size, (SESSION["decode_batch"], SESSION["prompt_len"]))
+    out = decode.generate(model, prompt, SESSION["long"])
+    walls = []
+    for _ in range(3):
+        sync()
+        t0 = time.perf_counter()
+        out = decode.generate(model, prompt, SESSION["long"])
+        sync()
+        walls.append(time.perf_counter() - t0)
+    median = statistics.median(walls)
+    if tuple(out.shape) != (8, SESSION["prompt_len"] + SESSION["long"]):
+        raise AssertionError(f"serve_moe: generate gave {tuple(out.shape)}")
+    lines.append({"arm": "generate", "batch": 8, "prompt_len": SESSION["prompt_len"],
+                  "new_tokens": SESSION["long"], "walls_s": walls, "median_s": median,
+                  "decode_tokens_per_s": 8 * SESSION["long"] / median,
+                  "ms_per_new_token": median * 1e3 / SESSION["long"],
+                  "tokens_in_vocab": bool(((out >= 0) & (out < config.vocab_size)).all()),
+                  "seconds": time.perf_counter() - start})
+
+    # (b) the engine on the serve cell's traffic; the path's launches
+    start = time.perf_counter()
+    prompts, caps = session_prompts(config.vocab_size)
+    engine_kwargs = dict(max_batch=SESSION["slots"], sync_steps=SESSION["sync_steps"],
+                         max_new_tokens=SESSION["long"])
+    _kernels.reset_launch_counts()
+    engine = serve.ContinuousEngine(model, **engine_kwargs)
+    streams, first, end, wall = serve._drive(engine, prompts, caps, sync)
+    engine.close()
+    path_launches = _kernels.serving_launch_counts()
+    flash = _kernels.launch_counts()
+    if any(flash.values()) or (cuda and not all(
+            path_launches[k] for k in ("bi_gemm", "bi_gemm_tc", "bi_gemm_mix", "bi_rmsnorm"))):
+        raise AssertionError(f"serve_moe: the engine's launches {path_launches}, flash {flash}")
+    if [len(s) for s in streams] != caps or not all(
+            0 <= t < config.vocab_size for s in streams for t in s):
+        raise AssertionError("serve_moe: an engine stream is incomplete or out of the vocabulary")
+    lines.append({"arm": "engine", "requests": len(prompts), "caps": caps, **engine_kwargs,
+                  "wall_s": wall, "tokens_per_s": sum(caps) / wall,
+                  "ttft_s": _percentiles(first), "completion_s": _percentiles(end),
+                  "serving_launches": path_launches, "flash_launches": flash,
+                  "seconds": time.perf_counter() - start})
+
+    # (c) each request alone on an engine of the same max_batch
+    start = time.perf_counter()
+    alone = []
+    for p, c in zip(prompts, caps):
+        one = serve.ContinuousEngine(model, **engine_kwargs)
+        alone.append(serve._drive(one, [p], [c], sync)[0][0])
+        one.close()
+    differ = _tokens_differ(streams, alone)
+    lines.append({"arm": "batch_invariance", "streams": len(prompts),
+                  "tokens_compared": sum(caps), "tokens_differ": differ,
+                  "streams_differ": sum(a != b for a, b in zip(streams, alone)),
+                  "seconds": time.perf_counter() - start})
+    if differ:
+        raise AssertionError(f"serve_moe: {differ} tokens differ between the batched streams "
+                             "and the requests served alone")
+
+    # (d) the MoE block and its products against their plain twins and (e)
+    # one profiled decode step, on the quiet card
+    lines += kernel_lines or []
+    peak = torch.cuda.max_memory_allocated() if cuda else None
+
+    # (f) the resident session on the same traffic
+    start = time.perf_counter()
+    session = asyncio.run(_moe_session(config, prompts, caps, device))
+    results = session.pop("results")
+    differ = _tokens_differ(results, streams)
+    lines.append({"arm": "session", **session, "tokens_differ_engine": differ,
+                  "seconds": time.perf_counter() - start})
+    if differ or any(session["worker_flash_launches"].values()):
+        raise AssertionError(f"serve_moe: the session's streams differ from the engine's by "
+                             f"{differ} tokens (flash {session['worker_flash_launches']})")
+
+    # (g) peak device memory of this process's phases
+    lines.append({"arm": "memory", "peak_mem_bytes": peak,
+                  "worker_peak_mem_bytes": session["worker_peak_mem_bytes"],
+                  "n_params": model.parameter_count()})
+    del model
+    if cuda:
+        torch.cuda.empty_cache()
+    return lines, path_launches
+
+
 # --- lanes: the phases after the quiet prefix, three at a time ---------------
 
 #: The phases each child lane runs, in order (``python3 chip_smoke.py --lane
@@ -5641,6 +6031,7 @@ def main() -> int:
     emit({"phase": "serve_profile", "card": smi, **serve_profile()})
     start = time.perf_counter()
     w8_check = {"arm": "w8_kernel", **w8_kernel_check(), "seconds": time.perf_counter() - start}
+    moe_kernels = moe_kernel_arms()
 
     # The main path.  Each wrapper counts its launches in the process that
     # launches it; the electrons run in the harness subprocess, which starts
@@ -5747,6 +6138,16 @@ def main() -> int:
         emit({"phase": "adapters", "card": smi, "lane": "a",
               "seconds": time.perf_counter() - start, "flash_launches": lora_launches,
               "serving_launches": adapter_serving})
+        _check_lanes(lanes)
+        # Slice 4, part 3(a): the MoE LM decoded in this process; the
+        # engine's run is the path of its router's f32 product.
+        start = time.perf_counter()
+        moe_lines, moe_launches = serve_moe_phase(moe_kernels)
+        for line in moe_lines:
+            emit({"phase": "serve_moe", "card": smi, "lane": "a", **line})
+        emit({"phase": "serve_moe", "card": smi, "lane": "a",
+              "seconds": time.perf_counter() - start, "serving_launches": moe_launches})
+        moe_parity = next(line for line in moe_lines if line["arm"] == "kernel_parity")
         lane = _join_lanes(lanes)
     finally:
         _stop_lanes(lanes)
@@ -5834,21 +6235,26 @@ def main() -> int:
         res = serving_timing[key]
         on_serve = kernel.name in SERVING_ROUTES_ON_PATH
         launches = serving_launches[kernel.name] if on_serve else f32_path_launches[kernel.name]
+        # the MoE decode's products at its decode step (serve_moe)
+        moe_shapes = {k: v for k, v in moe_parity.items() if k.startswith(kernel.name + ".")}
         kernels.append({
             "name": kernel.name, "route": "cuda",
             "source": f"covalent_tpu_plugin_torch/csrc/{kernel.source}",
             "replaces": kernel.replaces, "launches": launches,
             "path": "serve" if on_serve else "serve_check (f32 LM)",
             "serve_launches": serving_launches[kernel.name],
+            "serve_moe_launches": moe_launches[kernel.name],
             "ssh_session_launches": lifecycle_serving.get(kernel.name, 0),
             "max_abs_err": err, "ms": res["ms"], "plain_ms": res["plain_ms"],
             "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
             "library_ms": res["library_ms"], "shape": key,
-            "shapes": {k: v for k, v in serving_timing.items()
-                       if k.startswith(kernel.name + ".")},
+            "shapes": {**{k: v for k, v in serving_timing.items()
+                          if k.startswith(kernel.name + ".")}, **moe_shapes},
         })
         if launches < 1:
             raise AssertionError(f"{kernel.name} was not launched on its path")
+        if moe_launches[kernel.name] < 1:
+            raise AssertionError(f"{kernel.name} was not launched on the MoE engine's path")
         if on_serve and lifecycle_serving.get(kernel.name, 0) < 1 \
                 and not lane["c"]["lifecycle_skipped"]:
             raise AssertionError(f"{kernel.name} was not launched on the serve cell over SSH")

@@ -1,4 +1,4 @@
-"""Mixture-of-experts MLP: Switch-style top-1 routing, dense dispatch.
+"""Mixture-of-experts MLP: Switch-style top-1 routing, index dispatch.
 
 Counterpart of ``covalent_tpu_plugin/models/moe.py``.  Semantics (Switch
 Transformer), as the reference's:
@@ -9,8 +9,11 @@ Transformer), as the reference's:
   token order (a cumsum), so the first tokens get the slots; tokens over
   capacity are dropped: the expert layer gives them zero and they ride the
   residual;
-* one-hot dispatch and combine tensors, and the experts' products as
-  einsums (plain PyTorch: the reference computes them outside any Pallas
+* dispatch and combine as exact index operations: the reference's one-hot
+  dispatch and combine einsums have at most one nonzero term for each
+  expert slot and each output row, so a gather gives their value bit for
+  bit; the experts' products as E batches of stacked slots (plain PyTorch
+  off the serving route: the reference computes them outside any Pallas
   kernel);
 * the load-balance auxiliary loss ``E * sum_e f_e * P_e``.  Flax sows it
   into ``"intermediates"``; here each :class:`MoEMlp` keeps its last
@@ -27,6 +30,24 @@ cumsum order run over the global token order and the aux's means are
 global.  Each rank therefore offsets its slots by the per-expert counts of
 the batch blocks before its own (an all-gather of the counts) and sums the
 aux's means over the batch axes before their product.
+
+Serving.  The reference routes over whatever tokens a call holds: its
+``generate`` applies the model to the whole (B, S) slab, so ``N = B * S``
+(``N = B`` at a decode step), while its engine vmaps a batch-1 lane per
+slot, so each row routes over its own tokens (``N`` = the row's padded
+prompt bucket at admission, 1 at a decode step).  ``forward(x,
+per_row=True)`` is the engine's mode: each row of ``x`` is a token set of
+its own (a group), with its own ``N``, capacity and cumsum; the default
+routes over one group of all B * S tokens.  Under ``batch_invariant`` (the
+serving entry points' route, set by ``transformer.use_batch_invariant``)
+the router goes through ``bi.linear`` in f32 (``csrc/bi_gemm.cu`` on the
+card) and the two expert products through ``bi.linear_rows`` (one
+``csrc/bi_gemm_tc.cu`` launch each, where a slot's bits do not depend on
+the slots stacked beside it).  That route reads each expert's weight
+k-contiguous, so it re-lays ``wi`` and ``wo`` in memory on the card
+(:meth:`MoEMlp.serving_layout`: their strides change, not their shapes or
+values).  Per-row mode and the batch-invariant route run on one process,
+and compute the load-balance loss only where a gradient can use it.
 """
 
 from __future__ import annotations
@@ -36,6 +57,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import batch_invariant as bi
 from ..parallel.collectives import copy_to_group, reduce_from_group
 from ..parallel.sharding import DEFAULT_RULES, _axes, _batch_block, _local, _mesh_axes_for
 
@@ -51,6 +73,8 @@ class MoEMlp(nn.Module):
     tp = None
     #: the mesh when the batch is split over ``data``/``fsdp`` (``batch_parallel``)
     batch_mesh = None
+    #: the serving form on the batch-invariant kernels (module docstring)
+    batch_invariant = False
 
     def __init__(self, cfg, device, generator):
         super().__init__()
@@ -82,60 +106,104 @@ class MoEMlp(nn.Module):
         if _batch_block(mesh, DEFAULT_RULES)[1] > 1:
             self.batch_mesh = mesh
 
-    def forward(self, x):
+    def forward(self, x, per_row: bool = False):
+        """The layer on ``x`` (B, S, d): routed over all B * S tokens, or
+        over each row's S alone with ``per_row`` (the serving engine's
+        lanes)."""
+        if (per_row or self.batch_invariant) and (self.tp is not None
+                                                   or self.batch_mesh is not None):
+            raise NotImplementedError(
+                "the serving form of the MoE runs on one process (tensor-parallel decoding "
+                "comes with ROADMAP Queue 1 item 1(b))")
         cfg = self.cfg
         batch, seq_len, d_model = x.shape
         n_experts = cfg.moe_experts
-        tokens = x.reshape(-1, d_model)
+        # G groups of n tokens, each routed on its own
+        groups, n_tokens = (batch, seq_len) if per_row else (1, batch * seq_len)
+        tokens = x.reshape(groups, n_tokens, d_model)
         router = _local(self.router)
         if self.tp is not None:
             tokens, router = self.tp.enter(tokens), self.tp.enter(router)
-        gates = torch.softmax(F.linear(tokens.float(), router.float()), dim=-1)
-        gate, index = gates.max(dim=-1)                            # (N,), first maximum
-        onehot = F.one_hot(index, n_experts).float()               # (N, E)
-        counts, mass = onehot.sum(dim=0), gates.sum(dim=0)
-        offset = torch.zeros_like(counts)
-        n_tokens = tokens.shape[0]
-        if self.batch_mesh is not None:
-            every, block = _gather_blocks(counts, self.batch_mesh)
-            offset = every[:block].sum(dim=0)
-            counts, n_tokens = every.sum(dim=0), n_tokens * len(every)
-            mass = _psum_batch(mass, self.batch_mesh)
-        capacity = int(-(-cfg.moe_capacity_factor * n_tokens // n_experts))  # ceil
-        capacity = max(1, min(capacity, n_tokens))
+        linear, linear_rows = (
+            (bi.linear, bi.linear_rows) if self.batch_invariant
+            else (bi.linear_plain, bi.linear_rows_plain))
+        gates = torch.softmax(linear(tokens.float(), router, torch.float32), dim=-1)
+        gate, index = gates.max(dim=-1)                            # (G, n), first maximum
+        onehot = F.one_hot(index, n_experts).float()               # (G, n, E)
+        # Each token's rank among its expert's tokens in its group's flat
+        # (global) order, from 1: the first tokens get the slots.
+        rank = torch.cumsum(onehot, dim=1)
+        counts, total = rank[:, -1], n_tokens                      # (G, E)
+        if self.batch_mesh is not None:                            # one group
+            every, block = _gather_blocks(counts[0], self.batch_mesh)
+            rank = rank + every[:block].sum(dim=0)
+            counts, total = every.sum(dim=0)[None], n_tokens * len(every)
+        capacity = int(-(-cfg.moe_capacity_factor * total // n_experts))  # ceil
+        capacity = max(1, min(capacity, total))
 
         # Load-balance aux (Switch eq. 4): E * sum_e f_e * P_e, minimised at
-        # uniform routing where it equals 1.  Under tensor parallelism each
-        # rank sums its own experts' terms.
+        # uniform routing where it equals 1; the groups' terms summed, as the
+        # reference's collect sums its lanes'.  Under tensor parallelism each
+        # rank sums its own experts' terms.  Serving without a gradient
+        # leaves it out.
         experts = slice(0, n_experts) if self.tp is None else self.tp.block(n_experts)
-        terms = (counts / n_tokens) * (mass / n_tokens)
-        aux = n_experts * terms[experts].sum()
-        self.aux = aux if self.tp is None else self.tp.leave(aux)
+        self.aux = None
+        if torch.is_grad_enabled() or not (per_row or self.batch_invariant):
+            mass = gates.sum(dim=1)
+            if self.batch_mesh is not None:
+                mass = _psum_batch(mass, self.batch_mesh)
+            terms = (counts / total) * (mass / total)
+            aux = n_experts * terms[:, experts].sum()
+            self.aux = aux if self.tp is None else self.tp.leave(aux)
 
-        # Each token's slot: its rank among its expert's tokens in the flat
-        # (global) order; the dispatch tensor (N, local experts, C) is one-hot
-        # in both, zero for a dropped token or another rank's expert.
-        position = (torch.cumsum(onehot, dim=0) + offset).gather(1, index[:, None])[:, 0] - 1
-        local = index - experts.start
-        keep = (position < capacity) & (local >= 0) & (local < experts.stop - experts.start)
-        width = experts.stop - experts.start
-        dispatch = torch.zeros(tokens.shape[0], width, capacity, dtype=cfg.dtype,
-                               device=x.device)
-        # one write a token (0 where it is not kept): no duplicate index
-        dispatch[torch.arange(tokens.shape[0], device=x.device), local.clamp(0, width - 1),
-                 position.clamp(0, capacity - 1).long()] = keep.to(cfg.dtype)
+        # Expert e's buffer holds the groups' C slots one after the other:
+        # row g * C + slot of the (E, G * C) stack.  A token dropped, or
+        # another rank's, points one row past the stack.  Dispatch and
+        # combine are then exact index operations: each slot and each output
+        # row has at most one nonzero term of the reference's one-hot einsums.
+        position = rank.gather(2, index[..., None])[..., 0] - 1
+        keep, local, width = position < capacity, index, n_experts
+        if self.tp is not None:                                    # this rank's experts
+            local, width = index - experts.start, experts.stop - experts.start
+            keep = keep & (local >= 0) & (local < width)
+        rows = groups * capacity
+        first = torch.arange(groups, device=x.device)[:, None] * capacity
+        dest = torch.where(keep, local * rows + first + position.long(), width * rows).reshape(-1)
+        # Each kept token copied into its slot, the rest into a spare row cut
+        # off after.  index_copy and index_select, not advanced indexing:
+        # their backward is a gather and an index_add, where advanced
+        # indexing's accumulates the spare row's many repeats one by one
+        # (``tools/moe_train_steps.py`` times the two on the card).
+        expert_in = tokens.new_zeros((width * rows + 1, d_model), dtype=cfg.dtype).index_copy(
+            0, dest, tokens.reshape(-1, d_model).to(cfg.dtype))[:-1].view(width, rows, d_model)
 
-        expert_in = torch.einsum("nec,nd->ecd", dispatch, tokens.to(cfg.dtype))
-        h = torch.einsum("ecd,edf->ecf", expert_in, _local(self.wi).to(cfg.dtype))
-        h = F.gelu(h, approximate="tanh")
-        expert_out = torch.einsum("ecf,efd->ecd", h, _local(self.wo).to(cfg.dtype))
-        # Combine: the gate-scaled return trip; a dropped token's dispatch row
-        # is zero, so it keeps only its residual.
-        combine = dispatch * gate[:, None, None].to(cfg.dtype)
-        out = torch.einsum("nec,ecd->nd", combine, expert_out)
+        wi, wo = self._expert_weights()
+        h = F.gelu(linear_rows(expert_in, wi, cfg.dtype), approximate="tanh")
+        expert_out = linear_rows(h, wo, cfg.dtype).reshape(width * rows, d_model)
+        # Combine: the gate-scaled return trip, one term a token; a dropped
+        # token reads the zero row and keeps only its residual.
+        picked = torch.cat([expert_out, expert_out.new_zeros((1, d_model))]).index_select(0, dest)
+        out = picked * gate.reshape(-1, 1).to(cfg.dtype)
         if self.tp is not None:
             out = self.tp.leave(out)
         return out.reshape(batch, seq_len, d_model)
+
+    def serving_layout(self) -> None:
+        """Lay ``wi`` and ``wo`` out k-contiguous in memory on the card (a
+        no-op elsewhere and once done), so the expert products read them in
+        place.  ``transformer.use_batch_invariant`` calls it before a
+        serving engine builds any twin that shares the weights."""
+        for param in (self.wi, self.wo):
+            if param.is_cuda and not param.transpose(1, 2).is_contiguous():
+                with torch.no_grad():
+                    param.data = param.data.transpose(1, 2).contiguous().transpose(1, 2)
+
+    def _expert_weights(self):
+        """This rank's ``wi`` and ``wo`` as (E, out, in) views, as the
+        products take them (k-contiguous on the serving route)."""
+        if self.batch_invariant:
+            self.serving_layout()
+        return _local(self.wi).transpose(1, 2), _local(self.wo).transpose(1, 2)
 
 
 def _batch_axes(mesh) -> list[str]:

@@ -26,7 +26,11 @@ frozen row rewrites its own slot and never runs past the cache.
 Greedy rows of a batch are not bit-identical to batch-1 ``generate()`` rows
 wherever the matrix products round differently at another batch size (the
 card's GEMMs may pick another kernel for 8 rows than for 1); the reference
-notes the same for TPU bf16.  ``rolling_cache`` models are refused
+notes the same for TPU bf16.  Every forward of the loop runs with
+``per_row=True``: an MoE layer routes each slot's tokens alone (its padded
+prompt bucket at admission, its one token at a step), as the reference's
+vmapped batch-1 lane does, so its capacity and drops never depend on the
+other slots.  ``rolling_cache`` models are refused
 (:class:`RollingCacheUnsupported`).  Speculative decoding (``draft_model``)
 comes with a later slice and raises :class:`NotImplementedError`.
 
@@ -254,7 +258,8 @@ def _prefill(model: TransformerLM, padded: np.ndarray, lens: Sequence[int],
                 dst.k_scale.copy_(src.k_scale.expand_as(dst.k_scale))
                 dst.v_scale.copy_(src.v_scale.expand_as(dst.v_scale))
     set_cursor(lanes, start_len, start_len)
-    logits = model(torch.as_tensor(padded, dtype=torch.long).to(device), cache=lanes)
+    logits = model(torch.as_tensor(padded, dtype=torch.long).to(device), cache=lanes,
+                   per_row=True)
     last_idx = torch.tensor([n - 1 for n in lens], device=device)
     last = logits[torch.arange(g, device=device), last_idx]
     ends = [start_len + n for n in lens]
@@ -276,7 +281,7 @@ def _run_steps(model: TransformerLM, state: _State, steps: int, temperature: flo
     for _ in range(steps):
         set_cursor(state.caches, state.pos, length - 1)
         token = buffer.gather(1, state.pos[:, None])
-        logits = model(token, cache=state.caches)[:, -1]
+        logits = model(token, cache=state.caches, per_row=True)[:, -1]
         nxt = _choose_tokens(logits, temperature, top_k, generator)
         in_prompt = (state.pos + 1) < state.plen
         write_idx = (state.pos + 1).clamp(max=length - 1)

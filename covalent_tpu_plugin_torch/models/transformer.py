@@ -43,7 +43,9 @@ stacking (``scan_layers``) has no counterpart: layers are an
 reference parameters.
 
 ``moe_experts`` > 0 swaps every block's MLP for the Switch MoE of
-``models/moe.py``.  ``remat`` runs each block under non-reentrant
+``models/moe.py``; a decoding forward routes it over the call's tokens, or
+over each row's with ``per_row`` (the serving engine's lanes).  ``remat``
+runs each block under non-reentrant
 ``torch.utils.checkpoint``: ``remat_policy="full"`` recomputes the whole
 block in the backward, ``"dots"`` saves the outputs of its 2-D products
 (``aten.mm``/``addmm``, the reference's ``dots_with_no_batch_dims_saveable``,
@@ -70,8 +72,9 @@ from .lora import LoRADense
 from .moe import MoEMlp
 from .quant import QuantDense
 
-#: Decoding a tensor-parallel or an MoE model comes with this slice.
-SLICE_4_PART_3 = "slice 4, part 3 (tensor-parallel and MoE decoding)"
+#: Decoding a tensor-parallel model comes with this slice.
+SLICE_4_PART_3 = ("slice 4, part 3(b) (tensor-parallel decoding on a tensor gang, "
+                  "ROADMAP Queue 1 item 1(b))")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -157,11 +160,6 @@ class TransformerConfig:
             raise ValueError(
                 f"remat_policy must be 'full' or 'dots', got {self.remat_policy!r}"
             )
-        if self.moe_experts and self.decode:
-            raise NotImplementedError(
-                f"decoding an MoE model (moe_experts={self.moe_experts}) comes with "
-                f"{SLICE_4_PART_3}"
-            )
 
     @property
     def head_dim(self) -> int:
@@ -174,12 +172,15 @@ def lm_125m_config(**overrides) -> TransformerConfig:
 
 
 def use_batch_invariant(model: "TransformerLM") -> "TransformerLM":
-    """Route ``model``'s dense products, decode-attention products and
-    RMSNorms through the batch-invariant kernels (plain versions on the
-    CPU): the serving entry points' route.  Returns ``model``."""
+    """Route ``model``'s dense products, decode-attention products,
+    RMSNorms and MoE layers through the batch-invariant kernels (plain
+    versions on the CPU): the serving entry points' route.  Returns
+    ``model``."""
     for module in model.modules():
-        if isinstance(module, (Dense, LoRADense, RMSNorm, Attention)):
+        if isinstance(module, (Dense, LoRADense, RMSNorm, Attention, MoEMlp)):
             module.batch_invariant = True
+        if isinstance(module, MoEMlp):
+            module.serving_layout()
     return model
 
 
@@ -544,7 +545,9 @@ class MlpBlock(nn.Module):
         """The hidden width over ``tensor``: ``wi`` column-, ``wo`` row-parallel."""
         self.tp = tp
 
-    def forward(self, x):
+    def forward(self, x, per_row: bool = False):
+        """``per_row`` is the MoE's routing mode; a dense MLP's rows are
+        independent either way."""
         if self.tp is not None:
             x = self.tp.enter(x)
         # flax nn.gelu is the tanh approximation
@@ -562,16 +565,17 @@ class Block(nn.Module):
         self.mlp = mlp(cfg, device, generator)
 
     def forward(self, x, h, after: RMSNorm | None, cache: LayerCache | None = None,
-                positions=None):
+                positions=None, per_row: bool = False):
         """The layer on the residual stream ``x`` and its norm ``h =
         ln_attn(x)``: the new stream and ``after``'s norm of it (the next
         layer's ``ln_attn``, or ``ln_final``).  Each residual add goes with
         the norm that follows it (:meth:`RMSNorm.add_norm`).  Without
-        ``after`` (the last layer of a pipeline stage) the norm is None."""
+        ``after`` (the last layer of a pipeline stage) the norm is None.
+        ``per_row`` routes an MoE layer over each row's tokens alone."""
         x, h = self.ln_mlp.add_norm(x, self.attention(h, cache, positions))
         if after is None:
-            return x + self.mlp(h), None
-        return after.add_norm(x, self.mlp(h))
+            return x + self.mlp(h, per_row), None
+        return after.add_norm(x, self.mlp(h, per_row))
 
 
 def _save_products(ctx, op, *args, **kwargs):
@@ -672,18 +676,19 @@ class TransformerLM(nn.Module):
         the layers are split over ``pipe``)."""
         return [] if self.pipe_mesh is None else list(self.layers.parameters())
 
-    def run_layer(self, layer: Block, x, h, after, cache=None, positions=None):
-        """``layer(x, h, after, cache, positions)``, under activation
+    def run_layer(self, layer: Block, x, h, after, cache=None, positions=None,
+                  per_row: bool = False):
+        """``layer(x, h, after, cache, positions, per_row)``, under activation
         checkpointing when the config asks for ``remat`` (training only)."""
         cfg = self.config
         if not (cfg.remat and cache is None and torch.is_grad_enabled()):
-            return layer(x, h, after, cache, positions)
+            return layer(x, h, after, cache, positions, per_row)
         context = ckpt.noop_context_fn
         if cfg.remat_policy == "dots":
             context = functools.partial(ckpt.create_selective_checkpoint_contexts,
                                         _save_products)
-        return ckpt.checkpoint(layer, x, h, after, None, positions, use_reentrant=False,
-                               context_fn=context)
+        return ckpt.checkpoint(layer, x, h, after, None, positions, per_row,
+                               use_reentrant=False, context_fn=context)
 
     def sequence_zigzag(self, seq_len: int, n: int) -> bool:
         """Whether a ``seq_len`` sequence split over ``n`` ``seq`` ranks lies
@@ -712,10 +717,15 @@ class TransformerLM(nn.Module):
         return self.tp.leave(rows * inside[..., None].to(rows.dtype))
 
     def forward(self, tokens: torch.Tensor, return_features: bool = False,
-                cache: list[LayerCache] | None = None, positions=None):
+                cache: list[LayerCache] | None = None, positions=None,
+                per_row: bool = False):
         """``positions`` ((S,)) are the global positions of the rows of
         ``tokens``: under sequence parallelism this rank's part of each
-        sequence (required there), else 0..S-1 by default."""
+        sequence (required there), else 0..S-1 by default.  ``per_row``
+        routes every MoE layer over each row's tokens alone (the serving
+        engine's lanes, the reference's vmapped batch-1 decode); by default
+        an MoE layer routes over all the call's tokens, as the reference's
+        ``generate`` and training do."""
         cfg = self.config
         if tokens.shape[-1] > cfg.max_seq:
             raise ValueError(
@@ -725,10 +735,6 @@ class TransformerLM(nn.Module):
         if self.pipe_mesh is not None:
             raise ValueError("a model split over pipe runs through "
                              "models.pipeline_lm.pipeline_lm_forward")
-        if cache is not None and cfg.moe_experts:
-            raise NotImplementedError(
-                f"decoding an MoE model (moe_experts={cfg.moe_experts}) comes with "
-                f"{SLICE_4_PART_3}")
         if cache is None:
             if cfg.decode:
                 raise ValueError("a decode=True model needs a cache (models.decode.init_cache)")
@@ -742,7 +748,7 @@ class TransformerLM(nn.Module):
         norms = [layer.ln_attn for layer in self.layers] + [self.ln_final]
         h = norms[0](x)
         for layer, after, layer_cache in zip(self.layers, norms[1:], cache):
-            x, h = self.run_layer(layer, x, h, after, layer_cache, positions)
+            x, h = self.run_layer(layer, x, h, after, layer_cache, positions, per_row)
         if return_features:
             # The fused-xent loss (ops/xent.py) consumes the final features
             # and the lm_head weight directly, so the logits never exist.

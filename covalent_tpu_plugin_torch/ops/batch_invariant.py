@@ -121,14 +121,17 @@ def linear_w8(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
 def linear_rows_plain(x: torch.Tensor, weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """``x[b] @ weight[b].T`` for each row ``b`` of the batch (``x`` (B, S,
     in), ``weight`` (B, out, in) or (1, out, in) for every row), both cast to
-    ``dtype``: the adapter bank's gathered products."""
+    ``dtype``: the adapter bank's gathered products, and the MoE's expert
+    products (b an expert, S its stacked slots)."""
     return torch.matmul(x.to(dtype), weight.to(dtype).transpose(-1, -2))
 
 
 def linear_rows(x: torch.Tensor, weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """:func:`linear_rows_plain` on the batch-invariant GEMM's batched route
     for CUDA tensors: batch z = the rows, so each row's product is what it
-    computes alone, whatever weights its neighbours gathered."""
+    computes alone, whatever weights its neighbours gathered (for the MoE:
+    one launch a product, each expert's weight read once, a slot's output
+    what it computes alone)."""
     if not _route(x):
         return linear_rows_plain(x, weight, dtype)
     if not (weight.dtype == torch.bfloat16 and dtype == torch.float32):

@@ -383,6 +383,21 @@ def test_the_preemption_save_waits_for_a_bundle_being_written(tmp_path, monkeypa
         return write(*args)
 
     monkeypatch.setattr(harness, "_write_checkpoint_bundle", slow_write)
+    # Each save's record leaves after it releases the lock (as the
+    # reference's does), so the preempt's record could overtake the
+    # interval's on a busy machine; the executor files records by step, so
+    # their order is not the point: hold the preempt's until the interval's
+    # is out.
+    emit, interval_saved = harness._emit_worker_event, threading.Event()
+
+    def ordered_emit(spec, kind, **fields):
+        if kind == "worker.checkpoint_saved" and fields.get("trigger") == "preempt":
+            interval_saved.wait(30)
+        emit(spec, kind, **fields)
+        if kind == "worker.checkpoint_saved" and fields.get("trigger") == "interval":
+            interval_saved.set()
+
+    monkeypatch.setattr(harness, "_emit_worker_event", ordered_emit)
     state = {"step": 1}
     register_snapshot(lambda: ({"w": torch.full((1,), float(state["step"]))}, state["step"]))
     interval = threading.Thread(target=save_now, args=("interval",))

@@ -9,7 +9,10 @@ wider than a plain model's because the adapter's rank-4 products amplify
 what differs in rounding: XLA on the CPU keeps excess precision between
 fused ops (``xla_allow_excess_precision``), so the reference skips roundings
 of ``h = x @ A`` and of ``u * alpha / r`` that the port makes, as the
-reference's own function on the TPU makes them.  Three AdamW steps' losses
+reference's own function on the TPU makes them.  With that precision off
+(``XLA_FLAGS=--xla_allow_excess_precision=false``, in a process of its own)
+the same logits are held to a plain model's bound instead: 8 bf16
+roundings of the largest logit (``tests/test_torch_decode.py``).  Three AdamW steps' losses
 atol 1e-5 and adapter leaves atol 2e-5
 (f32 gradients summed in another order, normalised by Adam).  The wire form
 is exact: ``adapter_leaves`` in the reference's order, shapes and dtype, and
@@ -17,6 +20,9 @@ its digest equal to the reference's ``adapter_digest``.
 """
 
 import dataclasses
+import os
+import subprocess
+import sys
 
 import flax
 import jax
@@ -38,6 +44,8 @@ F32_ATOL = 1e-4
 BF16_COSINE, BF16_ATOL = 0.9995, 0.06
 LOSS_ATOL, LEAF_ATOL = 1e-5, 2e-5
 RANK = 4
+#: a plain model's bf16 bound, in roundings (2^-8) of the largest logit
+PLAIN_BF16_ROUNDINGS = 8
 
 
 def _configs(dtype="float32", **overrides):
@@ -98,25 +106,72 @@ def _jax_logits(model, params, tokens):
         params, jnp.asarray(tokens)), np.float32)
 
 
+def _lora_reference(dtype, quantized):
+    """The reference's LoRA (or QLoRA) LM with non-zero ``lora_b``: its tree
+    and its logits on ``_tokens()``."""
+    jcfg, _ = _configs(dtype)
+    build = jax_lora.quantize_then_lora if quantized else jax_lora.add_lora
+    lmodel, lparams = build(jax_tf.TransformerLM(jcfg), _jax_params(jcfg), rank=RANK, alpha=16.0)
+    lparams = _randomize_b(lparams, seed=7)
+    return lparams, _jax_logits(lmodel, lparams, _tokens())
+
+
+def _port_logits(dtype, quantized, lparams):
+    """The port's logits on ``_tokens()`` from the reference's tree, on the
+    plain route and on the serving route (batch-invariant, the adapter's
+    products per row)."""
+    model = _port(_lora_cfg(_configs(dtype)[1], quantized), lparams)
+    tokens = torch.tensor(_tokens()).long()
+    with torch.no_grad():
+        got = model(tokens).float().numpy()
+        routed = torch_tf.use_batch_invariant(model)(tokens).float().numpy()
+    return got, routed
+
+
 @pytest.mark.parametrize("quantized", [False, True], ids=["lora", "qlora"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_lora_forward_with_nonzero_b_matches_the_reference(dtype, quantized):
-    jcfg, tcfg = _configs(dtype)
-    params = _jax_params(jcfg)
-    build = jax_lora.quantize_then_lora if quantized else jax_lora.add_lora
-    lmodel, lparams = build(jax_tf.TransformerLM(jcfg), params, rank=RANK, alpha=16.0)
-    lparams = _randomize_b(lparams, seed=7)
-    tokens = _tokens()
-    want = _jax_logits(lmodel, lparams, tokens)
-    model = _port(_lora_cfg(tcfg, quantized), lparams)
-    with torch.no_grad():
-        got = model(torch.tensor(tokens).long()).float().numpy()
-    _close(got, want, dtype)
-    # the serving route (batch-invariant, the adapter's products per row)
-    torch_tf.use_batch_invariant(model)
-    with torch.no_grad():
-        routed = model(torch.tensor(tokens).long()).float().numpy()
-    _close(routed, want, dtype)
+    lparams, want = _lora_reference(dtype, quantized)
+    for got in _port_logits(dtype, quantized, lparams):
+        _close(got, want, dtype)
+
+
+#: The bf16 reference logits of both adapters, computed with XLA's excess
+#: precision off (the flag is read when JAX starts, so in a process of its own).
+_WITHOUT_EXCESS_PRECISION = """
+import os
+import sys
+import numpy as np
+sys.path[:0] = [sys.argv[1], os.path.dirname(sys.argv[1])]
+import test_torch_lora as t
+np.savez(sys.argv[2], **{kind: t._lora_reference("bfloat16", kind == "qlora")[1]
+                         for kind in ("lora", "qlora")})
+"""
+
+
+@pytest.fixture(scope="module")
+def reference_without_excess_precision(tmp_path_factory):
+    path = tmp_path_factory.mktemp("no_excess_precision") / "logits.npz"
+    flags = os.environ.get("XLA_FLAGS", "") + " --xla_allow_excess_precision=false"
+    env = dict(os.environ, JAX_PLATFORMS="cpu", XLA_FLAGS=flags.strip())
+    subprocess.run([sys.executable, "-c", _WITHOUT_EXCESS_PRECISION,
+                    os.path.dirname(os.path.abspath(__file__)), str(path)],
+                   env=env, check=True, timeout=600)
+    return dict(np.load(path))
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["lora", "qlora"])
+def test_bf16_lora_without_excess_precision_is_within_a_plain_models_bound(
+        quantized, reference_without_excess_precision):
+    """The cause the bf16 bound above states, checked: with the reference's
+    excess precision off, the port's bf16 LoRA and QLoRA logits (both
+    routes) are within a plain model's bound of the reference's."""
+    lparams, _ = _lora_reference("bfloat16", quantized)
+    want = reference_without_excess_precision["qlora" if quantized else "lora"]
+    tol = PLAIN_BF16_ROUNDINGS * 2.0**-8 * np.abs(want).max()
+    for got in _port_logits("bfloat16", quantized, lparams):
+        assert np.isfinite(got).all()
+        np.testing.assert_allclose(got, want, rtol=0, atol=tol)
 
 
 @pytest.mark.parametrize("quantized", [False, True], ids=["lora", "qlora"])

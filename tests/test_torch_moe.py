@@ -157,15 +157,28 @@ def test_convert_takes_a_pipe_rank_s_stage():
 
 
 def test_moe_decoding_raises_by_name():
-    with pytest.raises(NotImplementedError, match="slice 4, part 3"):
-        torch_tf.TransformerConfig(**SMALL, decode=True)
+    """MoE decoding is ported (``tests/test_torch_moe_serve.py`` holds it to
+    the reference): ``decode=True`` constructs and a cached forward runs.
+    What stays refused names its slice: a cached forward of a
+    tensor-parallel model, the MoE's serving form included."""
+    assert torch_tf.TransformerConfig(**SMALL, decode=True).decode
     from covalent_tpu_plugin_torch.models.decode import init_cache
 
     model = torch_tf.TransformerLM(torch_tf.TransformerConfig(
         **SMALL, dtype=torch.float32, attention="reference"), device="cpu")
     cache = init_cache(model, 1)
-    with pytest.raises(NotImplementedError, match="MoE model"):
-        model(torch.zeros(1, 4, dtype=torch.long), cache=cache)
+    with torch.no_grad():
+        assert model(torch.zeros(1, 4, dtype=torch.long), cache=cache).shape == (1, 4, 64)
+        # the serving form leaves the training-only aux out where no gradient runs
+        torch_tf.use_batch_invariant(model)
+        model(torch.zeros(1, 4, dtype=torch.long), cache=init_cache(model, 1))
+    assert float(collect_moe_aux(model)) == 0.0
+    layer = model.layers[0]
+    layer.attention.tp = layer.mlp.tp = object()
+    with pytest.raises(NotImplementedError, match=r"slice 4, part 3\(b\)"):
+        layer.attention(torch.zeros(1, 1, 16), init_cache(model, 1)[0])
+    with pytest.raises(NotImplementedError, match=r"item 1\(b\)"):
+        layer.mlp(torch.zeros(1, 1, 16), per_row=True)
 
 
 def test_moe_refuses_a_sequence_split():

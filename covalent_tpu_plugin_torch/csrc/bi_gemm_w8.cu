@@ -17,14 +17,30 @@
 //           already rounded to bf16, as `scale.astype(bf16)`)
 //   C f32:  total * scale[n]                       (the lm_head's f32 logits)
 //
-// The two tile configurations are bi_gemm_tc.cu's, picked by the wrapper
-// from M, N and the batch (ops/_kernels.py: plan_bi_gemm): skinny for the
-// decode steps (each warp loads its segment's 8-byte int8 runs of W and its
-// 16-byte bf16 runs of A straight from global memory into registers), wide
-// for the admission waves (a three-stage cp.async ring; W's stage holds the
-// int8 bytes, widened when a warp reads its fragment).
+// Two tile configurations, picked by the wrapper from M, N, K and the batch
+// (ops/_kernels.py: plan_bi_gemm), one order:
+//
+// - skinny (the decode steps, and M 128 where the wide tiles are too few):
+//   bound by streaming the int8 weight, so the design is about bytes in
+//   flight.  Blocks are persistent (at most two an SM, as many as the card
+//   holds) and walk column groups across N; each warp streams its own
+//   8-column, 256-deep pieces of W through a four-stage cp.async ring,
+//   three pieces ahead of its mma chain (6 KB of W in flight a warp).
+//   Where N is narrow, a warp splits K with its neighbours by segment, as
+//   bi_gemm_tc.cu's skinny tiles do, and the partials meet in shared
+//   memory in segment order, each warp's A fragments loaded into its
+//   registers; where N alone fills the card (the lm_head), a warp walks
+//   whole columns against A's rows staged once a block.
+// - wide (the admission waves): bi_gemm_tc.cu's wide tile with an int8
+//   stage (a three-stage cp.async ring; W's stage holds the int8 bytes,
+//   widened when a warp reads its fragment).
+//
+// The widening is a byte permute into the mantissa of 2^23 and one f32
+// subtraction a value (exact), then a bf16 pair pack.
 
 #include "bi_mma.cuh"
+
+#include <algorithm>
 
 namespace biw8 {
 
@@ -35,23 +51,33 @@ using bimma::SEG_GROUPS;
 using bimma::SEG_K;
 using bf16 = __nv_bfloat16;
 
-constexpr int SKINNY_MAX_WARPS = 16;
+// How many of `most` elements from here lie before the end, `left` away.
+__device__ __forceinline__ int elems_left(int64_t left, int most) {
+  return left <= 0 ? 0 : left < most ? (int)left : most;
+}
 
-__device__ __forceinline__ uint32_t pack2(uint32_t word, int shift) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(
-      (float)(int)(signed char)(word >> shift), (float)(int)(signed char)(word >> (shift + 8)));
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// 4 int8 of a word (k ascending) -> 4 f32, exactly: each byte, offset to
+// unsigned, becomes the low mantissa byte of 2^23 (one byte permute), and
+// 2^23 + 128 is subtracted.
+__device__ __forceinline__ void int8x4_to_f32(uint32_t word, float (&f)[4]) {
+  const uint32_t u = word ^ 0x80808080u;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    f[i] = __uint_as_float(__byte_perm(u, 0x4b000000u, 0x7440u | (uint32_t)i)) - 8388736.0f;
 }
 
 // 8 int8 (k ascending) -> 8 bf16 in the layout of a 16-byte bf16 run.
 __device__ __forceinline__ uint4 widen8(const uint2& v) {
-  return make_uint4(pack2(v.x, 0), pack2(v.x, 16), pack2(v.y, 0), pack2(v.y, 16));
-}
-
-__device__ __forceinline__ uint2 ldg8(const int8_t* p, bool ok) {
-  uint2 v = make_uint2(0u, 0u);
-  if (ok) v = __ldg(reinterpret_cast<const uint2*>(p));
-  return v;
+  float lo[4], hi[4];
+  int8x4_to_f32(v.x, lo);
+  int8x4_to_f32(v.y, hi);
+  return make_uint4(pack2(lo[0], lo[1]), pack2(lo[2], lo[3]), pack2(hi[0], hi[1]),
+                    pack2(hi[2], hi[3]));
 }
 
 // The scale step on the f32 totals of C[m, n] and C[m, n + 1].
@@ -72,13 +98,68 @@ __device__ __forceinline__ void store2_scaled(TC* c, const float* __restrict__ s
   bimma::store2(c, g, m, n, scaled<TC>(v0, s0), scaled<TC>(v1, s1));
 }
 
-// grid (ceil(M / 16), ceil(N / (8 nt)), Z), 32 * nt * rs threads: the
-// skinny tiles of bi_gemm_tc.cu, W read as int8.
-template <typename TC>
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The skinny tiles.  A block of nt x rs warps (at most SKINNY_MAX_WARPS)
+// owns one 16-row tile of A and walks the column groups blockIdx.y,
+// blockIdx.y + gridDim.y, ... (8 nt columns each): warp w takes column
+// tile w % nt of a group and, in each round of rs segments, segment round
+// + w / nt.  Each warp streams its own tasks' W (8 rows x one 256-byte
+// segment of int8) through a private ring of SKINNY_STAGES stages by
+// cp.async, SKINNY_STAGES - 1 tasks ahead, so the warp's next segments are
+// in flight while it runs this one's mma chain; the partials of a round
+// meet in shared memory and warp `tile` adds them in segment order,
+// bi_gemm_tc.cu's skinny tiles' order exactly.  Where N alone gives every
+// warp of the card column tiles (the lm_head), rs is 1: a warp walks a
+// tile's segments itself and the block never meets, and A's rows are
+// staged once a block for every column group it walks.  Where K is split
+// (SPLIT: a warp takes a task or two), a warp loads its segment's A
+// fragments from global memory into registers, in flight with its stage's
+// wait, and never waits for the block before its chain: staging A there
+// cost up to 0.67 us a launch, and the block-wide prologue 0.45 us more
+// (H100, q/k/v/o at M 8, timed by tools/bi_gemm_ab.py --quick).
+constexpr int SKINNY_MAX_WARPS = 12;
+constexpr int SKINNY_STAGES = 4;
+// A stage: 8 W rows of SEG_K bytes; an odd row's 16-byte chunks are stored
+// with bit 2 of their index flipped, so a fragment read (rows gi, gi + 1,
+// chunks t = 0..3 in one phase) hits 32 distinct banks.
+constexpr int W_STAGE = 8 * SEG_K;
+__device__ __forceinline__ int w_chunk(int row, int chunk) { return chunk ^ ((row & 1) << 2); }
+constexpr int A_PAD = 8;  // bf16 past a staged A row (with K rounded to 64: 4 banks a row)
+constexpr size_t SMEM_MAX = 232448;  // the most dynamic shared memory a block may have
+
+__host__ __device__ inline int64_t a_pitch(int64_t k) { return bimma::groups(k) * K_GROUP + A_PAD; }
+// A's rows a block stages: 8 where M <= 8 (rows 8..15 of a fragment are
+// then zeros, never read), else 16.
+__host__ __device__ inline int a_rows(int64_t m) { return m <= 8 ? 8 : 16; }
+inline size_t skinny_smem(int64_t m, int64_t k, int warps, bool split) {
+  return (split ? 0 : (size_t)a_rows(m) * a_pitch(k) * 2) +
+         (size_t)warps * (32 * 16 + SKINNY_STAGES * W_STAGE);
+}
+
+// grid (ceil(M / 16), column groups walked in parallel, Z), 32 nt rs
+// threads.  SPLIT: rs > 1, A's fragments from global memory (see above).
+template <typename TC, bool SPLIT>
 __global__ void __launch_bounds__(32 * SKINNY_MAX_WARPS)
     w8_skinny(const bf16* __restrict__ A, const int8_t* __restrict__ W,
               const float* __restrict__ scale, TC* __restrict__ C, Geometry g, int nt, int rs) {
-  __shared__ __align__(16) float part[SKINNY_MAX_WARPS][32][4];
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warps = nt * rs;
+  const int64_t pitch = a_pitch(g.k);
+  const int64_t a_bytes = SPLIT ? 0 : a_rows(g.m) * pitch * 2;
+  bf16* As = reinterpret_cast<bf16*>(smem);                          // [a_rows][pitch]
+  float4* part = reinterpret_cast<float4*>(smem + a_bytes);          // [warps][32]
+  unsigned char* ring = smem + a_bytes + warps * 32 * 16;            // [warps][STAGES][8][SEG_K]
   const bf16* a = bimma::at_batch(A, g.sa, g);
   const int8_t* w = bimma::at_batch(W, g.sw, g);
   TC* c = bimma::at_batch(C, g.sc, g);
@@ -87,57 +168,158 @@ __global__ void __launch_bounds__(32 * SKINNY_MAX_WARPS)
   const int gi = lane / 4, t = lane % 4;
   const int tile = warp % nt, sub = warp / nt;
   const int64_t m0 = (int64_t)blockIdx.x * 16;
-  const int64_t col0 = (int64_t)blockIdx.y * 8 * nt + tile * 8;
-  const int64_t row_n = col0 + gi;
-  const bool ok_n = row_n < g.n, ok0 = m0 + gi < g.m, ok1 = m0 + gi + 8 < g.m;
-  const bool two_halves = m0 + 8 < g.m;
-  const int8_t* w_row = w + row_n * g.sw[3];
-  const bf16* a_row0 = a + (m0 + gi) * g.sa[3];
-  const bf16* a_row1 = a + (m0 + gi + 8) * g.sa[3];
-  const int64_t nseg = bimma::segments(g.k);
+  const int rows = elems_left(g.m - m0, 16);
+  const bool ok0 = gi < rows, ok1 = gi + 8 < rows, two_halves = rows > 8;
 
+  // A's rows of this tile, k-padded with zeros to whole groups, row by row
+  // (rows past M are never read: their fragments are zeros).
+  const int runs = SPLIT ? 0 : (int)(pitch - A_PAD) / 8;
+  for (int r = 0; r < rows; ++r) {
+    const bf16* src = a + (m0 + r) * g.sa[3];
+    for (int run = threadIdx.x; run < runs; run += blockDim.x) {
+      const int64_t k = 8 * (int64_t)run;
+      const bool ok = k < g.k;  // K % 8 == 0: a run is wholly in or out
+      cp_async16(As + r * pitch + k, ok ? src + k : a, ok ? 16 : 0);
+    }
+  }
+  cp_async_commit();
+
+  // A step is a column group (from blockIdx.y, gridDim.y apart) and a
+  // round of rs segments, this warp's segment round rs + sub.  Every warp
+  // takes the same steps (the block meets at each), some without a
+  // segment.  Two cursors walk them: the step being loaded, SKINNY_STAGES
+  // - 1 ahead, and the step being computed.
+  const int nseg = (int)bimma::segments(g.k), rounds = (nseg + rs - 1) / rs;
+  const int64_t ngroups = (g.n + 8 * nt - 1) / (8 * nt);
+  unsigned char* my_ring = ring + warp * SKINNY_STAGES * W_STAGE;
+  struct Step {
+    int64_t group;
+    int round, stage;
+  };
+  auto advance = [&](Step& st) {
+    if (++st.round == rounds) {
+      st.round = 0;
+      st.group += gridDim.y;
+    }
+    st.stage = st.stage + 1 == SKINNY_STAGES ? 0 : st.stage + 1;
+  };
+  // The W rows of a step's 8 columns, k of its segment: 8 x 16 runs of 16
+  // bytes, four a lane, zeros past N and K.
+  Step ahead{blockIdx.y, 0, 0};
+  auto load = [&]() {
+    const int seg = ahead.round * rs + sub;
+    if (ahead.group < ngroups && seg < nseg) {
+      unsigned char* st = my_ring + ahead.stage * W_STAGE;
+      const int64_t col0 = ahead.group * 8 * nt + tile * 8, k0 = (int64_t)seg * SEG_K;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = lane / 16 + 2 * i, run = lane % 16;
+        const int64_t n = col0 + r, k = k0 + 16 * run;
+        const int bytes = n < g.n ? elems_left(g.k - k, 16) : 0;
+        cp_async16(st + r * SEG_K + 16 * w_chunk(r, run), bytes ? w + n * g.sw[3] + k : w,
+                   bytes);
+      }
+    }
+    advance(ahead);
+  };
+#pragma unroll
+  for (int s = 0; s < SKINNY_STAGES - 1; ++s) {
+    load();
+    cp_async_commit();
+  }
   float total[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  for (int64_t round = 0; round < nseg; round += rs) {
-    const int64_t seg = round + sub;
-    if (seg < nseg) {
-      const int64_t kseg = seg * SEG_K;
-      uint2 wv[SEG_GROUPS][2];
-      uint4 lo[SEG_GROUPS][2], hi[SEG_GROUPS][2];
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  bool first = true;
+  for (Step cur{blockIdx.y, 0, 0}; cur.group < ngroups; advance(cur)) {
+    const int64_t col0 = cur.group * 8 * nt + tile * 8;
+    const int seg = cur.round * rs + sub;
+    const int64_t kseg = (int64_t)seg * SEG_K;
+    uint4 lo[SEG_GROUPS][2], hi[SEG_GROUPS][2];
+    if (SPLIT && seg < nseg) {  // A's fragments, in flight with the stage's wait
+      const bf16* a0 = a + (m0 + gi) * g.sa[3] + kseg + 16 * t;
+      const bf16* a1 = a0 + 8 * g.sa[3];
 #pragma unroll
       for (int gr = 0; gr < SEG_GROUPS; ++gr)
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          const int64_t k = kseg + gr * K_GROUP + 16 * t + 8 * h;
-          const bool ok_k = k < g.k;  // K % 8 == 0: a run is wholly in or out
-          wv[gr][h] = ldg8(w_row + k, ok_n && ok_k);
-          lo[gr][h] = bimma::ldg16(a_row0 + k, ok0 && ok_k);
-          hi[gr][h] = two_halves ? bimma::ldg16(a_row1 + k, ok1 && ok_k)
-                                 : make_uint4(0u, 0u, 0u, 0u);
+          const int off = gr * K_GROUP + 8 * h;
+          const bool ok_k = kseg + 16 * t + off < g.k;  // K % 8 == 0: a run is in or out
+          lo[gr][h] = bimma::ldg16(a0 + off, ok0 && ok_k);
+          hi[gr][h] = two_halves ? bimma::ldg16(a1 + off, ok1 && ok_k) : zero;
         }
+    }
+    cp_async_wait<SKINNY_STAGES - 2>();  // this warp's stage (and, first, A)
+    if (!SPLIT && first)
+      __syncthreads();
+    else
+      __syncwarp();
+    first = false;
+    // the stage read in the step before is free: the warp (or the block)
+    // met after it
+    load();
+    cp_async_commit();
+
+    if (seg < nseg) {
+      const unsigned char* ws = my_ring + cur.stage * W_STAGE + gi * SEG_K;
+      const bf16* s0 = As + gi * pitch + kseg + 16 * t;
+      // the groups of the segment inside K, and their W fragments, read
+      // before the chain starts
+      const int ngr = elems_left((g.k - kseg + K_GROUP - 1) / K_GROUP, SEG_GROUPS);
+      uint4 wf[SEG_GROUPS];
+#pragma unroll
+      for (int gr = 0; gr < SEG_GROUPS; ++gr)
+        wf[gr] = gr < ngr ? *reinterpret_cast<const uint4*>(ws + 16 * w_chunk(gi, gr * 4 + t))
+                          : zero;
       float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
       for (int gr = 0; gr < SEG_GROUPS; ++gr) {
-        if (kseg + gr * K_GROUP >= g.k) break;
+        if (gr >= ngr) break;  // the wide tiles' loop ends at K too
+        const uint4 wv = wf[gr];
 #pragma unroll
-        for (int h = 0; h < 2; ++h) bimma::mma_pair(acc, lo[gr][h], hi[gr][h], widen8(wv[gr][h]));
+        for (int h = 0; h < 2; ++h) {
+          if (!SPLIT) {
+            const int off = gr * K_GROUP + 8 * h;
+            lo[gr][h] = ok0 ? bimma::lds16(s0 + off) : zero;
+            hi[gr][h] = two_halves && ok1 ? bimma::lds16(s0 + 8 * pitch + off) : zero;
+          }
+          bimma::mma_pair(acc, lo[gr][h], hi[gr][h],
+                          widen8(h ? make_uint2(wv.z, wv.w) : make_uint2(wv.x, wv.y)));
+        }
       }
-      *reinterpret_cast<float4*>(part[warp][lane]) = make_float4(acc[0], acc[1], acc[2], acc[3]);
+      if (rs == 1) {  // block-uniform: this warp walks its column tile's segments in order
+        total[0] += acc[0];
+        total[1] += acc[1];
+        total[2] += acc[2];
+        total[3] += acc[3];
+        if (seg == nseg - 1) {
+          store2_scaled(c, scale, g, m0 + gi, col0 + 2 * t, total[0], total[1]);
+          store2_scaled(c, scale, g, m0 + gi + 8, col0 + 2 * t, total[2], total[3]);
+          total[0] = total[1] = total[2] = total[3] = 0.0f;
+        }
+      } else {
+        part[warp * 32 + lane] = make_float4(acc[0], acc[1], acc[2], acc[3]);
+      }
+    }
+    if (rs == 1) {  // no partials to meet: the warp's own lanes free the stage
+      __syncwarp();
+      continue;
     }
     __syncthreads();
-    if (warp < nt) {
-      for (int s = 0; s < rs && round + s < nseg; ++s) {
-        const float4 p = *reinterpret_cast<const float4*>(part[s * nt + warp][lane]);
+    if (warp < nt) {  // sub == 0: this warp folds its tile's partials in segment order
+      for (int j = 0; j < rs && cur.round * rs + j < nseg; ++j) {
+        const float4 p = part[(j * nt + warp) * 32 + lane];
         total[0] += p.x;
         total[1] += p.y;
         total[2] += p.z;
         total[3] += p.w;
       }
+      if (cur.round == rounds - 1) {
+        store2_scaled(c, scale, g, m0 + gi, col0 + 2 * t, total[0], total[1]);
+        store2_scaled(c, scale, g, m0 + gi + 8, col0 + 2 * t, total[2], total[3]);
+        total[0] = total[1] = total[2] = total[3] = 0.0f;
+      }
     }
     __syncthreads();
-  }
-  if (warp < nt) {
-    store2_scaled(c, scale, g, m0 + gi, col0 + 2 * t, total[0], total[1]);
-    store2_scaled(c, scale, g, m0 + gi + 8, col0 + 2 * t, total[2], total[3]);
   }
 }
 
@@ -152,12 +334,6 @@ __device__ __forceinline__ void cp_async(void* dst, const void* src, bool ok) {
     asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d), "l"(src), "r"(bytes)
                  : "memory");
   }
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // bi_gemm_tc.cu's wide tile: 64 x 128, four warps of 64 x 32, three stages.
@@ -280,11 +456,35 @@ cudaError_t run(int config, int nt, int rs, const void* Ap, const void* Wp, cons
   TC* C = static_cast<TC*>(Cp);
   switch (config) {
     case kSkinny: {
-      if (nt < 1 || rs < 1 || nt * rs > SKINNY_MAX_WARPS) return cudaErrorInvalidValue;
-      const int64_t ny = (g.n + 8 * nt - 1) / (8 * nt);
-      if (ny > 65535) return cudaErrorInvalidValue;
-      const dim3 grid((unsigned)((g.m + 15) / 16), (unsigned)ny, (unsigned)Z);
-      w8_skinny<TC><<<grid, 32 * nt * rs, 0, s>>>(A, W, scale, C, g, nt, rs);
+      const int warps = nt * rs;
+      const bool split = rs > 1;
+      const size_t smem = skinny_smem(g.m, g.k, warps, split);
+      if (nt < 1 || rs < 1 || warps > SKINNY_MAX_WARPS || smem > SMEM_MAX)
+        return cudaErrorInvalidValue;
+      static const cudaError_t opt_in[2] = {
+          cudaFuncSetAttribute(w8_skinny<TC, false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)SMEM_MAX),
+          cudaFuncSetAttribute(w8_skinny<TC, true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)SMEM_MAX)};
+      if (opt_in[split] != cudaSuccess) return opt_in[split];
+      // As many blocks as the card holds at once (at most two an SM), each
+      // walking its share of the column groups.
+      static int sms = 0, sm_smem = 0;
+      if (!sms) {
+        int dev = 0;
+        cudaGetDevice(&dev);
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+        cudaDeviceGetAttribute(&sm_smem, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+      }
+      const int64_t per_sm = std::max<int64_t>(1, std::min<int64_t>(2, sm_smem / (smem + 1024)));
+      const int64_t mtiles = (g.m + 15) / 16, ngroups = (g.n + 8 * nt - 1) / (8 * nt);
+      const int64_t ny = std::min(ngroups, std::max<int64_t>(1, sms * per_sm / (mtiles * Z)));
+      if (ny > 65535 || mtiles > INT32_MAX) return cudaErrorInvalidValue;
+      const dim3 grid((unsigned)mtiles, (unsigned)ny, (unsigned)Z);
+      if (split)
+        w8_skinny<TC, true><<<grid, 32 * warps, smem, s>>>(A, W, scale, C, g, nt, rs);
+      else
+        w8_skinny<TC, false><<<grid, 32 * warps, smem, s>>>(A, W, scale, C, g, nt, rs);
       return cudaGetLastError();
     }
     case kWide: {
@@ -303,9 +503,9 @@ cudaError_t run(int config, int nt, int rs, const void* Ap, const void* Wp, cons
 }  // namespace biw8
 
 // sizes: {z1, z2, z3, M, N, K}; strides: A (z1, z2, z3, m, k), W (z1, z2,
-// z3, n, k), C (z1, z2, z3, m, n), 15 values in elements.  A bf16 with k
-// stride 1 and 16-byte aligned rows; W int8 with k stride 1 and 8-byte
-// aligned rows; K % 8 == 0 (the wrapper copies operands off them onto them).
+// z3, n, k), C (z1, z2, z3, m, n), 15 values in elements.  A bf16 and W
+// int8, each with k stride 1 and 16-byte aligned rows; K % 8 == 0 (the
+// wrapper copies operands off them onto them).
 // scale: N f32 values, one a column, shared by every batch.  config: 0
 // skinny (nt column tiles of 8, rs segments a round), 1 wide.  seg_k must
 // equal the kernel's segment (256).  c_dtype: 0 f32, 2 bf16.  Returns the
@@ -316,8 +516,11 @@ extern "C" int bi_gemm_w8(const void* A, const void* W, const float* scale, void
   const bimma::Geometry g = bimma::geometry(sizes, strides);
   const int64_t Z = sizes[0] * sizes[1] * sizes[2];
   if (seg_k != bimma::SEG_K || Z < 1 || Z > 65535 || g.m < 1 || g.n < 1 || g.k < 1 ||
-      g.k % 8 != 0 || g.sa[4] != 1 || g.sw[4] != 1)
+      g.k % 8 != 0 || g.sa[4] != 1 || g.sw[4] != 1 ||
+      reinterpret_cast<uintptr_t>(W) % 16 || reinterpret_cast<uintptr_t>(A) % 16)
     return (int)cudaErrorInvalidValue;
+  for (int i = 0; i < 4; ++i)
+    if (g.sw[i] % 16 || g.sa[i] % 8) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   switch (c_dtype) {
     case bimma::kF32: return (int)biw8::run<float>(config, nt, rs, A, W, scale, C, Z, g, s);

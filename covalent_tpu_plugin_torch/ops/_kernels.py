@@ -114,7 +114,7 @@ _I64P = ctypes.POINTER(ctypes.c_int64)
 #: cores by the operands' types, a tensor-core kernel by W's layout): a pair
 #: with an f32 operand on the CUDA cores ...
 BI_GEMM = Kernel(
-    "bi_gemm", "bi_gemm.cu", [_P] * 3 + [_I] * 3 + [_I64P, _I64P, _P],
+    "bi_gemm", "bi_gemm.cu", [_P] * 3 + [_I] * 3 + [_I64P, _I64P] + [_I] * 3 + [_P],
     "covalent_tpu_plugin/models/transformer.py:467 (no Pallas kernel: XLA's dense "
     "and decode-attention products; f32 operands)",
 )
@@ -402,6 +402,33 @@ BI_SEG_K = 256
 #: while each block walks the whole of K, and the skinny tiles, which split
 #: K across warps, finish first (H100: M 128 at 768 x 768 and 3072 -> 768).
 WIDE_MIN_TILES = 48
+#: The int8-weight product's skinny tiles: each warp's ring, and A's rows
+#: whole in shared memory where warps walk whole columns
+#: (csrc/bi_gemm_w8.cu: skinny_smem); a block that does not fit takes the
+#: wide tiles.
+W8_SMEM_MAX = 232448
+W8_MAX_WARPS = 12
+#: Column tiles of 8 (times row tiles and batches) from which the int8
+#: skinny tiles give each warp whole columns (rs 1): eight warps on two
+#: blocks of each of the card's 132 SMs.
+W8_WHOLE_COLUMNS = 2 * 132 * 8
+W8_STAGE_BYTES = 8 * BI_SEG_K
+W8_STAGES = 4
+#: The CUDA-core route's segment (csrc/bi_gemm.cu: one FMA chain from +0,
+#: then added to the total); the kernel checks that the plan carries it.
+FMA_SEG_K = 64
+#: Its blocks' threads, and the skinny tiles' column strips (cw columns x
+#: 256 / cw segment slots).
+FMA_THREADS = 256
+FMA_STRIPS = (256, 128, 64, 32, 16, 8)
+#: The skinny tiles' shared memory: A's rows and the partials
+#: (csrc/bi_gemm.cu: SKINNY_SMEM_MAX).
+FMA_SKINNY_SMEM = 232448
+#: Blocks the skinny tiles aim for: two on each of the card's 132 SMs.
+FMA_SKINNY_BLOCKS = 264
+#: The wide tiles (128 x 128) are taken above 16 rows where there are at
+#: least this many of them (the admission wave's lm_head: 256 at M 128).
+FMA_WIDE_MIN_TILES = 48
 
 
 @dataclasses.dataclass(frozen=True)
@@ -411,12 +438,13 @@ class GemmPlan:
     ``route`` follows from the dtypes alone: bf16 x bf16 on the tensor
     cores (``tc``, or ``mix`` where W is read transposed; both sum in
     csrc/bi_mma.cuh's order), bf16 x int8 on them too (``w8``, the same
-    order on the widened weight, with ``tc``'s tiles), anything else on the
-    CUDA cores (``fma``).
+    order on the widened weight), anything else on the CUDA cores (``fma``,
+    csrc/bi_gemm.cu's order: FMA chains over segments of 64).
     ``seg_k`` and ``segments`` follow from K.  ``tiles`` and the launch
     shape (``nt`` column tiles and ``rs`` segments a round for the skinny
-    tiles, ``nt`` slices for the mix) may follow M, N and the batch: they
-    change which thread computes a value, never how.
+    tiles, ``nt`` slices for the mix; for ``fma``'s skinny tiles ``nt``
+    columns a block and ``rs`` = 256 / ``nt`` segment slots) may follow M,
+    N and the batch: they change which thread computes a value, never how.
     """
 
     route: str  # "tc", "mix", "w8" or "fma"
@@ -483,16 +511,72 @@ def plan_bi_gemm(a_dtype: torch.dtype, w_dtype: torch.dtype, sizes: tuple,
     elif a_dtype == w_dtype == torch.bfloat16:
         route = "tc"
     else:
-        return GemmPlan("fma", seg_k=k, segments=1, tiles="fma")
+        return plan_fma(sizes)
     segments = _cdiv(k, BI_SEG_K)
     if transposed:
         slices = min(4, _cdiv(n, 16))
         return GemmPlan("mix", BI_SEG_K, segments, "mix", nt=slices,
                         rs=min(segments, 8 // slices))
-    if m > 16 and _cdiv(m, 64) * _cdiv(n, 128) * z1 * z2 * z3 >= WIDE_MIN_TILES:
+    wide = m > 16 and _cdiv(m, 64) * _cdiv(n, 128) * z1 * z2 * z3 >= WIDE_MIN_TILES
+    if route == "w8":
+        # a round takes at most 12 segments, the rounds as even as they go
+        # (one segment where N alone fills the card); below 8 warps, more
+        # column tiles
+        rs = _cdiv(segments, _cdiv(segments, W8_MAX_WARPS))
+        if _cdiv(n, 8) * _cdiv(m, 16) * z1 * z2 * z3 >= W8_WHOLE_COLUMNS:
+            rs = 1
+        nt = max(1, 8 // rs)
+        if wide or w8_skinny_smem(m, k, nt * rs, rs) > W8_SMEM_MAX:
+            return GemmPlan(route, BI_SEG_K, segments, "wide")
+        return GemmPlan(route, BI_SEG_K, segments, "skinny", nt=nt, rs=rs)
+    if wide:
         return GemmPlan(route, BI_SEG_K, segments, "wide")
     nt = max(1, 8 // segments)
     return GemmPlan(route, BI_SEG_K, segments, "skinny", nt=nt, rs=min(segments, 16 // nt))
+
+
+def w8_skinny_smem(m: int, k: int, warps: int, rs: int) -> int:
+    """Shared memory of the int8 product's skinny block (csrc/bi_gemm_w8.cu:
+    skinny_smem): each warp's partials and ring, and, where a warp walks
+    whole columns (``rs`` 1), A's rows (8 where M <= 8, else 16; k padded
+    to whole groups of 64)."""
+    rows = 8 if m <= 8 else 16
+    staged = rows * (_cdiv(k, 64) * 64 + 8) * 2 if rs == 1 else 0
+    return staged + warps * (32 * 16 + W8_STAGES * W8_STAGE_BYTES)
+
+
+def fma_skinny_smem(m: int, k: int, cw: int) -> int:
+    """Shared memory of the CUDA-core route's skinny block (csrc/bi_gemm.cu:
+    skinny_smem): A's rows (1, 8 or 16 by M), each segment 68 f32 wide,
+    and the partials of a round where a column's segments are split."""
+    rows = 1 if m <= 1 else 8 if m <= 8 else 16
+    parts = rows * FMA_THREADS * 4 if cw < FMA_THREADS else 0
+    return rows * _cdiv(k, FMA_SEG_K) * (FMA_SEG_K + 4) * 4 + parts
+
+
+@functools.lru_cache(maxsize=4096)
+def plan_fma(sizes: tuple) -> GemmPlan:
+    """The CUDA-core route's plan for (z1, z2, z3, M, N, K), whatever the
+    dtypes: segments of :data:`FMA_SEG_K` (K alone), the wide tiles above 16
+    rows where there are enough of them, else the skinny tiles, whose strip
+    narrows (more segment slots, more blocks) until the blocks cover the
+    card or every segment of a column has a slot of its own."""
+    z1, z2, z3, m, n, k = sizes
+    segments = _cdiv(k, FMA_SEG_K)
+    batch = z1 * z2 * z3
+    wide = GemmPlan("fma", FMA_SEG_K, segments, "wide")
+    if m > 16 and _cdiv(m, 128) * _cdiv(n, 128) * batch >= FMA_WIDE_MIN_TILES:
+        return wide
+    rows = 1 if m <= 1 else 8 if m <= 8 else 16
+    cw = next(c for c in FMA_STRIPS if c // 2 < n or c == FMA_STRIPS[-1])
+    while (cw > FMA_STRIPS[-1] and _cdiv(m, rows) * _cdiv(n, cw) * batch < FMA_SKINNY_BLOCKS
+           and FMA_THREADS // cw < segments):
+        cw //= 2
+    if fma_skinny_smem(m, k, cw) > FMA_SKINNY_SMEM:
+        cw = FMA_THREADS  # one slot: no partials in shared memory
+    if fma_skinny_smem(m, k, cw) > FMA_SKINNY_SMEM:
+        return wide
+    return GemmPlan("fma", FMA_SEG_K, segments, "skinny", nt=cw, rs=FMA_THREADS // cw)
 
 
 def _bi_operands(a: torch.Tensor, w: torch.Tensor, out: torch.Tensor):
@@ -565,6 +649,9 @@ def bi_gemm(a: torch.Tensor, w: torch.Tensor, out: torch.Tensor) -> torch.Tensor
     over them (stride 0).  f32 or bf16 each."""
     _bi_check({"a": a, "w": w, "out": out})
     a, w, sizes, strides, plan = _bi_prepare(a, w, out)
+    if plan.route == "fma":
+        launch_fma(a, w, out, sizes, strides, plan)
+        return out
     shape = (ctypes.c_int64 * 6)(*sizes)
     strides = (ctypes.c_int64 * 15)(*strides)
     stream = torch.cuda.current_stream(a.device).cuda_stream
@@ -572,13 +659,22 @@ def bi_gemm(a: torch.Tensor, w: torch.Tensor, out: torch.Tensor) -> torch.Tensor
     if plan.route == "tc":
         BI_GEMM_TC.launch(*ptrs, _BI_DTYPES[out.dtype], shape, strides,
                           _TILE_CODES[plan.tiles], plan.nt, plan.rs, plan.seg_k, stream)
-    elif plan.route == "mix":
+    else:
         BI_GEMM_MIX.launch(*ptrs, _BI_DTYPES[out.dtype], shape, strides, plan.nt, plan.rs,
                            plan.seg_k, stream)
-    else:
-        BI_GEMM.launch(*ptrs, _BI_DTYPES[a.dtype], _BI_DTYPES[w.dtype], _BI_DTYPES[out.dtype],
-                       shape, strides, stream)
     return out
+
+
+def launch_fma(a: torch.Tensor, w: torch.Tensor, out: torch.Tensor, sizes: tuple, strides,
+               plan: GemmPlan) -> None:
+    """One launch of the CUDA-core kernel (csrc/bi_gemm.cu) on operands of
+    any dtype pair, as they are: sizes (z1, z2, z3, M, N, K) and the 15
+    strides of :func:`_bi_operands`, the plan :func:`plan_fma`'s."""
+    BI_GEMM.launch(
+        _ptr(a), _ptr(w), _ptr(out), _BI_DTYPES[a.dtype], _BI_DTYPES[w.dtype],
+        _BI_DTYPES[out.dtype], (ctypes.c_int64 * 6)(*sizes), (ctypes.c_int64 * 15)(*strides),
+        _TILE_CODES[plan.tiles], plan.nt, plan.seg_k,
+        torch.cuda.current_stream(a.device).cuda_stream)
 
 
 def bi_gemm_w8(a: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
@@ -598,12 +694,16 @@ def bi_gemm_w8(a: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
         raise ValueError(f"bi_gemm_w8: scale must be float32 ({q.shape[-2]},) on {a.device}, "
                          f"got {scale.dtype} {tuple(scale.shape)} on {scale.device}")
     sizes, a_strides, w_strides, c_strides = _bi_operands(a, q, out)
-    copy_a = not _runs_aligned(a_strides, 4) or a.data_ptr() % 16 != 0 or sizes[5] % 8
-    copy_w = not _runs_aligned(w_strides, 4) or q.data_ptr() % 8 != 0 or sizes[5] % 8
-    if copy_a or copy_w:
-        k8 = _cdiv(sizes[5], 8) * 8
-        a = _onto_runs(a, k8) if copy_a else a
-        q = _onto_runs(q, k8) if copy_w else q
+    k = sizes[5]
+    a_ok = _runs_aligned(a_strides, 4) and a.data_ptr() % 16 == 0 and k % 8 == 0
+    w_ok = w_strides[4] == 1 and all(st % 16 == 0 for st in w_strides[:4]) \
+        and q.data_ptr() % 16 == 0
+    if not (a_ok and w_ok):
+        # both onto 16-byte runs of k padded to 16: the zeros stay inside the
+        # last k group, which the kernels pad with zeros anyway (same bits)
+        k16 = _cdiv(k, 16) * 16
+        a = _onto_runs(a, k16) if not a_ok or k16 != k else a
+        q = _onto_runs(q, k16) if not w_ok or k16 != k else q
         sizes, a_strides, w_strides, c_strides = _bi_operands(a, q, out)
     plan = plan_bi_gemm(a.dtype, q.dtype, sizes)
     BI_GEMM_W8.launch(

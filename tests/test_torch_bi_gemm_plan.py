@@ -36,7 +36,8 @@ DTYPE_PAIRS = {
 @pytest.mark.parametrize("k", [8, 16, 64, 72, 512, 768, 3072, 4096])
 def test_route_and_segments_follow_dtypes_and_k_alone(k):
     """Every (M, N, batch) gives one route for a dtype pair and one segment
-    split for K; the tiles do change with M (bf16: skinny and wide)."""
+    split for K; the tiles do change with M (skinny and wide on both the
+    tensor cores and the CUDA cores)."""
     for (a_dtype, w_dtype), route in DTYPE_PAIRS.items():
         for transposed in (False, True):
             orders, tiles = set(), set()
@@ -48,7 +49,8 @@ def test_route_and_segments_follow_dtypes_and_k_alone(k):
                         orders.add((plan.route, plan.seg_k, plan.segments))
                         tiles.add(plan.tiles)
             if route == "fma":
-                assert orders == {("fma", k, 1)} and tiles == {"fma"}, (a_dtype, w_dtype)
+                assert orders == {("fma", _kernels.FMA_SEG_K, -(-k // 64))}, (a_dtype, w_dtype)
+                assert tiles == {"skinny", "wide"}, (a_dtype, w_dtype, tiles)
             elif transposed:
                 assert orders == {("mix", 256, -(-k // 256))} and tiles == {"mix"}
             else:
@@ -138,6 +140,51 @@ def test_skinny_tiles_fit_the_kernel_and_cover_every_segment():
             assert plan.rs <= plan.segments and plan.seg_k == _kernels.BI_SEG_K
             mix = _kernels.plan_bi_gemm(torch.bfloat16, torch.bfloat16, sizes, True)
             assert mix.route == "mix" and 1 <= mix.nt * mix.rs <= 8, (k, n)
+
+
+@pytest.mark.parametrize("k", [1, 64, 65, 768, 3072, 4096, 8192])
+def test_fma_and_w8_launch_fields_fit_the_kernels(k):
+    """The CUDA-core route's skinny strip is a divisor of 256 from 8 with
+    256 / strip segment slots and its shared memory within the block's
+    limit (csrc/bi_gemm.cu: run), its grid within CUDA's; the int8
+    product's skinny blocks hold at most 12 warps, a round no more segments
+    than K has, and their shared memory fits (csrc/bi_gemm_w8.cu: run)."""
+    for m in ROWS:
+        for n in COLUMNS:
+            for batch in BATCHES:
+                sizes = (*batch, m, n, k)
+                plan = _kernels.plan_fma(sizes)
+                assert plan == _kernels.plan_bi_gemm(torch.float32, torch.bfloat16, sizes)
+                if plan.tiles == "skinny":
+                    assert plan.nt in _kernels.FMA_STRIPS and plan.rs * plan.nt == 256, plan
+                    assert _kernels.fma_skinny_smem(m, k, plan.nt) <= _kernels.FMA_SKINNY_SMEM
+                    assert -(-n // plan.nt) <= 65535
+                else:
+                    assert plan.tiles == "wide" and -(-n // 128) <= 65535
+                w8 = _kernels.plan_bi_gemm(torch.bfloat16, torch.int8, sizes)
+                assert w8.route == "w8" and w8.seg_k == _kernels.BI_SEG_K
+                assert w8.segments == -(-k // _kernels.BI_SEG_K)
+                if w8.tiles == "skinny":
+                    assert 1 <= w8.nt * w8.rs <= _kernels.W8_MAX_WARPS, w8
+                    assert w8.rs <= w8.segments
+                    assert _kernels.w8_skinny_smem(m, k, w8.nt * w8.rs, w8.rs) <= \
+                        _kernels.W8_SMEM_MAX
+                else:
+                    assert w8.tiles == "wide"
+
+
+def test_fma_skinny_strips_cover_the_card_or_every_segment():
+    """The router (8 columns) gets a slot for each of its 12 segments; the
+    lm_head at M 1 and 8 strips of 64 (512 blocks, 4 slots); an f32 model's
+    decode attention's mix (K 512 over the cache) 8 slots of 32 columns."""
+    def launch(sizes):
+        plan = _kernels.plan_fma(sizes)
+        return plan.tiles, plan.nt, plan.rs
+
+    assert launch((1, 1, 1, 8, 8, 768)) == ("skinny", 8, 32)
+    assert launch((1, 1, 1, 1, 32768, 768)) == ("skinny", 64, 4)
+    assert launch((8, 12, 1, 1, 64, 512)) == ("skinny", 32, 8)
+    assert _kernels.plan_fma((1, 1, 1, 1024, 32768, 768)).tiles == "wide"
 
 
 @pytest.fixture()

@@ -72,13 +72,17 @@ def test_w8_product_is_bi_gemm_tc_on_the_widened_weight(device, k, n, dtype, m):
 
 @pytest.mark.parametrize("k,n,dtype", SHAPES, ids=lambda v: str(v).replace("torch.", ""))
 def test_w8_rows_are_batch_invariant(device, k, n, dtype):
+    """Each row of a batch of 8, 128 and 1024 (skinny, skinny or wide by
+    the shape, wide) equals that row alone, bit for bit."""
     x, q, scale = _operands(8, k, n, device, seed=k)
-    batch = bi.linear_w8(x, q, scale, dtype)
-    for r in range(8):
-        assert torch.equal(bi.linear_w8(x[r:r + 1], q, scale, dtype)[0], batch[r]), r
-    # and inside a wide-tile wave of 1024 rows
     wave = torch.cat([x, _operands(1016, k, n, device, seed=k + 1)[0]])
-    assert torch.equal(bi.linear_w8(wave, q, scale, dtype)[:8], batch)
+    whole = bi.linear_w8(wave, q, scale, dtype)
+    for m in (8, 128, 1024):
+        batch = bi.linear_w8(wave[:m], q, scale, dtype)
+        assert torch.equal(batch, whole[:m]), m
+        differ = [r for r in range(m)
+                  if not torch.equal(bi.linear_w8(wave[r:r + 1], q, scale, dtype)[0], batch[r])]
+        assert not differ, (m, differ[:8])
 
 
 def test_w8_takes_a_bf16_scale_and_odd_k(device):
